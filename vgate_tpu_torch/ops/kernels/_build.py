@@ -1,0 +1,117 @@
+"""Build and load the hand-written CUDA kernels (``vgate_tpu_torch/csrc``).
+
+Each ``.cu`` source has a plain C interface and compiles with ``nvcc``
+alone (no PyTorch headers, so a build takes seconds) into its own shared
+library, which is loaded with ``ctypes``.  The build happens on first
+use, never at import, into ``build/kernels/`` beside the package (or
+``$VGT_KERNEL_BUILD_DIR``); the library name carries a hash of the
+source and flags, so an edited source is rebuilt.  :func:`build` starts
+one ``nvcc`` per source at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from typing import Dict, Iterable, Optional
+
+CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
+SOURCES = {
+    "paged_decode": "paged_decode.cu",
+    "flash_prefill": "flash_prefill.cu",
+}
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> pathlib.Path:
+    env = os.environ.get("VGT_KERNEL_BUILD_DIR")
+    if env:
+        return pathlib.Path(env)
+    return CSRC.parents[1] / "build" / "kernels"
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA "
+            "kernels of vgate_tpu_torch build on first use"
+        )
+    return path
+
+
+def _lib_path(name: str) -> pathlib.Path:
+    src = (CSRC / SOURCES[name]).read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return build_dir() / f"libvgt_{name}_{digest[:12]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile the named kernels (default: all) that are not built yet,
+    one ``nvcc`` process per source, all started together.  Returns
+    ``{name: {"seconds": s, "cached": bool, "ptxas": text}}``; raises
+    with the compiler's output when a build fails."""
+    names = list(names or SOURCES)
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    report: Dict[str, dict] = {}
+    t0 = time.perf_counter()
+    for name in names:
+        target = _lib_path(name)
+        if target.exists():
+            report[name] = {"seconds": 0.0, "cached": True, "ptxas": ""}
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / SOURCES[name])]
+        procs[name] = (
+            subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            ),
+            tmp,
+            target,
+        )
+    failed = []
+    for name, (proc, tmp, target) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, target)
+        report[name] = {
+            "seconds": time.perf_counter() - t0, "cached": False,
+            "ptxas": log,
+        }
+    if failed:
+        raise RuntimeError("kernel build failed\n" + "\n".join(failed))
+    return report
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of one kernel, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = _lib_path(name)
+            if not path.exists():
+                build([name])
+            lib = ctypes.CDLL(str(path))
+            _libs[name] = lib
+        return lib

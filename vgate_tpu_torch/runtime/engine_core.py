@@ -1,0 +1,911 @@
+"""The engine core: a device-owning continuous-batching loop (main path).
+
+The PyTorch counterpart of vgate_tpu/runtime/engine_core.py on its main
+path — batched, bucketed prompt passes and pipelined decode chunks:
+
+* One **engine thread** owns the device.  Each tick it admits every
+  waiting prompt it can (same-bucket prompts stacked into one prompt
+  pass, batch padded to a power of two, padding rows writing trash page
+  0), reads all first tokens back in one transfer, then keeps up to
+  ``device.decode_pipeline`` decode chunks of up to
+  ``device.decode_chunk`` steps in flight.
+* A decode chunk runs its steps back to back on the device with **no
+  host sync inside the chunk**; its tokens come back through one
+  ``non_blocking`` copy into pinned host memory plus a CUDA event, and
+  the host blocks only on the OLDEST chunk's event, so host-side token
+  processing overlaps the next chunk's device work.  EOS and length
+  stops are detected at readback; overshoot steps are discarded and
+  their KV writes land in horizon pages the scheduler reserved.
+* The KV pools are updated IN PLACE by every program (the reference
+  donates them through its jitted calls).  Every writer and reader runs
+  on the engine thread's one stream, so stream order is the only
+  ordering relied on.  Tokens/positions stay on the device between
+  chunks and are re-uploaded only when slot membership changes.
+
+Not ported yet (the config refuses them): prefix cache, chunked prefill,
+speculative decoding, host KV swap, logprobs, multi-device meshes.
+The supervisor, integrity checks, flight recorder and metrics come with
+later slices.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence as Seq
+
+import numpy as np
+import torch
+
+from vgate_tpu_torch.backends.base import SamplingParams
+from vgate_tpu_torch.config import (
+    NotPortedError,
+    VGTConfig,
+    get_config,
+)
+from vgate_tpu_torch.errors import DeadlineExceededError, EngineRecoveringError
+from vgate_tpu_torch.logging_config import get_logger
+from vgate_tpu_torch.models.decoder import decode_forward, prefill_forward
+from vgate_tpu_torch.models.specs import ModelSpec, spec_for_model_id
+from vgate_tpu_torch.ops.sampling import (
+    apply_logit_bias,
+    apply_penalties,
+    sample_tokens,
+    suppress_stop_tokens,
+)
+from vgate_tpu_torch.runtime.kv_cache import (
+    KVGeometry,
+    PageAllocator,
+    auto_num_pages,
+    make_kv_buffers,
+)
+from vgate_tpu_torch.runtime.scheduler import PrefillPlan, Scheduler
+from vgate_tpu_torch.runtime.sequence import Sequence, SeqStatus
+from vgate_tpu_torch.runtime.tokenizer import get_tokenizer
+from vgate_tpu_torch.runtime.weights import load_or_init_params
+from vgate_tpu_torch.utils.math import cdiv
+
+logger = get_logger(__name__)
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def resolve_device(name: str) -> torch.device:
+    """The torch device the config names.  ``cuda`` without a GPU raises:
+    the port never falls back to the CPU on its own."""
+    dev = torch.device(name)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {name!r} requested but torch.cuda.is_available() "
+                "is false; pass device='cpu' explicitly to run on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {name!r}")
+    return dev
+
+
+def _logit_transforms(logits, steps, pen, min_tok, bias):
+    """Penalties, logit bias and min-token stop suppression, each only
+    when some row of the batch asks for it (``None`` otherwise)."""
+    if pen is not None:
+        logits = apply_penalties(logits, *pen)
+    if bias is not None:
+        logits = apply_logit_bias(logits, *bias)
+    if min_tok is not None:
+        logits = suppress_stop_tokens(logits, steps, *min_tok)
+    return logits
+
+
+def _prefill_step(
+    params, spec: ModelSpec, tokens, seq_lens, k_pages, v_pages,
+    page_tables, temps, top_ps, top_ks, generator, seeds, steps,
+    pen=None, min_tok=None, bias=None,
+) -> torch.Tensor:
+    """Prompt pass with fused first-token sampling: returns [B] int32
+    first tokens (on the device); the pools are written in place."""
+    logits = prefill_forward(
+        params, spec, tokens, seq_lens, k_pages, v_pages, page_tables
+    )
+    logits = _logit_transforms(logits, steps, pen, min_tok, bias)
+    return sample_tokens(
+        logits, temps, top_ps, top_ks, generator=generator, seeds=seeds,
+        steps=steps,
+    )
+
+
+def _decode_chunk(
+    params, spec: ModelSpec, state: Dict[str, Any], k_pages, v_pages,
+    generator, num_steps: int, max_position: int, all_greedy: bool,
+) -> torch.Tensor:
+    """``num_steps`` decode steps back to back on the device, without a
+    host sync.  Returns the sampled tokens [num_steps, B] and advances
+    ``state``'s device tensors (tokens, positions, steps, counts) to
+    the chunk's end; the pools are written in place."""
+    tokens, positions = state["tokens"], state["positions"]
+    steps, counts = state["steps"], state["counts"]
+    active = state["active"]
+    act = active.to(positions.dtype)
+    out = torch.empty(
+        (num_steps, tokens.shape[0]), dtype=torch.int32, device=tokens.device
+    )
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
+    for i in range(num_steps):
+        logits = decode_forward(
+            params, spec, tokens, positions, k_pages, v_pages,
+            state["page_tables"], active=active,
+        )
+        pen = None
+        if counts is not None:
+            pen = (counts, state["freq_pens"], state["pres_pens"])
+        logits = _logit_transforms(
+            logits, steps, pen, state["min_tok"], state["bias"]
+        )
+        tokens = sample_tokens(
+            logits, state["temps"], state["top_ps"], state["top_ks"],
+            generator=generator, seeds=state["seeds"], steps=steps,
+            all_greedy=all_greedy,
+        )
+        out[i] = tokens
+        positions = positions + act
+        steps = steps + act
+        if counts is not None:
+            counts = counts.index_put(
+                (rows, tokens.long()), act.to(counts.dtype), accumulate=True
+            )
+        # overshoot steps (the chunk is sized by the LONGEST remaining
+        # budget) must stay in bounds: seq_len = position + 1 drives the
+        # decode kernel's page loop, which must not run past the table
+        positions = torch.clamp(positions, max=max_position)
+    state.update(tokens=tokens, positions=positions, steps=steps,
+                 counts=counts)
+    return out
+
+
+class _Readback:
+    """A device->host copy in flight: a pinned host buffer filled by a
+    ``non_blocking`` copy on the engine stream, plus the event after it.
+    ``result()`` blocks only until that copy is done."""
+
+    def __init__(self, dev_tensor: torch.Tensor) -> None:
+        cuda = dev_tensor.device.type == "cuda"
+        self.host = torch.empty(
+            dev_tensor.shape, dtype=dev_tensor.dtype, pin_memory=cuda
+        )
+        self.host.copy_(dev_tensor, non_blocking=cuda)
+        self.event = None
+        if cuda:
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def result(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+class EngineCore:
+    """Owns the parameters, the KV pools and the engine thread."""
+
+    def __init__(
+        self,
+        config: Optional[VGTConfig] = None,
+        spec: Optional[ModelSpec] = None,
+        params: Optional[Dict[str, Any]] = None,
+    ) -> None:
+        self.config = config or get_config()
+        self.spec = spec or spec_for_model_id(self.config.model.model_id)
+        dcfg = self.config.device
+        self.device = resolve_device(dcfg.device)
+        self.dtype = _DTYPES[self.config.model.dtype]
+        if self.device.type == "cuda" and self.dtype != torch.bfloat16:
+            raise NotPortedError(
+                f"model.dtype={self.config.model.dtype} on CUDA: the "
+                "flash-prefill kernel takes bf16 (ROADMAP queue 2, K2)"
+            )
+        self._stop_ids = frozenset(self.spec.extra_stop_ids)
+        self.tokenizer = get_tokenizer(
+            self.spec,
+            self.config.model.tokenizer_path
+            or self.config.model.checkpoint_path,
+        )
+
+        load_start = time.perf_counter()
+        if params is None:
+            params = load_or_init_params(
+                self.spec, self.config.model.checkpoint_path, self.device,
+                self.dtype,
+            )
+        self.params = params
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.load_time_s = time.perf_counter() - load_start
+
+        kv_bytes = self.dtype.itemsize
+        ps = dcfg.kv_page_size
+        pages_per_seq = cdiv(self.config.model.max_model_len, ps)
+        # more pages than every slot's full context can never be used
+        max_useful = dcfg.max_batch_slots * pages_per_seq + 1
+        num_pages = dcfg.kv_num_pages or min(
+            max_useful,
+            auto_num_pages(
+                self.spec, ps, dcfg.hbm_utilization, self.device,
+                dtype_bytes=kv_bytes,
+            ),
+        )
+        self.geometry = KVGeometry(
+            num_layers=self.spec.num_layers,
+            num_pages=num_pages,
+            page_size=ps,
+            kv_heads=self.spec.num_kv_heads,
+            head_dim=self.spec.head_dim,
+            max_model_len=self.config.model.max_model_len,
+            dtype_bytes=kv_bytes,
+            kv_dtype={torch.bfloat16: "bf16", torch.float32: "f32"}[
+                self.dtype
+            ],
+        )
+        self.k_pages, self.v_pages = make_kv_buffers(
+            self.geometry, self.dtype, self.device
+        )
+        self.allocator = PageAllocator(num_pages)
+        self.max_slots = dcfg.max_batch_slots
+        self.scheduler = Scheduler(
+            allocator=self.allocator,
+            max_slots=self.max_slots,
+            page_size=ps,
+            prefill_buckets=dcfg.prefill_buckets,
+            max_model_len=self.config.model.max_model_len,
+            max_queue_size=self.config.scheduler.max_queue_size,
+            preempt_on_oom=self.config.scheduler.preempt_on_oom,
+            admission_deadline_ms=(
+                self.config.scheduler.admission_deadline_ms
+            ),
+            text_fn=self.final_text,
+        )
+        # host-side mirror of the device page tables, one row per slot
+        self._page_tables_np = np.zeros(
+            (self.max_slots, self.geometry.pages_per_seq), np.int32
+        )
+        # noise for unseeded sampled rows (seeded rows hash their seed)
+        self._generator = torch.Generator(device=self.device)
+        self._generator.manual_seed(self.config.model.max_model_len)
+        self._dec_state: Optional[Dict[str, Any]] = None
+        self._decode_signature_cache: Optional[tuple] = None
+        # in-flight decode chunks awaiting readback:
+        # ([(seq, preempt epoch)], chunk length, _Readback)
+        self._pending_chunks: list = []
+        self.decode_chunk = max(1, dcfg.decode_chunk)
+        self.pipeline_depth = max(1, dcfg.decode_pipeline)
+        self._submit_q: "queue.Queue[Sequence]" = queue.Queue()
+        self._abort_q: "queue.Queue[tuple]" = queue.Queue()
+        self._wakeup = threading.Event()
+        self._running = False
+        self._thread: Optional[threading.Thread] = None
+        self._fatal: Optional[BaseException] = None
+        self.total_steps = 0
+        self.total_prefills = 0
+        self.total_decode_tokens = 0
+        self.total_state_rebuilds = 0
+
+    # ------------------------------------------------------------ lifecycle
+
+    def start(self) -> None:
+        if self._running:
+            return
+        self._running = True
+        self._thread = threading.Thread(
+            target=self._loop, name="vgt-torch-engine", daemon=True
+        )
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._running = False
+        self._wakeup.set()
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+            self._thread = None
+        owed = list(self.scheduler.running) + list(self.scheduler.waiting)
+        while True:
+            try:
+                owed.append(self._submit_q.get_nowait())
+            except queue.Empty:
+                break
+        for seq in owed:
+            if seq.status in (SeqStatus.RUNNING, SeqStatus.WAITING):
+                self.scheduler._release_residency(seq)
+                seq.fail(EngineRecoveringError(
+                    "engine stopped before the request could finish"
+                ))
+        self.scheduler.waiting.clear()
+
+    # ----------------------------------------------------------- submission
+
+    def submit_tokens(
+        self,
+        prompt_ids: List[int],
+        params: SamplingParams,
+        stream_cb: Optional[Callable[[int], Any]] = None,
+    ) -> Sequence:
+        if params.logprobs:
+            raise NotPortedError(
+                "logprobs are not ported yet (ROADMAP queue 1, item 2)"
+            )
+        if self._fatal is not None:
+            raise RuntimeError("engine is dead") from self._fatal
+        seq = Sequence(
+            prompt_ids=list(prompt_ids), params=params, stream_cb=stream_cb
+        )
+        self._submit_q.put(seq)
+        if self._fatal is not None:
+            # the loop died between the check and the put: its sweep
+            # may have missed this sequence, so fail the queue here
+            self._fail_queued(self._fatal)
+            raise RuntimeError("engine is dead") from self._fatal
+        self._wakeup.set()
+        return seq
+
+    def encode_prompt(self, prompt: str) -> List[int]:
+        """Prompt -> token ids, keeping the suffix when too long."""
+        ids = self.tokenizer.encode(prompt)
+        max_prompt = self.config.model.max_model_len - 1
+        if len(ids) > max_prompt:
+            ids = ids[-max_prompt:]
+        return ids or [self.tokenizer.bos_id]
+
+    def submit_prompt(
+        self,
+        prompt: str,
+        params: SamplingParams,
+        stream_cb: Optional[Callable[[int], Any]] = None,
+    ) -> Sequence:
+        return self.submit_tokens(
+            self.encode_prompt(prompt), params, stream_cb
+        )
+
+    def generate(
+        self, prompts: Seq[str], params: Seq[SamplingParams]
+    ) -> List[Dict[str, Any]]:
+        """Blocking batch API used by the sync backend seam."""
+        seqs = [
+            self.submit_prompt(p, sp) for p, sp in zip(prompts, params)
+        ]
+        results = []
+        for seq in seqs:
+            seq.done_event.wait()
+            if seq.status is SeqStatus.FAILED:
+                raise seq.error  # type: ignore[misc]
+            results.append({
+                "text": self.final_text(seq),
+                "token_ids": list(seq.generated_ids),
+                "num_tokens": seq.num_output_tokens,
+                "prompt_tokens": seq.orig_prompt_len,
+                "finish_reason": seq.finish_reason,
+                "metrics": {
+                    "ttft": seq.ttft or 0.0,
+                    "tpot": seq.tpot or 0.0,
+                    "gen_time": (seq.finish_t or 0) - seq.arrival_t,
+                    **seq.resume_metrics(),
+                },
+            })
+        return results
+
+    # ------------------------------------------------------------- the loop
+
+    def _loop(self) -> None:
+        logger.info("engine thread started")
+        while self._running:
+            try:
+                if not self._tick():
+                    self._wakeup.wait(timeout=0.005)
+                    self._wakeup.clear()
+            except Exception as exc:
+                logger.error("engine loop fatal error", exc_info=True)
+                self._die(exc)
+                return
+
+    def _fail_queued(self, exc: BaseException) -> None:
+        while True:
+            try:
+                self._submit_q.get_nowait().fail(exc)
+            except queue.Empty:
+                return
+
+    def _die(self, exc: BaseException) -> None:
+        """Fatal error on the engine thread: fail every owed sequence and
+        stop (restart-and-resume is the supervisor's job, not ported)."""
+        self._fatal = exc
+        self._running = False
+        self._pending_chunks.clear()
+        for seq in list(self.scheduler.running) + list(
+            self.scheduler.waiting
+        ):
+            if seq.status in (SeqStatus.RUNNING, SeqStatus.WAITING):
+                self.scheduler._release_residency(seq)
+                seq.fail(exc)
+        self.scheduler.waiting.clear()
+        self._fail_queued(exc)
+
+    def _tick(self) -> bool:
+        """One iteration: admit + prefill, then keep up to
+        ``pipeline_depth`` decode chunks in flight, blocking only on the
+        oldest one's readback.  Returns False when there was no work."""
+        self._drain_submissions()
+        self._drain_abort_requests()
+        self._handle_aborts()
+        self._handle_deadlines()
+        worked = self._admit_and_prefill()
+
+        active = self._running_seqs()
+        if active:
+            signature = self._decode_signature(active)
+            if signature != self._decode_signature_cache:
+                # membership changed: fold every in-flight chunk into host
+                # state before rebuilding the device state
+                self._decode_signature_cache = None
+                self._process_chunks(drain=True)
+                active = self._running_seqs()
+                if active:
+                    chunk = self._pick_chunk(active)
+                    if self.scheduler.prepare_decode(active, horizon=chunk):
+                        active = self._running_seqs()  # minus any victims
+                        if active:
+                            self._build_decode_state(active)
+                            self._decode_signature_cache = (
+                                self._decode_signature(active)
+                            )
+                            self._dispatch_chunk(active, chunk)
+                worked = True
+            elif len(self._pending_chunks) < self.pipeline_depth:
+                in_flight = sum(c[1] for c in self._pending_chunks)
+                chunk = self._pick_chunk(active, lead=in_flight)
+                if chunk == 0:
+                    # every budget is covered by the in-flight steps
+                    self._process_chunks()
+                elif self.scheduler.prepare_decode(
+                    active, horizon=in_flight + chunk
+                ):
+                    survivors = self._running_seqs()
+                    new_sig = self._decode_signature(survivors)
+                    if new_sig == self._decode_signature_cache:
+                        self._dispatch_chunk(active, chunk)
+                    elif [t[:3] for t in new_sig] == [
+                        t[:3] for t in self._decode_signature_cache or ()
+                    ]:
+                        # same sequences, pages merely grew: re-upload the
+                        # page tables only (no drain at page boundaries)
+                        self._refresh_page_tables(survivors)
+                        self._decode_signature_cache = new_sig
+                        self._dispatch_chunk(active, chunk)
+                worked = True
+
+        if self._pending_chunks and (
+            len(self._pending_chunks) >= self.pipeline_depth or not active
+        ):
+            self._process_chunks(drain=not active)
+            worked = True
+        return (
+            worked
+            or bool(self._pending_chunks)
+            or self.scheduler.has_admissible_waiting()
+        )
+
+    def _running_seqs(self) -> List[Sequence]:
+        return [
+            s for s in self.scheduler.running
+            if s.status is SeqStatus.RUNNING
+        ]
+
+    def _handle_aborts(self) -> None:
+        """Drop RUNNING sequences whose client cancelled; in-flight
+        chunks holding them are discarded at readback."""
+        for seq in self._running_seqs():
+            if seq.abort_requested:
+                self.scheduler.abort(seq)
+
+    def _handle_deadlines(self) -> None:
+        """Shed RUNNING sequences past their end-to-end deadline; the
+        owed future fails with the partial generation attached."""
+        now = time.perf_counter()
+        for seq in self._running_seqs():
+            if not seq.past_deadline(now):
+                continue
+            self.scheduler.shed(
+                seq,
+                DeadlineExceededError(
+                    f"request deadline ({seq.params.timeout_s:.3f}s) "
+                    f"passed mid-generation after "
+                    f"{seq.num_generated} tokens",
+                    partial_text=self.final_text(seq),
+                    partial_tokens=seq.num_generated,
+                    deadline_s=seq.params.timeout_s or 0.0,
+                ),
+            )
+
+    def abort(self, seq_id: int, reason: str = "client_disconnect") -> None:
+        """Cancel one sequence by id; applied by the engine thread at its
+        next tick (slot and pages freed there)."""
+        self._abort_q.put((seq_id, reason))
+        self._wakeup.set()
+
+    def _drain_abort_requests(self) -> None:
+        while True:
+            try:
+                seq_id, reason = self._abort_q.get_nowait()
+            except queue.Empty:
+                return
+            for seq in list(self.scheduler.running) + list(
+                self.scheduler.waiting
+            ):
+                if (
+                    (seq_id is None or seq.seq_id == seq_id)
+                    and seq.status in (SeqStatus.RUNNING, SeqStatus.WAITING)
+                    and not seq.abort_requested
+                ):
+                    seq.request_abort(reason)
+
+    def _drain_submissions(self) -> None:
+        while True:
+            try:
+                seq = self._submit_q.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                self.scheduler.add(seq)
+            except Exception as exc:
+                seq.fail(exc)
+
+    # -------------------------------------------------------- device inputs
+
+    def _dev(self, arr: np.ndarray) -> torch.Tensor:
+        """Upload a host array.  On CUDA it is staged through pinned
+        memory so the copy is asynchronous and never waits for the decode
+        chunks already in flight on the stream."""
+        t = torch.from_numpy(arr)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _row_arrays(self, B: int, rows) -> Dict[str, Any]:
+        """Per-row sampling inputs for ``rows`` = [(row, Sequence)]:
+        temperatures, top-p/k, seeds, per-sequence token index, and the
+        penalty / logit-bias / min-token tuples (None when no row needs
+        them, so the common case adds no work)."""
+        rows = list(rows)
+        temps = np.zeros((B,), np.float32)
+        top_ps = np.ones((B,), np.float32)
+        top_ks = np.zeros((B,), np.int32)
+        seeds = np.full((B,), -1, np.int64)
+        steps = np.zeros((B,), np.int32)
+        for row, seq in rows:
+            sp = seq.params
+            temps[row] = sp.temperature
+            top_ps[row] = sp.top_p
+            top_ks[row] = sp.top_k
+            if sp.seed is not None:
+                seeds[row] = sp.seed
+            steps[row] = seq.num_generated
+        V = self.spec.vocab_size
+        out: Dict[str, Any] = {
+            "temps": self._dev(temps),
+            "top_ps": self._dev(top_ps),
+            "top_ks": self._dev(top_ks),
+            "seeds": self._dev(seeds) if (seeds >= 0).any() else None,
+            "steps": self._dev(steps),
+            "counts": None,
+            "freq_pens": None,
+            "pres_pens": None,
+            "min_tok": None,
+            "bias": None,
+        }
+        if any(seq.params.has_penalties for _, seq in rows):
+            counts = np.zeros((B, V), np.int32)
+            freq = np.zeros((B,), np.float32)
+            pres = np.zeros((B,), np.float32)
+            for row, seq in rows:
+                freq[row] = seq.params.frequency_penalty
+                pres[row] = seq.params.presence_penalty
+                if seq.generated_ids:
+                    np.add.at(counts[row], np.asarray(seq.generated_ids), 1)
+            out.update(counts=self._dev(counts), freq_pens=self._dev(freq),
+                       pres_pens=self._dev(pres))
+        floors = [(r, s) for r, s in rows if s.params.min_tokens > 0]
+        if floors:
+            base = [self.tokenizer.eos_id, *self.spec.extra_stop_ids]
+            per = {
+                r: base + list(s.params.stop_token_ids or [])
+                for r, s in floors
+            }
+            K = max(len(v) for v in per.values())
+            mat = np.full((B, K), V, np.int64)
+            min_toks = np.zeros((B,), np.int32)
+            for r, s in floors:
+                mat[r, : len(per[r])] = per[r]
+                min_toks[r] = s.params.min_tokens
+            out["min_tok"] = (self._dev(min_toks), self._dev(mat))
+        biased = [(r, s.params.logit_bias) for r, s in rows
+                  if s.params.logit_bias]
+        if biased:
+            K = max(len(b) for _, b in biased)
+            ids = np.full((B, K), V, np.int64)
+            vals = np.zeros((B, K), np.float32)
+            for r, b in biased:
+                for j, (tid, val) in enumerate(sorted(b.items())):
+                    ids[r, j] = tid
+                    vals[r, j] = val
+            out["bias"] = (self._dev(ids), self._dev(vals))
+        return out
+
+    # -------------------------------------------------------------- prefill
+
+    def _admit_and_prefill(self) -> bool:
+        """Admit waiting prompts a free slot + pages exist for, prefill
+        them in batched prompt passes (same bucket, up to
+        ``prefill_batch_max`` rows each), then read every first token
+        back in one transfer.  While sequences decode, at most
+        ``prefill_admit_limit`` prompts are admitted per tick."""
+        dcfg = self.config.device
+        limit = dcfg.prefill_admit_limit
+        decoding = bool(self._running_seqs())
+        plans: List[PrefillPlan] = []
+        while not (decoding and limit and len(plans) >= limit):
+            plan = self.scheduler.try_admit()
+            if plan is None:
+                break
+            plans.append(plan)
+        if not plans:
+            return False
+        by_bucket: Dict[int, List[PrefillPlan]] = {}
+        for plan in plans:
+            by_bucket.setdefault(plan.bucket, []).append(plan)
+        batch_max = max(1, dcfg.prefill_batch_max)
+        dispatched = []  # (group plans, [B] device first tokens)
+        for bucket, group in sorted(by_bucket.items()):
+            for i in range(0, len(group), batch_max):
+                chunk = group[i : i + batch_max]
+                dispatched.append(
+                    (chunk, self._dispatch_prefill_group(chunk, bucket))
+                )
+        for plan in plans:
+            self.scheduler.commit_prefill(plan)
+        readback = _Readback(torch.cat([t for _, t in dispatched]))
+        firsts = readback.result()
+        offset = 0
+        # one thread owns admission and readback, so every admitted
+        # sequence is still RUNNING in its own slot here
+        for group, tokens in dispatched:
+            for row, plan in enumerate(group):
+                token = int(firsts[offset + row])
+                self.total_prefills += 1
+                plan.seq.append_token(token)
+                self._maybe_finish(plan.seq, token)
+            offset += tokens.shape[0]
+        return True
+
+    def _dispatch_prefill_group(
+        self, plans: List[PrefillPlan], bucket: int
+    ) -> torch.Tensor:
+        """Enqueue ONE prompt pass for same-bucket plans; returns the [B]
+        first tokens on the device.  B pads to a power of two; padding
+        rows use trash page tables, temperature 0 and seq_len 1, and
+        their tokens are discarded."""
+        n = len(plans)
+        B = 1 << (n - 1).bit_length()
+        ps = self.geometry.page_size
+        n_bucket_pages = bucket // ps
+        tokens = np.zeros((B, bucket), np.int32)
+        seq_lens = np.ones((B,), np.int32)
+        prefill_pt = np.zeros((B, n_bucket_pages), np.int32)
+        for row, plan in enumerate(plans):
+            seq = plan.seq
+            tokens[row, : seq.num_prompt_tokens] = seq.prompt_ids
+            seq_lens[row] = seq.num_prompt_tokens
+            slot_row = self._page_tables_np[plan.slot]
+            slot_row[:] = 0
+            slot_row[: len(seq.pages)] = seq.pages
+            prefill_pt[row, : len(seq.pages)] = seq.pages[:n_bucket_pages]
+        sampling = self._row_arrays(
+            B, ((row, p.seq) for row, p in enumerate(plans))
+        )
+        pen = None
+        if sampling["counts"] is not None:
+            pen = (sampling["counts"], sampling["freq_pens"],
+                   sampling["pres_pens"])
+        return _prefill_step(
+            self.params, self.spec, self._dev(tokens), self._dev(seq_lens),
+            self.k_pages, self.v_pages, self._dev(prefill_pt),
+            sampling["temps"], sampling["top_ps"], sampling["top_ks"],
+            self._generator, sampling["seeds"], sampling["steps"],
+            pen=pen, min_tok=sampling["min_tok"], bias=sampling["bias"],
+        )
+
+    # --------------------------------------------------------------- decode
+
+    def _decode_signature(self, seqs: List[Sequence]):
+        """Membership signature: while unchanged, every device input
+        except tokens/positions/steps (which flow device to device) is
+        reusable.  ``preempt_count`` is part of the identity, so a victim
+        re-admitted into the same slot never matches its old state."""
+        return tuple(
+            (seq.seq_id, seq.slot, seq.preempt_count, len(seq.pages))
+            for seq in seqs
+        )
+
+    def _build_decode_state(self, seqs: List[Sequence]) -> None:
+        self.total_state_rebuilds += 1
+        B = self.max_slots
+        tokens = np.zeros((B,), np.int32)
+        positions = np.zeros((B,), np.int32)
+        active = np.zeros((B,), bool)
+        for seq in seqs:
+            slot = seq.slot
+            row = self._page_tables_np[slot]
+            row[:] = 0
+            row[: len(seq.pages)] = seq.pages
+            tokens[slot] = seq.output_ids[-1]
+            positions[slot] = seq.total_len - 1
+            active[slot] = True
+        state = self._row_arrays(B, ((s.slot, s) for s in seqs))
+        state.update(
+            tokens=self._dev(tokens),
+            positions=self._dev(positions),
+            active=self._dev(active),
+            page_tables=self._dev(self._page_tables_np.copy()),
+        )
+        self._dec_state = state
+
+    def _refresh_page_tables(self, seqs: List[Sequence]) -> None:
+        """Re-upload ONLY the page tables after in-place page growth.
+        In-flight chunks keep their older table, which stays valid: the
+        new page is only addressed at positions they never reach."""
+        for seq in seqs:
+            row = self._page_tables_np[seq.slot]
+            row[:] = 0
+            row[: len(seq.pages)] = seq.pages
+        self._dec_state["page_tables"] = self._dev(
+            self._page_tables_np.copy()
+        )
+
+    def _pick_chunk(self, active: List[Sequence], lead: int = 0) -> int:
+        """The next chunk length: the largest power of two that neither
+        exceeds ``decode_chunk`` nor overshoots every sequence's remaining
+        budget (``lead`` = steps in flight, not yet folded).  With prompts
+        waiting for a free slot it caps at decode_chunk/8, so admission
+        comes back within a short chunk."""
+        max_len = self.config.model.max_model_len
+        headroom = 0
+        for seq in active:
+            rem_tokens = max(1, seq.params.max_tokens) - seq.num_generated
+            rem_len = max_len - seq.total_len
+            headroom = max(headroom, min(rem_tokens, rem_len) - lead)
+        if headroom <= 0:
+            return 0
+        headroom = min(self.decode_chunk, headroom)
+        if self.scheduler.has_admissible_waiting():
+            headroom = min(headroom, max(1, self.decode_chunk // 8))
+        return 1 << (headroom.bit_length() - 1)
+
+    def _dispatch_chunk(self, active: List[Sequence], chunk: int) -> None:
+        all_greedy = all(s.params.temperature == 0.0 for s in active)
+        tokens = _decode_chunk(
+            self.params, self.spec, self._dec_state, self.k_pages,
+            self.v_pages, self._generator, num_steps=chunk,
+            max_position=self.config.model.max_model_len - 1,
+            all_greedy=all_greedy,
+        )
+        # the preempt epoch: a sequence preempted (and maybe re-admitted)
+        # while this chunk is in flight must not receive its tokens
+        self._pending_chunks.append(
+            ([(s, s.preempt_count) for s in active], chunk, _Readback(tokens))
+        )
+
+    def _process_chunks(self, drain: bool = False) -> None:
+        """Fold the oldest in-flight chunk (all of them when ``drain``)
+        into host state: append tokens in order, detect stops, discard
+        steps past a stop."""
+        while self._pending_chunks:
+            seqs, chunk, readback = self._pending_chunks.pop(0)
+            sampled = readback.result()  # [chunk, B]
+            for seq, epoch in seqs:
+                if (
+                    seq.status is not SeqStatus.RUNNING
+                    or seq.preempt_count != epoch
+                ):
+                    continue  # stopped or preempted since dispatch
+                for k in range(chunk):
+                    token = int(sampled[k, seq.slot])
+                    seq.append_token(token)
+                    self.total_decode_tokens += 1
+                    self._maybe_finish(seq, token)
+                    if seq.status is not SeqStatus.RUNNING:
+                        break
+            self.total_steps += chunk
+            if not drain:
+                break
+
+    # ------------------------------------------------------------ finishing
+
+    def _maybe_finish(self, seq: Sequence, token: int) -> None:
+        reason = None
+        # min_tokens gates the STOP kinds only; length stays live
+        if seq.num_generated >= seq.params.min_tokens:
+            if token == self.tokenizer.eos_id or token in self._stop_ids:
+                reason = "stop"
+            elif (
+                seq.params.stop_token_ids
+                and token in seq.params.stop_token_ids
+            ):
+                reason = "stop"
+            elif self._hit_stop_string(seq):
+                reason = "stop"
+        if reason is None:
+            if seq.num_generated >= max(1, seq.params.max_tokens):
+                reason = "length"
+            elif seq.total_len >= self.config.model.max_model_len:
+                reason = "length"
+        if reason is not None:
+            self.scheduler.remove(seq)
+            seq.finish(reason)
+
+    def _hit_stop_string(self, seq: Sequence) -> bool:
+        """Host-side stop strings: decode a tail window first, and only
+        on a hit decode the whole generation to truncate at the earliest
+        match (matches ending inside the min_tokens floor are ignored)."""
+        stops = seq.params.stop
+        if not stops:
+            return False
+        longest = max(len(s) for s in stops)
+        window = min(len(seq.generated_ids), longest + 8)
+        tail = self.tokenizer.decode(seq.generated_ids[-window:])
+        if not any(s in tail for s in stops):
+            return False
+        text = self.tokenizer.decode(seq.generated_ids)
+        floor_chars = 0
+        if seq.params.min_tokens > 0:
+            floor_chars = len(
+                self.tokenizer.decode(
+                    seq.generated_ids[: seq.params.min_tokens]
+                )
+            )
+        cuts = []
+        for s in stops:
+            idx = text.find(s, max(0, floor_chars - len(s) + 1))
+            if idx != -1:
+                cuts.append(idx)
+        if not cuts:
+            return False
+        seq.text_override = text[: min(cuts)]
+        return True
+
+    def final_text(self, seq: Sequence) -> str:
+        """The stop-truncated text when a stop string matched, else the
+        whole decoded generation."""
+        if seq.text_override is not None:
+            return seq.text_override
+        return self.tokenizer.decode(seq.generated_ids)
+
+    # ------------------------------------------------------------ utilities
+
+    def get_stats(self) -> Dict[str, Any]:
+        """Engine counters.  ``steps`` counts dispatched decode steps
+        (chunk lengths summed, overshoot included)."""
+        return {
+            "scheduler": self.scheduler.get_stats(),
+            "running": len(self.scheduler.running),
+            "used_pages": self.allocator.num_used,
+            "admitted": self.scheduler.total_admitted,
+            "finished": self.scheduler.total_finished,
+            "steps": self.total_steps,
+            "prefills": self.total_prefills,
+            "decode_tokens": self.total_decode_tokens,
+            "state_rebuilds": self.total_state_rebuilds,
+            "kv_pages_total": self.allocator.num_allocatable,
+            "kv_token_capacity": self.geometry.total_tokens,
+            "kv_dtype": self.geometry.kv_dtype,
+            "model": self.spec.name,
+            "device": str(self.device),
+            "load_time_s": round(self.load_time_s, 2),
+        }
