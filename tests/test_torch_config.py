@@ -1,9 +1,16 @@
 """The port's config: the reference's section dicts, strict keys, and a
 loud NotPortedError for every feature the port does not have yet."""
 
+import dataclasses
+
 import pytest
 
-from vgate_tpu_torch.config import NotPortedError, load_config
+from vgate_tpu.config import PrefixCacheConfig as JPrefixCacheConfig
+from vgate_tpu_torch.config import (
+    NotPortedError,
+    PrefixCacheConfig,
+    load_config,
+)
 
 
 def test_defaults_and_sections():
@@ -21,9 +28,6 @@ def test_defaults_and_sections():
 @pytest.mark.parametrize(
     "sections",
     [
-        {"device": {"prefix_cache": True}},
-        {"device": {"prefix_cache": {"enabled": True}}},
-        {"device": {"prefill_chunk": 512}},
         {"device": {"speculative_k": 2}},
         {"device": {"tp": 2}},
         {"device": {"dp": 2}},
@@ -46,6 +50,45 @@ def test_unported_switches_raise(sections):
         sections["model"] = {"model_id": "tiny-dense", **sections["model"]}
     with pytest.raises(NotPortedError, match="not ported yet"):
         load_config(**sections)
+
+
+@pytest.mark.parametrize(
+    "sections",
+    [
+        {"device": {"prefix_cache": True}},
+        {"device": {"prefix_cache": {"enabled": True}}},
+        {"device": {"prefill_chunk": 512}},
+    ],
+    ids=lambda s: next(iter(s.values())).__repr__()[:40],
+)
+def test_ported_switches_accepted(sections):
+    cfg = load_config(model={"model_id": "tiny-dense"}, **sections)
+    pc = cfg.device.prefix_cache
+    assert isinstance(pc, PrefixCacheConfig)
+    assert pc.enabled and pc.radix and pc.cow
+    assert cfg.device.prefill_chunk == sections["device"].get(
+        "prefill_chunk", 0
+    )
+
+
+def test_prefix_cache_defaults_match_the_reference():
+    """The port's default is the reference's: prefix cache on, radix +
+    COW, the same knobs; a bare False is the master switch."""
+    ours = dataclasses.asdict(PrefixCacheConfig())
+    theirs = JPrefixCacheConfig().model_dump()
+    assert ours == theirs
+    assert load_config().device.prefix_cache == PrefixCacheConfig()
+    off = load_config(device={"prefix_cache": False}).device.prefix_cache
+    assert off == PrefixCacheConfig(enabled=False)
+
+
+@pytest.mark.parametrize(
+    "prefix_cache",
+    [{"min_share_pages": 0}, {"evict_watermark": 1.0}, {"radx": True}, 3],
+)
+def test_prefix_cache_fields_are_validated(prefix_cache):
+    with pytest.raises((TypeError, ValueError)):
+        load_config(device={"prefix_cache": prefix_cache})
 
 
 @pytest.mark.parametrize(

@@ -10,8 +10,9 @@ machine that has only PyTorch — without the JAX-importing conftest:
 
 Tolerance: bf16 kernel output vs the fp32 plain version on the same bf16
 inputs, atol = rtol = 1e-2 — about one bf16 ulp of the output plus
-reordered fp32 sums; f32 pools (paged decode only), atol = rtol = 1e-4 —
-fp32 sums in another order.
+reordered fp32 sums (and, in the tensor-core kernels, the softmax
+weights rounded to bf16 before the PV product); f32 pools (paged decode
+only), atol = rtol = 1e-4 — fp32 sums in another order.
 """
 
 import numpy as np
@@ -19,7 +20,11 @@ import pytest
 import torch
 
 from vgate_tpu_torch.ops import attention as tatt
-from vgate_tpu_torch.ops.kernels import flash_prefill, paged_decode
+from vgate_tpu_torch.ops.kernels import (
+    flash_prefill,
+    paged_decode,
+    paged_multitok,
+)
 
 KERNEL_TOL = 1e-2
 F32_TOL = 1e-4
@@ -105,6 +110,48 @@ def test_flash_prefill_kernel_matches_plain_on_card(cuda, window):
                                atol=KERNEL_TOL, rtol=KERNEL_TOL)
 
 
+# (hd, H, KV, ps, S, positions0, input_lens, kwargs): unaligned starts
+# (copy-on-write suffixes), idle query tiles, page sizes 16 and 32
+K3_CASES = [
+    (64, 8, 2, 16, 128, [0, 37, 5], [128, 20, 1], {}),
+    (128, 28, 4, 32, 256, [1024, 100, 0], [256, 70, 3], {"window": 300}),
+    (256, 8, 2, 16, 64, [16, 3, 50], [60, 64, 7],
+     {"softcap": 30.0, "scale": 0.1}),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(K3_CASES)))
+def test_paged_multitok_kernel_matches_plain_on_card(cuda, case):
+    hd, H, KV, ps, S, pos0, lens, kw = K3_CASES[case]
+    kw = dict(kw)
+    rng = np.random.default_rng(24 + case)
+    B = len(pos0)
+    ctx_pages = -(-(max(pos0) + S) // ps)
+    P = 1 + B * ctx_pages
+    q = _bf16(rng, (B, S, H, hd), cuda)
+    k = _bf16(rng, (KV, P, ps, hd), cuda)
+    v = _bf16(rng, (KV, P, ps, hd), cuda)
+    pt = torch.from_numpy(
+        rng.permutation(np.arange(1, P)).reshape(B, ctx_pages)
+        .astype(np.int32)
+    ).to(cuda)
+    p0 = torch.tensor(pos0, dtype=torch.int32, device=cuda)
+    il = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = paged_multitok.paged_multitok_attention.launches
+    got = paged_multitok.paged_multitok_attention(q, k, v, pt, p0, il, **kw)
+    torch.cuda.synchronize()
+    assert paged_multitok.paged_multitok_attention.launches == before + 1
+    assert bool(torch.isfinite(got).all())  # idle rows too
+    window = kw.pop("window", None)
+    expect = tatt.paged_suffix_attention(
+        q.float(), k.float(), v.float(), pt, p0, p0 + il, window=window, **kw
+    )
+    real = torch.arange(S, device=cuda)[None, :] < il[:, None]
+    torch.testing.assert_close(got.float()[real], expect[real],
+                               atol=KERNEL_TOL, rtol=KERNEL_TOL)
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(2, 4, 128, dtype=torch.float16, device=cuda)
@@ -117,3 +164,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # head dim 48 is not instantiated
         flash_prefill.flash_prefill_attention(qb, qb[:, :, :2], qb[:, :, :2],
                                               lens)
+    q3 = torch.zeros(2, 32, 8, 128, dtype=torch.bfloat16, device=cuda)
+    pool3 = torch.zeros(2, 5, 16, 128, dtype=torch.bfloat16, device=cuda)
+    for bad_q, bad_pool in (
+        (q3.half(), pool3.half()),  # fp16 is not instantiated
+        (q3[:, :24].contiguous(), pool3),  # S not a multiple of ps
+        (q3[..., :48].contiguous(), pool3[..., :48].contiguous()),  # hd 48
+        (torch.zeros(2, 32, 24, 128, dtype=torch.bfloat16, device=cuda),
+         pool3),  # 12 query heads per kv head
+    ):
+        with pytest.raises(ValueError):
+            paged_multitok.paged_multitok_attention(
+                bad_q, bad_pool, bad_pool, pt, lens, lens
+            )

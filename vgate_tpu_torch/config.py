@@ -42,6 +42,31 @@ class ModelConfig:
 
 
 @dataclass
+class PrefixCacheConfig:
+    """Cross-request KV prefix sharing (runtime/radix_cache.py), with the
+    reference's fields and defaults (vgate_tpu/config.py
+    ``PrefixCacheConfig``).  ``device.prefix_cache`` also takes a bare
+    bool, coerced to ``{"enabled": value}`` as the reference does."""
+
+    enabled: bool = True
+    # page-granular radix tree (COW partial pages, generated-token
+    # reuse); false keeps the flat whole-page hash chain
+    radix: bool = True
+    # full pages a match must share to be taken at all
+    min_share_pages: int = 1
+    # copy-on-write of the shared head of a diverging page
+    cow: bool = True
+    # shared in-page tokens below this are recomputed, not copied
+    cow_min_tokens: int = 8
+    # index a finished sequence's generated tokens too (multi-turn chat)
+    insert_generated: bool = True
+    # prefer admitting waiting work that shares resident tree nodes
+    cache_aware_sched: bool = True
+    # keep this fraction of the pool truly free by trimming cold cache
+    evict_watermark: float = 0.08
+
+
+@dataclass
 class DeviceConfig:
     """Engine shape settings; the reference's ``tpu`` section."""
 
@@ -61,10 +86,14 @@ class DeviceConfig:
     # and same-bucket prompts stacked into one prompt pass
     prefill_admit_limit: int = 8
     prefill_batch_max: int = 8
+    # cross-request KV reuse; a bare bool or a dict is coerced to a
+    # PrefixCacheConfig by load_config
+    prefix_cache: Any = field(default_factory=PrefixCacheConfig)
+    # chunked prefill: cap the bucket ladder at this many tokens and run
+    # longer prompts as serial suffix passes (0 = off)
+    prefill_chunk: int = 0
     # reference switches the port cannot serve yet: any non-default
     # value raises NotPortedError (see _check)
-    prefix_cache: Any = False
-    prefill_chunk: int = 0
     speculative_k: int = 0
     dp: int = 1
     tp: int = 1
@@ -123,10 +152,17 @@ def _not_ported(what: str, where: str) -> NotPortedError:
     return NotPortedError(f"{what} is not ported yet (ROADMAP {where})")
 
 
-def _prefix_cache_enabled(value: Any) -> bool:
-    if isinstance(value, dict):
-        return bool(value.get("enabled", True))
-    return bool(value)
+def _coerce_prefix_cache(value: Any) -> PrefixCacheConfig:
+    """A bare bool is the master switch; a dict names fields."""
+    if isinstance(value, PrefixCacheConfig):
+        return value
+    if isinstance(value, bool):
+        value = {"enabled": value}
+    if not isinstance(value, dict):
+        raise TypeError(
+            f"device.prefix_cache must be a bool or a dict, got {value!r}"
+        )
+    return _section(PrefixCacheConfig, value, "device.prefix_cache")
 
 
 def _check(cfg: VGTConfig) -> None:
@@ -155,14 +191,11 @@ def _check(cfg: VGTConfig) -> None:
         )
     if cfg.kv_cache.host_swap_bytes:
         raise _not_ported("kv_cache.host_swap_bytes", "queue 1, item 5")
-    if _prefix_cache_enabled(d.prefix_cache):
-        raise _not_ported(
-            "device.prefix_cache (needs kernel K3)", "queue 1, item 5"
-        )
-    if d.prefill_chunk > 0:
-        raise _not_ported(
-            "device.prefill_chunk (needs kernel K3)", "queue 1, item 5"
-        )
+    pc = d.prefix_cache
+    if pc.min_share_pages < 1:
+        raise ValueError("prefix_cache.min_share_pages must be >= 1")
+    if not 0.0 <= pc.evict_watermark < 1.0:
+        raise ValueError("prefix_cache.evict_watermark must be in [0, 1)")
     if d.speculative_k > 0:
         raise _not_ported("device.speculative_k", "queue 1, item 8")
     for axis in ("dp", "tp", "sp", "pp", "ep"):
@@ -208,6 +241,7 @@ def load_config(**sections: Dict[str, Any]) -> VGTConfig:
         for name, values in sections.items()
     }
     cfg = VGTConfig(**built)
+    cfg.device.prefix_cache = _coerce_prefix_cache(cfg.device.prefix_cache)
     _check(cfg)
     return cfg
 

@@ -11,9 +11,9 @@ is never read as live context.
 
 Attention goes through the kernel wrappers (ops/kernels/): the CUDA
 kernels for tensors on the card, their plain versions on the CPU.  The
-projections, MLP and lm_head stay ``torch.matmul``, as the reference
-leaves them to XLA.  MoE and the Gemma-2 family are not ported yet; the
-config rejects them.
+projections, MLP and lm_head stay library matrix products, as the
+reference leaves them to XLA.  MoE and the Gemma-2 family are not ported
+yet; the config rejects them.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ import torch
 from vgate_tpu_torch.models.specs import ModelSpec
 from vgate_tpu_torch.ops.kernels.flash_prefill import flash_prefill_attention
 from vgate_tpu_torch.ops.kernels.paged_decode import paged_decode_attention
+from vgate_tpu_torch.ops.kernels.paged_multitok import paged_multitok_attention
 from vgate_tpu_torch.ops.kv_quant import kv_write
 from vgate_tpu_torch.ops.norms import rms_norm
 from vgate_tpu_torch.ops.rope import apply_rope
@@ -125,12 +126,26 @@ def _finish_layer(h, attn, lp: Params, spec: ModelSpec):
     return h + _dense_mlp(normed, lp)
 
 
+def _lm_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x [..., D] @ w [D, V]`` returned as the fp32 accumulation, never
+    rounded to the model dtype (the reference's
+    ``preferred_element_type=jnp.float32``).  On the card one cuBLAS
+    product takes bf16 in and writes fp32 out, so no fp32 copy of the
+    weight exists; the CPU upcasts both operands."""
+    if x.dtype == torch.float32:
+        return x @ w
+    if x.device.type == "cuda":
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
 def _logits(params: Params, spec: ModelSpec, x: torch.Tensor) -> torch.Tensor:
     """Final norm + lm_head, fp32 logits."""
     x = rms_norm(x, params["final_norm"], spec.rms_eps)
     if spec.tie_embeddings:
-        return (x @ params["embed"].t()).float()
-    return (x @ params["lm_head"]).float()
+        return _lm_head(x, params["embed"].t())
+    return _lm_head(x, params["lm_head"])
 
 
 def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -139,6 +154,59 @@ def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
 
 def _rope(x, positions, spec: ModelSpec):
     return apply_rope(x, positions, spec.rope_theta, spec.rope_scaling)
+
+
+def _prefill_qkv_write(
+    h: torch.Tensor,  # [B, S, D]
+    lp: Params,
+    spec: ModelSpec,
+    positions: torch.Tensor,  # [B, S] global positions
+    page_tables: torch.Tensor,  # [B, S // ps (+1 with offsets)]
+    k_pool: torch.Tensor,  # [KV, P, ps, hd] one layer's pool, in place
+    v_pool: torch.Tensor,
+    offsets: Optional[torch.Tensor] = None,  # [B] first token's page slot
+):
+    """Prompt-pass front half: norm, qkv projection and rope at
+    ``positions``, then this layer's KV into its pages (trash page 0
+    absorbs padding).  Returns q [B, S, H, hd] and the fresh k, v
+    [B, S, KV, hd].
+
+    Without ``offsets`` every row starts on a page boundary and whole
+    pages are written: [B, S, KV, hd] -> [KV, B, n_pages, ps, hd], each
+    head's pages contiguous.  With ``offsets`` (copy-on-write, the
+    reference's unaligned write) row ``b``'s first token lands at slot
+    ``offsets[b]`` of its first page, whose head holds copied shared KV
+    that must not be clobbered, so the write is a per-token (page, slot)
+    scatter and ``page_tables`` carries one extra column."""
+    B, S = h.shape[:2]
+    ps = k_pool.shape[-2]
+    KV, hd = spec.num_kv_heads, spec.head_dim
+    normed = rms_norm(h, lp["input_norm"], spec.rms_eps)
+    q, k, v = _project_qkv(normed, lp, spec)
+    q = _rope(q, positions, spec)
+    k = _rope(k, positions, spec)
+    if offsets is not None:
+        idx = offsets.long()[:, None] + torch.arange(S, device=h.device)
+        slot = idx % ps
+        pages = torch.gather(page_tables.long(), 1, idx // ps)  # [B, S]
+        # advanced indices (dims 1, 2) are adjacent: value [KV, B, S, hd]
+        kv_write(k_pool, (slice(None), pages, slot), k.permute(2, 0, 1, 3))
+        kv_write(v_pool, (slice(None), pages, slot), v.permute(2, 0, 1, 3))
+        return q, k, v
+    n_pages = S // ps
+    pt = page_tables[:, :n_pages].long()
+    kv_write(k_pool, (slice(None), pt),
+             k.reshape(B, n_pages, ps, KV, hd).permute(3, 0, 1, 2, 4))
+    kv_write(v_pool, (slice(None), pt),
+             v.reshape(B, n_pages, ps, KV, hd).permute(3, 0, 1, 2, 4))
+    return q, k, v
+
+
+def _last_logits(params, spec, x, lens) -> torch.Tensor:
+    """Logits of each row's last real token (``lens - 1``)."""
+    B, S = x.shape[:2]
+    last = torch.clamp(lens.long() - 1, 0, S - 1)
+    return _logits(params, spec, x[torch.arange(B, device=x.device), last])
 
 
 def prefill_forward(
@@ -153,29 +221,15 @@ def prefill_forward(
     """The prompt pass: writes every layer's KV into the prompt's pages
     and returns the last real token's logits [B, V] (fp32)."""
     B, S = tokens.shape
-    ps = k_pages.shape[3]
-    n_pages = S // ps
-    KV, hd = spec.num_kv_heads, spec.head_dim
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    pt = page_tables[:, :n_pages].long()
     x = _embed(params, tokens)  # [B, S, D]
     for l in range(spec.num_layers):
         lp = layer_params(params, l)
-        normed = rms_norm(x, lp["input_norm"], spec.rms_eps)
-        q, k, v = _project_qkv(normed, lp, spec)
-        q = _rope(q, positions, spec)
-        k = _rope(k, positions, spec)
-        # [B, S, KV, hd] -> [KV, B, n_pages, ps, hd]: each head's pages
-        # land contiguously (head-major pool)
-        kv_write(k_pages[l], (slice(None), pt),
-                 k.reshape(B, n_pages, ps, KV, hd).permute(3, 0, 1, 2, 4))
-        kv_write(v_pages[l], (slice(None), pt),
-                 v.reshape(B, n_pages, ps, KV, hd).permute(3, 0, 1, 2, 4))
+        q, k, v = _prefill_qkv_write(x, lp, spec, positions, page_tables,
+                                     k_pages[l], v_pages[l])
         attn = flash_prefill_attention(q, k, v, seq_lens)
         x = _finish_layer(x, attn, lp, spec)
-    last = torch.clamp(seq_lens.long() - 1, 0, S - 1)
-    last_hidden = x[torch.arange(B, device=x.device), last]
-    return _logits(params, spec, last_hidden)
+    return _last_logits(params, spec, x, seq_lens)
 
 
 def decode_attn_inputs(positions, page_tables, active, page_size):
@@ -225,3 +279,49 @@ def decode_forward(
         )
         x = _finish_layer(x, attn, lp, spec)
     return _logits(params, spec, x)
+
+
+def prefill_suffix_forward(
+    params: Params,
+    spec: ModelSpec,
+    tokens: torch.Tensor,  # [B, S] suffix tokens, S a bucket, S % ps == 0
+    prefix_lens: torch.Tensor,  # [B] int32 tokens already resident
+    suffix_lens: torch.Tensor,  # [B] int32 real suffix tokens (<= S)
+    k_pages: torch.Tensor,  # [L, KV, P, ps, hd], updated in place
+    v_pages: torch.Tensor,
+    suffix_page_tables: torch.Tensor,  # [B, S // ps (+1 if unaligned)]
+    ctx_page_tables: torch.Tensor,  # [B, ctx_pages] int32 prefix + suffix
+    unaligned: bool = False,  # copy-on-write: prefix_lens % ps != 0
+) -> torch.Tensor:
+    """The prompt pass of only the uncached suffix of a prefix-cache hit,
+    a copy-on-write hit or a prefill chunk: the first ``prefix_lens``
+    tokens' KV is already in the pool.  Each layer writes the suffix KV
+    into its own pages (the aligned whole-page write, or with
+    ``unaligned`` the per-token scatter starting mid-page), then its
+    suffix queries attend the context window through the multi-token
+    kernel (K3; its plain version on the CPU).  Returns the last real
+    token's logits [B, V] (fp32).
+
+    The reference routes only page-aligned suffixes of at most 1024 rows
+    through its TPU kernel (VMEM and DMA-alignment limits); the CUDA
+    kernel tiles query rows over CTAs and masks by position, so every
+    suffix pass on the card takes it."""
+    B, S = tokens.shape
+    ps = k_pages.shape[3]
+    positions = prefix_lens.long()[:, None] + torch.arange(
+        S, device=tokens.device
+    )
+    offsets = prefix_lens % ps if unaligned else None
+    x = _embed(params, tokens)  # [B, S, D]
+    for l in range(spec.num_layers):
+        lp = layer_params(params, l)
+        q, _, _ = _prefill_qkv_write(
+            x, lp, spec, positions, suffix_page_tables, k_pages[l],
+            v_pages[l], offsets=offsets,
+        )
+        attn = paged_multitok_attention(
+            q, k_pages[l], v_pages[l], ctx_page_tables, prefix_lens,
+            suffix_lens,
+        )
+        x = _finish_layer(x, attn, lp, spec)
+    return _last_logits(params, spec, x, suffix_lens)

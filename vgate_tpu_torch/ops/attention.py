@@ -168,3 +168,34 @@ def paged_decode_attention(
     probs = probs / probs.sum(dim=-1, keepdim=True)
     out = torch.einsum("bht,bthd->bhd", probs, v.float())
     return out.to(q.dtype)
+
+
+def paged_suffix_attention(
+    q: torch.Tensor,  # [B, S, H, hd] suffix queries
+    k_pages: torch.Tensor,  # [KV, P, ps, hd] (head-major)
+    v_pages: torch.Tensor,
+    page_tables: torch.Tensor,  # [B, ctx_pages] int32 context window row
+    prefix_lens: torch.Tensor,  # [B] global position of q[:, 0]
+    seq_lens: torch.Tensor,  # [B] total context (prefix + real suffix)
+    softcap: float = 0.0,
+    window=None,  # >0 => attend only to the last `window` keys
+    scale: Optional[float] = None,  # query scale; default hd**-0.5
+) -> torch.Tensor:
+    """Prompt-suffix attention over resident paged KV (prefix caching):
+    the semantic spec of the multi-token kernel (ops/kernels/
+    paged_multitok.py, K3).  The suffix KV is already in the pool; this
+    gathers each slot's ``ctx_pages`` window and runs the blockwise
+    online softmax of :func:`flash_prefill_attention`, whose
+    ``q_offset`` mask IS the suffix mask (``k_pos <= prefix + s`` and
+    ``k_pos < seq_len``).  Returns [B, S, H, hd]."""
+    B = q.shape[0]
+    KV, _, ps, hd = k_pages.shape
+    ctx = page_tables.shape[1] * ps
+    k = gather_pages(k_pages, page_tables).reshape(KV, B, ctx, hd)
+    v = gather_pages(v_pages, page_tables).reshape(KV, B, ctx, hd)
+    # key blocks divide the window, as in the reference's twin
+    block_k = 256 if ctx % 256 == 0 else ps
+    return flash_prefill_attention(
+        q, k.movedim(0, 2), v.movedim(0, 2), seq_lens, block_k=block_k,
+        q_offset=prefix_lens, softcap=softcap, window=window, scale=scale,
+    )

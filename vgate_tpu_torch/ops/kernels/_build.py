@@ -5,8 +5,9 @@ alone (no PyTorch headers, so a build takes seconds) into its own shared
 library, which is loaded with ``ctypes``.  The build happens on first
 use, never at import, into ``build/kernels/`` beside the package (or
 ``$VGT_KERNEL_BUILD_DIR``); the library name carries a hash of the
-source and flags, so an edited source is rebuilt.  :func:`build` starts
-one ``nvcc`` per source at once.
+source, the shared headers (``*.cuh``) and the flags, so an edited
+source or header is rebuilt.  :func:`build` starts one ``nvcc`` per
+source at once.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 SOURCES = {
     "paged_decode": "paged_decode.cu",
     "flash_prefill": "flash_prefill.cu",
+    "paged_multitok": "paged_multitok.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -55,7 +57,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
+    # the shared headers are part of every source's identity
+    src = (CSRC / SOURCES[name]).read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh"))
+    )
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"libvgt_{name}_{digest[:12]}.so"
 

@@ -25,3 +25,15 @@ def gather_pages(pool: torch.Tensor, page_tables: torch.Tensor, layer=None):
     if layer is not None:
         pool = pool[layer]
     return pool[:, page_tables]
+
+
+def copy_page_prefix(
+    pool: torch.Tensor, src: int, dst: int, upto: int
+) -> None:
+    """Copy-on-write page copy IN PLACE: the first ``upto`` token slots
+    of page ``src`` overwrite those of page ``dst`` in every layer and
+    head of ``pool`` ([..., P, ps, hd]); the rest of ``dst`` is kept.
+    The reference (vgate_tpu/ops/kv_quant.py ``copy_page_prefix``)
+    takes a [ps] keep mask and returns an updated copy; a prefix of
+    ``upto`` slots is the only mask its engine builds."""
+    pool[..., dst, :upto, :] = pool[..., src, :upto, :]

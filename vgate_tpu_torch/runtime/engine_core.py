@@ -21,9 +21,15 @@ path — batched, bucketed prompt passes and pipelined decode chunks:
   on the engine thread's one stream, so stream order is the only
   ordering relied on.  Tokens/positions stay on the device between
   chunks and are re-uploaded only when slot membership changes.
+* **Prefix cache** (on by default, as in the reference): the radix tree
+  (runtime/radix_cache.py) shares full KV pages across requests, copies
+  the shared head of a diverging page (copy-on-write) and indexes a
+  finished sequence's generated tokens; a hit prefills only its suffix
+  through the multi-token kernel (K3).  **Chunked prefill** runs a
+  prompt longer than ``device.prefill_chunk`` as serial suffix passes.
 
-Not ported yet (the config refuses them): prefix cache, chunked prefill,
-speculative decoding, host KV swap, logprobs, multi-device meshes.
+Not ported yet (the config refuses them): speculative decoding, host KV
+swap, logprobs, multi-device meshes.
 The supervisor, integrity checks, flight recorder and metrics come with
 later slices.
 """
@@ -46,8 +52,13 @@ from vgate_tpu_torch.config import (
 )
 from vgate_tpu_torch.errors import DeadlineExceededError, EngineRecoveringError
 from vgate_tpu_torch.logging_config import get_logger
-from vgate_tpu_torch.models.decoder import decode_forward, prefill_forward
+from vgate_tpu_torch.models.decoder import (
+    decode_forward,
+    prefill_forward,
+    prefill_suffix_forward,
+)
 from vgate_tpu_torch.models.specs import ModelSpec, spec_for_model_id
+from vgate_tpu_torch.ops.kv_quant import copy_page_prefix
 from vgate_tpu_torch.ops.sampling import (
     apply_logit_bias,
     apply_penalties,
@@ -60,11 +71,12 @@ from vgate_tpu_torch.runtime.kv_cache import (
     auto_num_pages,
     make_kv_buffers,
 )
+from vgate_tpu_torch.runtime.radix_cache import RadixCache
 from vgate_tpu_torch.runtime.scheduler import PrefillPlan, Scheduler
 from vgate_tpu_torch.runtime.sequence import Sequence, SeqStatus
 from vgate_tpu_torch.runtime.tokenizer import get_tokenizer
 from vgate_tpu_torch.runtime.weights import load_or_init_params
-from vgate_tpu_torch.utils.math import cdiv
+from vgate_tpu_torch.utils.math import bucket_for, cdiv
 
 logger = get_logger(__name__)
 
@@ -100,21 +112,61 @@ def _logit_transforms(logits, steps, pen, min_tok, bias):
     return logits
 
 
+def _first_tokens(logits, generator, sampling: Dict[str, Any]):
+    """Sample each prompt's first token from its last-token logits, with
+    the rows' penalties, logit bias and min-token floors (``sampling`` is
+    ``EngineCore._row_arrays``).  Returns [B] int32 on the device."""
+    pen = None
+    if sampling["counts"] is not None:
+        pen = (sampling["counts"], sampling["freq_pens"],
+               sampling["pres_pens"])
+    logits = _logit_transforms(
+        logits, sampling["steps"], pen, sampling["min_tok"], sampling["bias"]
+    )
+    return sample_tokens(
+        logits, sampling["temps"], sampling["top_ps"], sampling["top_ks"],
+        generator=generator, seeds=sampling["seeds"],
+        steps=sampling["steps"],
+    )
+
+
 def _prefill_step(
     params, spec: ModelSpec, tokens, seq_lens, k_pages, v_pages,
-    page_tables, temps, top_ps, top_ks, generator, seeds, steps,
-    pen=None, min_tok=None, bias=None,
+    page_tables, generator, sampling: Dict[str, Any],
 ) -> torch.Tensor:
     """Prompt pass with fused first-token sampling: returns [B] int32
     first tokens (on the device); the pools are written in place."""
     logits = prefill_forward(
         params, spec, tokens, seq_lens, k_pages, v_pages, page_tables
     )
-    logits = _logit_transforms(logits, steps, pen, min_tok, bias)
-    return sample_tokens(
-        logits, temps, top_ps, top_ks, generator=generator, seeds=seeds,
-        steps=steps,
+    return _first_tokens(logits, generator, sampling)
+
+
+def _suffix_prefill_step(
+    params, spec: ModelSpec, tokens, prefix_lens, suffix_lens, k_pages,
+    v_pages, suffix_page_tables, ctx_page_tables, generator,
+    sampling: Dict[str, Any], unaligned: bool = False,
+) -> torch.Tensor:
+    """Prompt pass of the uncached suffix of a prefix-cache hit (models/
+    decoder.py ``prefill_suffix_forward``) with fused first-token
+    sampling.  ``unaligned`` is the copy-on-write variant: prefix_lens
+    may fall mid-page and the KV write becomes a per-token scatter."""
+    logits = prefill_suffix_forward(
+        params, spec, tokens, prefix_lens, suffix_lens, k_pages, v_pages,
+        suffix_page_tables, ctx_page_tables, unaligned=unaligned,
     )
+    return _first_tokens(logits, generator, sampling)
+
+
+def _cow_copy_pages(k_pages, v_pages, src: int, dst: int, upto: int):
+    """Copy-on-write page copy (runtime/radix_cache.py): the first
+    ``upto`` token slots of page ``src`` into page ``dst`` across every
+    layer and head, in place on the engine stream, so a sequence
+    diverging mid-page gets the shared head's KV without recomputing it.
+    Stream order puts the copy after every earlier writer of ``src``
+    and before the suffix pass that writes the rest of ``dst``."""
+    copy_page_prefix(k_pages, src, dst, upto)
+    copy_page_prefix(v_pages, src, dst, upto)
 
 
 def _decode_chunk(
@@ -253,6 +305,18 @@ class EngineCore:
         )
         self.allocator = PageAllocator(num_pages)
         self.max_slots = dcfg.max_batch_slots
+        # radix-tree prefix index: page-granular sharing with COW partial
+        # pages; the tree registers itself as the allocator's reclaimer
+        # so cached pages stay allocatable.  radix=False keeps the
+        # scheduler's flat whole-page hash chain.
+        pc = dcfg.prefix_cache
+        self.radix_cache: Optional[RadixCache] = None
+        if pc.enabled and pc.radix:
+            self.radix_cache = RadixCache(
+                self.allocator, ps, min_share_pages=pc.min_share_pages,
+                cow=pc.cow, cow_min_tokens=pc.cow_min_tokens,
+            )
+            self.allocator.set_reclaimer(self.radix_cache)
         self.scheduler = Scheduler(
             allocator=self.allocator,
             max_slots=self.max_slots,
@@ -264,7 +328,13 @@ class EngineCore:
             admission_deadline_ms=(
                 self.config.scheduler.admission_deadline_ms
             ),
+            prefix_cache=pc.enabled,
+            prefill_chunk=dcfg.prefill_chunk,
             text_fn=self.final_text,
+            radix=self.radix_cache,
+            cache_aware_sched=pc.cache_aware_sched,
+            insert_generated=pc.insert_generated,
+            evict_watermark=pc.evict_watermark,
         )
         # host-side mirror of the device page tables, one row per slot
         self._page_tables_np = np.zeros(
@@ -290,6 +360,8 @@ class EngineCore:
         self.total_prefills = 0
         self.total_decode_tokens = 0
         self.total_state_rebuilds = 0
+        self.total_chunked_prefills = 0  # plans run as serial chunks
+        self.total_chunk_passes = 0  # their non-final passes
 
     # ------------------------------------------------------------ lifecycle
 
@@ -437,6 +509,9 @@ class EngineCore:
         self._drain_abort_requests()
         self._handle_aborts()
         self._handle_deadlines()
+        # proactive prefix-cache trim: keep truly-free pages above the
+        # evict watermark so allocation never pays the eviction walk
+        self.scheduler.maybe_trim()
         worked = self._admit_and_prefill()
 
         active = self._running_seqs()
@@ -643,10 +718,18 @@ class EngineCore:
 
     def _admit_and_prefill(self) -> bool:
         """Admit waiting prompts a free slot + pages exist for, prefill
-        them in batched prompt passes (same bucket, up to
-        ``prefill_batch_max`` rows each), then read every first token
-        back in one transfer.  While sequences decode, at most
-        ``prefill_admit_limit`` prompts are admitted per tick."""
+        them in batched prompt passes (up to ``prefill_batch_max`` rows
+        each), then read every first token back in one transfer.  While
+        sequences decode, at most ``prefill_admit_limit`` prompts are
+        admitted per tick.
+
+        Plans group by (bucket, prefix hit, unaligned hit): cold prompts
+        take the prompt pass, prefix-cache hits the suffix pass, and
+        copy-on-write hits (which start mid-page) a suffix pass of their
+        own.  Chunked plans run serial suffix passes and never batch.
+        The radix tree indexes the new pages only after every writer is
+        enqueued, so a reader admitted in a later tick runs after its
+        writer in stream order."""
         dcfg = self.config.device
         limit = dcfg.prefill_admit_limit
         decoding = bool(self._running_seqs())
@@ -658,17 +741,29 @@ class EngineCore:
             plans.append(plan)
         if not plans:
             return False
-        by_bucket: Dict[int, List[PrefillPlan]] = {}
-        for plan in plans:
-            by_bucket.setdefault(plan.bucket, []).append(plan)
-        batch_max = max(1, dcfg.prefill_batch_max)
+        ps = self.geometry.page_size
+        groups: Dict[tuple, List[PrefillPlan]] = {}
         dispatched = []  # (group plans, [B] device first tokens)
-        for bucket, group in sorted(by_bucket.items()):
+        for plan in plans:
+            if plan.chunked:
+                dispatched.append(
+                    ([plan], self._dispatch_chunked_prefill(plan))
+                )
+                continue
+            cached = plan.cached_len
+            key = (plan.bucket, cached > 0, cached % ps != 0)
+            groups.setdefault(key, []).append(plan)
+        batch_max = max(1, dcfg.prefill_batch_max)
+        for (bucket, cached, unaligned), group in sorted(groups.items()):
             for i in range(0, len(group), batch_max):
                 chunk = group[i : i + batch_max]
-                dispatched.append(
-                    (chunk, self._dispatch_prefill_group(chunk, bucket))
-                )
+                if cached:
+                    tokens = self._dispatch_suffix_group(
+                        chunk, bucket, unaligned=unaligned
+                    )
+                else:
+                    tokens = self._dispatch_prefill_group(chunk, bucket)
+                dispatched.append((chunk, tokens))
         for plan in plans:
             self.scheduler.commit_prefill(plan)
         readback = _Readback(torch.cat([t for _, t in dispatched]))
@@ -684,6 +779,13 @@ class EngineCore:
                 self._maybe_finish(plan.seq, token)
             offset += tokens.shape[0]
         return True
+
+    def _set_slot_row(self, plan: PrefillPlan) -> None:
+        """The decode-side page-table row of the plan's slot: its pages,
+        then trash page 0."""
+        slot_row = self._page_tables_np[plan.slot]
+        slot_row[:] = 0
+        slot_row[: len(plan.seq.pages)] = plan.seq.pages
 
     def _dispatch_prefill_group(
         self, plans: List[PrefillPlan], bucket: int
@@ -703,24 +805,106 @@ class EngineCore:
             seq = plan.seq
             tokens[row, : seq.num_prompt_tokens] = seq.prompt_ids
             seq_lens[row] = seq.num_prompt_tokens
-            slot_row = self._page_tables_np[plan.slot]
-            slot_row[:] = 0
-            slot_row[: len(seq.pages)] = seq.pages
+            self._set_slot_row(plan)
             prefill_pt[row, : len(seq.pages)] = seq.pages[:n_bucket_pages]
-        sampling = self._row_arrays(
-            B, ((row, p.seq) for row, p in enumerate(plans))
-        )
-        pen = None
-        if sampling["counts"] is not None:
-            pen = (sampling["counts"], sampling["freq_pens"],
-                   sampling["pres_pens"])
         return _prefill_step(
             self.params, self.spec, self._dev(tokens), self._dev(seq_lens),
             self.k_pages, self.v_pages, self._dev(prefill_pt),
-            sampling["temps"], sampling["top_ps"], sampling["top_ks"],
-            self._generator, sampling["seeds"], sampling["steps"],
-            pen=pen, min_tok=sampling["min_tok"], bias=sampling["bias"],
+            self._generator,
+            self._row_arrays(B, enumerate(p.seq for p in plans)),
         )
+
+    def _ctx_pages(self, n_tokens: int) -> int:
+        """Context-window width for ``n_tokens``: the page count rounded
+        up to a power of two (bounds the plain version's gather), capped
+        at a sequence's table width."""
+        n = cdiv(n_tokens, self.geometry.page_size)
+        return min(self.geometry.pages_per_seq,
+                   1 << max(0, n - 1).bit_length())
+
+    def _dispatch_suffix_group(
+        self, plans: List[PrefillPlan], bucket: int, unaligned: bool = False
+    ) -> torch.Tensor:
+        """Enqueue ONE suffix pass for up to ``prefill_batch_max``
+        prefix-cache hits whose suffixes share a bucket; returns the [B]
+        first tokens on the device.  The cached prefix pages are shared
+        and read-only; only the suffix pages are written.  ``unaligned``
+        is the copy-on-write group: each plan's page copy is enqueued
+        first, the suffix then starts mid-page, and the suffix table
+        carries one extra column."""
+        n = len(plans)
+        B = 1 << (n - 1).bit_length()
+        ps = self.geometry.page_size
+        n_suffix_pages = bucket // ps + (1 if unaligned else 0)
+        for plan in plans:
+            if plan.cow is not None:
+                _cow_copy_pages(self.k_pages, self.v_pages, *plan.cow)
+                if self.radix_cache is not None:
+                    self.radix_cache.total_cow_copies += 1
+        ctx_pages = self._ctx_pages(
+            max(p.seq.num_prompt_tokens for p in plans)
+        )
+        tokens = np.zeros((B, bucket), np.int32)
+        prefix_lens = np.zeros((B,), np.int32)
+        suffix_lens = np.ones((B,), np.int32)
+        suffix_pt = np.zeros((B, n_suffix_pages), np.int32)
+        ctx_pt = np.zeros((B, ctx_pages), np.int32)
+        for row, plan in enumerate(plans):
+            seq = plan.seq
+            suffix = seq.prompt_ids[plan.cached_len :]
+            tokens[row, : len(suffix)] = suffix
+            prefix_lens[row] = plan.cached_len
+            suffix_lens[row] = len(suffix)
+            own = seq.pages[plan.cached_len // ps :][:n_suffix_pages]
+            suffix_pt[row, : len(own)] = own
+            self._set_slot_row(plan)
+            ctx = seq.pages[:ctx_pages]
+            ctx_pt[row, : len(ctx)] = ctx
+        return _suffix_prefill_step(
+            self.params, self.spec, self._dev(tokens), self._dev(prefix_lens),
+            self._dev(suffix_lens), self.k_pages, self.v_pages,
+            self._dev(suffix_pt), self._dev(ctx_pt), self._generator,
+            self._row_arrays(B, enumerate(p.seq for p in plans)),
+            unaligned=unaligned,
+        )
+
+    def _dispatch_chunked_prefill(self, plan: PrefillPlan) -> torch.Tensor:
+        """A (suffix-)prompt longer than the bucket cap: page-aligned
+        suffix passes of ``plan.bucket`` tokens, each attending the whole
+        resident context.  The non-final passes are lean — no sampling,
+        nothing read back; the final pass is a one-row suffix group, so
+        its sampling can never drift from the unchunked path.  Returns
+        the final pass's [1] first token on the device."""
+        self.total_chunked_prefills += 1
+        seq = plan.seq
+        ps = self.geometry.page_size
+        chunk = plan.bucket  # page-aligned, as every bucket is
+        total = seq.num_prompt_tokens
+        self._set_slot_row(plan)
+        start = plan.cached_len  # full cached pages: chunked plans drop COW
+        while total - start > chunk:
+            tokens = np.asarray([seq.prompt_ids[start : start + chunk]],
+                                np.int32)
+            pages = np.asarray(
+                [seq.pages[start // ps : (start + chunk) // ps]], np.int32
+            )
+            n_ctx = self._ctx_pages(start + chunk)
+            ctx_pt = np.zeros((1, n_ctx), np.int32)
+            ctx_pt[0, : min(n_ctx, len(seq.pages))] = seq.pages[:n_ctx]
+            prefill_suffix_forward(
+                self.params, self.spec, self._dev(tokens),
+                self._dev(np.asarray([start], np.int32)),
+                self._dev(np.asarray([chunk], np.int32)),
+                self.k_pages, self.v_pages, self._dev(pages),
+                self._dev(ctx_pt),
+            )
+            self.total_chunk_passes += 1
+            start += chunk
+        final = PrefillPlan(
+            seq=seq, slot=plan.slot, cached_len=start,
+            bucket=bucket_for(total - start, self.scheduler.prefill_buckets),
+        )
+        return self._dispatch_suffix_group([final], final.bucket)
 
     # --------------------------------------------------------------- decode
 
@@ -891,9 +1075,21 @@ class EngineCore:
 
     def get_stats(self) -> Dict[str, Any]:
         """Engine counters.  ``steps`` counts dispatched decode steps
-        (chunk lengths summed, overshoot included)."""
+        (chunk lengths summed, overshoot included); ``prefix_cache``
+        restates the scheduler's prefix-cache counters beside the
+        engine's chunked-prefill counts."""
+        sched = self.scheduler.get_stats()
+        pc = sched["prefix_cache"]
         return {
-            "scheduler": self.scheduler.get_stats(),
+            "scheduler": sched,
+            "prefix_cache": {
+                "enabled": pc["enabled"],
+                "mode": pc["mode"],
+                "hit_tokens": pc["hit_tokens"],
+                "cow_copies": pc.get("cow_copies", 0),
+                "chunked_prefills": self.total_chunked_prefills,
+                "chunk_passes": self.total_chunk_passes,
+            },
             "running": len(self.scheduler.running),
             "used_pages": self.allocator.num_used,
             "admitted": self.scheduler.total_admitted,

@@ -2,7 +2,7 @@
 
 Replaces the flat per-page hash chain (``PageAllocator.register/lookup``
 + ``Scheduler._prefix_chain``) as the prefix index when
-``tpu.prefix_cache.radix`` is on.  The million-user workloads the
+``device.prefix_cache.radix`` is on.  The million-user workloads the
 roadmap targets (multi-turn chat, RAG with shared system+corpus
 preambles, agent loops re-sending growing transcripts) are dominated by
 shared prefixes, and the flat chain can only match whole-page exact
@@ -24,7 +24,7 @@ chains of *prompt* pages.  The tree adds what those shapes need:
 * **Pressure-integrated eviction**: refcount-0 subtrees are reclaimable
   LRU-leaf-first, on demand when ``PageAllocator.allocate`` runs short
   (reason ``lru``) and *proactively* when the truly-free ratio sinks
-  below ``tpu.prefix_cache.evict_watermark`` (reason ``pressure``) —
+  below ``device.prefix_cache.evict_watermark`` (reason ``pressure``) —
   trimming runs before the gateway's admission controller would start
   shedding on ``kv_pressure``, so a warm cache never turns into 503s.
 
