@@ -12,17 +12,21 @@ library call computing the same function; (3) serves chat requests
 through ``VGTEngine`` with Qwen2.5-7B-Instruct at full width (random
 weights from seed 0, bf16), first with the prefix cache off, then with
 it on (radix tree, copy-on-write, generated-token reuse, chunked
-prefill at 512), counting the kernel launches of each run; (4) checks
-the served output, the prefix-cache counters and the model's logits
-(prompt pass, decode step, suffix passes aligned and copy-on-write)
-against a plain full-sequence forward.  It prints the card's
-name and power limit, one JSON line of per-kernel numbers and, last,
-``{"ok": true, "device": {...}}``.  Any failed check exits non-zero;
-without a CUDA card it exits non-zero before printing any result.
+prefill at 512), then quantized: int8 weights with int8 KV pools (the
+burst and the prefix traffic), and int4 weights with int8 KV pools (the
+burst), counting the kernel launches of each run; (4) checks the
+served output, the prefix-cache counters, the exact launch counts of
+the quantized runs and the model's logits (prompt pass, decode step,
+suffix passes aligned and copy-on-write) against a plain full-sequence
+forward.  It prints the card's name and power limit, one JSON line of
+per-kernel numbers and, last, ``{"ok": true, "device": {...}}``.  Any
+failed check exits non-zero; without a CUDA card it exits non-zero
+before printing any result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -38,6 +42,9 @@ H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
 H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 KERNEL_TOL = 1e-2  # bf16 kernel vs fp32 plain on the same bf16 inputs
 F32_TOL = 1e-4  # f32 kernel vs f32 plain: the same sums in another order
+# K4/K5 with f32 out: bf16 x int narrow products are exact in fp32, so
+# only the order of thousands of fp32 additions differs
+QMM_F32_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -74,6 +81,20 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, iters: int = 200) -> float:
+    """Mean host time to enqueue one call of ``fn``, no sync inside the
+    loop: where it exceeds the device time, a loop of such calls is held
+    by the host, not by the card."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    seconds = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return seconds / iters * 1e6
+
+
 def max_err(got: torch.Tensor, expect: torch.Tensor) -> float:
     check(bool(torch.isfinite(got).all()), "kernel output has NaN/Inf")
     return float((got.float() - expect.float()).abs().max())
@@ -99,6 +120,12 @@ def decode_inputs(B, H, KV, hd, ps, pps, lens, seed, dev,
     pt = perm[: B * pps].reshape(B, pps).to(torch.int32)
     sl = torch.tensor(lens, dtype=torch.int32, device=dev)
     return q, k, v, pt, sl
+
+
+# the main path's 32 decode slots at 7B: ragged contexts 1..2048
+DECODE_LENS = [1, 31, 32, 33, 64, 65, 100, 127, 128, 129, 255, 256, 257, 300,
+               511, 512, 513, 700, 1000, 1023, 1024, 1025, 1200, 1500, 1535,
+               1536, 1600, 1800, 2000, 2047, 2048, 2048]
 
 
 def check_paged_decode(dev) -> dict:
@@ -127,9 +154,7 @@ def check_paged_decode(dev) -> dict:
 
     # the main path's shape at 7B: 32 slots, ragged contexts 1..2048
     B, H, KV, hd, ps, pps = 32, 28, 4, 128, 32, 64
-    lens = [1, 31, 32, 33, 64, 65, 100, 127, 128, 129, 255, 256, 257, 300,
-            511, 512, 513, 700, 1000, 1023, 1024, 1025, 1200, 1500, 1535,
-            1536, 1600, 1800, 2000, 2047, 2048, 2048]
+    lens = DECODE_LENS
     q, k, v, pt, sl = decode_inputs(B, H, KV, hd, ps, pps, lens, 12, dev)
     got = kernel(q, k, v, pt, sl)
     expect = plain.paged_decode_attention(q.float(), k.float(), v.float(),
@@ -352,6 +377,277 @@ def check_paged_multitok(dev) -> dict:
     }
 
 
+def int8_pools(KV, P, ps, hd, seed, dev, L=None):
+    """Two int8 ``QuantPages`` pools (K, V) of quantized normal values;
+    with ``L`` they carry a leading layer dim."""
+    from vgate_tpu_torch.ops.kv_quant import QuantPages, quantize
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (KV, P, ps, hd) if L is None else (L, KV, P, ps, hd)
+    return tuple(
+        QuantPages(*quantize(torch.randn(shape, generator=gen, device=dev)))
+        for _ in range(2)
+    )
+
+
+def dequantized(pool):
+    from vgate_tpu_torch.ops.kv_quant import dequantize
+
+    return dequantize(pool.data, pool.scale)
+
+
+def check_paged_decode_int8(dev) -> dict:
+    from vgate_tpu_torch.ops import attention as plain
+    from vgate_tpu_torch.ops.kernels.paged_decode import (
+        paged_decode_attention_int8 as kernel,
+    )
+
+    # small cases on layer views of [L]-pools: head dims 64/128/256, GQA
+    # groups, window, softcap + scale, an idle slot on the trash page
+    for hd, H, KV, kw in (
+        (64, 8, 4, {}), (128, 28, 4, {"window": 100}),
+        (256, 16, 2, {"softcap": 30.0, "scale": 0.1}),
+    ):
+        q, _, _, pt, sl = decode_inputs(4, H, KV, hd, 16, 16,
+                                        [1, 16, 17, 255], 41, dev)
+        pt[0] = 0
+        kL, vL = int8_pools(KV, 1 + 4 * 16, 16, hd, 42, dev, L=3)
+        got = kernel(q, kL[2], vL[2], pt, sl, **kw)
+        expect = plain.paged_decode_attention(q.float(), kL[2], vL[2], pt, sl,
+                                              **kw)
+        torch.cuda.synchronize()
+        within(got, expect, f"paged decode int8 hd={hd} H={H} {kw}")
+
+    # the main path's shape at 7B: 32 slots, ragged contexts 1..2048
+    B, H, KV, hd, ps, pps = 32, 28, 4, 128, 32, 64
+    lens = DECODE_LENS
+    q, _, _, pt, sl = decode_inputs(B, H, KV, hd, ps, pps, lens, 12, dev)
+    k, v = int8_pools(KV, 1 + B * pps, ps, hd, 43, dev)
+    got = kernel(q, k, v, pt, sl)
+    expect = plain.paged_decode_attention(q.float(), k, v, pt, sl)
+    torch.cuda.synchronize()
+    err = within(got, expect, "paged decode int8 at 7B decode shapes")
+    ms = time_ms(lambda: kernel(q, k, v, pt, sl), iters=50)
+    plain_ms = time_ms(
+        lambda: plain.paged_decode_attention(q, k, v, pt, sl), iters=5
+    )
+    live = sum(lens)
+    nbytes = (
+        2 * live * KV * (hd + 2)        # int8 K and V + their bf16 scales
+        + 2 * B * H * hd * 2            # q in, out
+        + sum(math.ceil(n / ps) for n in lens) * 4 + B * 4  # tables, lens
+    )
+    flops = 4 * live * H * hd  # QK^T and PV, fp32 on the CUDA cores
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = flops / H100_FP32_FLOPS * 1e3
+    return {
+        "name": "paged_decode_attention_int8",
+        "route": "cuda",
+        "source": "vgate_tpu_torch/csrc/paged_decode.cu",
+        "replaces": "vgate_tpu/ops/pallas/paged_attention.py:299",
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+        "shape": f"B={B} H={H} KV={KV} hd={hd} ps={ps} ctx=1..2048, int8",
+    }
+
+
+def check_paged_multitok_int8(dev) -> dict:
+    from vgate_tpu_torch.ops import attention as plain
+    from vgate_tpu_torch.ops.kernels.paged_multitok import (
+        paged_multitok_attention_int8 as kernel,
+    )
+
+    # small ragged cases on layer views, real rows compared: unaligned
+    # positions0, input_lens < S, hd 64/128/256, window, softcap + scale
+    for hd, H, KV, ps, S, pos0, lens, kw in (
+        (64, 8, 2, 16, 128, [0, 37, 5], [128, 20, 1], {}),
+        (128, 28, 4, 32, 256, [1024, 100, 0], [256, 70, 3],
+         {"window": 300}),
+        (256, 8, 2, 16, 64, [16, 3, 50], [60, 64, 7],
+         {"softcap": 30.0, "scale": 0.1}),
+    ):
+        q, _, _, pt, p0, il = suffix_inputs(len(pos0), S, H, KV, hd, ps,
+                                            pos0, lens, 51, dev)
+        P = 1 + pt.numel()
+        kL, vL = int8_pools(KV, P, ps, hd, 52, dev, L=2)
+        got = kernel(q, kL[1], vL[1], pt, p0, il, **kw)
+        expect = plain.paged_suffix_attention(
+            q.float(), kL[1], vL[1], pt, p0, p0 + il,
+            window=kw.get("window"), softcap=kw.get("softcap", 0.0),
+            scale=kw.get("scale"),
+        )
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), "K3-int8 idle rows not finite")
+        real = torch.arange(S, device=dev)[None, :] < il[:, None]
+        within(got[real], expect[real],
+               f"paged multitok int8 hd={hd} ps={ps} pos0={pos0} {kw}")
+
+    # the timing shape of K3: 4 slots, 512 rows over a 1024-token prefix
+    B, S, H, KV, hd, ps, prefix = 4, 512, 28, 4, 128, 32, 1024
+    q, _, _, pt, p0, il = suffix_inputs(B, S, H, KV, hd, ps, [prefix] * B,
+                                        [S] * B, 32, dev)
+    k, v = int8_pools(KV, 1 + pt.numel(), ps, hd, 53, dev)
+    got = kernel(q, k, v, pt, p0, il)
+    expect = plain.paged_suffix_attention(q.float(), k, v, pt, p0, p0 + il)
+    torch.cuda.synchronize()
+    err = within(got, expect, "paged multitok int8 at the 7B suffix shape")
+    ms = time_ms(lambda: kernel(q, k, v, pt, p0, il), iters=20)
+    plain_ms = time_ms(
+        lambda: plain.paged_suffix_attention(q, k, v, pt, p0, p0 + il),
+        iters=3,
+    )
+    # library yardstick: SDPA over the gathered, dequantized K/V in bf16
+    # (gathered beforehand, not timed; the port never calls SDPA)
+    from torch.nn.attention.bias import causal_lower_right
+
+    ctx = prefix + S
+    kd, vd = dequantized(k).bfloat16(), dequantized(v).bfloat16()
+    kc = kd[:, pt.long()].reshape(KV, B, ctx, hd).permute(1, 0, 2, 3)
+    vc = vd[:, pt.long()].reshape(KV, B, ctx, hd).permute(1, 0, 2, 3)
+    kh = kc.repeat_interleave(H // KV, dim=1).contiguous()
+    vh = vc.repeat_interleave(H // KV, dim=1).contiguous()
+    qh = q.transpose(1, 2)
+    mask = causal_lower_right(S, ctx)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = sdpa(qh, kh, vh, attn_mask=mask).transpose(1, 2)
+    torch.cuda.synchronize()
+    within(got, lib, "paged multitok int8 vs the library call")
+    library_ms = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask), iters=20)
+    pairs = B * (S * (prefix + 1) + S * (S - 1) // 2)
+    flops = 4 * pairs * H * hd
+    nbytes = (2 * B * S * H * hd * 2          # q in, out
+              + 2 * B * ctx * KV * (hd + 2)   # int8 K and V + scales
+              + B * (ctx // ps) * 4 + 2 * B * 4)  # tables, positions, lens
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return {
+        "name": "paged_multitok_attention_int8",
+        "route": "cuda",
+        "source": "vgate_tpu_torch/csrc/paged_multitok.cu",
+        "replaces": "vgate_tpu/ops/pallas/paged_attention.py:847",
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms,
+        "shape": f"B={B} S={S} prefix={prefix} H={H} KV={KV} hd={hd} "
+                 f"ps={ps}, int8",
+    }
+
+
+def qmm_case(rows, in_dim, out_dim, bits, seed, dev):
+    """bf16 activations and a quantized weight (QTensor/PackedQTensor)."""
+    from vgate_tpu_torch.ops.quant import quantize_tensor
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rows, in_dim, generator=gen, device=dev).bfloat16()
+    w = torch.randn(in_dim, out_dim, generator=gen, device=dev) * 0.02
+    return x, quantize_tensor(w, bits)
+
+
+def qmm_bound(rows, in_dim, out_dim, bits, out_bytes):
+    """(bound ms, bound_by) of x [rows, in] @ W [in, out]: the narrow
+    weight, its f32 scale, x and the output once; 2*r*in*out bf16 flops
+    (the products run on the bf16 tensor cores)."""
+    nbytes = (in_dim * out_dim * bits // 8 + out_dim * 4
+              + rows * in_dim * 2 + rows * out_dim * out_bytes)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = 2 * rows * in_dim * out_dim / H100_BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_quant_matmul(dev, bits: int) -> dict:
+    """K4 (bits 8) or K5 (bits 4): rows 1/7/32/2048 at the 7B widths,
+    bf16 and f32 out, against the plain version; a width off the tile
+    must raise; timed at the decode shape (32 rows, 3584 x 18944), with
+    the lm_head and a 2048-row prompt pass printed beside it."""
+    from vgate_tpu_torch.ops.kernels import quant_matmul as qm
+
+    if bits == 8:
+        name, kernel, plain = "int8_matmul", qm.int8_matmul, \
+            qm.int8_matmul_plain
+        vals = lambda w: w.q  # noqa: E731
+    else:
+        name, kernel, plain = "int4_matmul", qm.int4_matmul, \
+            qm.int4_matmul_plain
+        vals = lambda w: w.q_packed  # noqa: E731
+    for rows, in_dim, out_dim in ((1, 3584, 512), (7, 3584, 3584),
+                                  (32, 18944, 3584), (2048, 3584, 512)):
+        x, w = qmm_case(rows, in_dim, out_dim, bits, rows, dev)
+        expect = plain(x, vals(w), w.scale, out_dtype=torch.float32)
+        for out_dtype, tol in ((torch.float32, QMM_F32_TOL),
+                               (torch.bfloat16, KERNEL_TOL)):
+            got = kernel(x, vals(w), w.scale, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            check(got.dtype == out_dtype, f"{name} wrote {got.dtype}")
+            within(got, expect, f"{name} rows={rows} {in_dim}x{out_dim} "
+                   f"{out_dtype}", tol)
+    x, w = qmm_case(4, 128, 96, bits, 1, dev)  # 96 is off the 64 tile
+    try:
+        kernel(x, vals(w), w.scale)
+    except ValueError:
+        pass
+    else:
+        fail(f"{name} took an output width off its tile")
+
+    def timed(rows, in_dim, out_dim, out_dtype, seed):
+        x, w = qmm_case(rows, in_dim, out_dim, bits, seed, dev)
+        got = kernel(x, vals(w), w.scale, out_dtype=out_dtype)
+        expect = plain(x, vals(w), w.scale, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        tol = QMM_F32_TOL if out_dtype == torch.float32 else KERNEL_TOL
+        err = within(got, expect, f"{name} at {rows}x{in_dim}x{out_dim}", tol)
+        ms = time_ms(lambda: kernel(x, vals(w), w.scale, out_dtype=out_dtype),
+                     iters=20)
+        plain_ms = time_ms(lambda: plain(x, vals(w), w.scale,
+                                         out_dtype=out_dtype), iters=3)
+        # library yardstick: one bf16 cuBLAS product on the dequantized
+        # weight (made beforehand, not timed; the port never calls it)
+        from vgate_tpu_torch.ops.quant import unpack_int4
+
+        q = w.q if bits == 8 else unpack_int4(w.q_packed)
+        wd = (q.float() * w.scale).bfloat16()
+        def library():
+            if out_dtype == torch.float32:
+                return torch.mm(x, wd, out_dtype=out_dtype)
+            return torch.mm(x, wd)
+
+        library_ms = time_ms(library, iters=20)
+        bound, by = qmm_bound(rows, in_dim, out_dim, bits,
+                              4 if out_dtype == torch.float32 else 2)
+        host = host_us(lambda: kernel(x, vals(w), w.scale,
+                                      out_dtype=out_dtype))
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+                "host_us": host, "library_host_us": host_us(library)}
+
+    main = timed(32, 3584, 18944, torch.bfloat16, 60)
+    for rows, in_dim, out_dim, out_dtype in (
+        (32, 3584, 152064, torch.float32), (2048, 3584, 18944, torch.bfloat16),
+        (32, 18944, 3584, torch.bfloat16), (32, 3584, 512, torch.bfloat16),
+    ):
+        extra = timed(rows, in_dim, out_dim, out_dtype, 61)
+        print(f"  {name} at {rows}x{in_dim}x{out_dim} "
+              f"{str(out_dtype)[6:]}: " + json.dumps(extra), flush=True)
+        torch.cuda.empty_cache()
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": "vgate_tpu_torch/csrc/quant_matmul.cu",
+        "replaces": "vgate_tpu/ops/pallas/quant_matmul.py:"
+                    + ("156" if bits == 8 else "191"),
+        **{k: v for k, v in main.items() if "host" not in k},
+        "shape": f"R=32 in=3584 out=18944 bf16 out, host us per call "
+                 f"{main['host_us']:.1f} "
+                 f"(library {main['library_host_us']:.1f})",
+    }
+
+
 # ---------------------------------------------------------------- main path
 
 def prompts():
@@ -388,6 +684,49 @@ def reference_logits(params, spec, tokens, attn):
     return dec._logits(params, spec, x[:, -1])
 
 
+@contextlib.contextmanager
+def plain_matmuls():
+    """The decoder's quantized projections through the plain versions of
+    K4/K5 instead of the kernels, for the plain forwards the kernel path
+    is held to (plain weights are unaffected)."""
+    from vgate_tpu_torch.models import decoder as dec
+    from vgate_tpu_torch.ops.kernels import quant_matmul as qm
+    from vgate_tpu_torch.ops.quant import PackedQTensor, QTensor
+
+    real = dec.weighted_einsum
+
+    def plain(subscripts, x, w, preferred_element_type=None):
+        out_dtype = preferred_element_type or x.dtype
+        if isinstance(w, QTensor):
+            return qm.int8_matmul_plain(x, w.q, w.scale, out_dtype)
+        if isinstance(w, PackedQTensor):
+            return qm.int4_matmul_plain(x, w.q_packed, w.scale, out_dtype)
+        return real(subscripts, x, w, preferred_element_type)
+
+    dec.weighted_einsum = plain
+    try:
+        yield
+    finally:
+        dec.weighted_einsum = real
+
+
+def pooled_attention(base, pooled_from):
+    """``base`` attention whose query rows from ``pooled_from`` on read
+    quantized-then-dequantized K/V, as the kernel path's rows that read
+    an int8 pool do (a decode step, a suffix pass); earlier rows attend
+    the fresh K/V, as a prompt pass does."""
+    from vgate_tpu_torch.ops.kv_quant import dequantize, quantize
+
+    def attn(q, k, v, sl):
+        out = base(q, k, v, sl)
+        pooled = base(q, dequantize(*quantize(k)), dequantize(*quantize(v)),
+                      sl)
+        out[:, pooled_from:] = pooled[:, pooled_from:]
+        return out
+
+    return attn
+
+
 class LogitsCheck:
     """Holds last-token logits of a kernel forward against a plain
     full-sequence forward.  bf16 through 28 layers is sensitive to
@@ -395,49 +734,76 @@ class LogitsCheck:
     attentions (fp32 vs bf16 probabilities before PV) give the noise
     floor, and the kernel path must stay within 3x that floor (and never
     be held to less than 4 bf16 steps of the largest logit).  The plain
-    forwards of one sequence are computed once."""
+    forwards of one sequence are computed once.  With int8 pools the
+    rows that read the pool in the kernel path (from ``pooled_from``)
+    attend quantized K/V in the plain forwards too; quantized weights go
+    through the plain versions of K4/K5 there."""
 
     def __init__(self, core) -> None:
         self.core = core
+        self.kv_int8 = core.geometry.kv_dtype == "int8"
         self.report: dict = {}
         self._refs: dict = {}
 
-    def _plain(self, seq):
+    def _plain(self, seq, pooled_from):
         from vgate_tpu_torch.ops.attention import (
             causal_prefill_attention,
             flash_prefill_attention,
         )
 
-        key = tuple(seq[0].tolist())
+        if not self.kv_int8:
+            pooled_from = None
+        key = (tuple(seq[0].tolist()), pooled_from)
         if key not in self._refs:
             params, spec = self.core.params, self.core.spec
-            self._refs[key] = (
-                reference_logits(params, spec, seq, causal_prefill_attention),
-                reference_logits(
-                    params, spec, seq,
-                    lambda q, k, v, sl: flash_prefill_attention(q, k, v, sl),
-                ),
-            )
+            attns = [causal_prefill_attention,
+                     lambda q, k, v, sl: flash_prefill_attention(q, k, v, sl)]
+            if pooled_from is not None:
+                attns = [pooled_attention(a, pooled_from) for a in attns]
+            with plain_matmuls():
+                self._refs[key] = tuple(
+                    reference_logits(params, spec, seq, a) for a in attns
+                )
         return self._refs[key]
 
-    def __call__(self, what: str, got, seq) -> int:
+    def __call__(self, what: str, got, seq, pooled_from=None) -> int:
         """Compare ``got`` [1, V] with the plain forward over ``seq``
         [1, n]; returns the plain argmax."""
-        ref, alt = self._plain(seq)
+        ref, alt = self._plain(seq, pooled_from)
         check(bool(torch.isfinite(got).all()), f"{what} logits not finite")
         err = float((got - ref).abs().max())
         floor = float((alt - ref).abs().max())
         scale = float(ref.abs().max())
+        top2 = ref.float().flatten().topk(2).values
         self.report[what] = {
             "max_abs_err": err, "plain_vs_plain": floor, "max_logit": scale,
             "same_argmax": int(got.argmax()) == int(ref.argmax()),
+            "plain_top2_gap": float(top2[0] - top2[1]),
         }
         # the hidden state entering the lm_head is bf16: never ask for
         # less than a few bf16 steps at the largest logit
         ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
-        check(err <= max(3 * floor, 4 * ulp),
+        tol = max(3 * floor, 4 * ulp)
+        check(err <= tol,
               f"{what} logits off the plain forward: {self.report[what]}")
+        # the argmax must agree unless the plain forward's top two logits
+        # are closer than the tolerance (a near-tie either side may win)
+        check(self.report[what]["same_argmax"]
+              or self.report[what]["plain_top2_gap"] <= tol,
+              f"{what} argmax differs from the plain forward's: "
+              f"{self.report[what]}")
         return int(ref.argmax())
+
+
+def empty_pools(core, num_pages: int):
+    """Zeroed K/V pools like the engine's (int8 ``QuantPages`` for int8
+    KV), ``num_pages`` pages."""
+    import dataclasses
+
+    from vgate_tpu_torch.runtime.kv_cache import make_kv_buffers
+
+    geo = dataclasses.replace(core.geometry, num_pages=num_pages)
+    return make_kv_buffers(geo, torch.bfloat16, core.device)
 
 
 def prompt_tokens(core, text: str):
@@ -454,10 +820,7 @@ def check_model_logits(core, text: str) -> dict:
     seq = prompt_tokens(core, text)
     n = seq.shape[1]
     S = -(-n // 128) * 128
-    shape = (spec.num_layers, spec.num_kv_heads, 1 + S // ps + 1, ps,
-             spec.head_dim)
-    kp = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
-    vp = torch.zeros_like(kp)
+    kp, vp = empty_pools(core, 1 + S // ps + 1)
     pt = torch.arange(1, 2 + S // ps, dtype=torch.int32, device=dev)[None]
     tok = torch.zeros((1, S), dtype=torch.int32, device=dev)
     tok[:, :n] = seq
@@ -473,7 +836,7 @@ def check_model_logits(core, text: str) -> dict:
             torch.tensor([n], dtype=torch.int32, device=dev), kp, vp, pt,
         )
         nxt_t = torch.tensor([[nxt]], dtype=torch.int32, device=dev)
-        compare("decode", got, torch.cat([seq, nxt_t], 1))
+        compare("decode", got, torch.cat([seq, nxt_t], 1), pooled_from=n)
     return compare.report
 
 
@@ -494,9 +857,7 @@ def check_suffix_logits(core, text: str) -> dict:
     n = seq.shape[1]
     bucket = lambda m: -(-m // 128) * 128  # noqa: E731
     P = 1 + 4 * (bucket(n) // ps + 1)
-    shape = (spec.num_layers, spec.num_kv_heads, P, ps, spec.head_dim)
-    kp = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
-    vp = torch.zeros_like(kp)
+    kp, vp = empty_pools(core, P)
     free = iter(range(1, P))
 
     def take(count):
@@ -531,7 +892,7 @@ def check_suffix_logits(core, text: str) -> dict:
                 vp, i32([own[: S // ps + int(unaligned)]]),
                 i32([shared + own]), unaligned=unaligned,
             )
-            compare(what, got, seq)
+            compare(what, got, seq, pooled_from=start)
     return compare.report
 
 
@@ -588,14 +949,23 @@ def kernel_wrappers() -> dict:
     )
     from vgate_tpu_torch.ops.kernels.paged_decode import (
         paged_decode_attention,
+        paged_decode_attention_int8,
     )
     from vgate_tpu_torch.ops.kernels.paged_multitok import (
         paged_multitok_attention,
+        paged_multitok_attention_int8,
+    )
+    from vgate_tpu_torch.ops.kernels.quant_matmul import (
+        int4_matmul,
+        int8_matmul,
     )
 
     return {w.__name__: w for w in (paged_decode_attention,
                                     flash_prefill_attention,
-                                    paged_multitok_attention)}
+                                    paged_multitok_attention,
+                                    paged_decode_attention_int8,
+                                    paged_multitok_attention_int8,
+                                    int8_matmul, int4_matmul)}
 
 
 def reset_launches() -> None:
@@ -627,12 +997,15 @@ def check_settled(core) -> dict:
     return stats
 
 
-def engine_config(model: str, device: str, **device_section):
+def engine_config(model: str, device: str, quantization=None,
+                  kv_dtype: str = "auto", **device_section):
     from vgate_tpu_torch.config import load_config
 
     return load_config(
         model={"model_id": model, "engine_type": "torch_cuda",
-               "dtype": "bfloat16", "max_model_len": 2048},
+               "dtype": "bfloat16", "max_model_len": 2048,
+               "quantization": quantization},
+        kv_cache={"dtype": kv_dtype},
         device={"device": device, **device_section},
         logging={"level": "WARNING"},
     )
@@ -721,6 +1094,7 @@ def main_path(model: str = MODEL, device: str = "cuda",
             "profile": profile,
             "launches": launches,
             "reference_streams": [r.token_ids for r in reference],
+            "burst_streams": [r.token_ids for r in results],
         }
     finally:
         engine.shutdown()
@@ -772,20 +1146,6 @@ def prefix_path(model: str = MODEL, device: str = "cuda",
         check(pc["hit_tokens"] > 0, f"no prefix hit: {pc}")
         check(pc["cow_copies"] >= 1, f"no copy-on-write: {pc}")
         check(pc["chunked_prefills"] >= 1, f"no chunked prefill: {pc}")
-        agreement = None
-        if reference_streams:
-            pairs = list(zip((r.token_ids for r in results),
-                             reference_streams))
-            common = [next((i for i, (x, y) in enumerate(zip(a, b))
-                            if x != y), min(len(a), len(b)))
-                      for a, b in pairs]
-            agreement = {
-                "same_stream": f"{sum(a == b for a, b in pairs)}/"
-                               f"{len(pairs)}",
-                "same_first_token": f"{sum(c > 0 for c in common)}/"
-                                    f"{len(pairs)}",
-                "common_prefix_tokens": common,
-            }
         return {
             "requests": len(results) + 1,
             "wall_s": wall,
@@ -794,12 +1154,203 @@ def prefix_path(model: str = MODEL, device: str = "cuda",
             "finish": [r.finish_reason for r in results]
             + [turn2.finish_reason],
             "prefix_cache": pc,
-            "agreement_with_prefix_off": agreement,
+            "agreement_with_prefix_off": agreement(
+                [r.token_ids for r in results], reference_streams
+            ) if reference_streams else None,
             "launches": launches,
             "logits": check_suffix_logits(core, system + tails[0]),
         }
     finally:
         engine.shutdown()
+
+
+def agreement(streams, reference_streams) -> dict:
+    """How far two lists of greedy streams agree (printed, not checked:
+    random weights make near-ties common, and any rounding difference
+    can flip one)."""
+    pairs = list(zip(streams, reference_streams))
+    common = [next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                   min(len(a), len(b))) for a, b in pairs]
+    return {
+        "same_stream": f"{sum(a == b for a, b in pairs)}/{len(pairs)}",
+        "same_first_token": f"{sum(c > 0 for c in common)}/{len(pairs)}",
+        "common_prefix_tokens": common,
+    }
+
+
+def check_quant_launches(launches: dict, steps: int, bits: int,
+                         layers: int) -> dict:
+    """The exact launch counts of a quantized run: K2, K1-int8 and
+    K3-int8 launch once per layer of each pass (prompt, decode step,
+    suffix pass); the dequant matmul of ``bits`` launches 7 times per
+    layer and once for the lm_head per pass (197 at 28 layers); no
+    bf16-pool K1/K3 and no launch of the other matmul; one K1-int8 pass
+    per decode step the engine counted."""
+    per_pass = 7 * layers + 1
+    attn = {name: launches[name] for name in (
+        "flash_prefill_attention", "paged_decode_attention_int8",
+        "paged_multitok_attention_int8")}
+    for name, n in attn.items():
+        check(n % layers == 0, f"{name}: {n} launches, not whole passes")
+    passes = sum(attn.values()) // layers
+    mine, other = (("int8_matmul", "int4_matmul") if bits == 8
+                   else ("int4_matmul", "int8_matmul"))
+    check(launches[mine] == per_pass * passes,
+          f"{mine}: {launches[mine]} launches for {passes} passes, not "
+          f"{per_pass} each")
+    check(launches[other] == 0, f"{other} launched in the int{bits} phase")
+    for name in ("paged_decode_attention", "paged_multitok_attention"):
+        check(launches[name] == 0, f"bf16-pool {name} launched on int8 pools")
+    check(attn["paged_decode_attention_int8"] == layers * steps,
+          f"K1-int8 launched {attn['paged_decode_attention_int8']} times for "
+          f"{steps} decode steps")
+    check(attn["flash_prefill_attention"] > 0, "no prompt pass (K2)")
+    return {"forward_passes": passes, "decode_steps": steps}
+
+
+def page_capacity(core) -> dict:
+    """Pages ``auto_num_pages`` gives for bf16 and for int8 pools at ONE
+    budget: 0.9 of the card's memory less the loaded weights."""
+    from vgate_tpu_torch.ops.kv_quant import SCALE_BYTES
+    from vgate_tpu_torch.runtime.kv_cache import auto_num_pages
+
+    weights = sum(t.numel() * t.element_size() for t in leaves(core.params))
+    total = torch.cuda.get_device_properties(core.device).total_memory
+    budget = 0.9 * total - weights
+    pages = {
+        name: auto_num_pages(core.spec, core.geometry.page_size, 0.9,
+                             core.device, dtype_bytes=db, scale_bytes=sb,
+                             hard_cap=1 << 30, budget_bytes=budget)
+        for name, db, sb in (("bf16", 2, 0), ("int8", 1, SCALE_BYTES))
+    }
+    ratio = pages["int8"] / pages["bf16"]
+    check(ratio >= 1.9, f"int8 pools hold only {ratio:.3f}x the bf16 pages")
+    return {"budget_gb": budget / 1e9, "weights_gb": weights / 1e9,
+            "pages": pages, "ratio": ratio}
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    elif isinstance(tree, tuple):  # QTensor / PackedQTensor
+        yield from tree
+    else:
+        yield tree
+
+
+def again_engine(core):
+    """``generate_batch`` over an EngineCore, as ``VGTEngine`` offers it."""
+    import types
+
+    return types.SimpleNamespace(
+        generate_batch=lambda texts, params: core.generate(texts, params)
+    )
+
+
+def quant_path(quantization: str, model: str = MODEL, device: str = "cuda",
+               with_prefix_traffic: bool = True, bf16_streams=None) -> dict:
+    """Quantized serving: ``quantization`` weights (int8 or int4) and
+    int8 KV pools, prefix cache on, chunked prefill at 512.  Serves the
+    9-request burst (cold prompts: K2, K1-int8 and K4/K5) and, with
+    ``with_prefix_traffic``, the prefix phase's prompts (hits, COW,
+    chunks: K3-int8), checks the exact launch counts and the logits
+    against a plain forward of the same quantized weights, then serves
+    the burst again on a fresh engine over the same weights and checks
+    that it repeats every token."""
+    from vgate_tpu_torch.backends.base import SamplingParams
+    from vgate_tpu_torch.runtime.engine_core import EngineCore
+
+    cfg = engine_config(model, device, quantization=quantization,
+                        kv_dtype="int8", prefill_chunk=512)
+    engine, core = start_engine(cfg, f"{quantization} weights + int8 KV")
+    bits = 8 if quantization == "int8" else 4
+    texts = prompts()
+    greedy = SamplingParams(max_tokens=32, temperature=0.0)
+    sampled = SamplingParams(max_tokens=32, temperature=0.8, top_p=0.9,
+                             top_k=50, seed=1234)
+    batch = (texts + [texts[3]], [greedy] * 8 + [sampled])
+    out = {"kv_dtype": core.get_stats()["kv_dtype"]}
+    try:
+        check(out["kv_dtype"] == "int8", f"kv_dtype {out['kv_dtype']}")
+        reset_launches()
+        results, cold = serve(engine, batch)
+        served = list(results)
+        if with_prefix_traffic:
+            system, tails, cow, long = prefix_texts()
+            served += engine.generate_batch([system + tails[0]], [greedy])
+            served += engine.generate_batch([system + t for t in tails[1:]],
+                                            [greedy] * 4)
+            served += engine.generate_batch([cow, long], [greedy] * 2)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = read_launches()
+        check_results(served, core)
+        stats = check_settled(core)
+        if device == "cuda":  # no kernel runs on the CPU
+            out["launch_counts"] = check_quant_launches(
+                launches, stats["steps"], bits, core.spec.num_layers)
+            if with_prefix_traffic:
+                check(launches["paged_multitok_attention_int8"] > 0,
+                      "K3-int8 was not launched on the prefix traffic")
+            out["capacity_at_one_budget"] = page_capacity(core)
+        pc = stats["prefix_cache"]
+        if with_prefix_traffic:
+            check(pc["hit_tokens"] > 0, f"no prefix hit: {pc}")
+            check(pc["cow_copies"] >= 1, f"no copy-on-write: {pc}")
+            check(pc["chunked_prefills"] >= 1, f"no chunked prefill: {pc}")
+        out.update({
+            "requests": len(served),
+            "cold_burst": cold,
+            "prefix_cache": pc,
+            "kv_pages": stats["kv_pages_total"],
+            "kv_token_capacity": stats["kv_token_capacity"],
+            "launches": launches,
+        })
+        if bf16_streams:
+            out["agreement_with_bf16_burst"] = agreement(
+                [r.token_ids for r in results[:8]], bf16_streams[:8])
+        out["logits"] = check_model_logits(core, texts[2])
+        if with_prefix_traffic:
+            system, tails, _, _ = prefix_texts()
+            out["logits"].update(check_suffix_logits(core,
+                                                     system + tails[0]))
+        params = core.params
+    finally:
+        engine.shutdown()
+    del engine, core
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # the same burst on a fresh engine over the same weights: the same
+    # cold path, so every token must repeat (a second burst on the first
+    # engine would hit its prefix cache and take another path)
+    again = EngineCore(cfg, params=params)
+    again.start()
+    try:
+        repeat = again.generate(*batch)
+        if device == "cuda":
+            # where the time goes in a warm burst (its prompts now hit)
+            out["profile"] = profile_burst(again_engine(again), batch)
+    finally:
+        again.stop()
+    for a, b in zip(results, repeat):
+        check(a.token_ids == b["token_ids"],
+              f"int{bits}: tokens differ between two identical bursts")
+    del again, params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def print_profile(what: str, card: str, profile: dict) -> None:
+    print(f"profile of {what} on {card}: busy "
+          f"{profile['device_busy_ms']:.1f} of {profile['wall_ms']:.1f} ms "
+          f"wall ({100 * profile['device_busy_share']:.1f} %), "
+          f"{profile['device_ops']} device ops", flush=True)
+    for t in profile["top"]:
+        print(f"  {t['ms']:9.2f} ms  {t['count']:6d}x  {t['name']}")
 
 
 def main() -> None:
@@ -827,6 +1378,10 @@ def main() -> None:
 
     kernels = [check_paged_decode(dev), check_flash_prefill(dev),
                check_paged_multitok(dev)]
+    torch.cuda.empty_cache()
+    kernels += [check_paged_decode_int8(dev), check_paged_multitok_int8(dev)]
+    torch.cuda.empty_cache()
+    kernels += [check_quant_matmul(dev, 8), check_quant_matmul(dev, 4)]
     for k in kernels:
         print(f"kernel {k['name']} [{k['shape']}]: err {k['max_abs_err']:.3g}"
               f" ms {k['ms']:.4f} plain {k['plain_ms']:.4f} bound "
@@ -834,29 +1389,45 @@ def main() -> None:
               f"{k['library_ms']}", flush=True)
     torch.cuda.empty_cache()
 
+    def memory(after: str) -> None:
+        print(f"memory allocated after {after}: "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+
+    memory("the kernel checks")
     system, tails, cow, long = prefix_texts()
     served = main_path(
         reference_prompts=[system + t for t in tails] + [cow, long]
     )
     reference_streams = served.pop("reference_streams")
+    bf16_burst = served.pop("burst_streams")
     profile = served.pop("profile")
     print(f"main path on {card}: " + json.dumps(served), flush=True)
-    print(f"profile of one warm burst on {card}: busy "
-          f"{profile['device_busy_ms']:.1f} of {profile['wall_ms']:.1f} ms "
-          f"wall ({100 * profile['device_busy_share']:.1f} %), "
-          f"{profile['device_ops']} device ops", flush=True)
-    for t in profile["top"]:
-        print(f"  {t['ms']:9.2f} ms  {t['count']:6d}x  {t['name']}")
-    # the prefix-off engine's pools were sized from free memory: release
-    # them before the second engine sizes its own
+    print_profile("one warm burst", card, profile)
+    # each engine's pools were sized from free memory: release them
+    # before the next engine sizes its own
     gc.collect()
     torch.cuda.empty_cache()
+    memory("the prefix-off phase")
     prefix = prefix_path(reference_streams=reference_streams)
     print(f"prefix path on {card}: " + json.dumps(prefix), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory("the prefix phase")
+    runs = [served, prefix]
+    for quantization, traffic in (("int8", True), ("int4", False)):
+        quant = quant_path(quantization, with_prefix_traffic=traffic,
+                           bf16_streams=bf16_burst)
+        qprofile = quant.pop("profile")
+        print(f"{quantization} weights + int8 KV on {card}: "
+              + json.dumps(quant), flush=True)
+        print_profile(f"{quantization} weights, a warm burst", card,
+                      qprofile)
+        runs.append(quant)
+        memory(f"the {quantization} phase")
     for k in kernels:
-        # launches of both paths, each counted from 0 just before it ran
-        k["launches"] = (served["launches"][k["name"]]
-                         + prefix["launches"][k["name"]])
+        # launches of every path, each counted from 0 just before it ran
+        k["launches"] = sum(run["launches"].get(k["name"], 0)
+                            for run in runs)
         del k["shape"]
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -34,13 +34,12 @@ def test_defaults_and_sections():
         {"device": {"sp": 2}},
         {"device": {"pp": 2}},
         {"device": {"ep": 2}},
-        {"model": {"quantization": "int8"}},
         {"model": {"draft_model_id": "tiny-dense"}},
-        {"kv_cache": {"dtype": "int8"}},
-        {"kv_cache": {"dtype": "bf16"}},
         {"kv_cache": {"host_swap_bytes": 1 << 20}},
         {"model": {"model_id": "tiny-moe"}},
         {"model": {"model_id": "tiny-gemma2"}},
+        {"device": {"int8_native": True}},
+        {"model": {"model_id": "tiny-moe", "quantization": "int8"}},
     ],
     ids=lambda s: next(iter(s.values())).__repr__()[:40],
 )
@@ -71,6 +70,28 @@ def test_ported_switches_accepted(sections):
     )
 
 
+@pytest.mark.parametrize(
+    "sections",
+    [
+        {"model": {"quantization": "int8"}},
+        {"kv_cache": {"dtype": "int8"}},
+        {"kv_cache": {"dtype": "bf16"}},
+        {"model": {"quantization": "int4"}, "kv_cache": {"dtype": "int8"}},
+    ],
+    ids=lambda s: next(iter(s.values())).__repr__()[:40],
+)
+def test_quantized_serving_switches_accepted(sections):
+    """Quantized serving (int8/int4 weights, int8 or bf16 pools) is
+    ported: the config takes the reference's values as they are."""
+    model = {"model_id": "tiny-dense", **sections.get("model", {})}
+    cfg = load_config(model=model, kv_cache=sections.get("kv_cache", {}))
+    assert cfg.model.quantization == model.get("quantization")
+    assert cfg.kv_cache.dtype == sections.get("kv_cache", {}).get(
+        "dtype", "auto"
+    )
+    assert cfg.device.int8_native is False
+
+
 def test_prefix_cache_defaults_match_the_reference():
     """The port's default is the reference's: prefix cache on, radix +
     COW, the same knobs; a bare False is the master switch."""
@@ -98,6 +119,8 @@ def test_prefix_cache_fields_are_validated(prefix_cache):
         {"tpu": {"kv_page_size": 4}},  # the reference's section name
         {"model": {"engine_type": "jax_tpu"}},
         {"model": {"dtype": "float16"}},
+        {"model": {"quantization": "int3"}},
+        {"kv_cache": {"dtype": "fp8"}},
     ],
 )
 def test_unknown_keys_and_values_raise(sections):

@@ -12,7 +12,11 @@ Tolerance: bf16 kernel output vs the fp32 plain version on the same bf16
 inputs, atol = rtol = 1e-2 — about one bf16 ulp of the output plus
 reordered fp32 sums (and, in the tensor-core kernels, the softmax
 weights rounded to bf16 before the PV product); f32 pools (paged decode
-only), atol = rtol = 1e-4 — fp32 sums in another order.
+only), atol = rtol = 1e-4 — fp32 sums in another order.  The int8 pool
+modes (K1-int8, K3-int8) are held to the same 1e-2 against the plain
+version on the dequantized pools.  The dequant matmuls (K4, K5) with f32
+out: atol = rtol = 1e-3 — bf16 x int8 products are exact in fp32, so
+only the order of a few thousand fp32 additions differs.
 """
 
 import numpy as np
@@ -20,14 +24,17 @@ import pytest
 import torch
 
 from vgate_tpu_torch.ops import attention as tatt
+from vgate_tpu_torch.ops import kv_quant, quant
 from vgate_tpu_torch.ops.kernels import (
     flash_prefill,
     paged_decode,
     paged_multitok,
+    quant_matmul,
 )
 
 KERNEL_TOL = 1e-2
 F32_TOL = 1e-4
+QMM_F32_TOL = 1e-3
 
 
 @pytest.fixture
@@ -177,3 +184,133 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
             paged_multitok.paged_multitok_attention(
                 bad_q, bad_pool, bad_pool, pt, lens, lens
             )
+
+
+def _int8_pool(rng, shape, dev, L=None):
+    """A QuantPages pool of quantized normal values ([L, ...] with L)."""
+    full = shape if L is None else (L, *shape)
+    vals = torch.from_numpy(rng.normal(size=full).astype(np.float32))
+    q8, s = kv_quant.quantize(vals)
+    return kv_quant.QuantPages(q8.to(dev), s.to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,H,KV,kw", [
+    (128, 28, 4, {}), (64, 8, 4, {"window": 40}),
+    (256, 16, 2, {"softcap": 30.0, "scale": 0.1}),
+])
+def test_paged_decode_int8_kernel_matches_plain_on_card(cuda, hd, H, KV, kw):
+    """K1-int8 on a layer view of [L]-pools: idle slot (length 1 on the
+    trash page), unaligned lengths, window and softcap."""
+    rng = np.random.default_rng(hd + H)
+    B, ps, pps = 6, 16, 8
+    P = 1 + B * pps
+    k = _int8_pool(rng, (KV, P, ps, hd), cuda, L=2)[1]
+    v = _int8_pool(rng, (KV, P, ps, hd), cuda, L=2)[1]
+    q = _bf16(rng, (B, H, hd), cuda)
+    pt = torch.from_numpy(
+        rng.permutation(np.arange(1, P)).reshape(B, pps).astype(np.int32)
+    ).to(cuda)
+    pt[0] = 0  # an idle slot reads only the trash page
+    lens = torch.tensor([1, 15, 16, 17, 100, 128], dtype=torch.int32,
+                        device=cuda)
+    before = (paged_decode.paged_decode_attention.launches,
+              paged_decode.paged_decode_attention_int8.launches)
+    got = paged_decode.paged_decode_attention(q, k, v, pt, lens, **kw)
+    torch.cuda.synchronize()
+    assert (paged_decode.paged_decode_attention.launches,
+            paged_decode.paged_decode_attention_int8.launches) == (
+        before[0], before[1] + 1)
+    window = kw.pop("window", None)
+    expect = tatt.paged_decode_attention(q.float(), k, v, pt, lens,
+                                         window=window, **kw)
+    torch.testing.assert_close(got.float(), expect, atol=KERNEL_TOL,
+                               rtol=KERNEL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(K3_CASES)))
+def test_paged_multitok_int8_kernel_matches_plain_on_card(cuda, case):
+    hd, H, KV, ps, S, pos0, lens, kw = K3_CASES[case]
+    kw = dict(kw)
+    rng = np.random.default_rng(44 + case)
+    B = len(pos0)
+    ctx_pages = -(-(max(pos0) + S) // ps)
+    P = 1 + B * ctx_pages
+    q = _bf16(rng, (B, S, H, hd), cuda)
+    k = _int8_pool(rng, (KV, P, ps, hd), cuda, L=2)[0]
+    v = _int8_pool(rng, (KV, P, ps, hd), cuda, L=2)[0]
+    pt = torch.from_numpy(
+        rng.permutation(np.arange(1, P)).reshape(B, ctx_pages)
+        .astype(np.int32)
+    ).to(cuda)
+    p0 = torch.tensor(pos0, dtype=torch.int32, device=cuda)
+    il = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = (paged_multitok.paged_multitok_attention.launches,
+              paged_multitok.paged_multitok_attention_int8.launches)
+    got = paged_multitok.paged_multitok_attention(q, k, v, pt, p0, il, **kw)
+    torch.cuda.synchronize()
+    assert (paged_multitok.paged_multitok_attention.launches,
+            paged_multitok.paged_multitok_attention_int8.launches) == (
+        before[0], before[1] + 1)
+    assert bool(torch.isfinite(got).all())
+    window = kw.pop("window", None)
+    expect = tatt.paged_suffix_attention(q.float(), k, v, pt, p0, p0 + il,
+                                         window=window, **kw)
+    real = torch.arange(S, device=cuda)[None, :] < il[:, None]
+    torch.testing.assert_close(got.float()[real], expect[real],
+                               atol=KERNEL_TOL, rtol=KERNEL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("rows", [1, 7, 32, 33, 200])
+def test_quant_matmul_kernels_match_plain_on_card(cuda, bits, rows):
+    """K4/K5 at ragged row counts (split k at small ones), bf16 and f32
+    out, against their plain versions on the same inputs."""
+    rng = np.random.default_rng(rows + bits)
+    in_dim, out = 512, 192
+    w = torch.from_numpy(rng.normal(size=(in_dim, out)).astype(np.float32))
+    qw = quant.quantize_tensor(w * 0.05, bits)
+    qw = type(qw)(*(t.to(cuda) for t in qw))
+    x = _bf16(rng, (rows, in_dim), cuda)
+    fn, plain, vals = (
+        (quant_matmul.int8_matmul, quant_matmul.int8_matmul_plain, qw.q)
+        if bits == 8 else
+        (quant_matmul.int4_matmul, quant_matmul.int4_matmul_plain,
+         qw.q_packed)
+    )
+    before = fn.launches
+    for out_dtype, tol in ((torch.float32, QMM_F32_TOL),
+                           (torch.bfloat16, KERNEL_TOL)):
+        got = fn(x, vals, qw.scale, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and got.shape == (rows, out)
+        expect = plain(x, vals, qw.scale, out_dtype=torch.float32)
+        torch.testing.assert_close(got.float(), expect, atol=tol, rtol=tol)
+    assert fn.launches == before + 2
+    # weighted_einsum takes the kernel for the decoder's form
+    got = quant.weighted_einsum("...d,dh->...h", x[None], qw)
+    assert fn.launches == before + 3 and got.shape == (1, rows, out)
+
+
+@pytest.mark.cuda
+def test_quant_matmul_refuses_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(4, 96, dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros(96, 128, dtype=torch.int8, device=cuda)  # in % 64
+    s = torch.ones(128, device=cuda)
+    with pytest.raises(ValueError):
+        quant_matmul.int8_matmul(x, q, s)
+    x = torch.zeros(4, 128, dtype=torch.bfloat16, device=cuda)
+    q = torch.zeros(128, 100, dtype=torch.int8, device=cuda)  # out % 64
+    with pytest.raises(ValueError):
+        quant_matmul.int8_matmul(x, q, torch.ones(100, device=cuda))
+    with pytest.raises(ValueError):  # f16 activations
+        quant_matmul.int4_matmul(
+            x.half(), torch.zeros(64, 128, dtype=torch.uint8, device=cuda),
+            torch.ones(128, device=cuda),
+        )
+    stacked = quant.quantize_stacked(torch.zeros(2, 128, 64, device=cuda))
+    with pytest.raises(ValueError):  # no kernel for a stacked weight
+        quant.weighted_einsum("lbd,ldh->lbh", x[None].expand(2, 4, 128),
+                              stacked)

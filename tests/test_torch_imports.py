@@ -45,6 +45,9 @@ def test_port_and_chip_smoke_import_no_jax():
         "vgate_tpu_torch.runtime.engine_core",
         "vgate_tpu_torch.ops.kernels.paged_decode",
         "vgate_tpu_torch.ops.kernels.flash_prefill",
+        "vgate_tpu_torch.ops.kernels.quant_matmul",
+        "vgate_tpu_torch.ops.quant",
+        "vgate_tpu_torch.ops.kv_quant",
         "vgate_tpu_torch.backends.torch_backend",
         "vgate_tpu_torch.engine",
     ):

@@ -22,6 +22,8 @@ from typing import Any, Dict, List, Optional
 
 VALID_ENGINE_TYPES = ("torch_cuda", "dry_run")
 VALID_DTYPES = ("bfloat16", "float32")
+VALID_QUANTIZATION = ("int8", "int4")
+VALID_KV_DTYPES = ("auto", "bf16", "int8")
 
 
 class NotPortedError(ValueError):
@@ -36,6 +38,11 @@ class ModelConfig:
     checkpoint_path: Optional[str] = None
     tokenizer_path: Optional[str] = None
     dtype: str = "bfloat16"
+    # weight-only int8/int4 (ops/quant.py), quantized at load; on the
+    # card every quantized projection runs the dequant-matmul kernels
+    # (K4/K5).  The reference also keeps a ``tpu.quant_kernel`` switch,
+    # off by default only because its TPU compiler hung on those kernels;
+    # nothing here has that fault, so the port has no such switch.
     quantization: Optional[str] = None
     max_model_len: int = 2048
     draft_model_id: Optional[str] = None
@@ -95,6 +102,8 @@ class DeviceConfig:
     # reference switches the port cannot serve yet: any non-default
     # value raises NotPortedError (see _check)
     speculative_k: int = 0
+    # W8A8 (dynamic int8 activations): pure jnp in the reference
+    int8_native: bool = False
     dp: int = 1
     tp: int = 1
     sp: int = 1
@@ -104,7 +113,13 @@ class DeviceConfig:
 
 @dataclass
 class KVCacheConfig:
-    dtype: str = "auto"  # pools store the model dtype; int8 not ported
+    """What the KV pages hold (the reference's ``kv_cache`` section):
+    ``auto`` the model dtype, ``bf16`` bf16 whatever the model dtype,
+    ``int8`` int8 K/V plus one bf16 scale per (page, head, slot),
+    quantized on write (ops/kv_quant.py) — ~1.97x the bf16 page count
+    for one budget at head_dim 128."""
+
+    dtype: str = "auto"
     host_swap_bytes: int = 0
 
 
@@ -179,15 +194,17 @@ def _check(cfg: VGTConfig) -> None:
         raise ValueError(
             f"model.dtype must be one of {VALID_DTYPES}, got {m.dtype!r}"
         )
-    if m.quantization:
-        raise _not_ported(
-            f"model.quantization={m.quantization!r}", "queue 1, item 9"
+    if m.quantization is not None and m.quantization not in VALID_QUANTIZATION:
+        raise ValueError(
+            f"model.quantization must be one of {VALID_QUANTIZATION} or "
+            f"None, got {m.quantization!r}"
         )
     if m.draft_model_id:
         raise _not_ported("model.draft_model_id", "queue 1, item 8")
-    if cfg.kv_cache.dtype != "auto":
-        raise _not_ported(
-            f"kv_cache.dtype={cfg.kv_cache.dtype!r}", "queue 1, item 9"
+    if cfg.kv_cache.dtype not in VALID_KV_DTYPES:
+        raise ValueError(
+            f"kv_cache.dtype must be one of {VALID_KV_DTYPES}, got "
+            f"{cfg.kv_cache.dtype!r}"
         )
     if cfg.kv_cache.host_swap_bytes:
         raise _not_ported("kv_cache.host_swap_bytes", "queue 1, item 5")
@@ -198,6 +215,8 @@ def _check(cfg: VGTConfig) -> None:
         raise ValueError("prefix_cache.evict_watermark must be in [0, 1)")
     if d.speculative_k > 0:
         raise _not_ported("device.speculative_k", "queue 1, item 8")
+    if d.int8_native:
+        raise _not_ported("device.int8_native (W8A8)", "queue 1, item 9")
     for axis in ("dp", "tp", "sp", "pp", "ep"):
         # tp=0 is the reference's "all devices", one device here
         if getattr(d, axis) > 1:
@@ -205,6 +224,11 @@ def _check(cfg: VGTConfig) -> None:
     if d.kv_page_size <= 0 or d.max_batch_slots <= 0:
         raise ValueError("kv_page_size and max_batch_slots must be > 0")
     spec = spec_for_model_id(m.model_id)
+    if spec.is_moe and m.quantization:
+        raise _not_ported(
+            f"model.quantization={m.quantization!r} of MoE model "
+            f"{spec.name} (expert quantization)", "queue 1, item 9"
+        )
     if spec.is_moe:
         raise _not_ported(f"MoE model {spec.name}", "queue 1, item 9")
     if spec.is_encoder:

@@ -9,6 +9,14 @@
 // only in where a key tile's rows come from (contiguous rows for K2, rows
 // gathered through a page table for K3) and in their masks' parameters.
 //
+// K3's int8 mode (int8 pools with per-token bf16 scales) instantiates the
+// same loop with Q8 = true: its K and V tiles hold the raw int8 values
+// widened to bf16 UNSCALED (exact: |v| <= 127), the products run as
+// before, and the scales fold in as the TPU kernel folds them: the K
+// scale multiplies each score column in fp32 before softcap and mask, the
+// V scale multiplies the softmax weight after the row sum took the
+// unweighted p.  K2's instantiation (Q8 = false) is unchanged.
+//
 // Masked scores take the reference's -1e30 sentinel and the output divides
 // by max(l, 1e-30), so a fully masked row yields finite garbage, never NaN,
 // exactly as the TPU kernels do.
@@ -104,12 +112,15 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 // loading them).  Query row r (0..63) of the tile sits at global position
 // q_start + r; key column c at k_start + c.  A key is visible when
 // k_pos <= q_pos, k_pos < seq_len and, with window > 0, q_pos - k_pos <
-// window.
-template <int HD>
+// window.  With Q8, ks[c] and vs[c] (shared memory) are key column c's K
+// and V scales.
+template <int HD, bool Q8 = false>
 __device__ __forceinline__ void attend_tile(const Tile<HD>& t, int k_start,
                                             int q_start, int seq_len,
                                             int window, float scale,
-                                            float softcap) {
+                                            float softcap,
+                                            const float* ks = nullptr,
+                                            const float* vs = nullptr) {
   using L = Smem<HD>;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -150,6 +161,7 @@ __device__ __forceinline__ void attend_tile(const Tile<HD>& t, int k_start,
       const int col = half * 32 + c;
       const int k_pos = k_start + col;
       float s = t.s[r * L::LDS + col] * scale;
+      if constexpr (Q8) s *= ks[col];  // K scale: before softcap and mask
       if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
       bool ok = (k_pos <= q_pos) && (k_pos < seq_len);
       if (window > 0) ok = ok && (q_pos - k_pos < window);
@@ -164,8 +176,12 @@ __device__ __forceinline__ void attend_tile(const Tile<HD>& t, int k_start,
 #pragma unroll
     for (int c = 0; c < 32; ++c) {
       const float p = expf(sv[c] - m_new);
-      sum += p;
-      t.p[r * L::LDP + half * 32 + c] = __float2bfloat16(p);
+      sum += p;  // the unweighted p
+      if constexpr (Q8)  // V scale: into the weight of P V
+        t.p[r * L::LDP + half * 32 + c] =
+            __float2bfloat16(p * vs[half * 32 + c]);
+      else
+        t.p[r * L::LDP + half * 32 + c] = __float2bfloat16(p);
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     for (int c = half * (HD / 2); c < (half + 1) * (HD / 2); ++c)
@@ -218,11 +234,12 @@ __device__ __forceinline__ void store_rows(const Tile<HD>& t, bf16* out,
   }
 }
 
-// Set the dynamic shared-memory limit of `kern` once, then launch it.
-template <int HD, typename Kernel, typename... Args>
+// Set the dynamic shared-memory limit of `kern` once, then launch it with
+// the tile's shared memory plus `EXTRA` bytes after it.
+template <int HD, size_t EXTRA = 0, typename Kernel, typename... Args>
 cudaError_t launch_tiles(Kernel kern, bool& configured, dim3 grid,
                          cudaStream_t stream, Args... args) {
-  const size_t smem = Smem<HD>::bytes;
+  const size_t smem = Smem<HD>::bytes + EXTRA;
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

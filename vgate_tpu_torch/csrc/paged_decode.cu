@@ -1,10 +1,13 @@
-// Paged decode attention for Hopper (sm_90a), bf16 or f32 pools.
+// Paged decode attention for Hopper (sm_90a), bf16 or f32 pools, and int8
+// pools with bf16 scales (kv_cache.dtype: int8).
 //
 // Replaces the TPU kernel vgate_tpu/ops/pallas/paged_attention.py
-// paged_decode_attention_pallas (body _kernel): one query token per slot
-// attends the slot's live KV pages through its page-table row, with an
-// online softmax; GQA, sliding window, logit softcap and a query scale.
-// Semantic spec: vgate_tpu_torch/ops/attention.py paged_decode_attention.
+// paged_decode_attention_pallas (body _kernel), in its plain and its int8
+// mode: one query token per slot attends the slot's live KV pages through
+// its page-table row, with an online softmax; GQA, sliding window, logit
+// softcap and a query scale.
+// Semantic spec: vgate_tpu_torch/ops/attention.py paged_decode_attention
+// (int8 pools dequantized by ops/kv_quant.py gather_pages).
 //
 // What bounds it on an H100: bytes.  A decode step reads every live K and
 // V token once (sum(seq_len) * KV * hd * 2 tensors * 2 bytes per layer in
@@ -23,6 +26,15 @@
 //    in flight;
 //  * scores, the running max/denominator and the PV accumulator are fp32;
 //    token groups and warps merge their partial softmax states at the end.
+//  * int8 pools (int8 mode): each lane reads its 8 int8 values of a token
+//    in one 8-byte load, so a 128-byte hd-128 row is one load per 16 lanes
+//    and the bytes per step halve; the token's K and V scales (bf16, one
+//    per (kv head, page, slot), read through the same page id) fold in
+//    exactly as the TPU kernel folds them: the K scale multiplies the
+//    score BEFORE softcap and mask (q . (k_q * s) == (q . k_q) * s), the V
+//    scale multiplies the softmax weight after the denominator took the
+//    unweighted p (sum p * (v_q * s) == sum (p * s) * v_q).  No
+//    dequantized K or V exists anywhere.
 // Not yet done (later work): split-K over pages (flash-decoding) for long
 // contexts with few slots, TMA/cp.async pipelining.
 //
@@ -32,6 +44,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -46,6 +60,7 @@ struct Elem;
 
 template <>
 struct Elem<__nv_bfloat16> {
+  using Raw = uint4;
   static constexpr int kVec = 8;
   __device__ static void to_float(const uint4& raw, float* out) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -63,6 +78,7 @@ struct Elem<__nv_bfloat16> {
 
 template <>
 struct Elem<float> {
+  using Raw = uint4;
   static constexpr int kVec = 4;
   __device__ static void to_float(const uint4& raw, float* out) {
     const float* f = reinterpret_cast<const float*>(&raw);
@@ -72,24 +88,43 @@ struct Elem<float> {
   __device__ static float from_float(float x) { return x; }
 };
 
-// T: pool/query type.  HD: head dim.  GMAX: compile-time bound on G
-// (query heads per kv head).
-template <typename T, int HD, int GMAX>
+// int8 pools: 8 values in an 8-byte load (a pool type only)
+template <>
+struct Elem<int8_t> {
+  using Raw = uint2;
+  static constexpr int kVec = 8;
+  __device__ static void to_float(const uint2& raw, float* out) {
+    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out[i] = (float)b[i];
+  }
+};
+
+// T: query/output type.  KT: pool type (T, or int8_t with scale pools).
+// HD: head dim.  GMAX: compile-time bound on G (query heads per kv head).
+template <typename T, typename KT, int HD, int GMAX>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_kernel(const T* __restrict__ q,            // [B, H, HD]
-                    const T* __restrict__ k_pages,      // [KV, P, ps, HD]
-                    const T* __restrict__ v_pages,
+                    const KT* __restrict__ k_pages,     // [KV, P, ps, HD]
+                    const KT* __restrict__ v_pages,
+                    const __nv_bfloat16* __restrict__ k_scale,  // [KV, P, ps]
+                    const __nv_bfloat16* __restrict__ v_scale,  // int8 only
                     const int* __restrict__ page_tables,  // [B, pps]
                     const int* __restrict__ seq_lens,     // [B]
                     T* __restrict__ out,                // [B, H, HD]
                     int H, int KV, int P, int ps, int pps, int G,
                     int window, float scale, float softcap) {
   using E = Elem<T>;
-  constexpr int VEC = E::kVec;       // elements per 16-byte load
-  // elements per lane: one 16-byte load, or more when a token is wider
-  // than 32 such loads (f32 at hd 256)
+  using KE = Elem<KT>;
+  using Raw = typename KE::Raw;
+  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
+  constexpr int VEC = KE::kVec;      // pool elements per load
+  // elements per lane: one load, or more when a token is wider than 32
+  // such loads (f32 at hd 256)
   constexpr int EPL = HD / 32 > VEC ? HD / 32 : VEC;
-  constexpr int NV = EPL / VEC;      // 16-byte loads per lane per token
+  constexpr int NV = EPL / VEC;      // pool loads per lane per token
+  constexpr int NQ = EPL / E::kVec;  // 16-byte query loads per lane
+  static_assert(EPL % E::kVec == 0, "query and pool slices must agree");
   constexpr int LPT = HD / EPL;      // lanes per token
   constexpr int TPW = 32 / LPT;      // tokens per warp per step
   constexpr int STRIDE = kWarps * TPW;
@@ -113,9 +148,9 @@ paged_decode_kernel(const T* __restrict__ q,            // [B, H, HD]
     if (h < G) {
       const T* qp = q + ((size_t)b * H + (size_t)g * G + h) * HD + li * EPL;
 #pragma unroll
-      for (int n = 0; n < NV; ++n)
-        E::to_float(*reinterpret_cast<const uint4*>(qp + n * VEC),
-                    qr[h] + n * VEC);
+      for (int n = 0; n < NQ; ++n)
+        E::to_float(*reinterpret_cast<const uint4*>(qp + n * E::kVec),
+                    qr[h] + n * E::kVec);
 #pragma unroll
       for (int e = 0; e < EPL; ++e) qr[h][e] *= scale;
     } else {
@@ -138,25 +173,32 @@ paged_decode_kernel(const T* __restrict__ q,            // [B, H, HD]
   // every lane of the warp reaches the shuffles below together
   for (int base0 = lo + warp * TPW; base0 < seq_len;
        base0 += STRIDE * kUnroll) {
-    uint4 kr[kUnroll][NV], vr[kUnroll][NV];
+    Raw kr[kUnroll][NV], vr[kUnroll][NV];
+    float ksc[kUnroll], vsc[kUnroll];  // the tokens' scales (int8 mode)
     bool valid[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int pos = base0 + tg + u * STRIDE;
       valid[u] = pos < seq_len;
+      ksc[u] = 0.f;
+      vsc[u] = 0.f;
 #pragma unroll
       for (int n = 0; n < NV; ++n) {
-        kr[u][n] = make_uint4(0, 0, 0, 0);
-        vr[u][n] = make_uint4(0, 0, 0, 0);
+        kr[u][n] = Raw{};
+        vr[u][n] = Raw{};
       }
       if (valid[u]) {
         const int page = pt_row[pos / ps];
-        const size_t off =
-            ((head_base + page) * ps + (pos % ps)) * HD + li * EPL;
+        const size_t row = (head_base + page) * ps + (pos % ps);
+        const size_t off = row * HD + li * EPL;
 #pragma unroll
         for (int n = 0; n < NV; ++n) {
-          kr[u][n] = *reinterpret_cast<const uint4*>(k_pages + off + n * VEC);
-          vr[u][n] = *reinterpret_cast<const uint4*>(v_pages + off + n * VEC);
+          kr[u][n] = *reinterpret_cast<const Raw*>(k_pages + off + n * VEC);
+          vr[u][n] = *reinterpret_cast<const Raw*>(v_pages + off + n * VEC);
+        }
+        if (kQuant) {
+          ksc[u] = __bfloat162float(k_scale[row]);
+          vsc[u] = __bfloat162float(v_scale[row]);
         }
       }
     }
@@ -165,8 +207,8 @@ paged_decode_kernel(const T* __restrict__ q,            // [B, H, HD]
       float kf[EPL], vf[EPL];
 #pragma unroll
       for (int n = 0; n < NV; ++n) {
-        E::to_float(kr[u][n], kf + n * VEC);
-        E::to_float(vr[u][n], vf + n * VEC);
+        KE::to_float(kr[u][n], kf + n * VEC);
+        KE::to_float(vr[u][n], vf + n * VEC);
       }
 #pragma unroll
       for (int h = 0; h < GMAX; ++h) {
@@ -179,14 +221,16 @@ paged_decode_kernel(const T* __restrict__ q,            // [B, H, HD]
         for (int o = LPT / 2; o > 0; o >>= 1)
           s += __shfl_xor_sync(0xffffffffu, s, o);
         if (!valid[u]) continue;
+        if (kQuant) s *= ksc[u];  // K scale: before softcap and mask
         if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
         const float m_new = fmaxf(m[h], s);
         const float alpha = expf(m[h] - m_new);
         const float p = expf(s - m_new);
-        l[h] = l[h] * alpha + p;
+        l[h] = l[h] * alpha + p;  // the unweighted p
+        const float pv = kQuant ? p * vsc[u] : p;  // V scale: into p
 #pragma unroll
         for (int e = 0; e < EPL; ++e)
-          acc[h][e] = fmaf(p, vf[e], acc[h][e] * alpha);
+          acc[h][e] = fmaf(pv, vf[e], acc[h][e] * alpha);
         m[h] = m_new;
       }
     }
@@ -248,13 +292,14 @@ paged_decode_kernel(const T* __restrict__ q,            // [B, H, HD]
   }
 }
 
-template <typename T, int HD, int GMAX>
+template <typename T, typename KT, int HD, int GMAX>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* pt, const int* sl, void* out, int B, int H,
-                   int KV, int P, int ps, int pps, int window, float scale,
-                   float softcap, cudaStream_t stream) {
+                   const void* ks, const void* vs, const int* pt,
+                   const int* sl, void* out, int B, int H, int KV, int P,
+                   int ps, int pps, int window, float scale, float softcap,
+                   cudaStream_t stream) {
   const size_t smem = sizeof(float) * kWarps * GMAX * (HD + 2);
-  auto kern = paged_decode_kernel<T, HD, GMAX>;
+  auto kern = paged_decode_kernel<T, KT, HD, GMAX>;
   static bool configured = false;  // once per instantiation
   if (smem > 48 * 1024 && !configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -264,29 +309,32 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   }
   dim3 grid(B, KV);
   kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pt, sl, static_cast<T*>(out), H, KV, P, ps,
-      pps, H / KV, window, scale, softcap);
+      static_cast<const T*>(q), static_cast<const KT*>(k),
+      static_cast<const KT*>(v), static_cast<const __nv_bfloat16*>(ks),
+      static_cast<const __nv_bfloat16*>(vs), pt, sl, static_cast<T*>(out),
+      H, KV, P, ps, pps, H / KV, window, scale, softcap);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, typename KT, int HD>
 cudaError_t launch_hd(const void* q, const void* k, const void* v,
-                      const int* pt, const int* sl, void* out, int B, int H,
-                      int KV, int P, int ps, int pps, int window, float scale,
+                      const void* ks, const void* vs, const int* pt,
+                      const int* sl, void* out, int B, int H, int KV, int P,
+                      int ps, int pps, int window, float scale,
                       float softcap, cudaStream_t stream) {
   const int G = H / KV;
   if (G <= 4)
-    return launch<T, HD, 4>(q, k, v, pt, sl, out, B, H, KV, P, ps, pps,
-                            window, scale, softcap, stream);
+    return launch<T, KT, HD, 4>(q, k, v, ks, vs, pt, sl, out, B, H, KV, P,
+                                ps, pps, window, scale, softcap, stream);
   if (G <= 8)
-    return launch<T, HD, 8>(q, k, v, pt, sl, out, B, H, KV, P, ps, pps,
-                            window, scale, softcap, stream);
+    return launch<T, KT, HD, 8>(q, k, v, ks, vs, pt, sl, out, B, H, KV, P,
+                                ps, pps, window, scale, softcap, stream);
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, typename KT>
 int dispatch(const void* q, const void* k_pages, const void* v_pages,
+             const void* k_scale, const void* v_scale,
              const void* page_tables, const void* seq_lens, void* out, int B,
              int H, int KV, int P, int ps, int pps, int hd, int window,
              float scale, float softcap, void* stream) {
@@ -296,14 +344,17 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
   if (B == 0) return cudaSuccess;
   switch (hd) {
     case 64:
-      return launch_hd<T, 64>(q, k_pages, v_pages, pt, sl, out, B, H, KV, P,
-                              ps, pps, window, scale, softcap, s);
+      return launch_hd<T, KT, 64>(q, k_pages, v_pages, k_scale, v_scale, pt,
+                                  sl, out, B, H, KV, P, ps, pps, window,
+                                  scale, softcap, s);
     case 128:
-      return launch_hd<T, 128>(q, k_pages, v_pages, pt, sl, out, B, H, KV, P,
-                               ps, pps, window, scale, softcap, s);
+      return launch_hd<T, KT, 128>(q, k_pages, v_pages, k_scale, v_scale, pt,
+                                   sl, out, B, H, KV, P, ps, pps, window,
+                                   scale, softcap, s);
     case 256:
-      return launch_hd<T, 256>(q, k_pages, v_pages, pt, sl, out, B, H, KV, P,
-                               ps, pps, window, scale, softcap, s);
+      return launch_hd<T, KT, 256>(q, k_pages, v_pages, k_scale, v_scale, pt,
+                                   sl, out, B, H, KV, P, ps, pps, window,
+                                   scale, softcap, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -319,12 +370,27 @@ extern "C" int vgt_paged_decode(const void* q, const void* k_pages,
                                 int window, float scale, float softcap,
                                 int dtype, void* stream) {
   if (dtype == 0)
-    return dispatch<__nv_bfloat16>(q, k_pages, v_pages, page_tables,
-                                   seq_lens, out, B, H, KV, P, ps, pps, hd,
-                                   window, scale, softcap, stream);
+    return dispatch<__nv_bfloat16, __nv_bfloat16>(
+        q, k_pages, v_pages, nullptr, nullptr, page_tables, seq_lens, out, B,
+        H, KV, P, ps, pps, hd, window, scale, softcap, stream);
   if (dtype == 1)
-    return dispatch<float>(q, k_pages, v_pages, page_tables, seq_lens, out,
-                           B, H, KV, P, ps, pps, hd, window, scale, softcap,
-                           stream);
+    return dispatch<float, float>(q, k_pages, v_pages, nullptr, nullptr,
+                                  page_tables, seq_lens, out, B, H, KV, P, ps,
+                                  pps, hd, window, scale, softcap, stream);
   return cudaErrorInvalidValue;
+}
+
+// int8 pools [KV, P, ps, hd] with bf16 scale pools [KV, P, ps]; q and the
+// output bf16
+extern "C" int vgt_paged_decode_int8(const void* q, const void* k_pages,
+                                     const void* v_pages, const void* k_scale,
+                                     const void* v_scale,
+                                     const void* page_tables,
+                                     const void* seq_lens, void* out, int B,
+                                     int H, int KV, int P, int ps, int pps,
+                                     int hd, int window, float scale,
+                                     float softcap, void* stream) {
+  return dispatch<__nv_bfloat16, int8_t>(
+      q, k_pages, v_pages, k_scale, v_scale, page_tables, seq_lens, out, B,
+      H, KV, P, ps, pps, hd, window, scale, softcap, stream);
 }

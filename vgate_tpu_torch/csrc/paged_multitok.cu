@@ -1,7 +1,9 @@
-// Paged multi-token attention for Hopper (sm_90a), bf16 in and out.
+// Paged multi-token attention for Hopper (sm_90a), bf16 in and out, over
+// bf16 pools or int8 pools with bf16 scales (kv_cache.dtype: int8).
 //
 // Replaces the TPU kernel vgate_tpu/ops/pallas/paged_attention.py
-// paged_multitok_attention_pallas (body _mt_kernel): S query rows per slot,
+// paged_multitok_attention_pallas (body _mt_kernel), in its plain and its
+// int8 mode: S query rows per slot,
 // row s at global position positions0[b] + s, attend the slot's paged
 // context through its page-table row.  Row s sees key t when
 // t <= positions0[b] + s and t < positions0[b] + input_lens[b] (causal
@@ -33,6 +35,11 @@
 //    the real suffix) write zeros and exit before loading anything;
 //  * key tiles above the tile's last row or wholly below the window of
 //    its first row are never loaded.
+//  * int8 pools: each 8-byte load of a row widens to bf16 in shared memory
+//    (exact), the row's K and V scales go beside the tile, and the tile
+//    loop folds them into the scores and the softmax weights
+//    (flash_tile.cuh, Q8) -- the pool bytes per key halve and no
+//    dequantized K or V tile exists.
 // Not yet done (later work): the G query heads of a kv head share no K/V
 // load (L2 serves the repeats), and the WMMA path reaches a fraction of
 // the peak, as K2's does.
@@ -41,6 +48,8 @@
 //
 // C interface (bound with ctypes): returns cudaGetLastError() after the
 // launch on the caller's stream; the kernel allocates nothing.
+
+#include <type_traits>
 
 #include "flash_tile.cuh"
 
@@ -69,19 +78,60 @@ __device__ __forceinline__ void gather_tile(bf16* dst,
   }
 }
 
+// the int8 twin of gather_tile: 8 int8 values a load widened to bf16
+// (unscaled), and the rows' scales into sc[0..kTile) (0 past seq_len)
 template <int HD>
+__device__ __forceinline__ void gather_tile_i8(
+    bf16* dst, float* sc, const int8_t* __restrict__ pool,
+    const bf16* __restrict__ scale_pool, const int* __restrict__ pt_row,
+    int k_start, int seq_len, int ps) {
+  constexpr int VPR = HD / 8;  // 8-byte vectors per row
+  for (int i = threadIdx.x; i < kTile * VPR; i += kThreads) {
+    const int r = i / VPR;
+    const int c = (i % VPR) * 8;
+    const int pos = k_start + r;
+    uint2 raw = make_uint2(0, 0);
+    if (pos < seq_len) {
+      const size_t row = (size_t)pt_row[pos / ps] * ps + pos % ps;
+      raw = *reinterpret_cast<const uint2*>(pool + row * HD + c);
+    }
+    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+    __align__(16) bf16 w[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) w[e] = __float2bfloat16_rn((float)b[e]);
+    *reinterpret_cast<uint4*>(dst + r * Smem<HD>::LDQ + c) =
+        *reinterpret_cast<const uint4*>(w);
+  }
+  for (int r = threadIdx.x; r < kTile; r += kThreads) {
+    const int pos = k_start + r;
+    sc[r] = pos < seq_len
+                ? __bfloat162float(
+                      scale_pool[(size_t)pt_row[pos / ps] * ps + pos % ps])
+                : 0.f;
+  }
+}
+
+// KT: the pool type, bf16 or int8_t (then k_scale/v_scale are the bf16
+// scale pools [KV, P, ps] and two kTile float rows follow the tile's
+// shared memory)
+template <int HD, typename KT>
 __global__ void __launch_bounds__(kThreads)
 paged_multitok_kernel(const bf16* __restrict__ q,        // [B, S, H, HD]
-                      const bf16* __restrict__ k_pages,  // [KV, P, ps, HD]
-                      const bf16* __restrict__ v_pages,
+                      const KT* __restrict__ k_pages,    // [KV, P, ps, HD]
+                      const KT* __restrict__ v_pages,
+                      const bf16* __restrict__ k_scale,  // int8 only
+                      const bf16* __restrict__ v_scale,
                       const int* __restrict__ page_tables,  // [B, ctx_pages]
                       const int* __restrict__ positions0,   // [B]
                       const int* __restrict__ input_lens,   // [B]
                       bf16* __restrict__ out,            // [B, S, H, HD]
                       int S, int H, int KV, int P, int ps, int ctx_pages,
                       int window, float scale, float softcap) {
+  constexpr bool Q8 = std::is_same<KT, int8_t>::value;
   extern __shared__ __align__(128) unsigned char smem[];
   Tile<HD> t(smem);
+  float* ks = reinterpret_cast<float*>(smem + Smem<HD>::bytes);  // Q8 only
+  float* vs = ks + kTile;
 
   const int qt = blockIdx.x;
   const int h = blockIdx.y;
@@ -106,8 +156,8 @@ paged_multitok_kernel(const bf16* __restrict__ q,        // [B, S, H, HD]
   const int seq_len = min(pos0 + input_len, ctx_pages * ps);
   const int q_start = pos0 + row0;  // global position of tile row 0
   const int* pt_row = page_tables + (size_t)b * ctx_pages;
-  const bf16* k_head = k_pages + (size_t)kvh * P * ps * HD;
-  const bf16* v_head = v_pages + (size_t)kvh * P * ps * HD;
+  const KT* k_head = k_pages + (size_t)kvh * P * ps * HD;
+  const KT* v_head = v_pages + (size_t)kvh * P * ps * HD;
 
   load_tile<HD>(t.q, q + (((size_t)b * S + row0) * H + h) * HD,
                 (size_t)H * HD, n_rows);
@@ -124,28 +174,69 @@ paged_multitok_kernel(const bf16* __restrict__ q,        // [B, S, H, HD]
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k_start = kt * kTile;
     __syncthreads();  // previous tile fully consumed
-    gather_tile<HD>(t.k, k_head, pt_row, k_start, seq_len, ps);
-    gather_tile<HD>(t.v, v_head, pt_row, k_start, seq_len, ps);
+    if constexpr (Q8) {
+      const size_t sc_head = (size_t)kvh * P * ps;
+      gather_tile_i8<HD>(t.k, ks, k_head, k_scale + sc_head, pt_row, k_start,
+                         seq_len, ps);
+      gather_tile_i8<HD>(t.v, vs, v_head, v_scale + sc_head, pt_row, k_start,
+                         seq_len, ps);
+    } else {
+      gather_tile<HD>(t.k, k_head, pt_row, k_start, seq_len, ps);
+      gather_tile<HD>(t.v, v_head, pt_row, k_start, seq_len, ps);
+    }
     __syncthreads();
-    attend_tile<HD>(t, k_start, q_start, seq_len, window, scale, softcap);
+    attend_tile<HD, Q8>(t, k_start, q_start, seq_len, window, scale, softcap,
+                        ks, vs);
   }
 
   store_rows<HD>(t, out_tile, (size_t)H * HD, n_rows);
 }
 
-template <int HD>
+template <int HD, typename KT>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* pt, const int* pos0, const int* lens,
-                   void* out, int B, int S, int H, int KV, int P, int ps,
-                   int ctx_pages, int window, float scale, float softcap,
-                   cudaStream_t stream) {
+                   const void* ks, const void* vs, const int* pt,
+                   const int* pos0, const int* lens, void* out, int B, int S,
+                   int H, int KV, int P, int ps, int ctx_pages, int window,
+                   float scale, float softcap, cudaStream_t stream) {
+  constexpr bool Q8 = std::is_same<KT, int8_t>::value;
   static bool configured = false;  // once per instantiation
   dim3 grid((S + kTile - 1) / kTile, H, B);
-  return launch_tiles<HD>(
-      paged_multitok_kernel<HD>, configured, grid, stream,
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), pt, pos0, lens, static_cast<bf16*>(out),
+  return launch_tiles<HD, Q8 ? 2 * kTile * sizeof(float) : 0>(
+      paged_multitok_kernel<HD, KT>, configured, grid, stream,
+      static_cast<const bf16*>(q), static_cast<const KT*>(k),
+      static_cast<const KT*>(v), static_cast<const bf16*>(ks),
+      static_cast<const bf16*>(vs), pt, pos0, lens, static_cast<bf16*>(out),
       S, H, KV, P, ps, ctx_pages, window, scale, softcap);
+}
+
+template <typename KT>
+int dispatch(const void* q, const void* k_pages, const void* v_pages,
+             const void* k_scale, const void* v_scale,
+             const void* page_tables, const void* positions0,
+             const void* input_lens, void* out, int B, int S, int H, int KV,
+             int P, int ps, int ctx_pages, int hd, int window, float scale,
+             float softcap, void* stream) {
+  const int* pt = static_cast<const int*>(page_tables);
+  const int* p0 = static_cast<const int*>(positions0);
+  const int* il = static_cast<const int*>(input_lens);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 0 || S == 0) return cudaSuccess;
+  switch (hd) {
+    case 64:
+      return launch<64, KT>(q, k_pages, v_pages, k_scale, v_scale, pt, p0, il,
+                            out, B, S, H, KV, P, ps, ctx_pages, window, scale,
+                            softcap, s);
+    case 128:
+      return launch<128, KT>(q, k_pages, v_pages, k_scale, v_scale, pt, p0,
+                             il, out, B, S, H, KV, P, ps, ctx_pages, window,
+                             scale, softcap, s);
+    case 256:
+      return launch<256, KT>(q, k_pages, v_pages, k_scale, v_scale, pt, p0,
+                             il, out, B, S, H, KV, P, ps, ctx_pages, window,
+                             scale, softcap, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -159,22 +250,25 @@ extern "C" int vgt_paged_multitok_bf16(const void* q, const void* k_pages,
                                        int ps, int ctx_pages, int hd,
                                        int window, float scale, float softcap,
                                        void* stream) {
-  const int* pt = static_cast<const int*>(page_tables);
-  const int* p0 = static_cast<const int*>(positions0);
-  const int* il = static_cast<const int*>(input_lens);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B == 0 || S == 0) return cudaSuccess;
-  switch (hd) {
-    case 64:
-      return launch<64>(q, k_pages, v_pages, pt, p0, il, out, B, S, H, KV, P,
-                        ps, ctx_pages, window, scale, softcap, s);
-    case 128:
-      return launch<128>(q, k_pages, v_pages, pt, p0, il, out, B, S, H, KV, P,
-                         ps, ctx_pages, window, scale, softcap, s);
-    case 256:
-      return launch<256>(q, k_pages, v_pages, pt, p0, il, out, B, S, H, KV, P,
-                         ps, ctx_pages, window, scale, softcap, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return dispatch<bf16>(q, k_pages, v_pages, nullptr, nullptr, page_tables,
+                        positions0, input_lens, out, B, S, H, KV, P, ps,
+                        ctx_pages, hd, window, scale, softcap, stream);
+}
+
+// int8 pools [KV, P, ps, hd] with bf16 scale pools [KV, P, ps]; q and the
+// output bf16
+extern "C" int vgt_paged_multitok_int8(const void* q, const void* k_pages,
+                                       const void* v_pages,
+                                       const void* k_scale,
+                                       const void* v_scale,
+                                       const void* page_tables,
+                                       const void* positions0,
+                                       const void* input_lens, void* out,
+                                       int B, int S, int H, int KV, int P,
+                                       int ps, int ctx_pages, int hd,
+                                       int window, float scale, float softcap,
+                                       void* stream) {
+  return dispatch<int8_t>(q, k_pages, v_pages, k_scale, v_scale, page_tables,
+                          positions0, input_lens, out, B, S, H, KV, P, ps,
+                          ctx_pages, hd, window, scale, softcap, stream);
 }

@@ -11,9 +11,12 @@ is never read as live context.
 
 Attention goes through the kernel wrappers (ops/kernels/): the CUDA
 kernels for tensors on the card, their plain versions on the CPU.  The
-projections, MLP and lm_head stay library matrix products, as the
-reference leaves them to XLA.  MoE and the Gemma-2 family are not ported
-yet; the config rejects them.
+projections, MLP and lm_head go through ``weighted_einsum``
+(ops/quant.py): library matrix products for plain weights, as the
+reference leaves them to XLA, and the dequant-matmul kernels (K4 int8,
+K5 int4) for quantized ones.  int8 KV pools (``QuantPages``) quantize on
+every write (``kv_write``) and reach the int8 modes of K1 and K3.  MoE
+and the Gemma-2 family are not ported yet; the config rejects them.
 """
 
 from __future__ import annotations
@@ -26,8 +29,9 @@ from vgate_tpu_torch.models.specs import ModelSpec
 from vgate_tpu_torch.ops.kernels.flash_prefill import flash_prefill_attention
 from vgate_tpu_torch.ops.kernels.paged_decode import paged_decode_attention
 from vgate_tpu_torch.ops.kernels.paged_multitok import paged_multitok_attention
-from vgate_tpu_torch.ops.kv_quant import kv_write
+from vgate_tpu_torch.ops.kv_quant import KVPool, kv_write
 from vgate_tpu_torch.ops.norms import rms_norm
+from vgate_tpu_torch.ops.quant import weighted_einsum
 from vgate_tpu_torch.ops.rope import apply_rope
 
 Params = Dict[str, Any]
@@ -85,11 +89,19 @@ def init_params(
     return params
 
 
+def _layer_slice(t, l: int):
+    """Layer ``l`` of a stacked leaf: a view, or for a quantized weight
+    the same kind of weight over views (2D values, [out] scale)."""
+    if isinstance(t, tuple):  # QTensor / PackedQTensor
+        return type(t)(*(part[l] for part in t))
+    return t[l]
+
+
 def layer_params(params: Params, l: int) -> Params:
     """Layer ``l``'s parameters: views into the stacked tensors."""
     return {
         name: (
-            {k: t[l] for k, t in val.items()}
+            {k: _layer_slice(t, l) for k, t in val.items()}
             if isinstance(val, dict) else val[l]
         )
         for name, val in params["layers"].items()
@@ -98,9 +110,9 @@ def layer_params(params: Params, l: int) -> Params:
 
 def _project_qkv(x: torch.Tensor, lp: Params, spec: ModelSpec):
     """x: [..., D] -> q [..., H, hd], k/v [..., KV, hd]."""
-    q = x @ lp["q"]["w"]
-    k = x @ lp["k"]["w"]
-    v = x @ lp["v"]["w"]
+    q = weighted_einsum("...d,dh->...h", x, lp["q"]["w"])
+    k = weighted_einsum("...d,dh->...h", x, lp["k"]["w"])
+    v = weighted_einsum("...d,dh->...h", x, lp["v"]["w"])
     if spec.qkv_bias:
         q = q + lp["q"]["b"]
         k = k + lp["k"]["b"]
@@ -112,40 +124,29 @@ def _project_qkv(x: torch.Tensor, lp: Params, spec: ModelSpec):
 
 
 def _dense_mlp(x: torch.Tensor, lp: Params) -> torch.Tensor:
-    gate = x @ lp["gate"]["w"]
-    up = x @ lp["up"]["w"]
+    gate = weighted_einsum("...d,df->...f", x, lp["gate"]["w"])
+    up = weighted_einsum("...d,df->...f", x, lp["up"]["w"])
     act = torch.nn.functional.silu(gate.float()).to(x.dtype)
-    return (act * up) @ lp["down"]["w"]
+    return weighted_einsum("...f,fd->...d", act * up, lp["down"]["w"])
 
 
 def _finish_layer(h, attn, lp: Params, spec: ModelSpec):
     """Layer back half: o-projection residual + post-norm MLP residual."""
     attn = attn.reshape(*h.shape[:-1], spec.num_heads * spec.head_dim)
-    h = h + attn @ lp["o"]["w"]
+    h = h + weighted_einsum("...h,hd->...d", attn, lp["o"]["w"])
     normed = rms_norm(h, lp["post_norm"], spec.rms_eps)
     return h + _dense_mlp(normed, lp)
 
 
-def _lm_head(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x [..., D] @ w [D, V]`` returned as the fp32 accumulation, never
-    rounded to the model dtype (the reference's
-    ``preferred_element_type=jnp.float32``).  On the card one cuBLAS
-    product takes bf16 in and writes fp32 out, so no fp32 copy of the
-    weight exists; the CPU upcasts both operands."""
-    if x.dtype == torch.float32:
-        return x @ w
-    if x.device.type == "cuda":
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-        return out.reshape(*x.shape[:-1], w.shape[-1])
-    return x.float() @ w.float()
-
-
 def _logits(params: Params, spec: ModelSpec, x: torch.Tensor) -> torch.Tensor:
-    """Final norm + lm_head, fp32 logits."""
+    """Final norm + lm_head: the fp32 accumulation, never rounded to the
+    model dtype (the reference's ``preferred_element_type=jnp.float32``,
+    which it passes through its quantized branch too)."""
     x = rms_norm(x, params["final_norm"], spec.rms_eps)
-    if spec.tie_embeddings:
-        return _lm_head(x, params["embed"].t())
-    return _lm_head(x, params["lm_head"])
+    w = params["embed"].t() if spec.tie_embeddings else params["lm_head"]
+    return weighted_einsum(
+        "...d,dv->...v", x, w, preferred_element_type=torch.float32
+    )
 
 
 def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -162,8 +163,8 @@ def _prefill_qkv_write(
     spec: ModelSpec,
     positions: torch.Tensor,  # [B, S] global positions
     page_tables: torch.Tensor,  # [B, S // ps (+1 with offsets)]
-    k_pool: torch.Tensor,  # [KV, P, ps, hd] one layer's pool, in place
-    v_pool: torch.Tensor,
+    k_pool: KVPool,  # [KV, P, ps, hd] one layer's pool, in place
+    v_pool: KVPool,
     offsets: Optional[torch.Tensor] = None,  # [B] first token's page slot
 ):
     """Prompt-pass front half: norm, qkv projection and rope at
@@ -214,8 +215,8 @@ def prefill_forward(
     spec: ModelSpec,
     tokens: torch.Tensor,  # [B, S] padded to a bucket; S % page_size == 0
     seq_lens: torch.Tensor,  # [B] int32
-    k_pages: torch.Tensor,  # [L, KV, P, ps, hd], updated in place
-    v_pages: torch.Tensor,
+    k_pages: KVPool,  # [L, KV, P, ps, hd], updated in place
+    v_pages: KVPool,
     page_tables: torch.Tensor,  # [B, S // ps] page ids for this prompt
 ) -> torch.Tensor:
     """The prompt pass: writes every layer's KV into the prompt's pages
@@ -250,8 +251,8 @@ def decode_forward(
     spec: ModelSpec,
     tokens: torch.Tensor,  # [B] current token per slot
     positions: torch.Tensor,  # [B] 0-indexed position of `tokens`
-    k_pages: torch.Tensor,  # [L, KV, P, ps, hd], updated in place
-    v_pages: torch.Tensor,
+    k_pages: KVPool,  # [L, KV, P, ps, hd], updated in place
+    v_pages: KVPool,
     page_tables: torch.Tensor,  # [B, pages_per_seq] int32
     active: Optional[torch.Tensor] = None,  # [B] bool; inactive -> page 0
 ) -> torch.Tensor:
@@ -287,8 +288,8 @@ def prefill_suffix_forward(
     tokens: torch.Tensor,  # [B, S] suffix tokens, S a bucket, S % ps == 0
     prefix_lens: torch.Tensor,  # [B] int32 tokens already resident
     suffix_lens: torch.Tensor,  # [B] int32 real suffix tokens (<= S)
-    k_pages: torch.Tensor,  # [L, KV, P, ps, hd], updated in place
-    v_pages: torch.Tensor,
+    k_pages: KVPool,  # [L, KV, P, ps, hd], updated in place
+    v_pages: KVPool,
     suffix_page_tables: torch.Tensor,  # [B, S // ps (+1 if unaligned)]
     ctx_page_tables: torch.Tensor,  # [B, ctx_pages] int32 prefix + suffix
     unaligned: bool = False,  # copy-on-write: prefix_lens % ps != 0

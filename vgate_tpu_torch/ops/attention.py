@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from vgate_tpu_torch.ops.kv_quant import gather_pages
+from vgate_tpu_torch.ops.kv_quant import KVPool, gather_pages
 
 NEG = -1e30  # masked-score sentinel, as in the reference kernels
 
@@ -128,8 +128,8 @@ def flash_prefill_attention(
 
 def paged_decode_attention(
     q: torch.Tensor,  # [B, H, hd] one query token per slot
-    k_pages: torch.Tensor,  # [KV, P, ps, hd] (head-major, kv_cache.py)
-    v_pages: torch.Tensor,
+    k_pages: KVPool,  # [KV, P, ps, hd] (head-major, kv_cache.py)
+    v_pages: KVPool,
     page_tables: torch.Tensor,  # [B, pages_per_seq] int32
     seq_lens: torch.Tensor,  # [B] context length (incl. current token)
     softcap: float = 0.0,
@@ -139,8 +139,10 @@ def paged_decode_attention(
 ) -> torch.Tensor:
     """Decode-step attention over the paged KV cache. Returns [B, H, hd].
 
-    Gathers each slot's whole page window, masks positions >= seq_len
-    (and below the window), and runs an fp32 softmax.  Unlike the
+    Gathers each slot's whole page window (dequantized to f32 for int8
+    ``QuantPages`` pools: the plain version of K1's int8 mode), masks
+    positions >= seq_len (and below the window), and runs an fp32
+    softmax.  Unlike the
     reference's jnp twin, the probabilities stay fp32 through the PV
     product — as in every kernel version — so the plain version is the
     precise yardstick the kernel is held to."""
@@ -172,8 +174,8 @@ def paged_decode_attention(
 
 def paged_suffix_attention(
     q: torch.Tensor,  # [B, S, H, hd] suffix queries
-    k_pages: torch.Tensor,  # [KV, P, ps, hd] (head-major)
-    v_pages: torch.Tensor,
+    k_pages: KVPool,  # [KV, P, ps, hd] (head-major)
+    v_pages: KVPool,
     page_tables: torch.Tensor,  # [B, ctx_pages] int32 context window row
     prefix_lens: torch.Tensor,  # [B] global position of q[:, 0]
     seq_lens: torch.Tensor,  # [B] total context (prefix + real suffix)
@@ -183,8 +185,9 @@ def paged_suffix_attention(
 ) -> torch.Tensor:
     """Prompt-suffix attention over resident paged KV (prefix caching):
     the semantic spec of the multi-token kernel (ops/kernels/
-    paged_multitok.py, K3).  The suffix KV is already in the pool; this
-    gathers each slot's ``ctx_pages`` window and runs the blockwise
+    paged_multitok.py, K3, and of its int8 mode).  The suffix KV is
+    already in the pool; this gathers each slot's ``ctx_pages`` window
+    (dequantized to f32 for int8 pools) and runs the blockwise
     online softmax of :func:`flash_prefill_attention`, whose
     ``q_offset`` mask IS the suffix mask (``k_pos <= prefix + s`` and
     ``k_pos < seq_len``).  Returns [B, S, H, hd]."""

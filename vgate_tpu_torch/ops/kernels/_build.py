@@ -28,6 +28,7 @@ SOURCES = {
     "paged_decode": "paged_decode.cu",
     "flash_prefill": "flash_prefill.cu",
     "paged_multitok": "paged_multitok.cu",
+    "quant_matmul": "quant_matmul.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,11 +1,13 @@
 """Wrapper of the paged multi-token CUDA kernel (csrc/paged_multitok.cu, K3).
 
 Replaces vgate_tpu/ops/pallas/paged_attention.py
-``paged_multitok_attention_pallas`` for bf16 pools (its int8-pool mode is
-not ported yet).  A CPU tensor takes the plain version (ops/attention.py
-``paged_suffix_attention``); a CUDA tensor launches the kernel or raises
-— there is no fallback.  ``paged_multitok_attention.launches`` counts
-kernel launches.
+``paged_multitok_attention_pallas``: bf16 pools
+(:func:`paged_multitok_attention`) and, for int8 ``QuantPages`` pools,
+its int8 mode (:func:`paged_multitok_attention_int8`, K3-int8, which
+:func:`paged_multitok_attention` hands such pools to).  A CPU tensor
+takes the plain version (ops/attention.py ``paged_suffix_attention``); a
+CUDA tensor launches the kernel or raises — there is no fallback.  Each
+function's ``launches`` counts the launches of its mode.
 """
 
 from __future__ import annotations
@@ -17,37 +19,48 @@ import torch
 
 from vgate_tpu_torch.ops import attention
 from vgate_tpu_torch.ops.kernels import _build
+from vgate_tpu_torch.ops.kv_quant import SCALE_DTYPE, KVPool, is_quantized
 
 HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8  # query heads per kv head, as K1 and K2 are held to
 
 
-def _lib():
+def _lib(int8: bool = False):
     lib = _build.load("paged_multitok")
-    fn = lib.vgt_paged_multitok_bf16
+    fn = lib.vgt_paged_multitok_int8 if int8 else lib.vgt_paged_multitok_bf16
     if fn.argtypes is None:  # declare once: pointers must not be cut to int
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [
-            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ]
+        fn.argtypes = [ctypes.c_void_p] * (9 if int8 else 7) + [
+            ctypes.c_int
+        ] * 9 + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     return fn
 
 
-def _check(q, k_pages, v_pages, page_tables, positions0, input_lens) -> None:
+def _check(q, k_pages, v_pages, page_tables, positions0, input_lens,
+           scales: tuple = ()) -> None:
+    """Device, dtype, shape and contiguity; ``scales`` (the int8 mode's
+    K and V scale pools) marks ``k_pages``/``v_pages`` as int8 data."""
     named = [("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
              ("page_tables", page_tables), ("positions0", positions0),
              ("input_lens", input_lens)]
+    named += [(f"scale pool {i}", t) for i, t in enumerate(scales)]
     for name, t in named:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in named[:3]:
-        if t.dtype != torch.bfloat16:
+    pool_dtype = torch.int8 if scales else torch.bfloat16
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        want = torch.bfloat16 if name == "q" else pool_dtype
+        if t.dtype != want:
             raise ValueError(
-                f"the paged multi-token kernel takes bf16, {name} is {t.dtype}"
+                f"the paged multi-token kernel takes {want} {name}, "
+                f"not {t.dtype}"
             )
-    for name, t in named[3:]:
+    for t in scales:
+        if t.dtype != SCALE_DTYPE or t.shape != k_pages.shape[:-1]:
+            raise ValueError("the scale pools must be bf16 [KV, P, ps]")
+    for name, t in named[3:6]:
         if t.dtype != torch.int32:
             raise ValueError(f"{name} must be int32, got {t.dtype}")
     if q.dim() != 4 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
@@ -73,8 +86,8 @@ def _check(q, k_pages, v_pages, page_tables, positions0, input_lens) -> None:
 
 def paged_multitok_attention(
     q: torch.Tensor,  # [B, S, H, hd] suffix queries
-    k_pages: torch.Tensor,  # [KV, P, ps, hd] one layer's pool (a view)
-    v_pages: torch.Tensor,
+    k_pages: KVPool,  # [KV, P, ps, hd] one layer's pool (a view)
+    v_pages: KVPool,
     page_tables: torch.Tensor,  # [B, ctx_pages] int32 context window
     positions0: torch.Tensor,  # [B] int32 global position of q[:, 0]
     input_lens: torch.Tensor,  # [B] int32 real query rows (<= S)
@@ -89,7 +102,13 @@ def paged_multitok_attention(
     The kernel reads page-table entries only below ``positions0 +
     input_lens`` and clamps that to ``ctx_pages * ps`` on the device, so
     lengths the engine failed to bound cannot read past the table
-    (checking them on the host would cost a device sync per layer)."""
+    (checking them on the host would cost a device sync per layer).  int8
+    ``QuantPages`` pools go to :func:`paged_multitok_attention_int8`."""
+    if is_quantized(k_pages):
+        return paged_multitok_attention_int8(
+            q, k_pages, v_pages, page_tables, positions0, input_lens,
+            softcap=softcap, window=window, scale=scale,
+        )
     if q.device.type == "cpu":
         return attention.paged_suffix_attention(
             q, k_pages, v_pages, page_tables, positions0,
@@ -117,4 +136,50 @@ def paged_multitok_attention(
     return out
 
 
+def paged_multitok_attention_int8(
+    q: torch.Tensor,  # [B, S, H, hd] bf16 suffix queries
+    k_pages: KVPool,  # QuantPages [KV, P, ps, hd] one layer's (views)
+    v_pages: KVPool,
+    page_tables: torch.Tensor,  # [B, ctx_pages] int32 context window
+    positions0: torch.Tensor,  # [B] int32 global position of q[:, 0]
+    input_lens: torch.Tensor,  # [B] int32 real query rows (<= S)
+    softcap: float = 0.0,
+    window: int = 0,  # >0 => attend only to the last `window` keys
+    scale: Optional[float] = None,  # query scale; default hd**-0.5
+) -> torch.Tensor:
+    """K3-int8: the suffix attention over int8 pools with per-token bf16
+    scales, folded into the scores (K) and the softmax weights (V) as the
+    TPU kernel folds them.  Returns [B, S, H, hd]."""
+    if q.device.type == "cpu":
+        return attention.paged_suffix_attention(
+            q, k_pages, v_pages, page_tables, positions0,
+            positions0 + input_lens, softcap=softcap,
+            window=window if window else None, scale=scale,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if not (is_quantized(k_pages) and is_quantized(v_pages)):
+        raise ValueError("K3's int8 mode needs int8 QuantPages pools")
+    _check(q, k_pages.data, v_pages.data, page_tables, positions0,
+           input_lens, scales=(k_pages.scale, v_pages.scale))
+    B, S, H, hd = q.shape
+    KV, P, ps, _ = k_pages.shape
+    out = torch.empty_like(q)
+    rc = _lib(int8=True)(
+        q.data_ptr(), k_pages.data.data_ptr(), v_pages.data.data_ptr(),
+        k_pages.scale.data_ptr(), v_pages.scale.data_ptr(),
+        page_tables.data_ptr(), positions0.data_ptr(), input_lens.data_ptr(),
+        out.data_ptr(), B, S, H, KV, P, ps, page_tables.shape[1], hd,
+        int(window), float(scale if scale is not None else hd ** -0.5),
+        float(softcap), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"paged multi-token int8 kernel launch failed: cuda error {rc}"
+        )
+    paged_multitok_attention_int8.launches += 1
+    return out
+
+
 paged_multitok_attention.launches = 0
+paged_multitok_attention_int8.launches = 0

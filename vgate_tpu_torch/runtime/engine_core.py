@@ -27,6 +27,11 @@ path — batched, bucketed prompt passes and pipelined decode chunks:
   finished sequence's generated tokens; a hit prefills only its suffix
   through the multi-token kernel (K3).  **Chunked prefill** runs a
   prompt longer than ``device.prefill_chunk`` as serial suffix passes.
+* **Quantized serving**: ``model.quantization`` (int8/int4) quantizes
+  the weights at load, and every projection then runs the dequant
+  matmuls (K4/K5); ``kv_cache.dtype: int8`` makes the pools int8
+  ``QuantPages`` (quantized on write, read by the int8 modes of K1/K3),
+  ~1.97x the bf16 page count for one memory budget.
 
 Not ported yet (the config refuses them): speculative decoding, host KV
 swap, logprobs, multi-device meshes.
@@ -58,7 +63,11 @@ from vgate_tpu_torch.models.decoder import (
     prefill_suffix_forward,
 )
 from vgate_tpu_torch.models.specs import ModelSpec, spec_for_model_id
-from vgate_tpu_torch.ops.kv_quant import copy_page_prefix
+from vgate_tpu_torch.ops.kv_quant import (
+    SCALE_BYTES,
+    copy_page_prefix,
+    dtype_short_name,
+)
 from vgate_tpu_torch.ops.sampling import (
     apply_logit_bias,
     apply_penalties,
@@ -75,7 +84,10 @@ from vgate_tpu_torch.runtime.radix_cache import RadixCache
 from vgate_tpu_torch.runtime.scheduler import PrefillPlan, Scheduler
 from vgate_tpu_torch.runtime.sequence import Sequence, SeqStatus
 from vgate_tpu_torch.runtime.tokenizer import get_tokenizer
-from vgate_tpu_torch.runtime.weights import load_or_init_params
+from vgate_tpu_torch.runtime.weights import (
+    load_or_init_params,
+    quantize_params,
+)
 from vgate_tpu_torch.utils.math import bucket_for, cdiv
 
 logger = get_logger(__name__)
@@ -161,8 +173,9 @@ def _suffix_prefill_step(
 def _cow_copy_pages(k_pages, v_pages, src: int, dst: int, upto: int):
     """Copy-on-write page copy (runtime/radix_cache.py): the first
     ``upto`` token slots of page ``src`` into page ``dst`` across every
-    layer and head, in place on the engine stream, so a sequence
-    diverging mid-page gets the shared head's KV without recomputing it.
+    layer and head (with their scales, for int8 pools), in place on the
+    engine stream, so a sequence diverging mid-page gets the shared
+    head's KV without recomputing it.
     Stream order puts the copy after every earlier writer of ``src``
     and before the suffix pass that writes the rest of ``dst``."""
     copy_page_prefix(k_pages, src, dst, upto)
@@ -271,12 +284,28 @@ class EngineCore:
                 self.spec, self.config.model.checkpoint_path, self.device,
                 self.dtype,
             )
+        if self.config.model.quantization:
+            params = quantize_params(
+                params, self.spec, self.config.model.quantization
+            )
         self.params = params
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.load_time_s = time.perf_counter() - load_start
 
-        kv_bytes = self.dtype.itemsize
+        # what the pages hold (kv_cache.dtype): int8 halves the page data
+        # and adds one bf16 scale per (page, head, slot), so one memory
+        # budget holds ~2x the bf16 page count
+        kv_mode = self.config.kv_cache.dtype
+        kv_quant = kv_mode == "int8"
+        if kv_quant:
+            kv_pool_dtype = torch.int8
+        elif kv_mode == "bf16":
+            kv_pool_dtype = torch.bfloat16
+        else:  # auto: the model dtype
+            kv_pool_dtype = self.dtype
+        kv_bytes = kv_pool_dtype.itemsize
+        kv_scale_bytes = SCALE_BYTES if kv_quant else 0
         ps = dcfg.kv_page_size
         pages_per_seq = cdiv(self.config.model.max_model_len, ps)
         # more pages than every slot's full context can never be used
@@ -285,7 +314,7 @@ class EngineCore:
             max_useful,
             auto_num_pages(
                 self.spec, ps, dcfg.hbm_utilization, self.device,
-                dtype_bytes=kv_bytes,
+                dtype_bytes=kv_bytes, scale_bytes=kv_scale_bytes,
             ),
         )
         self.geometry = KVGeometry(
@@ -296,12 +325,11 @@ class EngineCore:
             head_dim=self.spec.head_dim,
             max_model_len=self.config.model.max_model_len,
             dtype_bytes=kv_bytes,
-            kv_dtype={torch.bfloat16: "bf16", torch.float32: "f32"}[
-                self.dtype
-            ],
+            scale_bytes=kv_scale_bytes,
+            kv_dtype=dtype_short_name(kv_pool_dtype),
         )
         self.k_pages, self.v_pages = make_kv_buffers(
-            self.geometry, self.dtype, self.device
+            self.geometry, kv_pool_dtype, self.device
         )
         self.allocator = PageAllocator(num_pages)
         self.max_slots = dcfg.max_batch_slots

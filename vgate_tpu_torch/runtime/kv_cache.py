@@ -1,8 +1,9 @@
 """Paged KV cache: geometry, page allocator and device buffers.
 
 Layout: ``[num_layers, kv_heads, num_pages, page_size, head_dim]`` per K
-and V, head-major so one page of one head is a contiguous
-``(page_size, head_dim)`` tile — the unit the paged-decode kernel reads
+and V (int8 pools add a bf16 scale pool of the same shape minus
+head_dim, ops/kv_quant.py), head-major so one page of one head is a
+contiguous ``(page_size, head_dim)`` tile — the unit the paged-decode kernel reads
 (vgate_tpu_torch/csrc/paged_decode.cu).  **Page 0 is a reserved trash
 page** that absorbs writes from padded positions and idle decode slots
 so device code never branches on validity; it is never read as live
@@ -19,6 +20,7 @@ import torch
 
 from vgate_tpu_torch.logging_config import get_logger
 from vgate_tpu_torch.models.specs import ModelSpec
+from vgate_tpu_torch.ops.kv_quant import SCALE_DTYPE, QuantPages
 from vgate_tpu_torch.utils.math import cdiv
 
 logger = get_logger(__name__)
@@ -88,6 +90,8 @@ def auto_num_pages(
     dtype_bytes: int = 2,
     fallback: int = 512,
     hard_cap: int = 65536,
+    scale_bytes: int = 0,
+    budget_bytes: Optional[int] = None,
 ) -> int:
     """Size the page pool from the device memory still free once weights
     are resident (the serving analogue of vLLM's gpu_memory_utilization).
@@ -96,16 +100,21 @@ def auto_num_pages(
     minus the share of the card ``hbm_utilization`` leaves unused.  On
     the CPU (tests) the pool is ``fallback`` pages.  There is no guessed
     per-card default: a CUDA device always reports its memory.
+    ``budget_bytes`` sizes against that many bytes instead, on any
+    device.  ``dtype_bytes`` is the KV element width and ``scale_bytes``
+    the per-token-per-head quantization-scale overhead (int8 KV: 1 and 2,
+    so one budget holds ~1.97x the bf16 page count at head_dim 128).
     """
-    if device.type != "cuda":
-        return fallback
-    free, total = torch.cuda.mem_get_info(device)
-    budget = max(0, free - (1.0 - hbm_utilization) * total)
+    if budget_bytes is None:
+        if device.type != "cuda":
+            return fallback
+        free, total = torch.cuda.mem_get_info(device)
+        budget_bytes = max(0, free - (1.0 - hbm_utilization) * total)
     page_bytes = _page_bytes(
         spec.num_layers, page_size, spec.num_kv_heads, spec.head_dim,
-        dtype_bytes,
+        dtype_bytes, scale_bytes,
     )
-    pages = int(budget // page_bytes)
+    pages = int(budget_bytes // page_bytes)
     return max(16, min(pages, hard_cap))
 
 
@@ -282,7 +291,10 @@ class PageAllocator:
 def make_kv_buffers(
     geometry: KVGeometry, dtype: torch.dtype, device: torch.device
 ):
-    """Allocate the K/V page pools (zeros) directly on ``device``.
+    """Allocate the K/V page pools directly on ``device``: zeros of
+    ``dtype``, or with ``geometry.kv_dtype == "int8"`` two
+    :class:`~vgate_tpu_torch.ops.kv_quant.QuantPages` (int8 data zeroed,
+    bf16 scales set to 1, as the reference's).
 
     The pools are updated IN PLACE by every forward (the reference
     donates them through each jitted call instead); all writers and
@@ -295,8 +307,22 @@ def make_kv_buffers(
         geometry.page_size,
         geometry.head_dim,
     )
-    k = torch.zeros(shape, dtype=dtype, device=device)
-    v = torch.zeros(shape, dtype=dtype, device=device)
+    if geometry.kv_dtype == "int8":
+
+        def pool():
+            return QuantPages(
+                torch.zeros(shape, dtype=torch.int8, device=device),
+                torch.ones(shape[:-1], dtype=SCALE_DTYPE, device=device),
+            )
+
+        k, v = pool(), pool()
+        nbytes = 2 * sum(
+            t.numel() * t.element_size() for t in (k.data, k.scale)
+        )
+    else:
+        k = torch.zeros(shape, dtype=dtype, device=device)
+        v = torch.zeros(shape, dtype=dtype, device=device)
+        nbytes = 2 * k.numel() * k.element_size()
     logger.info(
         "kv cache allocated",
         extra={
@@ -304,7 +330,7 @@ def make_kv_buffers(
                 "pages": geometry.num_pages,
                 "tokens_capacity": geometry.total_tokens,
                 "kv_dtype": geometry.kv_dtype,
-                "mb": round(2 * k.numel() * k.element_size() / 1e6),
+                "mb": round(nbytes / 1e6),
             }
         },
     )

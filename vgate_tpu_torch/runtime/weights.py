@@ -6,6 +6,8 @@ converted to numpy maps leaf for leaf (:func:`params_from_jax`).  HF
 state dicts (``[out, in]`` linear weights) are transposed into the same
 layout (:func:`params_from_torch_state_dict`, the HF ``Qwen2ForCausalLM``
 names of the reference's runtime/weights.py).  Dense family only.
+:func:`quantize_params` applies ``model.quantization`` (int8/int4) to a
+loaded tree, one leaf at a time (ops/quant.py ``quantize_decoder_params``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,12 @@ import torch
 
 from vgate_tpu_torch.logging_config import get_logger
 from vgate_tpu_torch.models.specs import ModelSpec
+from vgate_tpu_torch.ops.quant import (
+    BITS,
+    PackedQTensor,
+    QTensor,
+    quantize_decoder_params,
+)
 
 logger = get_logger(__name__)
 
@@ -25,7 +33,8 @@ Params = Dict[str, Any]
 TensorGetter = Callable[[str], torch.Tensor]
 
 
-def _to_tensor(x, device, dtype) -> torch.Tensor:
+def _to_tensor(x, device, dtype=None) -> torch.Tensor:
+    """A numpy leaf on ``device``, cast to ``dtype`` (None keeps it)."""
     arr = np.asarray(x)
     if arr.dtype.kind == "V" or arr.dtype.name == "bfloat16":
         arr = arr.astype(np.float32)  # ml_dtypes bfloat16 from JAX
@@ -41,7 +50,11 @@ def params_from_jax(
     dtype: torch.dtype = torch.float32,
 ) -> Params:
     """The reference's params pytree (leaves as numpy, e.g. via
-    ``jax.tree.map(np.asarray, params)``) as the port's parameters."""
+    ``jax.tree.map(np.asarray, params)``) as the port's parameters.  A
+    quantized tree's ``QTensor``/``PackedQTensor`` nodes (NamedTuples
+    there) carry over as the port's, their int8 ``q``, uint8
+    ``q_packed`` and f32 scales kept as they are, never cast to
+    ``dtype``."""
     if spec.is_moe or spec.ffn_sandwich:
         raise NotImplementedError(
             "only the dense family is ported (ROADMAP queue 1, item 9)"
@@ -50,6 +63,10 @@ def params_from_jax(
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        fields = getattr(node, "_fields", None)
+        if fields in (QTensor._fields, PackedQTensor._fields):
+            kind = QTensor if fields == QTensor._fields else PackedQTensor
+            return kind(*(_to_tensor(part, device) for part in node))
         return _to_tensor(node, device, dtype)
 
     return conv(np_tree)
@@ -177,3 +194,21 @@ def load_or_init_params(
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     return init_params(spec, gen, dtype=dtype, device=device)
+
+
+def quantize_params(params: Params, spec: ModelSpec, quantization: str):
+    """``model.quantization`` (``int8``/``int4``) right after loading, as
+    the reference's engine_core does it: the dict's projection weights
+    and lm_head quantized IN PLACE, one leaf at a time, so a 7B bf16
+    tree and its quantized twin never both sit whole on the card.  A
+    tree whose weights are quantized already (carried from the
+    reference) is returned as it is."""
+    if isinstance(params["layers"]["q"]["w"], (QTensor, PackedQTensor)):
+        return params
+    params = quantize_decoder_params(params, spec, bits=BITS[quantization])
+    logger.info(
+        "weights quantized",
+        extra={"extra_data": {"model": spec.name,
+                              "quantization": quantization}},
+    )
+    return params
