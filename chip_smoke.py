@@ -14,12 +14,18 @@ weights from seed 0, bf16), first with the prefix cache off, then with
 it on (radix tree, copy-on-write, generated-token reuse, chunked
 prefill at 512), then quantized: int8 weights with int8 KV pools (the
 burst and the prefix traffic), and int4 weights with int8 KV pools (the
-burst), counting the kernel launches of each run; (4) checks the
-served output, the prefix-cache counters, the exact launch counts of
-the quantized runs and the model's logits (prompt pass, decode step,
-suffix passes aligned and copy-on-write) against a plain full-sequence
-forward.  It prints the card's name and power limit, one JSON line of
-per-kernel numbers and, last, ``{"ok": true, "device": {...}}``.  Any
+burst), then Gemma-2-9B-it at full width (sliding window 4096 on even
+layers, softcaps, hd 256) twice over the same weights: decode through
+K1, then through K6 (``decode_block_slots`` 8), each serving the burst,
+a 4,600-token chunked document beside 7 short requests and a second
+turn that hits the document's pages; counting the kernel launches of
+each run; (4) checks the served output, the prefix-cache counters, the
+exact launch counts of the quantized and the Gemma runs and the model's
+logits (prompt pass, decode step, suffix passes aligned and
+copy-on-write; for Gemma a chunked document and a decode step past the
+window) against a plain full-sequence forward.  It prints the card's
+name and power limit, one JSON line of per-kernel numbers and, last,
+``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero; without a CUDA card it exits non-zero
 before printing any result.
 """
@@ -128,6 +134,58 @@ DECODE_LENS = [1, 31, 32, 33, 64, 65, 100, 127, 128, 129, 255, 256, 257, 300,
                1536, 1600, 1800, 2000, 2047, 2048, 2048]
 
 
+# the Gemma-2-9B phases' 32 decode slots: ragged contexts 1..8192, on
+# both sides of the 4096 window and of page edges
+GEMMA_DECODE_LENS = [1, 31, 32, 33, 100, 255, 256, 257, 511, 1000, 1024,
+                     1500, 2047, 2048, 3000, 4000, 4095, 4096, 4097, 4111,
+                     4128, 4500, 5000, 6000, 6143, 6144, 7000, 7500, 8000,
+                     8191, 8192, 8192]
+
+
+def decode_bound(lens, B, H, KV, hd, ps, window=0, kv_bytes=2.0):
+    """(bound ms, bound_by) of one decode attention call: each slot's
+    live K and V (the window's, with ``window``) read once at
+    ``kv_bytes`` a value (int8: 1 + the bf16 scale's share), q in and
+    out once, the page-table entries read and the lengths; 4 flops a
+    (query head, key, dim) on the fp32 CUDA cores."""
+    lo = [max(n - window, 0) if window else 0 for n in lens]
+    live = sum(n - a for n, a in zip(lens, lo))
+    pages = sum(math.ceil(n / ps) - a // ps for n, a in zip(lens, lo))
+    nbytes = (2 * live * KV * hd * kv_bytes + 2 * B * H * hd * 2
+              + pages * 4 + B * 4)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = 4 * live * H * hd / H100_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sdpa_decode(q, k, v, pt, sl, window=0, scale=None):
+    """The library yardstick of decode attention: K/V gathered from the
+    pages to contiguous memory beforehand (not timed), kv heads
+    expanded, then ONE SDPA call per timing with a per-slot length (and
+    window) mask over the table's whole width.  SDPA has no softcap.
+    Returns (the call, its output).  The port never calls SDPA."""
+    B, H, hd = q.shape
+    KV, _, ps, _ = k.shape
+    ctx = pt.shape[1] * ps
+    kh, vh = (
+        t[:, pt.long()].reshape(KV, B, ctx, hd).permute(1, 0, 2, 3)
+        .repeat_interleave(H // KV, dim=1).contiguous()
+        for t in (k, v)
+    )
+    t_pos = torch.arange(ctx, device=q.device)[None, :]
+    valid = t_pos < sl[:, None]
+    if window:
+        valid &= t_pos >= (sl[:, None] - window)
+    mask = valid[:, None, None, :]
+    qh = q[:, :, None]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def call():
+        return sdpa(qh, kh, vh, attn_mask=mask, scale=scale)
+
+    return call, call()[:, :, 0]
+
+
 def check_paged_decode(dev) -> dict:
     from vgate_tpu_torch.ops import attention as plain
     from vgate_tpu_torch.ops.kernels.paged_decode import (
@@ -165,15 +223,12 @@ def check_paged_decode(dev) -> dict:
     plain_ms = time_ms(
         lambda: plain.paged_decode_attention(q, k, v, pt, sl), iters=5
     )
-    live = sum(lens)
-    nbytes = (
-        2 * live * KV * hd * 2          # K and V of every live token
-        + 2 * B * H * hd * 2            # q in, out
-        + sum(math.ceil(n / ps) for n in lens) * 4 + B * 4  # tables, lens
-    )
-    flops = 4 * live * H * hd  # QK^T and PV, fp32 on the CUDA cores
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOPS * 1e3
+    library, lib = sdpa_decode(q, k, v, pt, sl)
+    torch.cuda.synchronize()
+    within(got, lib, "paged decode vs the library call")
+    library_ms = time_ms(library, iters=20)
+    del library, lib
+    bound, by = decode_bound(lens, B, H, KV, hd, ps)
     return {
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -182,9 +237,9 @@ def check_paged_decode(dev) -> dict:
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": library_ms,
         "shape": f"B={B} H={H} KV={KV} hd={hd} ps={ps} ctx=1..2048",
     }
 
@@ -431,15 +486,15 @@ def check_paged_decode_int8(dev) -> dict:
     plain_ms = time_ms(
         lambda: plain.paged_decode_attention(q, k, v, pt, sl), iters=5
     )
-    live = sum(lens)
-    nbytes = (
-        2 * live * KV * (hd + 2)        # int8 K and V + their bf16 scales
-        + 2 * B * H * hd * 2            # q in, out
-        + sum(math.ceil(n / ps) for n in lens) * 4 + B * 4  # tables, lens
-    )
-    flops = 4 * live * H * hd  # QK^T and PV, fp32 on the CUDA cores
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOPS * 1e3
+    # library yardstick: SDPA over the gathered, dequantized K/V in bf16
+    library, lib = sdpa_decode(q, dequantized(k).bfloat16(),
+                               dequantized(v).bfloat16(), pt, sl)
+    torch.cuda.synchronize()
+    within(got, lib, "paged decode int8 vs the library call")
+    library_ms = time_ms(library, iters=20)
+    del library, lib
+    # int8 K and V + their bf16 scales: (hd + 2) bytes a value row
+    bound, by = decode_bound(lens, B, H, KV, hd, ps, kv_bytes=(hd + 2) / hd)
     return {
         "name": "paged_decode_attention_int8",
         "route": "cuda",
@@ -448,9 +503,9 @@ def check_paged_decode_int8(dev) -> dict:
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": library_ms,
         "shape": f"B={B} H={H} KV={KV} hd={hd} ps={ps} ctx=1..2048, int8",
     }
 
@@ -538,6 +593,203 @@ def check_paged_multitok_int8(dev) -> dict:
         "shape": f"B={B} S={S} prefix={prefix} H={H} KV={KV} hd={hd} "
                  f"ps={ps}, int8",
     }
+
+
+def check_paged_decode_blocked(dev) -> dict:
+    """K6 against its plain version (K1's function) and against K1 on the
+    same inputs: small cases, then the Gemma-2-9B serving shape, timed at
+    block_slots 2, 4 and 8 beside K1 (the extra times print on lines of
+    their own)."""
+    from vgate_tpu_torch.ops import attention as plain
+    from vgate_tpu_torch.ops.kernels import paged_decode as pd
+
+    kernel = pd.paged_decode_attention_blocked
+    # small cases: head dims 64/128/256, groups 1/2/7/8, block_slots
+    # 2/3/4/8/16 (3: two idle warps; 16: every warp walks two slots), one
+    # block mixing the page and chunk edges 1/16/255/256, windows whose
+    # start differs per slot in a block, softcap + scale, bf16 and f32,
+    # slot 0 idle on the trash page
+    edges = [1, 16, 255, 256]
+    for hd, H, KV, bs, lens, kw, dtype in (
+        (64, 8, 8, 2, edges, {}, torch.bfloat16),
+        (128, 8, 4, 4, edges + [40, 200, 96, 130], {"window": 64},
+         torch.bfloat16),
+        (256, 14, 2, 8, edges + [40, 200, 96, 130],
+         {"softcap": 30.0, "scale": 0.1}, torch.bfloat16),
+        (64, 8, 4, 3, edges + [70, 130], {"window": 100}, torch.bfloat16),
+        (128, 16, 8, 16, (edges + [40, 200, 96, 130]) * 2,
+         {"window": 64, "softcap": 50.0}, torch.bfloat16),
+        (128, 16, 2, 2, edges, {"window": 100, "softcap": 50.0,
+                                "scale": 1 / 16}, torch.float32),
+        (256, 16, 8, 4, edges + [40, 200, 96, 130], {"window": 64},
+         torch.float32),
+    ):
+        B = len(lens)
+        q, k, v, pt, sl = decode_inputs(B, H, KV, hd, 16, 16, lens, 13, dev,
+                                        dtype)
+        pt[0] = 0
+        got = kernel(q, k, v, pt, sl, block_slots=bs, **kw)
+        expect = plain.paged_decode_attention(
+            q.float(), k.float(), v.float(), pt, sl, **kw)
+        k1 = pd.paged_decode_attention(q, k, v, pt, sl, **kw)
+        torch.cuda.synchronize()
+        tol = KERNEL_TOL if dtype == torch.bfloat16 else F32_TOL
+        what = f"blocked decode hd={hd} H={H} KV={KV} bs={bs} {kw} {dtype}"
+        within(got, expect, what, tol)
+        within(got, k1, what + " vs K1", KERNEL_TOL)
+
+    # the reference's dispatch: a batch block_slots does not divide goes
+    # to K1, an int8 pool to K1-int8; K6's counter stays
+    q, k, v, pt, sl = decode_inputs(6, 16, 8, 256, 16, 16,
+                                    [1, 16, 17, 200, 255, 256], 14, dev)
+    k8, v8 = int8_pools(8, k.shape[1], 16, 256, 15, dev)
+    wrappers = (pd.paged_decode_attention, pd.paged_decode_attention_int8,
+                kernel)
+    before = [w.launches for w in wrappers]
+    kernel(q, k, v, pt, sl, block_slots=4)
+    kernel(q, k8, v8, pt, sl, block_slots=2)
+    torch.cuda.synchronize()
+    check([w.launches for w in wrappers]
+          == [before[0] + 1, before[1] + 1, before[2]],
+          "K6's dispatch to K1 / K1-int8 launched the wrong kernels")
+
+    # the Gemma-2-9B serving shape: 32 slots, ragged contexts 1..8192, a
+    # sliding layer (window 4096), softcap 50, query scale 256^-0.5
+    B, H, KV, hd, ps, pps = 32, 16, 8, 256, 32, 256
+    lens = GEMMA_DECODE_LENS
+    kw = {"window": 4096, "softcap": 50.0, "scale": 1 / 16}
+    q, k, v, pt, sl = decode_inputs(B, H, KV, hd, ps, pps, lens, 16, dev)
+    got = kernel(q, k, v, pt, sl, block_slots=8, **kw)
+    expect = plain.paged_decode_attention(q.float(), k.float(), v.float(),
+                                          pt, sl, **kw)
+    k1 = pd.paged_decode_attention(q, k, v, pt, sl, **kw)
+    torch.cuda.synchronize()
+    err = within(got, expect, "blocked decode at Gemma-2-9B decode shapes")
+    within(got, k1, "blocked decode vs K1 at Gemma-2-9B decode shapes")
+    del expect
+    times = {f"bs{bs}_ms": time_ms(
+        lambda bs=bs: kernel(q, k, v, pt, sl, block_slots=bs, **kw),
+        iters=50) for bs in (2, 4, 8)}
+    k1_ms = time_ms(lambda: pd.paged_decode_attention(q, k, v, pt, sl, **kw),
+                    iters=50)
+    plain_ms = time_ms(
+        lambda: plain.paged_decode_attention(q, k, v, pt, sl, **kw), iters=3
+    )
+    # the library yardstick takes the window mask but has no softcap
+    library, lib = sdpa_decode(q, k, v, pt, sl, window=4096, scale=1 / 16)
+    library_ms = time_ms(library, iters=20)
+    del library, lib
+    bound, by = decode_bound(lens, B, H, KV, hd, ps, window=4096)
+    shape = (f"B={B} H={H} KV={KV} hd={hd} ps={ps} ctx=1..8192 "
+             "window=4096 softcap=50 scale=1/16")
+    print(f"  paged_decode_attention_blocked at gemma-2-9b [{shape}]: "
+          + json.dumps({**times, "k1_ms": k1_ms, "bound_ms": bound}),
+          flush=True)
+    print(f"  paged_decode_attention at gemma-2-9b [{shape}]: "
+          + json.dumps({"ms": k1_ms, "bound_ms": bound,
+                        "library_ms": library_ms,
+                        "max_abs_err_vs_k6": max_err(k1, got)}), flush=True)
+    torch.cuda.empty_cache()
+    return {
+        "name": "paged_decode_attention_blocked",
+        "route": "cuda",
+        "source": "vgate_tpu_torch/csrc/paged_decode.cu",
+        "replaces": "vgate_tpu/ops/pallas/paged_attention.py:610",
+        "max_abs_err": err,
+        "ms": times["bs8_ms"],
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": library_ms,
+        "shape": shape + ", block_slots=8 (SDPA yardstick without softcap)",
+    }
+
+
+def gemma_kernel_shapes(dev) -> None:
+    """K2 and K3 at Gemma-2-9B's serving shapes (hd 256, 16/8 heads,
+    softcap 50, query scale 256^-0.5), checked against their plain
+    versions, timed beside their bound and a library yardstick (SDPA,
+    which has no softcap), each printed on a line of its own (K1's
+    line prints with K6's check)."""
+    from torch.nn.attention.bias import causal_lower_right
+
+    from vgate_tpu_torch.ops import attention as plain
+    from vgate_tpu_torch.ops.kernels.flash_prefill import (
+        flash_prefill_attention,
+    )
+    from vgate_tpu_torch.ops.kernels.paged_multitok import (
+        paged_multitok_attention,
+    )
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    H, KV, hd = 16, 8, 256
+    cap = {"softcap": 50.0, "scale": 1 / 16}
+    # K2: a 1024-token bucket of two full rows, global and sliding layers
+    B, S = 2, 1024
+    q, k, v = prefill_inputs(B, S, H, KV, hd, 71, dev)
+    sl = torch.full((B,), S, dtype=torch.int32, device=dev)
+    qh = q.transpose(1, 2)
+    kh = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    vh = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    library_ms = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True,
+                                      scale=1 / 16), iters=20)
+    t_ops = 4 * (B * S * (S + 1) // 2) * H * hd / H100_BF16_FLOPS * 1e3
+    t_bytes = ((B * S * (2 * H + 2 * KV) * hd * 2 + 2 * B * 4)
+               / H100_BYTES_PER_S * 1e3)
+    bound, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                      else "bytes")
+    for window in (0, 4096):
+        got = flash_prefill_attention(q, k, v, sl, window=window, **cap)
+        expect = plain.flash_prefill_attention(
+            q.float(), k.float(), v.float(), sl, window=window, **cap)
+        torch.cuda.synchronize()
+        err = within(got, expect, f"flash prefill at gemma-2-9b w={window}")
+        ms = time_ms(lambda: flash_prefill_attention(q, k, v, sl,
+                                                     window=window, **cap),
+                     iters=20)
+        print(f"  flash_prefill_attention at gemma-2-9b [B={B} S={S} H={H} "
+              f"KV={KV} hd={hd} softcap=50 window={window}]: "
+              + json.dumps({"ms": ms, "bound_ms": bound, "bound_by": by,
+                            "library_ms": library_ms, "max_abs_err": err}),
+              flush=True)
+    # K3: 4 rows of a 512-token chunk over a 4,096-token prefix (ctx
+    # 4,608) on a sliding layer: each row's first key lies mid-page
+    B, S, ps, prefix, window = 4, 512, 32, 4096, 4096
+    q, k, v, pt, p0, il = suffix_inputs(B, S, H, KV, hd, ps, [prefix] * B,
+                                        [S] * B, 72, dev)
+    got = paged_multitok_attention(q, k, v, pt, p0, il, window=window, **cap)
+    expect = plain.paged_suffix_attention(q.float(), k.float(), v.float(),
+                                          pt, p0, p0 + il, window=window,
+                                          **cap)
+    torch.cuda.synchronize()
+    err = within(got, expect, "paged multitok at gemma-2-9b")
+    ms = time_ms(lambda: paged_multitok_attention(q, k, v, pt, p0, il,
+                                                  window=window, **cap),
+                 iters=20)
+    ctx = prefix + S
+    kc, vc = (t[:, pt.long()].reshape(KV, B, ctx, hd).permute(1, 0, 2, 3)
+              .repeat_interleave(H // KV, dim=1).contiguous() for t in (k, v))
+    rows = prefix + torch.arange(S, device=dev)[:, None]
+    keys = torch.arange(ctx, device=dev)[None, :]
+    mask = (keys <= rows) & (keys > rows - window)
+    library_ms = time_ms(lambda: sdpa(q.transpose(1, 2), kc, vc,
+                                      attn_mask=mask, scale=1 / 16), iters=20)
+    del kc, vc
+    # row s (position prefix + s) sees `window` keys; the rows' windows
+    # together cover the whole context, whose K and V are read once
+    t_ops = 4 * B * S * window * H * hd / H100_BF16_FLOPS * 1e3
+    nbytes = (2 * B * S * H * hd * 2 + 2 * B * ctx * KV * hd * 2
+              + B * (ctx // ps) * 4 + 2 * B * 4)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    bound, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                      else "bytes")
+    print(f"  paged_multitok_attention at gemma-2-9b [B={B} S={S} "
+          f"prefix={prefix} H={H} KV={KV} hd={hd} ps={ps} softcap=50 "
+          f"window={window}]: "
+          + json.dumps({"ms": ms, "bound_ms": bound, "bound_by": by,
+                        "library_ms": library_ms, "max_abs_err": err}),
+          flush=True)
+    torch.cuda.empty_cache()
 
 
 def qmm_case(rows, in_dim, out_dim, bits, seed, dev):
@@ -667,20 +919,19 @@ def prompts():
 
 def reference_logits(params, spec, tokens, attn):
     """Last-token logits of a plain full-sequence forward: no KV pages,
-    no kernels, the plain attention ``attn`` over the whole sequence."""
+    no kernels, the plain attention ``attn`` over the whole sequence with
+    each layer's window, softcap and query scale."""
     from vgate_tpu_torch.models import decoder as dec
-    from vgate_tpu_torch.ops.norms import rms_norm
 
     S = tokens.shape[1]
     pos = torch.arange(S, device=tokens.device)[None, :]
     sl = torch.tensor([S], dtype=torch.int32, device=tokens.device)
-    x = dec._embed(params, tokens)
+    x = dec._embed(params, spec, tokens)
     for l in range(spec.num_layers):
         lp = dec.layer_params(params, l)
-        q, k, v = dec._project_qkv(rms_norm(x, lp["input_norm"],
-                                            spec.rms_eps), lp, spec)
-        q, k = dec._rope(q, pos, spec), dec._rope(k, pos, spec)
-        x = dec._finish_layer(x, attn(q, k, v, sl), lp, spec)
+        q, k, v = dec.qkv(x, lp, spec, pos)
+        attn_out = attn(q, k, v, sl, **dec.attn_options(spec, l))
+        x = dec._finish_layer(x, attn_out, lp, spec)
     return dec._logits(params, spec, x[:, -1])
 
 
@@ -717,10 +968,10 @@ def pooled_attention(base, pooled_from):
     the fresh K/V, as a prompt pass does."""
     from vgate_tpu_torch.ops.kv_quant import dequantize, quantize
 
-    def attn(q, k, v, sl):
-        out = base(q, k, v, sl)
+    def attn(q, k, v, sl, **kw):
+        out = base(q, k, v, sl, **kw)
         pooled = base(q, dequantize(*quantize(k)), dequantize(*quantize(v)),
-                      sl)
+                      sl, **kw)
         out[:, pooled_from:] = pooled[:, pooled_from:]
         return out
 
@@ -756,8 +1007,7 @@ class LogitsCheck:
         key = (tuple(seq[0].tolist()), pooled_from)
         if key not in self._refs:
             params, spec = self.core.params, self.core.spec
-            attns = [causal_prefill_attention,
-                     lambda q, k, v, sl: flash_prefill_attention(q, k, v, sl)]
+            attns = [causal_prefill_attention, flash_prefill_attention]
             if pooled_from is not None:
                 attns = [pooled_attention(a, pooled_from) for a in attns]
             with plain_matmuls():
@@ -949,6 +1199,7 @@ def kernel_wrappers() -> dict:
     )
     from vgate_tpu_torch.ops.kernels.paged_decode import (
         paged_decode_attention,
+        paged_decode_attention_blocked,
         paged_decode_attention_int8,
     )
     from vgate_tpu_torch.ops.kernels.paged_multitok import (
@@ -965,7 +1216,8 @@ def kernel_wrappers() -> dict:
                                     paged_multitok_attention,
                                     paged_decode_attention_int8,
                                     paged_multitok_attention_int8,
-                                    int8_matmul, int4_matmul)}
+                                    int8_matmul, int4_matmul,
+                                    paged_decode_attention_blocked)}
 
 
 def reset_launches() -> None:
@@ -1240,12 +1492,15 @@ def leaves(tree):
 
 
 def again_engine(core):
-    """``generate_batch`` over an EngineCore, as ``VGTEngine`` offers it."""
+    """``generate_batch`` over a started EngineCore, as ``VGTEngine``
+    offers it (through the backend that wraps the core)."""
     import types
 
-    return types.SimpleNamespace(
-        generate_batch=lambda texts, params: core.generate(texts, params)
-    )
+    from vgate_tpu_torch.backends.torch_backend import TorchCUDABackend
+
+    backend = TorchCUDABackend()
+    backend.core = core
+    return types.SimpleNamespace(generate_batch=backend.generate)
 
 
 def quant_path(quantization: str, model: str = MODEL, device: str = "cuda",
@@ -1328,20 +1583,230 @@ def quant_path(quantization: str, model: str = MODEL, device: str = "cuda",
     again = EngineCore(cfg, params=params)
     again.start()
     try:
-        repeat = again.generate(*batch)
+        repeat = again_engine(again).generate_batch(*batch)
         if device == "cuda":
             # where the time goes in a warm burst (its prompts now hit)
             out["profile"] = profile_burst(again_engine(again), batch)
     finally:
         again.stop()
     for a, b in zip(results, repeat):
-        check(a.token_ids == b["token_ids"],
+        check(a.token_ids == b.token_ids,
               f"int{bits}: tokens differ between two identical bursts")
     del again, params
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+GEMMA = "google/gemma-2-9b-it"
+
+
+def filler(head: str, n: int, stride: int) -> str:
+    """``head`` then words of a fixed list, cut to ``n`` bytes (the byte
+    tokenizer makes 1 byte 1 token)."""
+    words = ("a long document about paged attention windows and the pages "
+             "of key value cache that a sliding layer no longer reads "
+             "while the global layers still do ").split()
+    out, j = head, 0
+    while len(out) < n:
+        out += words[j % len(words)] + " "
+        j += stride
+    return out[:n]
+
+
+def check_long_logits(core, text: str, chunk: int = 512) -> dict:
+    """A document's chunked prompt pass and a decode step past the window
+    against a plain full-sequence forward (see LogitsCheck): suffix
+    passes of ``chunk`` tokens from position 0 (K3, as the engine runs a
+    chunked prefill), the final pass's logits compared, then one decode
+    step at position n in a batch of 8 rows (7 idle on the trash page),
+    so ``decode_block_slots`` 8 runs K6 and 1 runs K1."""
+    from vgate_tpu_torch.models.decoder import (
+        decode_forward,
+        prefill_suffix_forward,
+    )
+
+    spec, dev, ps = core.spec, core.device, core.geometry.page_size
+    seq = prompt_tokens(core, text)
+    n = seq.shape[1]
+    width = -(-(n + 1) // ps)
+    kp, vp = empty_pools(core, 1 + width)
+    pages = torch.arange(1, 1 + width, dtype=torch.int32, device=dev)[None]
+
+    def i32(rows):
+        return torch.tensor(rows, dtype=torch.int32, device=dev)
+
+    compare = LogitsCheck(core)
+    with torch.no_grad():
+        for start in range(0, n, chunk):
+            m = min(chunk, n - start)
+            S = -(-m // ps) * ps
+            tok = torch.zeros((1, S), dtype=torch.int32, device=dev)
+            tok[:, :m] = seq[:, start:start + m]
+            got = prefill_suffix_forward(
+                core.params, spec, tok, i32([start]), i32([m]), kp, vp,
+                pages[:, start // ps:(start + S) // ps].contiguous(),
+                pages[:, :-(-(start + S) // ps)].contiguous(),
+            )
+        nxt = compare("chunk_final", got, seq)
+        B = 8
+        table = torch.zeros((B, width), dtype=torch.int32, device=dev)
+        table[0] = pages[0]
+        active = torch.zeros(B, dtype=torch.bool, device=dev)
+        active[0] = True
+        got = decode_forward(
+            core.params, spec, i32([nxt] + [0] * (B - 1)),
+            i32([n] + [0] * (B - 1)), kp, vp, table, active=active,
+        )
+        compare("decode_past_window", got[:1],
+                torch.cat([seq, i32([[nxt]])], 1))
+    return compare.report
+
+
+def gemma_config(model: str, device: str, block_slots: int):
+    """Gemma-2 serving as the reference defaults it (prefix cache on) with
+    chunked prefill at 512, its 8,192-token context, and
+    ``decode_block_slots``.  The pool takes 0.85 of the card (not 0.9),
+    leaving room for the plain full-sequence forwards the logits are
+    held to."""
+    from vgate_tpu_torch.config import load_config
+
+    return load_config(
+        model={"model_id": model, "engine_type": "torch_cuda",
+               "dtype": "bfloat16", "max_model_len": 8192},
+        device={"device": device, "prefill_chunk": 512,
+                "decode_block_slots": block_slots, "hbm_utilization": 0.85},
+        logging={"level": "WARNING"},
+    )
+
+
+def gemma_path(block_slots: int, model: str = GEMMA, device: str = "cuda",
+               params=None) -> tuple:
+    """Gemma-2 served with ``decode_block_slots`` ``block_slots``: through
+    ``VGTEngine`` (its weights drawn from seed 0), or with ``params`` on a
+    fresh ``EngineCore`` over those weights.  Serves the main path's
+    9-request burst; a 4,600-token document (chunked at 512: 8 non-final
+    passes and a final one; its later chunks and every decode step attend
+    through the window) beside 7 short requests in one decode batch; and
+    a second turn re-sending the document and its answer plus a tail (a
+    prefix hit past the window).  Checks the exact launch counts, the
+    prefix counters, that no page stays in use, and the logits of a
+    prompt pass, of the document's final chunk and of a decode step past
+    the window against plain forwards.  Returns (report, params)."""
+    from vgate_tpu_torch.backends.base import SamplingParams
+    from vgate_tpu_torch.runtime.engine_core import EngineCore
+
+    cfg = gemma_config(model, device, block_slots)
+    what = f"{model} decode_block_slots {block_slots}"
+    if params is None:
+        engine, core = start_engine(cfg, what)
+        stop = engine.shutdown
+    else:
+        t0 = time.perf_counter()
+        core = EngineCore(cfg, params=params)
+        core.start()
+        engine, stop = again_engine(core), core.stop
+        print(f"{what} engine up in {time.perf_counter() - t0:.1f} s over "
+              f"the same weights, {core.geometry.num_pages} KV pages",
+              flush=True)
+    texts = prompts()
+    greedy = SamplingParams(max_tokens=32, temperature=0.0)
+    sampled = SamplingParams(max_tokens=32, temperature=0.8, top_p=0.9,
+                             top_k=50, seed=1234)
+    batch = (texts + [texts[3]], [greedy] * 8 + [sampled])
+    doc = filler("Document: ", 4600, 7)
+    shorts = [filler(f"Reader {i}: ", 60 + 20 * i, i + 1) for i in range(7)]
+    out = {"kv_pages": core.geometry.num_pages}
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        burst, cold = serve(engine, batch)
+        wave = engine.generate_batch([doc] + shorts, [greedy] * 8)
+        hits_before = core.get_stats()["prefix_cache"]["hit_tokens"]
+        turn2_ids = (core.encode_prompt(doc) + wave[0].token_ids
+                     + core.encode_prompt("\nUser: and the last part?"))
+        turn2 = core.submit_tokens(turn2_ids, greedy)
+        check(turn2.done_event.wait(600), "second turn did not finish")
+        check(turn2.finish_reason in ("stop", "length"),
+              f"second turn finish reason {turn2.finish_reason!r}")
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        check_results(burst + wave, core)
+        stats = check_settled(core)
+        pc = stats["prefix_cache"]
+        hit2 = pc["hit_tokens"] - hits_before
+        check(hit2 > 4096, f"the second turn hit {hit2} tokens, not > 4096")
+        check(pc["chunked_prefills"] >= 1, f"no chunked prefill: {pc}")
+        L = core.spec.num_layers
+        steps, passes = stats["steps"], stats["prompt_passes"]
+        if device == "cuda":  # no kernel runs on the CPU
+            mine, other = ("paged_decode_attention_blocked",
+                           "paged_decode_attention")
+            if block_slots == 1:
+                mine, other = other, mine
+            check(launches[mine] == L * steps,
+                  f"{mine}: {launches[mine]} launches for {steps} decode "
+                  f"steps of {L} layers")
+            check(launches[other] == 0, f"{other} launched in this phase")
+            attn = (launches["flash_prefill_attention"]
+                    + launches["paged_multitok_attention"])
+            check(attn == L * passes,
+                  f"K2 + K3: {attn} launches for {passes} prompt passes")
+            for name in ("paged_decode_attention_int8",
+                         "paged_multitok_attention_int8", "int8_matmul",
+                         "int4_matmul"):
+                check(launches[name] == 0, f"{name} launched on bf16")
+        out.update({
+            "wall_s": wall,
+            "cold_burst": cold,
+            "ttft_s_document": wave[0].metrics["ttft"],
+            "ttft_s_second_turn": turn2.ttft,
+            "decode_steps": steps,
+            "prompt_passes": passes,
+            "second_turn_hit_tokens": hit2,
+            "prefix_cache": pc,
+            "finish": [r.finish_reason for r in burst + wave]
+            + [turn2.finish_reason],
+            "launches": launches,
+            "first_tokens": [r.token_ids[0] for r in burst + wave]
+            + [turn2.generated_ids[0]],
+            "streams": [r.token_ids for r in burst + wave]
+            + [list(turn2.generated_ids)],
+        })
+        if device == "cuda":
+            out["profile"] = profile_burst(engine, batch)
+            check_settled(core)
+        out["logits"] = check_model_logits(core, texts[2])
+        out["logits"].update(check_long_logits(core, doc))
+        params = core.params
+    finally:
+        stop()
+    # ``stop`` is bound to the engine: drop it too, so the pools go now
+    del engine, core, stop
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out, params
+
+
+def phase_agreement(a: dict, b: dict) -> dict:
+    """Phase A (K1) against phase B (K6): every first token must match
+    where the two phases sent the same prompt (K2 and K3 are the same in
+    both; the second turn's prompt carries the first turn's answer, so
+    it is compared only when those answers agree).  How far the greedy
+    streams agree is printed, not checked: K1 and K6 sum in another
+    order."""
+    n = len(a["first_tokens"]) - 1
+    same_prompt = a["streams"][n - 7 - 1] == b["streams"][n - 7 - 1]
+    upto = n + 1 if same_prompt else n
+    check(a["first_tokens"][:upto] == b["first_tokens"][:upto],
+          f"first tokens differ between the K1 and K6 phases: "
+          f"{a['first_tokens']} vs {b['first_tokens']}")
+    return {"first_tokens_compared": upto,
+            **agreement(b["streams"], a["streams"])}
 
 
 def print_profile(what: str, card: str, profile: dict) -> None:
@@ -1382,6 +1847,9 @@ def main() -> None:
     kernels += [check_paged_decode_int8(dev), check_paged_multitok_int8(dev)]
     torch.cuda.empty_cache()
     kernels += [check_quant_matmul(dev, 8), check_quant_matmul(dev, 4)]
+    torch.cuda.empty_cache()
+    kernels.append(check_paged_decode_blocked(dev))
+    gemma_kernel_shapes(dev)
     for k in kernels:
         print(f"kernel {k['name']} [{k['shape']}]: err {k['max_abs_err']:.3g}"
               f" ms {k['ms']:.4f} plain {k['plain_ms']:.4f} bound "
@@ -1424,6 +1892,26 @@ def main() -> None:
                       qprofile)
         runs.append(quant)
         memory(f"the {quantization} phase")
+    # Gemma-2-9B: decode through K1 (phase A), then through K6 (phase B)
+    # on a second engine over the same weights
+    phases, params = {}, None
+    for block_slots in (1, 8):
+        phase, params = gemma_path(block_slots, params=params)
+        gprofile = phase.pop("profile")
+        shown = {k: v for k, v in phase.items()
+                 if k not in ("streams", "first_tokens")}
+        print(f"gemma-2-9b decode_block_slots {block_slots} on {card}: "
+              + json.dumps(shown), flush=True)
+        print_profile(f"gemma-2-9b decode_block_slots {block_slots}, a warm "
+                      "burst", card, gprofile)
+        phases[block_slots] = phase
+        runs.append(phase)
+        memory(f"the gemma-2-9b decode_block_slots {block_slots} phase")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("gemma-2-9b K1 phase vs K6 phase: "
+          + json.dumps(phase_agreement(phases[1], phases[8])), flush=True)
     for k in kernels:
         # launches of every path, each counted from 0 just before it ran
         k["launches"] = sum(run["launches"].get(k["name"], 0)

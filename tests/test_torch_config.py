@@ -37,7 +37,7 @@ def test_defaults_and_sections():
         {"model": {"draft_model_id": "tiny-dense"}},
         {"kv_cache": {"host_swap_bytes": 1 << 20}},
         {"model": {"model_id": "tiny-moe"}},
-        {"model": {"model_id": "tiny-gemma2"}},
+        {"model": {"model_id": "tiny-encoder"}},
         {"device": {"int8_native": True}},
         {"model": {"model_id": "tiny-moe", "quantization": "int8"}},
     ],
@@ -126,3 +126,37 @@ def test_prefix_cache_fields_are_validated(prefix_cache):
 def test_unknown_keys_and_values_raise(sections):
     with pytest.raises((TypeError, ValueError)):
         load_config(**sections)
+
+
+@pytest.mark.parametrize(
+    "sections",
+    [
+        {"model": {"model_id": "tiny-gemma2"}},
+        {"model": {"model_id": "google/gemma-2-9b-it",
+                   "max_model_len": 8192}},
+        {"model": {"model_id": "tiny-gemma2", "quantization": "int8"},
+         "kv_cache": {"dtype": "int8"}},
+        {"model": {"model_id": "tiny-gemma2", "quantization": "int4"},
+         "kv_cache": {"dtype": "int8"}},
+    ],
+    ids=["tiny-gemma2", "gemma-2-9b-it", "int8_weights_int8_kv",
+         "int4_weights_int8_kv"],
+)
+def test_gemma2_family_accepted(sections):
+    """The Gemma-2 family is ported: its specs load, quantized or not,
+    as the reference accepts them (tests/test_quant.py)."""
+    cfg = load_config(**sections)
+    assert cfg.model.model_id == sections["model"]["model_id"]
+
+
+@pytest.mark.parametrize("slots", [1, 8])
+def test_decode_block_slots_accepted(slots):
+    cfg = load_config(model={"model_id": "tiny-dense"},
+                      device={"decode_block_slots": slots})
+    assert cfg.device.decode_block_slots == slots
+    assert load_config().device.decode_block_slots == 1  # the reference's
+
+
+def test_decode_block_slots_below_one_raise():
+    with pytest.raises(ValueError, match="decode_block_slots"):
+        load_config(device={"decode_block_slots": 0})

@@ -12,9 +12,10 @@ Tolerance: bf16 kernel output vs the fp32 plain version on the same bf16
 inputs, atol = rtol = 1e-2 — about one bf16 ulp of the output plus
 reordered fp32 sums (and, in the tensor-core kernels, the softmax
 weights rounded to bf16 before the PV product); f32 pools (paged decode
-only), atol = rtol = 1e-4 — fp32 sums in another order.  The int8 pool
-modes (K1-int8, K3-int8) are held to the same 1e-2 against the plain
-version on the dequantized pools.  The dequant matmuls (K4, K5) with f32
+and the blocked decode), atol = rtol = 1e-4 — fp32 sums in another
+order.  K6 is held to the plain version and to K1 on the same inputs.
+The int8 pool modes (K1-int8, K3-int8) are held to the same 1e-2
+against the plain version on the dequantized pools.  The dequant matmuls (K4, K5) with f32
 out: atol = rtol = 1e-3 — bf16 x int8 products are exact in fp32, so
 only the order of a few thousand fp32 additions differs.
 """
@@ -115,6 +116,73 @@ def test_flash_prefill_kernel_matches_plain_on_card(cuda, window):
     real = torch.arange(S, device=cuda)[None, :] < lens[:, None]
     torch.testing.assert_close(got.float()[real], expect[real],
                                atol=KERNEL_TOL, rtol=KERNEL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block_slots", [2, 8])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_blocked_decode_kernel_matches_plain_and_k1_on_card(cuda, dtype,
+                                                            block_slots):
+    """K6 at Gemma-2-9B's heads (hd 256, 16/8 heads: G 2), the window of
+    4096 with slot lengths on both sides of its edge and mid-page starts,
+    softcap 50 and scale 1/16, an idle slot on the trash page: against
+    the plain version and against K1 on the same inputs."""
+    rng = np.random.default_rng(25 + block_slots)
+    B, H, KV, hd, ps, pps = 8, 16, 8, 256, 32, 160
+    P = 1 + B * pps
+    q, k, v = (_bf16(rng, shape, cuda).to(dtype)
+               for shape in ((B, H, hd), (KV, P, ps, hd), (KV, P, ps, hd)))
+    pt = torch.from_numpy(
+        rng.permutation(np.arange(1, P)).reshape(B, pps).astype(np.int32)
+    ).to(cuda)
+    pt[0] = 0  # an idle slot reads only the trash page
+    lens = torch.tensor([1, 33, 4095, 4096, 4097, 4111, 5000, 5120],
+                        dtype=torch.int32, device=cuda)
+    kw = {"window": 4096, "softcap": 50.0, "scale": 1 / 16}
+    before = (paged_decode.paged_decode_attention.launches,
+              paged_decode.paged_decode_attention_blocked.launches)
+    got = paged_decode.paged_decode_attention_blocked(
+        q, k, v, pt, lens, block_slots=block_slots, **kw)
+    torch.cuda.synchronize()
+    assert (paged_decode.paged_decode_attention.launches,
+            paged_decode.paged_decode_attention_blocked.launches) == (
+        before[0], before[1] + 1)
+    tol = KERNEL_TOL if dtype == torch.bfloat16 else F32_TOL
+    expect = tatt.paged_decode_attention(q.float(), k.float(), v.float(), pt,
+                                         lens, **kw)
+    torch.testing.assert_close(got.float(), expect, atol=tol, rtol=tol)
+    k1 = paged_decode.paged_decode_attention(q, k, v, pt, lens, **kw)
+    torch.testing.assert_close(got.float(), k1.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_blocked_decode_dispatches_to_k1_on_card(cuda):
+    """A batch block_slots does not divide, and an int8 pool, launch K1
+    and K1-int8; K6's counter stays."""
+    rng = np.random.default_rng(27)
+    B, H, KV, hd, ps, pps = 6, 16, 8, 256, 16, 4
+    P = 1 + B * pps
+    q, k, v = (_bf16(rng, s, cuda)
+               for s in ((B, H, hd), (KV, P, ps, hd), (KV, P, ps, hd)))
+    pt = torch.from_numpy(
+        rng.permutation(np.arange(1, P)).reshape(B, pps).astype(np.int32)
+    ).to(cuda)
+    lens = torch.tensor([1, 9, 16, 17, 40, 64], dtype=torch.int32,
+                        device=cuda)
+    k8 = _int8_pool(rng, (KV, P, ps, hd), cuda)
+    v8 = _int8_pool(rng, (KV, P, ps, hd), cuda)
+    wrappers = (paged_decode.paged_decode_attention,
+                paged_decode.paged_decode_attention_int8,
+                paged_decode.paged_decode_attention_blocked)
+    before = [w.launches for w in wrappers]
+    paged_decode.paged_decode_attention_blocked(q, k, v, pt, lens,
+                                                block_slots=4)
+    paged_decode.paged_decode_attention_blocked(q, k8, v8, pt, lens,
+                                                block_slots=2)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == [
+        before[0] + 1, before[1] + 1, before[2]]
 
 
 # (hd, H, KV, ps, S, positions0, input_lens, kwargs): unaligned starts

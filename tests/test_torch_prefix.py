@@ -42,7 +42,14 @@ RADIX = {"enabled": True, "cow_min_tokens": 2}
 
 class Pair:
     """A JAX engine and a port engine with one weight tree; ``wave``
-    submits the same requests to both and waits for all of them."""
+    submits the same requests to both and runs each to the end.
+
+    The test drives each engine's tick itself, with no engine thread:
+    every request of a wave is queued before the first tick, so
+    admission, chunking and preemption follow the same event sequence
+    in both engines whatever the machine's load (with threads, a busy
+    host can split a wave across ticks in one engine and not the
+    other)."""
 
     def __init__(self, prefix_cache=RADIX, model=None, **shapes):
         model = {**MODEL, **(model or {})}
@@ -69,8 +76,6 @@ class Pair:
             params=params_from_jax(jax.tree.map(np.asarray, jparams),
                                    TINY_DENSE),
         )
-        self.j.start()
-        self.t.start()
 
     def wave(self, prompts, max_tokens=8):
         """Token prompts (lists) or text prompts, submitted together to
@@ -84,8 +89,11 @@ class Pair:
                 else core.submit_prompt(p, params)
                 for p in prompts
             ]
-            for seq in seqs:
-                assert seq.done_event.wait(timeout=300)
+            for _ in range(10_000):
+                if all(seq.done_event.is_set() for seq in seqs):
+                    break
+                core._tick()
+            assert all(seq.done_event.is_set() for seq in seqs)
             outs.append([list(s.generated_ids) for s in seqs])
         assert outs[1] == outs[0]
         return outs[1]

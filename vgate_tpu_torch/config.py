@@ -99,6 +99,10 @@ class DeviceConfig:
     # chunked prefill: cap the bucket ladder at this many tokens and run
     # longer prompts as serial suffix passes (0 = off)
     prefill_chunk: int = 0
+    # >1: decode attention serves this many slots per CTA (K6, the
+    # blocked grid B/N x KV instead of K1's B x KV); the reference's key
+    # and default.  A batch N does not divide, and int8 pools, take K1.
+    decode_block_slots: int = 1
     # reference switches the port cannot serve yet: any non-default
     # value raises NotPortedError (see _check)
     speculative_k: int = 0
@@ -223,6 +227,8 @@ def _check(cfg: VGTConfig) -> None:
             raise _not_ported(f"device.{axis}>1", "queue 1, item 10")
     if d.kv_page_size <= 0 or d.max_batch_slots <= 0:
         raise ValueError("kv_page_size and max_batch_slots must be > 0")
+    if d.decode_block_slots < 1:
+        raise ValueError("device.decode_block_slots must be >= 1")
     spec = spec_for_model_id(m.model_id)
     if spec.is_moe and m.quantization:
         raise _not_ported(
@@ -233,14 +239,6 @@ def _check(cfg: VGTConfig) -> None:
         raise _not_ported(f"MoE model {spec.name}", "queue 1, item 9")
     if spec.is_encoder:
         raise _not_ported(f"encoder model {spec.name}", "queue 1, item 8")
-    if (
-        spec.ffn_sandwich or spec.sliding_window or spec.attn_softcap
-        or spec.final_softcap or spec.embed_scale or spec.unit_offset_norm
-        or spec.act != "silu" or spec.query_scale
-    ):
-        raise _not_ported(
-            f"Gemma-2 family model {spec.name}", "queue 1, item 9"
-        )
 
 
 def _section(cls, values: Dict[str, Any], name: str):

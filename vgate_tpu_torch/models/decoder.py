@@ -1,4 +1,5 @@
-"""The dense decoder family (Qwen2.x / Llama-3 / Mistral) in PyTorch.
+"""The dense decoder families (Qwen2.x / Llama-3 / Mistral, and Gemma-2
+with its sliding windows, softcaps and sandwich norms) in PyTorch.
 
 Parameters keep the reference's stacked layout (vgate_tpu/models/
 decoder.py ``init_params``): one dict of ``[L, ...]`` tensors, weights
@@ -15,19 +16,27 @@ projections, MLP and lm_head go through ``weighted_einsum``
 (ops/quant.py): library matrix products for plain weights, as the
 reference leaves them to XLA, and the dequant-matmul kernels (K4 int8,
 K5 int4) for quantized ones.  int8 KV pools (``QuantPages``) quantize on
-every write (``kv_write``) and reach the int8 modes of K1 and K3.  MoE
-and the Gemma-2 family are not ported yet; the config rejects them.
+every write (``kv_write``) and reach the int8 modes of K1 and K3.  With
+``spec.decode_block_slots > 1`` decode attention runs K6, the blocked
+grid.  Every attention call takes the layer's window
+(``spec.layer_windows``, 0 = global), the attention softcap and the
+query scale.  MoE is not ported yet; the config rejects it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
 
 from vgate_tpu_torch.models.specs import ModelSpec
 from vgate_tpu_torch.ops.kernels.flash_prefill import flash_prefill_attention
-from vgate_tpu_torch.ops.kernels.paged_decode import paged_decode_attention
+from vgate_tpu_torch.ops.attention import _softcap
+from vgate_tpu_torch.ops.kernels.paged_decode import (
+    paged_decode_attention,
+    paged_decode_attention_blocked,
+)
 from vgate_tpu_torch.ops.kernels.paged_multitok import paged_multitok_attention
 from vgate_tpu_torch.ops.kv_quant import KVPool, kv_write
 from vgate_tpu_torch.ops.norms import rms_norm
@@ -58,15 +67,19 @@ def init_params(
         )
         return (x * 0.02).to(dtype)
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=dtype, device=device)
-
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
 
+    # Gemma's RMSNorm stores a delta around 1 (unit_offset_norm), so the
+    # identity init is zeros there, ones elsewhere
+    def norm_init(*shape):
+        if spec.unit_offset_norm:
+            return zeros(*shape)
+        return torch.ones(shape, dtype=dtype, device=device)
+
     layers: Dict[str, Any] = {
-        "input_norm": ones(L, D),
-        "post_norm": ones(L, D),
+        "input_norm": norm_init(L, D),
+        "post_norm": norm_init(L, D),
         "q": {"w": normal(L, D, H * hd)},
         "k": {"w": normal(L, D, KV * hd)},
         "v": {"w": normal(L, D, KV * hd)},
@@ -79,10 +92,13 @@ def init_params(
         layers["q"]["b"] = zeros(L, H * hd)
         layers["k"]["b"] = zeros(L, KV * hd)
         layers["v"]["b"] = zeros(L, KV * hd)
+    if spec.ffn_sandwich:
+        layers["pre_ffn_norm"] = norm_init(L, D)
+        layers["post_ffn_norm"] = norm_init(L, D)
     params: Params = {
         "embed": normal(V, D),
         "layers": layers,
-        "final_norm": ones(D),
+        "final_norm": norm_init(D),
     }
     if not spec.tie_embeddings:
         params["lm_head"] = normal(D, V)
@@ -123,38 +139,85 @@ def _project_qkv(x: torch.Tensor, lp: Params, spec: ModelSpec):
     return q, k, v
 
 
-def _dense_mlp(x: torch.Tensor, lp: Params) -> torch.Tensor:
+def _norm(x: torch.Tensor, w: torch.Tensor, spec: ModelSpec) -> torch.Tensor:
+    return rms_norm(x, w, spec.rms_eps, spec.unit_offset_norm)
+
+
+def _act(x32: torch.Tensor, spec: ModelSpec) -> torch.Tensor:
+    """MLP activation in fp32: SiLU (Qwen/Llama) or tanh-approximate GELU
+    (Gemma's ``gelu_pytorch_tanh``)."""
+    if spec.act == "gelu_tanh":
+        return torch.nn.functional.gelu(x32, approximate="tanh")
+    return torch.nn.functional.silu(x32)
+
+
+def _dense_mlp(x: torch.Tensor, lp: Params, spec: ModelSpec) -> torch.Tensor:
     gate = weighted_einsum("...d,df->...f", x, lp["gate"]["w"])
     up = weighted_einsum("...d,df->...f", x, lp["up"]["w"])
-    act = torch.nn.functional.silu(gate.float()).to(x.dtype)
+    act = _act(gate.float(), spec).to(x.dtype)
     return weighted_einsum("...f,fd->...d", act * up, lp["down"]["w"])
 
 
 def _finish_layer(h, attn, lp: Params, spec: ModelSpec):
-    """Layer back half: o-projection residual + post-norm MLP residual."""
-    attn = attn.reshape(*h.shape[:-1], spec.num_heads * spec.head_dim)
-    h = h + weighted_einsum("...h,hd->...d", attn, lp["o"]["w"])
-    normed = rms_norm(h, lp["post_norm"], spec.rms_eps)
-    return h + _dense_mlp(normed, lp)
+    """Layer back half: o-projection residual + post-norm MLP residual.
+    With ``ffn_sandwich`` (Gemma-2) the post-attention norm applies to the
+    attention OUTPUT before the residual add, and the MLP is wrapped in
+    its own pre/post norms."""
+    attn = attn.reshape(*h.shape[:-1], spec.q_dim)
+    attn_out = weighted_einsum("...h,hd->...d", attn, lp["o"]["w"])
+    if spec.ffn_sandwich:
+        h = h + _norm(attn_out, lp["post_norm"], spec)
+        mlp = _dense_mlp(_norm(h, lp["pre_ffn_norm"], spec), lp, spec)
+        return h + _norm(mlp, lp["post_ffn_norm"], spec)
+    h = h + attn_out
+    return h + _dense_mlp(_norm(h, lp["post_norm"], spec), lp, spec)
 
 
 def _logits(params: Params, spec: ModelSpec, x: torch.Tensor) -> torch.Tensor:
     """Final norm + lm_head: the fp32 accumulation, never rounded to the
     model dtype (the reference's ``preferred_element_type=jnp.float32``,
-    which it passes through its quantized branch too)."""
-    x = rms_norm(x, params["final_norm"], spec.rms_eps)
+    which it passes through its quantized branch too), then the final
+    softcap.  Tied embeddings are never quantized; their transpose is a
+    view, which the fp32-out product takes as it is."""
+    x = _norm(x, params["final_norm"], spec)
     w = params["embed"].t() if spec.tie_embeddings else params["lm_head"]
-    return weighted_einsum(
+    logits = weighted_einsum(
         "...d,dv->...v", x, w, preferred_element_type=torch.float32
     )
+    return _softcap(logits, spec.final_softcap)
 
 
-def _embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()]
+def _query_scale(spec: ModelSpec) -> Optional[float]:
+    """Gemma-2's ``query_pre_attn_scalar`` as a query scale; None selects
+    the default hd**-0.5 inside the attention ops."""
+    return spec.query_scale ** -0.5 if spec.query_scale > 0 else None
+
+
+def attn_options(spec: ModelSpec, layer: int) -> Dict[str, Any]:
+    """Layer ``layer``'s attention keywords: its window (0 = global), the
+    attention softcap and the query scale."""
+    return {"window": spec.layer_windows[layer],
+            "softcap": spec.attn_softcap, "scale": _query_scale(spec)}
+
+
+def _embed(params: Params, spec: ModelSpec, tokens: torch.Tensor):
+    x = params["embed"][tokens.long()]
+    if spec.embed_scale:
+        # Gemma scales embeddings by sqrt(hidden), cast to the model dtype
+        # BEFORE the multiply (the HF convention the reference keeps)
+        x = x * torch.tensor(spec.hidden_size ** 0.5, dtype=x.dtype)
+    return x
 
 
 def _rope(x, positions, spec: ModelSpec):
     return apply_rope(x, positions, spec.rope_theta, spec.rope_scaling)
+
+
+def qkv(h: torch.Tensor, lp: Params, spec: ModelSpec, positions):
+    """Layer front half: input norm, qkv projection and rope at
+    ``positions`` ([..., S] matching h's leading dims)."""
+    q, k, v = _project_qkv(_norm(h, lp["input_norm"], spec), lp, spec)
+    return _rope(q, positions, spec), _rope(k, positions, spec), v
 
 
 def _prefill_qkv_write(
@@ -182,10 +245,7 @@ def _prefill_qkv_write(
     B, S = h.shape[:2]
     ps = k_pool.shape[-2]
     KV, hd = spec.num_kv_heads, spec.head_dim
-    normed = rms_norm(h, lp["input_norm"], spec.rms_eps)
-    q, k, v = _project_qkv(normed, lp, spec)
-    q = _rope(q, positions, spec)
-    k = _rope(k, positions, spec)
+    q, k, v = qkv(h, lp, spec, positions)
     if offsets is not None:
         idx = offsets.long()[:, None] + torch.arange(S, device=h.device)
         slot = idx % ps
@@ -223,12 +283,13 @@ def prefill_forward(
     and returns the last real token's logits [B, V] (fp32)."""
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
-    x = _embed(params, tokens)  # [B, S, D]
+    x = _embed(params, spec, tokens)  # [B, S, D]
     for l in range(spec.num_layers):
         lp = layer_params(params, l)
         q, k, v = _prefill_qkv_write(x, lp, spec, positions, page_tables,
                                      k_pages[l], v_pages[l])
-        attn = flash_prefill_attention(q, k, v, seq_lens)
+        attn = flash_prefill_attention(q, k, v, seq_lens,
+                                       **attn_options(spec, l))
         x = _finish_layer(x, attn, lp, spec)
     return _last_logits(params, spec, x, seq_lens)
 
@@ -257,27 +318,31 @@ def decode_forward(
     active: Optional[torch.Tensor] = None,  # [B] bool; inactive -> page 0
 ) -> torch.Tensor:
     """One continuous-batching decode step: returns logits [B, V] (fp32)
-    after writing each layer's new K/V at ``positions``."""
+    after writing each layer's new K/V at ``positions``.  Attention runs
+    K1, or K6 (``block_slots`` slots per CTA) when
+    ``spec.decode_block_slots > 1``."""
     ps = k_pages.shape[3]
     seq_lens, page_ids, page_off = decode_attn_inputs(
         positions, page_tables, active, ps
     )
-    x = _embed(params, tokens)  # [B, D]
+    if spec.decode_block_slots > 1:
+        attention = functools.partial(paged_decode_attention_blocked,
+                                      block_slots=spec.decode_block_slots)
+    else:
+        attention = paged_decode_attention
+    x = _embed(params, spec, tokens)  # [B, D]
     pos = positions[:, None]
     for l in range(spec.num_layers):
         lp = layer_params(params, l)
-        normed = rms_norm(x, lp["input_norm"], spec.rms_eps)
-        q, k, v = _project_qkv(normed, lp, spec)
-        q = _rope(q[:, None], pos, spec)[:, 0]
-        k = _rope(k[:, None], pos, spec)[:, 0]
+        q, k, v = qkv(x[:, None], lp, spec, pos)
+        q, k, v = q[:, 0], k[:, 0], v[:, 0]
         # [B, KV, hd] -> [KV, B, hd] at (page_ids, page_off)
         kv_write(k_pages[l], (slice(None), page_ids, page_off),
                  k.transpose(0, 1))
         kv_write(v_pages[l], (slice(None), page_ids, page_off),
                  v.transpose(0, 1))
-        attn = paged_decode_attention(
-            q.contiguous(), k_pages[l], v_pages[l], page_tables, seq_lens
-        )
+        attn = attention(q.contiguous(), k_pages[l], v_pages[l], page_tables,
+                         seq_lens, **attn_options(spec, l))
         x = _finish_layer(x, attn, lp, spec)
     return _logits(params, spec, x)
 
@@ -313,7 +378,7 @@ def prefill_suffix_forward(
         S, device=tokens.device
     )
     offsets = prefix_lens % ps if unaligned else None
-    x = _embed(params, tokens)  # [B, S, D]
+    x = _embed(params, spec, tokens)  # [B, S, D]
     for l in range(spec.num_layers):
         lp = layer_params(params, l)
         q, _, _ = _prefill_qkv_write(
@@ -322,7 +387,7 @@ def prefill_suffix_forward(
         )
         attn = paged_multitok_attention(
             q, k_pages[l], v_pages[l], ctx_page_tables, prefix_lens,
-            suffix_lens,
+            suffix_lens, **attn_options(spec, l),
         )
         x = _finish_layer(x, attn, lp, spec)
     return _last_logits(params, spec, x, suffix_lens)

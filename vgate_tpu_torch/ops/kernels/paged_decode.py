@@ -1,13 +1,16 @@
-"""Wrapper of the paged-decode CUDA kernel (csrc/paged_decode.cu, K1).
+"""Wrappers of the paged-decode CUDA kernel (csrc/paged_decode.cu).
 
-Replaces vgate_tpu/ops/pallas/paged_attention.py
+K1 replaces vgate_tpu/ops/pallas/paged_attention.py
 ``paged_decode_attention_pallas``: bf16 and f32 pools
 (:func:`paged_decode_attention`) and, for int8 ``QuantPages`` pools, its
 int8 mode (:func:`paged_decode_attention_int8`, K1-int8, which
-:func:`paged_decode_attention` hands such pools to).  A CPU tensor takes
-the plain version (ops/attention.py ``paged_decode_attention``); a CUDA
-tensor launches the kernel or raises — there is no fallback.  Each
-function's ``launches`` counts the launches of its mode.
+:func:`paged_decode_attention` hands such pools to).  K6 replaces
+``paged_decode_attention_pallas_blocked``, the same function with
+``block_slots`` slots per CTA (:func:`paged_decode_attention_blocked`).
+A CPU tensor takes the plain version (ops/attention.py
+``paged_decode_attention``, the function of both); a CUDA tensor
+launches the kernel or raises — there is no fallback.  Each function's
+``launches`` counts the launches of its mode.
 """
 
 from __future__ import annotations
@@ -26,8 +29,17 @@ MAX_GROUP = 8  # query heads per kv head the kernel instantiates
 DTYPES = {torch.bfloat16: 0, torch.float32: 1}  # the C interface's codes
 
 
-def _lib(int8: bool = False):  # the plain-pool or the int8 entry point
+def _lib(int8: bool = False, blocked: bool = False):  # one entry point
     lib = _build.load("paged_decode")
+    if blocked:
+        fn = lib.vgt_paged_decode_blocked
+        if fn.argtypes is None:  # declare once: pointers must not be cut
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+                ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p,
+            ]
+        return fn
     if int8:
         fn = lib.vgt_paged_decode_int8
         if fn.argtypes is None:  # declare once: pointers must not be cut
@@ -179,5 +191,56 @@ def paged_decode_attention_int8(
     return out
 
 
+def paged_decode_attention_blocked(
+    q: torch.Tensor,  # [B, H, hd]
+    k_pages: KVPool,  # [KV, P, ps, hd] one layer's pool (a view)
+    v_pages: KVPool,
+    page_tables: torch.Tensor,  # [B, pps] int32
+    seq_lens: torch.Tensor,  # [B] int32, context incl. the current token
+    softcap: float = 0.0,
+    window: int = 0,  # >0 => attend only to the last `window` keys
+    scale: Optional[float] = None,  # query scale; default hd**-0.5
+    block_slots: int = 8,
+) -> torch.Tensor:
+    """K6: K1's function with ``block_slots`` slots per CTA (grid
+    B/block_slots x KV).  Returns [B, H, hd].
+
+    The reference's dispatch: ``block_slots <= 1``, a batch that
+    ``block_slots`` does not divide, or an int8 ``QuantPages`` pool goes
+    to :func:`paged_decode_attention` (K1, or K1-int8), and counts as that
+    kernel's launch, not K6's."""
+    if block_slots <= 1 or q.shape[0] % block_slots or is_quantized(k_pages):
+        return paged_decode_attention(
+            q, k_pages, v_pages, page_tables, seq_lens, softcap=softcap,
+            window=window, scale=scale,
+        )
+    if q.device.type == "cpu":
+        return attention.paged_decode_attention(
+            q, k_pages, v_pages, page_tables, seq_lens, softcap=softcap,
+            window=window if window else None, scale=scale,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check(q, k_pages, v_pages, page_tables, seq_lens)
+    B, H, hd = q.shape
+    KV, P, ps, _ = k_pages.shape
+    out = torch.empty_like(q)
+    rc = _lib(blocked=True)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
+        B, H, KV, P, ps, page_tables.shape[1], hd, int(window),
+        float(scale if scale is not None else hd ** -0.5), float(softcap),
+        int(block_slots), DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"blocked paged-decode kernel launch failed: cuda error {rc}"
+        )
+    paged_decode_attention_blocked.launches += 1
+    return out
+
+
 paged_decode_attention.launches = 0
 paged_decode_attention_int8.launches = 0
+paged_decode_attention_blocked.launches = 0

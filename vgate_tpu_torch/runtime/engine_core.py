@@ -32,6 +32,9 @@ path — batched, bucketed prompt passes and pipelined decode chunks:
   matmuls (K4/K5); ``kv_cache.dtype: int8`` makes the pools int8
   ``QuantPages`` (quantized on write, read by the int8 modes of K1/K3),
   ~1.97x the bf16 page count for one memory budget.
+* **Blocked decode**: ``device.decode_block_slots > 1`` is threaded onto
+  the spec, and decode attention then runs K6 (that many slots per CTA)
+  instead of K1.
 
 Not ported yet (the config refuses them): speculative decoding, host KV
 swap, logprobs, multi-device meshes.
@@ -41,6 +44,7 @@ later slices.
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 import time
@@ -264,6 +268,12 @@ class EngineCore:
         self.config = config or get_config()
         self.spec = spec or spec_for_model_id(self.config.model.model_id)
         dcfg = self.config.device
+        if dcfg.decode_block_slots > 1:
+            # decode attention through K6, threaded on the spec as the
+            # reference does (models/decoder.py decode_forward reads it)
+            self.spec = dataclasses.replace(
+                self.spec, decode_block_slots=dcfg.decode_block_slots
+            )
         self.device = resolve_device(dcfg.device)
         self.dtype = _DTYPES[self.config.model.dtype]
         if self.device.type == "cuda" and self.dtype != torch.bfloat16:
@@ -379,6 +389,9 @@ class EngineCore:
         self.decode_chunk = max(1, dcfg.decode_chunk)
         self.pipeline_depth = max(1, dcfg.decode_pipeline)
         self._submit_q: "queue.Queue[Sequence]" = queue.Queue()
+        # held while a batch is queued and while the loop drains the
+        # queue, so one ``generate`` batch is admitted as one wave
+        self._submit_lock = threading.Lock()
         self._abort_q: "queue.Queue[tuple]" = queue.Queue()
         self._wakeup = threading.Event()
         self._running = False
@@ -390,6 +403,9 @@ class EngineCore:
         self.total_state_rebuilds = 0
         self.total_chunked_prefills = 0  # plans run as serial chunks
         self.total_chunk_passes = 0  # their non-final passes
+        # forward passes over prompt tokens: prompt, suffix and chunk
+        # passes (each runs attention once per layer)
+        self.total_prompt_passes = 0
 
     # ------------------------------------------------------------ lifecycle
 
@@ -469,10 +485,13 @@ class EngineCore:
     def generate(
         self, prompts: Seq[str], params: Seq[SamplingParams]
     ) -> List[Dict[str, Any]]:
-        """Blocking batch API used by the sync backend seam."""
-        seqs = [
-            self.submit_prompt(p, sp) for p, sp in zip(prompts, params)
-        ]
+        """Blocking batch API used by the sync backend seam.  The batch is
+        queued as one: the loop admits it in one wave, never split by a
+        tick that ran between two submissions."""
+        with self._submit_lock:
+            seqs = [
+                self.submit_prompt(p, sp) for p, sp in zip(prompts, params)
+            ]
         results = []
         for seq in seqs:
             seq.done_event.wait()
@@ -651,15 +670,16 @@ class EngineCore:
                     seq.request_abort(reason)
 
     def _drain_submissions(self) -> None:
-        while True:
-            try:
-                seq = self._submit_q.get_nowait()
-            except queue.Empty:
-                return
-            try:
-                self.scheduler.add(seq)
-            except Exception as exc:
-                seq.fail(exc)
+        with self._submit_lock:
+            while True:
+                try:
+                    seq = self._submit_q.get_nowait()
+                except queue.Empty:
+                    return
+                try:
+                    self.scheduler.add(seq)
+                except Exception as exc:
+                    seq.fail(exc)
 
     # -------------------------------------------------------- device inputs
 
@@ -835,6 +855,7 @@ class EngineCore:
             seq_lens[row] = seq.num_prompt_tokens
             self._set_slot_row(plan)
             prefill_pt[row, : len(seq.pages)] = seq.pages[:n_bucket_pages]
+        self.total_prompt_passes += 1
         return _prefill_step(
             self.params, self.spec, self._dev(tokens), self._dev(seq_lens),
             self.k_pages, self.v_pages, self._dev(prefill_pt),
@@ -888,6 +909,7 @@ class EngineCore:
             self._set_slot_row(plan)
             ctx = seq.pages[:ctx_pages]
             ctx_pt[row, : len(ctx)] = ctx
+        self.total_prompt_passes += 1
         return _suffix_prefill_step(
             self.params, self.spec, self._dev(tokens), self._dev(prefix_lens),
             self._dev(suffix_lens), self.k_pages, self.v_pages,
@@ -927,6 +949,7 @@ class EngineCore:
                 self._dev(ctx_pt),
             )
             self.total_chunk_passes += 1
+            self.total_prompt_passes += 1
             start += chunk
         final = PrefillPlan(
             seq=seq, slot=plan.slot, cached_len=start,
@@ -1124,6 +1147,7 @@ class EngineCore:
             "finished": self.scheduler.total_finished,
             "steps": self.total_steps,
             "prefills": self.total_prefills,
+            "prompt_passes": self.total_prompt_passes,
             "decode_tokens": self.total_decode_tokens,
             "state_rebuilds": self.total_state_rebuilds,
             "kv_pages_total": self.allocator.num_allocatable,

@@ -97,7 +97,9 @@ def auto_num_pages(
     are resident (the serving analogue of vLLM's gpu_memory_utilization).
 
     On CUDA the budget is ``torch.cuda.mem_get_info``: the free bytes
-    minus the share of the card ``hbm_utilization`` leaves unused.  On
+    minus the share of the card ``hbm_utilization`` leaves unused; the
+    allocator's cached blocks (a weight init's fp32 temporaries) are
+    released first, so they count as free.  On
     the CPU (tests) the pool is ``fallback`` pages.  There is no guessed
     per-card default: a CUDA device always reports its memory.
     ``budget_bytes`` sizes against that many bytes instead, on any
@@ -108,6 +110,7 @@ def auto_num_pages(
     if budget_bytes is None:
         if device.type != "cuda":
             return fallback
+        torch.cuda.empty_cache()
         free, total = torch.cuda.mem_get_info(device)
         budget_bytes = max(0, free - (1.0 - hbm_utilization) * total)
     page_bytes = _page_bytes(

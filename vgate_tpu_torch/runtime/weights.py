@@ -5,7 +5,8 @@ weights, vgate_tpu/models/decoder.py ``init_params``), so a JAX tree
 converted to numpy maps leaf for leaf (:func:`params_from_jax`).  HF
 state dicts (``[out, in]`` linear weights) are transposed into the same
 layout (:func:`params_from_torch_state_dict`, the HF ``Qwen2ForCausalLM``
-names of the reference's runtime/weights.py).  Dense family only.
+and ``Gemma2ForCausalLM`` names of the reference's runtime/weights.py).
+Dense families only (MoE is not ported).
 :func:`quantize_params` applies ``model.quantization`` (int8/int4) to a
 loaded tree, one leaf at a time (ops/quant.py ``quantize_decoder_params``).
 """
@@ -54,10 +55,12 @@ def params_from_jax(
     quantized tree's ``QTensor``/``PackedQTensor`` nodes (NamedTuples
     there) carry over as the port's, their int8 ``q``, uint8
     ``q_packed`` and f32 scales kept as they are, never cast to
-    ``dtype``."""
-    if spec.is_moe or spec.ffn_sandwich:
+    ``dtype``.  A Gemma-2 tree carries its sandwich norms
+    (``pre_ffn_norm``, ``post_ffn_norm``) and, with tied embeddings, no
+    ``lm_head``."""
+    if spec.is_moe:
         raise NotImplementedError(
-            "only the dense family is ported (ROADMAP queue 1, item 9)"
+            "MoE is not ported yet (ROADMAP queue 1, item 9)"
         )
 
     def conv(node):
@@ -79,9 +82,9 @@ def params_from_getter(
     dtype: torch.dtype = torch.bfloat16,
 ) -> Params:
     """Assemble the stacked parameter dict from HF-named tensors."""
-    if spec.is_moe or spec.ffn_sandwich:
+    if spec.is_moe:
         raise NotImplementedError(
-            "only the dense family is ported (ROADMAP queue 1, item 9)"
+            "MoE is not ported yet (ROADMAP queue 1, item 9)"
         )
     L = spec.num_layers
     pre = "model.layers.{}."
@@ -111,6 +114,14 @@ def params_from_getter(
         layers["q"]["b"] = stack(pre + "self_attn.q_proj.bias")
         layers["k"]["b"] = stack(pre + "self_attn.k_proj.bias")
         layers["v"]["b"] = stack(pre + "self_attn.v_proj.bias")
+    if spec.ffn_sandwich:
+        # Gemma-2 sandwich norms (HF Gemma2ForCausalLM names)
+        layers["pre_ffn_norm"] = stack(
+            pre + "pre_feedforward_layernorm.weight"
+        )
+        layers["post_ffn_norm"] = stack(
+            pre + "post_feedforward_layernorm.weight"
+        )
     params: Params = {
         "embed": get("model.embed_tokens.weight").contiguous(),
         "layers": layers,
