@@ -72,6 +72,21 @@ def card_line() -> str:
     return out[0] if out else "unknown"
 
 
+def demangled(entry: str) -> str:
+    """A kernel's name without namespaces and parameters, its template
+    arguments kept (c++filt where the toolkit has it)."""
+    try:
+        entry = subprocess.run(["c++filt", entry], capture_output=True,
+                               text=True, timeout=10).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return entry
+    entry = entry.replace("(anonymous namespace)::", "").split("(")[0]
+    end = entry.find("<") if "<" in entry else len(entry)
+    scope = entry.rfind("::", 0, end)
+    cut = max(scope + 2 if scope >= 0 else 0, entry.rfind(" ", 0, end) + 1)
+    return entry[cut:]
+
+
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
     for _ in range(warmup):
@@ -111,6 +126,38 @@ def within(got, expect, what: str, tol: float = KERNEL_TOL) -> float:
     ok = torch.allclose(got.float(), expect.float(), atol=tol, rtol=tol)
     check(ok, f"{what}: kernel disagrees with plain (max abs err {err})")
     return err
+
+
+def thrice(fn, what: str):
+    """Three launches of ``fn`` on the same inputs must give bit-identical
+    outputs: a missing barrier wait shows as rows that change."""
+    runs = [fn() for _ in range(3)]
+    torch.cuda.synchronize()
+    check(all(torch.equal(runs[0], r) for r in runs[1:]),
+          f"{what}: three runs on the same inputs differ")
+    return runs[0]
+
+
+def attention_bound(pairs, H, hd, nbytes):
+    """(flops, bound ms, bound_by) of an attention call over ``pairs``
+    visible (query, key) pairs: 4 flops a pair, head and dim on the bf16
+    tensor cores, ``nbytes`` moved once."""
+    flops = 4 * pairs * H * hd
+    t_ops = flops / H100_BF16_FLOPS * 1e3
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return flops, max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                        else "bytes")
+
+
+def print_timed(what: str, flops, bound, by, ms, library_ms, host, err):
+    """One timed shape of K2 or K3: kernel ms, achieved TFLOP/s, share of
+    the bound, the wrapper's host time a call, and kernel / library."""
+    print(f"  {what}: " + json.dumps({
+        "ms": ms, "bound_ms": bound, "bound_by": by,
+        "library_ms": library_ms, "tflops": flops / ms / 1e9,
+        "bound_share": bound / ms, "host_us": host,
+        "vs_library": ms / library_ms, "max_abs_err": err,
+    }), flush=True)
 
 
 # ------------------------------------------------------------ kernel checks
@@ -252,6 +299,85 @@ def prefill_inputs(B, S, H, KV, hd, seed, dev):
     return q, k, v
 
 
+# K2 and K3 at the edges of their Hopper tiles (128 query rows a CTA; 128
+# keys a tile, 64 at hd 256): S off the tile, key lengths 1/127/128/129
+# and below S, q_offsets and positions0 off 64, windows 1/127/129 and 4096
+# over a 4,096-token prefix, groups 1/2/7/8, head dims 64/128/256.
+# (hd, H, KV, S, Sk, seq_lens, q_offsets, kwargs)
+K2_EDGE_CASES = [
+    (64, 8, 8, 192, 192, [1, 127], None, {}),
+    (128, 14, 2, 192, 192, [128, 129], None, {}),
+    (256, 16, 2, 256, 256, [192, 256], None,
+     {"window": 1, "softcap": 30.0, "scale": 0.1}),
+    (128, 8, 4, 192, 229, [229, 200], [37, 8], {"window": 127}),
+    (64, 4, 2, 320, 320, [320, 250], None, {"window": 129}),
+    (256, 16, 8, 128, 4224, [4224, 4200], [4096, 4072],
+     {"window": 4096, "softcap": 50.0, "scale": 1 / 16}),
+]
+# (hd, H, KV, ps, S, positions0, input_lens, kwargs, trash columns): idle
+# 128-row tiles (input_lens < S), copy-on-write starts mid-page, page
+# sizes 16 and 32, page tables padded with trash page 0
+K3_EDGE_CASES = [
+    (64, 8, 8, 16, 192, [0, 37, 5], [192, 127, 1], {}, 0),
+    (128, 14, 2, 32, 256, [1024, 100, 0], [256, 129, 128], {"window": 127},
+     3),
+    (256, 16, 2, 16, 192, [16, 3, 50], [60, 192, 7],
+     {"window": 1, "softcap": 30.0, "scale": 0.1}, 0),
+    (128, 8, 4, 32, 512, [4096, 4100], [512, 300], {"window": 4096}, 0),
+    (64, 8, 4, 32, 128, [20, 70, 4000], [128, 100, 1], {"window": 129}, 2),
+]
+
+
+def prefill_bound(B, S, H, KV, hd):
+    """(flops, bound ms, bound_by) of K2 on B full rows of S tokens."""
+    return attention_bound(B * S * (S + 1) // 2, H, hd,
+                           B * S * (2 * H + 2 * KV) * hd * 2 + 2 * B * 4)
+
+
+def time_prefill(q, k, v, sl, what, kw=None, library_scale=None,
+                 with_plain=False) -> dict:
+    """K2 on B full rows against the plain version and causal SDPA (kv
+    heads expanded beforehand; the port never calls SDPA), timed; prints
+    the shape's line and returns its numbers."""
+    from vgate_tpu_torch.ops import attention as plain
+    from vgate_tpu_torch.ops.kernels.flash_prefill import (
+        flash_prefill_attention as kernel,
+    )
+
+    kw = kw or {}
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    got = kernel(q, k, v, sl, **kw)
+    expect = plain.flash_prefill_attention(q.float(), k.float(), v.float(),
+                                           sl, **kw)
+    torch.cuda.synchronize()
+    err = within(got, expect, f"flash prefill {what}")
+    del expect
+    qh = q.transpose(1, 2)
+    kh = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    vh = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if not kw.get("softcap"):  # SDPA has no softcap
+        lib = sdpa(qh, kh, vh, is_causal=True, scale=library_scale)
+        torch.cuda.synchronize()
+        within(got, lib.transpose(1, 2), f"flash prefill {what} vs SDPA")
+        del lib
+    ms = time_ms(lambda: kernel(q, k, v, sl, **kw), iters=50)
+    library_ms = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True,
+                                      scale=library_scale), iters=50)
+    host = host_us(lambda: kernel(q, k, v, sl, **kw))
+    flops, bound, by = prefill_bound(B, S, H, KV, hd)
+    print_timed(f"flash_prefill_attention at {what}", flops, bound, by, ms,
+                library_ms, host, err)
+    out = {"max_abs_err": err, "ms": ms, "bound_ms": bound, "bound_by": by,
+           "library_ms": library_ms}
+    if with_plain:
+        out["plain_ms"] = time_ms(
+            lambda: plain.flash_prefill_attention(q, k, v, sl, **kw),
+            iters=3)
+    return out
+
+
 def check_flash_prefill(dev) -> dict:
     from vgate_tpu_torch.ops import attention as plain
     from vgate_tpu_torch.ops.kernels.flash_prefill import (
@@ -283,47 +409,43 @@ def check_flash_prefill(dev) -> dict:
                                            sl)[:, 128:]
     torch.cuda.synchronize()
     within(got, expect, "flash prefill q_offsets")
+    # the tile edges, each case three times (bit-identical)
+    for hd, H, KV, S, Sk, lens, offs, kw in K2_EDGE_CASES:
+        gen = torch.Generator(device=dev).manual_seed(S + Sk + H)
+        B = len(lens)
+        q = torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn(B, Sk, KV, hd, generator=gen, device=dev)
+                .bfloat16() for _ in range(2))
+        sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        off = (None if offs is None
+               else torch.tensor(offs, dtype=torch.int32, device=dev))
+        what = f"flash prefill edge hd={hd} H={H} KV={KV} S={S} {lens} {kw}"
+        got = thrice(lambda: kernel(q, k, v, sl, q_offsets=off, **kw), what)
+        expect = plain.flash_prefill_attention(
+            q.float(), k.float(), v.float(), sl, q_offset=off, **kw)
+        pos = torch.arange(S, device=dev)[None, :]
+        if off is not None:
+            pos = pos + off[:, None]
+        real = pos < sl[:, None]
+        within(got[real], expect[real], what)
 
     # the main path's bucket at 7B: B=2, S=1024, full rows (so one causal
-    # library call computes the same function)
+    # library call computes the same function); then the largest bucket
     B, S, H, KV, hd = 2, 1024, 28, 4, 128
-    q, k, v = prefill_inputs(B, S, H, KV, hd, 23, dev)
-    sl = torch.full((B,), S, dtype=torch.int32, device=dev)
-    got = kernel(q, k, v, sl)
-    expect = plain.flash_prefill_attention(q.float(), k.float(), v.float(),
-                                           sl)
-    torch.cuda.synchronize()
-    err = within(got, expect, "flash prefill at 7B, bucket 1024")
-    ms = time_ms(lambda: kernel(q, k, v, sl), iters=20)
-    plain_ms = time_ms(
-        lambda: plain.flash_prefill_attention(q, k, v, sl), iters=3
-    )
-    # library yardstick: causal SDPA on the same inputs, kv heads
-    # expanded beforehand (the port never calls SDPA)
-    qh = q.transpose(1, 2)
-    kh = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
-    vh = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = sdpa(qh, kh, vh, is_causal=True).transpose(1, 2)
-    torch.cuda.synchronize()
-    within(got, lib, "flash prefill vs the library call")
-    library_ms = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True), iters=20)
-    pairs = B * S * (S + 1) // 2  # (query, key) pairs under the diagonal
-    flops = 4 * pairs * H * hd
-    nbytes = B * S * (2 * H + 2 * KV) * hd * 2 + 2 * B * 4
-    t_ops = flops / H100_BF16_FLOPS * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    main = time_prefill(*prefill_inputs(B, S, H, KV, hd, 23, dev),
+                        torch.full((B,), S, dtype=torch.int32, device=dev),
+                        f"7b [B={B} S={S} H={H} KV={KV} hd={hd}]",
+                        with_plain=True)
+    time_prefill(*prefill_inputs(1, 2048, H, KV, hd, 24, dev),
+                 torch.full((1,), 2048, dtype=torch.int32, device=dev),
+                 f"7b [B=1 S=2048 H={H} KV={KV} hd={hd}]")
+    torch.cuda.empty_cache()
     return {
         "name": "flash_prefill_attention",
         "route": "cuda",
         "source": "vgate_tpu_torch/csrc/flash_prefill.cu",
         "replaces": "vgate_tpu/ops/pallas/flash_prefill.py:127",
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
+        **main,
         "shape": f"B={B} S={S} H={H} KV={KV} hd={hd}",
     }
 
@@ -342,6 +464,83 @@ def suffix_inputs(B, S, H, KV, hd, ps, pos0, lens, seed, dev):
     p0 = torch.tensor(pos0, dtype=torch.int32, device=dev)
     il = torch.tensor(lens, dtype=torch.int32, device=dev)
     return q, k, v, pt, p0, il
+
+
+def suffix_bound(B, S, prefix, ctx, H, KV, hd, ps, window=0):
+    """(flops, bound ms, bound_by) of K3 on B slots of S full rows over a
+    ``prefix``-token prefix: row s sees prefix + s + 1 keys (``window``
+    of them on a sliding layer whose window they all exceed); the live
+    context's K and V read once."""
+    if window:
+        pairs = B * S * window
+    else:
+        pairs = B * (S * (prefix + 1) + S * (S - 1) // 2)
+    nbytes = (2 * B * S * H * hd * 2          # q in, out
+              + 2 * B * ctx * KV * hd * 2     # K and V of the live context
+              + B * (ctx // ps) * 4 + 2 * B * 4)  # tables, positions, lens
+    return attention_bound(pairs, H, hd, nbytes)
+
+
+def time_suffix(dev, B, S, H, KV, hd, ps, prefix, seed, what, kw=None,
+                with_plain=False) -> dict:
+    """K3 on B slots of S full rows over a ``prefix``-token prefix,
+    against the plain version and one SDPA call on K/V gathered to
+    contiguous memory beforehand (not timed; kv heads expanded; the port
+    never calls SDPA), whose mask is the suffix mask; timed, printed."""
+    from vgate_tpu_torch.ops import attention as plain
+    from vgate_tpu_torch.ops.kernels.paged_multitok import (
+        paged_multitok_attention as kernel,
+    )
+
+    kw = kw or {}
+    window = kw.get("window", 0)
+    q, k, v, pt, p0, il = suffix_inputs(B, S, H, KV, hd, ps, [prefix] * B,
+                                        [S] * B, seed, dev)
+    got = kernel(q, k, v, pt, p0, il, **kw)
+    expect = plain.paged_suffix_attention(
+        q.float(), k.float(), v.float(), pt, p0, p0 + il,
+        window=window or None, softcap=kw.get("softcap", 0.0),
+        scale=kw.get("scale"))
+    torch.cuda.synchronize()
+    err = within(got, expect, f"paged multitok {what}")
+    del expect
+    ctx = prefix + S
+    kc, vc = (t[:, pt.long()].reshape(KV, B, ctx, hd).permute(1, 0, 2, 3)
+              .repeat_interleave(H // KV, dim=1).contiguous() for t in (k, v))
+    if window:
+        rows = prefix + torch.arange(S, device=dev)[:, None]
+        keys = torch.arange(ctx, device=dev)[None, :]
+        mask = (keys <= rows) & (keys > rows - window)
+    else:  # lower-right causal: the suffix mask of full rows
+        from torch.nn.attention.bias import causal_lower_right
+
+        mask = causal_lower_right(S, ctx)
+    qh = q.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    scale = kw.get("scale")
+    if not kw.get("softcap"):  # SDPA has no softcap
+        lib = sdpa(qh, kc, vc, attn_mask=mask, scale=scale)
+        torch.cuda.synchronize()
+        within(got, lib.transpose(1, 2), f"paged multitok {what} vs SDPA")
+        del lib
+    ms = time_ms(lambda: kernel(q, k, v, pt, p0, il, **kw), iters=50)
+    library_ms = time_ms(lambda: sdpa(qh, kc, vc, attn_mask=mask,
+                                      scale=scale), iters=20)
+    host = host_us(lambda: kernel(q, k, v, pt, p0, il, **kw))
+    del kc, vc
+    flops, bound, by = suffix_bound(B, S, prefix, ctx, H, KV, hd, ps, window)
+    print_timed(f"paged_multitok_attention at {what}", flops, bound, by, ms,
+                library_ms, host, err)
+    out = {"max_abs_err": err, "ms": ms, "bound_ms": bound, "bound_by": by,
+           "library_ms": library_ms}
+    if with_plain:
+        out["plain_ms"] = time_ms(
+            lambda: plain.paged_suffix_attention(
+                q, k, v, pt, p0, p0 + il, window=window or None,
+                softcap=kw.get("softcap", 0.0), scale=scale),
+            iters=3)
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_paged_multitok(dev) -> dict:
@@ -374,59 +573,35 @@ def check_paged_multitok(dev) -> dict:
         real = torch.arange(S, device=dev)[None, :] < il[:, None]
         within(got[real], expect[real],
                f"paged multitok hd={hd} ps={ps} pos0={pos0} {kw}")
+    # the tile edges, each case three times (bit-identical)
+    for hd, H, KV, ps, S, pos0, lens, kw, trash in K3_EDGE_CASES:
+        q, k, v, pt, p0, il = suffix_inputs(len(pos0), S, H, KV, hd, ps,
+                                            pos0, lens, 33, dev)
+        pt = torch.cat([pt, pt.new_zeros(pt.shape[0], trash)], dim=1)
+        what = (f"paged multitok edge hd={hd} H={H} KV={KV} ps={ps} S={S} "
+                f"pos0={pos0} lens={lens} {kw} trash={trash}")
+        got = thrice(lambda: kernel(q, k, v, pt, p0, il, **kw), what)
+        expect = plain.paged_suffix_attention(
+            q.float(), k.float(), v.float(), pt, p0, p0 + il,
+            window=kw.get("window"), softcap=kw.get("softcap", 0.0),
+            scale=kw.get("scale"),
+        )
+        check(bool(torch.isfinite(got).all()), f"{what}: idle rows")
+        real = torch.arange(S, device=dev)[None, :] < il[:, None]
+        within(got[real], expect[real], what)
 
     # the timing shape: 4 slots, 512 suffix rows over a 1024-token
     # resident prefix each (ctx 1536), 7B heads, ps 32
     B, S, H, KV, hd, ps, prefix = 4, 512, 28, 4, 128, 32, 1024
-    q, k, v, pt, p0, il = suffix_inputs(B, S, H, KV, hd, ps, [prefix] * B,
-                                        [S] * B, 32, dev)
-    got = kernel(q, k, v, pt, p0, il)
-    expect = plain.paged_suffix_attention(q.float(), k.float(), v.float(),
-                                          pt, p0, p0 + il)
-    torch.cuda.synchronize()
-    err = within(got, expect, "paged multitok at the 7B suffix shape")
-    ms = time_ms(lambda: kernel(q, k, v, pt, p0, il), iters=20)
-    plain_ms = time_ms(
-        lambda: plain.paged_suffix_attention(q, k, v, pt, p0, p0 + il),
-        iters=3,
-    )
-    # library yardstick: K/V gathered to contiguous memory beforehand (not
-    # timed), kv heads expanded, then ONE SDPA call whose lower-right
-    # causal mask is exactly the suffix mask of full rows (the port never
-    # calls SDPA)
-    from torch.nn.attention.bias import causal_lower_right
-
-    ctx = prefix + S
-    kc = k[:, pt.long()].reshape(KV, B, ctx, hd).permute(1, 0, 2, 3)
-    vc = v[:, pt.long()].reshape(KV, B, ctx, hd).permute(1, 0, 2, 3)
-    kh = kc.repeat_interleave(H // KV, dim=1).contiguous()
-    vh = vc.repeat_interleave(H // KV, dim=1).contiguous()
-    qh = q.transpose(1, 2)
-    mask = causal_lower_right(S, ctx)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = sdpa(qh, kh, vh, attn_mask=mask).transpose(1, 2)
-    torch.cuda.synchronize()
-    within(got, lib, "paged multitok vs the library call")
-    library_ms = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask), iters=20)
-    # visible (query, key) pairs: row s sees prefix + s + 1 keys
-    pairs = B * (S * (prefix + 1) + S * (S - 1) // 2)
-    flops = 4 * pairs * H * hd
-    nbytes = (2 * B * S * H * hd * 2          # q in, out
-              + 2 * B * ctx * KV * hd * 2     # K and V of the live context
-              + B * (ctx // ps) * 4 + 2 * B * 4)  # tables, positions, lens
-    t_ops = flops / H100_BF16_FLOPS * 1e3
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    main = time_suffix(dev, B, S, H, KV, hd, ps, prefix, 32,
+                       f"7b [B={B} S={S} prefix={prefix} H={H} KV={KV} "
+                       f"hd={hd} ps={ps}]", with_plain=True)
     return {
         "name": "paged_multitok_attention",
         "route": "cuda",
         "source": "vgate_tpu_torch/csrc/paged_multitok.cu",
         "replaces": "vgate_tpu/ops/pallas/paged_attention.py:847",
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
+        **main,
         "shape": f"B={B} S={S} prefix={prefix} H={H} KV={KV} hd={hd} "
                  f"ps={ps}",
     }
@@ -711,85 +886,24 @@ def gemma_kernel_shapes(dev) -> None:
     versions, timed beside their bound and a library yardstick (SDPA,
     which has no softcap), each printed on a line of its own (K1's
     line prints with K6's check)."""
-    from torch.nn.attention.bias import causal_lower_right
-
-    from vgate_tpu_torch.ops import attention as plain
-    from vgate_tpu_torch.ops.kernels.flash_prefill import (
-        flash_prefill_attention,
-    )
-    from vgate_tpu_torch.ops.kernels.paged_multitok import (
-        paged_multitok_attention,
-    )
-
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     H, KV, hd = 16, 8, 256
     cap = {"softcap": 50.0, "scale": 1 / 16}
     # K2: a 1024-token bucket of two full rows, global and sliding layers
     B, S = 2, 1024
     q, k, v = prefill_inputs(B, S, H, KV, hd, 71, dev)
     sl = torch.full((B,), S, dtype=torch.int32, device=dev)
-    qh = q.transpose(1, 2)
-    kh = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
-    vh = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
-    library_ms = time_ms(lambda: sdpa(qh, kh, vh, is_causal=True,
-                                      scale=1 / 16), iters=20)
-    t_ops = 4 * (B * S * (S + 1) // 2) * H * hd / H100_BF16_FLOPS * 1e3
-    t_bytes = ((B * S * (2 * H + 2 * KV) * hd * 2 + 2 * B * 4)
-               / H100_BYTES_PER_S * 1e3)
-    bound, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                      else "bytes")
     for window in (0, 4096):
-        got = flash_prefill_attention(q, k, v, sl, window=window, **cap)
-        expect = plain.flash_prefill_attention(
-            q.float(), k.float(), v.float(), sl, window=window, **cap)
-        torch.cuda.synchronize()
-        err = within(got, expect, f"flash prefill at gemma-2-9b w={window}")
-        ms = time_ms(lambda: flash_prefill_attention(q, k, v, sl,
-                                                     window=window, **cap),
-                     iters=20)
-        print(f"  flash_prefill_attention at gemma-2-9b [B={B} S={S} H={H} "
-              f"KV={KV} hd={hd} softcap=50 window={window}]: "
-              + json.dumps({"ms": ms, "bound_ms": bound, "bound_by": by,
-                            "library_ms": library_ms, "max_abs_err": err}),
-              flush=True)
+        time_prefill(q, k, v, sl, f"gemma-2-9b [B={B} S={S} H={H} KV={KV} "
+                     f"hd={hd} softcap=50 window={window}]",
+                     kw={"window": window, **cap}, library_scale=1 / 16)
+    del q, k, v
     # K3: 4 rows of a 512-token chunk over a 4,096-token prefix (ctx
     # 4,608) on a sliding layer: each row's first key lies mid-page
     B, S, ps, prefix, window = 4, 512, 32, 4096, 4096
-    q, k, v, pt, p0, il = suffix_inputs(B, S, H, KV, hd, ps, [prefix] * B,
-                                        [S] * B, 72, dev)
-    got = paged_multitok_attention(q, k, v, pt, p0, il, window=window, **cap)
-    expect = plain.paged_suffix_attention(q.float(), k.float(), v.float(),
-                                          pt, p0, p0 + il, window=window,
-                                          **cap)
-    torch.cuda.synchronize()
-    err = within(got, expect, "paged multitok at gemma-2-9b")
-    ms = time_ms(lambda: paged_multitok_attention(q, k, v, pt, p0, il,
-                                                  window=window, **cap),
-                 iters=20)
-    ctx = prefix + S
-    kc, vc = (t[:, pt.long()].reshape(KV, B, ctx, hd).permute(1, 0, 2, 3)
-              .repeat_interleave(H // KV, dim=1).contiguous() for t in (k, v))
-    rows = prefix + torch.arange(S, device=dev)[:, None]
-    keys = torch.arange(ctx, device=dev)[None, :]
-    mask = (keys <= rows) & (keys > rows - window)
-    library_ms = time_ms(lambda: sdpa(q.transpose(1, 2), kc, vc,
-                                      attn_mask=mask, scale=1 / 16), iters=20)
-    del kc, vc
-    # row s (position prefix + s) sees `window` keys; the rows' windows
-    # together cover the whole context, whose K and V are read once
-    t_ops = 4 * B * S * window * H * hd / H100_BF16_FLOPS * 1e3
-    nbytes = (2 * B * S * H * hd * 2 + 2 * B * ctx * KV * hd * 2
-              + B * (ctx // ps) * 4 + 2 * B * 4)
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    bound, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                      else "bytes")
-    print(f"  paged_multitok_attention at gemma-2-9b [B={B} S={S} "
-          f"prefix={prefix} H={H} KV={KV} hd={hd} ps={ps} softcap=50 "
-          f"window={window}]: "
-          + json.dumps({"ms": ms, "bound_ms": bound, "bound_by": by,
-                        "library_ms": library_ms, "max_abs_err": err}),
-          flush=True)
-    torch.cuda.empty_cache()
+    time_suffix(dev, B, S, H, KV, hd, ps, prefix, 72,
+                f"gemma-2-9b [B={B} S={S} prefix={prefix} H={H} KV={KV} "
+                f"hd={hd} ps={ps} softcap=50 window={window}]",
+                kw={"window": window, **cap})
 
 
 def qmm_case(rows, in_dim, out_dim, bits, seed, dev):
@@ -1837,9 +1951,8 @@ def main() -> None:
     print(f"kernels built in {time.perf_counter() - t0:.1f} s "
           "(one nvcc per source, in parallel)", flush=True)
     for name, info in report.items():
-        for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line.lower():
-                print(f"  {name}: {line.strip()}")
+        for entry, line in _build.ptxas_entries(info["ptxas"]):
+            print(f"  {name}: {demangled(entry)}: {line}")
 
     kernels = [check_paged_decode(dev), check_flash_prefill(dev),
                check_paged_multitok(dev)]

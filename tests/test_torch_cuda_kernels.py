@@ -227,6 +227,103 @@ def test_paged_multitok_kernel_matches_plain_on_card(cuda, case):
                                atol=KERNEL_TOL, rtol=KERNEL_TOL)
 
 
+# K2 and K3 at the edges of their Hopper tiles (128 query rows a CTA; 128
+# keys a tile, 64 at hd 256): S off the tile, key lengths 1/127/128/129
+# and below S, q_offsets and positions0 off 64, windows 1/127/129 and 4096
+# over a 4,096-token prefix, groups 1/2/7/8, head dims 64/128/256.
+# (hd, H, KV, S, Sk, seq_lens, q_offsets, kwargs)
+K2_EDGE_CASES = [
+    (64, 8, 8, 192, 192, [1, 127], None, {}),
+    (128, 14, 2, 192, 192, [128, 129], None, {}),
+    (256, 16, 2, 256, 256, [192, 256], None,
+     {"window": 1, "softcap": 30.0, "scale": 0.1}),
+    (128, 8, 4, 192, 229, [229, 200], [37, 8], {"window": 127}),
+    (64, 4, 2, 320, 320, [320, 250], None, {"window": 129}),
+    (256, 16, 8, 128, 4224, [4224, 4200], [4096, 4072],
+     {"window": 4096, "softcap": 50.0, "scale": 1 / 16}),
+]
+# (hd, H, KV, ps, S, positions0, input_lens, kwargs, trash columns): idle
+# 128-row tiles (input_lens < S), copy-on-write starts mid-page, page
+# sizes 16 and 32, page tables padded with trash page 0
+K3_EDGE_CASES = [
+    (64, 8, 8, 16, 192, [0, 37, 5], [192, 127, 1], {}, 0),
+    (128, 14, 2, 32, 256, [1024, 100, 0], [256, 129, 128], {"window": 127},
+     3),
+    (256, 16, 2, 16, 192, [16, 3, 50], [60, 192, 7],
+     {"window": 1, "softcap": 30.0, "scale": 0.1}, 0),
+    (128, 8, 4, 32, 512, [4096, 4100], [512, 300], {"window": 4096}, 0),
+    (64, 8, 4, 32, 128, [20, 70, 4000], [128, 100, 1], {"window": 129}, 2),
+]
+
+
+def _thrice(fn):
+    """Three launches of ``fn`` on the same inputs; a missing barrier wait
+    shows as outputs that differ between runs."""
+    runs = [fn() for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:]), \
+        "three runs on the same inputs differ"
+    return runs[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(K2_EDGE_CASES)))
+def test_flash_prefill_kernel_tile_edges_on_card(cuda, case):
+    hd, H, KV, S, Sk, lens, offs, kw = K2_EDGE_CASES[case]
+    rng = np.random.default_rng(60 + case)
+    B = len(lens)
+    q = _bf16(rng, (B, S, H, hd), cuda)
+    k = _bf16(rng, (B, Sk, KV, hd), cuda)
+    v = _bf16(rng, (B, Sk, KV, hd), cuda)
+    sl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    off = (None if offs is None
+           else torch.tensor(offs, dtype=torch.int32, device=cuda))
+    got = _thrice(lambda: flash_prefill.flash_prefill_attention(
+        q, k, v, sl, q_offsets=off, **kw))
+    expect = tatt.flash_prefill_attention(
+        q.float(), k.float(), v.float(), sl, q_offset=off,
+        softcap=kw.get("softcap", 0.0), window=kw.get("window"),
+        scale=kw.get("scale"),
+    )
+    pos = torch.arange(S, device=cuda)[None, :]
+    if off is not None:
+        pos = pos + off[:, None]
+    real = pos < sl[:, None]  # rows whose own key is real
+    torch.testing.assert_close(got.float()[real], expect[real],
+                               atol=KERNEL_TOL, rtol=KERNEL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(K3_EDGE_CASES)))
+def test_paged_multitok_kernel_tile_edges_on_card(cuda, case):
+    hd, H, KV, ps, S, pos0, lens, kw, trash = K3_EDGE_CASES[case]
+    kw = dict(kw)
+    rng = np.random.default_rng(70 + case)
+    B = len(pos0)
+    ctx_pages = -(-(max(pos0) + S) // ps)
+    P = 1 + B * ctx_pages
+    q = _bf16(rng, (B, S, H, hd), cuda)
+    k = _bf16(rng, (KV, P, ps, hd), cuda)
+    v = _bf16(rng, (KV, P, ps, hd), cuda)
+    pt = np.concatenate([
+        rng.permutation(np.arange(1, P)).reshape(B, ctx_pages),
+        np.zeros((B, trash), np.int64),  # the bucketed width's padding
+    ], axis=1)
+    pt = torch.from_numpy(pt.astype(np.int32)).to(cuda)
+    p0 = torch.tensor(pos0, dtype=torch.int32, device=cuda)
+    il = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = _thrice(lambda: paged_multitok.paged_multitok_attention(
+        q, k, v, pt, p0, il, **kw))
+    assert bool(torch.isfinite(got).all())  # idle rows too
+    window = kw.pop("window", None)
+    expect = tatt.paged_suffix_attention(
+        q.float(), k.float(), v.float(), pt, p0, p0 + il, window=window, **kw
+    )
+    real = torch.arange(S, device=cuda)[None, :] < il[:, None]
+    torch.testing.assert_close(got.float()[real], expect[real],
+                               atol=KERNEL_TOL, rtol=KERNEL_TOL)
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(2, 4, 128, dtype=torch.float16, device=cuda)
@@ -247,6 +344,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         (q3[..., :48].contiguous(), pool3[..., :48].contiguous()),  # hd 48
         (torch.zeros(2, 32, 24, 128, dtype=torch.bfloat16, device=cuda),
          pool3),  # 12 query heads per kv head
+        (torch.zeros(2, 48, 8, 128, dtype=torch.bfloat16, device=cuda),
+         torch.zeros(2, 5, 24, 128, dtype=torch.bfloat16, device=cuda)),
+        # page size 24: no TMA box of whole pages tiles a key tile
     ):
         with pytest.raises(ValueError):
             paged_multitok.paged_multitok_attention(

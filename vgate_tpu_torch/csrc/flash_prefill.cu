@@ -12,80 +12,94 @@
 // B * S * (H + 2 KV) * hd * 2 bytes, hundreds of flops per byte at the
 // serving buckets, so the limit is the 989 TFLOP/s bf16 tensor-core rate.
 //
-// What the design does about it:
-//  * one CTA per (64-row query tile, head, batch row); 4 warps, each owns
-//    16 query rows, so the softmax state of a row never leaves its warp;
-//  * Q, K and V tiles (64 x hd) pass through shared memory once per tile;
-//    both products run on the tensor cores (WMMA bf16 16x16x16, fp32
-//    accumulate); the softmax is online in fp32 and the output
-//    accumulator stays in shared memory — no score matrix reaches HBM;
+// What the design does about it (the tile pipeline is flash_sm90.cuh,
+// shared with the bf16 path of the paged multi-token kernel, K3):
+//  * both products on wgmma, the only route to the tensor cores' full
+//    rate: S = Q K^T with both operands in swizzled shared memory, O += P V
+//    with P from registers; scores, P and O never touch shared memory;
+//  * one CTA per (128-row query tile, head, batch row): a producer warp
+//    keeps TMA copies of the next K and V tiles in flight in a ring of 3
+//    stages (2 at hd 256) while two consumer warpgroups (64 rows each)
+//    multiply, so copies overlap the tensor cores; the consumers take
+//    turns issuing S = Q K^T, so one's softmax runs under the other's
+//    products;
+//  * Q, K and V arrive by TMA through 4-D tensor maps over q [B, S, H, hd]
+//    and k/v [B, Sk, KV, hd] (rows past S or Sk read as zeros), encoded on
+//    the host at each launch;
 //  * key tiles above the causal diagonal, past the row's key length or
-//    wholly below the sliding window are never loaded.
-// Not yet done (later work): wgmma + TMA with a producer warp and a tile
-// ring (FA3 style); the WMMA path reaches a fraction of the peak.
-//
-// The tile loop (Q K^T, online softmax, P V) is flash_tile.cuh, shared
-// with the paged multi-token kernel (paged_multitok.cu, K3).
+//    wholly below the sliding window are never loaded, and the masks run
+//    only on tiles that cross one of those edges;
+//  * CTAs start longest causal rows first across the whole grid: a CTA's
+//    work runs from 1 to S / 128 key tiles, and K and V fit in L2.
 //
 // C interface (bound with ctypes): returns cudaGetLastError() after the
-// launch on the caller's stream; the kernel allocates nothing.
+// launch on the caller's stream (cudaErrorInvalidValue when a tensor map
+// cannot be encoded); the kernel allocates nothing.
 
-#include "flash_tile.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
-using namespace vgt_flash;
+using namespace vgt_sm90;
+
+// K and V rows are contiguous: one 4-D box per 64-column block
+template <int HD>
+struct DenseLoader {
+  using C = Cfg<HD, false>;
+  const CUtensorMap* q;
+  const CUtensorMap* k;
+  const CUtensorMap* v;
+  int h, kvh, row0, b;
+
+  __device__ void prefetch() const {
+    tma_prefetch(q);
+    tma_prefetch(k);
+    tma_prefetch(v);
+  }
+  __device__ void load_q(uint32_t dst, uint32_t bar, int cb) const {
+    tma_load_4d(dst, q, bar, cb * 64, h, row0, b);
+  }
+  __device__ int ids(int, int) const { return 0; }
+  __device__ void load_kv(int kt, int, int lane, uint32_t dk, uint32_t dv,
+                          uint32_t bk, uint32_t bv, uint32_t ek, uint32_t ev,
+                          uint32_t parity) const {
+    if (lane != 0) return;
+    mbar_wait(C::kJointRelease ? ev : ek, parity);
+    mbar_expect_tx(bk, C::kKVBytes);
+    for (int cb = 0; cb < C::kBlocks; ++cb)
+      tma_load_4d(dk + cb * C::kKVBlock, k, bk, cb * 64, kvh, kt * C::kN, b);
+    mbar_wait(ev, parity);
+    mbar_expect_tx(bv, C::kKVBytes);
+    for (int cb = 0; cb < C::kBlocks; ++cb)
+      tma_load_4d(dv + cb * C::kKVBlock, v, bv, cb * 64, kvh, kt * C::kN, b);
+  }
+};
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_prefill_kernel(const bf16* __restrict__ q,   // [B, S, H, HD]
-                     const bf16* __restrict__ k,   // [B, Sk, KV, HD]
-                     const bf16* __restrict__ v,   // [B, Sk, KV, HD]
+__global__ void __launch_bounds__(kThreads, 1)
+flash_prefill_kernel(const __grid_constant__ CUtensorMap qmap,  // [B,S,H,HD]
+                     const __grid_constant__ CUtensorMap kmap,  // [B,Sk,KV,HD]
+                     const __grid_constant__ CUtensorMap vmap,
                      const int* __restrict__ seq_lens,   // [B]
                      const int* __restrict__ q_offsets,  // [B] or null
-                     bf16* __restrict__ out,       // [B, S, H, HD]
+                     bf16* __restrict__ out,             // [B, S, H, HD]
                      int S, int Sk, int H, int KV, int window, float scale,
                      float softcap) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Tile<HD> t(smem);
-
-  const int qt = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int seq_len = min(seq_lens[b], Sk);
-  const int q_off = q_offsets ? q_offsets[b] : 0;
-  const int row0 = qt * kTile;          // first query row (local)
-  const int q_start = q_off + row0;     // its global position
-  const int n_rows = min(kTile, S - row0);
-
-  load_tile<HD>(t.q, q + (((size_t)b * S + row0) * H + h) * HD,
-                (size_t)H * HD, n_rows);
-  t.init();
-  __syncthreads();  // Q, O, m, l ready even if no key tile is live
-
-  // live key tiles: causal (k <= q_start + 63), below the key length,
-  // and not wholly below the window of the tile's first row
-  const int n_k = (Sk + kTile - 1) / kTile;
-  int kt_hi = min(n_k - 1, (q_start + kTile - 1) / kTile);
-  kt_hi = min(kt_hi, (seq_len - 1) / kTile);
-  if (seq_len <= 0) kt_hi = -1;
-  int kt_lo = 0;
-  if (window > 0) kt_lo = max(0, q_start - window + 1) / kTile;
-
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k_start = kt * kTile;
-    __syncthreads();  // previous tile fully consumed
-    const size_t kv_base = (((size_t)b * Sk + k_start) * KV + kvh) * HD;
-    load_tile<HD>(t.k, k + kv_base, (size_t)KV * HD, min(kTile, Sk - k_start));
-    load_tile<HD>(t.v, v + kv_base, (size_t)KV * HD, min(kTile, Sk - k_start));
-    __syncthreads();
-    attend_tile<HD>(t, k_start, q_start, seq_len, window, scale, softcap);
-  }
-
-  // normalize and write the tile's rows (rows past S are padding)
-  store_rows<HD>(t, out + (((size_t)b * S + row0) * H + h) * HD,
-                 (size_t)H * HD, n_rows);
+  extern __shared__ unsigned char smem[];
+  using C = Cfg<HD, false>;
+  int qt, h, b;
+  tile_coords<C::kLongestFirst>(qt, h, b);
+  const int row0 = qt * kRows;  // first query row (local)
+  Tile t;
+  t.q_start = (q_offsets ? q_offsets[b] : 0) + row0;
+  t.n_rows = min(kRows, S - row0);  // rows past S are padding
+  t.n_live = t.n_rows;
+  t.seq_len = min(seq_lens[b], Sk);
+  t.window = window;
+  key_tiles<C>(t);
+  const DenseLoader<HD> ld{&qmap, &kmap, &vmap, h, h / (H / KV), row0, b};
+  attend<C>(ld, t, smem, scale, softcap,
+            out + (((size_t)b * S + row0) * H + h) * HD, (size_t)H * HD);
 }
 
 template <int HD>
@@ -93,13 +107,18 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* seq_lens, const int* q_offsets, void* out,
                    int B, int S, int Sk, int H, int KV, int window,
                    float scale, float softcap, cudaStream_t stream) {
+  using C = Cfg<HD, false>;
   static bool configured = false;  // once per instantiation
-  dim3 grid((S + kTile - 1) / kTile, H, B);
-  return launch_tiles<HD>(
-      flash_prefill_kernel<HD>, configured, grid, stream,
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), seq_lens, q_offsets,
-      static_cast<bf16*>(out), S, Sk, H, KV, window, scale, softcap);
+  CUtensorMap qm, km, vm;
+  if (!rows_map<HD>(&qm, q, B, S, H, kRows) ||
+      !rows_map<HD>(&km, k, B, Sk, KV, C::kN) ||
+      !rows_map<HD>(&vm, v, B, Sk, KV, C::kN))
+    return cudaErrorInvalidValue;
+  dim3 grid((S + kRows - 1) / kRows, H, B);
+  return launch_sm90<C>(flash_prefill_kernel<HD>, configured, grid, stream,
+                        qm, km, vm, seq_lens, q_offsets,
+                        static_cast<bf16*>(out), S, Sk, H, KV, window, scale,
+                        softcap);
 }
 
 }  // namespace

@@ -1,21 +1,20 @@
-// The tile loop shared by the flash-prefill kernel (flash_prefill.cu, K2)
-// and the paged multi-token kernel (paged_multitok.cu, K3).
+// The WMMA tile loop of the int8 mode of the paged multi-token kernel
+// (paged_multitok.cu, K3-int8, the Q8 instantiation): its only user.  The
+// flash-prefill kernel (K2) and K3's bf16 path run on the Hopper pipeline
+// of flash_sm90.cuh instead; the Q8 = false branches below are no longer
+// instantiated.
 //
 // One CTA owns a 64-row query tile of one (batch row, head) and walks the
 // live 64-row key tiles: S = Q K^T and O += P V on the tensor cores (WMMA
 // bf16 16x16x16, fp32 accumulate), online softmax in fp32, the output
 // accumulator in shared memory.  4 warps, each owning 16 query rows, so
-// the softmax state of a row never leaves its warp.  The kernels differ
-// only in where a key tile's rows come from (contiguous rows for K2, rows
-// gathered through a page table for K3) and in their masks' parameters.
+// the softmax state of a row never leaves its warp.
 //
-// K3's int8 mode (int8 pools with per-token bf16 scales) instantiates the
-// same loop with Q8 = true: its K and V tiles hold the raw int8 values
-// widened to bf16 UNSCALED (exact: |v| <= 127), the products run as
-// before, and the scales fold in as the TPU kernel folds them: the K
-// scale multiplies each score column in fp32 before softcap and mask, the
-// V scale multiplies the softmax weight after the row sum took the
-// unweighted p.  K2's instantiation (Q8 = false) is unchanged.
+// Q8 = true: the K and V tiles hold the raw int8 values widened to bf16
+// UNSCALED (exact: |v| <= 127), the products run as before, and the scales
+// fold in as the TPU kernel folds them: the K scale multiplies each score
+// column in fp32 before softcap and mask, the V scale multiplies the
+// softmax weight after the row sum took the unweighted p.
 //
 // Masked scores take the reference's -1e30 sentinel and the output divides
 // by max(l, 1e-30), so a fully masked row yields finite garbage, never NaN,

@@ -16,6 +16,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -108,6 +109,21 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     if failed:
         raise RuntimeError("kernel build failed\n" + "\n".join(failed))
     return report
+
+
+def ptxas_entries(log: str) -> list:
+    """``(entry, line)`` for each register and spill line of a ``ptxas
+    -v`` log, under the (mangled) entry function it belongs to."""
+    out, entry = [], "?"
+    for line in log.splitlines():
+        named = re.search(
+            r"(?:Compiling entry function|Function properties for) "
+            r"'?([\w$.]+)'?", line)
+        if named:
+            entry = named.group(1)
+        elif "registers" in line or "spill" in line.lower():
+            out.append((entry, line.strip()))
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

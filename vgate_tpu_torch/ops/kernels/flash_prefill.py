@@ -62,6 +62,9 @@ def _check(q, k, v, seq_lens, q_offsets) -> None:
         q_offsets is not None and q_offsets.shape != (B,)
     ):
         raise ValueError(f"seq_lens and q_offsets must be [B={B}]")
+    for name, t in named[:3]:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes (TMA)")
 
 
 def flash_prefill_attention(

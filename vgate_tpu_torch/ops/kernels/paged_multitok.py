@@ -25,6 +25,19 @@ HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 8  # query heads per kv head, as K1 and K2 are held to
 
 
+def key_tile(hd: int) -> int:
+    """Keys a tile of the bf16 path (flash_sm90.cuh ``Cfg::kN``)."""
+    return 64 if hd == 256 else 128
+
+
+def tma_page_size(ps: int, hd: int) -> bool:
+    """Whether the bf16 path takes page size ``ps``: it copies a key
+    tile as TMA boxes of min(ps, kN) rows of one page, so ps must be a
+    multiple of 8 that divides kN or that kN divides."""
+    kN = key_tile(hd)
+    return ps % 8 == 0 and (kN % ps == 0 or ps % kN == 0)
+
+
 def _lib(int8: bool = False):
     lib = _build.load("paged_multitok")
     fn = lib.vgt_paged_multitok_int8 if int8 else lib.vgt_paged_multitok_bf16
@@ -120,6 +133,14 @@ def paged_multitok_attention(
     _check(q, k_pages, v_pages, page_tables, positions0, input_lens)
     B, S, H, hd = q.shape
     KV, P, ps, _ = k_pages.shape
+    if not tma_page_size(ps, hd):
+        raise ValueError(
+            f"page size {ps} at head dim {hd}: the bf16 kernel takes "
+            f"multiples of 8 that divide {key_tile(hd)} or that it divides"
+        )
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes (TMA)")
     out = torch.empty_like(q)
     rc = _lib()(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
