@@ -88,12 +88,16 @@ def demangled(entry: str) -> str:
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+    """Mean device time of ``fn`` over ``iters`` calls (CUDA events).  A
+    sleeping kernel first holds the stream while the calls are enqueued
+    (up to 100 us of host time each), so a call whose host time exceeds
+    its device time is timed on the device, not on the host."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(iters * 200_000)  # ~100 us a call at 2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -715,6 +719,23 @@ def check_paged_multitok_int8(dev) -> dict:
         real = torch.arange(S, device=dev)[None, :] < il[:, None]
         within(got[real], expect[real],
                f"paged multitok int8 hd={hd} ps={ps} pos0={pos0} {kw}")
+    # the tile edges of K3's, on int8 pools, each three times (bit-identical)
+    for hd, H, KV, ps, S, pos0, lens, kw, trash in K3_EDGE_CASES:
+        q, _, _, pt, p0, il = suffix_inputs(len(pos0), S, H, KV, hd, ps,
+                                            pos0, lens, 54, dev)
+        kL, vL = int8_pools(KV, 1 + pt.numel(), ps, hd, 55, dev, L=2)
+        pt = torch.cat([pt, pt.new_zeros(pt.shape[0], trash)], dim=1)
+        what = (f"paged multitok int8 edge hd={hd} H={H} KV={KV} ps={ps} "
+                f"S={S} pos0={pos0} lens={lens} {kw} trash={trash}")
+        got = thrice(lambda: kernel(q, kL[1], vL[1], pt, p0, il, **kw), what)
+        expect = plain.paged_suffix_attention(
+            q.float(), kL[1], vL[1], pt, p0, p0 + il,
+            window=kw.get("window"), softcap=kw.get("softcap", 0.0),
+            scale=kw.get("scale"),
+        )
+        check(bool(torch.isfinite(got).all()), f"{what}: idle rows")
+        real = torch.arange(S, device=dev)[None, :] < il[:, None]
+        within(got[real], expect[real], what)
 
     # the timing shape of K3: 4 slots, 512 rows over a 1024-token prefix
     B, S, H, KV, hd, ps, prefix = 4, 512, 28, 4, 128, 32, 1024
@@ -747,6 +768,7 @@ def check_paged_multitok_int8(dev) -> dict:
     torch.cuda.synchronize()
     within(got, lib, "paged multitok int8 vs the library call")
     library_ms = time_ms(lambda: sdpa(qh, kh, vh, attn_mask=mask), iters=20)
+    host = host_us(lambda: kernel(q, k, v, pt, p0, il))
     pairs = B * (S * (prefix + 1) + S * (S - 1) // 2)
     flops = 4 * pairs * H * hd
     nbytes = (2 * B * S * H * hd * 2          # q in, out
@@ -754,6 +776,11 @@ def check_paged_multitok_int8(dev) -> dict:
               + B * (ctx // ps) * 4 + 2 * B * 4)  # tables, positions, lens
     t_ops = flops / H100_BF16_FLOPS * 1e3
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    print_timed(f"paged_multitok_attention_int8 at 7b [B={B} S={S} "
+                f"prefix={prefix} H={H} KV={KV} hd={hd} ps={ps}]", flops,
+                max(t_bytes, t_ops),
+                "operations" if t_ops >= t_bytes else "bytes", ms, library_ms,
+                host, err)
     return {
         "name": "paged_multitok_attention_int8",
         "route": "cuda",
@@ -927,12 +954,33 @@ def qmm_bound(rows, in_dim, out_dim, bits, out_bytes):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+# the K4/K5 shapes the main path gives them at 7B: decode (32 slots) gate/
+# up, down, k/v and the f32 lm_head; the prompt pass's gate/up and down
+QMM_SHAPES = [
+    (32, 3584, 18944, torch.bfloat16), (32, 18944, 3584, torch.bfloat16),
+    (32, 3584, 512, torch.bfloat16), (32, 3584, 152064, torch.float32),
+    (2048, 3584, 18944, torch.bfloat16), (2048, 18944, 3584, torch.bfloat16),
+]
+# (rows, in, out) held against the plain version, bf16 and f32 out: K4 at
+# ragged rows around its 64- and 128-row tiles and widths off its 128- and
+# 256-column tiles; K5 at the rows it was first held to
+QMM_CASES = {
+    8: [(1, 3584, 512), (7, 3584, 3584), (32, 18944, 3584), (33, 3584, 576),
+        (127, 3584, 512), (129, 3584, 640), (2047, 512, 3584),
+        (2048, 3584, 512)],
+    4: [(1, 3584, 512), (7, 3584, 3584), (32, 18944, 3584),
+        (2048, 3584, 512)],
+}
+
+
 def check_quant_matmul(dev, bits: int) -> dict:
-    """K4 (bits 8) or K5 (bits 4): rows 1/7/32/2048 at the 7B widths,
-    bf16 and f32 out, against the plain version; a width off the tile
-    must raise; timed at the decode shape (32 rows, 3584 x 18944), with
-    the lm_head and a 2048-row prompt pass printed beside it."""
+    """K4 (bits 8) or K5 (bits 4) against the plain version at
+    ``QMM_CASES``, bf16 and f32 out; a width off the tile must raise;
+    timed at every ``QMM_SHAPES`` shape three times, in turns with the
+    library call (one line each: kernel, library, bound, rate, factor,
+    host time a call, K4's plan); the first is the kernel's line."""
     from vgate_tpu_torch.ops.kernels import quant_matmul as qm
+    from vgate_tpu_torch.ops.quant import unpack_int4
 
     if bits == 8:
         name, kernel, plain = "int8_matmul", qm.int8_matmul, \
@@ -942,8 +990,7 @@ def check_quant_matmul(dev, bits: int) -> dict:
         name, kernel, plain = "int4_matmul", qm.int4_matmul, \
             qm.int4_matmul_plain
         vals = lambda w: w.q_packed  # noqa: E731
-    for rows, in_dim, out_dim in ((1, 3584, 512), (7, 3584, 3584),
-                                  (32, 18944, 3584), (2048, 3584, 512)):
+    for rows, in_dim, out_dim in QMM_CASES[bits]:
         x, w = qmm_case(rows, in_dim, out_dim, bits, rows, dev)
         expect = plain(x, vals(w), w.scale, out_dtype=torch.float32)
         for out_dtype, tol in ((torch.float32, QMM_F32_TOL),
@@ -961,53 +1008,69 @@ def check_quant_matmul(dev, bits: int) -> dict:
     else:
         fail(f"{name} took an output width off its tile")
 
-    def timed(rows, in_dim, out_dim, out_dtype, seed):
-        x, w = qmm_case(rows, in_dim, out_dim, bits, seed, dev)
-        got = kernel(x, vals(w), w.scale, out_dtype=out_dtype)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lines = []
+    for rows, in_dim, out_dim, out_dtype in QMM_SHAPES:
+        x, w = qmm_case(rows, in_dim, out_dim, bits, 60, dev)
+        run = lambda: kernel(x, vals(w), w.scale,  # noqa: E731
+                             out_dtype=out_dtype)
+        got = run()
         expect = plain(x, vals(w), w.scale, out_dtype=torch.float32)
         torch.cuda.synchronize()
         tol = QMM_F32_TOL if out_dtype == torch.float32 else KERNEL_TOL
         err = within(got, expect, f"{name} at {rows}x{in_dim}x{out_dim}", tol)
-        ms = time_ms(lambda: kernel(x, vals(w), w.scale, out_dtype=out_dtype),
-                     iters=20)
-        plain_ms = time_ms(lambda: plain(x, vals(w), w.scale,
-                                         out_dtype=out_dtype), iters=3)
+        del got, expect
         # library yardstick: one bf16 cuBLAS product on the dequantized
         # weight (made beforehand, not timed; the port never calls it)
-        from vgate_tpu_torch.ops.quant import unpack_int4
-
         q = w.q if bits == 8 else unpack_int4(w.q_packed)
         wd = (q.float() * w.scale).bfloat16()
+        del q
+
         def library():
             if out_dtype == torch.float32:
                 return torch.mm(x, wd, out_dtype=out_dtype)
             return torch.mm(x, wd)
 
-        library_ms = time_ms(library, iters=20)
+        # three readings of each, in turns in this one call
+        ms, library_ms = [], []
+        for _ in range(3):
+            ms.append(time_ms(run, iters=20))
+            library_ms.append(time_ms(library, iters=20))
         bound, by = qmm_bound(rows, in_dim, out_dim, bits,
                               4 if out_dtype == torch.float32 else 2)
-        host = host_us(lambda: kernel(x, vals(w), w.scale,
-                                      out_dtype=out_dtype))
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
-                "host_us": host, "library_host_us": host_us(library)}
-
-    main = timed(32, 3584, 18944, torch.bfloat16, 60)
-    for rows, in_dim, out_dim, out_dtype in (
-        (32, 3584, 152064, torch.float32), (2048, 3584, 18944, torch.bfloat16),
-        (32, 18944, 3584, torch.bfloat16), (32, 3584, 512, torch.bfloat16),
-    ):
-        extra = timed(rows, in_dim, out_dim, out_dtype, 61)
+        mid, lib_mid = sorted(ms)[1], sorted(library_ms)[1]
+        flops = 2 * rows * in_dim * out_dim
+        line = {
+            "ms": mid, "ms_runs": ms, "library_ms": lib_mid,
+            "library_ms_runs": library_ms, "bound_ms": bound,
+            "bound_by": by, "max_abs_err": err,
+            "tflops": flops / mid / 1e9,
+            "weight_gb_s": in_dim * out_dim * bits / 8 / mid / 1e6,
+            "bound_share": bound / mid, "vs_library": mid / lib_mid,
+            "host_us": host_us(run), "library_host_us": host_us(library),
+        }
+        if bits == 8:
+            line["plan"] = dict(zip(("config", "splits", "grid"),
+                                    qm.k4_plan(rows, in_dim, out_dim, sms)))
+        if not lines:
+            line["plain_ms"] = time_ms(
+                lambda: plain(x, vals(w), w.scale, out_dtype=out_dtype),
+                iters=3)
         print(f"  {name} at {rows}x{in_dim}x{out_dim} "
-              f"{str(out_dtype)[6:]}: " + json.dumps(extra), flush=True)
+              f"{str(out_dtype)[6:]}: " + json.dumps(line), flush=True)
+        lines.append(line)
+        del x, w, wd
         torch.cuda.empty_cache()
+    main = lines[0]
     return {
         "name": name,
         "route": "cuda",
-        "source": "vgate_tpu_torch/csrc/quant_matmul.cu",
+        "source": "vgate_tpu_torch/csrc/"
+                  + ("int8_matmul.cu" if bits == 8 else "quant_matmul.cu"),
         "replaces": "vgate_tpu/ops/pallas/quant_matmul.py:"
                     + ("156" if bits == 8 else "191"),
-        **{k: v for k, v in main.items() if "host" not in k},
+        **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")},
         "shape": f"R=32 in=3584 out=18944 bf16 out, host us per call "
                  f"{main['host_us']:.1f} "
                  f"(library {main['library_host_us']:.1f})",
@@ -1297,6 +1360,13 @@ def profile_burst(engine, batch) -> dict:
             entry[1] += evt.device_time_total / 1e3  # ms
     busy_ms = sum(ms for _, ms in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
+    groups = {}
+    for group, parts in PROFILE_GROUPS.items():
+        hits = [v for name, v in kernels.items()
+                if all(p in name for p in parts)]
+        if hits:
+            groups[group] = {"count": sum(n for n, _ in hits),
+                             "ms": sum(ms for _, ms in hits)}
     return {
         "wall_ms": wall * 1e3,
         "device_busy_ms": busy_ms,
@@ -1304,7 +1374,19 @@ def profile_burst(engine, batch) -> dict:
         "device_ops": sum(n for n, _ in kernels.values()),
         "top": [{"name": name[:90], "count": n, "ms": ms}
                 for name, (n, ms) in top],
+        "groups": groups,
     }
+
+
+# kernel totals a profile reports by name: K4 on decode rows (the 64-row
+# tile whose consumers split the columns) and on prompt rows, the split-k
+# sums (K4's in the int8 phase, K5's in the int4 phase), K3-int8
+PROFILE_GROUPS = {
+    "int8_matmul decode rows": ("int8_mm_kernel", "true>"),
+    "int8_matmul prompt rows": ("int8_mm_kernel", "false>"),
+    "split-k sums": ("(anonymous namespace)::reduce_kernel",),
+    "paged_multitok_attention_int8": ("paged_multitok_i8_kernel",),
+}
 
 
 def kernel_wrappers() -> dict:
@@ -1930,6 +2012,8 @@ def print_profile(what: str, card: str, profile: dict) -> None:
           f"{profile['device_ops']} device ops", flush=True)
     for t in profile["top"]:
         print(f"  {t['ms']:9.2f} ms  {t['count']:6d}x  {t['name']}")
+    for group, t in profile["groups"].items():
+        print(f"  total {group}: {t['ms']:.2f} ms over {t['count']} launches")
 
 
 def main() -> None:

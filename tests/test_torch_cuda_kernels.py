@@ -352,6 +352,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
             paged_multitok.paged_multitok_attention(
                 bad_q, bad_pool, bad_pool, pt, lens, lens
             )
+    # the int8 mode: page sizes 4 (a scale run of 8 bytes) and 24 (boxes
+    # that do not tile a key tile)
+    rng = np.random.default_rng(5)
+    for ps in (4, 24):
+        q8 = torch.zeros(2, 2 * ps, 8, 128, dtype=torch.bfloat16,
+                         device=cuda)
+        pool8 = _int8_pool(rng, (2, 5, ps, 128), cuda)
+        assert not paged_multitok.tma_page_size(ps, 128, int8=True)
+        with pytest.raises(ValueError):
+            paged_multitok.paged_multitok_attention(
+                q8, pool8, pool8, pt, lens, lens
+            )
 
 
 def _int8_pool(rng, shape, dev, L=None):
@@ -428,6 +440,82 @@ def test_paged_multitok_int8_kernel_matches_plain_on_card(cuda, case):
     real = torch.arange(S, device=cuda)[None, :] < il[:, None]
     torch.testing.assert_close(got.float()[real], expect[real],
                                atol=KERNEL_TOL, rtol=KERNEL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(K3_EDGE_CASES)))
+def test_paged_multitok_int8_kernel_tile_edges_on_card(cuda, case):
+    """K3-int8 at K3's tile edges, on layer views of int8 pools, each case
+    three times bit-identical (the widening barriers)."""
+    hd, H, KV, ps, S, pos0, lens, kw, trash = K3_EDGE_CASES[case]
+    kw = dict(kw)
+    rng = np.random.default_rng(80 + case)
+    B = len(pos0)
+    ctx_pages = -(-(max(pos0) + S) // ps)
+    P = 1 + B * ctx_pages
+    q = _bf16(rng, (B, S, H, hd), cuda)
+    k = _int8_pool(rng, (KV, P, ps, hd), cuda, L=2)[1]
+    v = _int8_pool(rng, (KV, P, ps, hd), cuda, L=2)[1]
+    pt = np.concatenate([
+        rng.permutation(np.arange(1, P)).reshape(B, ctx_pages),
+        np.zeros((B, trash), np.int64),  # the bucketed width's padding
+    ], axis=1)
+    pt = torch.from_numpy(pt.astype(np.int32)).to(cuda)
+    p0 = torch.tensor(pos0, dtype=torch.int32, device=cuda)
+    il = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = _thrice(lambda: paged_multitok.paged_multitok_attention_int8(
+        q, k, v, pt, p0, il, **kw))
+    assert bool(torch.isfinite(got).all())  # idle rows too
+    window = kw.pop("window", None)
+    expect = tatt.paged_suffix_attention(q.float(), k, v, pt, p0, p0 + il,
+                                         window=window, **kw)
+    real = torch.arange(S, device=cuda)[None, :] < il[:, None]
+    torch.testing.assert_close(got.float()[real], expect[real],
+                               atol=KERNEL_TOL, rtol=KERNEL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,in_dim,out", [
+    (1, 512, 192), (7, 3584, 512), (32, 1024, 576), (33, 512, 640),
+    (127, 512, 192), (129, 1024, 448), (2047, 512, 384), (2048, 256, 768),
+])
+def test_int8_matmul_kernel_ragged_rows_on_card(cuda, rows, in_dim, out):
+    """K4 at rows around its 64- and 128-row tiles and widths off its
+    128- and 256-column tiles, with the plan the wrapper picks (k splits
+    included), bf16 and f32 out, against the plain version."""
+    rng = np.random.default_rng(rows + out)
+    w = torch.from_numpy(rng.normal(size=(in_dim, out)).astype(np.float32))
+    qw = quant.quantize_tensor(w * 0.05, 8)
+    qw = type(qw)(*(t.to(cuda) for t in qw))
+    x = _bf16(rng, (rows, in_dim), cuda)
+    expect = quant_matmul.int8_matmul_plain(x, qw.q, qw.scale,
+                                            out_dtype=torch.float32)
+    for out_dtype, tol in ((torch.float32, QMM_F32_TOL),
+                           (torch.bfloat16, KERNEL_TOL)):
+        got = _thrice(lambda: quant_matmul.int8_matmul(
+            x, qw.q, qw.scale, out_dtype=out_dtype))
+        assert got.dtype == out_dtype and got.shape == (rows, out)
+        torch.testing.assert_close(got.float(), expect, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+def test_engine_refuses_a_page_size_k3_does_not_take(cuda):
+    """A CUDA engine at page size 4 with the prefix cache on is refused
+    when it is built, not at its first prefix hit."""
+    from vgate_tpu_torch.config import NotPortedError, load_config
+    from vgate_tpu_torch.runtime.engine_core import EngineCore
+
+    for kv_dtype in ("auto", "int8"):
+        cfg = load_config(
+            model={"model_id": "tiny-dense", "dtype": "bfloat16",
+                   "max_model_len": 64},
+            kv_cache={"dtype": kv_dtype},
+            device={"device": "cuda", "kv_page_size": 4,
+                    "kv_num_pages": 64, "max_batch_slots": 4},
+            logging={"level": "WARNING"},
+        )
+        with pytest.raises(NotPortedError, match="K3"):
+            EngineCore(cfg)
 
 
 @pytest.mark.cuda

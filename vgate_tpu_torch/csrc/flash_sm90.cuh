@@ -1,15 +1,18 @@
 // The Hopper tile pipeline shared by the flash-prefill kernel
-// (flash_prefill.cu, K2) and the bf16 path of the paged multi-token
-// kernel (paged_multitok.cu, K3).
+// (flash_prefill.cu, K2) and both modes of the paged multi-token kernel
+// (paged_multitok.cu, K3 on bf16 pools and K3-int8 on int8 pools), and the
+// int8 -> bf16 widening stage that K3-int8 and the int8 matmul
+// (int8_matmul.cu, K4) share.
 //
 // One CTA owns 128 query rows of one (batch row, head) and walks the live
 // key tiles of kN keys (128 at head dims 64 and 128, 64 at 256, where the
 // output accumulator alone takes 128 registers a thread):
 //  * 3 warpgroups (384 threads).  Warpgroup 0 is the producer: it gives
-//    registers back (setmaxnreg.dec 40) and one warp of it issues the
-//    copies (TMA) into a ring of stages, each with full and empty barriers
-//    (mbarriers) for K and for V.  Warpgroups 1 and 2 are the consumers
-//    (setmaxnreg.inc 232), each owning 64 query rows.
+//    registers back (setmaxnreg.dec 40; 56 in the int8 mode, where it
+//    widens) and one warp of it issues the copies (TMA) into a ring of
+//    stages, each with full and empty barriers (mbarriers) for K and for
+//    V.  Warpgroups 1 and 2 are the consumers (setmaxnreg.inc 232; 224),
+//    each owning 64 query rows.
 //  * S = Q K^T: one wgmma m64n{kN}k16 per 16 head dims, both operands in
 //    128-byte-swizzled shared memory (K stored [key][d] is the K-major B
 //    operand).  The online softmax runs on the accumulator registers: a
@@ -25,6 +28,19 @@
 // Shared memory: Q (128 x hd) and the stages' K and V (kN x hd each), all
 // as 64-column blocks of 128-byte rows, the TMA box and the wgmma swizzle
 // atom: 160-224 KB, one CTA an SM.
+//
+// The int8 mode (Cfg kInt8, K3-int8): each page's int8 K and V rows and
+// their bf16 per-token scales come by bulk copy (cp.async.bulk, one
+// contiguous run of rows a page) into an int8 staging ring; the producer
+// warpgroup's other three warps widen each staged tile to bf16 (exact,
+// unscaled) into the same swizzled K and V stages the bf16 mode fills by
+// TMA, and the scales to fp32 beside them (0 at or past seq_len), and
+// arrive on the stage's full K / full V barriers themselves.  The
+// consumers run the same products; they multiply each score column by its
+// key's K scale before the softcap and the mask, and the softmax weights
+// by the V scale after the row sum l has taken them (l stays unweighted),
+// as the TPU kernel folds them.  int8 rows are always finite and scales
+// past seq_len are 0, so no V row needs zeroing.
 //
 // The two kernels schedule the pipeline differently (Cfg), as measured on
 // the card (PERF.md).  K2's causal query tiles differ in work (1 to
@@ -59,11 +75,14 @@ constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // The tile sizes, the shared-memory layout and the schedule of one kernel:
-// kPaged for K3 (K and V through a page table), else K2.
-template <int HD, bool kPaged>
+// kPaged for K3 (K and V through a page table), else K2; kInt8 for K3's
+// int8 mode (int8 K and V widened in shared memory).
+template <int HD, bool kPaged, bool kInt8 = false>
 struct Cfg {
   static_assert(HD == 64 || HD == 128 || HD == 256, "head dim");
+  static_assert(kPaged || !kInt8, "the int8 mode is K3's");
   static constexpr int kHD = HD;
+  static constexpr bool kI8 = kInt8;
   static constexpr int kN = HD == 256 ? 64 : 128;  // keys a tile
   static constexpr int kBlocks = HD / 64;          // 64-column blocks
   static constexpr uint32_t kQBlock = kRows * 128;  // bytes of a Q block
@@ -76,19 +95,36 @@ struct Cfg {
   static constexpr bool kJointRelease = kPaged;  // K and V freed together
   static constexpr bool kLongestFirst = !kPaged;
   // V rows at or past seq_len of a paged tile may be stale or never
-  // copied: zero them before P V, so 0 x garbage cannot make a NaN
-  static constexpr bool kZeroTail = kPaged;
+  // copied: zero them before P V, so 0 x garbage cannot make a NaN (the
+  // int8 mode zeroes their scales instead)
+  static constexpr bool kZeroTail = kPaged && !kInt8;
+  // the int8 mode: a stage's fp32 K and V scales (kN each) beside the
+  // widened tiles, and a staging ring of int8 K, V and bf16 scales
+  static constexpr uint32_t kScBytes = kInt8 ? 8 * kN : 0;
+  static constexpr int kStages8 = kInt8 ? (HD == 64 ? 2 : 1) : 0;
+  static constexpr uint32_t kKV8Bytes = kN * HD;  // an int8 K or V tile
+  static constexpr uint32_t kStage8Bytes = 2 * kKV8Bytes + 4 * kN;
+  static constexpr int kWidenThreads = 96;  // the producer's warps 1-3
+  // registers a thread after setmaxnreg (128 x producer + 256 x consumer
+  // within the 384 x 168 the CTA starts with): the widening needs more
+  // than the copy warp's 40
+  static constexpr int kProducerRegs = kInt8 ? 56 : 40;
+  static constexpr int kConsumerRegs = kInt8 ? 224 : 232;
   // offsets from the 1024-aligned base of the dynamic shared memory
   static constexpr uint32_t q = 0;
   static constexpr uint32_t k = q + kQBytes;
   static constexpr uint32_t v = k + kStages * kKVBytes;
-  static constexpr uint32_t bar = v + kStages * kKVBytes;
-  static constexpr uint32_t bytes = bar + 128 + 1024;  // barriers, alignment
+  static constexpr uint32_t sc = v + kStages * kKVBytes;
+  static constexpr uint32_t s8 = sc + kStages * kScBytes;
+  static constexpr uint32_t bar = s8 + kStages8 * kStage8Bytes;
+  static constexpr uint32_t bytes = bar + 256 + 1024;  // barriers, alignment
   static_assert(bytes <= 232448, "shared memory of a block");
 };
 
 // barriers at Cfg::bar: full Q, then a stage's full K, full V, empty K and
-// empty V (with kJointRelease, empty V frees the whole stage)
+// empty V (with kJointRelease, empty V frees the whole stage), then the
+// int8 staging ring's full and empty barriers, K and V apart (index 2 *
+// stage + 0 for K, + 1 for V)
 __device__ __forceinline__ uint32_t full_q(uint32_t bar) { return bar; }
 __device__ __forceinline__ uint32_t full_k(uint32_t bar, int s) {
   return bar + 8 + 8 * s;
@@ -101,6 +137,12 @@ __device__ __forceinline__ uint32_t empty_k(uint32_t bar, int s) {
 }
 __device__ __forceinline__ uint32_t empty_v(uint32_t bar, int s) {
   return bar + 8 + 24 * kMaxStages + 8 * s;
+}
+__device__ __forceinline__ uint32_t full_8(uint32_t bar, int i) {
+  return bar + 8 + 32 * kMaxStages + 8 * i;
+}
+__device__ __forceinline__ uint32_t empty_8(uint32_t bar, int i) {
+  return bar + 8 + 48 * kMaxStages + 8 * i;
 }
 
 // The CTA's (query tile, head, batch row) on a grid (query tiles, heads,
@@ -222,6 +264,23 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// one contiguous run of `bytes` (a multiple of 16; both addresses on 16
+// bytes) from global to shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// generic-proxy writes to shared memory (the widening) made visible to
+// the async proxy (wgmma, TMA) before the barrier that publishes them
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -230,6 +289,10 @@ __device__ __forceinline__ void wg_commit() {
 }
 __device__ __forceinline__ void wg_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// all but the newest committed group done
+__device__ __forceinline__ void wg_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
 }
 
 // keep the compiler from moving register reads or writes across an
@@ -265,6 +328,81 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// ------------------------------------------------ int8 -> bf16 widening
+
+// two int8 values (the bytes of u that `sel` picks) as a bf16 pair,
+// exactly, in four instructions: with byte y of b in a bf16 lane 0x43yy,
+// m = 0x4300 | (y & 0x7F) is 128 + (y & 0x7F) and s = 0x4300 | (y & 0x80)
+// is 128 (b >= 0) or 256 (b < 0), and m - s is b (exact: an integer of
+// at most 8 bits)
+__device__ __forceinline__ uint32_t widen_pair(uint32_t u, uint32_t sel) {
+  const uint32_t t = __byte_perm(u, 0x43434343u, sel);  // 0x43yy 0x43yy
+  const uint32_t m = t & 0xFF7FFF7Fu;
+  const uint32_t s = t & 0xFF80FF80u;
+  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&m),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&s));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// 8 int8 values -> 8 bf16 (16 bytes), in order
+__device__ __forceinline__ uint4 widen8(uint2 raw) {
+  return make_uint4(widen_pair(raw.x, 0x5140), widen_pair(raw.x, 0x5342),
+                    widen_pair(raw.y, 0x5140), widen_pair(raw.y, 0x5342));
+}
+
+// Chunk i of a dense int8 tile of ROWS rows of COLS values (16 values of
+// row i / (COLS / 16)) widened into the bf16 tile at dst (see widen_tile)
+template <int ROWS, int COLS>
+__device__ __forceinline__ void widen_chunk(unsigned char* dst,
+                                            const unsigned char* src,
+                                            int i) {
+  constexpr int CH = COLS / 16;  // 16-byte int8 chunks a row
+  const int r = i / CH;
+  const int j = i % CH;
+  const uint4 raw = *reinterpret_cast<const uint4*>(src + r * COLS + j * 16);
+  const uint4 lo = widen8(make_uint2(raw.x, raw.y));
+  const uint4 hi = widen8(make_uint2(raw.z, raw.w));
+  // chunk c = 2j + h sits in block c >> 3 at position (c & 7) ^ (r & 7)
+  unsigned char* row = dst + (j >> 2) * (ROWS * 128) + r * 128;
+  const int c0 = (2 * j) & 7;
+  const int odd_first = (j >> 2) & 1;
+  const int s0 = ((c0 + odd_first) ^ (r & 7)) << 4;
+  const int s1 = ((c0 + 1 - odd_first) ^ (r & 7)) << 4;
+  *reinterpret_cast<uint4*>(row + s0) = odd_first ? hi : lo;
+  *reinterpret_cast<uint4*>(row + s1) = odd_first ? lo : hi;
+}
+
+// The widening stage: a dense int8 tile of ROWS rows of COLS values (row r
+// at src + r * COLS) -> bf16 in 64-column blocks of ROWS 128-byte rows
+// with the 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)
+// of the row), the layout a TMA box lands in and both wgmma descriptor
+// forms read: K-major for K3's K ([key][d]), MN-major for K3's V and K4's
+// weight ([k][n]).  Thread `tid` of NT threads (a multiple of 8): a thread
+// reads 16 int8 values and writes the two bf16 chunks 2j and 2j + 1 they
+// become, the odd one first where (j >> 2) is odd, so a warp reads 512
+// contiguous bytes and the 8 threads of each store phase hit 8 distinct
+// chunk positions of a 128-byte row (no bank conflicts).  UNROLL 0
+// unrolls the loop whole, so a thread's loads are all in flight at once
+// (where registers allow).  dst on 1024 bytes, src on 16.
+template <int ROWS, int COLS, int NT, int UNROLL>
+__device__ __forceinline__ void widen_tile(unsigned char* dst,
+                                           const unsigned char* src,
+                                           int tid) {
+  constexpr int kChunks = ROWS * COLS / 16;
+  if constexpr (UNROLL == 0) {
+#pragma unroll
+    for (int it = 0; it < (kChunks + NT - 1) / NT; ++it) {
+      const int i = tid + it * NT;
+      if (kChunks % NT == 0 || i < kChunks)
+        widen_chunk<ROWS, COLS>(dst, src, i);
+    }
+  } else {
+#pragma unroll UNROLL
+    for (int i = tid; i < kChunks; i += NT)
+      widen_chunk<ROWS, COLS>(dst, src, i);
+  }
+}
+
 // Shared-memory matrix descriptors, 128-byte swizzle (layout type 1).  A
 // 64-column block holds 128-byte rows; 8 rows (1024 bytes) are one
 // swizzle atom.
@@ -289,8 +427,9 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr,
 
 // ------------------------------------------------------------------ wgmma
 
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared
-// memory (descriptors); scale_d 0 overwrites D
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A K-major in shared memory
+// (descriptors), B K-major or, with TB 1, MN-major; scale_d 0 overwrites D
+template <int TB = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
                                        uint64_t b, int scale_d) {
   asm volatile(
@@ -300,7 +439,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -309,11 +448,11 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
 }
 
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared
-// memory (descriptors); scale_d 0 overwrites D
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], as above
+template <int TB = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t a,
                                        uint64_t b, int scale_d) {
   asm volatile(
@@ -327,7 +466,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t a,
       "%40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55,"
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -344,7 +483,66 @@ __device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+// D[64 x 256] (+)= A[64 x 16] B[16 x 256], as above
+template <int TB = 0>
+__device__ __forceinline__ void mma_ss(float (&d)[128], uint64_t a,
+                                       uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
 }
 
 // D[64 x 64] += A[64 x 16] B[16 x 64], A in registers (the fragment
@@ -506,7 +704,8 @@ __device__ __forceinline__ void issue_pv(float (&o)[C::kHD / 2],
 // (then V's stage, or the whole stage, released).  With Cfg::kTurns the
 // two consumers issue their S products in turn (named barriers), so one's
 // softmax runs under the other's products.  With Cfg::kZeroTail the V
-// rows at or past seq_len are zeroed before P V.
+// rows at or past seq_len are zeroed before P V.  With Cfg::kI8 the
+// scores take the stage's K scales and P its V scales (after l).
 template <class C>
 __device__ __forceinline__ void consume(const Tile& t, int c, uint32_t base,
                                         unsigned char* gbase, float qk_scale,
@@ -576,7 +775,23 @@ __device__ __forceinline__ void consume(const Tile& t, int c, uint32_t base,
     }
 
     uint32_t p[kN / 4];
+    // the int8 mode's fp32 scales of this stage's keys: K, then V
+    const float* ks =
+        reinterpret_cast<const float*>(gbase + C::sc + st * C::kScBytes);
     if (live) {
+      if constexpr (C::kI8) {
+        // the per-key K scale multiplies the raw score (column
+        // 8 (j >> 2) + quad_col + (j & 1))
+#pragma unroll
+        for (int j = 0; j < kN / 8; ++j) {
+          const float2 f = *reinterpret_cast<const float2*>(ks + 8 * j +
+                                                             quad_col);
+          s[4 * j] *= f.x;
+          s[4 * j + 1] *= f.y;
+          s[4 * j + 2] *= f.x;
+          s[4 * j + 3] *= f.y;
+        }
+      }
       // scores to base 2: s * scale * log2(e), or the softcap's
       // cap * tanh(s * scale / cap) * log2(e)
       if (cap_log2 > 0.f) {
@@ -629,9 +844,24 @@ __device__ __forceinline__ void consume(const Tile& t, int c, uint32_t base,
       l0 = l0 * a0 + sum0;  // the unrounded p; P V takes it in bf16
       l1 = l1 * a1 + sum1;
       // the A fragment of keys 16kk..16kk+15 is elements 8kk..8kk+7
+      if constexpr (C::kI8) {
+        // P weighted by the V scale of each key (l stays unweighted); V's
+        // stage is widened by now in steady state (the widening runs a
+        // tile ahead), and waiting here keeps s from living across it
+        mbar_wait(full_v(bar, st), ph);
+        const float* vs = ks + kN;
 #pragma unroll
-      for (int j = 0; j < kN / 4; ++j)
-        p[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+        for (int j = 0; j < kN / 8; ++j) {
+          const float2 f = *reinterpret_cast<const float2*>(vs + 8 * j +
+                                                             quad_col);
+          p[2 * j] = pack_bf16(s[4 * j] * f.x, s[4 * j + 1] * f.y);
+          p[2 * j + 1] = pack_bf16(s[4 * j + 2] * f.x, s[4 * j + 3] * f.y);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kN / 4; ++j)
+          p[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+      }
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j) {
         o[4 * j] *= a0;
@@ -735,6 +965,85 @@ __device__ __forceinline__ void produce(const Loader& ld, const Tile& t,
   }
 }
 
+// The int8 mode's copy warp: lane 0 issues Q, then each key tile's int8
+// K rows and scales, then its V rows and scales, into the staging ring as
+// the widening frees each half of a stage (ld.load_kv8 waits, arms the
+// half's full barrier, issues the bulk copies), so the next tile's K
+// copy runs under the widening of this tile's V.  Page ids as in produce.
+template <class C, typename Loader>
+__device__ __forceinline__ void produce8(const Loader& ld, const Tile& t,
+                                         uint32_t base) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t bar = base + C::bar;
+  if (lane == 0) {
+    ld.prefetch();
+    mbar_expect_tx(full_q(bar), C::kQBytes);
+    for (int cb = 0; cb < C::kBlocks; ++cb)
+      ld.load_q(base + C::q + cb * C::kQBlock, full_q(bar), cb);
+  }
+  const int n_tiles = t.kt_hi - t.kt_lo + 1;
+  int ids = n_tiles > 0 ? ld.ids(t.kt_lo, lane) : 0;
+  int st = 0;
+  uint32_t ph = 1;  // the first round of empty barriers passes at once
+  for (int i = 0; i < n_tiles; ++i) {
+    const int next = i + 1 < n_tiles ? ld.ids(t.kt_lo + i + 1, lane) : 0;
+#pragma unroll
+    for (int kv = 0; kv < 2; ++kv)
+      ld.load_kv8(t.kt_lo + i, ids, lane, kv,
+                  base + C::s8 + st * C::kStage8Bytes,
+                  full_8(bar, 2 * st + kv), empty_8(bar, 2 * st + kv), ph);
+    ids = next;
+    if (++st == C::kStages8) {
+      st = 0;
+      ph ^= 1;
+    }
+  }
+}
+
+// The int8 mode's widening warps (tid 0..95): each staged tile, once its
+// bf16 stage is free, widened into the stage, K then V, each half once
+// its copies landed; the scales to fp32 beside it (0 at or past seq_len,
+// whose rows may be stale or never copied); each half published by its
+// full barrier after a proxy fence, and its staging half freed.
+template <class C>
+__device__ __forceinline__ void widen_tiles(const Tile& t, uint32_t base,
+                                            unsigned char* gbase, int tid) {
+  constexpr int kN = C::kN;
+  const uint32_t bar = base + C::bar;
+  const int n_tiles = t.kt_hi - t.kt_lo + 1;
+  int s8 = 0, st = 0;
+  uint32_t ph8 = 0, ph = 1;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int k_start = (t.kt_lo + i) * kN;
+    const unsigned char* src = gbase + C::s8 + s8 * C::kStage8Bytes;
+    const bf16* scales = reinterpret_cast<const bf16*>(src + 2 * C::kKV8Bytes);
+    float* sc = reinterpret_cast<float*>(gbase + C::sc + st * C::kScBytes);
+    mbar_wait(empty_v(bar, st), ph);
+#pragma unroll
+    for (int kv = 0; kv < 2; ++kv) {
+      mbar_wait(full_8(bar, 2 * s8 + kv), ph8);
+      widen_tile<kN, C::kHD, C::kWidenThreads, 2>(
+          gbase + (kv ? C::v : C::k) + st * C::kKVBytes,
+          src + kv * C::kKV8Bytes, tid);
+      for (int r = tid; r < kN; r += C::kWidenThreads)
+        sc[kv * kN + r] = k_start + r < t.seq_len
+                              ? __bfloat162float(scales[kv * kN + r])
+                              : 0.f;
+      fence_async_smem();
+      mbar_arrive(empty_8(bar, 2 * s8 + kv));
+      mbar_arrive(kv ? full_v(bar, st) : full_k(bar, st));
+    }
+    if (++s8 == C::kStages8) {
+      s8 = 0;
+      ph8 ^= 1;
+    }
+    if (++st == C::kStages) {
+      st = 0;
+      ph ^= 1;
+    }
+  }
+}
+
 // The whole CTA: barriers, then the producer warpgroup and the two
 // consumers on their own paths to the end (setmaxnreg needs paths that
 // never reconverge).  `out` is the tile's row 0, rows out_stride apart.
@@ -752,20 +1061,32 @@ __device__ __forceinline__ void attend(const Loader& ld, const Tile& t,
   if (threadIdx.x == 0) {
     mbar_init(full_q(bar), 1);
     for (int s = 0; s < C::kStages; ++s) {
-      mbar_init(full_k(bar, s), 1);
-      mbar_init(full_v(bar, s), 1);
+      // the copy's one arrival, or one a widening thread
+      mbar_init(full_k(bar, s), C::kI8 ? C::kWidenThreads : 1);
+      mbar_init(full_v(bar, s), C::kI8 ? C::kWidenThreads : 1);
       // one arrival a warp
       if (!C::kJointRelease) mbar_init(empty_k(bar, s), 4 * n_cons);
       mbar_init(empty_v(bar, s), 4 * n_cons);
+    }
+    for (int i = 0; i < 2 * C::kStages8; ++i) {
+      mbar_init(full_8(bar, i), 1);
+      mbar_init(empty_8(bar, i), C::kWidenThreads);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
   if (wg == 0) {
-    setmaxnreg_dec<40>();
-    if (threadIdx.x < 32) produce<C>(ld, t, base);
+    setmaxnreg_dec<C::kProducerRegs>();
+    if constexpr (C::kI8) {
+      if (threadIdx.x < 32)
+        produce8<C>(ld, t, base);
+      else
+        widen_tiles<C>(t, base, gbase, threadIdx.x - 32);
+    } else if (threadIdx.x < 32) {
+      produce<C>(ld, t, base);
+    }
   } else {
-    setmaxnreg_inc<232>();
+    setmaxnreg_inc<C::kConsumerRegs>();
     const float qk_scale = softcap > 0.f ? scale / softcap : scale * kLog2e;
     const float cap_log2 = softcap > 0.f ? softcap * kLog2e : 0.f;
     consume<C>(t, wg - 1, base, gbase, qk_scale, cap_log2, out, out_stride);
@@ -795,20 +1116,28 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map with 128-byte swizzle.  dims and box innermost first
-// (dim 0 the contiguous head dim, its box 64 columns); strides in bytes of
-// dims 1..rank-1.  Rows past a dim read as zeros.  False on failure.
-inline bool bf16_map(CUtensorMap* map, const void* ptr, int rank,
-                     const cuuint64_t* dims, const cuuint64_t* strides,
-                     const cuuint32_t* box) {
+// A tensor map: dims and box innermost first, strides in bytes of dims
+// 1..rank-1.  Rows past a dim read as zeros.  False on failure.
+inline bool tiled_map(CUtensorMap* map, CUtensorMapDataType type,
+                      CUtensorMapSwizzle swizzle, const void* ptr, int rank,
+                      const cuuint64_t* dims, const cuuint64_t* strides,
+                      const cuuint32_t* box) {
   const EncodeTiledFn fn = encode_tiled();
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-            const_cast<void*>(ptr), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         fn(map, type, rank, const_cast<void*>(ptr), dims, strides, box,
+            ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 tensor map with 128-byte swizzle (dim 0 the contiguous one, its
+// box 64 columns: one 128-byte swizzle span)
+inline bool bf16_map(CUtensorMap* map, const void* ptr, int rank,
+                     const cuuint64_t* dims, const cuuint64_t* strides,
+                     const cuuint32_t* box) {
+  return tiled_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   CU_TENSOR_MAP_SWIZZLE_128B, ptr, rank, dims, strides, box);
 }
 
 // the 4-D map of a [B, S, heads, HD] bf16 tensor, boxes of `rows` rows of
@@ -826,7 +1155,8 @@ inline bool rows_map(CUtensorMap* map, const void* ptr, int B, int S,
 }
 
 // Set the dynamic shared-memory limit of `kern` once, then launch.
-template <class C, typename Kernel, typename... Args>
+template <class C, int kBlockThreads = kThreads, typename Kernel,
+          typename... Args>
 cudaError_t launch_sm90(Kernel kern, bool& configured, dim3 grid,
                         cudaStream_t stream, Args... args) {
   if (!configured) {
@@ -835,7 +1165,7 @@ cudaError_t launch_sm90(Kernel kern, bool& configured, dim3 grid,
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  kern<<<grid, kThreads, C::bytes, stream>>>(args...);
+  kern<<<grid, kBlockThreads, C::bytes, stream>>>(args...);
   return cudaGetLastError();
 }
 

@@ -47,50 +47,79 @@
 // Page sizes: multiples of 8 that divide kN or that kN divides (the
 // wrapper refuses others).
 //
-// int8 pools (K3-int8) keep the WMMA tile loop of flash_tile.cuh (Q8):
-// each 8-byte load of a row widens to bf16 in shared memory (exact), the
-// row's K and V scales go beside the tile, and the tile loop folds them
-// into the scores and the softmax weights -- the pool bytes per key halve
-// and no dequantized K or V tile exists.  The G query heads of a kv head
-// share no K/V load in either mode (L2 serves the repeats).
+// int8 pools (K3-int8) run the same pipeline in its int8 mode
+// (flash_sm90.cuh, Cfg kInt8): one bulk copy a page (or part of a page)
+// brings its min(ps, kN) int8 K rows, as many V rows and their bf16 K and
+// V scales into a staging ring; the producer warpgroup's three idle warps
+// widen each staged tile to bf16 (exact, unscaled) into the swizzled K and
+// V stages the consumers read, and the scales to fp32 beside them; the
+// consumers fold the K scale into the scores and the V scale into the
+// softmax weights after the row sum, as the TPU kernel does.  The pool
+// bytes per key halve and no dequantized K or V tile reaches device
+// memory.  A scale run is 2 bytes a row and a bulk copy moves multiples of
+// 16 bytes, so this mode too takes page sizes that are multiples of 8
+// dividing kN or divided by it.  The G query heads of a kv head share no
+// K/V load in either mode (L2 serves the repeats).
 //
 // Rows past input_lens are finite and unspecified, as in the TPU kernel.
 //
 // C interface (bound with ctypes): returns cudaGetLastError() after the
 // launch on the caller's stream (cudaErrorInvalidValue for a page size the
-// bf16 path does not take or a tensor map that cannot be encoded); the
+// kernel does not take or a tensor map that cannot be encoded); the
 // kernels allocate nothing.
 
 #include "flash_sm90.cuh"
-#include "flash_tile.cuh"
 
 namespace {
 
-// ------------------------------------------------ bf16 pools (Hopper)
-
-namespace bf16_pools {
-
 using namespace vgt_sm90;
 
-// K and V rows through the page table: box j of a tile covers positions
-// k_start + j * box_rows .. + box_rows - 1 of one page, for each 64-column
-// block
-template <int HD>
-struct PagedLoader {
-  using C = Cfg<HD, true>;
+// The CTA's query tile: false (after writing its finite zeros) when it
+// lies wholly past input_lens; else the Tile and the output rows
+template <class C>
+__device__ __forceinline__ bool suffix_tile(Tile& t, int& h, int& b,
+                                            int& row0, bf16*& out_tile,
+                                            const int* positions0,
+                                            const int* input_lens, bf16* out,
+                                            int S, int H, int ps,
+                                            int ctx_pages, int window) {
+  constexpr int HD = C::kHD;
+  int qt;
+  tile_coords<C::kLongestFirst>(qt, h, b);
+  row0 = qt * kRows;  // first query row of the tile (local)
+  const int n_rows = min(kRows, S - row0);
+  const int input_len = min(input_lens[b], S);
+  out_tile = out + (((size_t)b * S + row0) * H + h) * HD;
+  if (row0 >= input_len) {
+    // an idle tile: finite zeros, nothing read
+    constexpr int VPR = HD / 8;
+    for (int i = threadIdx.x; i < n_rows * VPR; i += kThreads)
+      *reinterpret_cast<uint4*>(out_tile + (size_t)(i / VPR) * H * HD +
+                                (i % VPR) * 8) = make_uint4(0, 0, 0, 0);
+    return false;
+  }
+  const int pos0 = positions0[b];
+  t.q_start = pos0 + row0;  // global position of tile row 0
+  t.n_rows = n_rows;
+  t.n_live = min(n_rows, input_len - row0);
+  // never read the table at or past its width, whatever the lengths say
+  t.seq_len = min(pos0 + input_len, ctx_pages * ps);
+  t.window = window;
+  key_tiles<C>(t);
+  return true;
+}
+
+// What both loaders share: Q by TMA, and the page ids of a tile's boxes
+// (box j of a tile covers positions k_start + j * box_rows .. + box_rows
+// - 1 of one page)
+template <class C>
+struct PagedRows {
   const CUtensorMap* q;
-  const CUtensorMap* k;  // 2-D over the layer view [KV * P * ps, HD]
-  const CUtensorMap* v;
-  const int* pt_row;     // this slot's page-table row
+  const int* pt_row;  // this slot's page-table row
   int h, row0, b;
-  int head_page0;        // kvh * P: the kv head's first page in the view
+  int head_page0;     // kvh * P: the kv head's first page in the pools
   int ps, box_rows, seq_len;
 
-  __device__ void prefetch() const {
-    tma_prefetch(q);
-    tma_prefetch(k);
-    tma_prefetch(v);
-  }
   __device__ void load_q(uint32_t dst, uint32_t bar, int cb) const {
     tma_load_4d(dst, q, bar, cb * 64, h, row0, b);
   }
@@ -100,6 +129,31 @@ struct PagedLoader {
     const int pos = kt * C::kN + lane * box_rows;
     return lane < C::kN / box_rows && pos < seq_len ? pt_row[pos / ps] : 0;
   }
+  // boxes of tile kt that start below seq_len
+  __device__ int live_boxes(int k_start) const {
+    return min(C::kN / box_rows,
+               (seq_len - k_start + box_rows - 1) / box_rows);
+  }
+  // the pool row (of the layer view) of box j of the tile at k_start
+  __device__ int pool_row(int page, int k_start, int j) const {
+    return (head_page0 + page) * ps + (k_start + j * box_rows) % ps;
+  }
+};
+
+// ------------------------------------------------------------ bf16 pools
+
+// K and V rows by TMA from 2-D maps over the layer view [KV * P * ps, HD]
+template <int HD>
+struct PagedLoader : PagedRows<Cfg<HD, true>> {
+  using C = Cfg<HD, true>;
+  const CUtensorMap* k;
+  const CUtensorMap* v;
+
+  __device__ void prefetch() const {
+    tma_prefetch(this->q);
+    tma_prefetch(k);
+    tma_prefetch(v);
+  }
   // all lanes of the producer warp (the ids come by shuffle), lane 0
   // issues: once the stage is free (K and V are freed together), the K and
   // V boxes of each page in turn, only the boxes that start below seq_len
@@ -108,8 +162,8 @@ struct PagedLoader {
                           uint32_t ev, uint32_t parity) const {
     static_assert(C::kJointRelease, "one wait frees K and V");
     const int k_start = kt * C::kN;
-    const int live = min(C::kN / box_rows,
-                         (seq_len - k_start + box_rows - 1) / box_rows);
+    const int box_rows = this->box_rows;
+    const int live = this->live_boxes(k_start);
     const uint32_t bytes = live * box_rows * 128 * C::kBlocks;
     if (lane == 0) {
       mbar_wait(ev, parity);
@@ -119,8 +173,7 @@ struct PagedLoader {
     for (int j = 0; j < live; ++j) {
       const int page = __shfl_sync(0xffffffffu, ids, j);
       if (lane == 0) {
-        const int row =
-            (head_page0 + page) * ps + (k_start + j * box_rows) % ps;
+        const int row = this->pool_row(page, k_start, j);
         const uint32_t off = j * box_rows * 128;
         for (int cb = 0; cb < C::kBlocks; ++cb) {
           tma_load_2d(dk + cb * C::kKVBlock + off, k, bk, cb * 64, row);
@@ -144,198 +197,172 @@ paged_multitok_kernel(const __grid_constant__ CUtensorMap qmap,  // [B,S,H,HD]
                       int ctx_pages, int window, float scale, float softcap) {
   extern __shared__ unsigned char smem[];
   using C = Cfg<HD, true>;
-  int qt, h, b;
-  tile_coords<C::kLongestFirst>(qt, h, b);
-  const int row0 = qt * kRows;  // first query row of the tile (local)
-  const int n_rows = min(kRows, S - row0);
-  const int input_len = min(input_lens[b], S);
-  bf16* out_tile = out + (((size_t)b * S + row0) * H + h) * HD;
-
-  if (row0 >= input_len) {
-    // an idle tile: finite zeros, nothing read
-    constexpr int VPR = HD / 8;
-    for (int i = threadIdx.x; i < n_rows * VPR; i += kThreads)
-      *reinterpret_cast<uint4*>(out_tile + (size_t)(i / VPR) * H * HD +
-                                (i % VPR) * 8) = make_uint4(0, 0, 0, 0);
-    return;
-  }
-  const int pos0 = positions0[b];
   Tile t;
-  t.q_start = pos0 + row0;  // global position of tile row 0
-  t.n_rows = n_rows;
-  t.n_live = min(n_rows, input_len - row0);
-  // never read the table at or past its width, whatever the lengths say
-  t.seq_len = min(pos0 + input_len, ctx_pages * ps);
-  t.window = window;
-  key_tiles<C>(t);
-  const PagedLoader<HD> ld{&qmap, &kmap, &vmap,
-                           page_tables + (size_t)b * ctx_pages,
-                           h, row0, b, (h / (H / KV)) * P, ps, box_rows,
-                           t.seq_len};
+  int h, b, row0;
+  bf16* out_tile;
+  if (!suffix_tile<C>(t, h, b, row0, out_tile, positions0, input_lens, out,
+                      S, H, ps, ctx_pages, window))
+    return;
+  PagedLoader<HD> ld;
+  ld.q = &qmap;
+  ld.pt_row = page_tables + (size_t)b * ctx_pages;
+  ld.h = h;
+  ld.row0 = row0;
+  ld.b = b;
+  ld.head_page0 = (h / (H / KV)) * P;
+  ld.ps = ps;
+  ld.box_rows = box_rows;
+  ld.seq_len = t.seq_len;
+  ld.k = &kmap;
+  ld.v = &vmap;
   attend<C>(ld, t, smem, scale, softcap, out_tile, (size_t)H * HD);
 }
 
+// ------------------------------------------------------------ int8 pools
+
+// int8 K and V rows and their bf16 scales by bulk copy: a box's rows are
+// one contiguous run of a page (box_rows * HD bytes of data, box_rows * 2
+// of scales)
 template <int HD>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* pt, const int* pos0, const int* lens,
-                   void* out, int B, int S, int H, int KV, int P, int ps,
-                   int ctx_pages, int window, float scale, float softcap,
-                   cudaStream_t stream) {
-  using C = Cfg<HD, true>;
-  constexpr int kN = C::kN;
-  static bool configured = false;  // once per instantiation
-  const int box_rows = ps < kN ? ps : kN;
-  if (ps % 8 != 0 || (kN % ps != 0 && ps % kN != 0))
-    return cudaErrorInvalidValue;
-  const cuuint64_t dims[2] = {(cuuint64_t)HD, (cuuint64_t)KV * P * ps};
-  const cuuint64_t strides[1] = {(cuuint64_t)HD * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  CUtensorMap qm, km, vm;
-  if (!rows_map<HD>(&qm, q, B, S, H, kRows) ||
-      !bf16_map(&km, k, 2, dims, strides, box) ||
-      !bf16_map(&vm, v, 2, dims, strides, box))
-    return cudaErrorInvalidValue;
-  dim3 grid((S + kRows - 1) / kRows, H, B);
-  return launch_sm90<C>(paged_multitok_kernel<HD>, configured, grid, stream,
-                        qm, km, vm, pt, pos0, lens, static_cast<bf16*>(out),
-                        S, H, KV, P, ps, box_rows, ctx_pages, window, scale,
-                        softcap);
-}
+struct PagedLoader8 : PagedRows<Cfg<HD, true, true>> {
+  using C = Cfg<HD, true, true>;
+  const int8_t* k;  // the layer view [KV * P * ps, HD]
+  const int8_t* v;
+  const bf16* ks;   // [KV * P * ps]
+  const bf16* vs;
 
-}  // namespace bf16_pools
-
-// --------------------------------------- int8 pools (the WMMA tile loop)
-
-namespace int8_pools {
-
-using namespace vgt_flash;
-
-// gather a [kTile, HD] int8 key (or value) tile through one slot's
-// page-table row, 8 int8 values a load widened to bf16 (unscaled), and the
-// rows' scales into sc[0..kTile) (0 past seq_len); tile row r is position
-// k_start + r, zero-filled at or past seq_len
-template <int HD>
-__device__ __forceinline__ void gather_tile_i8(
-    bf16* dst, float* sc, const int8_t* __restrict__ pool,
-    const bf16* __restrict__ scale_pool, const int* __restrict__ pt_row,
-    int k_start, int seq_len, int ps) {
-  constexpr int VPR = HD / 8;  // 8-byte vectors per row
-  for (int i = threadIdx.x; i < kTile * VPR; i += kThreads) {
-    const int r = i / VPR;
-    const int c = (i % VPR) * 8;
-    const int pos = k_start + r;
-    uint2 raw = make_uint2(0, 0);
-    if (pos < seq_len) {
-      const size_t row = (size_t)pt_row[pos / ps] * ps + pos % ps;
-      raw = *reinterpret_cast<const uint2*>(pool + row * HD + c);
+  __device__ void prefetch() const { tma_prefetch(this->q); }
+  // all lanes of the copy warp, lane 0 issues: once half `kv` (0 K, 1 V)
+  // of the staging stage at `dst` is free, each live box's rows and scales
+  __device__ void load_kv8(int kt, int ids, int lane, int kv, uint32_t dst,
+                           uint32_t full, uint32_t empty,
+                           uint32_t parity) const {
+    const int k_start = kt * C::kN;
+    const int box_rows = this->box_rows;
+    const int live = this->live_boxes(k_start);
+    const int8_t* data = kv ? v : k;
+    const bf16* scales = kv ? vs : ks;
+    const uint32_t rows_dst = dst + kv * C::kKV8Bytes;
+    const uint32_t scales_dst = dst + 2 * C::kKV8Bytes + kv * 2 * C::kN;
+    if (lane == 0) {
+      mbar_wait(empty, parity);
+      mbar_expect_tx(full, live * box_rows * (HD + 2));
     }
-    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-    __align__(16) bf16 w[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) w[e] = __float2bfloat16_rn((float)b[e]);
-    *reinterpret_cast<uint4*>(dst + r * Smem<HD>::LDQ + c) =
-        *reinterpret_cast<const uint4*>(w);
+    for (int j = 0; j < live; ++j) {
+      const int page = __shfl_sync(0xffffffffu, ids, j);
+      if (lane == 0) {
+        const size_t row = this->pool_row(page, k_start, j);
+        bulk_load(rows_dst + j * box_rows * HD, data + row * HD,
+                  box_rows * HD, full);
+        bulk_load(scales_dst + j * box_rows * 2, scales + row,
+                  box_rows * 2, full);
+      }
+    }
   }
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
-    const int pos = k_start + r;
-    sc[r] = pos < seq_len
-                ? __bfloat162float(
-                      scale_pool[(size_t)pt_row[pos / ps] * ps + pos % ps])
-                : 0.f;
-  }
-}
+};
 
-// k_scale/v_scale are the bf16 scale pools [KV, P, ps]; two kTile float
-// rows of scales follow the tile's shared memory
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-paged_multitok_i8_kernel(const bf16* __restrict__ q,          // [B, S, H, HD]
+__global__ void __launch_bounds__(kThreads, 1)
+paged_multitok_i8_kernel(const __grid_constant__ CUtensorMap qmap,
                          const int8_t* __restrict__ k_pages,  // [KV,P,ps,HD]
                          const int8_t* __restrict__ v_pages,
                          const bf16* __restrict__ k_scale,    // [KV, P, ps]
                          const bf16* __restrict__ v_scale,
-                         const int* __restrict__ page_tables,  // [B, ctx_pages]
-                         const int* __restrict__ positions0,   // [B]
-                         const int* __restrict__ input_lens,   // [B]
+                         const int* __restrict__ page_tables,
+                         const int* __restrict__ positions0,
+                         const int* __restrict__ input_lens,
                          bf16* __restrict__ out,              // [B, S, H, HD]
-                         int S, int H, int KV, int P, int ps, int ctx_pages,
-                         int window, float scale, float softcap) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  Tile<HD> t(smem);
-  float* ks = reinterpret_cast<float*>(smem + Smem<HD>::bytes);
-  float* vs = ks + kTile;
-
-  const int qt = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int row0 = qt * kTile;  // first query row of the tile (local)
-  const int n_rows = min(kTile, S - row0);
-  const int input_len = min(input_lens[b], S);
-  bf16* out_tile = out + (((size_t)b * S + row0) * H + h) * HD;
-
-  if (row0 >= input_len) {
-    // an idle tile: finite zeros, nothing read
-    constexpr int VPR = HD / 8;
-    for (int i = threadIdx.x; i < n_rows * VPR; i += kThreads)
-      *reinterpret_cast<uint4*>(out_tile + (size_t)(i / VPR) * H * HD +
-                                (i % VPR) * 8) = make_uint4(0, 0, 0, 0);
+                         int S, int H, int KV, int P, int ps, int box_rows,
+                         int ctx_pages, int window, float scale,
+                         float softcap) {
+  extern __shared__ unsigned char smem[];
+  using C = Cfg<HD, true, true>;
+  Tile t;
+  int h, b, row0;
+  bf16* out_tile;
+  if (!suffix_tile<C>(t, h, b, row0, out_tile, positions0, input_lens, out,
+                      S, H, ps, ctx_pages, window))
     return;
-  }
-
-  const int kvh = h / (H / KV);
-  const int pos0 = positions0[b];
-  // never read the table at or past its width, whatever the lengths say
-  const int seq_len = min(pos0 + input_len, ctx_pages * ps);
-  const int q_start = pos0 + row0;  // global position of tile row 0
-  const int* pt_row = page_tables + (size_t)b * ctx_pages;
-  const int8_t* k_head = k_pages + (size_t)kvh * P * ps * HD;
-  const int8_t* v_head = v_pages + (size_t)kvh * P * ps * HD;
-
-  load_tile<HD>(t.q, q + (((size_t)b * S + row0) * H + h) * HD,
-                (size_t)H * HD, n_rows);
-  t.init();
-  __syncthreads();  // Q, O, m, l ready even if no key tile is live
-
-  // live key tiles: causal to the tile's last row, below seq_len, and not
-  // wholly below the window of the tile's first row
-  int kt_hi = min(q_start + n_rows - 1, seq_len - 1) / kTile;
-  if (seq_len <= 0) kt_hi = -1;
-  int kt_lo = 0;
-  if (window > 0) kt_lo = max(0, q_start - window + 1) / kTile;
-
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k_start = kt * kTile;
-    __syncthreads();  // previous tile fully consumed
-    const size_t sc_head = (size_t)kvh * P * ps;
-    gather_tile_i8<HD>(t.k, ks, k_head, k_scale + sc_head, pt_row, k_start,
-                       seq_len, ps);
-    gather_tile_i8<HD>(t.v, vs, v_head, v_scale + sc_head, pt_row, k_start,
-                       seq_len, ps);
-    __syncthreads();
-    attend_tile<HD, true>(t, k_start, q_start, seq_len, window, scale,
-                          softcap, ks, vs);
-  }
-
-  store_rows<HD>(t, out_tile, (size_t)H * HD, n_rows);
+  PagedLoader8<HD> ld;
+  ld.q = &qmap;
+  ld.pt_row = page_tables + (size_t)b * ctx_pages;
+  ld.h = h;
+  ld.row0 = row0;
+  ld.b = b;
+  ld.head_page0 = (h / (H / KV)) * P;
+  ld.ps = ps;
+  ld.box_rows = box_rows;
+  ld.seq_len = t.seq_len;
+  ld.k = k_pages;
+  ld.v = v_pages;
+  ld.ks = k_scale;
+  ld.vs = v_scale;
+  attend<C>(ld, t, smem, scale, softcap, out_tile, (size_t)H * HD);
 }
 
-template <int HD>
+// both modes: the page-size rule, Q's map, the grid
+template <int HD, bool kInt8>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* ks, const void* vs, const int* pt,
                    const int* pos0, const int* lens, void* out, int B, int S,
                    int H, int KV, int P, int ps, int ctx_pages, int window,
                    float scale, float softcap, cudaStream_t stream) {
+  using C = Cfg<HD, true, kInt8>;
+  constexpr int kN = C::kN;
   static bool configured = false;  // once per instantiation
-  dim3 grid((S + kTile - 1) / kTile, H, B);
-  return launch_tiles<HD, 2 * kTile * sizeof(float)>(
-      paged_multitok_i8_kernel<HD>, configured, grid, stream,
-      static_cast<const bf16*>(q), static_cast<const int8_t*>(k),
-      static_cast<const int8_t*>(v), static_cast<const bf16*>(ks),
-      static_cast<const bf16*>(vs), pt, pos0, lens, static_cast<bf16*>(out),
-      S, H, KV, P, ps, ctx_pages, window, scale, softcap);
+  const int box_rows = ps < kN ? ps : kN;
+  if (ps % 8 != 0 || (kN % ps != 0 && ps % kN != 0))
+    return cudaErrorInvalidValue;
+  CUtensorMap qm;
+  if (!rows_map<HD>(&qm, q, B, S, H, kRows)) return cudaErrorInvalidValue;
+  dim3 grid((S + kRows - 1) / kRows, H, B);
+  if constexpr (kInt8) {
+    return launch_sm90<C>(
+        paged_multitok_i8_kernel<HD>, configured, grid, stream, qm,
+        static_cast<const int8_t*>(k), static_cast<const int8_t*>(v),
+        static_cast<const bf16*>(ks), static_cast<const bf16*>(vs), pt, pos0,
+        lens, static_cast<bf16*>(out), S, H, KV, P, ps, box_rows, ctx_pages,
+        window, scale, softcap);
+  } else {
+    const cuuint64_t dims[2] = {(cuuint64_t)HD, (cuuint64_t)KV * P * ps};
+    const cuuint64_t strides[1] = {(cuuint64_t)HD * 2};
+    const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+    CUtensorMap km, vm;
+    if (!bf16_map(&km, k, 2, dims, strides, box) ||
+        !bf16_map(&vm, v, 2, dims, strides, box))
+      return cudaErrorInvalidValue;
+    return launch_sm90<C>(paged_multitok_kernel<HD>, configured, grid, stream,
+                          qm, km, vm, pt, pos0, lens, static_cast<bf16*>(out),
+                          S, H, KV, P, ps, box_rows, ctx_pages, window, scale,
+                          softcap);
+  }
 }
 
-}  // namespace int8_pools
+template <bool kInt8>
+int dispatch(const void* q, const void* k, const void* v, const void* ks,
+             const void* vs, const void* pt, const void* pos0,
+             const void* lens, void* out, int B, int S, int H, int KV, int P,
+             int ps, int ctx_pages, int hd, int window, float scale,
+             float softcap, void* stream) {
+  const int* t = static_cast<const int*>(pt);
+  const int* p0 = static_cast<const int*>(pos0);
+  const int* il = static_cast<const int*>(lens);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 0 || S == 0) return cudaSuccess;
+  switch (hd) {
+    case 64:
+      return launch<64, kInt8>(q, k, v, ks, vs, t, p0, il, out, B, S, H, KV,
+                               P, ps, ctx_pages, window, scale, softcap, s);
+    case 128:
+      return launch<128, kInt8>(q, k, v, ks, vs, t, p0, il, out, B, S, H, KV,
+                                P, ps, ctx_pages, window, scale, softcap, s);
+    case 256:
+      return launch<256, kInt8>(q, k, v, ks, vs, t, p0, il, out, B, S, H, KV,
+                                P, ps, ctx_pages, window, scale, softcap, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
 
 }  // namespace
 
@@ -348,29 +375,13 @@ extern "C" int vgt_paged_multitok_bf16(const void* q, const void* k_pages,
                                        int ps, int ctx_pages, int hd,
                                        int window, float scale, float softcap,
                                        void* stream) {
-  using namespace bf16_pools;
-  const int* pt = static_cast<const int*>(page_tables);
-  const int* p0 = static_cast<const int*>(positions0);
-  const int* il = static_cast<const int*>(input_lens);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B == 0 || S == 0) return cudaSuccess;
-  switch (hd) {
-    case 64:
-      return launch<64>(q, k_pages, v_pages, pt, p0, il, out, B, S, H, KV, P,
-                        ps, ctx_pages, window, scale, softcap, s);
-    case 128:
-      return launch<128>(q, k_pages, v_pages, pt, p0, il, out, B, S, H, KV, P,
-                         ps, ctx_pages, window, scale, softcap, s);
-    case 256:
-      return launch<256>(q, k_pages, v_pages, pt, p0, il, out, B, S, H, KV, P,
-                         ps, ctx_pages, window, scale, softcap, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return dispatch<false>(q, k_pages, v_pages, nullptr, nullptr, page_tables,
+                         positions0, input_lens, out, B, S, H, KV, P, ps,
+                         ctx_pages, hd, window, scale, softcap, stream);
 }
 
 // int8 pools [KV, P, ps, hd] with bf16 scale pools [KV, P, ps]; q and the
-// output bf16
+// output bf16; pools and scale pools on 16 bytes
 extern "C" int vgt_paged_multitok_int8(const void* q, const void* k_pages,
                                        const void* v_pages,
                                        const void* k_scale,
@@ -382,26 +393,7 @@ extern "C" int vgt_paged_multitok_int8(const void* q, const void* k_pages,
                                        int ps, int ctx_pages, int hd,
                                        int window, float scale, float softcap,
                                        void* stream) {
-  using namespace int8_pools;
-  const int* pt = static_cast<const int*>(page_tables);
-  const int* p0 = static_cast<const int*>(positions0);
-  const int* il = static_cast<const int*>(input_lens);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B == 0 || S == 0) return cudaSuccess;
-  switch (hd) {
-    case 64:
-      return launch<64>(q, k_pages, v_pages, k_scale, v_scale, pt, p0, il,
-                        out, B, S, H, KV, P, ps, ctx_pages, window, scale,
-                        softcap, s);
-    case 128:
-      return launch<128>(q, k_pages, v_pages, k_scale, v_scale, pt, p0, il,
-                         out, B, S, H, KV, P, ps, ctx_pages, window, scale,
-                         softcap, s);
-    case 256:
-      return launch<256>(q, k_pages, v_pages, k_scale, v_scale, pt, p0, il,
-                         out, B, S, H, KV, P, ps, ctx_pages, window, scale,
-                         softcap, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return dispatch<true>(q, k_pages, v_pages, k_scale, v_scale, page_tables,
+                        positions0, input_lens, out, B, S, H, KV, P, ps,
+                        ctx_pages, hd, window, scale, softcap, stream);
 }

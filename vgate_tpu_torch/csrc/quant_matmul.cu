@@ -1,32 +1,34 @@
-// Dequant matmuls for Hopper (sm_90a): bf16 activations times int8 (K4) or
-// packed int4 (K5) weights, fp32 accumulation, bf16 or fp32 out.
+// The int4 dequant matmul for Hopper (sm_90a), K5: bf16 activations times
+// packed int4 weights, fp32 accumulation, bf16 or fp32 out.  (K4, the
+// int8 matmul, lives in int8_matmul.cu: wgmma with the widening stage of
+// flash_sm90.cuh.  K5 stays on this WMMA kernel and is the next to move
+// onto that design.)
 //
-// Replaces the TPU kernels vgate_tpu/ops/pallas/quant_matmul.py
-// int8_matmul_pallas (body _int8_kernel) and int4_matmul_pallas (body
-// _kernel): out[r, o] = (sum_i x[r, i] * w[i, o]) * scale[o], the
-// per-output-channel f32 scale applied to the f32 sum BEFORE the cast to
-// the output type.  int4 weights are packed two a byte in the half-split
-// layout (vgate_tpu_torch/ops/quant.py PackedQTensor): byte row i holds
-// w[i] in its low nibble and w[in/2 + i] in its high nibble, so the low
-// plane contracts x[:, :in/2] and the high plane x[:, in/2:].
-// Semantic spec: vgate_tpu_torch/ops/kernels/quant_matmul.py
-// int8_matmul_plain / int4_matmul_plain.
+// Replaces the TPU kernel vgate_tpu/ops/pallas/quant_matmul.py
+// int4_matmul_pallas (body _kernel): out[r, o] = (sum_i x[r, i] * w[i, o])
+// * scale[o], the per-output-channel f32 scale applied to the f32 sum
+// BEFORE the cast to the output type.  int4 weights are packed two a byte
+// in the half-split layout (vgate_tpu_torch/ops/quant.py PackedQTensor):
+// byte row i holds w[i] in its low nibble and w[in/2 + i] in its high
+// nibble, so the low plane contracts x[:, :in/2] and the high plane
+// x[:, in/2:].  Semantic spec: vgate_tpu_torch/ops/kernels/quant_matmul.py
+// int4_matmul_plain.
 //
 // What bounds it on an H100: at decode (R <= 32 rows) bytes: the weight
-// (in * out bytes for int8, half that for int4) is read once for a few
-// flops per byte, so the limit is the 3.35 TB/s of HBM, and the kernel's
-// whole point is that only the narrow ints cross it.  At prompt passes of
-// thousands of rows, operations: 2 * R * in * out flops at the 989 TFLOP/s
-// bf16 tensor-core rate.
+// (in * out / 2 bytes) is read once for a few flops per byte, so the
+// limit is the 3.35 TB/s of HBM, and the kernel's whole point is that only
+// the packed nibbles cross it.  At prompt passes of thousands of rows,
+// operations: 2 * R * in * out flops at the 989 TFLOP/s bf16 tensor-core
+// rate.
 //
 // What the design does about it:
 //  * one CTA per (BM-row tile, 64-column tile, k split); row tiles vary
 //    fastest, so CTAs running together read the same weight columns and
 //    HBM delivers each weight byte once (the activations stay in L2);
-//  * the weight tile crosses HBM as int8 (or packed int4) and is widened
-//    in shared memory to bf16 UNSCALED: int8 and int4 values are exact in
-//    bf16, so the WMMA bf16 16x16x16 products with fp32 accumulation
-//    compute exactly sum x * w_q, and the scale multiplies the fp32 sum;
+//  * the weight tile crosses HBM packed and is widened in shared memory
+//    to bf16 UNSCALED: int4 values are exact in bf16, so the WMMA bf16
+//    16x16x16 products with fp32 accumulation compute exactly sum x * w_q,
+//    and the scale multiplies the fp32 sum;
 //  * each thread loads the next k step's tile into registers while the
 //    tensor cores work on the current one;
 //  * at decode the tile grid alone cannot fill 132 SMs (a 3584-wide
@@ -34,8 +36,8 @@
 //    wrapper picks the split); each split writes an fp32 partial and a
 //    second launch sums the partials in a fixed order, applies the scale
 //    and casts -- no atomics, so the result does not change run to run.
-// Not yet done (later work): wgmma + TMA with a tile ring; the WMMA path
-// reaches a fraction of the tensor-core peak at prompt shapes.
+// The WMMA path reaches a fraction of the tensor-core peak at prompt
+// shapes (PERF.md).
 //
 // C interface (bound with ctypes): returns cudaGetLastError() after the
 // launches on the caller's stream; the kernels allocate nothing (the
@@ -78,16 +80,6 @@ __device__ __forceinline__ bf16 cast_out<bf16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// 16 int8 values -> 16 bf16 at dst (exact)
-__device__ __forceinline__ void widen_i8(const uint4& raw, bf16* dst) {
-  const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-  __align__(16) bf16 v[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) v[i] = __float2bfloat16_rn((float)b[i]);
-  reinterpret_cast<uint4*>(dst)[0] = reinterpret_cast<const uint4*>(v)[0];
-  reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(v)[1];
-}
-
 // 16 packed bytes -> 16 low-nibble values at lo, 16 high-nibble at hi
 // (two's-complement 4-bit, exact in bf16)
 __device__ __forceinline__ void widen_i4(const uint4& raw, bf16* lo,
@@ -106,7 +98,8 @@ __device__ __forceinline__ void widen_i4(const uint4& raw, bf16* lo,
   reinterpret_cast<uint4*>(hi)[1] = reinterpret_cast<const uint4*>(vh)[1];
 }
 
-// BM: rows per CTA (32 or 64).  INT4: packed half-split weights.
+// BM: rows per CTA (32 or 64).  INT4: packed half-split weights (the
+// only instantiation since K4 moved to int8_matmul.cu).
 // partial != nullptr: write the fp32 sum of this CTA's k split to
 // partial[z, r, o] (no scale); else write out[r, o] = sum * scale[o].
 template <int BM, bool INT4, typename OutT>
@@ -169,10 +162,7 @@ qmm_kernel(const bf16* __restrict__ x,        // [R, in]
       const int i = threadIdx.x + j * kThreads;
       const int r = i / (BN / 16);
       const int c = (i % (BN / 16)) * 16;
-      if (INT4)
-        widen_i4(wr[j], &sm.w[r * LDW + c], &sm.w[(r + BK / 2) * LDW + c]);
-      else
-        widen_i8(wr[j], &sm.w[r * LDW + c]);
+      widen_i4(wr[j], &sm.w[r * LDW + c], &sm.w[(r + BK / 2) * LDW + c]);
     }
   };
 
@@ -265,29 +255,21 @@ cudaError_t launch_rows(const void* x, const void* w, const void* scale,
 
 }  // namespace
 
-// x bf16 [R, in_dim]; w int8 [in_dim, out_dim] (int4 == 0) or packed
-// uint8 [in_dim / 2, out_dim] (int4 == 1); scale f32 [out_dim]; out bf16
-// (out_f32 == 0) or f32 [R, out_dim]; partial f32 [splits, R, out_dim]
-// when splits > 1.  in_dim % 64 == 0, out_dim % 64 == 0, and splits
-// divides in_dim / 64 (the wrapper checks all three).
-extern "C" int vgt_quant_matmul(const void* x, const void* w,
-                                const void* scale, void* out, void* partial,
-                                int R, int in_dim, int out_dim, int splits,
-                                int int4, int out_f32, void* stream) {
+// x bf16 [R, in_dim]; w packed uint8 [in_dim / 2, out_dim]; scale f32
+// [out_dim]; out bf16 (out_f32 == 0) or f32 [R, out_dim]; partial f32
+// [splits, R, out_dim] when splits > 1.  in_dim % 64 == 0, out_dim % 64
+// == 0, and splits divides in_dim / 64 (the wrapper checks all three).
+extern "C" int vgt_int4_matmul(const void* x, const void* w,
+                               const void* scale, void* out, void* partial,
+                               int R, int in_dim, int out_dim, int splits,
+                               int out_f32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (R == 0) return cudaSuccess;
   if (in_dim % BK || out_dim % BN || splits < 1 || (in_dim / BK) % splits)
     return cudaErrorInvalidValue;
-  if (int4) {
-    if (out_f32)
-      return launch_rows<true, float>(x, w, scale, out, partial, R, in_dim,
-                                      out_dim, splits, s);
-    return launch_rows<true, bf16>(x, w, scale, out, partial, R, in_dim,
-                                   out_dim, splits, s);
-  }
   if (out_f32)
-    return launch_rows<false, float>(x, w, scale, out, partial, R, in_dim,
-                                     out_dim, splits, s);
-  return launch_rows<false, bf16>(x, w, scale, out, partial, R, in_dim,
-                                  out_dim, splits, s);
+    return launch_rows<true, float>(x, w, scale, out, partial, R, in_dim,
+                                    out_dim, splits, s);
+  return launch_rows<true, bf16>(x, w, scale, out, partial, R, in_dim,
+                                 out_dim, splits, s);
 }

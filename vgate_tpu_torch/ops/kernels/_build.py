@@ -30,6 +30,7 @@ SOURCES = {
     "flash_prefill": "flash_prefill.cu",
     "paged_multitok": "paged_multitok.cu",
     "quant_matmul": "quant_matmul.cu",
+    "int8_matmul": "int8_matmul.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",

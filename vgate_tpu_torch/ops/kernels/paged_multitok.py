@@ -17,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from vgate_tpu_torch.config import NotPortedError
 from vgate_tpu_torch.ops import attention
 from vgate_tpu_torch.ops.kernels import _build
 from vgate_tpu_torch.ops.kv_quant import SCALE_DTYPE, KVPool, is_quantized
@@ -26,16 +27,67 @@ MAX_GROUP = 8  # query heads per kv head, as K1 and K2 are held to
 
 
 def key_tile(hd: int) -> int:
-    """Keys a tile of the bf16 path (flash_sm90.cuh ``Cfg::kN``)."""
+    """Keys a tile of both modes (flash_sm90.cuh ``Cfg::kN``)."""
     return 64 if hd == 256 else 128
 
 
-def tma_page_size(ps: int, hd: int) -> bool:
-    """Whether the bf16 path takes page size ``ps``: it copies a key
-    tile as TMA boxes of min(ps, kN) rows of one page, so ps must be a
-    multiple of 8 that divides kN or that kN divides."""
+def tma_page_size(ps: int, hd: int, int8: bool = False) -> bool:
+    """Whether K3 takes page size ``ps`` at head dim ``hd``, on bf16
+    pools or (``int8``) on int8 pools.  Both modes copy a key tile of kN
+    keys as boxes of ``min(ps, kN)`` rows of one page, so the tile must be
+    whole boxes: kN % ps == 0 or ps % kN == 0.  What each box asks of its
+    rows:
+
+    * bf16 pools: a TMA box of a 2-D map over the layer view; a row is
+      ``2 * hd`` bytes (a multiple of 16 at every head dim), and the
+      kernel's boxes start on rows that are multiples of 8;
+    * int8 pools: one bulk copy of the box's contiguous rows, ``hd``
+      bytes a row (a multiple of 16 at every head dim, so any row count
+      passes), and one of its bf16 scales, 2 bytes a row: a bulk copy
+      moves multiples of 16 bytes from 16-byte addresses, so a box must be
+      a multiple of 8 rows.
+
+    Either way ps must be a multiple of 8 that divides kN or that kN
+    divides (8, 16, 32, 64, 128, 256, ... at kN 128)."""
     kN = key_tile(hd)
-    return ps % 8 == 0 and (kN % ps == 0 or ps % kN == 0)
+    box = min(ps, kN)
+    if kN % box or ps % box:  # a tile is whole boxes of one page
+        return False
+    if int8:  # K/V rows and scales by bulk copy, 16-byte multiples
+        return box * hd % 16 == 0 and box * 2 % 16 == 0
+    return box % 8 == 0  # whole 8-row swizzle atoms of 128-byte rows
+
+
+def taken_page_sizes(hd: int, int8: bool = False, upto: int = 512) -> list:
+    """The page sizes up to ``upto`` that K3 takes at head dim ``hd``."""
+    return [ps for ps in range(1, upto + 1) if tma_page_size(ps, hd, int8)]
+
+
+def check_engine_page_size(device: str, page_size: int, head_dim: int,
+                           kv_int8: bool, prefix_cache: bool,
+                           prefill_chunk: int) -> None:
+    """Refuse, when an engine is built, a page size K3 cannot take.
+
+    On a CUDA device every prefix hit and every prefill chunk runs K3
+    (``paged_multitok_attention`` or its int8 mode), and its wrapper
+    raises on such a page size: the engine would serve cold prompts and
+    die at the first hit or chunk.  So with the prefix cache on or
+    ``prefill_chunk`` > 0 this raises ``NotPortedError`` naming K3, the
+    pool type and the page sizes it takes.  The CPU path takes every
+    page size, and without either feature K3 never runs."""
+    if device != "cuda" or not (prefix_cache or prefill_chunk > 0):
+        return
+    if tma_page_size(page_size, head_dim, kv_int8):
+        return
+    pools = "int8" if kv_int8 else "bf16"
+    raise NotPortedError(
+        f"device.kv_page_size={page_size} on CUDA with the prefix cache "
+        f"or chunked prefill: K3 (paged multi-token attention) on {pools} "
+        f"pools at head dim {head_dim} takes page sizes that are multiples "
+        f"of 8 dividing {key_tile(head_dim)} or divided by it "
+        f"({', '.join(map(str, taken_page_sizes(head_dim, kv_int8)))}); "
+        "other page sizes: ROADMAP queue 2"
+    )
 
 
 def _lib(int8: bool = False):
@@ -185,6 +237,16 @@ def paged_multitok_attention_int8(
            input_lens, scales=(k_pages.scale, v_pages.scale))
     B, S, H, hd = q.shape
     KV, P, ps, _ = k_pages.shape
+    if not tma_page_size(ps, hd, int8=True):
+        raise ValueError(
+            f"page size {ps} at head dim {hd}: the int8 kernel takes "
+            f"multiples of 8 that divide {key_tile(hd)} or that it divides"
+        )
+    for name, t in (("q", q), ("k_pages", k_pages.data),
+                    ("v_pages", v_pages.data), ("k scales", k_pages.scale),
+                    ("v scales", v_pages.scale)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes (bulk copy)")
     out = torch.empty_like(q)
     rc = _lib(int8=True)(
         q.data_ptr(), k_pages.data.data_ptr(), v_pages.data.data_ptr(),

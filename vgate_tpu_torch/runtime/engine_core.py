@@ -67,6 +67,7 @@ from vgate_tpu_torch.models.decoder import (
     prefill_suffix_forward,
 )
 from vgate_tpu_torch.models.specs import ModelSpec, spec_for_model_id
+from vgate_tpu_torch.ops.kernels.paged_multitok import check_engine_page_size
 from vgate_tpu_torch.ops.kv_quant import (
     SCALE_BYTES,
     copy_page_prefix,
@@ -281,6 +282,12 @@ class EngineCore:
                 f"model.dtype={self.config.model.dtype} on CUDA: the "
                 "flash-prefill kernel takes bf16 (ROADMAP queue 2, K2)"
             )
+        # a page size K3 refuses would fail at the first hit or chunk
+        check_engine_page_size(
+            self.device.type, dcfg.kv_page_size, self.spec.head_dim,
+            self.config.kv_cache.dtype == "int8", dcfg.prefix_cache.enabled,
+            dcfg.prefill_chunk,
+        )
         self._stop_ids = frozenset(self.spec.extra_stop_ids)
         self.tokenizer = get_tokenizer(
             self.spec,
