@@ -799,9 +799,10 @@ def check_paged_multitok_int8(dev) -> dict:
 
 def check_paged_decode_blocked(dev) -> dict:
     """K6 against its plain version (K1's function) and against K1 on the
-    same inputs: small cases, then the Gemma-2-9B serving shape, timed at
-    block_slots 2, 4 and 8 beside K1 (the extra times print on lines of
-    their own)."""
+    same inputs: small cases, then contexts of many chunks at block_slots
+    1-16 (three runs bit-identical), then the Gemma-2-9B serving shape,
+    timed at block_slots 2, 4 and 8 beside K1 (the extra times, the bound
+    shares and the split plans print on lines of their own)."""
     from vgate_tpu_torch.ops import attention as plain
     from vgate_tpu_torch.ops.kernels import paged_decode as pd
 
@@ -840,6 +841,32 @@ def check_paged_decode_blocked(dev) -> dict:
         within(got, expect, what, tol)
         within(got, k1, what + " vs K1", KERNEL_TOL)
 
+    # contexts of many chunks (the page split), a window that starts
+    # mid-chunk and mid-page, slots shorter than a chunk, one on the trash
+    # page; 32 slots at block_slots 1 (K1 itself), 2, 4, 8, 16; bf16 and
+    # f32 pools
+    B, H, KV, hd, ps, pps = 32, 16, 8, 256, 32, 160
+    lens = [1, 2, 31, 33, 64, 65, 100, 500, 777, 1023, 1024, 1025, 2000,
+            2047, 2100, 2500, 3000, 3333, 4000, 4095, 4096, 4097, 4111, 4500,
+            4600, 4700, 4800, 4900, 5000, 5050, 5100, 5120]
+    kw = {"window": 1500, "softcap": 50.0, "scale": 1 / 16}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, pt, sl = decode_inputs(B, H, KV, hd, ps, pps, lens, 17, dev,
+                                        dtype)
+        pt[0] = 0
+        expect = plain.paged_decode_attention(
+            q.float(), k.float(), v.float(), pt, sl, **kw)
+        k1 = pd.paged_decode_attention(q, k, v, pt, sl, **kw)
+        tol = KERNEL_TOL if dtype == torch.bfloat16 else F32_TOL
+        for bs in (1, 2, 4, 8, 16):
+            what = f"blocked decode, many chunks, bs={bs} {dtype}"
+            got = thrice(lambda bs=bs: kernel(q, k, v, pt, sl, block_slots=bs,
+                                              **kw), what)
+            within(got, expect, what, tol)
+            within(got, k1, what + " vs K1", KERNEL_TOL)
+        del q, k, v, expect, k1, got
+        torch.cuda.empty_cache()
+
     # the reference's dispatch: a batch block_slots does not divide goes
     # to K1, an int8 pool to K1-int8; K6's counter stays
     q, k, v, pt, sl = decode_inputs(6, 16, 8, 256, 16, 16,
@@ -861,7 +888,8 @@ def check_paged_decode_blocked(dev) -> dict:
     lens = GEMMA_DECODE_LENS
     kw = {"window": 4096, "softcap": 50.0, "scale": 1 / 16}
     q, k, v, pt, sl = decode_inputs(B, H, KV, hd, ps, pps, lens, 16, dev)
-    got = kernel(q, k, v, pt, sl, block_slots=8, **kw)
+    got = thrice(lambda: kernel(q, k, v, pt, sl, block_slots=8, **kw),
+                 "blocked decode at Gemma-2-9B decode shapes")
     expect = plain.paged_decode_attention(q.float(), k.float(), v.float(),
                                           pt, sl, **kw)
     k1 = pd.paged_decode_attention(q, k, v, pt, sl, **kw)
@@ -869,11 +897,19 @@ def check_paged_decode_blocked(dev) -> dict:
     err = within(got, expect, "blocked decode at Gemma-2-9B decode shapes")
     within(got, k1, "blocked decode vs K1 at Gemma-2-9B decode shapes")
     del expect
-    times = {f"bs{bs}_ms": time_ms(
-        lambda bs=bs: kernel(q, k, v, pt, sl, block_slots=bs, **kw),
-        iters=50) for bs in (2, 4, 8)}
-    k1_ms = time_ms(lambda: pd.paged_decode_attention(q, k, v, pt, sl, **kw),
-                    iters=50)
+    # K6 at 2, 4, 8 slots a CTA and K1, three readings each in turns
+    runs = {f"bs{bs}_ms": [] for bs in (2, 4, 8)}
+    runs["k1_ms"] = []
+    for _ in range(3):
+        for bs in (2, 4, 8):
+            runs[f"bs{bs}_ms"].append(time_ms(
+                lambda bs=bs: kernel(q, k, v, pt, sl, block_slots=bs, **kw),
+                iters=50))
+        runs["k1_ms"].append(time_ms(
+            lambda: pd.paged_decode_attention(q, k, v, pt, sl, **kw),
+            iters=50))
+    times = {name: sorted(r)[1] for name, r in runs.items()}
+    k1_ms = times.pop("k1_ms")
     plain_ms = time_ms(
         lambda: plain.paged_decode_attention(q, k, v, pt, sl, **kw), iters=3
     )
@@ -884,8 +920,22 @@ def check_paged_decode_blocked(dev) -> dict:
     bound, by = decode_bound(lens, B, H, KV, hd, ps, window=4096)
     shape = (f"B={B} H={H} KV={KV} hd={hd} ps={ps} ctx=1..8192 "
              "window=4096 softcap=50 scale=1/16")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = {f"bs{bs}": pd.split_plan(B, H, KV, hd, ps, pps, 4096, bs, 2,
+                                      sms)._asdict() for bs in (2, 4, 8)}
     print(f"  paged_decode_attention_blocked at gemma-2-9b [{shape}]: "
-          + json.dumps({**times, "k1_ms": k1_ms, "bound_ms": bound}),
+          + json.dumps({**times, "k1_ms": k1_ms, "bound_ms": bound,
+                        "bound_share": {n: bound / t for n, t in
+                                        times.items()},
+                        "vs_library": times["bs8_ms"] / library_ms,
+                        "vs_k1": times["bs8_ms"] / k1_ms,
+                        "runs": runs,
+                        "host_us": host_us(lambda: kernel(
+                            q, k, v, pt, sl, block_slots=8, **kw)),
+                        "k1_host_us": host_us(
+                            lambda: pd.paged_decode_attention(
+                                q, k, v, pt, sl, **kw)),
+                        "split": plans}),
           flush=True)
     print(f"  paged_decode_attention at gemma-2-9b [{shape}]: "
           + json.dumps({"ms": k1_ms, "bound_ms": bound,
@@ -961,15 +1011,17 @@ QMM_SHAPES = [
     (32, 3584, 512, torch.bfloat16), (32, 3584, 152064, torch.float32),
     (2048, 3584, 18944, torch.bfloat16), (2048, 18944, 3584, torch.bfloat16),
 ]
-# (rows, in, out) held against the plain version, bf16 and f32 out: K4 at
-# ragged rows around its 64- and 128-row tiles and widths off its 128- and
-# 256-column tiles; K5 at the rows it was first held to
+# (rows, in, out) held against the plain version, bf16 and f32 out: K4 and
+# K5 at ragged rows around their 64- and 128-row tiles and widths off
+# their 128- and 256-column tiles; K5 also at an in_dim whose half is an
+# odd number of its 32-row steps (3648: 57)
 QMM_CASES = {
     8: [(1, 3584, 512), (7, 3584, 3584), (32, 18944, 3584), (33, 3584, 576),
         (127, 3584, 512), (129, 3584, 640), (2047, 512, 3584),
         (2048, 3584, 512)],
-    4: [(1, 3584, 512), (7, 3584, 3584), (32, 18944, 3584),
-        (2048, 3584, 512)],
+    4: [(1, 3584, 512), (7, 3584, 3584), (32, 18944, 3584), (33, 3584, 576),
+        (127, 3584, 512), (129, 3584, 640), (2047, 512, 3584),
+        (2048, 3584, 512), (32, 3648, 512), (2047, 3648, 640)],
 }
 
 
@@ -978,7 +1030,7 @@ def check_quant_matmul(dev, bits: int) -> dict:
     ``QMM_CASES``, bf16 and f32 out; a width off the tile must raise;
     timed at every ``QMM_SHAPES`` shape three times, in turns with the
     library call (one line each: kernel, library, bound, rate, factor,
-    host time a call, K4's plan); the first is the kernel's line."""
+    host time a call, the plan); the first is the kernel's line."""
     from vgate_tpu_torch.ops.kernels import quant_matmul as qm
     from vgate_tpu_torch.ops.quant import unpack_int4
 
@@ -1049,9 +1101,9 @@ def check_quant_matmul(dev, bits: int) -> dict:
             "bound_share": bound / mid, "vs_library": mid / lib_mid,
             "host_us": host_us(run), "library_host_us": host_us(library),
         }
-        if bits == 8:
-            line["plan"] = dict(zip(("config", "splits", "grid"),
-                                    qm.k4_plan(rows, in_dim, out_dim, sms)))
+        plan = qm.k4_plan if bits == 8 else qm.k5_plan
+        line["plan"] = dict(zip(("config", "splits", "grid"),
+                                plan(rows, in_dim, out_dim, sms)))
         if not lines:
             line["plain_ms"] = time_ms(
                 lambda: plain(x, vals(w), w.scale, out_dtype=out_dtype),
@@ -1065,8 +1117,7 @@ def check_quant_matmul(dev, bits: int) -> dict:
     return {
         "name": name,
         "route": "cuda",
-        "source": "vgate_tpu_torch/csrc/"
-                  + ("int8_matmul.cu" if bits == 8 else "quant_matmul.cu"),
+        "source": "vgate_tpu_torch/csrc/dequant_matmul.cu",
         "replaces": "vgate_tpu/ops/pallas/quant_matmul.py:"
                     + ("156" if bits == 8 else "191"),
         **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -1378,14 +1429,20 @@ def profile_burst(engine, batch) -> dict:
     }
 
 
-# kernel totals a profile reports by name: K4 on decode rows (the 64-row
-# tile whose consumers split the columns) and on prompt rows, the split-k
-# sums (K4's in the int8 phase, K5's in the int4 phase), K3-int8
+# kernel totals a profile reports by name: K4 and K5 on decode rows (the
+# 64-row tile whose consumers split the columns) and on prompt rows, the
+# split-k sums (K4's in the int8 phase, K5's in the int4 phase), K3-int8,
+# K1 (and K1-int8), K6 and its chunk merges
 PROFILE_GROUPS = {
-    "int8_matmul decode rows": ("int8_mm_kernel", "true>"),
-    "int8_matmul prompt rows": ("int8_mm_kernel", "false>"),
+    "int8_matmul decode rows": ("dequant_mm_kernel", "true, false>"),
+    "int8_matmul prompt rows": ("dequant_mm_kernel", "false, false>"),
+    "int4_matmul decode rows": ("dequant_mm_kernel", "true, true>"),
+    "int4_matmul prompt rows": ("dequant_mm_kernel", "false, true>"),
     "split-k sums": ("(anonymous namespace)::reduce_kernel",),
     "paged_multitok_attention_int8": ("paged_multitok_i8_kernel",),
+    "paged_decode_attention (K1, K1-int8)": ("paged_decode_kernel<",),
+    "paged_decode_attention_blocked (K6)": ("paged_decode_split_kernel",),
+    "K6 chunk merges": ("split::merge_kernel",),
 }
 
 

@@ -157,6 +157,46 @@ def test_blocked_decode_kernel_matches_plain_and_k1_on_card(cuda, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("block_slots", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_blocked_decode_splits_long_contexts_on_card(cuda, dtype,
+                                                     block_slots):
+    """K6's page split: 32 slots with contexts of many chunks, a window
+    that starts mid-chunk and mid-page, slots shorter than a chunk and
+    one on the trash page; held to the plain version and to K1, and
+    bit-identical over three runs (block_slots 1 is K1 itself)."""
+    rng = np.random.default_rng(40 + block_slots)
+    B, H, KV, hd, ps, pps = 32, 16, 8, 256, 32, 160
+    P = 1 + B * pps
+    q, k, v = (_bf16(rng, shape, cuda).to(dtype)
+               for shape in ((B, H, hd), (KV, P, ps, hd), (KV, P, ps, hd)))
+    pt = torch.from_numpy(
+        rng.permutation(np.arange(1, P)).reshape(B, pps).astype(np.int32)
+    ).to(cuda)
+    pt[0] = 0
+    lens = torch.tensor(
+        [1, 2, 31, 33, 64, 65, 100, 500, 777, 1023, 1024, 1025, 2000, 2047,
+         2100, 2500, 3000, 3333, 4000, 4095, 4096, 4097, 4111, 4500, 4600,
+         4700, 4800, 4900, 5000, 5050, 5100, 5120],
+        dtype=torch.int32, device=cuda)
+    kw = {"window": 1500, "softcap": 50.0, "scale": 1 / 16}
+    plan = paged_decode.split_plan(B, H, KV, hd, ps, pps, 1500,
+                                   max(block_slots, 2), q.element_size(),
+                                   torch.cuda.get_device_properties(
+                                       cuda).multi_processor_count)
+    assert plan.max_chunks > 1  # the long slots split
+    got = _thrice(lambda: paged_decode.paged_decode_attention_blocked(
+        q, k, v, pt, lens, block_slots=block_slots, **kw))
+    tol = KERNEL_TOL if dtype == torch.bfloat16 else F32_TOL
+    expect = tatt.paged_decode_attention(q.float(), k.float(), v.float(), pt,
+                                         lens, **kw)
+    torch.testing.assert_close(got.float(), expect, atol=tol, rtol=tol)
+    k1 = paged_decode.paged_decode_attention(q, k, v, pt, lens, **kw)
+    torch.testing.assert_close(got.float(), k1.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
 def test_blocked_decode_dispatches_to_k1_on_card(cuda):
     """A batch block_slots does not divide, and an int8 pool, launch K1
     and K1-int8; K6's counter stays."""
@@ -494,6 +534,31 @@ def test_int8_matmul_kernel_ragged_rows_on_card(cuda, rows, in_dim, out):
                            (torch.bfloat16, KERNEL_TOL)):
         got = _thrice(lambda: quant_matmul.int8_matmul(
             x, qw.q, qw.scale, out_dtype=out_dtype))
+        assert got.dtype == out_dtype and got.shape == (rows, out)
+        torch.testing.assert_close(got.float(), expect, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,in_dim,out", [
+    (1, 512, 192), (7, 3584, 512), (32, 3648, 576), (33, 512, 640),
+    (127, 3648, 192), (129, 1024, 448), (2047, 512, 384), (2048, 3648, 768),
+])
+def test_int4_matmul_kernel_ragged_rows_on_card(cuda, rows, in_dim, out):
+    """K5 at rows around its 64- and 128-row tiles, widths off its 128-
+    and 256-column tiles and an in_dim whose half is an odd number of
+    32-row steps (3648: 57), with the plan the wrapper picks, bf16 and
+    f32 out, against the plain version; bit-identical over three runs."""
+    rng = np.random.default_rng(rows + out + 4)
+    w = torch.from_numpy(rng.normal(size=(in_dim, out)).astype(np.float32))
+    qw = quant.quantize_tensor(w * 0.05, 4)
+    qw = type(qw)(*(t.to(cuda) for t in qw))
+    x = _bf16(rng, (rows, in_dim), cuda)
+    expect = quant_matmul.int4_matmul_plain(x, qw.q_packed, qw.scale,
+                                            out_dtype=torch.float32)
+    for out_dtype, tol in ((torch.float32, QMM_F32_TOL),
+                           (torch.bfloat16, KERNEL_TOL)):
+        got = _thrice(lambda: quant_matmul.int4_matmul(
+            x, qw.q_packed, qw.scale, out_dtype=out_dtype))
         assert got.dtype == out_dtype and got.shape == (rows, out)
         torch.testing.assert_close(got.float(), expect, atol=tol, rtol=tol)
 

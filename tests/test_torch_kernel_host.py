@@ -4,14 +4,26 @@ The kernels themselves run only on a card (tests/test_torch_cuda_kernels.py);
 what their wrappers and the build decide on the host is plain Python and
 is held here: which page sizes the paged multi-token kernel (K3) takes on
 bf16 and int8 pools, the engine's refusal of the others when it is built,
-how the int8 matmul (K4) plans its tiles, split and grid, and how the
-build's ``ptxas -v`` log is attributed to entry functions.
+how the dequant matmuls (K4, K5) plan their tiles, split and grid, how
+the page-split decode (K6) sizes its tiles, chunks, grid and workspace
+and cuts each slot's live range into chunks (and that merging the chunks
+gives the unsplit function, fp32, atol = rtol = 2e-5: the same sums in
+another order), and how the build's ``ptxas -v`` log is attributed to
+entry functions.
 """
 
+import numpy as np
 import pytest
+import torch
 
 from vgate_tpu_torch.config import NotPortedError
-from vgate_tpu_torch.ops.kernels import _build, paged_multitok, quant_matmul
+from vgate_tpu_torch.ops import attention
+from vgate_tpu_torch.ops.kernels import (
+    _build,
+    paged_decode,
+    paged_multitok,
+    quant_matmul,
+)
 
 PTXAS_LOG = """\
 ptxas info    : 0 bytes gmem
@@ -97,8 +109,8 @@ def test_engine_without_k3_takes_any_page_size(ps):
     paged_multitok.check_engine_page_size("cuda", ps, 128, False, False, 0)
 
 
-def _check_plan(rows, in_dim, out_dim, sms):
-    config, splits, grid = quant_matmul.k4_plan(rows, in_dim, out_dim, sms)
+def _check_plan(rows, in_dim, out_dim, sms, plan=quant_matmul.k4_plan):
+    config, splits, grid = plan(rows, in_dim, out_dim, sms)
     bm, bn = quant_matmul.K4_TILES[config]
     steps = in_dim // quant_matmul.TILE_IN
     units = -(-rows // bm) * -(-out_dim // bn) * splits
@@ -139,3 +151,172 @@ def test_k4_plan_is_cached():
     quant_matmul.k4_plan(32, 3584, 18944, 132)
     quant_matmul.k4_plan(32, 3584, 18944, 132)
     assert quant_matmul.k4_plan.cache_info().hits == 1
+
+
+@pytest.mark.parametrize("rows,in_dim,out_dim,want", [
+    # the smoke's shapes: decode rows take the 64 x 256 tile and split k
+    # to fill the card (the plans timed on an H100); the 2048-row passes
+    # take 128 x 256 tiles unsplit
+    (32, 3584, 18944, (0, 7, 132)), (32, 18944, 3584, (0, 8, 112)),
+    (32, 3584, 512, (0, 28, 56)), (32, 3584, 152064, (0, 2, 132)),
+    (2048, 3584, 18944, (2, 1, 132)), (2048, 18944, 3584, (2, 1, 132)),
+])
+def test_k5_plan_at_the_main_path_shapes(rows, in_dim, out_dim, want):
+    plan = _check_plan(rows, in_dim, out_dim, 132, quant_matmul.k5_plan)
+    assert plan[:3] == want
+
+
+@pytest.mark.parametrize("rows", [1, 7, 32, 33, 64, 65, 127, 128, 129,
+                                  2047, 2048, 4096])
+@pytest.mark.parametrize("in_dim,out_dim", [(512, 192), (3584, 18944),
+                                            (18944, 3584), (3648, 512)])
+def test_k5_plan_at_ragged_rows(rows, in_dim, out_dim):
+    """K5 shares K4's tiles and its ``in / 64`` k steps (32 packed rows
+    a step), including an in/2 that is an odd number of steps (3648)."""
+    _, _, grid, units = _check_plan(rows, in_dim, out_dim, 132,
+                                    quant_matmul.k5_plan)
+    assert grid == min(units, 132)
+
+
+def test_k5_plan_is_cached():
+    quant_matmul.k5_plan.cache_clear()
+    quant_matmul.k5_plan(32, 3584, 18944, 132)
+    quant_matmul.k5_plan(32, 3584, 18944, 132)
+    assert quant_matmul.k5_plan.cache_info().hits == 1
+
+
+# ------------------------------------------------------ K6's split plan
+
+# (name, B, H, KV, hd, ps, pps, window): the smoke's Gemma-2-9B decode
+# (window and global layers), the 7B decode shape, small card cases
+K6_SHAPES = [
+    ("gemma_window", 32, 16, 8, 256, 32, 256, 4096),
+    ("gemma_global", 32, 16, 8, 256, 32, 256, 0),
+    ("qwen_7b", 32, 28, 4, 128, 32, 64, 0),
+    ("small_hd64", 8, 8, 8, 64, 16, 16, 100),
+    ("small_g7", 8, 14, 2, 256, 16, 16, 64),
+]
+GEMMA_LENS = [0, 1, 31, 32, 33, 100, 255, 256, 257, 511, 1000, 1024, 1500,
+              2047, 2048, 3000, 4000, 4095, 4096, 4097, 4111, 4128, 4500,
+              5000, 6000, 6143, 6144, 7000, 7500, 8000, 8191, 8192, 9000]
+
+
+def _plans():
+    for name, B, H, KV, hd, ps, pps, window in K6_SHAPES:
+        for bs in (2, 4, 8, 16):
+            if B % bs:
+                continue
+            for elem in (2, 4):
+                yield (f"{name}-bs{bs}-{'f32' if elem == 4 else 'bf16'}",
+                       (B, H, KV, hd, ps, pps, window, bs, elem, 132))
+
+
+PLANS = dict(_plans())
+
+
+@pytest.mark.parametrize("name", list(PLANS))
+def test_split_plan_fits_the_card(name):
+    B, H, KV, hd, ps, pps, window, bs, elem, sms = PLANS[name]
+    plan = paged_decode.split_plan(*PLANS[name])
+    T = plan.tile_rows
+    assert ps % T == 0 and 2 * T * hd * elem <= paged_decode.STAGE_BYTES
+    assert (T * hd * elem) % 16 == 0  # bulk copies of whole 16 bytes
+    assert 2 <= plan.stages <= paged_decode.MAX_STAGES
+    assert plan.smem <= 232448
+    bound = paged_decode.live_tiles_bound(ps, pps, window, T)
+    assert plan.max_chunks == -(-bound // plan.chunk_tiles)
+    units = B // bs * KV * plan.max_chunks
+    assert 1 <= plan.grid <= min(units, sms)
+    G = H // KV
+    want = B * KV * plan.max_chunks * G * (hd + 2)
+    assert plan.workspace == (want if plan.max_chunks > 1 else 0)
+
+
+@pytest.mark.parametrize("window", [0, 4096])
+def test_split_plan_at_the_gemma_shape(window):
+    """Gemma-2-9B decode (hd 256, bf16, 32-token pages): a page is a
+    tile, the ring holds 6 of them, a chunk 8 of a slot's pages (fewer
+    only where the blocks' live-range bound would leave fewer than two
+    units a CTA: 16 slots a CTA on a window layer), and the grid fills
+    the card."""
+    bound = paged_decode.live_tiles_bound(32, 256, window, 32)
+    for bs in (2, 4, 8, 16):
+        plan = paged_decode.split_plan(32, 16, 8, 256, 32, 256, window, bs,
+                                       2, 132)
+        assert (plan.tile_rows, plan.stages) == (32, 6)
+        assert plan.chunk_tiles == min(8, 32 // bs * 8 * bound // 264)
+        assert 32 // bs * 8 * plan.max_chunks >= 2 * 132
+        assert plan.grid == 132 and plan.smem + 1024 <= 233472
+
+
+@pytest.mark.parametrize("name", list(PLANS))
+def test_slot_chunks_cover_every_live_page_once(name):
+    B, H, KV, hd, ps, pps, window, bs, elem, sms = PLANS[name]
+    plan = paged_decode.split_plan(*PLANS[name])
+    T = plan.tile_rows
+    for seq_len in GEMMA_LENS + [pps * ps - 1, pps * ps, pps * ps + 5]:
+        chunks = paged_decode.slot_chunks(seq_len, window, ps, pps, plan)
+        sl = min(seq_len, pps * ps)
+        lo = max(sl - window, 0) if window else 0
+        assert 1 <= len(chunks) <= plan.max_chunks
+        if sl == 0:
+            assert chunks == [(0, 0)]
+            continue
+        tiles = [t for a, e in chunks for t in range(a, e)]
+        # every live tile once, in order, and nothing else
+        assert tiles == list(range(lo // T, -(-sl // T)))
+        for a, e in chunks:
+            assert e > a and a * T < sl  # no unit starts past seq_len
+            assert e - a <= plan.chunk_tiles
+        pages = sorted({t * T // ps for t in tiles})
+        assert pages == list(range(lo // ps, -(-sl // ps)))
+
+
+def _split_case(B, H, KV, hd, ps, pps, lens, seed):
+    rng = np.random.default_rng(seed)
+    P = 1 + B * pps
+    q = torch.from_numpy(rng.normal(size=(B, H, hd)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(KV, P, ps, hd)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(KV, P, ps, hd)).astype(np.float32))
+    pt = torch.from_numpy(rng.permutation(np.arange(1, P))[: B * pps]
+                          .reshape(B, pps).astype(np.int32))
+    return q, k, v, pt, torch.tensor(lens, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("chunk_tiles,kw", [
+    (1, {}), (2, {"window": 40}), (3, {"softcap": 30.0, "scale": 0.1}),
+    (1, {"window": 17, "softcap": 50.0}),
+])
+def test_split_then_merge_is_the_unsplit_function(chunk_tiles, kw):
+    """K6's arithmetic: chunks reduced to (m, l, acc) and merged in chunk
+    order equal the plain version, at chunk edges, mid-tile window
+    starts and tiles of half a page."""
+    B, H, KV, hd, ps, pps = 6, 8, 2, 64, 16, 8
+    lens = [2, 1, 16, 17, 70, 128]
+    q, k, v, pt, sl = _split_case(B, H, KV, hd, ps, pps, lens, chunk_tiles)
+    plan = paged_decode.SplitPlan(tile_rows=8, stages=2,
+                                  chunk_tiles=chunk_tiles,
+                                  max_chunks=-(-16 // chunk_tiles), grid=1,
+                                  workspace=0, smem=0)
+    got = paged_decode.split_decode_plain(q, k, v, pt, sl, plan, **kw)
+    expect = attention.paged_decode_attention(
+        q, k, v, pt, sl, softcap=kw.get("softcap", 0.0),
+        window=kw.get("window"), scale=kw.get("scale"))
+    np.testing.assert_allclose(got.numpy(), expect.numpy(), atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_split_then_merge_at_a_planned_shape():
+    """The plan's own chunks at a small Gemma-like shape (hd 256, G 2,
+    window) through the split model."""
+    B, H, KV, hd, ps, pps = 4, 4, 2, 256, 16, 24
+    lens = [3, 130, 255, 384]
+    q, k, v, pt, sl = _split_case(B, H, KV, hd, ps, pps, lens, 9)
+    plan = paged_decode.split_plan(B, H, KV, hd, ps, pps, 100, 2, 4, 4)
+    assert plan.max_chunks > 1
+    got = paged_decode.split_decode_plain(q, k, v, pt, sl, plan, window=100,
+                                          softcap=50.0, scale=1 / 16)
+    expect = attention.paged_decode_attention(q, k, v, pt, sl, window=100,
+                                              softcap=50.0, scale=1 / 16)
+    np.testing.assert_allclose(got.numpy(), expect.numpy(), atol=2e-5,
+                               rtol=2e-5)

@@ -169,19 +169,6 @@ def test_plain_bf16_in_f32_out_matches_pallas_interpret(bits):
                                rtol=BF16_TOL)
 
 
-def test_split_k_divides_the_steps_and_fills_the_card():
-    """The host-side split of K4/K5's k range: a divisor of the k steps,
-    at least two steps a split, 1 when the tiles alone fill 132 SMs."""
-    for rows, in_dim, out in ((32, 3584, 512), (32, 3584, 3584),
-                              (32, 18944, 3584), (32, 3584, 18944),
-                              (2048, 3584, 18944), (1, 3584, 152064)):
-        s = quant_matmul.split_k(rows, in_dim, out, 132)
-        steps = in_dim // quant_matmul.TILE_IN
-        assert steps % s == 0 and (s == 1 or steps // s >= 2)
-    assert quant_matmul.split_k(1, 3584, 152064, 132) == 1
-    assert quant_matmul.split_k(32, 3584, 3584, 132) > 1
-
-
 # ------------------------------------------------- weighted_einsum
 
 

@@ -1,8 +1,8 @@
 // The Hopper tile pipeline shared by the flash-prefill kernel
 // (flash_prefill.cu, K2) and both modes of the paged multi-token kernel
 // (paged_multitok.cu, K3 on bf16 pools and K3-int8 on int8 pools), and the
-// int8 -> bf16 widening stage that K3-int8 and the int8 matmul
-// (int8_matmul.cu, K4) share.
+// int8 -> bf16 widening stage that K3-int8 and the dequant matmul
+// (dequant_matmul.cu, K4) share, with its int4 variant (K5).
 //
 // One CTA owns 128 query rows of one (batch row, head) and walks the live
 // key tiles of kN keys (128 at head dims 64 and 128, 64 at 256, where the
@@ -350,6 +350,22 @@ __device__ __forceinline__ uint4 widen8(uint2 raw) {
                     widen_pair(raw.y, 0x5140), widen_pair(raw.y, 0x5342));
 }
 
+// The two bf16 chunks 2j and 2j + 1 (lo, hi) of row r of a tile of
+// BLOCK_ROWS-row 64-column blocks with the 128-byte swizzle (see
+// widen_tile): chunk c = 2j + h sits in block c >> 3 at position
+// (c & 7) ^ (r & 7); the odd one is stored first where (j >> 2) is odd
+template <int BLOCK_ROWS>
+__device__ __forceinline__ void store_chunk_pair(unsigned char* dst, int r,
+                                                 int j, uint4 lo, uint4 hi) {
+  unsigned char* row = dst + (j >> 2) * (BLOCK_ROWS * 128) + r * 128;
+  const int c0 = (2 * j) & 7;
+  const int odd_first = (j >> 2) & 1;
+  const int s0 = ((c0 + odd_first) ^ (r & 7)) << 4;
+  const int s1 = ((c0 + 1 - odd_first) ^ (r & 7)) << 4;
+  *reinterpret_cast<uint4*>(row + s0) = odd_first ? hi : lo;
+  *reinterpret_cast<uint4*>(row + s1) = odd_first ? lo : hi;
+}
+
 // Chunk i of a dense int8 tile of ROWS rows of COLS values (16 values of
 // row i / (COLS / 16)) widened into the bf16 tile at dst (see widen_tile)
 template <int ROWS, int COLS>
@@ -360,16 +376,8 @@ __device__ __forceinline__ void widen_chunk(unsigned char* dst,
   const int r = i / CH;
   const int j = i % CH;
   const uint4 raw = *reinterpret_cast<const uint4*>(src + r * COLS + j * 16);
-  const uint4 lo = widen8(make_uint2(raw.x, raw.y));
-  const uint4 hi = widen8(make_uint2(raw.z, raw.w));
-  // chunk c = 2j + h sits in block c >> 3 at position (c & 7) ^ (r & 7)
-  unsigned char* row = dst + (j >> 2) * (ROWS * 128) + r * 128;
-  const int c0 = (2 * j) & 7;
-  const int odd_first = (j >> 2) & 1;
-  const int s0 = ((c0 + odd_first) ^ (r & 7)) << 4;
-  const int s1 = ((c0 + 1 - odd_first) ^ (r & 7)) << 4;
-  *reinterpret_cast<uint4*>(row + s0) = odd_first ? hi : lo;
-  *reinterpret_cast<uint4*>(row + s1) = odd_first ? lo : hi;
+  store_chunk_pair<ROWS>(dst, r, j, widen8(make_uint2(raw.x, raw.y)),
+                         widen8(make_uint2(raw.z, raw.w)));
 }
 
 // The widening stage: a dense int8 tile of ROWS rows of COLS values (row r
@@ -403,6 +411,72 @@ __device__ __forceinline__ void widen_tile(unsigned char* dst,
   }
 }
 
+// ------------------------------------------------ int4 -> bf16 widening
+
+// The four columns of a word u of half-split packed bytes (byte c: the
+// low nibble a value of the first half of k, the high nibble one of the
+// second) as two bf16 pairs of each plane, exactly: with a nibble n as
+// the byte y = n ^ 8 in a bf16 lane 0x43yy, the lane is 128 + (n ^ 8) =
+// 136 + v for the two's-complement value v of n, and subtracting 136
+// (0x4308) leaves v.  The xor with 8 is folded into the mask (one lop3 a
+// plane), the shift by 4 gives the high plane from the same word, and a
+// __byte_perm places the bytes of two adjacent columns in the two lanes:
+// 11 instructions for 8 values.
+__device__ __forceinline__ uint32_t sub136(uint32_t t) {
+  const uint32_t k = 0x43084308u;
+  const __nv_bfloat162 d =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&t),
+              *reinterpret_cast<const __nv_bfloat162*>(&k));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+__device__ __forceinline__ void widen_nibbles(uint32_t u, uint2& lo,
+                                              uint2& hi) {
+  const uint32_t l = (u & 0x0F0F0F0Fu) ^ 0x08080808u;
+  const uint32_t h = ((u >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+  lo = make_uint2(sub136(__byte_perm(l, 0x43434343u, 0x5140)),
+                  sub136(__byte_perm(l, 0x43434343u, 0x5342)));
+  hi = make_uint2(sub136(__byte_perm(h, 0x43434343u, 0x5140)),
+                  sub136(__byte_perm(h, 0x43434343u, 0x5342)));
+}
+
+// The int4 widening stage: a dense tile of ROWS packed rows of COLS bytes
+// (row r at src + r * COLS) -> the bf16 tile of 2 ROWS k rows that
+// widen_tile would write for the unpacked int8 tile: packed row r's low
+// nibbles become k row r and its high nibbles k row ROWS + r (the step's
+// k values are the first half's ROWS, then the second half's).  Thread
+// `tid` of NT threads reads 16 packed bytes and writes four bf16 chunks:
+// 2j and 2j + 1 of row r and of row ROWS + r (the same swizzle positions,
+// since ROWS is a multiple of 8), with widen_tile's store order, so the
+// reads are contiguous and the stores free of bank conflicts.  The loop
+// is unrolled whole.  dst on 1024 bytes, src on 16.
+template <int ROWS, int COLS, int NT>
+__device__ __forceinline__ void widen_tile_i4(unsigned char* dst,
+                                              const unsigned char* src,
+                                              int tid) {
+  static_assert(ROWS % 8 == 0, "whole swizzle atoms");
+  constexpr int CH = COLS / 16;  // 16-byte packed chunks a row
+  constexpr int kChunks = ROWS * CH;
+#pragma unroll
+  for (int it = 0; it < (kChunks + NT - 1) / NT; ++it) {
+    const int i = tid + it * NT;
+    if (kChunks % NT != 0 && i >= kChunks) break;
+    const int r = i / CH;
+    const int j = i % CH;
+    const uint4 raw =
+        *reinterpret_cast<const uint4*>(src + r * COLS + j * 16);
+    uint2 l0, h0, l1, h1, l2, h2, l3, h3;
+    widen_nibbles(raw.x, l0, h0);
+    widen_nibbles(raw.y, l1, h1);
+    widen_nibbles(raw.z, l2, h2);
+    widen_nibbles(raw.w, l3, h3);
+    store_chunk_pair<2 * ROWS>(dst, r, j, make_uint4(l0.x, l0.y, l1.x, l1.y),
+                               make_uint4(l2.x, l2.y, l3.x, l3.y));
+    store_chunk_pair<2 * ROWS>(dst, ROWS + r, j,
+                               make_uint4(h0.x, h0.y, h1.x, h1.y),
+                               make_uint4(h2.x, h2.y, h3.x, h3.y));
+  }
+}
+
 // Shared-memory matrix descriptors, 128-byte swizzle (layout type 1).  A
 // 64-column block holds 128-byte rows; 8 rows (1024 bytes) are one
 // swizzle atom.
@@ -415,6 +489,12 @@ __device__ __forceinline__ uint64_t desc_field(uint32_t bytes) {
 __device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
   return desc_field(addr) | desc_field(16) << 16 | desc_field(1024) << 32 |
          1ull << 62;
+}
+// K-major with the 64-byte swizzle (layout type 2): 64-byte rows, 8 rows
+// (512 bytes) an atom; a k-step of 16 values adds 32 bytes to the start
+__device__ __forceinline__ uint64_t desc_kmajor64(uint32_t addr) {
+  return desc_field(addr) | desc_field(16) << 16 | desc_field(512) << 32 |
+         2ull << 62;
 }
 // MN-major (V as B, keys along k): 8 keys are one atom, the next 8 keys
 // 1024 bytes on (stride byte offset), the next 64 head dims one column

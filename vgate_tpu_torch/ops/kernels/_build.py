@@ -7,12 +7,15 @@ use, never at import, into ``build/kernels/`` beside the package (or
 ``$VGT_KERNEL_BUILD_DIR``); the library name carries a hash of the
 source, the shared headers (``*.cuh``) and the flags, so an edited
 source or header is rebuilt.  :func:`build` starts one ``nvcc`` per
-source at once.
+source at once.  :func:`workspace` holds the fp32 scratch that the
+kernels' second launches read (split-k and split-decode partials), and
+:func:`sm_count` the card's SM count that the plans size grids by.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -22,15 +25,14 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 SOURCES = {
     "paged_decode": "paged_decode.cu",
     "flash_prefill": "flash_prefill.cu",
     "paged_multitok": "paged_multitok.cu",
-    "quant_matmul": "quant_matmul.cu",
-    "int8_matmul": "int8_matmul.cu",
+    "dequant_matmul": "dequant_matmul.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -138,3 +140,36 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _libs[name] = lib
         return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of a CUDA ``device`` (the plans' grid
+    sizes follow it)."""
+    return _sm_count(device.index or 0)
+
+
+# One fp32 scratch buffer per (device, stream), kept across calls and grown
+# when a call needs more.  The calls on one stream run in order, so the
+# kernels that share it (K4/K5's split-k partials, K6's chunk partials)
+# never hold it at once.
+_workspaces: Dict[Tuple[int, int], "torch.Tensor"] = {}
+
+
+def workspace(device, stream: int, size: int):
+    """At least ``size`` fp32 values of scratch on ``device`` for work on
+    ``stream`` (the stream's handle)."""
+    import torch
+
+    key = (device.index or 0, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws.numel() < size:
+        ws = torch.empty(size, dtype=torch.float32, device=device)
+        _workspaces[key] = ws
+    return ws

@@ -1,5 +1,5 @@
-"""Wrappers of the dequant-matmul CUDA kernels (csrc/int8_matmul.cu, K4;
-csrc/quant_matmul.cu, K5).
+"""Wrappers of the dequant-matmul CUDA kernels (csrc/dequant_matmul.cu:
+K4 on int8 weights, K5 on packed int4, one Hopper pipeline).
 
 K4 :func:`int8_matmul` replaces vgate_tpu/ops/pallas/quant_matmul.py
 ``int8_matmul_pallas``, K5 :func:`int4_matmul` its ``int4_matmul_pallas``:
@@ -15,29 +15,30 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from vgate_tpu_torch.ops.kernels import _build
 
 TILE_IN = 64  # the kernels' k step (unpacked values)
-TILE_OUT = 64  # output columns per CTA of K5; the width K4 and K5 need
+TILE_OUT = 64  # the output width the kernels need a multiple of
 OUT_DTYPES = (torch.bfloat16, torch.float32)
-CTAS_PER_SM = 4  # K5: split k until the grid has about this many CTAs an SM
 
-# K4's tile configurations (int8_matmul.cu QCfg), (rows, columns) a CTA
-# tile, by the config number the kernel takes: decode rows (the two
-# consumer warpgroups split the columns), then prompt rows (they split the
-# rows)
+# The tile configurations of K4 and K5 (dequant_matmul.cu QCfg), (rows,
+# columns) a CTA tile, by the config number the kernel takes: decode rows
+# (the two consumer warpgroups split the columns), then prompt rows (they
+# split the rows)
 K4_TILES = ((64, 256), (128, 128), (128, 256))
-# What the plan is costed with, measured on an H100 SXM (PERF.md): the
+# What the plans are costed with, measured on an H100 SXM (PERF.md): the
 # time of one k step of a tile when its SM is not held by the copies
-# (widening and products), by config; the rate the copies reach, over the
-# whole card and for one SM alone; what partials cost (written and read
-# once, mostly in L2); the epilogue of a unit; the second launch that
-# sums the partials
+# (widening and products), by config, for K4 and for K5 (config 1 of K5
+# scaled from K4's, the smoke never picks it on 132 SMs); the rate the
+# copies reach, over the whole card and for one SM alone; what partials
+# cost (written and read once, mostly in L2); the epilogue of a unit; the
+# second launch that sums the partials
 K4_STEP_SECONDS = (0.9e-6, 0.74e-6, 1.19e-6)
+K5_STEP_SECONDS = (0.92e-6, 0.69e-6, 1.11e-6)
 HBM_BYTES_PER_S = 2.4e12
 SM_COPY_BYTES_PER_S = 29e9
 PARTIAL_BYTES_PER_S = 6e12
@@ -45,52 +46,21 @@ UNIT_SECONDS = 0.5e-6
 REDUCE_SECONDS = 4e-6
 
 
-def _lib(int8: bool):
-    if int8:
-        fn = _build.load("int8_matmul").vgt_int8_matmul
-        ints = 7
-    else:
-        fn = _build.load("quant_matmul").vgt_int4_matmul
-        ints = 5
+def _lib():
+    fn = _build.load("dequant_matmul").vgt_dequant_matmul
     if fn.argtypes is None:  # declare once: pointers must not be cut to int
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * ints + [
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p,
         ]
     return fn
 
 
-# K4's split-k partials, one buffer per (device, stream), kept across calls
-# (the calls on one stream run in order) and grown when a call needs more
-_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
-
-
-def _workspace(device: torch.device, stream: int, size: int) -> torch.Tensor:
-    key = (device.index or 0, stream)
-    ws = _workspaces.get(key)
-    if ws is None or ws.numel() < size:
-        ws = torch.empty(size, dtype=torch.float32, device=device)
-        _workspaces[key] = ws
-    return ws
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=4096)
-def k4_plan(rows: int, in_dim: int, out_dim: int,
-            sm_count: int) -> Tuple[int, int, int]:
-    """K4's ``(config, splits, grid)``: the tile configuration (an index
-    of :data:`K4_TILES`; rows <= 64 take the decode tile), the k split
-    (a divisor of the k steps leaving each split at least two; at prompt
-    rows only where the tiles alone leave SMs idle) and the persistent
-    grid (at most one CTA an SM, at most one a unit), with the least
-    modelled time.  A unit is one (row tile, column tile, split); the grid
-    walks them in rounds.  A k step of a unit takes the larger of its
-    weight bytes at the SM's share of the copy rate and the config's own
-    step time; a split adds its fp32 partials and a second launch."""
+def _plan(step_seconds, weight_bytes: float, rows: int, in_dim: int,
+          out_dim: int, sm_count: int) -> Tuple[int, int, int]:
+    """The ``(config, splits, grid)`` of a dequant matmul whose weight
+    takes ``weight_bytes`` a value, with the least modelled time (see
+    :func:`k4_plan`)."""
     steps = in_dim // TILE_IN
     best = None
     for config in ((0,) if rows <= 64 else (1, 2)):
@@ -105,9 +75,9 @@ def k4_plan(rows: int, in_dim: int, out_dim: int,
             grid = min(units, sm_count)
             rounds = -(-units // grid)
             step_s = max(
-                TILE_IN * bn / min(HBM_BYTES_PER_S / grid,
-                                   SM_COPY_BYTES_PER_S),
-                K4_STEP_SECONDS[config],
+                TILE_IN * bn * weight_bytes / min(HBM_BYTES_PER_S / grid,
+                                                  SM_COPY_BYTES_PER_S),
+                step_seconds[config],
             )
             seconds = rounds * (steps // splits * step_s + UNIT_SECONDS)
             if splits > 1:
@@ -118,20 +88,29 @@ def k4_plan(rows: int, in_dim: int, out_dim: int,
     return best[1], best[2], best[3]
 
 
-def split_k(rows: int, in_dim: int, out_dim: int, sm_count: int) -> int:
-    """K5: how many CTAs share one output tile's k range: the largest divisor
-    of the k steps that brings the grid to about ``CTAS_PER_SM`` CTAs an
-    SM and leaves each split at least two steps (1 when the tiles alone
-    fill the card)."""
-    steps = in_dim // TILE_IN
-    bm = 32 if rows <= 32 else 64
-    tiles = -(-rows // bm) * (out_dim // TILE_OUT)
-    want = -(-CTAS_PER_SM * sm_count // tiles)
-    best = 1
-    for d in range(1, min(want, steps // 2) + 1):
-        if steps % d == 0:
-            best = d
-    return best
+@functools.lru_cache(maxsize=4096)
+def k4_plan(rows: int, in_dim: int, out_dim: int,
+            sm_count: int) -> Tuple[int, int, int]:
+    """K4's ``(config, splits, grid)``: the tile configuration (an index
+    of :data:`K4_TILES`; rows <= 64 take the decode tile), the k split
+    (a divisor of the k steps leaving each split at least two; at prompt
+    rows only where the tiles alone leave SMs idle) and the persistent
+    grid (at most one CTA an SM, at most one a unit), with the least
+    modelled time.  A unit is one (row tile, column tile, split); the grid
+    walks them in rounds.  A k step of a unit takes the larger of its
+    weight bytes at the SM's share of the copy rate and the config's own
+    step time; a split adds its fp32 partials and a second launch."""
+    return _plan(K4_STEP_SECONDS, 1.0, rows, in_dim, out_dim, sm_count)
+
+
+@functools.lru_cache(maxsize=4096)
+def k5_plan(rows: int, in_dim: int, out_dim: int,
+            sm_count: int) -> Tuple[int, int, int]:
+    """K5's ``(config, splits, grid)``: :func:`k4_plan`'s model with half
+    a byte of weight a value and K5's own step times.  K5's k step is
+    K4's 64 values (32 packed rows), so its splits divide the same
+    ``in / 64`` steps."""
+    return _plan(K5_STEP_SECONDS, 0.5, rows, in_dim, out_dim, sm_count)
 
 
 def int8_matmul_plain(x, q, scale, out_dtype=None) -> torch.Tensor:
@@ -184,33 +163,23 @@ def _launch(x, w, scale, out_dtype, in_dim, int4: bool) -> torch.Tensor:
     xf = x.reshape(-1, in_dim).contiguous()
     rows = xf.shape[0]
     out = torch.empty((rows, out_dim), dtype=out_dtype, device=x.device)
-    sms = _sm_count(x.device.index or 0)
+    if xf.data_ptr() % 16 or w.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError(f"{'K5 (int4)' if int4 else 'K4 (int8)'} needs x, "
+                         "the weight and the scale on 16 bytes (TMA, paired "
+                         "loads)")
+    sms = _build.sm_count(x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    out_f32 = int(out_dtype == torch.float32)
-    if int4:
-        splits = split_k(rows, in_dim, out_dim, sms)
-        partial = None
-        if splits > 1:
-            partial = torch.empty((splits, rows, out_dim),
-                                  dtype=torch.float32, device=x.device)
-        rc = _lib(False)(
-            xf.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
-            rows, in_dim, out_dim, splits, out_f32, stream,
-        )
-    else:
-        if xf.data_ptr() % 16 or w.data_ptr() % 16 or scale.data_ptr() % 16:
-            raise ValueError("K4 (int8) needs x, the weight and the scale "
-                             "on 16 bytes (TMA, paired loads)")
-        config, splits, grid = k4_plan(rows, in_dim, out_dim, sms)
-        partial = None
-        if splits > 1:
-            partial = _workspace(x.device, stream, splits * rows * out_dim)
-        rc = _lib(True)(
-            xf.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            partial.data_ptr() if partial is not None else None,
-            rows, in_dim, out_dim, config, splits, grid, out_f32, stream,
-        )
+    plan = k5_plan if int4 else k4_plan
+    config, splits, grid = plan(rows, in_dim, out_dim, sms)
+    partial = None
+    if splits > 1:
+        partial = _build.workspace(x.device, stream, splits * rows * out_dim)
+    rc = _lib()(
+        xf.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        partial.data_ptr() if partial is not None else None,
+        rows, in_dim, out_dim, 4 if int4 else 8, config, splits, grid,
+        int(out_dtype == torch.float32), stream,
+    )
     if rc != 0:
         raise RuntimeError(
             f"dequant-matmul kernel launch failed: cuda error {rc}"
