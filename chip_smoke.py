@@ -36,6 +36,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -237,6 +238,100 @@ def sdpa_decode(q, k, v, pt, sl, window=0, scale=None):
     return call, call()[:, :, 0]
 
 
+# K1's edge cases, (hd, G, ps): G 1/2/4/7/8 at hd 64/128/256 with pages
+# of 16 and 32, and pages of 12 (tiles that are not whole m16 steps; int8
+# scale rows of 24 bytes, no bulk copy); the query scale, softcap and a
+# window that starts mid-chunk and mid-page, in turns
+K1_EDGE_CASES = [(hd, G, (16, 32)[(i + j) % 2])
+                 for i, hd in enumerate((64, 128, 256))
+                 for j, G in enumerate((1, 2, 4, 7, 8))] + [
+    (64, 2, 12), (128, 7, 12), (256, 8, 12)]
+K1_EDGE_KW = [{}, {"window": 300}, {"softcap": 30.0, "scale": 0.1},
+              {"window": 100, "softcap": 50.0}]
+
+
+def k1_edge_inputs(case, int8, dev):
+    """Six slots: idle (seq_len 0, the trash page), one token, a partial
+    page, past one page, and two of many chunks.  Every pool row outside
+    the slots' live ranges holds NaN (bf16) or NaN scales (int8) in the
+    kernel's pools and zeros (scale 0) in the plain version's."""
+    hd, G, ps = K1_EDGE_CASES[case]
+    kw = dict(K1_EDGE_KW[case % len(K1_EDGE_KW)])
+    B, KV = 6, 2
+    pps = -(-1300 // ps)
+    P = 1 + B * pps
+    lens = [0, 1, ps - 3, ps + 5, 777, pps * ps]
+    q, k, v, pt, sl = decode_inputs(B, KV * G, KV, hd, ps, pps, lens,
+                                    60 + case, dev)
+    pt[0] = 0
+    pos = torch.arange(pps * ps, device=dev)[None]
+    lo = (sl - kw["window"]).clamp_min(0) if "window" in kw else 0 * sl
+    live_pos = (pos >= lo[:, None]) & (pos < sl[:, None])
+    pages = pt.long().repeat_interleave(ps, dim=1)
+    rows = (pos % ps).expand(B, -1)
+    stale = torch.ones(P, ps, dtype=torch.bool, device=dev)
+    stale[pages[live_pos], rows[live_pos]] = False
+    if int8:
+        k, v = int8_pools(KV, P, ps, hd, 61 + case, dev)
+        from vgate_tpu_torch.ops.kv_quant import QuantPages
+
+        clean = [QuantPages(t.data, t.scale.masked_fill(stale[None], 0.0))
+                 for t in (k, v)]
+        for t in (k, v):
+            t.scale.masked_fill_(stale[None], float("nan"))
+    else:
+        clean = [t.masked_fill(stale[None, :, :, None], 0.0) for t in (k, v)]
+        for t in (k, v):
+            t.masked_fill_(stale[None, :, :, None], float("nan"))
+    what = (f"{'K1-int8' if int8 else 'K1'} edge hd={hd} G={G} ps={ps} "
+            f"{kw}")
+    return q, k, v, clean, pt, sl, kw, what
+
+
+def check_k1_edges(dev, int8: bool) -> None:
+    """K1 / K1-int8 on every edge case: three runs bit-identical, finite
+    (the idle slot too), live slots within KERNEL_TOL of the plain version
+    on the cleaned pools."""
+    from vgate_tpu_torch.ops import attention as plain
+    from vgate_tpu_torch.ops.kernels import paged_decode as pd
+
+    kernel = pd.paged_decode_attention_int8 if int8 else \
+        pd.paged_decode_attention
+    for case in range(len(K1_EDGE_CASES)):
+        q, k, v, (kc, vc), pt, sl, kw, what = k1_edge_inputs(case, int8, dev)
+        got = thrice(lambda: kernel(q, k, v, pt, sl, **kw), what)
+        check(bool(torch.isfinite(got).all()), f"{what}: output not finite")
+        expect = plain.paged_decode_attention(
+            q.float(), kc, vc, pt, sl, window=kw.get("window"),
+            softcap=kw.get("softcap", 0.0), scale=kw.get("scale"))
+        live = sl > 0
+        within(got[live], expect[live], what)
+        del q, k, v, kc, vc, got, expect
+
+
+def time_k1(kernel, q, k, v, pt, sl, kw, bound, library_ms, what) -> float:
+    """K1 (or K1-int8) at one shape: three readings (the median is the
+    kernel's ms), the wrapper's host time a call and the plan, printed on
+    a line of its own.  Returns the median."""
+    from vgate_tpu_torch.ops.kernels import _build
+    from vgate_tpu_torch.ops.kernels import paged_decode as pd
+
+    runs = [time_ms(lambda: kernel(q, k, v, pt, sl, **kw), iters=50)
+            for _ in range(3)]
+    ms = sorted(runs)[1]
+    B, H, hd = q.shape
+    data = getattr(k, "data", k)
+    KV, _, ps, _ = data.shape
+    plan = pd.decode_plan(B, H, KV, hd, ps, pt.shape[1], kw.get("window", 0),
+                          data.element_size(), _build.sm_count(q.device))
+    print(f"  {kernel.__name__} at {what}: " + json.dumps({
+        "ms": ms, "runs": runs, "bound_ms": bound, "bound_share": bound / ms,
+        "library_ms": library_ms, "vs_library": ms / library_ms,
+        "host_us": host_us(lambda: kernel(q, k, v, pt, sl, **kw)),
+        "plan": plan._asdict()}), flush=True)
+    return ms
+
+
 def check_paged_decode(dev) -> dict:
     from vgate_tpu_torch.ops import attention as plain
     from vgate_tpu_torch.ops.kernels.paged_decode import (
@@ -244,7 +339,7 @@ def check_paged_decode(dev) -> dict:
     )
 
     # small cases: head dims 64/256, GQA groups, window, softcap + scale,
-    # and the f32-pool mode
+    # and the f32-pool mode (K6's CUDA-core body at one slot a unit)
     for hd, H, KV, kw, dtype in (
         (64, 8, 4, {}, torch.bfloat16), (256, 16, 2, {}, torch.bfloat16),
         (128, 28, 4, {"window": 100}, torch.bfloat16),
@@ -260,17 +355,18 @@ def check_paged_decode(dev) -> dict:
         torch.cuda.synchronize()
         within(got, expect, f"paged decode hd={hd} H={H} KV={KV} {kw} "
                f"{dtype}", KERNEL_TOL if dtype == torch.bfloat16 else F32_TOL)
+    check_k1_edges(dev, int8=False)
 
     # the main path's shape at 7B: 32 slots, ragged contexts 1..2048
     B, H, KV, hd, ps, pps = 32, 28, 4, 128, 32, 64
     lens = DECODE_LENS
     q, k, v, pt, sl = decode_inputs(B, H, KV, hd, ps, pps, lens, 12, dev)
-    got = kernel(q, k, v, pt, sl)
+    got = thrice(lambda: kernel(q, k, v, pt, sl),
+                 "paged decode at 7B decode shapes")
     expect = plain.paged_decode_attention(q.float(), k.float(), v.float(),
                                           pt, sl)
     torch.cuda.synchronize()
     err = within(got, expect, "paged decode at 7B decode shapes")
-    ms = time_ms(lambda: kernel(q, k, v, pt, sl), iters=50)
     plain_ms = time_ms(
         lambda: plain.paged_decode_attention(q, k, v, pt, sl), iters=5
     )
@@ -280,6 +376,9 @@ def check_paged_decode(dev) -> dict:
     library_ms = time_ms(library, iters=20)
     del library, lib
     bound, by = decode_bound(lens, B, H, KV, hd, ps)
+    shape = f"B={B} H={H} KV={KV} hd={hd} ps={ps} ctx=1..2048"
+    ms = time_k1(kernel, q, k, v, pt, sl, {}, bound, library_ms,
+                 f"7b [{shape}]")
     return {
         "name": "paged_decode_attention",
         "route": "cuda",
@@ -291,7 +390,7 @@ def check_paged_decode(dev) -> dict:
         "bound_ms": bound,
         "bound_by": by,
         "library_ms": library_ms,
-        "shape": f"B={B} H={H} KV={KV} hd={hd} ps={ps} ctx=1..2048",
+        "shape": shape,
     }
 
 
@@ -651,17 +750,18 @@ def check_paged_decode_int8(dev) -> dict:
                                               **kw)
         torch.cuda.synchronize()
         within(got, expect, f"paged decode int8 hd={hd} H={H} {kw}")
+    check_k1_edges(dev, int8=True)
 
     # the main path's shape at 7B: 32 slots, ragged contexts 1..2048
     B, H, KV, hd, ps, pps = 32, 28, 4, 128, 32, 64
     lens = DECODE_LENS
     q, _, _, pt, sl = decode_inputs(B, H, KV, hd, ps, pps, lens, 12, dev)
     k, v = int8_pools(KV, 1 + B * pps, ps, hd, 43, dev)
-    got = kernel(q, k, v, pt, sl)
+    got = thrice(lambda: kernel(q, k, v, pt, sl),
+                 "paged decode int8 at 7B decode shapes")
     expect = plain.paged_decode_attention(q.float(), k, v, pt, sl)
     torch.cuda.synchronize()
     err = within(got, expect, "paged decode int8 at 7B decode shapes")
-    ms = time_ms(lambda: kernel(q, k, v, pt, sl), iters=50)
     plain_ms = time_ms(
         lambda: plain.paged_decode_attention(q, k, v, pt, sl), iters=5
     )
@@ -674,6 +774,8 @@ def check_paged_decode_int8(dev) -> dict:
     del library, lib
     # int8 K and V + their bf16 scales: (hd + 2) bytes a value row
     bound, by = decode_bound(lens, B, H, KV, hd, ps, kv_bytes=(hd + 2) / hd)
+    ms = time_k1(kernel, q, k, v, pt, sl, {}, bound, library_ms,
+                 f"7b [B={B} H={H} KV={KV} hd={hd} ps={ps} ctx=1..2048]")
     return {
         "name": "paged_decode_attention_int8",
         "route": "cuda",
@@ -939,7 +1041,15 @@ def check_paged_decode_blocked(dev) -> dict:
           flush=True)
     print(f"  paged_decode_attention at gemma-2-9b [{shape}]: "
           + json.dumps({"ms": k1_ms, "bound_ms": bound,
+                        "bound_share": bound / k1_ms,
                         "library_ms": library_ms,
+                        "vs_library": k1_ms / library_ms,
+                        "vs_k6_bs2": k1_ms / times["bs2_ms"],
+                        "host_us": host_us(
+                            lambda: pd.paged_decode_attention(
+                                q, k, v, pt, sl, **kw)),
+                        "plan": pd.decode_plan(B, H, KV, hd, ps, pps, 4096,
+                                               2, sms)._asdict(),
                         "max_abs_err_vs_k6": max_err(k1, got)}), flush=True)
     torch.cuda.empty_cache()
     return {
@@ -1432,7 +1542,8 @@ def profile_burst(engine, batch) -> dict:
 # kernel totals a profile reports by name: K4 and K5 on decode rows (the
 # 64-row tile whose consumers split the columns) and on prompt rows, the
 # split-k sums (K4's in the int8 phase, K5's in the int4 phase), K3-int8,
-# K1 (and K1-int8), K6 and its chunk merges
+# K1 (and K1-int8) and its chunk merges where they launch apart, K6 and
+# its chunk merges
 PROFILE_GROUPS = {
     "int8_matmul decode rows": ("dequant_mm_kernel", "true, false>"),
     "int8_matmul prompt rows": ("dequant_mm_kernel", "false, false>"),
@@ -1440,7 +1551,8 @@ PROFILE_GROUPS = {
     "int4_matmul prompt rows": ("dequant_mm_kernel", "false, true>"),
     "split-k sums": ("(anonymous namespace)::reduce_kernel",),
     "paged_multitok_attention_int8": ("paged_multitok_i8_kernel",),
-    "paged_decode_attention (K1, K1-int8)": ("paged_decode_kernel<",),
+    "paged_decode_attention (K1, K1-int8)": ("paged_decode_tc_kernel",),
+    "K1 chunk merges": ("split::tc_merge_kernel",),
     "paged_decode_attention_blocked (K6)": ("paged_decode_split_kernel",),
     "K6 chunk merges": ("split::merge_kernel",),
 }
@@ -2093,7 +2205,14 @@ def main() -> None:
           "(one nvcc per source, in parallel)", flush=True)
     for name, info in report.items():
         for entry, line in _build.ptxas_entries(info["ptxas"]):
-            print(f"  {name}: {demangled(entry)}: {line}")
+            kernel_name = demangled(entry)
+            print(f"  {name}: {kernel_name}: {line}")
+            # K1's kernel must not spill (no instantiation does)
+            if kernel_name.startswith("paged_decode_tc_kernel") and \
+                    "spill" in line:
+                check(re.search(r"\b0 bytes spill stores, 0 bytes spill "
+                                r"loads", line) is not None,
+                      f"{kernel_name} spills: {line}")
 
     kernels = [check_paged_decode(dev), check_flash_prefill(dev),
                check_paged_multitok(dev)]

@@ -14,6 +14,9 @@ reordered fp32 sums (and, in the tensor-core kernels, the softmax
 weights rounded to bf16 before the PV product); f32 pools (paged decode
 and the blocked decode), atol = rtol = 1e-4 — fp32 sums in another
 order.  K6 is held to the plain version and to K1 on the same inputs.
+K1 and K1-int8 (the tensor-core page split) run on pools whose rows
+outside every live range hold NaN (bf16) or NaN scales (int8) and are
+held to the plain version on the same pools with those rows cleaned.
 The int8 pool modes (K1-int8, K3-int8) are held to the same 1e-2
 against the plain version on the dequantized pools.  The dequant matmuls (K4, K5) with f32
 out: atol = rtol = 1e-3 — bf16 x int8 products are exact in fp32, so
@@ -635,3 +638,85 @@ def test_quant_matmul_refuses_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # no kernel for a stacked weight
         quant.weighted_einsum("lbd,ldh->lbh", x[None].expand(2, 4, 128),
                               stacked)
+
+
+# K1 and K1-int8, the tensor-core page split: (pool, hd, G, ps) over
+# G 1/2/4/7/8, hd 64/128/256, page sizes 16 and 32, and 12 (a scale row
+# of 24 bytes: no bulk copy; tiles of 12 rows, not whole m16 steps)
+K1_CASES = [(pool, hd, G, ps) for pool in ("bf16", "int8")
+            for hd in (64, 128, 256) for G in (1, 2, 4, 7, 8)
+            for ps in (16, 32)] + [
+    (pool, hd, G, 12) for pool in ("bf16", "int8")
+    for hd, G in ((64, 2), (128, 7), (256, 8))]
+# per case: query scale, softcap and window (starting mid-chunk and
+# mid-page), in turns
+K1_KW = [{}, {"window": 300}, {"softcap": 30.0, "scale": 0.1},
+         {"window": 100, "softcap": 50.0}]
+
+
+def _k1_case(case, dev):
+    """Six slots: idle (seq_len 0, on the trash page), one token, a
+    partial page, past one page, and two of many chunks; every row of a
+    slot's pages outside its live range (past seq_len, before the window
+    start) holds NaN (bf16) or NaN scales (int8).  Returns the kernel's
+    inputs, the same pools with those rows cleaned (zeros, scale 0) for
+    the plain version, the lengths and the kwargs."""
+    pool, hd, G, ps = K1_CASES[case]
+    kw = dict(K1_KW[case % len(K1_KW)])
+    rng = np.random.default_rng(100 + case)
+    B, KV = 6, 2
+    pps = -(-1300 // ps)
+    P = 1 + B * pps
+    lens = [0, 1, ps - 3, ps + 5, 777, pps * ps]
+    q = _bf16(rng, (B, KV * G, hd), dev)
+    pt_np = rng.permutation(np.arange(1, P)).reshape(B, pps).astype(np.int32)
+    pt_np[0] = 0
+    stale = np.zeros((P, ps), bool)  # (page, row) outside a live range
+    for b, n in enumerate(lens):
+        lo = max(n - kw["window"], 0) if "window" in kw else 0
+        for pos in range(pps * ps):
+            if not lo <= pos < n:
+                stale[pt_np[b, pos // ps], pos % ps] = True
+    for b, n in enumerate(lens):  # a live row on a shared page stays live
+        lo = max(n - kw["window"], 0) if "window" in kw else 0
+        for pos in range(lo, n):
+            stale[pt_np[b, pos // ps], pos % ps] = False
+    mask = torch.from_numpy(stale).to(dev)
+    pt = torch.from_numpy(pt_np).to(dev)
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    if pool == "bf16":
+        k, v = (_bf16(rng, (KV, P, ps, hd), dev) for _ in range(2))
+        clean = [t.masked_fill(mask[None, :, :, None], 0.0) for t in (k, v)]
+        for t in (k, v):
+            t.masked_fill_(mask[None, :, :, None], float("nan"))
+    else:
+        k, v = (_int8_pool(rng, (KV, P, ps, hd), dev) for _ in range(2))
+        clean = [kv_quant.QuantPages(t.data, t.scale.masked_fill(
+            mask[None], 0.0)) for t in (k, v)]
+        for t in (k, v):
+            t.scale.masked_fill_(mask[None], float("nan"))
+    return q, k, v, clean, pt, sl, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(K1_CASES)))
+def test_k1_tensor_core_split_on_card(cuda, case):
+    """K1 / K1-int8 against the plain version on the cleaned pools, three
+    runs bit-identical; the idle slot comes out finite; the right counter
+    counts each launch."""
+    pool = K1_CASES[case][0]
+    q, k, v, (kc, vc), pt, sl, kw = _k1_case(case, cuda)
+    fn = (paged_decode.paged_decode_attention if pool == "bf16"
+          else paged_decode.paged_decode_attention_int8)
+    before = fn.launches
+    got = _thrice(lambda: paged_decode.paged_decode_attention(
+        q, k, v, pt, sl, **kw))
+    assert fn.launches == before + 3
+    assert bool(torch.isfinite(got).all())
+    window = kw.pop("window", None)
+    expect = tatt.paged_decode_attention(q.float(), kc, vc, pt, sl,
+                                         window=window, **kw)
+    live = sl > 0
+    torch.testing.assert_close(got.float()[live], expect[live],
+                               atol=KERNEL_TOL, rtol=KERNEL_TOL)
+

@@ -5,11 +5,12 @@ what their wrappers and the build decide on the host is plain Python and
 is held here: which page sizes the paged multi-token kernel (K3) takes on
 bf16 and int8 pools, the engine's refusal of the others when it is built,
 how the dequant matmuls (K4, K5) plan their tiles, split and grid, how
-the page-split decode (K6) sizes its tiles, chunks, grid and workspace
-and cuts each slot's live range into chunks (and that merging the chunks
-gives the unsplit function, fp32, atol = rtol = 2e-5: the same sums in
-another order), and how the build's ``ptxas -v`` log is attributed to
-entry functions.
+the page-split decodes (K6, and K1 on the tensor cores) size their
+tiles, stages, chunks, grid, shared memory and workspace and cut each
+slot's live range into chunks (and that merging the chunks gives the
+unsplit function, fp32, atol = rtol = 2e-5: the same sums in another
+order), and how the build's ``ptxas -v`` log is attributed to entry
+functions.
 """
 
 import numpy as np
@@ -320,3 +321,113 @@ def test_split_then_merge_at_a_planned_shape():
                                               softcap=50.0, scale=1 / 16)
     np.testing.assert_allclose(got.numpy(), expect.numpy(), atol=2e-5,
                                rtol=2e-5)
+
+
+# ------------------------------------------------------- K1's decode plan
+
+# the smoke's decode lengths: the 7B burst (32 slots, 1..2048) and the
+# Gemma-2-9B burst (32 slots, 1..8192)
+DECODE_LENS = [1, 31, 32, 33, 64, 65, 100, 127, 128, 129, 255, 256, 257, 300,
+               511, 512, 513, 700, 1000, 1023, 1024, 1025, 1200, 1500, 1535,
+               1536, 1600, 1800, 2000, 2047, 2048, 2048]
+GEMMA_DECODE_LENS = [1, 31, 32, 33, 100, 255, 256, 257, 511, 1000, 1024,
+                     1500, 2047, 2048, 3000, 4000, 4095, 4096, 4097, 4111,
+                     4128, 4500, 5000, 6000, 6143, 6144, 7000, 7500, 8000,
+                     8191, 8192, 8192]
+# (name, B, H, KV, hd, ps, pps, window, lens)
+K1_SHAPES = [
+    ("qwen_7b", 32, 28, 4, 128, 32, 64, 0, DECODE_LENS),
+    ("gemma_window", 32, 16, 8, 256, 32, 256, 4096, GEMMA_DECODE_LENS),
+    ("gemma_global", 32, 16, 8, 256, 32, 256, 0, GEMMA_DECODE_LENS),
+    ("small_ps12_g1", 6, 2, 2, 64, 12, 109, 0, [0, 1, 9, 17, 777, 1308]),
+    ("small_ps16_g8", 6, 16, 2, 256, 16, 82, 300, [0, 1, 13, 21, 777, 1312]),
+]
+
+
+def _live_units(plan, lens, window, ps, pps, KV):
+    return KV * sum(len(paged_decode.slot_chunks(n, window, ps, pps, plan))
+                    for n in lens)
+
+
+@pytest.mark.parametrize("elem", [2, 1], ids=["bf16", "int8"])
+@pytest.mark.parametrize("shape", range(len(K1_SHAPES)))
+def test_decode_plan_fits_the_card(shape, elem):
+    """A tile divides the page and fits a stage, the ring holds 2 to 12
+    stages, shared memory stays within the SM's, the workspace holds every
+    chunk's partial, and the scale rows go by bulk copy exactly where a
+    page's row of bf16 scales is whole 16 bytes."""
+    _, B, H, KV, hd, ps, pps, window, _ = K1_SHAPES[shape]
+    plan = paged_decode.decode_plan(B, H, KV, hd, ps, pps, window, elem, 132)
+    T = plan.tile_rows
+    assert ps % T == 0 and T <= paged_decode.TC_MAX_TILE_ROWS
+    stage = paged_decode.tc_stage_bytes(hd, elem, T)
+    assert stage <= paged_decode.TC_STAGE_BYTES and stage % 1024 == 0
+    assert 2 <= plan.stages <= paged_decode.TC_MAX_STAGES
+    assert plan.stages * stage < plan.smem <= 232448
+    bound = paged_decode.live_tiles_bound(ps, pps, window, T)
+    assert 1 <= plan.chunk_tiles <= paged_decode.TC_CHUNK_TILES
+    # a unit's tiles go to different warps: each needs a stage of its own
+    assert plan.chunk_tiles <= plan.stages
+    assert plan.max_chunks == -(-bound // plan.chunk_tiles)
+    assert 1 <= plan.grid <= min(B * KV * plan.max_chunks, 132)
+    G = H // KV
+    want = B * KV * plan.max_chunks * G * (hd + 2)
+    assert plan.workspace == (want if plan.max_chunks > 1 else 0)
+    # the in-kernel merge stages a slot's factors in the merge buffer
+    assert G * (plan.max_chunks + 1) <= paged_decode.SPLIT_WARPS * G * (hd + 2)
+    assert plan.scale_bulk is (elem == 1 and ps % 8 == 0)
+
+
+@pytest.mark.parametrize("elem,stages", [(2, 11), (1, 12)])
+def test_decode_plan_at_the_7b_shape(elem, stages):
+    """Qwen2.5-7B decode (hd 128, G 7, pages of 32): a page is a tile,
+    chunks of 8 tiles (256 tokens), and the smoke's lengths give at least
+    three units a CTA; slots of one chunk write their output directly."""
+    plan = paged_decode.decode_plan(32, 28, 4, 128, 32, 64, 0, elem, 132)
+    assert (plan.tile_rows, plan.stages, plan.chunk_tiles) == (32, stages, 8)
+    assert (plan.max_chunks, plan.grid) == (8, 132)
+    units = _live_units(plan, DECODE_LENS, 0, 32, 64, 4)
+    assert units >= 3 * 132
+    one_chunk = [n for n in DECODE_LENS
+                 if len(paged_decode.slot_chunks(n, 0, 32, 64, plan)) == 1]
+    assert one_chunk == [n for n in DECODE_LENS if n <= 256]
+
+
+@pytest.mark.parametrize("window", [0, 4096])
+def test_decode_plan_at_the_gemma_shape(window):
+    """Gemma-2-9B decode (hd 256, G 2, bf16): 32 KB stages, 6 of them, so
+    chunks of 6 tiles (one stage a tile of a unit), and the smoke's
+    lengths give many units a CTA."""
+    plan = paged_decode.decode_plan(32, 16, 8, 256, 32, 256, window, 2, 132)
+    assert (plan.tile_rows, plan.stages, plan.chunk_tiles) == (32, 6, 6)
+    assert plan.grid == 132
+    units = _live_units(plan, GEMMA_DECODE_LENS, window, 32, 256, 8)
+    assert units >= 8 * 132
+
+
+def test_decode_plan_is_cached():
+    paged_decode.decode_plan.cache_clear()
+    paged_decode.decode_plan(32, 28, 4, 128, 32, 64, 0, 2, 132)
+    paged_decode.decode_plan(32, 28, 4, 128, 32, 64, 0, 2, 132)
+    assert paged_decode.decode_plan.cache_info().hits == 1
+
+
+@pytest.mark.parametrize("elem", [2, 1], ids=["bf16", "int8"])
+@pytest.mark.parametrize("shape", range(len(K1_SHAPES)))
+def test_slot_chunks_cover_every_live_page_once_under_k1(shape, elem):
+    _, B, H, KV, hd, ps, pps, window, lens = K1_SHAPES[shape]
+    plan = paged_decode.decode_plan(B, H, KV, hd, ps, pps, window, elem, 132)
+    T = plan.tile_rows
+    for seq_len in lens + [0, pps * ps - 1, pps * ps + 5]:
+        chunks = paged_decode.slot_chunks(seq_len, window, ps, pps, plan)
+        sl = min(seq_len, pps * ps)
+        lo = max(sl - window, 0) if window else 0
+        assert 1 <= len(chunks) <= plan.max_chunks
+        if sl == 0:
+            assert chunks == [(0, 0)]
+            continue
+        tiles = [t for a, e in chunks for t in range(a, e)]
+        assert tiles == list(range(lo // T, -(-sl // T)))
+        assert all(e - a <= plan.chunk_tiles for a, e in chunks)
+        pages = sorted({t * T // ps for t in tiles})
+        assert pages == list(range(lo // ps, -(-sl // ps)))

@@ -80,10 +80,6 @@
 // plan the kernel does not take or a map that cannot be encoded); the
 // kernels allocate nothing (the wrapper passes the split-k workspace).
 
-#include <map>
-#include <mutex>
-#include <tuple>
-
 #include "flash_sm90.cuh"
 
 namespace {
@@ -336,35 +332,6 @@ reduce_kernel(const float* __restrict__ partial,
     else
       out[i] = __float2bfloat16_rn(v);
   }
-}
-
-// A 2-D map, encoded once per (address, shape, box, type, swizzle) and
-// kept: a map holds nothing but those, so it stays right for whatever
-// tensor lies there later.  The weights are static and the activations'
-// addresses repeat from step to step (the caching allocator), so calls
-// after the first skip the encoding.  The cache is emptied past 4096 maps.
-bool cached_map(CUtensorMap* map, CUtensorMapDataType type,
-                CUtensorMapSwizzle swizzle, const void* ptr, int rows,
-                int cols, int elem_bytes, int box_rows, int box_cols) {
-  using Key = std::tuple<const void*, int, int, int, int, int, int>;
-  static std::mutex mu;
-  static std::map<Key, CUtensorMap> maps;
-  const Key key{ptr, rows, cols, box_rows, box_cols, (int)type,
-                (int)swizzle};
-  std::lock_guard<std::mutex> lock(mu);
-  auto it = maps.find(key);
-  if (it == maps.end()) {
-    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-    const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
-    const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-    CUtensorMap m;
-    if (!tiled_map(&m, type, swizzle, ptr, 2, dims, strides, box))
-      return false;
-    if (maps.size() >= 4096) maps.clear();
-    it = maps.emplace(key, m).first;
-  }
-  *map = it->second;
-  return true;
 }
 
 template <class Q, typename OutT>

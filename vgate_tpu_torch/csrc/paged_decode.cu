@@ -1,14 +1,16 @@
-// Paged decode attention for Hopper (sm_90a): K1 on bf16 or f32 pools
-// and on int8 pools with bf16 scales (kv_cache.dtype: int8), and K6, the
-// page-split decode, on bf16 or f32 pools.
+// Paged decode attention for Hopper (sm_90a): K1 on bf16 pools and on
+// int8 pools with bf16 scales (kv_cache.dtype: int8), and K6, the
+// page-split decode with block_slots slots a unit, on bf16 or f32 pools.
 //
 // Replaces two TPU kernels of vgate_tpu/ops/pallas/paged_attention.py:
 //  * K1, paged_decode_attention_pallas (body _kernel), in its plain and its
-//    int8 mode: one CTA per (slot, kv head) (vgt_paged_decode,
-//    vgt_paged_decode_int8), paged_decode_kernel below;
+//    int8 mode (vgt_paged_decode): paged_decode_tc_kernel below, a
+//    page-split decode with both products on the tensor cores;
 //  * K6, paged_decode_attention_pallas_blocked (body _blocked_kernel),
 //    the same function with block_slots slots a program
-//    (vgt_paged_decode_blocked), paged_decode_split_kernel below.
+//    (vgt_paged_decode_blocked): paged_decode_split_kernel below, fp32 on
+//    the CUDA cores.  K1's wrapper also sends f32 pools here, at
+//    block_slots 1 (ops/kernels/paged_decode.py).
 // Both compute one function: one query token per slot attends the slot's
 // live KV pages through its page-table row, with an online softmax; GQA,
 // sliding window, logit softcap and a query scale.
@@ -17,422 +19,110 @@
 //
 // What bounds both on an H100: bytes.  A decode step reads every live K
 // and V token once (sum(seq_len) * KV * hd * 2 tensors * 2 bytes per layer
-// in bf16) and does ~4 flops per byte, far below the ~295 flop/byte
-// ridge, so the limit is the 3.35 TB/s of HBM.
+// in bf16, half that and the scales in int8) and does ~4 flops per byte,
+// far below the ~295 flop/byte ridge, so the limit is the 3.35 TB/s of HBM.
 //
-// K1's design:
-//  * one CTA per (slot, kv head); the G = H/KV query heads of the group
-//    share every K/V load (GQA reuse), held in registers;
-//  * the CTA loops over the LIVE positions only (from the window start to
-//    seq_len-1) and reads each page id from the slot's own page-table row,
-//    so it never touches a table entry past the live count nor a dead page;
-//  * each lane reads its slice of a token in 16-byte loads with
-//    neighbouring lanes on neighbouring addresses (one (ps, hd) page tile
-//    is contiguous), and every token group keeps kUnroll tokens of K and V
-//    in flight;
-//  * scores, the running max/denominator and the PV accumulator are fp32;
-//    token groups and warps merge their partial softmax states at the end.
-//  * int8 pools (int8 mode): each lane reads its 8 int8 values of a token
-//    in one 8-byte load, so a 128-byte hd-128 row is one load per 16 lanes
-//    and the bytes per step halve; the token's K and V scales (bf16, one
-//    per (kv head, page, slot), read through the same page id) fold in
-//    exactly as the TPU kernel folds them: the K scale multiplies the
-//    score BEFORE softcap and mask (q . (k_q * s) == (q . k_q) * s), the V
-//    scale multiplies the softmax weight after the denominator took the
-//    unweighted p (sum p * (v_q * s) == sum (p * s) * v_q).  No
-//    dequantized K or V exists anywhere.
-//  (The body keeps a runtime slots-a-CTA count from when K6 shared it; K1
-//  passes 1.)
-//
-// K6's design, a page-split decode (flash-decoding):
+// The split (both kernels, flash-decoding):
 //  * A slot's live range (window start to seq_len) is cut into tiles of T
-//    rows of one page (T = ps, or a divisor of it where a page's K and V
-//    would not fit a 32 KB stage) and the tiles into chunks of about
-//    256 KB of the slot's K and V, whatever block_slots is (shorter chunks
-//    at 8 slots a CTA measured slower: each chunk ends in a merge).  A
-//    unit of work is (a block of block_slots slots, kv head, chunk c): the
-//    CTA walks chunk c of each slot of the block in turn (a slot with
-//    fewer chunks is skipped).  Each CTA counts the chunks of every block
-//    from seq_lens itself, so only live units exist; the grid is
-//    persistent, one CTA an SM (sized on the host from the SMs and the
-//    live-range bound, ops/kernels/paged_decode.py split_plan), and walks
-//    them blockIdx.x, + gridDim.x, ...: the card is full whatever
-//    block_slots is, and a slot's time does not grow with it.
+//    rows of one page (T = ps, or a divisor of it where a stage would not
+//    hold the tile) and the tiles into chunks.  A unit of work is (a block
+//    of block_slots slots, kv head, chunk c): the CTA walks chunk c of each
+//    slot of the block in turn (a slot with fewer chunks is skipped).  Each
+//    CTA counts the chunks of every block from seq_lens itself
+//    (chunk_prefix), so only live units exist; the grid is persistent, one
+//    CTA an SM, sized on the host from the SMs and the live-range bound
+//    (ops/kernels/paged_decode.py decode_plan for K1, split_plan for K6),
+//    and walks the units blockIdx.x, + gridDim.x, ...
 //  * A CTA is a copy warpgroup (one warp copies, three leave after
 //    setmaxnreg) and 8 compute warps at up to 224 registers.  The copy
-//    warp issues, per tile, one cp.async.bulk of K and one of V (a tile is
-//    contiguous inside [KV, P, ps, hd]) into a ring of up to 8 stages
-//    (6 of 32 KB at hd 256, bf16, ps 32) with full and empty mbarriers,
-//    and per slot one of its G query rows (contiguous in [B, H, hd]) into
-//    one of four query buffers; its copies run on across slots and units,
-//    so no compute warp waits on a global load.  It reads page-table
-//    entries only below the live count, 32 at a time by its lanes.
-//  * Compute: the 8 warps split each tile's rows on the CUDA cores (fp32
-//    FMAs; at G <= 8 query rows a wgmma m64 tile would be mostly empty,
-//    and the work is ~2-4 flops a byte).  A lane holds EPL values of a
-//    token's row for each of the G heads (the state is instantiated for
-//    G in {1, 2, 4, 8}: q and acc take 2 G EPL <= 64 registers where hd
-//    allows), LPT = hd / EPL lanes a token, interleaved 16-byte pieces so
-//    a load phase reads 8 distinct pieces of a row.  The online softmax
-//    runs in base 2 (log2 e folded after the softcap) and updates once
-//    for each pair of tokens a lane group takes; acc is rescaled only
-//    when some lane's max moved.  Rows before the window start or at or
-//    past seq_len are never read (the copy brings them; stale rows may
-//    hold anything).
-//  * Merge: the warps merge their states through shared memory in a fixed
-//    order.  A slot whose live range is one chunk writes its output
-//    directly; otherwise each unit writes (m, l, acc[hd]) per query head
-//    in fp32 to a workspace and a second launch (merge_kernel) merges a
-//    slot's chunks in chunk order, so the result is the same from run to
-//    run.  The workspace is the wrapper's cached scratch.
-//  * K1's invariants hold: no table entry at or past the live count;
-//    seq_len clamped to pps * ps on the device; a window start mid-page
-//    masks the page's earlier rows; -1e30 / max(l, 1e-30), so an idle
-//    slot comes out finite; the precise tanhf softcap after the score,
+//    warp streams each tile's K and V into a ring of stages with full and
+//    empty mbarriers, and each unit's G query rows (contiguous in
+//    [B, H, hd]) by bulk copy into one of four query buffers; its copies
+//    run on across units, so no compute warp waits on a global load.  It
+//    reads page-table entries only below the live count, 32 at a time by
+//    its lanes.
+//  * The compute warps merge their softmax states through shared memory in
+//    warp order.  A slot whose live range is one chunk writes its output
+//    directly; otherwise each unit writes (m, l, acc[hd]) per query head in
+//    fp32 to the wrapper's cached workspace, and a second launch merges a
+//    slot's chunks in chunk order (merge_chunks: merge_kernel for K6,
+//    tc_merge_kernel for K1), so the result is the same from run to run.
+//    (For K1, a merge by the slot's last unit to finish, after an atomic
+//    ticket, measured slower than the second launch: PERF.md.)
+//  * K1's invariants hold in both: no table entry at or past the live
+//    count; seq_len clamped to pps * ps on the device; a window start
+//    mid-page masks the page's earlier rows; -1e30 / max(l, 1e-30), so an
+//    idle slot comes out finite; the precise tanhf softcap after the score,
 //    before the mask.
 //
+// K1's design (paged_decode_tc_kernel, block_slots 1):
+//  * Chunks are sized to fill the card (decode_plan: chunk_tiles tiles, at
+//    least two units a CTA at the live-range bound, and no more tiles than
+//    stages); a slot of one chunk writes its output directly.
+//  * The copy warp brings each tile's K and V by TMA from 2-D tensor maps
+//    over the layer view [KV * P * ps, hd] (encoded once per address and
+//    kept, cached_map), in boxes of T rows x 128 bytes with the 128-byte
+//    swizzle (64 bytes and the 64-byte swizzle for int8 rows at hd 64), so
+//    the ldmatrix reads below hit 8 distinct bank groups; each box on 1024
+//    bytes, T rounded up to whole m16 steps (the padding rows zeroed once).
+//    int8 pools: each tile's K and V scale rows (bf16) come beside them by
+//    bulk copy, or, where a page's scale row is not a multiple of 16 bytes
+//    (ps % 8 != 0), by the copy warp's own loads.  Up to 12 stages.
+//  * Compute: a unit's tiles go to the 8 warps in turn; each warp keeps its
+//    own online softmax over its tiles, in base 2, and runs both products
+//    with mma.sync m16n8k16 (bf16 in, fp32 accumulate), 16 tokens a step:
+//      S^T [16 tokens x 8 heads] = K_tile . Q^T: the G <= 8 query heads of
+//      the kv head on n (G 1..7 padded with zero columns), K from the stage
+//      by ldmatrix, Q^T's fragment loaded once a unit;
+//      O^T [hd x 8 heads] += V^T . P^T: V^T by ldmatrix.trans, P^T the
+//      softmax of S^T's accumulators in bf16, transposed in registers by
+//      movmatrix.
+//    A lane holds the scores of two tokens for two heads, and O^T's
+//    columns for the same two heads, so a step's column max takes three
+//    shuffles a head pair, the row sum l stays a lane partial until the
+//    unit ends, and O^T is rescaled in place.  P is rounded to bf16 before
+//    the product, as in K2 and K3.
+//  * int8 (K1-int8): the same kernel and ring.  The compute warps widen
+//    int8 to bf16 in registers, exactly, with the byte-permute trick of
+//    widen_pair (flash_sm90.cuh): ldmatrix of an int8 tile hands a lane 4
+//    bytes of one row, so a dot over hd takes hd in the order of those
+//    pieces (Q^T's fragment reads q in the same order), and ldmatrix.trans
+//    hands it two hd values of two tokens, so O^T's rows come in the order
+//    (2i, 2i + 1) of each 16 (the output store follows it).  Scales fold as
+//    the TPU kernel folds them: the K scale multiplies the score before the
+//    softcap and the mask, the V scale multiplies p after l took the
+//    unweighted p.  No dequantized K or V exists anywhere.
+//  * Rows past seq_len, before the window start, or past the tile never
+//    reach the result: scores are masked by select, a bf16 tile's rows
+//    outside the live range are zeroed in the stage before P V (0 x NaN is
+//    NaN), and an int8 row's weight is selected to 0 rather than multiplied
+//    by its scale (a stale scale may hold anything).
+//
+// K6's design (paged_decode_split_kernel): chunks of about 256 KB of a
+// slot's K and V whatever block_slots is (shorter chunks at 8 slots a CTA
+// measured slower: each chunk ends in a merge); the copy warp brings each
+// tile's K and V by one cp.async.bulk each (a tile is contiguous inside
+// [KV, P, ps, hd]) into a ring of up to 8 stages; the 8 compute warps split
+// each tile's rows on the CUDA cores (fp32 FMAs; a lane holds EPL values
+// of a token's row for each of the G heads, the state instantiated for G
+// in {1, 2, 4, 8}, LPT = hd / EPL lanes a token, interleaved 16-byte
+// pieces), with the online softmax updated once for each pair of tokens a
+// lane group takes and acc rescaled only when some lane's max moved.
+//
 // C interface (bound with ctypes): returns cudaGetLastError() after the
-// launches on the caller's stream; the kernels allocate nothing.
+// launches on the caller's stream (cudaErrorInvalidValue for a shape or
+// plan the kernels do not take or a map that cannot be encoded); the
+// kernels allocate nothing.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include <type_traits>
-
-#include "flash_sm90.cuh"  // mbarriers and bulk copies
+#include "flash_sm90.cuh"  // mbarriers, bulk and TMA copies, tensor maps
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kUnroll = 4;
 constexpr float kNeg = -1e30f;  // masked / initial max, as the reference
-
-// The element types of the pools: 16 bytes hold kVec elements.
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<__nv_bfloat16> {
-  using Raw = uint4;
-  static constexpr int kVec = 8;
-  __device__ static void to_float(const uint4& raw, float* out) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
-  }
-  __device__ static __nv_bfloat16 from_float(float x) {
-    return __float2bfloat16(x);
-  }
-};
-
-template <>
-struct Elem<float> {
-  using Raw = uint4;
-  static constexpr int kVec = 4;
-  __device__ static void to_float(const uint4& raw, float* out) {
-    const float* f = reinterpret_cast<const float*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) out[i] = f[i];
-  }
-  __device__ static float from_float(float x) { return x; }
-};
-
-// int8 pools: 8 values in an 8-byte load (a pool type only)
-template <>
-struct Elem<int8_t> {
-  using Raw = uint2;
-  static constexpr int kVec = 8;
-  __device__ static void to_float(const uint2& raw, float* out) {
-    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) out[i] = (float)b[i];
-  }
-};
-
-// T: query/output type.  KT: pool type (T, or int8_t with scale pools).
-// HD: head dim.  GMAX: compile-time bound on G (query heads per kv head).
-// block_slots: slots served by one CTA (1 for K1); blockIdx.x is the block
-// of slots, blockIdx.y the kv head.
-template <typename T, typename KT, int HD, int GMAX>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q,            // [B, H, HD]
-                    const KT* __restrict__ k_pages,     // [KV, P, ps, HD]
-                    const KT* __restrict__ v_pages,
-                    const __nv_bfloat16* __restrict__ k_scale,  // [KV, P, ps]
-                    const __nv_bfloat16* __restrict__ v_scale,  // int8 only
-                    const int* __restrict__ page_tables,  // [B, pps]
-                    const int* __restrict__ seq_lens,     // [B]
-                    T* __restrict__ out,                // [B, H, HD]
-                    int H, int KV, int P, int ps, int pps, int G,
-                    int window, float scale, float softcap,
-                    int block_slots) {
-  using E = Elem<T>;
-  using KE = Elem<KT>;
-  using Raw = typename KE::Raw;
-  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
-  constexpr int VEC = KE::kVec;      // pool elements per load
-  // elements per lane: one load, or more when a token is wider than 32
-  // such loads (f32 at hd 256)
-  constexpr int EPL = HD / 32 > VEC ? HD / 32 : VEC;
-  constexpr int NV = EPL / VEC;      // pool loads per lane per token
-  constexpr int NQ = EPL / E::kVec;  // 16-byte query loads per lane
-  static_assert(EPL % E::kVec == 0, "query and pool slices must agree");
-  constexpr int LPT = HD / EPL;      // lanes per token
-  constexpr int TPW = 32 / LPT;      // tokens per warp per step
-  static_assert(LPT >= 1 && LPT <= 32 && (32 % LPT) == 0, "bad HD");
-
-  const int g = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int tg = lane / LPT;         // token group within the warp
-  const int li = lane % LPT;         // this lane's slice of the head dim
-  // the CTA's warps in slot groups: n_groups groups of wps warps; a warp
-  // past n_groups * wps (block_slots 3, 5, 6, 7) only joins the barriers
-  const int n_groups = min(block_slots, kWarps);
-  const int wps = kWarps / n_groups;
-  const int grp = warp / wps;
-  const int wi = warp % wps;         // this warp's place in its group
-  const int stride = wps * TPW;      // tokens a group covers per step
-
-  extern __shared__ float smem[];
-  float* sm_m = smem;                        // [kWarps][GMAX]
-  float* sm_l = sm_m + kWarps * GMAX;        // [kWarps][GMAX]
-  float* sm_acc = sm_l + kWarps * GMAX;      // [kWarps][GMAX][HD]
-
-  // rounds of slots: every thread runs the same count (barriers below)
-  for (int r = 0; r < block_slots; r += n_groups) {
-    const int j = r + grp;
-    // uniform across each warp, so the shuffles below see whole warps
-    const bool mine = grp < n_groups && j < block_slots;
-    const int b = blockIdx.x * block_slots + j;
-    if (mine) {
-      // never read past the slot's page-table row, whatever seq_lens says
-      const int seq_len = min(seq_lens[b], pps * ps);
-      const int lo = window > 0 ? max(seq_len - window, 0) : 0;
-      const int* pt_row = page_tables + (size_t)b * pps;
-
-      float qr[GMAX][EPL];
-#pragma unroll
-      for (int h = 0; h < GMAX; ++h) {
-        if (h < G) {
-          const T* qp =
-              q + ((size_t)b * H + (size_t)g * G + h) * HD + li * EPL;
-#pragma unroll
-          for (int n = 0; n < NQ; ++n)
-            E::to_float(*reinterpret_cast<const uint4*>(qp + n * E::kVec),
-                        qr[h] + n * E::kVec);
-#pragma unroll
-          for (int e = 0; e < EPL; ++e) qr[h][e] *= scale;
-        } else {
-#pragma unroll
-          for (int e = 0; e < EPL; ++e) qr[h][e] = 0.f;
-        }
-      }
-
-      float m[GMAX], l[GMAX], acc[GMAX][EPL];
-#pragma unroll
-      for (int h = 0; h < GMAX; ++h) {
-        m[h] = kNeg;
-        l[h] = 0.f;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) acc[h][e] = 0.f;
-      }
-
-      const size_t head_base = (size_t)g * P;
-      // the loop bound is warp-uniform (base0 is the warp's first token),
-      // so every lane of the warp reaches the shuffles below together
-      for (int base0 = lo + wi * TPW; base0 < seq_len;
-           base0 += stride * kUnroll) {
-        Raw kr[kUnroll][NV], vr[kUnroll][NV];
-        float ksc[kUnroll], vsc[kUnroll];  // the tokens' scales (int8 mode)
-        bool valid[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int pos = base0 + tg + u * stride;
-          valid[u] = pos < seq_len;
-          ksc[u] = 0.f;
-          vsc[u] = 0.f;
-#pragma unroll
-          for (int n = 0; n < NV; ++n) {
-            kr[u][n] = Raw{};
-            vr[u][n] = Raw{};
-          }
-          if (valid[u]) {
-            const int page = pt_row[pos / ps];
-            const size_t row = (head_base + page) * ps + (pos % ps);
-            const size_t off = row * HD + li * EPL;
-#pragma unroll
-            for (int n = 0; n < NV; ++n) {
-              kr[u][n] = *reinterpret_cast<const Raw*>(k_pages + off + n * VEC);
-              vr[u][n] = *reinterpret_cast<const Raw*>(v_pages + off + n * VEC);
-            }
-            if (kQuant) {
-              ksc[u] = __bfloat162float(k_scale[row]);
-              vsc[u] = __bfloat162float(v_scale[row]);
-            }
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          float kf[EPL], vf[EPL];
-#pragma unroll
-          for (int n = 0; n < NV; ++n) {
-            KE::to_float(kr[u][n], kf + n * VEC);
-            KE::to_float(vr[u][n], vf + n * VEC);
-          }
-#pragma unroll
-          for (int h = 0; h < GMAX; ++h) {
-            if (h >= G) continue;  // uniform across the warp
-            float s = 0.f;
-#pragma unroll
-            for (int e = 0; e < EPL; ++e) s = fmaf(qr[h][e], kf[e], s);
-            // all 32 lanes take part; offsets < LPT stay inside the group
-#pragma unroll
-            for (int o = LPT / 2; o > 0; o >>= 1)
-              s += __shfl_xor_sync(0xffffffffu, s, o);
-            if (!valid[u]) continue;
-            if (kQuant) s *= ksc[u];  // K scale: before softcap and mask
-            if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-            const float m_new = fmaxf(m[h], s);
-            const float alpha = expf(m[h] - m_new);
-            const float p = expf(s - m_new);
-            l[h] = l[h] * alpha + p;  // the unweighted p
-            const float pv = kQuant ? p * vsc[u] : p;  // V scale: into p
-#pragma unroll
-            for (int e = 0; e < EPL; ++e)
-              acc[h][e] = fmaf(pv, vf[e], acc[h][e] * alpha);
-            m[h] = m_new;
-          }
-        }
-      }
-
-      // merge the token groups of a warp (lanes li, li+LPT, ...)
-#pragma unroll
-      for (int o = LPT; o < 32; o <<= 1) {
-#pragma unroll
-        for (int h = 0; h < GMAX; ++h) {
-          const float m_o = __shfl_xor_sync(0xffffffffu, m[h], o);
-          const float l_o = __shfl_xor_sync(0xffffffffu, l[h], o);
-          const float m_new = fmaxf(m[h], m_o);
-          const float a = expf(m[h] - m_new);
-          const float a_o = expf(m_o - m_new);
-          l[h] = l[h] * a + l_o * a_o;
-#pragma unroll
-          for (int e = 0; e < EPL; ++e) {
-            const float acc_o = __shfl_xor_sync(0xffffffffu, acc[h][e], o);
-            acc[h][e] = acc[h][e] * a + acc_o * a_o;
-          }
-          m[h] = m_new;
-        }
-      }
-
-      // each warp's state into shared memory
-      if (tg == 0) {
-#pragma unroll
-        for (int h = 0; h < GMAX; ++h) {
-          if (li == 0) {
-            sm_m[warp * GMAX + h] = m[h];
-            sm_l[warp * GMAX + h] = l[h];
-          }
-#pragma unroll
-          for (int e = 0; e < EPL; ++e)
-            sm_acc[(warp * GMAX + h) * HD + li * EPL + e] = acc[h][e];
-        }
-      }
-    }
-    __syncthreads();
-    // merge the warps of each slot group
-    if (mine) {
-      const int w0 = grp * wps;
-      for (int idx = wi * 32 + lane; idx < G * HD; idx += wps * 32) {
-        const int h = idx / HD;
-        const int d = idx % HD;
-        float m_all = kNeg;
-        for (int w = w0; w < w0 + wps; ++w)
-          m_all = fmaxf(m_all, sm_m[w * GMAX + h]);
-        float l_all = 0.f, a_all = 0.f;
-        for (int w = w0; w < w0 + wps; ++w) {
-          const float f = expf(sm_m[w * GMAX + h] - m_all);
-          l_all += sm_l[w * GMAX + h] * f;
-          a_all += sm_acc[(w * GMAX + h) * HD + d] * f;
-        }
-        out[((size_t)b * H + (size_t)g * G + h) * HD + d] =
-            E::from_float(a_all / fmaxf(l_all, 1e-30f));
-      }
-    }
-    __syncthreads();  // shared memory is reused by the next round
-  }
-}
-
-// One launch's arguments (pointers from the wrapper's tensors).
-struct Args {
-  const void *q, *k, *v, *ks, *vs;  // ks/vs: scale pools, int8 mode only
-  const int *pt, *sl;
-  void* out;
-  int B, H, KV, P, ps, pps, window, block_slots;
-  float scale, softcap;
-  cudaStream_t stream;
-};
-
-template <typename T, typename KT, int HD, int GMAX>
-cudaError_t launch(const Args& a) {
-  const size_t smem = sizeof(float) * kWarps * GMAX * (HD + 2);
-  auto kern = paged_decode_kernel<T, KT, HD, GMAX>;
-  static bool configured = false;  // once per instantiation
-  if (smem > 48 * 1024 && !configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
-  }
-  dim3 grid(a.B / a.block_slots, a.KV);
-  kern<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const KT*>(a.k),
-      static_cast<const KT*>(a.v), static_cast<const __nv_bfloat16*>(a.ks),
-      static_cast<const __nv_bfloat16*>(a.vs), a.pt, a.sl,
-      static_cast<T*>(a.out), a.H, a.KV, a.P, a.ps, a.pps, a.H / a.KV,
-      a.window, a.scale, a.softcap, a.block_slots);
-  return cudaGetLastError();
-}
-
-template <typename T, typename KT, int HD>
-cudaError_t launch_hd(const Args& a) {
-  const int G = a.H / a.KV;
-  if (G <= 4) return launch<T, KT, HD, 4>(a);
-  if (G <= 8) return launch<T, KT, HD, 8>(a);
-  return cudaErrorInvalidValue;
-}
-
-template <typename T, typename KT>
-int dispatch(const Args& a, int hd) {
-  if (a.B == 0) return cudaSuccess;
-  if (a.block_slots < 1 || a.B % a.block_slots) return cudaErrorInvalidValue;
-  switch (hd) {
-    case 64:
-      return launch_hd<T, KT, 64>(a);
-    case 128:
-      return launch_hd<T, KT, 128>(a);
-    case 256:
-      return launch_hd<T, KT, 256>(a);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// bf16 (dtype 0) or f32 (dtype 1) pools: q, pools and output share it
-int dispatch_plain(const Args& a, int hd, int dtype) {
-  if (dtype == 0) return dispatch<__nv_bfloat16, __nv_bfloat16>(a, hd);
-  if (dtype == 1) return dispatch<float, float>(a, hd);
-  return cudaErrorInvalidValue;
-}
-
-// ------------------------------------------------------------------ K6
 
 namespace split {
 
@@ -446,7 +136,6 @@ using vgt_sm90::mbar_wait;
 using vgt_sm90::setmaxnreg_dec;
 using vgt_sm90::setmaxnreg_inc;
 using vgt_sm90::smem_u32;
-
 // A CTA: the copy warpgroup (warp 0 copies, warps 1-3 give their
 // registers back and leave) and 8 compute warps, which take up to 224
 // registers a thread after setmaxnreg (a CTA of 9 warps would be held to
@@ -553,6 +242,59 @@ __device__ __forceinline__ Slot slot_of(const Geo& g, const int* seq_lens,
   return s;
 }
 
+// The chunk units of one launch, counted on the card by the kNT threads of
+// the CTA: pre[grp] becomes block grp's first unit (a block's chunk count
+// is the most of its slots'), pre[n_groups] their total.  Two
+// __syncthreads inside, so what thread 0 did before the call (the barriers'
+// init) is visible after it.  Returns the units, kv heads included.
+template <int kNT>
+__device__ __forceinline__ int chunk_prefix(const Geo& geo,
+                                            const int* seq_lens, int* pre) {
+  const int n_groups = geo.B / geo.block_slots;
+  for (int grp = threadIdx.x; grp < n_groups; grp += kNT) {
+    int n = 1;
+    for (int j = 0; j < geo.block_slots; ++j)
+      n = max(n, slot_of(geo, seq_lens, grp * geo.block_slots + j).chunks);
+    pre[grp + 1] = n;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const int per = (n_groups + 31) / 32;
+    const int a = min(lane * per, n_groups), e = min(a + per, n_groups);
+    int sum = 0;
+    for (int i = a; i < e; ++i) sum += pre[i + 1];
+    int incl = sum;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    int run = incl - sum;
+    for (int i = a; i < e; ++i) {
+      run += pre[i + 1];
+      pre[i + 1] = run;
+    }
+    if (lane == 0) pre[0] = 0;
+  }
+  __syncthreads();
+  return pre[n_groups] * geo.KV;
+}
+
+// unit u -> (block grp, kv head g, chunk c): kv heads vary fastest
+__device__ __forceinline__ void unit_of(const int* pre, int n_groups, int KV,
+                                        int u, int& grp, int& g, int& c) {
+  const int gc = u / KV;
+  g = u % KV;
+  int lo = 0, hi = n_groups;  // the last block with pre[grp] <= gc
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) >> 1;
+    if (pre[mid] <= gc) lo = mid; else hi = mid;
+  }
+  grp = lo;
+  c = gc - pre[lo];
+}
+
 // barriers: a stage's full and empty, then the query buffers' full and
 // empty
 constexpr int kBarBytes = 8 * 2 * (kMaxStages + kQBufs);
@@ -599,14 +341,6 @@ paged_decode_split_kernel(const T* __restrict__ q,        // [B, H, HD]
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  // every group's chunk count (the most of its slots'), then their
-  // prefix sums: pre[grp] is the group's first chunk unit
-  for (int grp = threadIdx.x; grp < n_groups; grp += kThreads) {
-    int n = 1;
-    for (int j = 0; j < geo.block_slots; ++j)
-      n = max(n, slot_of(geo, seq_lens, grp * geo.block_slots + j).chunks);
-    pre[grp + 1] = n;
-  }
   if (threadIdx.x == 0) {
     for (int s = 0; s < geo.stages; ++s) {
       mbar_init(full_bar(bars, s), 1);
@@ -618,40 +352,7 @@ paged_decode_split_kernel(const T* __restrict__ q,        // [B, H, HD]
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  __syncthreads();
-  if (warp == 0) {
-    const int per = (n_groups + 31) / 32;
-    const int a = min(lane * per, n_groups), e = min(a + per, n_groups);
-    int sum = 0;
-    for (int i = a; i < e; ++i) sum += pre[i + 1];
-    int incl = sum;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += v;
-    }
-    int run = incl - sum;
-    for (int i = a; i < e; ++i) {
-      run += pre[i + 1];
-      pre[i + 1] = run;
-    }
-    if (lane == 0) pre[0] = 0;
-  }
-  __syncthreads();
-  const int units = pre[n_groups] * geo.KV;
-
-  // unit u -> (group, kv head, chunk): kv heads vary fastest
-  auto unit_of = [&](int u, int& grp, int& g, int& c) {
-    const int gc = u / geo.KV;
-    g = u % geo.KV;
-    int lo = 0, hi = n_groups;  // the last group with pre[grp] <= gc
-    while (hi - lo > 1) {
-      const int mid = (lo + hi) >> 1;
-      if (pre[mid] <= gc) lo = mid; else hi = mid;
-    }
-    grp = lo;
-    c = gc - pre[lo];
-  };
+  const int units = chunk_prefix<kThreads>(geo, seq_lens, pre);
 
   if (warp < 4) {  // the copy warpgroup
     setmaxnreg_dec<kCopyRegs>();
@@ -660,7 +361,7 @@ paged_decode_split_kernel(const T* __restrict__ q,        // [B, H, HD]
     uint32_t ph = 1, qph = 1;  // the first round of empty barriers passes
     for (int u = blockIdx.x; u < units; u += gridDim.x) {
       int grp, g, c;
-      unit_of(u, grp, g, c);
+      unit_of(pre, n_groups, geo.KV, u, grp, g, c);
       for (int j = 0; j < geo.block_slots; ++j) {
         const int b = grp * geo.block_slots + j;
         const Slot sl = slot_of(geo, seq_lens, b);
@@ -719,7 +420,7 @@ paged_decode_split_kernel(const T* __restrict__ q,        // [B, H, HD]
   uint32_t ph = 0, qph = 0;
   for (int u = blockIdx.x; u < units; u += gridDim.x) {
     int grp, g, c;
-    unit_of(u, grp, g, c);
+    unit_of(pre, n_groups, geo.KV, u, grp, g, c);
     for (int j = 0; j < geo.block_slots; ++j) {
       const int b = grp * geo.block_slots + j;
       const Slot sl = slot_of(geo, seq_lens, b);
@@ -931,42 +632,49 @@ paged_decode_split_kernel(const T* __restrict__ q,        // [B, H, HD]
   }
 }
 
-// The slots of more than one chunk: their chunks' (m, l, acc) merged in
-// chunk order and normalised.  One CTA a (slot, kv head); the chunks' m
-// (base 2) and l are staged in shared memory as the factors
-// 2^(m_c - m_all), so the sum over chunks reads only acc from memory.
+// A slot's chunk partials (m, l, acc) merged in chunk order and
+// normalised into out, by one CTA of kMergeThreads: each chunk's (m, l)
+// pair (m in base 2) is read once, a lane a chunk, and staged in `fac`
+// (shared memory, merge_smem_floats) as the factor 2^(m_c - m_all) and the
+// weighted l_c 2^(m_c - m_all), summed in chunk order from there; the sum
+// over chunks then reads only acc from memory (every value read once,
+// from L2: __ldcg).
+__host__ __device__ constexpr int merge_smem_floats(int G, int max_chunks) {
+  return G * (2 * max_chunks + 1);
+}
 template <typename T>
-__global__ void __launch_bounds__(kMergeThreads)
-merge_kernel(const float* __restrict__ ws_ml, const float* __restrict__ ws_acc,
-             const int* __restrict__ seq_lens, T* __restrict__ out, int HD,
-             const Geo geo) {
-  extern __shared__ float merge_smem[];  // [G][max_chunks] factors, [G] 1/l
-  const int b = blockIdx.x;
-  const int g = blockIdx.y;
-  const Slot sl = slot_of(geo, seq_lens, b);
-  if (sl.chunks == 1) return;  // written by its unit
+__device__ __forceinline__ void merge_chunks(const float* ws_ml,
+                                             const float* ws_acc, T* out,
+                                             int HD, const Geo& geo, int b,
+                                             int g, int chunks, float* fac) {
   const int G = geo.G;
-  const size_t base = ((size_t)b * geo.KV + g) * geo.max_chunks;
-  float* fac = merge_smem;
-  float* inv_l = merge_smem + G * geo.max_chunks;
+  const int MC = geo.max_chunks;
+  const size_t base = ((size_t)b * geo.KV + g) * MC;
+  float* lw = fac + G * MC;
+  float* inv_l = lw + G * MC;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   for (int h = warp; h < G; h += kMergeThreads / 32) {
     float m_all = kNeg;
-    for (int c = lane; c < sl.chunks; c += 32)
-      m_all = fmaxf(m_all, ws_ml[((base + c) * G + h) * 2]);
+    for (int c = lane; c < chunks; c += 32) {
+      const float2 ml = __ldcg(reinterpret_cast<const float2*>(
+          ws_ml + ((base + c) * G + h) * 2));
+      fac[h * MC + c] = ml.x;
+      lw[h * MC + c] = ml.y;
+      m_all = fmaxf(m_all, ml.x);
+    }
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1)
       m_all = fmaxf(m_all, __shfl_xor_sync(0xffffffffu, m_all, o));
-    for (int c = lane; c < sl.chunks; c += 32)
-      fac[h * geo.max_chunks + c] =
-          vgt_sm90::ex2(ws_ml[((base + c) * G + h) * 2] - m_all);
+    for (int c = lane; c < chunks; c += 32) {  // the lane's own entries
+      const float f = ex2(fac[h * MC + c] - m_all);
+      fac[h * MC + c] = f;
+      lw[h * MC + c] *= f;
+    }
     __syncwarp();
     if (lane == 0) {  // in chunk order
       float l_all = 0.f;
-      for (int c = 0; c < sl.chunks; ++c)
-        l_all += ws_ml[((base + c) * G + h) * 2 + 1] *
-                 fac[h * geo.max_chunks + c];
+      for (int c = 0; c < chunks; ++c) l_all += lw[h * MC + c];
       inv_l[h] = 1.f / fmaxf(l_all, 1e-30f);
     }
   }
@@ -974,14 +682,42 @@ merge_kernel(const float* __restrict__ ws_ml, const float* __restrict__ ws_acc,
   for (int idx = threadIdx.x; idx < G * HD; idx += kMergeThreads) {
     const int h = idx / HD;
     const int d = idx % HD;
-    const float* f = fac + h * geo.max_chunks;
+    const float* f = fac + h * MC;
     float a_all = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < sl.chunks; ++c)
-      a_all += ws_acc[((base + c) * G + h) * HD + d] * f[c];
+#pragma unroll 8
+    for (int c = 0; c < chunks; ++c)
+      a_all += __ldcg(ws_acc + ((base + c) * G + h) * HD + d) * f[c];
     out[((size_t)b * geo.H + g * G + h) * HD + d] =
         from_float<T>(a_all * inv_l[h]);
   }
+}
+
+// The slots of more than one chunk, merged by a second launch: one CTA a
+// (slot, kv head).  K6's; K1's twin below differs only in its name, so a
+// profile tells the two apart.
+template <typename T>
+__global__ void __launch_bounds__(kMergeThreads)
+merge_kernel(const float* __restrict__ ws_ml, const float* __restrict__ ws_acc,
+             const int* __restrict__ seq_lens, T* __restrict__ out, int HD,
+             const Geo geo) {
+  extern __shared__ float merge_smem[];  // merge_smem_floats(G, max_chunks)
+  const Slot sl = slot_of(geo, seq_lens, blockIdx.x);
+  if (sl.chunks == 1) return;  // written by its unit
+  merge_chunks<T>(ws_ml, ws_acc, out, HD, geo, blockIdx.x, blockIdx.y,
+                  sl.chunks, merge_smem);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMergeThreads)
+tc_merge_kernel(const float* __restrict__ ws_ml,
+                const float* __restrict__ ws_acc,
+                const int* __restrict__ seq_lens, T* __restrict__ out,
+                int HD, const Geo geo) {
+  extern __shared__ float merge_smem[];
+  const Slot sl = slot_of(geo, seq_lens, blockIdx.x);
+  if (sl.chunks == 1) return;
+  merge_chunks<T>(ws_ml, ws_acc, out, HD, geo, blockIdx.x, blockIdx.y,
+                  sl.chunks, merge_smem);
 }
 
 // shared memory of a launch: the barriers, the ring, the query buffers,
@@ -1019,7 +755,8 @@ cudaError_t launch(const Geo& geo, const void* q, const void* k,
       geo);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || geo.max_chunks == 1) return err;
-  const size_t merge_smem = sizeof(float) * geo.G * (geo.max_chunks + 1);
+  const size_t merge_smem =
+      sizeof(float) * merge_smem_floats(geo.G, geo.max_chunks);
   if (merge_smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   static bool merge_configured = false;
   if (!merge_configured) {
@@ -1067,39 +804,733 @@ cudaError_t dispatch(const Geo& geo, int hd, const void* q, const void* k,
   }
 }
 
+
+// ------------------------------------------------------------------ K1
+
+// The layout of one K1 instantiation: KT the pool type (bf16, or int8_t
+// with bf16 scale pools).  A row of K or V is kBoxes TMA boxes of kSpan
+// bytes (64 bf16 or 128 int8 values; 64 int8 values at hd 64, with the
+// 64-byte swizzle); Q K^T takes hd in kSteps k steps of 16 and P V hd in
+// kSteps m tiles of 16.
+template <typename KT, int HD>
+struct TcCfg {
+  static constexpr bool kI8 = sizeof(KT) == 1;
+  static constexpr int kRowBytes = HD * (int)sizeof(KT);
+  static constexpr int kSpan = kRowBytes < 128 ? kRowBytes : 128;
+  static constexpr int kBoxes = kRowBytes / kSpan;
+  static constexpr int kChunks = kSpan / 16;  // 16-byte pieces a box row
+  static constexpr int kSteps = HD / 16;
+};
+
+constexpr int kTcStages = 12;
+
+// A stage: the K tile's boxes, the V tile's, each of tile_pad rows (the
+// tile's rows rounded up to whole m16 steps) on 1024 bytes (the swizzle
+// atom), then, for int8 pools, the K and V scale rows (tile_pad bf16
+// each).  The host's decode_plan computes the same.
+__host__ __device__ constexpr int tc_box_bytes(int span, int tile_pad) {
+  return (tile_pad * span + 1023) / 1024 * 1024;
+}
+__host__ __device__ constexpr int tc_stage_bytes(int span, int boxes,
+                                                 bool i8, int tile_pad) {
+  return (2 * boxes * tc_box_bytes(span, tile_pad) + (i8 ? 4 * tile_pad : 0) +
+          1023) / 1024 * 1024;
+}
+// the ring, the query buffers (8 rows of bf16 each), the warps' merge
+// buffer and the units' prefix sums, then the barriers
+inline size_t tc_smem_bytes(int hd, int stage_bytes, int stages, int G,
+                            int B) {
+  const size_t n = (size_t)stages * stage_bytes + kQBufs * 8 * hd * 2 +
+                   sizeof(float) * kWarps * G * (hd + 2) +
+                   sizeof(int) * (B + 1);
+  return (n + 7) / 8 * 8 + 8 * 2 * (kTcStages + kQBufs);
+}
+
+__device__ __forceinline__ uint32_t tc_full(uint32_t bars, int s) {
+  return bars + 8 * s;
+}
+__device__ __forceinline__ uint32_t tc_empty(uint32_t bars, int s) {
+  return bars + 8 * (kTcStages + s);
+}
+__device__ __forceinline__ uint32_t tc_qfull(uint32_t bars, int i) {
+  return bars + 8 * (2 * kTcStages + i);
+}
+__device__ __forceinline__ uint32_t tc_qempty(uint32_t bars, int i) {
+  return bars + 8 * (2 * kTcStages + kQBufs + i);
+}
+
+// 16-byte piece `chunk` of row `row` of a swizzled box at shared address
+// `box`: the 128-byte swizzle xors the piece with row % 8, the 64-byte one
+// (64-byte rows) with (row / 2) % 4, as TMA lays the box down
+template <int kSpan>
+__device__ __forceinline__ uint32_t tc_piece(uint32_t box, int row,
+                                            int chunk) {
+  const int x = kSpan == 128 ? (row & 7) : ((row >> 1) & 3);
+  return box + row * kSpan + ((chunk ^ x) << 4);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+// the 8 x 8 b16 matrix the warp holds (lane l: row l / 4, elements
+// 2 (l % 4), + 1), transposed
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;"
+               : "=r"(y)
+               : "r"(x));
+  return y;
+}
+// d += a b: a 16 x 16 (row), b 16 x 8 (col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The fragments of one 16-token step.  A lane (gr = lane / 4, cq =
+// lane % 4) holds, as m16n8k16 lays them out: of an A operand the rows gr
+// and gr + 8 and the k pairs 2 cq and 2 cq + 8; of B (k x n) the k pairs
+// 2 cq and 2 cq + 8 of column gr; of the accumulator the rows gr and
+// gr + 8 and the columns 2 cq, 2 cq + 1.
+//
+// K's A operand (rows: the step's tokens; k: hd).  bf16: matrix mi of the
+// x4 load is rows +8 (mi & 1), hd +8 (mi & 2), so the registers are a0..a3
+// as laid out.  int8: an 8 x 8 b16 matrix is 8 rows of 16 int8 values, a
+// lane's word the bytes 4 cq .. 4 cq + 3 of row gr; one x4 load covers two
+// k steps (mi & 1: rows +8; mi & 2: the next 16 values), widened to the
+// k pairs 2 cq (bytes 0, 1) and 2 cq + 8 (bytes 2, 3): k step j takes hd
+// 16 j + 4 cq .. + 3 in that order, and Q^T's fragment reads q so.
+template <class C>
+__device__ __forceinline__ void k_fragment(uint32_t kbox, uint32_t box_bytes,
+                                           int r0, int lane, int j,
+                                           uint32_t (&a)[4],
+                                           uint32_t (&a_next)[4]) {
+  const int mi = lane >> 3;
+  const int row = r0 + (lane & 7) + ((mi & 1) << 3);
+  if constexpr (!C::kI8) {
+    // hd 16 j + 8 (mi >> 1): byte 32 j + 16 (mi >> 1)
+    const int bc = 32 * j + 16 * (mi >> 1);
+    ldsm_x4(tc_piece<C::kSpan>(kbox + (bc / C::kSpan) * box_bytes, row,
+                               (bc % C::kSpan) >> 4),
+            a);
+  } else {
+    const int bc = 16 * j + 16 * (mi >> 1);  // j even: steps j and j + 1
+    uint32_t w[4];
+    ldsm_x4(tc_piece<C::kSpan>(kbox + (bc / C::kSpan) * box_bytes, row,
+                               (bc % C::kSpan) >> 4),
+            w);
+    a[0] = vgt_sm90::widen_pair(w[0], 0x5140);
+    a[1] = vgt_sm90::widen_pair(w[1], 0x5140);
+    a[2] = vgt_sm90::widen_pair(w[0], 0x5342);
+    a[3] = vgt_sm90::widen_pair(w[1], 0x5342);
+    a_next[0] = vgt_sm90::widen_pair(w[2], 0x5140);
+    a_next[1] = vgt_sm90::widen_pair(w[3], 0x5140);
+    a_next[2] = vgt_sm90::widen_pair(w[2], 0x5342);
+    a_next[3] = vgt_sm90::widen_pair(w[3], 0x5342);
+  }
+}
+
+// V^T's A operand of m tile i (rows: hd; k: the step's tokens), by
+// ldmatrix.trans from V's rows.  bf16: matrix mi is tokens +8 (mi & 2),
+// hd +8 (mi & 1); m row r is hd 16 i + r.  int8: the trans load hands a
+// lane the b16 element gr (int8 values 2 gr, 2 gr + 1) of tokens 2 cq and
+// 2 cq + 1; selecting bytes (0, 2) and (1, 3) gives hd 2 gr and 2 gr + 1
+// at that token pair, so m row gr is hd 16 i + 2 gr and m row gr + 8 is
+// hd 16 i + 2 gr + 1 (see out_row); one x4 load covers m tiles i, i + 1.
+template <class C>
+__device__ __forceinline__ void v_fragment(uint32_t vbox, uint32_t box_bytes,
+                                           int r0, int lane, int i,
+                                           uint32_t (&a)[4],
+                                           uint32_t (&a_next)[4]) {
+  const int mi = lane >> 3;
+  if constexpr (!C::kI8) {
+    const int row = r0 + (lane & 7) + ((mi >> 1) << 3);
+    const int bc = 32 * i + 16 * (mi & 1);
+    ldsm_x4_trans(tc_piece<C::kSpan>(vbox + (bc / C::kSpan) * box_bytes, row,
+                                     (bc % C::kSpan) >> 4),
+                  a);
+  } else {
+    const int row = r0 + (lane & 7) + ((mi & 1) << 3);
+    const int bc = 16 * i + 16 * (mi >> 1);  // i even: tiles i and i + 1
+    uint32_t w[4];
+    ldsm_x4_trans(tc_piece<C::kSpan>(vbox + (bc / C::kSpan) * box_bytes, row,
+                                     (bc % C::kSpan) >> 4),
+                  w);
+    a[0] = vgt_sm90::widen_pair(w[0], 0x5240);
+    a[1] = vgt_sm90::widen_pair(w[0], 0x5341);
+    a[2] = vgt_sm90::widen_pair(w[1], 0x5240);
+    a[3] = vgt_sm90::widen_pair(w[1], 0x5341);
+    a_next[0] = vgt_sm90::widen_pair(w[2], 0x5240);
+    a_next[1] = vgt_sm90::widen_pair(w[2], 0x5341);
+    a_next[2] = vgt_sm90::widen_pair(w[3], 0x5240);
+    a_next[3] = vgt_sm90::widen_pair(w[3], 0x5341);
+  }
+}
+
+// The hd of O^T's m row gr (hi: gr + 8) of m tile i
+template <class C>
+__device__ __forceinline__ int out_row(int i, int gr, bool hi) {
+  return C::kI8 ? 16 * i + 2 * gr + (hi ? 1 : 0)
+                : 16 * i + gr + (hi ? 8 : 0);
+}
+
+template <typename KT, int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+paged_decode_tc_kernel(
+    const __grid_constant__ CUtensorMap kmap,  // [KV * P * ps, HD] of KT
+    const __grid_constant__ CUtensorMap vmap,
+    const __nv_bfloat16* __restrict__ q,        // [B, H, HD]
+    const __nv_bfloat16* __restrict__ k_scale,  // [KV, P, ps], int8 only
+    const __nv_bfloat16* __restrict__ v_scale,
+    const int* __restrict__ page_tables,  // [B, pps]
+    const int* __restrict__ seq_lens,     // [B]
+    __nv_bfloat16* __restrict__ out,      // [B, H, HD]
+    float* __restrict__ ws_ml,            // [B, KV, MC, G, 2]
+    float* __restrict__ ws_acc,           // [B, KV, MC, G, HD]
+    const Geo geo, int scale_bulk) {
+  using C = TcCfg<KT, HD>;
+  constexpr int kMS = HD + 2;  // a warp's head in the merge buffer: m, l, acc
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  const int T = geo.tile_rows;
+  const int Tp = (T + 15) / 16 * 16;
+  const uint32_t box_bytes = tc_box_bytes(C::kSpan, Tp);
+  const uint32_t stage_bytes = tc_stage_bytes(C::kSpan, C::kBoxes, C::kI8, Tp);
+  const int G = geo.G;
+  const uint32_t q_bytes = (uint32_t)G * HD * 2;
+  unsigned char* ring = tc_smem;
+  const uint32_t ring_u32 = smem_u32(ring);
+  __nv_bfloat16* qbuf =
+      reinterpret_cast<__nv_bfloat16*>(ring + geo.stages * stage_bytes);
+  float* mbuf = reinterpret_cast<float*>(qbuf + kQBufs * 8 * HD);
+  int* pre = reinterpret_cast<int*>(mbuf + kWarps * G * kMS);
+  const uint32_t bars =
+      (smem_u32(pre + geo.B + 1) + 7) & ~7u;  // 8-byte aligned barriers
+  const bool copied_scales = C::kI8 && !scale_bulk;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < geo.stages; ++s) {
+      // int8 scales loaded by the copy warp arrive once more
+      mbar_init(tc_full(bars, s), copied_scales ? 2 : 1);
+      mbar_init(tc_empty(bars, s), 1);  // the one warp that took the tile
+    }
+    for (int i = 0; i < kQBufs; ++i) {
+      mbar_init(tc_qfull(bars, i), 1);
+      mbar_init(tc_qempty(bars, i), kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // the padding rows [T, Tp) of every box: never copied, read by the last
+  // m16 step of a tile; zero, so a bf16 V row there is 0, not NaN
+  if (Tp > T) {
+    const int per_box = (Tp - T) * C::kChunks;
+    const int total = geo.stages * 2 * C::kBoxes * per_box;
+    for (int x = threadIdx.x; x < total; x += kThreads) {
+      const int bx = x / per_box;  // box of the ring, stage-major
+      const int st = bx / (2 * C::kBoxes);
+      *reinterpret_cast<uint4*>(ring + st * stage_bytes +
+                                (bx % (2 * C::kBoxes)) * box_bytes +
+                                T * C::kSpan + (x % per_box) * 16) =
+          make_uint4(0, 0, 0, 0);
+    }
+  }
+  const int units = chunk_prefix<kThreads>(geo, seq_lens, pre);
+
+  if (warp < 4) {  // the copy warpgroup
+    setmaxnreg_dec<kCopyRegs>();
+    if (warp != 0) return;
+    const uint32_t tx = 2 * C::kBoxes * (uint32_t)T * C::kSpan +
+                        (C::kI8 && scale_bulk ? 4 * T : 0);
+    int s = 0, qs = 0;
+    uint32_t ph = 1, qph = 1;  // the first round of empty barriers passes
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      int b, g, c;
+      unit_of(pre, geo.B, geo.KV, u, b, g, c);
+      const Slot sl = slot_of(geo, seq_lens, b);
+      const int i0 = sl.t0 + c * sl.ct;
+      const int i1 = sl.t0 + min(sl.n, (c + 1) * sl.ct);
+      const int* pt_row = page_tables + (size_t)b * geo.pps;
+      if (lane == 0) {  // the slot's query rows (contiguous)
+        mbar_wait(tc_qempty(bars, qs), qph);
+        mbar_expect_tx(tc_qfull(bars, qs), q_bytes);
+        bulk_load(smem_u32(qbuf + qs * 8 * HD),
+                  q + ((size_t)b * geo.H + g * G) * HD, q_bytes,
+                  tc_qfull(bars, qs));
+      }
+      if (++qs == kQBufs) {
+        qs = 0;
+        qph ^= 1;
+      }
+      for (int ib = i0; ib < i1; ib += 32) {
+        const int ti = ib + lane;
+        // only below the live count: ti < i1 <= ceil(seq_len / T)
+        const int page = ti < i1 ? pt_row[ti * T / geo.ps] : 0;
+        const int n = min(32, i1 - ib);
+        for (int k = 0; k < n; ++k) {
+          const int pg = __shfl_sync(0xffffffffu, page, k);
+          const int row = (g * geo.P + pg) * geo.ps + (ib + k) * T % geo.ps;
+          const uint32_t kdst = ring_u32 + s * stage_bytes;
+          const uint32_t vdst = kdst + C::kBoxes * box_bytes;
+          unsigned char* sc = ring + s * stage_bytes + 2 * C::kBoxes * box_bytes;
+          mbar_wait(tc_empty(bars, s), ph);
+          if (lane == 0) {
+            const uint32_t full = tc_full(bars, s);
+            mbar_expect_tx(full, tx);
+#pragma unroll
+            for (int bx = 0; bx < C::kBoxes; ++bx) {
+              const int col = bx * (C::kSpan / (int)sizeof(KT));
+              vgt_sm90::tma_load_2d(kdst + bx * box_bytes, &kmap, full, col,
+                                    row);
+              vgt_sm90::tma_load_2d(vdst + bx * box_bytes, &vmap, full, col,
+                                    row);
+            }
+            if (C::kI8 && scale_bulk) {
+              bulk_load(smem_u32(sc), k_scale + row, 2 * T, full);
+              bulk_load(smem_u32(sc) + 2 * Tp, v_scale + row, 2 * T, full);
+            }
+          }
+          if (copied_scales) {  // a scale row of ps * 2 bytes: no bulk copy
+            __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(sc);
+            for (int j = lane; j < T; j += 32) {
+              sk[j] = k_scale[row + j];
+              sk[Tp + j] = v_scale[row + j];
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(tc_full(bars, s));
+          }
+          if (++s == geo.stages) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // the compute warps
+  setmaxnreg_inc<kComputeRegs>();
+  const int cw = warp - 4;  // compute warp
+  const int ctid = threadIdx.x - 128;
+  const int gr = lane >> 2;  // the fragments' row group
+  const int cq = lane & 3;   // and column pair
+  const int h0 = 2 * cq, h1 = 2 * cq + 1;  // this lane's two heads
+  // base 2 from the score on: the softcap folds log2 e after the tanh
+  const float qk_scale =
+      geo.softcap > 0.f ? geo.scale / geo.softcap : geo.scale * kLog2e;
+  const float cap_log2 = geo.softcap * kLog2e;
+  int gt = 0, qs = 0;  // tiles of earlier units; query buffer
+  uint32_t qph = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    int b, g, c;
+    unit_of(pre, geo.B, geo.KV, u, b, g, c);
+    const Slot sl = slot_of(geo, seq_lens, b);
+    const int i0 = sl.t0 + c * sl.ct;
+    const int n = min(sl.n, (c + 1) * sl.ct) - c * sl.ct;
+
+    // Q^T's B fragment: column gr is query head gr (0 past G), k step j
+    // reads hd 16 j + 2 cq and + 8 (bf16) or 16 j + 4 cq .. + 3 (int8)
+    uint32_t qf[C::kSteps][2];
+    mbar_wait(tc_qfull(bars, qs), qph);
+    {
+      const __nv_bfloat16* qh = qbuf + qs * 8 * HD + gr * HD;
+#pragma unroll
+      for (int j = 0; j < C::kSteps; ++j) {
+        if (gr < G) {
+          if constexpr (C::kI8) {
+            const uint2 w = *reinterpret_cast<const uint2*>(qh + 16 * j + 4 * cq);
+            qf[j][0] = w.x;
+            qf[j][1] = w.y;
+          } else {
+            qf[j][0] = *reinterpret_cast<const uint32_t*>(qh + 16 * j + 2 * cq);
+            qf[j][1] =
+                *reinterpret_cast<const uint32_t*>(qh + 16 * j + 8 + 2 * cq);
+          }
+        } else {
+          qf[j][0] = 0u;
+          qf[j][1] = 0u;
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(tc_qempty(bars, qs));
+    if (++qs == kQBufs) {
+      qs = 0;
+      qph ^= 1;
+    }
+
+    // this warp's state over its tiles of the unit: heads h0, h1
+    float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
+    float acc[C::kSteps][4];
+#pragma unroll
+    for (int i = 0; i < C::kSteps; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+    // tile k of the unit to warp k % 8.  A unit has at most `stages` tiles
+    // (the plan), so no two of its tiles share a stage: the round a warp
+    // waits for is the stage's next, never one phase further on.
+    for (int k = cw; k < n; k += kWarps) {
+      const int t = gt + k;  // the CTA's tile count: stage and phase
+      const int s = t % geo.stages;
+      mbar_wait(tc_full(bars, s), (uint32_t)(t / geo.stages) & 1u);
+      const int pos0 = (i0 + k) * T;
+      // the tile's live rows [ra, re), in whole m16 steps [sa, se)
+      const int ra = max(sl.lo - pos0, 0);
+      const int re = min(sl.sl - pos0, T);
+      const int sa = ra >> 4, se = (re + 15) >> 4;
+      const uint32_t kbox = ring_u32 + s * stage_bytes;
+      const uint32_t vbox = kbox + C::kBoxes * box_bytes;
+      const __nv_bfloat16* sk = reinterpret_cast<const __nv_bfloat16*>(
+          ring + s * stage_bytes + 2 * C::kBoxes * box_bytes);
+      bool zeroed = false;
+      if constexpr (!C::kI8) {
+        // stale bf16 V rows of the steps taken may hold NaN: zero them
+        const int z0 = sa * 16, z1 = min(se * 16, T);
+        if (ra > z0 || re < z1) {
+          unsigned char* vrow = ring + s * stage_bytes + C::kBoxes * box_bytes;
+          constexpr int kPer = C::kBoxes * C::kChunks;
+          for (int x = lane; x < (z1 - z0) * kPer; x += 32) {
+            const int r = z0 + x / kPer;
+            if (r >= ra && r < re) continue;
+            const int p = x % kPer;
+            *reinterpret_cast<uint4*>(vrow + (p / C::kChunks) * box_bytes +
+                                      r * C::kSpan + (p % C::kChunks) * 16) =
+                make_uint4(0, 0, 0, 0);
+          }
+          __syncwarp();
+          zeroed = true;
+        }
+      }
+      for (int sp = sa; sp < se; ++sp) {
+        const int r0 = sp * 16;
+        // S^T = K Q^T: tokens r0 + gr (s[0], s[1]) and r0 + gr + 8
+        // (s[2], s[3]), heads h0 and h1
+        float sacc[4] = {0.f, 0.f, 0.f, 0.f};
+        if constexpr (C::kI8) {
+#pragma unroll
+          for (int j = 0; j < C::kSteps; j += 2) {
+            uint32_t a[4], a2[4];
+            k_fragment<C>(kbox, box_bytes, r0, lane, j, a, a2);
+            mma_bf16(sacc, a, qf[j][0], qf[j][1]);
+            mma_bf16(sacc, a2, qf[j + 1][0], qf[j + 1][1]);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < C::kSteps; ++j) {
+            uint32_t a[4], unused[4];
+            k_fragment<C>(kbox, box_bytes, r0, lane, j, a, unused);
+            mma_bf16(sacc, a, qf[j][0], qf[j][1]);
+          }
+        }
+        const int ta = r0 + gr, tb = ta + 8;
+        const bool va = ta >= ra && ta < re;
+        const bool vb = tb >= ra && tb < re;
+        if constexpr (C::kI8) {  // K scale: before softcap and mask
+          const float ka = __bfloat162float(sk[ta]);
+          const float kb = __bfloat162float(sk[tb]);
+          sacc[0] *= ka;
+          sacc[1] *= ka;
+          sacc[2] *= kb;
+          sacc[3] *= kb;
+        }
+        float sc[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = geo.softcap > 0.f
+                              ? tanhf(sacc[e] * qk_scale) * cap_log2
+                              : sacc[e] * qk_scale;
+          sc[e] = (e < 2 ? va : vb) ? x : kNeg;
+        }
+        // the step's column max: the 8 lanes of a column pair hold its 16
+        // tokens
+        float mx0 = fmaxf(sc[0], sc[2]), mx1 = fmaxf(sc[1], sc[3]);
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+        }
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        const float al0 = ex2(m0 - mn0), al1 = ex2(m1 - mn1);
+        float p[4];
+        p[0] = va ? ex2(sc[0] - mn0) : 0.f;
+        p[1] = va ? ex2(sc[1] - mn1) : 0.f;
+        p[2] = vb ? ex2(sc[2] - mn0) : 0.f;
+        p[3] = vb ? ex2(sc[3] - mn1) : 0.f;
+        l0 = l0 * al0 + p[0] + p[2];  // the unweighted p
+        l1 = l1 * al1 + p[1] + p[3];
+        m0 = mn0;
+        m1 = mn1;
+        if constexpr (C::kI8) {  // V scale: into p, selected, never 0 x NaN
+          const float va_s = __bfloat162float(sk[Tp + ta]);
+          const float vb_s = __bfloat162float(sk[Tp + tb]);
+          p[0] = va ? p[0] * va_s : 0.f;
+          p[1] = va ? p[1] * va_s : 0.f;
+          p[2] = vb ? p[2] * vb_s : 0.f;
+          p[3] = vb ? p[3] * vb_s : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < C::kSteps; ++i) {
+          acc[i][0] *= al0;
+          acc[i][1] *= al1;
+          acc[i][2] *= al0;
+          acc[i][3] *= al1;
+        }
+        // P^T's B fragment: the accumulator's token rows, transposed
+        const uint32_t pb0 = movmatrix_trans(vgt_sm90::pack_bf16(p[0], p[1]));
+        const uint32_t pb1 = movmatrix_trans(vgt_sm90::pack_bf16(p[2], p[3]));
+        if constexpr (C::kI8) {
+#pragma unroll
+          for (int i = 0; i < C::kSteps; i += 2) {
+            uint32_t a[4], a2[4];
+            v_fragment<C>(vbox, box_bytes, r0, lane, i, a, a2);
+            mma_bf16(acc[i], a, pb0, pb1);
+            mma_bf16(acc[i + 1], a2, pb0, pb1);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < C::kSteps; ++i) {
+            uint32_t a[4], unused[4];
+            v_fragment<C>(vbox, box_bytes, r0, lane, i, a, unused);
+            mma_bf16(acc[i], a, pb0, pb1);
+          }
+        }
+      }
+      // the zeroing's generic writes before the next copy's into the stage
+      if (zeroed) vgt_sm90::fence_async_smem();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(tc_empty(bars, s));
+    }
+    gt += n;
+
+    // l over the 8 lanes of each column pair; the state into shared memory
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, o);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, o);
+    }
+    float* mw = mbuf + cw * G * kMS;
+    if (gr == 0) {
+      if (h0 < G) {
+        mw[h0 * kMS] = m0;
+        mw[h0 * kMS + 1] = l0;
+      }
+      if (h1 < G) {
+        mw[h1 * kMS] = m1;
+        mw[h1 * kMS + 1] = l1;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < C::kSteps; ++i) {
+      const int da = out_row<C>(i, gr, false), db = out_row<C>(i, gr, true);
+      if (h0 < G) {
+        mw[h0 * kMS + 2 + da] = acc[i][0];
+        mw[h0 * kMS + 2 + db] = acc[i][2];
+      }
+      if (h1 < G) {
+        mw[h1 * kMS + 2 + da] = acc[i][1];
+        mw[h1 * kMS + 2 + db] = acc[i][3];
+      }
+    }
+    vgt_sm90::bar_sync(1, kWarps * 32);
+    // merge the warps, in warp order: a thread a head turns each warp's m
+    // into its factor 2^(m_w - m_all) in place and sums l; then each
+    // output sums the warps' acc with those factors.  One chunk: the
+    // output, else the chunk's partial.
+    const bool direct = sl.chunks == 1;
+    const size_t part = (((size_t)b * geo.KV + g) * geo.max_chunks + c) * G;
+    if (ctid < G) {
+      const int h = ctid;
+      float m_all = kNeg;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w)
+        m_all = fmaxf(m_all, mbuf[(w * G + h) * kMS]);
+      float l_all = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        float* ws = mbuf + (w * G + h) * kMS;
+        const float f = ex2(ws[0] - m_all);
+        l_all += ws[1] * f;
+        ws[0] = f;
+      }
+      if (direct) {
+        mbuf[h * kMS + 1] = fmaxf(l_all, 1e-30f);  // warp 0's l: the divisor
+      } else {
+        ws_ml[(part + h) * 2] = m_all;
+        ws_ml[(part + h) * 2 + 1] = l_all;
+      }
+    }
+    vgt_sm90::bar_sync(1, kWarps * 32);
+    for (int idx = ctid; idx < G * HD; idx += kWarps * 32) {
+      const int h = idx / HD;
+      const int d = idx % HD;
+      float a_all = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float* ws = mbuf + (w * G + h) * kMS;
+        a_all += ws[2 + d] * ws[0];
+      }
+      if (direct)
+        out[((size_t)b * geo.H + g * G + h) * HD + d] =
+            __float2bfloat16(a_all / mbuf[h * kMS + 1]);
+      else
+        ws_acc[(part + h) * HD + d] = a_all;
+    }
+    vgt_sm90::bar_sync(1, kWarps * 32);  // mbuf is reused
+  }
+}
+
+template <typename KT, int HD>
+cudaError_t tc_launch(const Geo& geo, const void* q, const void* k,
+                      const void* v, const void* ks, const void* vs,
+                      const int* pt, const int* sl, void* out, float* ws,
+                      int grid, int scale_bulk, cudaStream_t stream) {
+  using C = TcCfg<KT, HD>;
+  const int Tp = (geo.tile_rows + 15) / 16 * 16;
+  const size_t smem = tc_smem_bytes(
+      HD, tc_stage_bytes(C::kSpan, C::kBoxes, C::kI8, Tp), geo.stages, geo.G,
+      geo.B);
+  if (smem > (size_t)kMaxSmem ||
+      sizeof(float) * merge_smem_floats(geo.G, geo.max_chunks) >
+          (size_t)kMaxSmem)
+    return cudaErrorInvalidValue;
+  CUtensorMap km, vm;
+  const CUtensorMapDataType type = C::kI8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                                          : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle swizzle = C::kSpan == 128
+                                         ? CU_TENSOR_MAP_SWIZZLE_128B
+                                         : CU_TENSOR_MAP_SWIZZLE_64B;
+  const int rows = geo.KV * geo.P * geo.ps;
+  const int box_cols = C::kSpan / (int)sizeof(KT);
+  if (!vgt_sm90::cached_map(&km, type, swizzle, k, rows, HD, sizeof(KT),
+                            geo.tile_rows, box_cols) ||
+      !vgt_sm90::cached_map(&vm, type, swizzle, v, rows, HD, sizeof(KT),
+                            geo.tile_rows, box_cols))
+    return cudaErrorInvalidValue;
+  auto kern = paged_decode_tc_kernel<KT, HD>;
+  static bool configured = false;  // once per instantiation
+  if (!configured) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  float* ws_ml = ws;
+  float* ws_acc =
+      ws ? ws + (size_t)geo.B * geo.KV * geo.max_chunks * geo.G * 2 : nullptr;
+  using bf16 = __nv_bfloat16;
+  kern<<<grid, kThreads, smem, stream>>>(
+      km, vm, static_cast<const bf16*>(q), static_cast<const bf16*>(ks),
+      static_cast<const bf16*>(vs), pt, sl, static_cast<bf16*>(out), ws_ml,
+      ws_acc, geo, scale_bulk);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || geo.max_chunks == 1) return err;
+  static bool merge_configured = false;
+  if (!merge_configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        tc_merge_kernel<bf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kMaxSmem);
+    if (e != cudaSuccess) return e;
+    merge_configured = true;
+  }
+  tc_merge_kernel<bf16><<<dim3(geo.B, geo.KV), kMergeThreads,
+                          sizeof(float) *
+                              merge_smem_floats(geo.G, geo.max_chunks),
+                          stream>>>(ws_ml, ws_acc, sl, static_cast<bf16*>(out),
+                                    HD, geo);
+  return cudaGetLastError();
+}
+
+template <typename KT>
+cudaError_t tc_dispatch(int hd, const Geo& geo, const void* q, const void* k,
+                        const void* v, const void* ks, const void* vs,
+                        const int* pt, const int* sl, void* out, float* ws,
+                        int grid, int scale_bulk, cudaStream_t stream) {
+  switch (hd) {
+    case 64:
+      return tc_launch<KT, 64>(geo, q, k, v, ks, vs, pt, sl, out, ws, grid,
+                               scale_bulk, stream);
+    case 128:
+      return tc_launch<KT, 128>(geo, q, k, v, ks, vs, pt, sl, out, ws,
+                                grid, scale_bulk, stream);
+    case 256:
+      return tc_launch<KT, 256>(geo, q, k, v, ks, vs, pt, sl, out, ws,
+                                grid, scale_bulk, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace split
 
 }  // namespace
 
-// K1: one CTA per (slot, kv head).  dtype: 0 = bf16, 1 = f32
-extern "C" int vgt_paged_decode(const void* q, const void* k_pages,
-                                const void* v_pages, const void* page_tables,
-                                const void* seq_lens, void* out, int B, int H,
-                                int KV, int P, int ps, int pps, int hd,
-                                int window, float scale, float softcap,
-                                int dtype, void* stream) {
-  const Args a{q, k_pages, v_pages, nullptr, nullptr,
-               static_cast<const int*>(page_tables),
-               static_cast<const int*>(seq_lens), out, B, H, KV, P, ps, pps,
-               window, 1, scale, softcap, static_cast<cudaStream_t>(stream)};
-  return dispatch_plain(a, hd, dtype);
-}
+// K1's call shape and plan, packed once per call shape by the wrapper
+// (ops/kernels/paged_decode.py DecodeArgs), so a call passes pointers only
+struct DecodeArgs {
+  int B, H, KV, P, ps, pps, hd, window;
+  float scale, softcap;
+  int tile_rows, stages, chunk_tiles, max_chunks, grid, int8, scale_bulk;
+};
 
-// K1's int8 mode: int8 pools [KV, P, ps, hd] with bf16 scale pools
-// [KV, P, ps]; q and the output bf16
-extern "C" int vgt_paged_decode_int8(const void* q, const void* k_pages,
-                                     const void* v_pages, const void* k_scale,
-                                     const void* v_scale,
-                                     const void* page_tables,
-                                     const void* seq_lens, void* out, int B,
-                                     int H, int KV, int P, int ps, int pps,
-                                     int hd, int window, float scale,
-                                     float softcap, void* stream) {
-  const Args a{q, k_pages, v_pages, k_scale, v_scale,
-               static_cast<const int*>(page_tables),
-               static_cast<const int*>(seq_lens), out, B, H, KV, P, ps, pps,
-               window, 1, scale, softcap, static_cast<cudaStream_t>(stream)};
-  return dispatch<__nv_bfloat16, int8_t>(a, hd);
+// K1: the tensor-core page-split decode on bf16 pools (int8 0) or on int8
+// pools with bf16 scale pools [KV, P, ps] (int8 1); q and the output bf16.
+// The plan (ops/kernels/paged_decode.py decode_plan): tile_rows divides ps
+// (at most 256), 2 <= stages <= 12, 1 <= chunk_tiles <= stages (a unit's
+// tiles each in a stage of their own), max_chunks >= 1, grid CTAs; ws
+// holds B * KV * max_chunks * G * (hd + 2) floats when max_chunks > 1
+// (else unused); scale_bulk: scale rows by bulk copy where the scale pools
+// lie on 16 bytes (tile_rows and ps multiples of 8).
+extern "C" int vgt_paged_decode(const void* q, const void* k_pages,
+                                const void* v_pages, const void* k_scale,
+                                const void* v_scale, const void* page_tables,
+                                const void* seq_lens, void* out, void* ws,
+                                const DecodeArgs* a, void* stream) {
+  if (a->B == 0) return cudaSuccess;
+  if (a->KV < 1 || a->H % a->KV || a->H / a->KV > 8 || a->tile_rows < 1 ||
+      a->tile_rows > 256 || a->ps % a->tile_rows || a->stages < 2 ||
+      a->stages > split::kTcStages || a->chunk_tiles < 1 ||
+      a->chunk_tiles > a->stages || a->max_chunks < 1 || a->grid < 1 ||
+      (a->max_chunks > 1 && ws == nullptr) ||
+      (a->int8 && (k_scale == nullptr || v_scale == nullptr)) ||
+      (a->scale_bulk && (a->tile_rows % 8 || a->ps % 8)))
+    return cudaErrorInvalidValue;
+  const split::Geo geo{a->B, a->H, a->KV, a->P, a->ps, a->pps, a->H / a->KV,
+                       a->window, a->scale, a->softcap, 1, a->tile_rows,
+                       a->stages, a->chunk_tiles, a->max_chunks};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* pt = static_cast<const int*>(page_tables);
+  const int* sl = static_cast<const int*>(seq_lens);
+  float* w = static_cast<float*>(ws);
+  if (a->int8) {
+    const int bulk = a->scale_bulk &&
+                     reinterpret_cast<uintptr_t>(k_scale) % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(v_scale) % 16 == 0;
+    return split::tc_dispatch<int8_t>(a->hd, geo, q, k_pages, v_pages,
+                                      k_scale, v_scale, pt, sl, out, w,
+                                      a->grid, bulk, s);
+  }
+  return split::tc_dispatch<__nv_bfloat16>(a->hd, geo, q, k_pages, v_pages,
+                                           nullptr, nullptr, pt, sl, out, w,
+                                           a->grid, 0, s);
 }
 
 // K6: the page-split decode (block_slots must divide B; 1 < G <= 8 query
