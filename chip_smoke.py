@@ -20,10 +20,17 @@ K1, then through K6 (``decode_block_slots`` 8), each serving the burst,
 a 4,600-token chunked document beside 7 short requests and a second
 turn that hits the document's pages; counting the kernel launches of
 each run; (4) checks the served output, the prefix-cache counters, the
-exact launch counts of the quantized and the Gemma runs and the model's
-logits (prompt pass, decode step, suffix passes aligned and
-copy-on-write; for Gemma a chunked document and a decode step past the
-window) against a plain full-sequence forward.  It prints the card's
+exact launch counts of the main path, the quantized and the Gemma runs,
+that every decode chunk of every phase was the replay of a captured
+CUDA graph, and the model's logits (prompt pass, decode step, suffix
+passes aligned and copy-on-write; for Gemma a chunked document and a
+decode step past the window) against a plain full-sequence forward;
+(5) in the first phase, serves a request with logprobs (top 5) and
+holds its prompt-pass and decode-step logprobs to the log-softmax of
+the plain forward, and serves the burst once more on the same engine
+with the chunk body run eagerly (every row must repeat), profiling a
+warm burst each way.  Each phase prints the graphs it captured, their
+capture time and their memory pool's bytes.  It prints the card's
 name and power limit, one JSON line of per-kernel numbers and, last,
 ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero; without a CUDA card it exits non-zero
@@ -1484,6 +1491,69 @@ def check_suffix_logits(core, text: str) -> dict:
     return compare.report
 
 
+# served logprobs vs the log-softmax of a plain forward's logits: at
+# least this (about one bf16 step of a logprob near -1), and at least 3x
+# the two plain forwards' difference at the compared ids (the rule of
+# LogitsCheck, restricted to those ids)
+LOGPROB_TOL = 1e-2
+
+
+def check_logprobs(engine, core, text: str) -> dict:
+    """A greedy request with ``logprobs`` and ``top_logprobs`` 5 through
+    ``VGTEngine``: the prompt pass's first token and one decode step (a
+    graph replay on the card).  Each position's chosen logprob and top 5
+    (ids and logprobs) are held to the log-softmax of a plain
+    full-sequence forward's logits (``LogitsCheck``): the served top
+    ids are the plain top 5 wherever the plain logprobs are further
+    apart than the tolerance (a near-tie may go either way), and every
+    served logprob is within the tolerance of the plain one at its id."""
+    from vgate_tpu_torch.backends.base import SamplingParams
+
+    sp = SamplingParams(max_tokens=2, temperature=0.0, logprobs=True,
+                        top_logprobs=5)
+    [r] = engine.generate_batch([text], [sp])
+    check(r.logprobs is not None and len(r.logprobs) == r.num_tokens == 2,
+          f"logprobs: {r.logprobs!r} for {r.num_tokens} tokens")
+    seq = prompt_tokens(core, text)
+    compare = LogitsCheck(core)
+    report = {}
+    for i, (what, entry) in enumerate(zip(("prefill", "decode"),
+                                          r.logprobs)):
+        ctx = seq if i == 0 else torch.cat(
+            [seq, torch.tensor([[r.token_ids[0]]], dtype=seq.dtype,
+                               device=seq.device)], 1)
+        with torch.no_grad():
+            ref, alt = compare._plain(ctx, None)
+        plain = torch.log_softmax(ref.float(), -1)[0]
+        other = torch.log_softmax(alt.float(), -1)[0]
+        ids = [e["token_id"] for e in entry["top_logprobs"]]
+        lps = torch.tensor([e["logprob"] for e in entry["top_logprobs"]])
+        top = plain.topk(6)
+        plain_ids, plain_top = top.indices.tolist(), top.values.cpu()
+        compared = torch.tensor(sorted(set(ids + plain_ids)),
+                                device=plain.device)
+        floor = float((other - plain)[compared].abs().max())
+        tol = max(LOGPROB_TOL, 3 * floor)
+        at_ids = plain[torch.tensor(ids, device=plain.device)].cpu()
+        err = {
+            "chosen": abs(entry["logprob"] - float(plain[entry["token_id"]])),
+            "top": float((lps - at_ids).abs().max()),
+            "top_sorted": float((lps - plain_top[:5]).abs().max()),
+        }
+        gaps = (plain_top[:-1] - plain_top[1:]).tolist()
+        # position j may differ only inside a near-tie with a neighbour
+        id_ok = all(a == b or gaps[j] <= tol or (j and gaps[j - 1] <= tol)
+                    for j, (a, b) in enumerate(zip(ids, plain_ids)))
+        report[what] = {"max_abs_err": err, "plain_vs_plain": floor,
+                        "tol": tol, "ids": ids,
+                        "plain_ids": plain_ids[:5], "ids_match": id_ok}
+        check(len(ids) == 5 and entry["token_id"] == r.token_ids[i],
+              f"{what} logprob entry {entry}")
+        check(max(err.values()) <= tol and id_ok,
+              f"{what} logprobs off the plain forward's: {report[what]}")
+    return report
+
+
 def serve(engine, batch) -> tuple:
     t0 = time.perf_counter()
     results = engine.generate_batch(*batch)
@@ -1500,25 +1570,32 @@ def serve(engine, batch) -> tuple:
     }
 
 
-def profile_burst(engine, batch) -> dict:
+def profile_burst(engine, batch, core) -> dict:
     """Where the time goes in one warm burst: the device's busy share
-    (kernel time over wall time; one stream, so kernels do not overlap)
-    and the kernels that take the most device time, from torch.profiler
-    (CUPTI sees the engine thread's launches too)."""
+    (kernel time over wall time; one stream, so kernels do not overlap),
+    its device ops over the decode steps ``core`` ran (prompt passes
+    included), and the kernels that take the most device time, from
+    torch.profiler (CUPTI sees the engine thread's launches, and each
+    kernel node of a graph replay)."""
     from torch.profiler import ProfilerActivity, profile
 
+    steps0 = core.get_stats()["steps"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.generate_batch(*batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    steps = core.get_stats()["steps"] - steps0
     kernels = {}
+    graph_launches = 0
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             entry = kernels.setdefault(evt.name, [0, 0.0])
             entry[0] += 1
             entry[1] += evt.device_time_total / 1e3  # ms
+        elif evt.name == "cudaGraphLaunch":
+            graph_launches += 1
     busy_ms = sum(ms for _, ms in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     groups = {}
@@ -1533,6 +1610,11 @@ def profile_burst(engine, batch) -> dict:
         "device_busy_ms": busy_ms,
         "device_busy_share": busy_ms / (wall * 1e3),
         "device_ops": sum(n for n, _ in kernels.values()),
+        "decode_steps": steps,
+        "device_ops_per_step": sum(n for n, _ in kernels.values()) / steps,
+        # decode chunks replayed as graphs (their kernels are counted by
+        # name above, as CUPTI reports each node)
+        "graph_launches": graph_launches,
         "top": [{"name": name[:90], "count": n, "ms": ms}
                 for name, (n, ms) in top],
         "groups": groups,
@@ -1604,6 +1686,19 @@ def check_results(results, core, max_tokens: int = 32) -> None:
                   f"length finish before {max_tokens} tokens")
         check(all(0 <= t < core.spec.vocab_size for t in r.token_ids),
               "token id out of vocabulary")
+
+
+def check_graphed(stats: dict, what: str, since=None) -> None:
+    """Every decode chunk the engine dispatched (since the stats
+    ``since``) was the replay of a captured graph."""
+    g = stats["decode_graphs"]
+    chunks, replays = stats["chunks"], g["replays"]
+    if since is not None:
+        chunks -= since["chunks"]
+        replays -= since["decode_graphs"]["replays"]
+    check(g["enabled"] and g["captured"] >= 1 and chunks > 0
+          and replays == chunks,
+          f"{what}: {replays} graph replays for {chunks} decode chunks")
 
 
 def check_settled(core) -> dict:
@@ -1683,12 +1778,22 @@ def main_path(model: str = MODEL, device: str = "cuda",
                                  top_k=50, seed=1234)
         batch = (texts + [texts[3]], greedy + [sampled])
         reset_launches()
+        stats0 = core.get_stats()
         results, cold = serve(engine, batch)
         launches = read_launches()
+        stats = core.get_stats()
         if device == "cuda":
-            for name in ("paged_decode_attention", "flash_prefill_attention"):
-                check(launches[name] > 0,
-                      f"{name} was not launched on the main path")
+            # every decode step replays K1 once a layer (a graph replay
+            # counts its capture's launches), every prompt pass K2
+            L = core.spec.num_layers
+            steps = stats["steps"] - stats0["steps"]
+            passes = stats["prompt_passes"] - stats0["prompt_passes"]
+            for name, n in (("paged_decode_attention", steps),
+                            ("flash_prefill_attention", passes)):
+                check(n > 0 and launches[name] == L * n,
+                      f"{name}: {launches[name]} launches for {n} passes "
+                      f"of {L} layers on the main path")
+            check_graphed(stats, "the main path", since=stats0)
         check_results(results, core)
         # the same batch again (same bucket groups, so the same matmul
         # shapes): greedy rows and the seeded sampled row must repeat
@@ -1696,7 +1801,20 @@ def main_path(model: str = MODEL, device: str = "cuda",
         for a, b in zip(results, again):
             check(a.token_ids == b.token_ids,
                   "tokens differ between two identical runs")
-        profile = profile_burst(engine, batch) if device == "cuda" else None
+        logprobs = check_logprobs(engine, core, texts[2])
+        profiles = None
+        if device == "cuda":
+            # the same engine with the same chunk body run eagerly: every
+            # row (8 greedy, 1 seeded) must repeat; then a warm burst each
+            # way under the profiler, in one call
+            core.decode_graphs = False
+            eager, _ = serve(engine, batch)
+            for a, b in zip(results, eager):
+                check(a.token_ids == b.token_ids,
+                      "the eager burst differs from the graphed burst")
+            profiles = {"eager": profile_burst(engine, batch, core)}
+            core.decode_graphs = True
+            profiles["graphed"] = profile_burst(engine, batch, core)
         reference = engine.generate_batch(
             list(reference_prompts), greedy[:1] * len(reference_prompts)
         )
@@ -1708,7 +1826,9 @@ def main_path(model: str = MODEL, device: str = "cuda",
             "cold": cold,
             "warm": warm,
             "logits": check_model_logits(core, texts[2]),
-            "profile": profile,
+            "logprobs": logprobs,
+            "decode_graphs": core.get_stats()["decode_graphs"],
+            "profile": profiles,
             "launches": launches,
             "reference_streams": [r.token_ids for r in reference],
             "burst_streams": [r.token_ids for r in results],
@@ -1756,6 +1876,7 @@ def prefix_path(model: str = MODEL, device: str = "cuda",
         stats = check_settled(core)
         pc = stats["prefix_cache"]
         if device == "cuda":
+            check_graphed(stats, "the prefix path")
             # every prompt here is a hit or chunked, so K2 need not run
             for name in ("paged_decode_attention", "paged_multitok_attention"):
                 check(launches[name] > 0,
@@ -1774,6 +1895,7 @@ def prefix_path(model: str = MODEL, device: str = "cuda",
             "agreement_with_prefix_off": agreement(
                 [r.token_ids for r in results], reference_streams
             ) if reference_streams else None,
+            "decode_graphs": stats["decode_graphs"],
             "launches": launches,
             "logits": check_suffix_logits(core, system + tails[0]),
         }
@@ -1908,6 +2030,7 @@ def quant_path(quantization: str, model: str = MODEL, device: str = "cuda",
         check_results(served, core)
         stats = check_settled(core)
         if device == "cuda":  # no kernel runs on the CPU
+            check_graphed(stats, f"the {quantization} phase")
             out["launch_counts"] = check_quant_launches(
                 launches, stats["steps"], bits, core.spec.num_layers)
             if with_prefix_traffic:
@@ -1925,6 +2048,7 @@ def quant_path(quantization: str, model: str = MODEL, device: str = "cuda",
             "prefix_cache": pc,
             "kv_pages": stats["kv_pages_total"],
             "kv_token_capacity": stats["kv_token_capacity"],
+            "decode_graphs": stats["decode_graphs"],
             "launches": launches,
         })
         if bf16_streams:
@@ -1951,7 +2075,7 @@ def quant_path(quantization: str, model: str = MODEL, device: str = "cuda",
         repeat = again_engine(again).generate_batch(*batch)
         if device == "cuda":
             # where the time goes in a warm burst (its prompts now hit)
-            out["profile"] = profile_burst(again_engine(again), batch)
+            out["profile"] = profile_burst(again_engine(again), batch, again)
     finally:
         again.stop()
     for a, b in zip(results, repeat):
@@ -2108,6 +2232,7 @@ def gemma_path(block_slots: int, model: str = GEMMA, device: str = "cuda",
         L = core.spec.num_layers
         steps, passes = stats["steps"], stats["prompt_passes"]
         if device == "cuda":  # no kernel runs on the CPU
+            check_graphed(stats, what)
             mine, other = ("paged_decode_attention_blocked",
                            "paged_decode_attention")
             if block_slots == 1:
@@ -2135,6 +2260,7 @@ def gemma_path(block_slots: int, model: str = GEMMA, device: str = "cuda",
             "prefix_cache": pc,
             "finish": [r.finish_reason for r in burst + wave]
             + [turn2.finish_reason],
+            "decode_graphs": stats["decode_graphs"],
             "launches": launches,
             "first_tokens": [r.token_ids[0] for r in burst + wave]
             + [turn2.generated_ids[0]],
@@ -2142,7 +2268,7 @@ def gemma_path(block_slots: int, model: str = GEMMA, device: str = "cuda",
             + [list(turn2.generated_ids)],
         })
         if device == "cuda":
-            out["profile"] = profile_burst(engine, batch)
+            out["profile"] = profile_burst(engine, batch, core)
             check_settled(core)
         out["logits"] = check_model_logits(core, texts[2])
         out["logits"].update(check_long_logits(core, doc))
@@ -2178,7 +2304,10 @@ def print_profile(what: str, card: str, profile: dict) -> None:
     print(f"profile of {what} on {card}: busy "
           f"{profile['device_busy_ms']:.1f} of {profile['wall_ms']:.1f} ms "
           f"wall ({100 * profile['device_busy_share']:.1f} %), "
-          f"{profile['device_ops']} device ops", flush=True)
+          f"{profile['device_ops']} device ops "
+          f"({profile['device_ops_per_step']:.0f} a decode step over "
+          f"{profile['decode_steps']}), {profile['graph_launches']} graph "
+          "launches", flush=True)
     for t in profile["top"]:
         print(f"  {t['ms']:9.2f} ms  {t['count']:6d}x  {t['name']}")
     for group, t in profile["groups"].items():
@@ -2241,9 +2370,12 @@ def main() -> None:
     )
     reference_streams = served.pop("reference_streams")
     bf16_burst = served.pop("burst_streams")
-    profile = served.pop("profile")
+    profiles = served.pop("profile")
     print(f"main path on {card}: " + json.dumps(served), flush=True)
-    print_profile("one warm burst", card, profile)
+    # the same warm burst on one engine: each decode chunk eager, then
+    # each a graph replay
+    for how, profile in profiles.items():
+        print_profile(f"one warm burst, {how} decode chunks", card, profile)
     # each engine's pools were sized from free memory: release them
     # before the next engine sizes its own
     gc.collect()

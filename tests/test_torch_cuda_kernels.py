@@ -720,3 +720,211 @@ def test_k1_tensor_core_split_on_card(cuda, case):
     torch.testing.assert_close(got.float()[live], expect[live],
                                atol=KERNEL_TOL, rtol=KERNEL_TOL)
 
+
+
+# ------------------------------------------------------- decode graphs
+
+# tiny-dense widened to a head dim the kernels take (K1 and K2: 64, 128,
+# 256; K4: widths in 64s): 2 layers, 4 query heads on 2 kv heads
+CARD_SPEC = dict(hidden_size=256, num_heads=4, num_kv_heads=2,
+                 head_dim=64, intermediate_size=256)
+
+
+def _card_engine(kv_dtype="auto", block_slots=1, quantization=None,
+                 decode_graphs=True):
+    import dataclasses
+
+    from vgate_tpu_torch.config import load_config
+    from vgate_tpu_torch.models.specs import TINY_DENSE
+    from vgate_tpu_torch.runtime.engine_core import EngineCore
+
+    cfg = load_config(
+        model={"model_id": "tiny-dense", "dtype": "bfloat16",
+               "max_model_len": 256, "quantization": quantization},
+        kv_cache={"dtype": kv_dtype},
+        device={"device": "cuda", "kv_page_size": 16, "kv_num_pages": 96,
+                "max_batch_slots": 4, "prefill_buckets": [32, 64, 128],
+                "prefix_cache": False, "decode_block_slots": block_slots},
+        logging={"level": "WARNING"},
+    )
+    return EngineCore(cfg, spec=dataclasses.replace(TINY_DENSE, **CARD_SPEC),
+                      decode_graphs=decode_graphs)
+
+
+def _drive(core, requests):
+    """Queue every request, then drive the engine's tick (no thread)."""
+    from vgate_tpu_torch.backends.base import SamplingParams
+
+    seqs = [core.submit_tokens(list(p), SamplingParams(**kw))
+            for p, kw in requests]
+    for _ in range(10_000):
+        if all(s.done_event.is_set() for s in seqs):
+            break
+        core._tick()
+    assert all(s.done_event.is_set() for s in seqs)
+    torch.cuda.synchronize()
+    return seqs
+
+
+def _card_requests(seed, logprobs=True):
+    """Six requests on four slots: greedy ones of 9..20 tokens, a seeded
+    sampled one, and (with ``logprobs``) a greedy one asking for the top
+    5 logprobs."""
+    rng = np.random.default_rng(seed)
+    prompt = lambda n: rng.integers(3, 500, size=n).tolist()  # noqa: E731
+    greedy = dict(temperature=0.0)
+    reqs = [(prompt(5), dict(max_tokens=20, **greedy)),
+            (prompt(40), dict(max_tokens=13, **greedy)),
+            (prompt(17), dict(max_tokens=9, **greedy)),
+            (prompt(90), dict(max_tokens=17, temperature=0.8, top_p=0.9,
+                              seed=11)),
+            (prompt(3), dict(max_tokens=11, **greedy))]
+    if logprobs:
+        reqs.append((prompt(25), dict(max_tokens=15, logprobs=True,
+                                      top_logprobs=5, **greedy)))
+    return reqs
+
+
+DECODE_WRAPPERS = {
+    "K1": paged_decode.paged_decode_attention,
+    "K1-int8": paged_decode.paged_decode_attention_int8,
+    "K6": paged_decode.paged_decode_attention_blocked,
+    "K4": quant_matmul.int8_matmul,
+    "K5": quant_matmul.int4_matmul,
+    "K2": flash_prefill.flash_prefill_attention,
+}
+
+
+def _served(core, requests, decode: str, quantized: bool):
+    """Serve ``requests``; check the launches of every decode kernel and
+    K2 are exact for the steps and prompt passes the engine counted."""
+    before = {k: w.launches for k, w in DECODE_WRAPPERS.items()}
+    stats0 = core.get_stats()
+    seqs = _drive(core, requests)
+    stats = core.get_stats()
+    steps = stats["steps"] - stats0["steps"]
+    passes = stats["prompt_passes"] - stats0["prompt_passes"]
+    L = core.spec.num_layers
+    got = {k: w.launches - before[k] for k, w in DECODE_WRAPPERS.items()}
+    expect = {k: 0 for k in got}
+    expect[decode] = L * steps
+    expect["K2"] = L * passes
+    if quantized:
+        expect["K4"] = (7 * L + 1) * (steps + passes)
+    assert steps > 0 and got == expect
+    assert stats["used_pages"] == 0
+    return seqs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype,block_slots,quantization,decode", [
+    ("auto", 1, None, "K1"),
+    ("int8", 1, None, "K1-int8"),
+    ("auto", 2, None, "K6"),
+    ("int8", 2, None, "K1-int8"),  # K6 takes no int8 pools
+    ("int8", 1, "int8", "K1-int8"),
+])
+def test_decode_graphs_match_the_eager_chunk_on_card(
+        cuda, kv_dtype, block_slots, quantization, decode):
+    """One engine serves the same requests with each chunk a graph
+    replay, then with the same body eager: the greedy rows, the seeded
+    sampled row and the logprobs row's top ids are identical, and every
+    run's launch counts are exact (a replay counts its capture's
+    launches; the warm-up and the capture count none)."""
+    core = _card_engine(kv_dtype, block_slots, quantization)
+    requests = _card_requests(block_slots + len(kv_dtype))
+    runs = {}
+    try:
+        for graphs in (True, False):
+            core.decode_graphs = graphs
+            runs[graphs] = _served(core, requests, decode,
+                                   quantization is not None)
+        assert core.get_stats()["decode_graphs"]["captured"] >= 1
+    finally:
+        core.stop()
+    for g, e in zip(runs[True], runs[False]):
+        assert g.generated_ids == e.generated_ids
+    g, e = runs[True][-1], runs[False][-1]
+    assert [[i for i, _ in t] for _, t in g.logprob_data] == [
+        [i for i, _ in t] for _, t in e.logprob_data]
+    np.testing.assert_allclose([lp for lp, _ in g.logprob_data],
+                               [lp for lp, _ in e.logprob_data],
+                               atol=KERNEL_TOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_decode_graph_keys_replay_in_turns_on_card(cuda):
+    """An all-greedy wave captures its keys, a wave with a logprobs row
+    captures others; replayed in turns, both waves repeat every token and
+    logprob, and nothing is captured again."""
+    core = _card_engine()
+    greedy = _card_requests(5, logprobs=False)[:3] + _card_requests(
+        5, logprobs=False)[4:]
+    mixed = _card_requests(6)
+    try:
+        first = [_served(core, greedy, "K1", False)]
+        n_greedy = core.get_stats()["decode_graphs"]["captured"]
+        first.append(_served(core, mixed, "K1", False))
+        captured = core.get_stats()["decode_graphs"]["captured"]
+        assert captured > n_greedy >= 1
+        for _ in range(2):
+            for wave, reqs in zip(first, (greedy, mixed)):
+                again = _served(core, reqs, "K1", False)
+                for a, b in zip(wave, again):
+                    assert a.generated_ids == b.generated_ids
+                    assert a.logprob_data == b.logprob_data
+        assert core.get_stats()["decode_graphs"]["captured"] == captured
+    finally:
+        core.stop()
+
+
+@pytest.mark.cuda
+def test_workspace_refuses_to_grow_during_a_capture(cuda):
+    """The kernels' shared scratch is sized before a capture; a call that
+    would grow it inside one raises (the graph would keep addressing the
+    freed block)."""
+    from vgate_tpu_torch.ops.kernels import _build
+
+    stream = torch.cuda.Stream()
+    handle = stream.cuda_stream
+    sized = _build.workspace(cuda, handle, 1024)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        assert _build.workspace(cuda, handle, 512) is sized
+        sized.zero_()
+        with pytest.raises(RuntimeError, match="during a CUDA graph capture"):
+            _build.workspace(cuda, handle, 1 << 20)
+    assert _build.workspace(cuda, handle, 1 << 20).numel() == 1 << 20
+
+
+@pytest.mark.cuda
+def test_graph_replays_draw_new_noise_from_the_engine_generator(cuda):
+    """The capture registers the sampling generator with each graph: every
+    replay draws new noise (as eager calls do), the same seed replays the
+    same sequence, and eager draws between replays still advance it."""
+    from vgate_tpu_torch.runtime.decode_graph import CudaCapture
+
+    def draws(seed):
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(seed)
+        out = torch.zeros(4, device=cuda, dtype=torch.float64)
+
+        def body():
+            out.copy_(torch.rand(4, generator=gen, device=cuda,
+                                 dtype=torch.float64))
+
+        cap = CudaCapture(cuda, gen)
+        cap.warmup(body)
+        graph = cap.capture(body)
+        seen = []
+        for i in range(3):
+            graph.replay()
+            seen.append(out.clone())
+            if i == 1:
+                seen.append(torch.rand(4, generator=gen, device=cuda,
+                                       dtype=torch.float64))
+        return torch.stack(seen).cpu()
+
+    a = draws(1)
+    assert len({tuple(r.tolist()) for r in a}) == len(a)
+    torch.testing.assert_close(a, draws(1), atol=0, rtol=0)

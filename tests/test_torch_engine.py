@@ -8,7 +8,6 @@ and for a tight pool that forces preemption; no page may leak.
 """
 
 import numpy as np
-import pytest
 import torch
 
 import jax
@@ -18,7 +17,7 @@ from vgate_tpu.config import load_config as j_load_config
 from vgate_tpu.runtime.engine_core import EngineCore as JEngineCore
 from vgate_tpu.runtime.weights import load_or_init_params as j_init
 from vgate_tpu_torch.backends.base import SamplingParams
-from vgate_tpu_torch.config import NotPortedError, load_config
+from vgate_tpu_torch.config import load_config
 from vgate_tpu_torch.engine import VGTEngine
 from vgate_tpu_torch.models.specs import TINY_DENSE
 from vgate_tpu_torch.runtime.engine_core import EngineCore
@@ -146,6 +145,12 @@ def test_vgt_engine_generate_batch_on_cpu():
 
 
 def test_logprobs_request_raises_typed_error():
+    """Logprobs were refused with ``NotPortedError`` until they were
+    ported; the request is now served, with one entry a token and no
+    typed error."""
     _, t = _engines()
-    with pytest.raises(NotPortedError):
-        t.submit_prompt("x", SamplingParams(max_tokens=2, logprobs=True))
+    [seq] = _run(t, ["x"], [SamplingParams(max_tokens=2, temperature=0.0,
+                                           logprobs=True, top_logprobs=2)])
+    assert seq.status.name == "FINISHED" and seq.error is None
+    assert len(seq.logprob_data) == len(seq.generated_ids) == 2
+    assert all(len(top) == 2 for _, top in seq.logprob_data)

@@ -157,19 +157,31 @@ def sm_count(device) -> int:
 
 # One fp32 scratch buffer per (device, stream), kept across calls and grown
 # when a call needs more.  The calls on one stream run in order, so the
-# kernels that share it (K4/K5's split-k partials, K6's chunk partials)
-# never hold it at once.
+# kernels that share it (K4/K5's split-k partials, K1's and K6's chunk
+# partials) never hold it at once.
 _workspaces: Dict[Tuple[int, int], "torch.Tensor"] = {}
 
 
 def workspace(device, stream: int, size: int):
     """At least ``size`` fp32 values of scratch on ``device`` for work on
-    ``stream`` (the stream's handle)."""
+    ``stream`` (the stream's handle).
+
+    A CUDA graph bakes the buffer's address into every node that uses it,
+    so it must not grow while a graph is captured: the old block would go
+    back to the allocator while earlier nodes (of this graph or of one
+    captured before) still address it.  A capture is preceded by an eager
+    run of the same work on the same stream, which sizes it."""
     import torch
 
     key = (device.index or 0, stream)
     ws = _workspaces.get(key)
     if ws is None or ws.numel() < size:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"kernel workspace on stream {stream:#x} must grow to {size} "
+                f"values during a CUDA graph capture; run the captured work "
+                "eagerly on the capture stream first"
+            )
         ws = torch.empty(size, dtype=torch.float32, device=device)
         _workspaces[key] = ws
     return ws

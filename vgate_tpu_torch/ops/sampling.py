@@ -89,6 +89,22 @@ def _gumbel(
     return (-torch.log(-torch.log(u))).float()
 
 
+def _topk_and_pos(logits, temperature, top_p, top_k, generator, seeds,
+                  steps):
+    """Shared sampling core: returns (raw top-trunc logits [B, trunc]
+    sorted desc, their token ids, the chosen position within them)."""
+    top_vals, top_idx, masked = _masked_scaled(
+        logits, temperature, top_p, top_k
+    )
+    gumbel = _gumbel(
+        masked.shape, generator, seeds, steps, logits.device
+    )
+    sampled_pos = torch.argmax(masked + gumbel, dim=-1)
+    greedy = temperature <= _GREEDY_EPS
+    pos = torch.where(greedy, torch.zeros_like(sampled_pos), sampled_pos)
+    return top_vals, top_idx, pos
+
+
 def sample_tokens(
     logits: torch.Tensor,  # [B, V]
     temperature: torch.Tensor,  # [B]
@@ -103,16 +119,44 @@ def sample_tokens(
     int32.  ``all_greedy`` skips the top-TRUNC slice entirely."""
     if all_greedy:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    _top_vals, top_idx, masked = _masked_scaled(
-        logits, temperature, top_p, top_k
+    _top_vals, top_idx, pos = _topk_and_pos(
+        logits, temperature, top_p, top_k, generator, seeds, steps
     )
-    gumbel = _gumbel(
-        masked.shape, generator, seeds, steps, logits.device
-    )
-    sampled_pos = torch.argmax(masked + gumbel, dim=-1)
-    greedy = temperature <= _GREEDY_EPS
-    pos = torch.where(greedy, torch.zeros_like(sampled_pos), sampled_pos)
     return torch.gather(top_idx, 1, pos[:, None])[:, 0].to(torch.int32)
+
+
+def sample_tokens_with_logprobs(
+    logits: torch.Tensor,  # [B, V]
+    temperature: torch.Tensor,  # [B]
+    top_p: torch.Tensor,  # [B]
+    top_k: torch.Tensor,  # [B] int, 0 => disabled
+    generator: Optional[torch.Generator] = None,
+    seeds: Optional[torch.Tensor] = None,
+    steps: Optional[torch.Tensor] = None,
+    num_top: int = 8,
+):
+    """``sample_tokens`` plus OpenAI-style logprobs.
+
+    Returns ``(tokens [B] int32, chosen_lp [B], top_ids [B, num_top]
+    int32, top_lps [B, num_top])``: the log-softmax of ``logits`` as
+    given (after the engine's penalties, bias and min-token suppression;
+    temperature, top-k and top-p change only the draw, not the reported
+    distribution).  The full-vocab logsumexp is the only work beyond
+    plain sampling, and the drawn token is the one ``sample_tokens``
+    draws from the same noise."""
+    top_vals, top_idx, pos = _topk_and_pos(
+        logits, temperature, top_p, top_k, generator, seeds, steps
+    )
+    lse = torch.logsumexp(logits.float(), dim=-1, keepdim=True)
+    lps = top_vals - lse  # [B, trunc], sorted desc
+    tokens = torch.gather(top_idx, 1, pos[:, None])[:, 0].to(torch.int32)
+    chosen_lp = torch.gather(lps, 1, pos[:, None])[:, 0]
+    return (
+        tokens,
+        chosen_lp,
+        top_idx[:, :num_top].to(torch.int32),
+        lps[:, :num_top],
+    )
 
 
 def apply_penalties(

@@ -16,6 +16,15 @@ path — batched, bucketed prompt passes and pipelined decode chunks:
   processing overlaps the next chunk's device work.  EOS and length
   stops are detected at readback; overshoot steps are discarded and
   their KV writes land in horizon pages the scheduler reserved.
+* On the card a decode chunk is the **replay of one CUDA graph** per
+  static key, as the reference runs it as one compiled program per key
+  (runtime/decode_graph.py): the chunk body reads and writes static
+  buffers allocated once per engine, and each graph is captured at its
+  first use and kept.  On the CPU the same body runs eagerly.
+* **Logprobs**: a pass or chunk where any row asks for them also
+  returns each row's chosen logprob and its top ``LOGPROBS_K`` ids and
+  logprobs (the log-softmax after penalties, bias and min-token
+  suppression), read back with the tokens.
 * The KV pools are updated IN PLACE by every program (the reference
   donates them through its jitted calls).  Every writer and reader runs
   on the engine thread's one stream, so stream order is the only
@@ -37,7 +46,7 @@ path — batched, bucketed prompt passes and pipelined decode chunks:
   instead of K1.
 
 Not ported yet (the config refuses them): speculative decoding, host KV
-swap, logprobs, multi-device meshes.
+swap, multi-device meshes.  Streaming logprobs wait for the gateway.
 The supervisor, integrity checks, flight recorder and metrics come with
 later slices.
 """
@@ -77,7 +86,13 @@ from vgate_tpu_torch.ops.sampling import (
     apply_logit_bias,
     apply_penalties,
     sample_tokens,
+    sample_tokens_with_logprobs,
     suppress_stop_tokens,
+)
+from vgate_tpu_torch.runtime.decode_graph import (
+    CudaCapture,
+    DecodeGraphs,
+    DecodeState,
 )
 from vgate_tpu_torch.runtime.kv_cache import (
     KVGeometry,
@@ -98,6 +113,10 @@ from vgate_tpu_torch.utils.math import bucket_for, cdiv
 logger = get_logger(__name__)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+# top alternatives computed per position when a request asks for
+# logprobs (a request's ``top_logprobs`` is clamped to this)
+LOGPROBS_K = 8
 
 
 def resolve_device(name: str) -> torch.device:
@@ -129,10 +148,13 @@ def _logit_transforms(logits, steps, pen, min_tok, bias):
     return logits
 
 
-def _first_tokens(logits, generator, sampling: Dict[str, Any]):
+def _first_tokens(logits, generator, sampling: Dict[str, Any],
+                  num_logprobs: int = 0):
     """Sample each prompt's first token from its last-token logits, with
     the rows' penalties, logit bias and min-token floors (``sampling`` is
-    ``EngineCore._row_arrays``).  Returns [B] int32 on the device."""
+    ``EngineCore._row_arrays``).  Returns ([B] int32 on the device, the
+    logprob triple ``(chosen [B], top ids [B, K], top lps [B, K])`` when
+    ``num_logprobs`` > 0, else None)."""
     pen = None
     if sampling["counts"] is not None:
         pen = (sampling["counts"], sampling["freq_pens"],
@@ -140,39 +162,47 @@ def _first_tokens(logits, generator, sampling: Dict[str, Any]):
     logits = _logit_transforms(
         logits, sampling["steps"], pen, sampling["min_tok"], sampling["bias"]
     )
-    return sample_tokens(
-        logits, sampling["temps"], sampling["top_ps"], sampling["top_ks"],
-        generator=generator, seeds=sampling["seeds"],
-        steps=sampling["steps"],
-    )
+    args = (logits, sampling["temps"], sampling["top_ps"],
+            sampling["top_ks"])
+    kw = dict(generator=generator, seeds=sampling["seeds"],
+              steps=sampling["steps"])
+    if num_logprobs > 0:
+        tokens, *lp = sample_tokens_with_logprobs(
+            *args, **kw, num_top=num_logprobs
+        )
+        return tokens, tuple(lp)
+    return sample_tokens(*args, **kw), None
 
 
 def _prefill_step(
     params, spec: ModelSpec, tokens, seq_lens, k_pages, v_pages,
-    page_tables, generator, sampling: Dict[str, Any],
-) -> torch.Tensor:
-    """Prompt pass with fused first-token sampling: returns [B] int32
-    first tokens (on the device); the pools are written in place."""
+    page_tables, generator, sampling: Dict[str, Any], num_logprobs: int = 0,
+):
+    """Prompt pass with fused first-token sampling: returns the [B] int32
+    first tokens (on the device) and their logprobs (``_first_tokens``);
+    the pools are written in place."""
     logits = prefill_forward(
         params, spec, tokens, seq_lens, k_pages, v_pages, page_tables
     )
-    return _first_tokens(logits, generator, sampling)
+    return _first_tokens(logits, generator, sampling, num_logprobs)
 
 
 def _suffix_prefill_step(
     params, spec: ModelSpec, tokens, prefix_lens, suffix_lens, k_pages,
     v_pages, suffix_page_tables, ctx_page_tables, generator,
     sampling: Dict[str, Any], unaligned: bool = False,
-) -> torch.Tensor:
+    num_logprobs: int = 0,
+):
     """Prompt pass of the uncached suffix of a prefix-cache hit (models/
     decoder.py ``prefill_suffix_forward``) with fused first-token
-    sampling.  ``unaligned`` is the copy-on-write variant: prefix_lens
-    may fall mid-page and the KV write becomes a per-token scatter."""
+    sampling, returning as ``_prefill_step``.  ``unaligned`` is the
+    copy-on-write variant: prefix_lens may fall mid-page and the KV
+    write becomes a per-token scatter."""
     logits = prefill_suffix_forward(
         params, spec, tokens, prefix_lens, suffix_lens, k_pages, v_pages,
         suffix_page_tables, ctx_page_tables, unaligned=unaligned,
     )
-    return _first_tokens(logits, generator, sampling)
+    return _first_tokens(logits, generator, sampling, num_logprobs)
 
 
 def _cow_copy_pages(k_pages, v_pages, src: int, dst: int, upto: int):
@@ -188,73 +218,78 @@ def _cow_copy_pages(k_pages, v_pages, src: int, dst: int, upto: int):
 
 
 def _decode_chunk(
-    params, spec: ModelSpec, state: Dict[str, Any], k_pages, v_pages,
+    params, spec: ModelSpec, state: DecodeState, k_pages, v_pages,
     generator, num_steps: int, max_position: int, all_greedy: bool,
-) -> torch.Tensor:
+    num_logprobs: int = 0,
+) -> None:
     """``num_steps`` decode steps back to back on the device, without a
-    host sync.  Returns the sampled tokens [num_steps, B] and advances
-    ``state``'s device tensors (tokens, positions, steps, counts) to
-    the chunk's end; the pools are written in place."""
-    tokens, positions = state["tokens"], state["positions"]
-    steps, counts = state["steps"], state["counts"]
-    active = state["active"]
+    host sync: the body the reference fuses with ``lax.scan``, and the
+    body a CUDA graph captures (runtime/decode_graph.py).  It reads only
+    ``state``'s static buffers and writes only to them: the sampled
+    tokens to ``state.out_tokens[:num_steps]`` (with ``num_logprobs``
+    also the chosen logprobs and the top ids and logprobs to
+    ``state.out_lp`` / ``out_top_ids`` / ``out_top_lps``), the counts in
+    place each step, and the advanced tokens, positions and steps at the
+    end.  The pools are written in place."""
+    tokens, positions, steps = state.tokens, state.positions, state.steps
+    active = state.active
     act = active.to(positions.dtype)
-    out = torch.empty(
-        (num_steps, tokens.shape[0]), dtype=torch.int32, device=tokens.device
-    )
+    pen, bias, min_tok = state.pen(), state.bias(), state.min_tok()
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     for i in range(num_steps):
         logits = decode_forward(
             params, spec, tokens, positions, k_pages, v_pages,
-            state["page_tables"], active=active,
+            state.page_tables, active=active,
         )
-        pen = None
-        if counts is not None:
-            pen = (counts, state["freq_pens"], state["pres_pens"])
-        logits = _logit_transforms(
-            logits, steps, pen, state["min_tok"], state["bias"]
-        )
-        tokens = sample_tokens(
-            logits, state["temps"], state["top_ps"], state["top_ks"],
-            generator=generator, seeds=state["seeds"], steps=steps,
-            all_greedy=all_greedy,
-        )
-        out[i] = tokens
+        logits = _logit_transforms(logits, steps, pen, min_tok, bias)
+        args = (logits, state.temps, state.top_ps, state.top_ks)
+        kw = dict(generator=generator, seeds=state.seeds, steps=steps)
+        if num_logprobs > 0:
+            tokens, lp, top_ids, top_lps = sample_tokens_with_logprobs(
+                *args, **kw, num_top=num_logprobs
+            )
+            state.out_lp[i].copy_(lp)
+            state.out_top_ids[i].copy_(top_ids)
+            state.out_top_lps[i].copy_(top_lps)
+        else:
+            tokens = sample_tokens(*args, **kw, all_greedy=all_greedy)
+        state.out_tokens[i].copy_(tokens)
         positions = positions + act
         steps = steps + act
-        if counts is not None:
-            counts = counts.index_put(
-                (rows, tokens.long()), act.to(counts.dtype), accumulate=True
+        if pen is not None:
+            pen[0].index_put_(
+                (rows, tokens.long()), act.to(pen[0].dtype), accumulate=True
             )
         # overshoot steps (the chunk is sized by the LONGEST remaining
         # budget) must stay in bounds: seq_len = position + 1 drives the
         # decode kernel's page loop, which must not run past the table
         positions = torch.clamp(positions, max=max_position)
-    state.update(tokens=tokens, positions=positions, steps=steps,
-                 counts=counts)
-    return out
+    state.tokens.copy_(tokens)
+    state.positions.copy_(positions)
+    state.steps.copy_(steps)
 
 
 class _Readback:
-    """A device->host copy in flight: a pinned host buffer filled by a
-    ``non_blocking`` copy on the engine stream, plus the event after it.
-    ``result()`` blocks only until that copy is done."""
+    """Device->host copies in flight: pinned host buffers filled by
+    ``non_blocking`` copies on the engine stream, plus the event after
+    them.  ``result()`` blocks only until those copies are done."""
 
-    def __init__(self, dev_tensor: torch.Tensor) -> None:
-        cuda = dev_tensor.device.type == "cuda"
-        self.host = torch.empty(
-            dev_tensor.shape, dtype=dev_tensor.dtype, pin_memory=cuda
-        )
-        self.host.copy_(dev_tensor, non_blocking=cuda)
+    def __init__(self, *dev_tensors: torch.Tensor) -> None:
+        cuda = dev_tensors[0].device.type == "cuda"
+        self.host = []
+        for t in dev_tensors:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda)
+            host.copy_(t, non_blocking=cuda)
+            self.host.append(host)
         self.event = None
         if cuda:
             self.event = torch.cuda.Event()
             self.event.record()
 
-    def result(self) -> np.ndarray:
+    def result(self) -> List[np.ndarray]:
         if self.event is not None:
             self.event.synchronize()
-        return self.host.numpy()
+        return [h.numpy() for h in self.host]
 
 
 class EngineCore:
@@ -265,7 +300,13 @@ class EngineCore:
         config: Optional[VGTConfig] = None,
         spec: Optional[ModelSpec] = None,
         params: Optional[Dict[str, Any]] = None,
+        decode_graphs: Optional[bool] = None,
     ) -> None:
+        """``decode_graphs`` (default: on for a CUDA device) runs each
+        decode chunk as the replay of a captured CUDA graph
+        (runtime/decode_graph.py).  ``False`` on the card runs the same
+        chunk body eagerly, for comparisons with the graphs; ``True`` on
+        the CPU raises."""
         self.config = config or get_config()
         self.spec = spec or spec_for_model_id(self.config.model.model_id)
         dcfg = self.config.device
@@ -276,6 +317,13 @@ class EngineCore:
                 self.spec, decode_block_slots=dcfg.decode_block_slots
             )
         self.device = resolve_device(dcfg.device)
+        if decode_graphs is None:
+            decode_graphs = self.device.type == "cuda"
+        if decode_graphs and self.device.type != "cuda":
+            raise ValueError(
+                f"decode_graphs=True needs a CUDA device, not {self.device}"
+            )
+        self.decode_graphs = decode_graphs
         self.dtype = _DTYPES[self.config.model.dtype]
         if self.device.type == "cuda" and self.dtype != torch.bfloat16:
             raise NotPortedError(
@@ -388,12 +436,22 @@ class EngineCore:
         # noise for unseeded sampled rows (seeded rows hash their seed)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self.config.model.max_model_len)
-        self._dec_state: Optional[Dict[str, Any]] = None
         self._decode_signature_cache: Optional[tuple] = None
         # in-flight decode chunks awaiting readback:
         # ([(seq, preempt epoch)], chunk length, _Readback)
         self._pending_chunks: list = []
         self.decode_chunk = max(1, dcfg.decode_chunk)
+        # the decode chunk's static inputs and outputs, and on the card
+        # its graphs (one per static key, captured at first use)
+        self._dec_state = DecodeState(
+            self.max_slots, self.geometry.pages_per_seq,
+            self.spec.vocab_size, self.decode_chunk, LOGPROBS_K, self.device,
+        )
+        self._graphs: Optional[DecodeGraphs] = None
+        if self.device.type == "cuda":
+            self._graphs = DecodeGraphs(
+                CudaCapture(self.device, self._generator)
+            )
         self.pipeline_depth = max(1, dcfg.decode_pipeline)
         self._submit_q: "queue.Queue[Sequence]" = queue.Queue()
         # held while a batch is queued and while the loop drains the
@@ -405,6 +463,7 @@ class EngineCore:
         self._thread: Optional[threading.Thread] = None
         self._fatal: Optional[BaseException] = None
         self.total_steps = 0
+        self.total_chunks = 0  # decode chunks dispatched
         self.total_prefills = 0
         self.total_decode_tokens = 0
         self.total_state_rebuilds = 0
@@ -453,10 +512,6 @@ class EngineCore:
         params: SamplingParams,
         stream_cb: Optional[Callable[[int], Any]] = None,
     ) -> Sequence:
-        if params.logprobs:
-            raise NotPortedError(
-                "logprobs are not ported yet (ROADMAP queue 1, item 2)"
-            )
         if self._fatal is not None:
             raise RuntimeError("engine is dead") from self._fatal
         seq = Sequence(
@@ -504,7 +559,7 @@ class EngineCore:
             seq.done_event.wait()
             if seq.status is SeqStatus.FAILED:
                 raise seq.error  # type: ignore[misc]
-            results.append({
+            result = {
                 "text": self.final_text(seq),
                 "token_ids": list(seq.generated_ids),
                 "num_tokens": seq.num_output_tokens,
@@ -516,7 +571,10 @@ class EngineCore:
                     "gen_time": (seq.finish_t or 0) - seq.arrival_t,
                     **seq.resume_metrics(),
                 },
-            })
+            }
+            if seq.params.logprobs:
+                result["logprobs"] = self.logprob_entries(seq)
+            results.append(result)
         return results
 
     # ------------------------------------------------------------- the loop
@@ -700,10 +758,24 @@ class EngineCore:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def _row_arrays(self, B: int, rows) -> Dict[str, Any]:
-        """Per-row sampling inputs for ``rows`` = [(row, Sequence)]:
-        temperatures, top-p/k, seeds, per-sequence token index, and the
-        penalty / logit-bias / min-token tuples (None when no row needs
-        them, so the common case adds no work)."""
+        """``_row_host`` uploaded, for a prompt pass (``seeds`` None when
+        no row is seeded)."""
+        host = self._row_host(B, rows)
+        if not (host["seeds"] >= 0).any():
+            host["seeds"] = None  # no row hashes its own noise
+        return {
+            k: None if a is None
+            else tuple(map(self._dev, a)) if isinstance(a, tuple)
+            else self._dev(a)
+            for k, a in host.items()
+        }
+
+    def _row_host(self, B: int, rows) -> Dict[str, Any]:
+        """Per-row sampling inputs for ``rows`` = [(row, Sequence)], as
+        host arrays: temperatures, top-p/k, seeds (-1 unseeded),
+        per-sequence token index, and the penalty / logit-bias /
+        min-token arrays (None when no row needs them, so the common
+        case adds no work)."""
         rows = list(rows)
         temps = np.zeros((B,), np.float32)
         top_ps = np.ones((B,), np.float32)
@@ -720,11 +792,11 @@ class EngineCore:
             steps[row] = seq.num_generated
         V = self.spec.vocab_size
         out: Dict[str, Any] = {
-            "temps": self._dev(temps),
-            "top_ps": self._dev(top_ps),
-            "top_ks": self._dev(top_ks),
-            "seeds": self._dev(seeds) if (seeds >= 0).any() else None,
-            "steps": self._dev(steps),
+            "temps": temps,
+            "top_ps": top_ps,
+            "top_ks": top_ks,
+            "seeds": seeds,
+            "steps": steps,
             "counts": None,
             "freq_pens": None,
             "pres_pens": None,
@@ -740,8 +812,7 @@ class EngineCore:
                 pres[row] = seq.params.presence_penalty
                 if seq.generated_ids:
                     np.add.at(counts[row], np.asarray(seq.generated_ids), 1)
-            out.update(counts=self._dev(counts), freq_pens=self._dev(freq),
-                       pres_pens=self._dev(pres))
+            out.update(counts=counts, freq_pens=freq, pres_pens=pres)
         floors = [(r, s) for r, s in rows if s.params.min_tokens > 0]
         if floors:
             base = [self.tokenizer.eos_id, *self.spec.extra_stop_ids]
@@ -755,7 +826,7 @@ class EngineCore:
             for r, s in floors:
                 mat[r, : len(per[r])] = per[r]
                 min_toks[r] = s.params.min_tokens
-            out["min_tok"] = (self._dev(min_toks), self._dev(mat))
+            out["min_tok"] = (min_toks, mat)
         biased = [(r, s.params.logit_bias) for r, s in rows
                   if s.params.logit_bias]
         if biased:
@@ -766,7 +837,7 @@ class EngineCore:
                 for j, (tid, val) in enumerate(sorted(b.items())):
                     ids[r, j] = tid
                     vals[r, j] = val
-            out["bias"] = (self._dev(ids), self._dev(vals))
+            out["bias"] = (ids, vals)
         return out
 
     # -------------------------------------------------------------- prefill
@@ -798,7 +869,8 @@ class EngineCore:
             return False
         ps = self.geometry.page_size
         groups: Dict[tuple, List[PrefillPlan]] = {}
-        dispatched = []  # (group plans, [B] device first tokens)
+        # (group plans, ([B] device first tokens, logprob triple or None))
+        dispatched = []
         for plan in plans:
             if plan.chunked:
                 dispatched.append(
@@ -821,15 +893,23 @@ class EngineCore:
                 dispatched.append((chunk, tokens))
         for plan in plans:
             self.scheduler.commit_prefill(plan)
-        readback = _Readback(torch.cat([t for _, t in dispatched]))
-        firsts = readback.result()
+        lps = [t for _, (_, lp) in dispatched if lp is not None for t in lp]
+        readback = _Readback(
+            torch.cat([t for _, (t, _) in dispatched]), *lps
+        )
+        firsts, *lps = readback.result()
         offset = 0
         # one thread owns admission and readback, so every admitted
         # sequence is still RUNNING in its own slot here
-        for group, tokens in dispatched:
+        for group, (tokens, lp) in dispatched:
+            lp_np = None
+            if lp is not None:
+                lp_np, lps = tuple(lps[:3]), lps[3:]
             for row, plan in enumerate(group):
                 token = int(firsts[offset + row])
                 self.total_prefills += 1
+                if lp_np is not None and plan.seq.params.logprobs:
+                    self._attach_logprob(plan.seq, lp_np, None, row)
                 plan.seq.append_token(token)
                 self._maybe_finish(plan.seq, token)
             offset += tokens.shape[0]
@@ -842,13 +922,26 @@ class EngineCore:
         slot_row[:] = 0
         slot_row[: len(plan.seq.pages)] = plan.seq.pages
 
-    def _dispatch_prefill_group(
-        self, plans: List[PrefillPlan], bucket: int
-    ) -> torch.Tensor:
+    @staticmethod
+    def _num_logprobs(seqs) -> int:
+        """``LOGPROBS_K`` when any of ``seqs`` asks for logprobs, else 0
+        (the static logprobs variant of a pass or chunk)."""
+        return LOGPROBS_K if any(s.params.logprobs for s in seqs) else 0
+
+    @staticmethod
+    def _all_greedy(seqs, num_logprobs: int) -> bool:
+        """The all-greedy chunk variant: every row at temperature 0 and
+        no logprobs (its argmax skips the top-TRUNC slice they need)."""
+        return num_logprobs == 0 and all(
+            s.params.temperature == 0.0 for s in seqs
+        )
+
+    def _dispatch_prefill_group(self, plans: List[PrefillPlan], bucket: int):
         """Enqueue ONE prompt pass for same-bucket plans; returns the [B]
-        first tokens on the device.  B pads to a power of two; padding
-        rows use trash page tables, temperature 0 and seq_len 1, and
-        their tokens are discarded."""
+        first tokens on the device and their logprob triple (None when no
+        plan asks).  B pads to a power of two; padding rows use trash
+        page tables, temperature 0 and seq_len 1, and their tokens are
+        discarded."""
         n = len(plans)
         B = 1 << (n - 1).bit_length()
         ps = self.geometry.page_size
@@ -868,6 +961,7 @@ class EngineCore:
             self.k_pages, self.v_pages, self._dev(prefill_pt),
             self._generator,
             self._row_arrays(B, enumerate(p.seq for p in plans)),
+            self._num_logprobs(p.seq for p in plans),
         )
 
     def _ctx_pages(self, n_tokens: int) -> int:
@@ -880,10 +974,10 @@ class EngineCore:
 
     def _dispatch_suffix_group(
         self, plans: List[PrefillPlan], bucket: int, unaligned: bool = False
-    ) -> torch.Tensor:
+    ):
         """Enqueue ONE suffix pass for up to ``prefill_batch_max``
-        prefix-cache hits whose suffixes share a bucket; returns the [B]
-        first tokens on the device.  The cached prefix pages are shared
+        prefix-cache hits whose suffixes share a bucket; returns as
+        ``_dispatch_prefill_group``.  The cached prefix pages are shared
         and read-only; only the suffix pages are written.  ``unaligned``
         is the copy-on-write group: each plan's page copy is enqueued
         first, the suffix then starts mid-page, and the suffix table
@@ -923,15 +1017,17 @@ class EngineCore:
             self._dev(suffix_pt), self._dev(ctx_pt), self._generator,
             self._row_arrays(B, enumerate(p.seq for p in plans)),
             unaligned=unaligned,
+            num_logprobs=self._num_logprobs(p.seq for p in plans),
         )
 
-    def _dispatch_chunked_prefill(self, plan: PrefillPlan) -> torch.Tensor:
+    def _dispatch_chunked_prefill(self, plan: PrefillPlan):
         """A (suffix-)prompt longer than the bucket cap: page-aligned
         suffix passes of ``plan.bucket`` tokens, each attending the whole
         resident context.  The non-final passes are lean — no sampling,
         nothing read back; the final pass is a one-row suffix group, so
         its sampling can never drift from the unchunked path.  Returns
-        the final pass's [1] first token on the device."""
+        the final pass's [1] first token on the device and its logprob
+        triple (or None)."""
         self.total_chunked_prefills += 1
         seq = plan.seq
         ps = self.geometry.page_size
@@ -977,6 +1073,9 @@ class EngineCore:
         )
 
     def _build_decode_state(self, seqs: List[Sequence]) -> None:
+        """Every decode input of the new membership into the static
+        buffers, in place on the engine stream (no chunk is in flight:
+        the caller drained them)."""
         self.total_state_rebuilds += 1
         B = self.max_slots
         tokens = np.zeros((B,), np.int32)
@@ -990,26 +1089,22 @@ class EngineCore:
             tokens[slot] = seq.output_ids[-1]
             positions[slot] = seq.total_len - 1
             active[slot] = True
-        state = self._row_arrays(B, ((s.slot, s) for s in seqs))
-        state.update(
-            tokens=self._dev(tokens),
-            positions=self._dev(positions),
-            active=self._dev(active),
-            page_tables=self._dev(self._page_tables_np.copy()),
+        self._dec_state.load(
+            tokens, positions, active, self._page_tables_np,
+            self._row_host(B, ((s.slot, s) for s in seqs)),
         )
-        self._dec_state = state
 
     def _refresh_page_tables(self, seqs: List[Sequence]) -> None:
-        """Re-upload ONLY the page tables after in-place page growth.
-        In-flight chunks keep their older table, which stays valid: the
-        new page is only addressed at positions they never reach."""
+        """Rewrite ONLY the page tables after in-place page growth, in
+        place.  A chunk in flight still reads the older table: the copy
+        is enqueued after it on the same stream.  That table stays valid
+        for it: the new page is only addressed at positions it never
+        reaches."""
         for seq in seqs:
             row = self._page_tables_np[seq.slot]
             row[:] = 0
             row[: len(seq.pages)] = seq.pages
-        self._dec_state["page_tables"] = self._dev(
-            self._page_tables_np.copy()
-        )
+        self._dec_state.load_page_tables(self._page_tables_np)
 
     def _pick_chunk(self, active: List[Sequence], lead: int = 0) -> int:
         """The next chunk length: the largest power of two that neither
@@ -1031,26 +1126,47 @@ class EngineCore:
         return 1 << (headroom.bit_length() - 1)
 
     def _dispatch_chunk(self, active: List[Sequence], chunk: int) -> None:
-        all_greedy = all(s.params.temperature == 0.0 for s in active)
-        tokens = _decode_chunk(
-            self.params, self.spec, self._dec_state, self.k_pages,
-            self.v_pages, self._generator, num_steps=chunk,
-            max_position=self.config.model.max_model_len - 1,
-            all_greedy=all_greedy,
-        )
+        """Enqueue one decode chunk and the readback of its outputs.  On
+        the card the chunk is the replay of its key's graph (captured at
+        first use); eagerly otherwise.  The readback is enqueued before
+        the next chunk can overwrite the static outputs."""
+        state = self._dec_state
+        num_lp = self._num_logprobs(active)
+        all_greedy = self._all_greedy(active, num_lp)
+
+        def body(st: DecodeState = state) -> None:
+            _decode_chunk(
+                self.params, self.spec, st, self.k_pages, self.v_pages,
+                self._generator, num_steps=chunk,
+                max_position=self.config.model.max_model_len - 1,
+                all_greedy=all_greedy, num_logprobs=num_lp,
+            )
+
+        if self.decode_graphs:
+            self._graphs.run(state.key(chunk, all_greedy, num_lp), body,
+                             lambda: body(state.scratch()))
+        else:
+            body()
+        self.total_chunks += 1
+        outs = [state.out_tokens[:chunk]]
+        if num_lp:
+            outs += [state.out_lp[:chunk], state.out_top_ids[:chunk],
+                     state.out_top_lps[:chunk]]
         # the preempt epoch: a sequence preempted (and maybe re-admitted)
         # while this chunk is in flight must not receive its tokens
         self._pending_chunks.append(
-            ([(s, s.preempt_count) for s in active], chunk, _Readback(tokens))
+            ([(s, s.preempt_count) for s in active], chunk,
+             _Readback(*outs))
         )
 
     def _process_chunks(self, drain: bool = False) -> None:
         """Fold the oldest in-flight chunk (all of them when ``drain``)
-        into host state: append tokens in order, detect stops, discard
-        steps past a stop."""
+        into host state: append tokens (and their logprobs) in order,
+        detect stops, discard steps past a stop."""
         while self._pending_chunks:
             seqs, chunk, readback = self._pending_chunks.pop(0)
-            sampled = readback.result()  # [chunk, B]
+            sampled, *lp = readback.result()  # [chunk, B] (+ logprobs)
+            lp_np = tuple(lp) if lp else None
             for seq, epoch in seqs:
                 if (
                     seq.status is not SeqStatus.RUNNING
@@ -1059,6 +1175,8 @@ class EngineCore:
                     continue  # stopped or preempted since dispatch
                 for k in range(chunk):
                     token = int(sampled[k, seq.slot])
+                    if lp_np is not None and seq.params.logprobs:
+                        self._attach_logprob(seq, lp_np, k, seq.slot)
                     seq.append_token(token)
                     self.total_decode_tokens += 1
                     self._maybe_finish(seq, token)
@@ -1067,6 +1185,50 @@ class EngineCore:
             self.total_steps += chunk
             if not drain:
                 break
+
+    # ------------------------------------------------------------- logprobs
+
+    def lp_entry(self, tid: int, lp: float, top) -> Dict[str, Any]:
+        """One OpenAI-shape logprob entry for a delivered token."""
+        return {
+            "token": self.tokenizer.decode([tid]),
+            "token_id": tid,
+            "logprob": lp,
+            "top_logprobs": [
+                {
+                    "token": self.tokenizer.decode([i]),
+                    "token_id": i,
+                    "logprob": l,
+                }
+                for i, l in top
+            ],
+        }
+
+    def logprob_entries(self, seq: Sequence) -> List[Dict[str, Any]]:
+        """OpenAI-shape logprob content for a finished sequence (one entry
+        per generated token, aligned with ``generated_ids``)."""
+        return [
+            self.lp_entry(tid, lp, top)
+            for tid, (lp, top) in zip(seq.generated_ids, seq.logprob_data)
+        ]
+
+    def _attach_logprob(self, seq: Sequence, lp_np, k, slot) -> None:
+        """Record one delivered token's logprob data from a readback
+        triple ``(lp, top_ids, top_lps)``: a chunk's ``[chunk, B(, K)]``
+        at step ``k``, or a prompt pass's ``[B(, K)]`` (``k`` None)."""
+        lp, tids, tlps = lp_np
+        if k is not None:
+            lp, tids, tlps = lp[k], tids[k], tlps[k]
+        n = min(seq.params.top_logprobs, tids.shape[-1])
+        seq.logprob_data.append(
+            (
+                float(lp[slot]),
+                [
+                    (int(tids[slot, j]), float(tlps[slot, j]))
+                    for j in range(n)
+                ],
+            )
+        )
 
     # ------------------------------------------------------------ finishing
 
@@ -1153,10 +1315,15 @@ class EngineCore:
             "admitted": self.scheduler.total_admitted,
             "finished": self.scheduler.total_finished,
             "steps": self.total_steps,
+            "chunks": self.total_chunks,
             "prefills": self.total_prefills,
             "prompt_passes": self.total_prompt_passes,
             "decode_tokens": self.total_decode_tokens,
             "state_rebuilds": self.total_state_rebuilds,
+            # on the card: whether chunks replay graphs, the graphs
+            # captured, their capture seconds and their pool's bytes
+            "decode_graphs": None if self._graphs is None else {
+                "enabled": self.decode_graphs, **self._graphs.stats()},
             "kv_pages_total": self.allocator.num_allocatable,
             "kv_token_capacity": self.geometry.total_tokens,
             "kv_dtype": self.geometry.kv_dtype,
