@@ -39,6 +39,7 @@ before printing any result.
 
 from __future__ import annotations
 
+import asyncio
 import contextlib
 import gc
 import json
@@ -46,6 +47,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -1709,6 +1711,309 @@ def check_settled(core) -> dict:
     return stats
 
 
+# ``EngineCore.pressure_signals`` keys: the reference's, less its host-swap
+# block (host swap is not ported)
+PRESSURE_KEYS = {"kv_free_ratio", "kv_truly_free_ratio",
+                 "prefix_cached_ratio", "kv_token_capacity", "kv_dtype",
+                 "engine_queue_depth", "running"}
+
+
+class TokenWatch:
+    """While installed, every sequence submitted through
+    ``core.submit_prompt`` (the backend's calls included) also calls
+    ``hook(prompt, token)`` at each of its tokens, on the engine thread
+    inside readback (so the hook only sets events or fires tokens), and
+    is kept in ``seqs`` by prompt, with the host times of its first and
+    last token in ``first_t`` and ``last_t``."""
+
+    def __init__(self, core, hook=None):
+        self.core, self.hook, self.seqs = core, hook, {}
+        self.first_t, self.last_t = {}, {}
+
+    def __enter__(self):
+        plain = self.core.submit_prompt
+
+        def submit_prompt(prompt, params, stream_cb=None, meta=None):
+            def cb(token):
+                now = time.perf_counter()
+                self.first_t.setdefault(prompt, now)
+                self.last_t[prompt] = now
+                if stream_cb is not None:
+                    stream_cb(token)
+                if self.hook is not None:
+                    self.hook(prompt, token)
+
+            seq = plain(prompt, params, stream_cb=cb, meta=meta)
+            self.seqs[prompt] = seq
+            return seq
+
+        self.core.submit_prompt = submit_prompt
+        return self
+
+    def __exit__(self, *exc):
+        del self.core.submit_prompt
+
+
+def when_started(n: int, tokens: int = 1):
+    """A token hook and the event it sets once ``n`` distinct prompts
+    have ``tokens`` tokens each."""
+    counts, started = {}, threading.Event()
+
+    def hook(prompt, token):
+        counts[prompt] = counts.get(prompt, 0) + 1
+        if sum(c >= tokens for c in counts.values()) >= n:
+            started.set()
+
+    return hook, started
+
+
+async def wait_event(event: threading.Event, what: str,
+                     timeout: float = 600.0) -> None:
+    loop = asyncio.get_running_loop()
+    ok = await loop.run_in_executor(None, event.wait, timeout)
+    check(ok, f"{what} did not happen within {timeout:.0f} s")
+
+
+def check_phase_launches(core, stats0, launches, what: str,
+                         prefix_cache: bool) -> dict:
+    """A backend phase's launch counts: K1 once a layer for every decode
+    step, K2 (and with the prefix cache, K3) once a layer for every
+    prompt pass, every decode chunk a graph replay."""
+    stats = core.get_stats()
+    L = core.spec.num_layers
+    steps = stats["steps"] - stats0["steps"]
+    passes = stats["prompt_passes"] - stats0["prompt_passes"]
+    graphs, graphs0 = stats["decode_graphs"], stats0["decode_graphs"]
+    k1 = launches["paged_decode_attention"]
+    k2 = launches["flash_prefill_attention"]
+    k3 = launches["paged_multitok_attention"]
+    check(steps > 0 and k1 == L * steps,
+          f"{what}: {k1} K1 launches for {steps} decode steps of {L} layers")
+    if prefix_cache:
+        check(passes > 0 and k2 + k3 == L * passes,
+              f"{what}: K2 {k2} + K3 {k3} launches for {passes} prompt "
+              f"passes of {L} layers")
+    else:
+        check(passes > 0 and k2 == L * passes and k3 == 0,
+              f"{what}: K2 {k2}, K3 {k3} launches for {passes} prompt "
+              f"passes of {L} layers")
+    check_graphed(stats, what, since=stats0)
+    return {"decode_steps": steps, "prompt_passes": passes,
+            "chunks": stats["chunks"] - stats0["chunks"],
+            # the chunk keys this phase captured first, and their capture
+            # time (inside its requests' decode)
+            "graphs_captured": graphs["captured"] - graphs0["captured"],
+            "capture_s": graphs["capture_s"] - graphs0["capture_s"]}
+
+
+def backend_settled_and_drain(engine, core, batch, results, device) -> dict:
+    """The backend phase on the prefix-off engine, on one asyncio loop:
+    the burst through one ``generate_settled_async`` call repeats the
+    burst served through ``generate`` token for token; then 8 requests of
+    256 tokens decode and ``abort_in_flight("drain")`` settles every one
+    with "abort", no page leaks, and the burst served after the sweep
+    repeats again."""
+    from vgate_tpu_torch.backends.base import SamplingParams
+
+    backend = engine.backend
+    texts = prompts()
+    long = SamplingParams(max_tokens=256, min_tokens=256, temperature=0.0)
+
+    async def run() -> dict:
+        settled = await backend.generate_settled_async(*batch)
+        check(all(not isinstance(r, BaseException) for r in settled),
+              f"settled burst failed: {settled}")
+        check([r.token_ids for r in settled]
+              == [r.token_ids for r in results],
+              "the settled burst differs from the burst served by generate")
+        # every request past its prompt pass and a decode chunk
+        hook, started = when_started(len(texts), tokens=2)
+        with TokenWatch(core, hook):
+            task = asyncio.ensure_future(backend.generate_settled_async(
+                texts, [long] * len(texts)))
+            await wait_event(started, "8 requests decoding")
+            backend.abort_in_flight("drain")
+            swept = await task
+        check([r.finish_reason for r in swept] == ["abort"] * len(texts),
+              f"drain sweep finish reasons "
+              f"{[r.finish_reason for r in swept]}")
+        check(all(2 <= r.num_tokens < 256 for r in swept),
+              f"drain sweep tokens {[r.num_tokens for r in swept]}")
+        after_sweep = check_settled(core)
+        again = await backend.generate_settled_async(*batch)
+        check([r.token_ids for r in again]
+              == [r.token_ids for r in results],
+              "the burst served after the drain sweep differs")
+        return {
+            "settled_burst_rows": len(settled),
+            "drain_sweep_tokens": [r.num_tokens for r in swept],
+            "aborted": after_sweep["scheduler"]["aborted"],
+        }
+
+    reset_launches()
+    stats0 = core.get_stats()
+    out = asyncio.run(run())
+    launches = read_launches()
+    if device == "cuda":
+        out["counts"] = check_phase_launches(
+            core, stats0, launches, "backend phase, prefix-off engine",
+            prefix_cache=False)
+    check_settled(core)
+    out["launches"] = launches
+    return out
+
+
+def backend_streams_cancel_signals(engine, core, device) -> dict:
+    """The backend phase on the prefix-on engine, on one asyncio loop:
+    8 concurrent ``stream_async`` calls (6 greedy, 1 seeded, 1 with
+    logprobs and top 5), each stream's joined deltas equal to its
+    sequence's final text, its usage to the sequence's counts and its
+    logprob entries to its tokens; the time to each stream's first delta
+    (random weights over a byte tokenizer: most ids decode to no text,
+    so a stream may yield its first delta late, or none), to its first
+    token, and the streams' decode tokens/s; one ``generate_settled_async``
+    batch of 4 requests of 256 tokens with one cancelled by its
+    ``CancelToken`` after its first token (it settles "abort" with fewer
+    tokens, the others run to 256, the pages in use return to their
+    count before the batch); then the pressure, health and device
+    signals."""
+    from vgate_tpu_torch.backends.base import SamplingParams
+    from vgate_tpu_torch.lifecycle import CancelToken
+
+    backend = engine.backend
+    texts = prompts()
+    greedy = SamplingParams(max_tokens=32, temperature=0.0)
+    params = [greedy] * 6 + [
+        SamplingParams(max_tokens=32, temperature=0.8, top_p=0.9, top_k=50,
+                       seed=1234),
+        SamplingParams(max_tokens=32, temperature=0.0, logprobs=True,
+                       top_logprobs=5),
+    ]
+
+    async def stream(prompt, sp):
+        pieces, usage, finish = [], [], []
+        t0 = time.perf_counter()
+        t_first = None
+        async for piece in backend.stream_async(
+            prompt, sp, on_usage=usage.append, on_finish=finish.append
+        ):
+            if t_first is None:
+                t_first = time.perf_counter()
+            pieces.append(piece)
+        return {"pieces": pieces, "usage": usage, "finish": finish,
+                "t0": t0, "t_first": t_first, "t_end": time.perf_counter()}
+
+    async def run() -> dict:
+        with TokenWatch(core) as watch:
+            streams = await asyncio.gather(
+                *(stream(t, sp) for t, sp in zip(texts, params)))
+        for text, sp, st in zip(texts, params, streams):
+            seq = watch.seqs[text]
+            pieces = st["pieces"]
+            if sp.logprobs:
+                check(all(isinstance(p, dict) for p in pieces),
+                      "a logprobs stream yielded a bare delta")
+                joined = "".join(p["text"] for p in pieces)
+                entries = [e for p in pieces for e in p["logprobs"]]
+                check(len(entries) == seq.num_output_tokens
+                      and [e["token_id"] for e in entries]
+                      == seq.generated_ids
+                      and all(len(e["top_logprobs"]) == 5 for e in entries),
+                      "streamed logprob entries do not match the tokens")
+            else:
+                joined = "".join(pieces)
+            check(joined == core.final_text(seq),
+                  "a stream's joined deltas differ from its final text")
+            check(st["usage"] == [{
+                "prompt_tokens": seq.orig_prompt_len,
+                "completion_tokens": seq.num_output_tokens,
+                "total_tokens": seq.orig_prompt_len + seq.num_output_tokens,
+            }], f"stream usage {st['usage']}")
+            check(st["finish"] == [seq.finish_reason]
+                  and seq.finish_reason in ("stop", "length"),
+                  f"stream finish {st['finish']}")
+            check((st["t_first"] is None) == (not pieces), "delta times")
+        delta = sorted(st["t_first"] - st["t0"] for st in streams
+                       if st["t_first"] is not None)
+        token = sorted(watch.first_t[t] - st["t0"]
+                       for t, st in zip(texts, streams))
+        decoded = sum(s.num_output_tokens - 1 for s in watch.seqs.values())
+        decode_s = max(watch.last_t[t] - watch.first_t[t] for t in texts)
+        stream_report = {
+            "streams": len(streams),
+            "streams_with_a_delta": len(delta),
+            "ttft_first_delta_s_p50": delta[len(delta) // 2] if delta
+            else None,
+            "ttft_first_delta_s_max": delta[-1] if delta else None,
+            "ttft_first_token_s_p50": token[len(token) // 2],
+            "ttft_first_token_s_max": token[-1],
+            "decode_tok_s": decoded / decode_s,
+            "tokens": [s.num_output_tokens for s in watch.seqs.values()],
+        }
+
+        before = core.get_stats()
+        tokens = [None, CancelToken(), None, None]
+        target = texts[1]
+
+        def cancel_after_first(prompt, token):
+            if prompt == target:
+                tokens[1].cancel("client_disconnect")
+
+        long = SamplingParams(max_tokens=256, min_tokens=256,
+                              temperature=0.0)
+        with TokenWatch(core, cancel_after_first):
+            out = await backend.generate_settled_async(
+                texts[:4], [long] * 4, cancel_tokens=tokens)
+        check(out[1].finish_reason == "abort"
+              and 1 <= out[1].num_tokens < 256,
+              f"cancelled row: {out[1].finish_reason}, "
+              f"{out[1].num_tokens} tokens")
+        for i in (0, 2, 3):
+            check(out[i].finish_reason == "length"
+                  and out[i].num_tokens == 256,
+                  f"row {i} beside the cancel: {out[i].finish_reason}, "
+                  f"{out[i].num_tokens} tokens")
+        after = check_settled(core)
+        check(after["used_pages"] == before["used_pages"],
+              f"pages in use {before['used_pages']} -> "
+              f"{after['used_pages']}")
+        check(after["scheduler"]["aborted"]
+              == before["scheduler"]["aborted"] + 1, "abort not counted")
+        cancel_report = {
+            "cancelled_tokens": out[1].num_tokens,
+            "used_pages": after["used_pages"],
+            "cached_pages": after["scheduler"]["prefix_cache"][
+                "cached_pages"],
+        }
+
+        sig = backend.pressure_signals()
+        check(set(sig) == PRESSURE_KEYS, f"pressure signal keys {set(sig)}")
+        for key in ("kv_free_ratio", "kv_truly_free_ratio",
+                    "prefix_cached_ratio"):
+            check(0.0 <= sig[key] <= 1.0, f"{key} {sig[key]}")
+        health = backend.serving_health()
+        check(health["state"] == "serving" and health["alive"]
+              and health["ready"], f"serving health {health}")
+        dev = backend.device_health()
+        if device == "cuda":
+            check(dev["alive"] and dev["platform"] == "gpu"
+                  and dev["device_kind"] == torch.cuda.get_device_name(0),
+                  f"device health {dev}")
+        return {"streams": stream_report, "cancellation": cancel_report,
+                "pressure_signals": sig, "device_health": dev}
+
+    reset_launches()
+    stats0 = core.get_stats()
+    out = asyncio.run(run())
+    launches = read_launches()
+    if device == "cuda":
+        out["counts"] = check_phase_launches(
+            core, stats0, launches, "backend phase, prefix-on engine",
+            prefix_cache=True)
+    out["launches"] = launches
+    return out
+
+
 def engine_config(model: str, device: str, quantization=None,
                   kv_dtype: str = "auto", **device_section):
     from vgate_tpu_torch.config import load_config
@@ -1819,6 +2124,9 @@ def main_path(model: str = MODEL, device: str = "cuda",
             list(reference_prompts), greedy[:1] * len(reference_prompts)
         )
         check_settled(core)
+        graphs = core.get_stats()["decode_graphs"]
+        backend = backend_settled_and_drain(engine, core, batch, results,
+                                            device)
         return {
             "requests": len(results),
             "tokens": sum(r.num_tokens for r in results),
@@ -1827,11 +2135,12 @@ def main_path(model: str = MODEL, device: str = "cuda",
             "warm": warm,
             "logits": check_model_logits(core, texts[2]),
             "logprobs": logprobs,
-            "decode_graphs": core.get_stats()["decode_graphs"],
+            "decode_graphs": graphs,
             "profile": profiles,
             "launches": launches,
             "reference_streams": [r.token_ids for r in reference],
             "burst_streams": [r.token_ids for r in results],
+            "backend": backend,
         }
     finally:
         engine.shutdown()
@@ -1884,6 +2193,8 @@ def prefix_path(model: str = MODEL, device: str = "cuda",
         check(pc["hit_tokens"] > 0, f"no prefix hit: {pc}")
         check(pc["cow_copies"] >= 1, f"no copy-on-write: {pc}")
         check(pc["chunked_prefills"] >= 1, f"no chunked prefill: {pc}")
+        logits = check_suffix_logits(core, system + tails[0])
+        backend = backend_streams_cancel_signals(engine, core, device)
         return {
             "requests": len(results) + 1,
             "wall_s": wall,
@@ -1897,7 +2208,8 @@ def prefix_path(model: str = MODEL, device: str = "cuda",
             ) if reference_streams else None,
             "decode_graphs": stats["decode_graphs"],
             "launches": launches,
-            "logits": check_suffix_logits(core, system + tails[0]),
+            "logits": logits,
+            "backend": backend,
         }
     finally:
         engine.shutdown()
@@ -2371,7 +2683,10 @@ def main() -> None:
     reference_streams = served.pop("reference_streams")
     bf16_burst = served.pop("burst_streams")
     profiles = served.pop("profile")
+    backend_a = served.pop("backend")
     print(f"main path on {card}: " + json.dumps(served), flush=True)
+    print(f"backend phase, prefix-off engine, on {card}: "
+          + json.dumps(backend_a), flush=True)
     # the same warm burst on one engine: each decode chunk eager, then
     # each a graph replay
     for how, profile in profiles.items():
@@ -2382,11 +2697,22 @@ def main() -> None:
     torch.cuda.empty_cache()
     memory("the prefix-off phase")
     prefix = prefix_path(reference_streams=reference_streams)
+    backend_b = prefix.pop("backend")
     print(f"prefix path on {card}: " + json.dumps(prefix), flush=True)
+    print(f"backend phase, prefix-on engine, on {card}: "
+          + json.dumps(backend_b), flush=True)
+    st = backend_b["streams"]
+    print(f"backend streams on {card}: 8 concurrent stream_async; time to "
+          f"the first delta p50 {st['ttft_first_delta_s_p50']} s, max "
+          f"{st['ttft_first_delta_s_max']} s ({st['streams_with_a_delta']} "
+          f"streams yielded text); to the first token p50 "
+          f"{st['ttft_first_token_s_p50']:.4f} s, max "
+          f"{st['ttft_first_token_s_max']:.4f} s; decode "
+          f"{st['decode_tok_s']:.1f} tokens/s", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     memory("the prefix phase")
-    runs = [served, prefix]
+    runs = [served, backend_a, prefix, backend_b]
     for quantization, traffic in (("int8", True), ("int4", False)):
         quant = quant_path(quantization, with_prefix_traffic=traffic,
                            bf16_streams=bf16_burst)

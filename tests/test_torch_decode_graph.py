@@ -297,6 +297,38 @@ def test_graph_cache_counts_launches_per_replay():
     paged_decode_attention.launches, int8_matmul.launches = k1, k4
 
 
+def test_no_garbage_collection_inside_a_capture():
+    """The collector is off while a graph is captured (a collection there
+    can invalidate the capture on the card), on again after it, also when
+    the capture raises, and off still if it was off before."""
+    import gc
+
+    seen = []
+
+    class Probe(StandIn):
+        def capture(self, fn):
+            seen.append(gc.isenabled())
+            return super().capture(fn)
+
+    class Failing(StandIn):
+        def capture(self, fn):
+            raise RuntimeError("capture failed")
+
+    assert gc.isenabled()
+    graphs = DecodeGraphs(Probe())
+    graphs.run(("a",), lambda: None, lambda: seen.append(gc.isenabled()))
+    assert seen == [True, False] and gc.isenabled()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        DecodeGraphs(Failing()).run(("a",), lambda: None, lambda: None)
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        graphs.run(("b",), lambda: None, lambda: None)
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
+
+
 # ------------------------------------------------------------- engines
 
 MODEL = {"model_id": "tiny-dense", "dtype": "float32", "max_model_len": 64}

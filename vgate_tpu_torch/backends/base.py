@@ -130,6 +130,12 @@ class DryRunBackend:
         prompts: Sequence[str],
         sampling_params: Sequence[SamplingParams],
     ) -> List[GenerationResult]:
+        # the fault point the torch backend probes too: drills inject
+        # latency or failures into dry-run serving (scripts/drain_check.sh
+        # arms backend_generate:delay)
+        from vgate_tpu_torch import faults
+
+        faults.check("backend_generate")
         self.calls += 1
         start = time.perf_counter()
         results = []

@@ -7,15 +7,24 @@ both engines), except that the reference's ``tpu`` section is the
 an unknown section or key raises ``TypeError``, and a switch for a
 feature the port does not have yet raises :class:`NotPortedError`
 naming the ROADMAP queue that owns it — a setting is never silently
-ignored.
+ignored.  The gateway's sections (``server``, ``batch``, ``cache``,
+``gateway``, ``lifecycle``, ``admission``, ``security``,
+``rate_limit``, ``metrics``, ``benchmark``) take the reference's field
+names, defaults and validators.
 
-There is no YAML or environment layer: the machine the port targets has
-no PyYAML, and callers build the config in code.
+Layers, lowest first, as in the reference: the defaults, the YAML file
+named by ``VGT_CONFIG_PATH`` (only when that variable is set: the
+repo's ``config.yaml`` is the reference's, with a ``tpu`` section this
+port does not have), the ``VGT_SECTION__KEY`` environment variables,
+then the caller's sections.  PyYAML is imported only to read that file,
+so the engine path runs without it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import threading
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
@@ -24,6 +33,12 @@ VALID_ENGINE_TYPES = ("torch_cuda", "dry_run")
 VALID_DTYPES = ("bfloat16", "float32")
 VALID_QUANTIZATION = ("int8", "int4")
 VALID_KV_DTYPES = ("auto", "bf16", "int8")
+# the admission tiers (vgate_tpu_torch/admission.py ``TIERS``), kept here
+# so the config imports nothing of the HTTP layer
+VALID_TIERS = ("interactive", "standard", "batch")
+
+ENV_PREFIX = "VGT_"
+CONFIG_PATH_ENV = "VGT_CONFIG_PATH"
 
 
 class NotPortedError(ValueError):
@@ -45,6 +60,9 @@ class ModelConfig:
     # nothing here has that fault, so the port has no such switch.
     quantization: Optional[str] = None
     max_model_len: int = 2048
+    # the model /v1/models lists for /v1/embeddings; the encoder itself
+    # is not ported yet (ROADMAP queue 1, item 8)
+    embedding_model_id: str = "BAAI/bge-base-en-v1.5"
     draft_model_id: Optional[str] = None
 
 
@@ -145,7 +163,7 @@ class InferenceConfig:
 @dataclass
 class LoggingConfig:
     level: str = "INFO"
-    format: str = "console"
+    format: str = "console"  # "json" | "console"
 
 
 @dataclass
@@ -156,15 +174,156 @@ class TracingConfig:
     service_name: str = "vgate-tpu-torch"
 
 
+# -- the gateway's sections (vgate_tpu/config.py, same names, defaults
+# and validators; the docs of each field live there) --
+
+
+@dataclass
+class ServerConfig:
+    host: str = "0.0.0.0"
+    port: int = 8000
+    request_timeout_s: float = 300.0
+
+
+@dataclass
+class BatchConfig:
+    """Gateway-side dynamic batching (server/app.py, batcher.py)."""
+
+    max_batch_size: int = 8
+    max_wait_time_ms: float = 50.0
+
+
+@dataclass
+class CacheConfig:
+    """The gateway's result cache (cache.py)."""
+
+    enabled: bool = True
+    max_size: int = 1024
+
+
+@dataclass
+class GatewayConfig:
+    """The Idempotency-Key request journal (runtime/journal.py); an
+    empty path keeps keys for one gateway lifetime, in memory."""
+
+    journal_path: str = ""
+    journal_fsync: bool = True
+    journal_max_bytes: int = 16 * 1024 * 1024
+    journal_retention_s: float = 3600.0
+
+
+@dataclass
+class LifecycleConfig:
+    """Graceful drain on SIGTERM (lifecycle.py DrainController)."""
+
+    drain_enabled: bool = True
+    drain_timeout_s: float = 30.0
+    drain_poll_ms: float = 50.0
+    drain_retry_after_s: float = 2.0
+
+
+@dataclass
+class AdmissionConfig:
+    """Token-budget admission, priority tiers and the brownout levels
+    (admission.py)."""
+
+    enabled: bool = True
+    max_queued_tokens: int = 200_000
+    auto_token_budget: float = 0.0
+    max_queued_requests: int = 256
+    reject_would_miss_slo: bool = True
+    kv_free_watermark: float = 0.05
+    swap_kv_relief: float = 0.5
+    per_key_max_inflight: int = 0
+    key_tiers: Dict[str, str] = field(default_factory=dict)
+    default_tier: str = "standard"
+    tier_weights: Dict[str, int] = field(
+        default_factory=lambda: {
+            "interactive": 8, "standard": 4, "batch": 1,
+        }
+    )
+    tier_fractions: Dict[str, float] = field(
+        default_factory=lambda: {
+            "interactive": 1.0, "standard": 0.85, "batch": 0.6,
+        }
+    )
+    throughput_alpha: float = 0.3
+    throughput_init_tps: float = 400.0
+    prefix_discount: float = 0.9
+    brownout_enabled: bool = True
+    target_wait_s: float = 5.0
+    brownout_update_interval_s: float = 0.5
+    brownout_hold_s: float = 10.0
+    brownout_release_ratio: float = 0.8
+    brownout_engage: List[float] = field(
+        default_factory=lambda: [0.5, 0.7, 0.85, 0.95]
+    )
+    brownout_max_tokens: int = 128
+    brownout_wait_ms: float = 10.0
+
+
+@dataclass
+class SecurityConfig:
+    """API-key auth (security.py)."""
+
+    enabled: bool = False
+    api_keys: List[str] = field(default_factory=list)
+    exempt_paths: List[str] = field(
+        default_factory=lambda: [
+            "/health", "/health/live", "/health/ready", "/metrics",
+        ]
+    )
+
+
+@dataclass
+class RateLimitConfig:
+    """Sliding-window rate limiting (security.py)."""
+
+    enabled: bool = False
+    requests_per_minute: int = 60
+    per_key_limits: Dict[str, int] = field(default_factory=dict)
+
+
+@dataclass
+class MetricsConfig:
+    enabled: bool = True
+
+
+@dataclass
+class BenchmarkConfig:
+    """Defaults of ``POST /v1/benchmark``."""
+
+    prompts: List[str] = field(
+        default_factory=lambda: [
+            "Explain the benefits of systolic arrays in two sentences.",
+            "Write a haiku about high-bandwidth memory.",
+            "What is sequence parallelism?",
+        ]
+    )
+    rounds: int = 3
+    warmup_rounds: int = 1
+    max_tokens: int = 64
+
+
 @dataclass
 class VGTConfig:
+    server: ServerConfig = field(default_factory=ServerConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     device: DeviceConfig = field(default_factory=DeviceConfig)
     kv_cache: KVCacheConfig = field(default_factory=KVCacheConfig)
+    batch: BatchConfig = field(default_factory=BatchConfig)
+    cache: CacheConfig = field(default_factory=CacheConfig)
     scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    lifecycle: LifecycleConfig = field(default_factory=LifecycleConfig)
+    gateway: GatewayConfig = field(default_factory=GatewayConfig)
+    admission: AdmissionConfig = field(default_factory=AdmissionConfig)
     inference: InferenceConfig = field(default_factory=InferenceConfig)
     logging: LoggingConfig = field(default_factory=LoggingConfig)
+    metrics: MetricsConfig = field(default_factory=MetricsConfig)
     tracing: TracingConfig = field(default_factory=TracingConfig)
+    security: SecurityConfig = field(default_factory=SecurityConfig)
+    rate_limit: RateLimitConfig = field(default_factory=RateLimitConfig)
+    benchmark: BenchmarkConfig = field(default_factory=BenchmarkConfig)
 
 
 def _not_ported(what: str, where: str) -> NotPortedError:
@@ -239,6 +398,36 @@ def _check(cfg: VGTConfig) -> None:
         raise _not_ported(f"MoE model {spec.name}", "queue 1, item 9")
     if spec.is_encoder:
         raise _not_ported(f"encoder model {spec.name}", "queue 1, item 8")
+    _check_gateway(cfg)
+
+
+def _check_gateway(cfg: VGTConfig) -> None:
+    """The reference's validators on the gateway's sections."""
+    if cfg.logging.format not in ("json", "console"):
+        raise ValueError("logging.format must be 'json' or 'console'")
+    for name in ("journal_max_bytes", "journal_retention_s"):
+        if getattr(cfg.gateway, name) <= 0:
+            raise ValueError(f"gateway.{name} must be > 0")
+    adm = cfg.admission
+    if adm.default_tier not in VALID_TIERS:
+        raise ValueError(
+            f"admission.default_tier must be one of {VALID_TIERS}, "
+            f"got {adm.default_tier!r}"
+        )
+    for key, tier in adm.key_tiers.items():
+        if tier not in VALID_TIERS:
+            raise ValueError(
+                f"admission.key_tiers[{key!r}] must be one of "
+                f"{VALID_TIERS}, got {tier!r}"
+            )
+    if not 0.0 <= adm.prefix_discount <= 1.0:
+        raise ValueError("admission.prefix_discount must be in [0, 1]")
+    engage = adm.brownout_engage
+    if len(engage) != 4 or any(b <= a for a, b in zip(engage, engage[1:])):
+        raise ValueError(
+            "admission.brownout_engage must be 4 strictly "
+            f"ascending thresholds, got {engage!r}"
+        )
 
 
 def _section(cls, values: Dict[str, Any], name: str):
@@ -249,18 +438,84 @@ def _section(cls, values: Dict[str, Any], name: str):
     return cls(**values)
 
 
+def _coerce(raw: str) -> Any:
+    """An environment string: JSON first, then bool words, else the
+    string itself (the reference's parsing)."""
+    try:
+        return json.loads(raw)
+    except (ValueError, TypeError):
+        lowered = raw.lower()
+        if lowered in ("true", "yes", "on"):
+            return True
+        if lowered in ("false", "no", "off"):
+            return False
+        return raw
+
+
+def _env_overrides(
+    environ: Optional[Dict[str, str]] = None,
+) -> Dict[str, Any]:
+    """``VGT_SECTION__KEY=value`` variables as nested section dicts
+    (``VGT_DEVICE__PREFIX_CACHE__ENABLED`` nests one level deeper).
+    Flat flags such as ``VGT_DRY_RUN`` are read where they apply."""
+    environ = os.environ if environ is None else environ
+    result: Dict[str, Any] = {}
+    for name, raw in environ.items():
+        if not name.startswith(ENV_PREFIX) or name == CONFIG_PATH_ENV:
+            continue
+        path = name[len(ENV_PREFIX):].lower().split("__")
+        if len(path) < 2:
+            continue
+        node = result
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = _coerce(raw)
+    return result
+
+
+def _yaml_values() -> Dict[str, Any]:
+    """The YAML file named by ``VGT_CONFIG_PATH``, when that is set and
+    the file exists (as the reference reads it)."""
+    path = os.environ.get(CONFIG_PATH_ENV)
+    if not path or not os.path.exists(path):
+        return {}
+    import yaml
+
+    with open(path) as fh:
+        data = yaml.safe_load(fh) or {}
+    if not isinstance(data, dict):
+        raise ValueError(f"config file {path} must contain a mapping")
+    return data
+
+
+def _deep_merge(base: Dict[str, Any], over: Dict[str, Any]) -> Dict[str, Any]:
+    out = dict(base)
+    for key, val in over.items():
+        if isinstance(out.get(key), dict) and isinstance(val, dict):
+            out[key] = _deep_merge(out[key], val)
+        else:
+            out[key] = val
+    return out
+
+
 def load_config(**sections: Dict[str, Any]) -> VGTConfig:
     """Build a config from section dicts, e.g.
-    ``load_config(model={"model_id": "tiny-dense"}, device={...})``."""
+    ``load_config(model={"model_id": "tiny-dense"}, device={...})``,
+    over the environment and the ``VGT_CONFIG_PATH`` YAML (the caller's
+    values win, then the environment's, then the file's)."""
     classes = {
         f.name: f.default_factory for f in dataclasses.fields(VGTConfig)
     }
-    unknown = sorted(set(sections) - set(classes))
+    merged = _deep_merge(_yaml_values(), _env_overrides())
+    merged = _deep_merge(
+        merged, {k: dict(v or {}) for k, v in sections.items()}
+    )
+    unknown = sorted(set(merged) - set(classes))
     if unknown:
         raise TypeError(f"unknown config section(s): {unknown}")
     built = {
         name: _section(classes[name], dict(values or {}), name)
-        for name, values in sections.items()
+        for name, values in merged.items()
     }
     cfg = VGTConfig(**built)
     cfg.device.prefix_cache = _coerce_prefix_cache(cfg.device.prefix_cache)
@@ -273,9 +528,24 @@ _config: Optional[VGTConfig] = None
 
 
 def get_config() -> VGTConfig:
-    """Process-wide default config (built from defaults on first use)."""
+    """Process-wide default config (``load_config()`` on first use: the
+    defaults under the environment and the ``VGT_CONFIG_PATH`` file)."""
     global _config
     with _config_lock:
         if _config is None:
             _config = load_config()
         return _config
+
+
+def set_config(config: VGTConfig) -> None:
+    global _config
+    with _config_lock:
+        _config = config
+
+
+def reset_config() -> None:
+    """Drop the process-wide config so the next ``get_config`` rebuilds
+    it."""
+    global _config
+    with _config_lock:
+        _config = None

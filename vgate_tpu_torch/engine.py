@@ -2,8 +2,11 @@
 
 ``VGTEngine`` is the entry point the gateway calls: it builds the backend
 the config names (``torch_cuda`` or ``dry_run``), and derives TTFT/TPOT
-for single chat completions from the backend's metrics.  The embeddings
-path waits for the encoder port.
+for single chat completions from the backend's metrics.  Embeddings are
+the dry-run backend's mock vectors; on ``torch_cuda`` they raise
+:class:`NotPortedError` until the encoder is ported (ROADMAP queue 1,
+item 8), and the gateway answers 501 — never mock vectors passed off as
+a model's.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from vgate_tpu_torch.backends.base import (
     InferenceBackend,
     SamplingParams,
 )
-from vgate_tpu_torch.config import VGTConfig, get_config
+from vgate_tpu_torch.config import NotPortedError, VGTConfig, get_config
 from vgate_tpu_torch.logging_config import get_logger
 from vgate_tpu_torch.tracing import get_tracer
 
@@ -96,6 +99,28 @@ class VGTEngine:
         sampling_params: Sequence[SamplingParams],
     ) -> List[GenerationResult]:
         return self.backend.generate(list(prompts), list(sampling_params))
+
+    def embeddings(self, inputs: Sequence[str]) -> Dict[str, Any]:
+        """Embedding vectors from the backend's ``embed`` (the dry-run
+        backend's are the reference's mock vectors)."""
+        embed = getattr(self.backend, "embed", None)
+        if embed is None:
+            raise NotPortedError(
+                f"embeddings on engine_type "
+                f"{self.config.model.engine_type!r} are not ported yet "
+                "(ROADMAP queue 1, item 8)"
+            )
+        with tracer.start_as_current_span("engine.embeddings"):
+            vectors = embed(list(inputs))
+        total_tokens = sum(max(1, len(text.split())) for text in inputs)
+        return {
+            "embeddings": vectors,
+            "model": self.config.model.embedding_model_id,
+            "usage": {
+                "prompt_tokens": total_tokens,
+                "total_tokens": total_tokens,
+            },
+        }
 
     def shutdown(self) -> None:
         self.backend.shutdown()

@@ -40,6 +40,7 @@ engine dies as on any device error.
 from __future__ import annotations
 
 import copy
+import gc
 import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -306,7 +307,18 @@ class DecodeGraphs:
         before = {w: w.launches for w in DECODE_WRAPPERS}
         self.capture.warmup(warmup)
         at_capture = {w: w.launches for w in DECODE_WRAPPERS}
-        graph = self.capture.capture(body)
+        # No cyclic garbage collection inside a capture: the finalizers
+        # of what it frees can make CUDA calls on this thread that a
+        # capture forbids, and the capture is then invalidated (seen on
+        # the card when a collection fell inside one).  ``torch.cuda.graph``
+        # collects explicitly before the capture begins.
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            graph = self.capture.capture(body)
+        finally:
+            if collecting:
+                gc.enable()
         launches = {w: w.launches - at_capture[w] for w in DECODE_WRAPPERS}
         # neither the warm-up nor the capture served a decode step
         for w, n in before.items():

@@ -45,10 +45,17 @@ path — batched, bucketed prompt passes and pipelined decode chunks:
   the spec, and decode attention then runs K6 (that many slots per CTA)
   instead of K1.
 
+* **Serving surface**: ``abort`` / ``abort_in_flight`` (cancel one
+  sequence, or every waiting and running one, at the next tick),
+  ``pressure_signals`` for the gateway's admission and brownout,
+  ``set_prefix_insert_suspended`` (brownout L4), ``device_health``.
+  Stream callbacks run on the engine thread inside readback, so they
+  must not block or touch the device (backends/torch_backend.py only
+  hands each token to its event loop).
+
 Not ported yet (the config refuses them): speculative decoding, host KV
-swap, multi-device meshes.  Streaming logprobs wait for the gateway.
-The supervisor, integrity checks, flight recorder and metrics come with
-later slices.
+swap, multi-device meshes.  The supervisor, integrity checks, flight
+recorder and metrics come with later slices.
 """
 
 from __future__ import annotations
@@ -511,12 +518,20 @@ class EngineCore:
         prompt_ids: List[int],
         params: SamplingParams,
         stream_cb: Optional[Callable[[int], Any]] = None,
+        meta: Optional[Any] = None,
     ) -> Sequence:
+        """Queue one sequence.  ``meta`` (observability/reqtrace.py
+        ``RequestMeta``) rides on the sequence with its request id; the
+        phase spans the reference parents on it come with the flight
+        recorder (ROADMAP queue 1, item 7)."""
         if self._fatal is not None:
             raise RuntimeError("engine is dead") from self._fatal
         seq = Sequence(
             prompt_ids=list(prompt_ids), params=params, stream_cb=stream_cb
         )
+        if meta is not None:
+            seq.meta = meta
+            seq.request_id = meta.request_id
         self._submit_q.put(seq)
         if self._fatal is not None:
             # the loop died between the check and the put: its sweep
@@ -539,9 +554,10 @@ class EngineCore:
         prompt: str,
         params: SamplingParams,
         stream_cb: Optional[Callable[[int], Any]] = None,
+        meta: Optional[Any] = None,
     ) -> Sequence:
         return self.submit_tokens(
-            self.encode_prompt(prompt), params, stream_cb
+            self.encode_prompt(prompt), params, stream_cb, meta=meta
         )
 
     def generate(
@@ -716,6 +732,12 @@ class EngineCore:
         """Cancel one sequence by id; applied by the engine thread at its
         next tick (slot and pages freed there)."""
         self._abort_q.put((seq_id, reason))
+        self._wakeup.set()
+
+    def abort_in_flight(self, reason: str = "drain") -> None:
+        """Request-abort EVERY waiting and running sequence (the graceful
+        drain's straggler sweep), at the engine thread's next tick."""
+        self._abort_q.put((None, reason))
         self._wakeup.set()
 
     def _drain_abort_requests(self) -> None:
@@ -1293,6 +1315,52 @@ class EngineCore:
 
     # ------------------------------------------------------------ utilities
 
+    def set_prefix_insert_suspended(self, flag: bool) -> None:
+        """Brownout L4 (admission.py "bypass cache writes"): stop
+        inserting into the prefix tree, keep serving hits.  Safe from
+        any thread (a bool store).  Host swap's demotions join it when
+        swap is ported (ROADMAP queue 1, item 5)."""
+        if self.radix_cache is not None:
+            self.radix_cache.insert_suspended = bool(flag)
+
+    def pressure_signals(self) -> Dict[str, Any]:
+        """Gauges for the gateway's admission and brownout controllers:
+        plain int and len reads, no lock, no device touch.
+        ``kv_free_ratio`` counts reclaimable cached pages as free,
+        ``kv_truly_free_ratio`` does not.  The reference's host-swap
+        block joins with host swap (ROADMAP queue 1, item 5)."""
+        total = max(1, self.allocator.num_allocatable)
+        return {
+            "kv_free_ratio": round(self.allocator.num_free / total, 4),
+            "kv_truly_free_ratio": round(
+                self.allocator.num_truly_free / total, 4
+            ),
+            "prefix_cached_ratio": round(
+                self.allocator.num_cached / total, 4
+            ),
+            "kv_token_capacity": self.geometry.total_tokens,
+            "kv_dtype": self.geometry.kv_dtype,
+            "engine_queue_depth": len(self.scheduler.waiting),
+            "running": len(self.scheduler.running),
+        }
+
+    def device_health(self) -> Dict[str, Any]:
+        """Liveness of the engine's device: one tiny tensor op on it."""
+        try:
+            value = float(torch.ones(1, device=self.device).sum())
+            cuda = self.device.type == "cuda"
+            return {
+                "alive": value == 1.0,
+                "platform": "gpu" if cuda else "cpu",
+                "device_kind": (
+                    torch.cuda.get_device_name(self.device) if cuda
+                    else "cpu"
+                ),
+                "num_devices": 1,
+            }
+        except Exception as exc:  # pragma: no cover
+            return {"alive": False, "error": str(exc)}
+
     def get_stats(self) -> Dict[str, Any]:
         """Engine counters.  ``steps`` counts dispatched decode steps
         (chunk lengths summed, overshoot included); ``prefix_cache``
@@ -1327,6 +1395,7 @@ class EngineCore:
             "kv_pages_total": self.allocator.num_allocatable,
             "kv_token_capacity": self.geometry.total_tokens,
             "kv_dtype": self.geometry.kv_dtype,
+            "kv_page_bytes": self.geometry.page_bytes,
             "model": self.spec.name,
             "device": str(self.device),
             "load_time_s": round(self.load_time_s, 2),

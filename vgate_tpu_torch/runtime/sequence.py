@@ -66,6 +66,9 @@ class Sequence:
     # so direct engine callers (tests, bench drivers) pay nothing
     request_id: Optional[str] = None
     trace: Optional[Any] = None
+    # the gateway's RequestMeta (observability/reqtrace.py), kept for
+    # the phase spans the flight recorder will parent on it
+    meta: Optional[Any] = None
     # settle observer, invoked exactly once from finish()/fail() — the
     # engine's flight recorder closes the request record here so every
     # settle path (scheduler sheds included) is covered by one hook
