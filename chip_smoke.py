@@ -8,10 +8,13 @@ It (1) builds the hand-written CUDA kernels from vgate_tpu_torch/csrc
 with nvcc, all sources at once; (2) holds every kernel against its plain
 PyTorch version on the card at the shapes the main path gives it, and
 times kernel, plain version and, where one exists, a single PyTorch
-library call computing the same function; (3) serves chat requests
-through ``VGTEngine`` with Qwen2.5-7B-Instruct at full width (random
-weights from seed 0, bf16), first with the prefix cache off, then with
-it on (radix tree, copy-on-write, generated-token reuse, chunked
+library call computing the same function, and checks the host swap
+tier's page round trip bit for bit; (3) serves chat requests through
+``VGTEngine`` with Qwen2.5-7B-Instruct at full width (random weights
+from seed 0, bf16), every engine warmed up first (``EngineCore.warmup``),
+first with the prefix cache off, then a host-swap wave on a squeezed
+pool over the same weights (swap on, then off), then with the prefix
+cache on (radix tree, copy-on-write, generated-token reuse, chunked
 prefill at 512), then quantized: int8 weights with int8 KV pools (the
 burst and the prefix traffic), and int4 weights with int8 KV pools (the
 burst), then Gemma-2-9B-it at full width (sliding window 4096 on even
@@ -73,13 +76,17 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def card_line() -> str:
+def smi(query: str) -> str:
+    """The first card's ``query`` fields as nvidia-smi prints them."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[0] if out else "unknown"
+
+
+def card_line() -> str:
+    return smi("name,power.limit")
 
 
 def demangled(entry: str) -> str:
@@ -1703,6 +1710,36 @@ def check_graphed(stats: dict, what: str, since=None) -> None:
           f"{what}: {replays} graph replays for {chunks} decode chunks")
 
 
+def captures(core) -> list:
+    """(key, seconds) of every decode graph ``core`` captured, in order
+    (none on the CPU)."""
+    return [] if core._graphs is None else core._graphs.capture_log
+
+
+def new_captures(core, since: int) -> list:
+    """The captures after the first ``since``, keys as lists: (chunk
+    steps, all greedy, logprobs, penalties, bias width, stop width)."""
+    return [{"key": list(key), "capture_s": sec}
+            for key, sec in captures(core)[since:]]
+
+
+def warm_up(core, what: str) -> dict:
+    """``EngineCore.warmup`` right after an engine starts, as the
+    reference's benchmark calls it before it measures.  Prints its
+    seconds and the graphs it captured, then sets the launch counts to 0
+    (the warm-up serves no request)."""
+    n0 = len(captures(core))
+    seconds = core.warmup()
+    caught = new_captures(core, n0)
+    report = {"warmup_s": seconds, "graphs_captured": len(caught),
+              "capture_s": sum(c["capture_s"] for c in caught)}
+    print(f"{what} warm-up: {seconds:.2f} s, {report['graphs_captured']} "
+          f"decode graphs captured in {report['capture_s']:.2f} s",
+          flush=True)
+    reset_launches()
+    return report
+
+
 def check_settled(core) -> dict:
     stats = core.get_stats()
     check(stats["used_pages"] == 0, f"{stats['used_pages']} pages leak")
@@ -1711,11 +1748,14 @@ def check_settled(core) -> dict:
     return stats
 
 
-# ``EngineCore.pressure_signals`` keys: the reference's, less its host-swap
-# block (host swap is not ported)
+# ``EngineCore.pressure_signals`` keys, as the reference's: these with the
+# host swap tier off, and its occupancy block too with it on
 PRESSURE_KEYS = {"kv_free_ratio", "kv_truly_free_ratio",
                  "prefix_cached_ratio", "kv_token_capacity", "kv_dtype",
                  "engine_queue_depth", "running"}
+SWAP_PRESSURE_KEYS = {"kv_swap_enabled", "kv_host_pool_bytes",
+                      "kv_host_pool_budget_bytes", "kv_host_free_ratio",
+                      "kv_swapped_seqs"}
 
 
 class TokenWatch:
@@ -1800,10 +1840,12 @@ def check_phase_launches(core, stats0, launches, what: str,
     check_graphed(stats, what, since=stats0)
     return {"decode_steps": steps, "prompt_passes": passes,
             "chunks": stats["chunks"] - stats0["chunks"],
-            # the chunk keys this phase captured first, and their capture
-            # time (inside its requests' decode)
+            # the chunk keys this phase captured first (keys the warm-up
+            # leaves cold, as the reference's: logprobs, penalties,
+            # min-tokens), and their capture time (inside its requests)
             "graphs_captured": graphs["captured"] - graphs0["captured"],
-            "capture_s": graphs["capture_s"] - graphs0["capture_s"]}
+            "capture_s": graphs["capture_s"] - graphs0["capture_s"],
+            "captured_keys": new_captures(core, graphs0["captured"])}
 
 
 def backend_settled_and_drain(engine, core, batch, results, device) -> dict:
@@ -1871,7 +1913,9 @@ def backend_streams_cancel_signals(engine, core, device) -> dict:
     logprob entries to its tokens; the time to each stream's first delta
     (random weights over a byte tokenizer: most ids decode to no text,
     so a stream may yield its first delta late, or none), to its first
-    token, and the streams' decode tokens/s; one ``generate_settled_async``
+    token, and the streams' decode tokens/s, with the graphs captured
+    inside their window; the same 8 streams again on the same engine,
+    which must capture none; one ``generate_settled_async``
     batch of 4 requests of 256 tokens with one cancelled by its
     ``CancelToken`` after its first token (it settles "abort" with fewer
     tokens, the others run to 256, the pages in use return to their
@@ -1903,7 +1947,11 @@ def backend_streams_cancel_signals(engine, core, device) -> dict:
         return {"pieces": pieces, "usage": usage, "finish": finish,
                 "t0": t0, "t_first": t_first, "t_end": time.perf_counter()}
 
-    async def run() -> dict:
+    async def streams_pass() -> dict:
+        """The 8 streams at once, each checked against its sequence;
+        returns the pass's times, its decode rate and the graphs
+        captured inside it."""
+        n0 = len(captures(core))
         with TokenWatch(core) as watch:
             streams = await asyncio.gather(
                 *(stream(t, sp) for t, sp in zip(texts, params)))
@@ -1939,7 +1987,8 @@ def backend_streams_cancel_signals(engine, core, device) -> dict:
                        for t, st in zip(texts, streams))
         decoded = sum(s.num_output_tokens - 1 for s in watch.seqs.values())
         decode_s = max(watch.last_t[t] - watch.first_t[t] for t in texts)
-        stream_report = {
+        caught = new_captures(core, n0)
+        return {
             "streams": len(streams),
             "streams_with_a_delta": len(delta),
             "ttft_first_delta_s_p50": delta[len(delta) // 2] if delta
@@ -1949,7 +1998,19 @@ def backend_streams_cancel_signals(engine, core, device) -> dict:
             "ttft_first_token_s_max": token[-1],
             "decode_tok_s": decoded / decode_s,
             "tokens": [s.num_output_tokens for s in watch.seqs.values()],
+            # captured inside the streams' window, and their seconds
+            "graphs_captured_in_window": len(caught),
+            "capture_s_in_window": sum(c["capture_s"] for c in caught),
+            "captured_keys": caught,
         }
+
+    async def run() -> dict:
+        # the streams twice on one engine: the second pass finds every
+        # key the first captured, and must capture none
+        stream_report = {"first_pass": await streams_pass(),
+                         "second_pass": await streams_pass()}
+        check(stream_report["second_pass"]["graphs_captured_in_window"]
+              == 0, "the second pass of the streams captured a graph")
 
         before = core.get_stats()
         tokens = [None, CancelToken(), None, None]
@@ -2015,14 +2076,15 @@ def backend_streams_cancel_signals(engine, core, device) -> dict:
 
 
 def engine_config(model: str, device: str, quantization=None,
-                  kv_dtype: str = "auto", **device_section):
+                  kv_dtype: str = "auto", host_swap_bytes: int = 0,
+                  **device_section):
     from vgate_tpu_torch.config import load_config
 
     return load_config(
         model={"model_id": model, "engine_type": "torch_cuda",
                "dtype": "bfloat16", "max_model_len": 2048,
                "quantization": quantization},
-        kv_cache={"dtype": kv_dtype},
+        kv_cache={"dtype": kv_dtype, "host_swap_bytes": host_swap_bytes},
         device={"device": device, **device_section},
         logging={"level": "WARNING"},
     )
@@ -2066,17 +2128,20 @@ def prefix_texts():
 
 
 def main_path(model: str = MODEL, device: str = "cuda",
-              reference_prompts=()) -> dict:
-    """The first path: a 9-request burst (8 greedy, 1 seeded sampled) on
-    an engine with the prefix cache off, twice, then a profiled burst,
-    then greedy streams of ``reference_prompts`` for the prefix phase to
-    compare with."""
+              reference_prompts=(), swap_prompts=()) -> dict:
+    """The first path: the engine's warm-up, then a 9-request burst (8
+    greedy, 1 seeded sampled) on an engine with the prefix cache off,
+    twice (the first must capture no graph), then a profiled burst, then
+    greedy streams of ``reference_prompts`` for the prefix phase to
+    compare with, and of ``swap_prompts`` (the host-swap phase's wave,
+    unpressured here).  Returns the weight tree under ``params``."""
     from vgate_tpu_torch.backends.base import SamplingParams
 
     engine, core = start_engine(
         engine_config(model, device, prefix_cache=False), "prefix-off"
     )
     try:
+        warmup = warm_up(core, "prefix-off engine")
         texts = prompts()
         greedy = [SamplingParams(max_tokens=32, temperature=0.0)] * 8
         sampled = SamplingParams(max_tokens=32, temperature=0.8, top_p=0.9,
@@ -2084,10 +2149,14 @@ def main_path(model: str = MODEL, device: str = "cuda",
         batch = (texts + [texts[3]], greedy + [sampled])
         reset_launches()
         stats0 = core.get_stats()
+        n0 = len(captures(core))
         results, cold = serve(engine, batch)
         launches = read_launches()
         stats = core.get_stats()
         if device == "cuda":
+            check(len(captures(core)) == n0,
+                  f"the first burst after the warm-up captured "
+                  f"{new_captures(core, n0)}")
             # every decode step replays K1 once a layer (a graph replay
             # counts its capture's launches), every prompt pass K2
             L = core.spec.num_layers
@@ -2123,11 +2192,21 @@ def main_path(model: str = MODEL, device: str = "cuda",
         reference = engine.generate_batch(
             list(reference_prompts), greedy[:1] * len(reference_prompts)
         )
+        preempts = core.get_stats()["scheduler"]["preemptions"]
+        swap_reference = engine.generate_batch(
+            list(swap_prompts), [swap_params()] * len(swap_prompts))
+        check(core.get_stats()["scheduler"]["preemptions"] == preempts,
+              "the unpressured swap wave was preempted")
         check_settled(core)
         graphs = core.get_stats()["decode_graphs"]
+        captured = new_captures(core, n0)
         backend = backend_settled_and_drain(engine, core, batch, results,
                                             device)
         return {
+            "warmup": warmup,
+            # keys captured after the warm-up (all of them keys the
+            # reference's warm-up leaves cold too), with their seconds
+            "captured_after_warmup": captured,
             "requests": len(results),
             "tokens": sum(r.num_tokens for r in results),
             "finish": [r.finish_reason for r in results],
@@ -2139,8 +2218,10 @@ def main_path(model: str = MODEL, device: str = "cuda",
             "profile": profiles,
             "launches": launches,
             "reference_streams": [r.token_ids for r in reference],
+            "swap_reference_streams": [r.token_ids for r in swap_reference],
             "burst_streams": [r.token_ids for r in results],
             "backend": backend,
+            "params": core.params,
         }
     finally:
         engine.shutdown()
@@ -2164,7 +2245,9 @@ def prefix_path(model: str = MODEL, device: str = "cuda",
     system, tails, cow, long = prefix_texts()
     greedy = SamplingParams(max_tokens=32, temperature=0.0)
     try:
-        reset_launches()
+        warmup = warm_up(core, "prefix-on engine")
+        n0 = len(captures(core))
+        stats0 = core.get_stats()
         t0 = time.perf_counter()
         [first] = engine.generate_batch([system + tails[0]], [greedy])
         hits = engine.generate_batch([system + t for t in tails[1:]],
@@ -2185,7 +2268,7 @@ def prefix_path(model: str = MODEL, device: str = "cuda",
         stats = check_settled(core)
         pc = stats["prefix_cache"]
         if device == "cuda":
-            check_graphed(stats, "the prefix path")
+            check_graphed(stats, "the prefix path", since=stats0)
             # every prompt here is a hit or chunked, so K2 need not run
             for name in ("paged_decode_attention", "paged_multitok_attention"):
                 check(launches[name] > 0,
@@ -2194,8 +2277,11 @@ def prefix_path(model: str = MODEL, device: str = "cuda",
         check(pc["cow_copies"] >= 1, f"no copy-on-write: {pc}")
         check(pc["chunked_prefills"] >= 1, f"no chunked prefill: {pc}")
         logits = check_suffix_logits(core, system + tails[0])
+        captured = new_captures(core, n0)
         backend = backend_streams_cancel_signals(engine, core, device)
         return {
+            "warmup": warmup,
+            "captured_after_warmup": captured,
             "requests": len(results) + 1,
             "wall_s": wall,
             "ttft_s_cold_first": first.metrics["ttft"],
@@ -2302,6 +2388,264 @@ def again_engine(core):
     return types.SimpleNamespace(generate_batch=backend.generate)
 
 
+# the host-swap phase (Qwen2.5-7B bf16, prefix cache off): 8 prompts of
+# 600 tokens decoding 256 each hold 19 pages (of 32 tokens) a sequence
+# at admission and 27 at the end, so 176 allocatable pages take the wave
+# but not its growth; 1 GiB of host memory holds ~585 pages of 1.835 MB
+# (28 layers x K and V x 4 heads x 32 x 128 x 2 bytes)
+SWAP_NUM_PAGES = 177
+SWAP_HOST_BYTES = 1 << 30
+
+
+def swap_params():
+    from vgate_tpu_torch.backends.base import SamplingParams
+
+    return SamplingParams(max_tokens=256, min_tokens=256, temperature=0.0)
+
+
+def swap_texts(n: int = 8, length: int = 600):
+    """The host-swap phase's wave: ``n`` distinct prompts of ``length``
+    bytes (the byte tokenizer makes 1 byte 1 token)."""
+    return [filler(f"Request {i}: ", length, i + 1) for i in range(n)]
+
+
+def first_divergence(a, b) -> int:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
+
+
+class TransferTimer:
+    """Times the swap executor's calls (``read_pages`` out, ``write_pages``
+    in): the payload's bytes, each call's host seconds (a swap-in returns
+    once its copies are enqueued; a swap-out waits for the chunk in
+    flight first), and on the card the device time between CUDA events
+    recorded on the engine stream just before and after the call (host
+    work the stream waits for inside the call, such as a first pinned
+    allocation, included)."""
+
+    def __init__(self, executor, cuda: bool):
+        self.cuda = cuda
+        self.totals = {way: {"calls": 0, "bytes": 0, "wall_s": 0.0,
+                             "events": []} for way in ("out", "in")}
+        for way, name in (("out", "read_pages"), ("in", "write_pages")):
+            setattr(executor, name, self._timed(way, getattr(executor, name)))
+
+    def _timed(self, way, call):
+        def timed(pages, *args):
+            events = None
+            if self.cuda:
+                events = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                events[0].record()
+            t0 = time.perf_counter()
+            out = call(pages, *args)
+            tot = self.totals[way]
+            tot["wall_s"] += time.perf_counter() - t0
+            if events is not None:
+                events[1].record()
+                tot["events"].append(events)
+            payload = out if way == "out" else args[0]
+            tot["calls"] += 1
+            tot["bytes"] += sum(t.numel() * t.element_size()
+                                for chunk in payload for t in chunk)
+            return out
+        return timed
+
+    def rates(self) -> dict:
+        """GB/s each way, by host seconds and by device time."""
+        if self.cuda:
+            torch.cuda.synchronize()
+        out = {}
+        for way, t in self.totals.items():
+            device_ms = sum(a.elapsed_time(b) for a, b in t["events"])
+            out[way] = {
+                "calls": t["calls"], "bytes": t["bytes"],
+                "gb_s_host_wall": t["bytes"] / t["wall_s"] / 1e9
+                if t["wall_s"] else None,
+                "gb_s_device": t["bytes"] / device_ms / 1e6
+                if device_ms else None,
+            }
+        return out
+
+
+def swap_path(params, reference_streams, model: str = MODEL,
+              device: str = "cuda", texts=None,
+              num_pages: int = SWAP_NUM_PAGES,
+              host_bytes: int = SWAP_HOST_BYTES) -> dict:
+    """The host KV swap tier at 7B, over the main path's weights: the
+    swap wave (``swap_texts``, all queued as one) on an engine whose pool
+    takes the wave but not its growth, with the host pool on, then with
+    it off, each after its warm-up.  With swap on every preemption must
+    park its pages and resume by swap-in with no recompute, no page or
+    host byte may stay in use, every decode chunk must be a graph replay,
+    and the streams must equal ``reference_streams`` (the same wave
+    unpressured on the main path's engine).  Should they differ, a row
+    that leaves the reference at its first token after a swap-in fails
+    (the page round trip of the kernel checks is bit-exact); a row that
+    leaves it at a step with no swap event is shape-dependent bf16
+    rounding, and then the agreement is printed in place of the check.
+    The swap-off engine must preempt and recompute."""
+    from vgate_tpu_torch.runtime.engine_core import EngineCore
+
+    texts = swap_texts() if texts is None else texts
+    out = {"pcie_link": smi("pcie.link.gen.current,pcie.link.width.current")
+           if device == "cuda" else None}
+    for name, budget in (("swap_on", host_bytes), ("swap_off", 0)):
+        cfg = engine_config(model, device, prefix_cache=False,
+                            kv_num_pages=num_pages, host_swap_bytes=budget)
+        core = EngineCore(cfg, params=params)
+        core.start()
+        try:
+            run = {"warmup": warm_up(core, f"host-swap phase, {name}")}
+            stats0 = core.get_stats()
+            swap_ins, timer = {}, None
+            if core.kv_swap is not None:
+                timer = TransferTimer(core.kv_swap.executor,
+                                      device == "cuda")
+                plain = core.kv_swap.swap_in_seq
+
+                def swap_in_seq(seq, pages, plain=plain):
+                    # the token index the resumed row computes next
+                    swap_ins.setdefault(seq.seq_id, []).append(
+                        seq.num_generated)
+                    return plain(seq, pages)
+
+                core.kv_swap.swap_in_seq = swap_in_seq
+            with TokenWatch(core) as watch:
+                t0 = time.perf_counter()
+                results = again_engine(core).generate_batch(
+                    texts, [swap_params()] * len(texts))
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                run["wall_s"] = time.perf_counter() - t0
+            launches = read_launches()
+            check(all(r.num_tokens == 256 for r in results),
+                  f"{name}: tokens {[r.num_tokens for r in results]}")
+            stats = check_settled(core)
+            sched = stats["scheduler"]
+            run.update({
+                key: sched[key] - stats0["scheduler"][key]
+                for key in ("preemptions", "swap_preempts",
+                            "preempt_recompute_tokens")
+            })
+            run.update({
+                "decode_steps": stats["steps"] - stats0["steps"],
+                "prompt_passes": stats["prompt_passes"]
+                - stats0["prompt_passes"],
+                "launches": launches,
+            })
+            check(run["preemptions"] > 0,
+                  f"{name}: the pool of {num_pages} pages was never squeezed")
+            if device == "cuda":
+                run["counts"] = check_phase_launches(
+                    core, stats0, launches, f"host-swap phase, {name}",
+                    prefix_cache=False)
+                # the wave's min-token keys are captured inside it (the
+                # warm-up leaves them cold, as the reference's does)
+                run["wall_s_less_captures"] = (
+                    run["wall_s"] - run["counts"]["capture_s"])
+            streams = [r.token_ids for r in results]
+            run["agreement_with_unpressured"] = agreement(
+                streams, reference_streams)
+            if core.kv_swap is not None:
+                kv = stats["kv_swap"]
+                check(run["swap_preempts"] == run["preemptions"],
+                      f"swap on: {run['swap_preempts']} of "
+                      f"{run['preemptions']} preemptions swapped")
+                check(run["preempt_recompute_tokens"] == 0,
+                      f"swap on: {run['preempt_recompute_tokens']} "
+                      "recompute tokens")
+                check(kv["swap_in_pages"]["preempt"] > 0, f"no swap-in: {kv}")
+                check(kv["used_bytes"] == 0,
+                      f"{kv['used_bytes']} host pool bytes left in use")
+                sig = core.pressure_signals()
+                check(set(sig) == PRESSURE_KEYS | SWAP_PRESSURE_KEYS
+                      and sig["kv_host_free_ratio"] == 1.0,
+                      f"swap on: pressure signals {sig}")
+                run["swap_out_pages"] = kv["swap_out_pages"]
+                run["swap_in_pages"] = kv["swap_in_pages"]
+                run["rates"] = timer.rates()
+                if streams != reference_streams:
+                    at_swap = []
+                    for text, got, ref in zip(texts, streams,
+                                              reference_streams):
+                        d = first_divergence(got, ref)
+                        if d < len(ref) and d in swap_ins.get(
+                                watch.seqs[text].seq_id, ()):
+                            at_swap.append(d)
+                    check(not at_swap, "swap on: rows leave the "
+                          f"unpressured streams at a swap-in: {at_swap}")
+                    print("host-swap phase: the streams differ from the "
+                          "unpressured ones at steps with no swap event "
+                          "(bf16 rounding by shape); agreement "
+                          + json.dumps(run["agreement_with_unpressured"]),
+                          flush=True)
+                run["token_identical_to_unpressured"] = (
+                    streams == reference_streams)
+            else:
+                check(run["preempt_recompute_tokens"] > 0,
+                      "swap off: no recompute tokens")
+            out[name] = run
+        finally:
+            core.stop()
+        del core
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_swap_round_trip(dev) -> dict:
+    """The host swap tier's page round trip at the 7B layer geometry, on
+    bf16 pools and on int8 pools with their scales: N pages (1, 16, and
+    17, which crosses a chunk) swapped out to pinned memory and into
+    other pages must come back bit for bit, into pools whose storage did
+    not move."""
+    import types
+
+    from vgate_tpu_torch.ops.kv_quant import QuantPages, quantize
+    from vgate_tpu_torch.runtime.engine_core import _DeviceSwapExecutor
+
+    L, KV, P, ps, hd = 28, 4, 64, 32, 128
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for kind in ("bf16", "int8"):
+        pools = []
+        for _ in range(2):
+            vals = torch.randn((L, KV, P, ps, hd), generator=gen,
+                               device=dev)
+            pools.append(QuantPages(*quantize(vals)) if kind == "int8"
+                         else vals.to(torch.bfloat16))
+        parts = [t for pool in pools for t in (
+            (pool.data, pool.scale) if kind == "int8" else (pool,))]
+        ex = _DeviceSwapExecutor(types.SimpleNamespace(
+            k_pages=pools[0], v_pages=pools[1], device=dev))
+        timer = TransferTimer(ex, cuda=True)
+        ptrs = [t.data_ptr() for t in parts]
+        for n in (1, 16, 17):
+            src = list(range(1, 1 + n))
+            dst = list(range(P - 1, P - 1 - n, -1))
+            expect = [t[:, :, src].clone() for t in parts]
+            payload = ex.read_pages(src)
+            check(all(t.is_pinned() for chunk in payload for t in chunk),
+                  "a swap payload is not in pinned memory")
+            for t in parts:
+                t[:, :, dst] = 0
+            ex.write_pages(dst, payload)
+            del payload
+            torch.cuda.synchronize()
+            for t, e in zip(parts, expect):
+                check(torch.equal(t[:, :, dst].contiguous().view(torch.uint8),
+                                  e.contiguous().view(torch.uint8)),
+                      f"{kind} swap round trip of {n} pages is not exact")
+        check([t.data_ptr() for t in parts] == ptrs,
+              f"{kind} pools moved in a swap")
+        out[kind] = timer.rates()
+        del pools, parts, ex, timer
+    torch.cuda.empty_cache()
+    return out
+
+
 def quant_path(quantization: str, model: str = MODEL, device: str = "cuda",
                with_prefix_traffic: bool = True, bf16_streams=None) -> dict:
     """Quantized serving: ``quantization`` weights (int8 or int4) and
@@ -2318,16 +2662,17 @@ def quant_path(quantization: str, model: str = MODEL, device: str = "cuda",
     cfg = engine_config(model, device, quantization=quantization,
                         kv_dtype="int8", prefill_chunk=512)
     engine, core = start_engine(cfg, f"{quantization} weights + int8 KV")
+    out = {"warmup": warm_up(core, f"{quantization} weights + int8 KV")}
     bits = 8 if quantization == "int8" else 4
     texts = prompts()
     greedy = SamplingParams(max_tokens=32, temperature=0.0)
     sampled = SamplingParams(max_tokens=32, temperature=0.8, top_p=0.9,
                              top_k=50, seed=1234)
     batch = (texts + [texts[3]], [greedy] * 8 + [sampled])
-    out = {"kv_dtype": core.get_stats()["kv_dtype"]}
+    stats0 = core.get_stats()
+    out["kv_dtype"] = stats0["kv_dtype"]
     try:
         check(out["kv_dtype"] == "int8", f"kv_dtype {out['kv_dtype']}")
-        reset_launches()
         results, cold = serve(engine, batch)
         served = list(results)
         if with_prefix_traffic:
@@ -2342,9 +2687,10 @@ def quant_path(quantization: str, model: str = MODEL, device: str = "cuda",
         check_results(served, core)
         stats = check_settled(core)
         if device == "cuda":  # no kernel runs on the CPU
-            check_graphed(stats, f"the {quantization} phase")
+            check_graphed(stats, f"the {quantization} phase", since=stats0)
             out["launch_counts"] = check_quant_launches(
-                launches, stats["steps"], bits, core.spec.num_layers)
+                launches, stats["steps"] - stats0["steps"], bits,
+                core.spec.num_layers)
             if with_prefix_traffic:
                 check(launches["paged_multitok_attention_int8"] > 0,
                       "K3-int8 was not launched on the prefix traffic")
@@ -2384,6 +2730,7 @@ def quant_path(quantization: str, model: str = MODEL, device: str = "cuda",
     again = EngineCore(cfg, params=params)
     again.start()
     try:
+        out["warmup_again"] = warm_up(again, f"{quantization} second engine")
         repeat = again_engine(again).generate_batch(*batch)
         if device == "cuda":
             # where the time goes in a warm burst (its prompts now hit)
@@ -2511,6 +2858,7 @@ def gemma_path(block_slots: int, model: str = GEMMA, device: str = "cuda",
         print(f"{what} engine up in {time.perf_counter() - t0:.1f} s over "
               f"the same weights, {core.geometry.num_pages} KV pages",
               flush=True)
+    warmup = warm_up(core, what)
     texts = prompts()
     greedy = SamplingParams(max_tokens=32, temperature=0.0)
     sampled = SamplingParams(max_tokens=32, temperature=0.8, top_p=0.9,
@@ -2518,9 +2866,9 @@ def gemma_path(block_slots: int, model: str = GEMMA, device: str = "cuda",
     batch = (texts + [texts[3]], [greedy] * 8 + [sampled])
     doc = filler("Document: ", 4600, 7)
     shorts = [filler(f"Reader {i}: ", 60 + 20 * i, i + 1) for i in range(7)]
-    out = {"kv_pages": core.geometry.num_pages}
+    out = {"kv_pages": core.geometry.num_pages, "warmup": warmup}
+    stats0 = core.get_stats()
     try:
-        reset_launches()
         t0 = time.perf_counter()
         burst, cold = serve(engine, batch)
         wave = engine.generate_batch([doc] + shorts, [greedy] * 8)
@@ -2542,9 +2890,10 @@ def gemma_path(block_slots: int, model: str = GEMMA, device: str = "cuda",
         check(hit2 > 4096, f"the second turn hit {hit2} tokens, not > 4096")
         check(pc["chunked_prefills"] >= 1, f"no chunked prefill: {pc}")
         L = core.spec.num_layers
-        steps, passes = stats["steps"], stats["prompt_passes"]
+        steps = stats["steps"] - stats0["steps"]
+        passes = stats["prompt_passes"] - stats0["prompt_passes"]
         if device == "cuda":  # no kernel runs on the CPU
-            check_graphed(stats, what)
+            check_graphed(stats, what, since=stats0)
             mine, other = ("paged_decode_attention_blocked",
                            "paged_decode_attention")
             if block_slots == 1:
@@ -2664,6 +3013,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     kernels.append(check_paged_decode_blocked(dev))
     gemma_kernel_shapes(dev)
+    print("host swap page round trip at 7B (1, 16, 17 pages; bit-exact, "
+          "pools in place): " + json.dumps(check_swap_round_trip(dev)),
+          flush=True)
     for k in kernels:
         print(f"kernel {k['name']} [{k['shape']}]: err {k['max_abs_err']:.3g}"
               f" ms {k['ms']:.4f} plain {k['plain_ms']:.4f} bound "
@@ -2678,8 +3030,11 @@ def main() -> None:
     memory("the kernel checks")
     system, tails, cow, long = prefix_texts()
     served = main_path(
-        reference_prompts=[system + t for t in tails] + [cow, long]
+        reference_prompts=[system + t for t in tails] + [cow, long],
+        swap_prompts=swap_texts(),
     )
+    params = served.pop("params")
+    swap_reference = served.pop("swap_reference_streams")
     reference_streams = served.pop("reference_streams")
     bf16_burst = served.pop("burst_streams")
     profiles = served.pop("profile")
@@ -2696,23 +3051,34 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     memory("the prefix-off phase")
+    swap = swap_path(params, swap_reference)
+    print(f"host-swap phase on {card}, PCIe link "
+          f"{swap['pcie_link']}: " + json.dumps(swap), flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory("the host-swap phase")
     prefix = prefix_path(reference_streams=reference_streams)
     backend_b = prefix.pop("backend")
     print(f"prefix path on {card}: " + json.dumps(prefix), flush=True)
     print(f"backend phase, prefix-on engine, on {card}: "
           + json.dumps(backend_b), flush=True)
-    st = backend_b["streams"]
-    print(f"backend streams on {card}: 8 concurrent stream_async; time to "
-          f"the first delta p50 {st['ttft_first_delta_s_p50']} s, max "
-          f"{st['ttft_first_delta_s_max']} s ({st['streams_with_a_delta']} "
-          f"streams yielded text); to the first token p50 "
-          f"{st['ttft_first_token_s_p50']:.4f} s, max "
-          f"{st['ttft_first_token_s_max']:.4f} s; decode "
-          f"{st['decode_tok_s']:.1f} tokens/s", flush=True)
+    for which, st in backend_b["streams"].items():
+        print(f"backend streams, {which}, on {card}: 8 concurrent "
+              f"stream_async; time to the first delta p50 "
+              f"{st['ttft_first_delta_s_p50']} s, max "
+              f"{st['ttft_first_delta_s_max']} s "
+              f"({st['streams_with_a_delta']} streams yielded text); to "
+              f"the first token p50 {st['ttft_first_token_s_p50']:.4f} s, "
+              f"max {st['ttft_first_token_s_max']:.4f} s; decode "
+              f"{st['decode_tok_s']:.1f} tokens/s; "
+              f"{st['graphs_captured_in_window']} graphs captured inside "
+              f"the window ({st['capture_s_in_window']:.2f} s)", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     memory("the prefix phase")
-    runs = [served, backend_a, prefix, backend_b]
+    runs = [served, backend_a, swap["swap_on"], swap["swap_off"], prefix,
+            backend_b]
     for quantization, traffic in (("int8", True), ("int4", False)):
         quant = quant_path(quantization, with_prefix_traffic=traffic,
                            bf16_streams=bf16_burst)

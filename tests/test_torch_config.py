@@ -35,7 +35,6 @@ def test_defaults_and_sections():
         {"device": {"pp": 2}},
         {"device": {"ep": 2}},
         {"model": {"draft_model_id": "tiny-dense"}},
-        {"kv_cache": {"host_swap_bytes": 1 << 20}},
         {"model": {"model_id": "tiny-moe"}},
         {"model": {"model_id": "tiny-encoder"}},
         {"device": {"int8_native": True}},
@@ -49,6 +48,20 @@ def test_unported_switches_raise(sections):
         sections["model"] = {"model_id": "tiny-dense", **sections["model"]}
     with pytest.raises(NotPortedError, match="not ported yet"):
         load_config(**sections)
+
+
+def test_host_swap_bytes_accepted():
+    """The host-RAM swap tier is served (ROADMAP queue 1, item 5)."""
+    cfg = load_config(model={"model_id": "tiny-dense"},
+                      kv_cache={"host_swap_bytes": 1 << 20})
+    assert cfg.kv_cache.host_swap_bytes == 1 << 20
+
+
+def test_negative_host_swap_bytes_raises():
+    """The reference's validator: 0 disables, below 0 is an error."""
+    with pytest.raises(ValueError, match="host_swap_bytes must be >= 0"):
+        load_config(model={"model_id": "tiny-dense"},
+                    kv_cache={"host_swap_bytes": -1})
 
 
 @pytest.mark.parametrize(

@@ -731,7 +731,7 @@ CARD_SPEC = dict(hidden_size=256, num_heads=4, num_kv_heads=2,
 
 
 def _card_engine(kv_dtype="auto", block_slots=1, quantization=None,
-                 decode_graphs=True):
+                 decode_graphs=True, kv_num_pages=96, host_swap_bytes=0):
     import dataclasses
 
     from vgate_tpu_torch.config import load_config
@@ -741,8 +741,9 @@ def _card_engine(kv_dtype="auto", block_slots=1, quantization=None,
     cfg = load_config(
         model={"model_id": "tiny-dense", "dtype": "bfloat16",
                "max_model_len": 256, "quantization": quantization},
-        kv_cache={"dtype": kv_dtype},
-        device={"device": "cuda", "kv_page_size": 16, "kv_num_pages": 96,
+        kv_cache={"dtype": kv_dtype, "host_swap_bytes": host_swap_bytes},
+        device={"device": "cuda", "kv_page_size": 16,
+                "kv_num_pages": kv_num_pages,
                 "max_batch_slots": 4, "prefill_buckets": [32, 64, 128],
                 "prefix_cache": False, "decode_block_slots": block_slots},
         logging={"level": "WARNING"},
@@ -928,3 +929,104 @@ def test_graph_replays_draw_new_noise_from_the_engine_generator(cuda):
     a = draws(1)
     assert len({tuple(r.tolist()) for r in a}) == len(a)
     torch.testing.assert_close(a, draws(1), atol=0, rtol=0)
+
+
+# ------------------------------------------------- warm-up and host swap
+
+
+@pytest.mark.cuda
+def test_burst_after_warmup_captures_no_graph_on_card(cuda):
+    """The warm-up captures the keys of a greedy and sampled burst: the
+    burst that follows replays them and captures none."""
+    core = _card_engine()
+    try:
+        assert core.warmup() > 0
+        captured = core.get_stats()["decode_graphs"]["captured"]
+        assert captured >= 2  # greedy and sampled chunk descents
+        _served(core, _card_requests(7, logprobs=False), "K1", False)
+        stats = core.get_stats()
+        assert stats["decode_graphs"]["captured"] == captured
+        assert stats["decode_graphs"]["replays"] == stats["chunks"]
+    finally:
+        core.stop()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, "int8"],
+                         ids=["bf16", "int8"])
+def test_swap_round_trip_with_the_payload_freed_at_once_on_card(
+        cuda, kv_dtype):
+    """Pages swapped out to pinned memory and into other pages come back
+    bit for bit, in place.  The payload is dropped as soon as the swap-in
+    is enqueued (behind a sleeping kernel, so its copies have not run)
+    and pinned blocks of the same sizes are taken and overwritten at
+    once, then a second swap-out runs: the caching host allocator must
+    not hand out a block whose copy is still pending."""
+    import types
+
+    from vgate_tpu_torch.runtime.engine_core import _DeviceSwapExecutor
+
+    rng = np.random.default_rng(3)
+    shape = (2, 2, 64, 16, 64)
+    if kv_dtype == "int8":
+        k, v = (_int8_pool(rng, shape[1:], cuda, L=shape[0])
+                for _ in range(2))
+        parts = [k.data, k.scale, v.data, v.scale]
+    else:
+        k, v = (_bf16(rng, shape, cuda) for _ in range(2))
+        parts = [k, v]
+    ex = _DeviceSwapExecutor(types.SimpleNamespace(
+        k_pages=k, v_pages=v, device=cuda))
+    ptrs = [t.data_ptr() for t in parts]
+    src, dst = list(range(1, 18)), list(range(63, 46, -1))
+    expect = [t[:, :, src].clone() for t in parts]
+    payload = ex.read_pages(src)
+    sizes = [(p.shape, p.dtype) for chunk in payload for p in chunk]
+    assert all(p.is_pinned() for chunk in payload for p in chunk)
+    for t in parts:
+        t[:, :, dst] = 0
+    torch.cuda._sleep(200_000_000)
+    ex.write_pages(dst, payload)
+    del payload
+    taken = [torch.empty(shape, dtype=dtype, pin_memory=True)
+             for shape, dtype in sizes]
+    for t in taken:
+        t.view(torch.uint8).fill_(0x5A)
+    again = ex.read_pages(list(range(20, 37)))
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in parts] == ptrs
+    for t, e in zip(parts, expect):
+        assert torch.equal(t[:, :, dst].contiguous().view(torch.uint8),
+                           e.contiguous().view(torch.uint8))
+    assert len(again) == 2 and len(taken) == len(sizes)
+
+
+@pytest.mark.cuda
+def test_graphed_decode_after_swap_in_matches_the_eager_chunk_on_card(cuda):
+    """A squeezed pool with the host swap tier on: sequences preempted,
+    parked in pinned memory and swapped back in decode through graph
+    replays to the same tokens as the eager chunk body, with zero
+    recompute, and launch counts exact."""
+    core = _card_engine(kv_num_pages=20, host_swap_bytes=1 << 26)
+    rng = np.random.default_rng(9)
+    requests = [(rng.integers(3, 500, size=40).tolist(),
+                 dict(max_tokens=60, min_tokens=60, temperature=0.0))
+                for _ in range(4)]
+    runs = {}
+    try:
+        for graphs in (True, False):
+            core.decode_graphs = graphs
+            stats0 = core.get_stats()["scheduler"]
+            runs[graphs] = _served(core, requests, "K1", False)
+            sched = core.get_stats()["scheduler"]
+            preempts = sched["preemptions"] - stats0["preemptions"]
+            swapped = sched["swap_preempts"] - stats0["swap_preempts"]
+            assert preempts > 0 and swapped == preempts
+            assert sched["preempt_recompute_tokens"] == 0
+        stats = core.get_stats()
+        assert stats["kv_swap"]["swap_in_pages"]["preempt"] > 0
+        assert stats["kv_swap"]["used_bytes"] == 0
+    finally:
+        core.stop()
+    for g, e in zip(runs[True], runs[False]):
+        assert g.generated_ids == e.generated_ids

@@ -5,7 +5,9 @@ A fresh interpreter imports every ``vgate_tpu_torch`` module and
 end with neither ``jax`` nor ``vgate_tpu`` — matched by exact package
 name, since ``vgate_tpu_torch`` starts with ``vgate_tpu`` — loaded.
 A second probe blocks the HTTP layer's packages and PyYAML, which the
-card's machine lacks, and runs the engine path without them.
+card's machine lacks, and runs the engine path without them; a third
+warms up a host-swap engine and serves a wave that swaps, with the
+engine-side metric series resolved to no-op stand-ins.
 """
 
 import json
@@ -103,6 +105,52 @@ def test_engine_path_imports_and_streams_without_the_http_packages():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run(
         [sys.executable, "-c", BLOCKED_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+SWAP_PROBE = """
+import sys
+for name in %r:
+    sys.modules[name] = None
+from vgate_tpu_torch.backends.base import SamplingParams
+from vgate_tpu_torch.config import load_config
+from vgate_tpu_torch.runtime import engine_metrics
+from vgate_tpu_torch.runtime.engine_core import EngineCore
+assert engine_metrics._registry is None
+assert engine_metrics.KV_PAGES_TOTAL is engine_metrics._NOOP
+core = EngineCore(load_config(
+    model={"model_id": "tiny-dense", "dtype": "float32",
+           "max_model_len": 96},
+    kv_cache={"host_swap_bytes": 1 << 24},
+    device={"device": "cpu", "kv_num_pages": 40, "kv_page_size": 4,
+            "max_batch_slots": 4, "prefill_buckets": [8, 16, 32]},
+))
+assert core.warmup() > 0
+sp = SamplingParams(max_tokens=40, min_tokens=40, temperature=0.0)
+seqs = [core.submit_tokens([7 + i, 3, 9, 4 + i, 11, 6, 2, 13 + i, 5, 8,
+                            12, 10 + i], sp) for i in range(4)]
+for _ in range(10_000):
+    if all(s.done_event.is_set() for s in seqs):
+        break
+    core._tick()
+assert all(s.num_output_tokens == 40 for s in seqs)
+sched = core.get_stats()["scheduler"]
+assert sched["swap_preempts"] == sched["preemptions"] > 0, sched
+assert sched["preempt_recompute_tokens"] == 0, sched
+print("ok")
+""" % (BLOCKED,)
+
+
+def test_swap_engine_warms_up_and_serves_without_prometheus_client():
+    """The engine-side series resolve to stand-ins without
+    prometheus_client: a swap-on engine warms up and serves a wave that
+    preempts, swaps out and swaps back in."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", SWAP_PROBE], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr[-2000:]

@@ -26,6 +26,7 @@ from vgate_tpu_torch.backends.base import GenerationResult, SamplingParams
 from vgate_tpu_torch.config import get_config
 from vgate_tpu_torch.errors import state_is_alive, state_is_ready
 from vgate_tpu_torch.logging_config import get_logger
+from vgate_tpu_torch.runtime import engine_metrics as metrics
 from vgate_tpu_torch.runtime.engine_core import EngineCore
 from vgate_tpu_torch.runtime.sequence import SeqStatus
 
@@ -291,18 +292,11 @@ class TorchCUDABackend:
         if seq.status is SeqStatus.FAILED:
             raise seq.error  # type: ignore[misc]
         # streams bypass the batcher, where plain requests' TTFT/TPOT are
-        # observed.  Imported here: the engine path runs without
-        # prometheus_client (on the card's machine), and then nothing
-        # serves /metrics to observe for
-        try:
-            from vgate_tpu_torch import metrics as vgt_metrics
-        except ImportError:
-            vgt_metrics = None
-        if vgt_metrics is not None:
-            for hist, value in ((vgt_metrics.TTFT, seq.ttft),
-                                (vgt_metrics.TPOT, seq.tpot)):
-                if value is not None:
-                    hist.observe(value)
+        # observed
+        for hist, value in ((metrics.TTFT, seq.ttft),
+                            (metrics.TPOT, seq.tpot)):
+            if value is not None:
+                hist.observe(value)
         if on_usage is not None:
             on_usage({
                 "prompt_tokens": seq.orig_prompt_len,

@@ -369,8 +369,10 @@ def _check(cfg: VGTConfig) -> None:
             f"kv_cache.dtype must be one of {VALID_KV_DTYPES}, got "
             f"{cfg.kv_cache.dtype!r}"
         )
-    if cfg.kv_cache.host_swap_bytes:
-        raise _not_ported("kv_cache.host_swap_bytes", "queue 1, item 5")
+    if cfg.kv_cache.host_swap_bytes < 0:
+        raise ValueError(
+            "kv_cache.host_swap_bytes must be >= 0 (0 disables)"
+        )
     pc = d.prefix_cache
     if pc.min_share_pages < 1:
         raise ValueError("prefix_cache.min_share_pages must be >= 1")

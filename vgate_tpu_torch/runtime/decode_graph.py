@@ -42,7 +42,7 @@ from __future__ import annotations
 import copy
 import gc
 import time
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -291,19 +291,24 @@ class DecodeGraphs:
         self.capture = capture
         self.graphs: Dict[tuple, CapturedChunk] = {}
         self.capture_s = 0.0
+        # (key, seconds) of each capture, in order
+        self.capture_log: List[Tuple[tuple, float]] = []
         self.replays = 0
 
     def run(self, key: tuple, body: Callable[[], None],
             warmup: Callable[[], None]) -> None:
         entry = self.graphs.get(key)
         if entry is None:
+            t0 = time.perf_counter()
             entry = self._capture(body, warmup)
             self.graphs[key] = entry
+            seconds = time.perf_counter() - t0
+            self.capture_s += seconds
+            self.capture_log.append((key, seconds))
         entry.replay()
         self.replays += 1
 
     def _capture(self, body, warmup) -> CapturedChunk:
-        t0 = time.perf_counter()
         before = {w: w.launches for w in DECODE_WRAPPERS}
         self.capture.warmup(warmup)
         at_capture = {w: w.launches for w in DECODE_WRAPPERS}
@@ -323,7 +328,6 @@ class DecodeGraphs:
         # neither the warm-up nor the capture served a decode step
         for w, n in before.items():
             w.launches = n
-        self.capture_s += time.perf_counter() - t0
         return CapturedChunk(graph, launches)
 
     def stats(self) -> Dict[str, Any]:

@@ -52,10 +52,20 @@ path — batched, bucketed prompt passes and pipelined decode chunks:
   Stream callbacks run on the engine thread inside readback, so they
   must not block or touch the device (backends/torch_backend.py only
   hands each token to its event loop).
+* **Host KV swap** (``kv_cache.host_swap_bytes`` > 0): preemption parks
+  the victim's pages in host RAM (pinned on the card) and re-admission
+  scatters them back into the pools in place, with zero recompute;
+  radix eviction demotes warm prefixes there (runtime/kv_swap.py,
+  ``_DeviceSwapExecutor``).
+* **Warm-up** (``warmup``): the reference's start-up walk, which on the
+  card captures the common decode graphs before the first request.
+* **Metrics**: the engine-side Prometheus series, set on the host side
+  of each readback (runtime/engine_metrics.py), never inside a captured
+  decode body.
 
-Not ported yet (the config refuses them): speculative decoding, host KV
-swap, multi-device meshes.  The supervisor, integrity checks, flight
-recorder and metrics come with later slices.
+Not ported yet (the config refuses them): speculative decoding,
+multi-device meshes.  The supervisor, integrity checks and flight
+recorder come with later slices.
 """
 
 from __future__ import annotations
@@ -88,6 +98,7 @@ from vgate_tpu_torch.ops.kv_quant import (
     SCALE_BYTES,
     copy_page_prefix,
     dtype_short_name,
+    is_quantized,
 )
 from vgate_tpu_torch.ops.sampling import (
     apply_logit_bias,
@@ -100,15 +111,22 @@ from vgate_tpu_torch.runtime.decode_graph import (
     CudaCapture,
     DecodeGraphs,
     DecodeState,
+    _width,
 )
+from vgate_tpu_torch.runtime import engine_metrics as metrics
 from vgate_tpu_torch.runtime.kv_cache import (
     KVGeometry,
     PageAllocator,
     auto_num_pages,
     make_kv_buffers,
 )
+from vgate_tpu_torch.runtime.kv_swap import KVSwapManager
 from vgate_tpu_torch.runtime.radix_cache import RadixCache
-from vgate_tpu_torch.runtime.scheduler import PrefillPlan, Scheduler
+from vgate_tpu_torch.runtime.scheduler import (
+    PrefillPlan,
+    Scheduler,
+    SwapInPlan,
+)
 from vgate_tpu_torch.runtime.sequence import Sequence, SeqStatus
 from vgate_tpu_torch.runtime.tokenizer import get_tokenizer
 from vgate_tpu_torch.runtime.weights import (
@@ -159,7 +177,7 @@ def _first_tokens(logits, generator, sampling: Dict[str, Any],
                   num_logprobs: int = 0):
     """Sample each prompt's first token from its last-token logits, with
     the rows' penalties, logit bias and min-token floors (``sampling`` is
-    ``EngineCore._row_arrays``).  Returns ([B] int32 on the device, the
+    ``EngineCore._group_sampling``).  Returns ([B] int32 on the device, the
     logprob triple ``(chosen [B], top ids [B, K], top lps [B, K])`` when
     ``num_logprobs`` > 0, else None)."""
     pen = None
@@ -212,6 +230,14 @@ def _suffix_prefill_step(
     return _first_tokens(logits, generator, sampling, num_logprobs)
 
 
+def _suffix_key(bucket, B, ctx_pages, has_pen, mt_width, num_lp, lb_width,
+                unaligned=False) -> tuple:
+    """The reference's static key of one suffix pass shape, shared by
+    the batched suffix groups and the chunked passes."""
+    return ("suffix", bucket, B, ctx_pages, has_pen, mt_width, num_lp,
+            lb_width, unaligned)
+
+
 def _cow_copy_pages(k_pages, v_pages, src: int, dst: int, upto: int):
     """Copy-on-write page copy (runtime/radix_cache.py): the first
     ``upto`` token slots of page ``src`` into page ``dst`` across every
@@ -222,6 +248,113 @@ def _cow_copy_pages(k_pages, v_pages, src: int, dst: int, upto: int):
     and before the suffix pass that writes the rest of ``dst``."""
     copy_page_prefix(k_pages, src, dst, upto)
     copy_page_prefix(v_pages, src, dst, upto)
+
+
+# pages moved per gather or scatter when swapping KV to or from host RAM
+# (runtime/kv_swap.py), as the reference's SWAP_CHUNK_PAGES: here it
+# bounds the device staging a swap allocates (eager torch has no fixed
+# program shape, so short runs need no padding)
+SWAP_CHUNK_PAGES = 16
+
+
+def _pool_tensors(k_pages, v_pages) -> List[torch.Tensor]:
+    """Every tensor of the K and V pools: the data, and for int8
+    ``QuantPages`` also the scale pools (the data's shape minus hd),
+    each with the page axis at 2."""
+    out = []
+    for pool in (k_pages, v_pages):
+        out += [pool.data, pool.scale] if is_quantized(pool) else [pool]
+    return out
+
+
+def _gather_swap_pages(k_pages, v_pages, idx) -> List[torch.Tensor]:
+    """Device half of a swap-out: the page slices ``idx`` of every pool
+    tensor (``_pool_tensors`` order), as new tensors on the pools'
+    device.  The pools are only read."""
+    return [t.index_select(2, idx) for t in _pool_tensors(k_pages, v_pages)]
+
+
+def _scatter_swap_pages(k_pages, v_pages, idx, parts) -> None:
+    """Device half of a swap-in: ``parts`` (``_gather_swap_pages``'
+    layout, on the pools' device) into pages ``idx``, IN PLACE.  The
+    pools keep their storage: the decode graphs captured its address,
+    so a rebound pool would leave every replay reading stale memory."""
+    for t, part in zip(_pool_tensors(k_pages, v_pages), parts, strict=True):
+        t.index_copy_(2, idx, part)
+
+
+class _DeviceSwapExecutor:
+    """The device half of the host swap tier (runtime/kv_swap.py): the
+    manager stays host-side policy, and every device touch happens here,
+    on the engine thread, at tick boundaries.
+
+    A payload is a list of chunks of up to ``SWAP_CHUNK_PAGES`` pages,
+    each the gathered tensors of ``_pool_tensors``; on the card they are
+    pinned host tensors, on the CPU plain ones.  A failed pinned
+    allocation or copy raises: there is no path through pageable memory."""
+
+    def __init__(self, core: Any) -> None:
+        self._core = core
+
+    def _index(self, pages: List[int]) -> torch.Tensor:
+        """The page ids on the pools' device.  On the card they are
+        staged through pinned memory, so the upload never waits for the
+        chunks in flight."""
+        idx = torch.tensor(pages, dtype=torch.int64)
+        dev = self._core.device
+        if dev.type != "cuda":
+            return idx
+        return idx.pin_memory().to(dev, non_blocking=True)
+
+    def read_pages(self, pages: List[int]) -> list:
+        """Swap-out: a blocking device-to-host copy of ``pages``, as the
+        reference's ``jax.device_get``.  The gathers are enqueued on the
+        engine stream, after every chunk in flight that wrote these
+        pages, and the host waits for the last copy."""
+        core = self._core
+        cuda = core.device.type == "cuda"
+        chunks = []
+        for i in range(0, len(pages), SWAP_CHUNK_PAGES):
+            idx = self._index(pages[i : i + SWAP_CHUNK_PAGES])
+            parts = _gather_swap_pages(core.k_pages, core.v_pages, idx)
+            if cuda:
+                host = []
+                for part in parts:
+                    buf = torch.empty(part.shape, dtype=part.dtype,
+                                      pin_memory=True)
+                    buf.copy_(part, non_blocking=True)
+                    host.append(buf)
+                parts = host
+            chunks.append(parts)
+        if cuda:
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+        return chunks
+
+    def write_pages(self, pages: List[int], payload: list) -> None:
+        """Swap-in: each chunk's host-to-device copies, then its scatter
+        into ``pages``, enqueued on the engine stream before the next
+        decode chunk; the host does not wait.  The payload may be freed
+        as soon as this returns: its pinned blocks come from PyTorch's
+        caching host allocator, which records the copy's event and hands
+        a block out again only after that event has completed."""
+        core = self._core
+        cuda = core.device.type == "cuda"
+        starts = range(0, len(pages), SWAP_CHUNK_PAGES)
+        if len(payload) != len(starts) or sum(
+            part[0].shape[2] for part in payload
+        ) != len(pages):
+            raise ValueError(
+                f"swap payload of {len(payload)} chunks does not fit "
+                f"{len(pages)} pages"
+            )
+        for i, parts in zip(starts, payload):
+            idx = self._index(pages[i : i + SWAP_CHUNK_PAGES])
+            if cuda:
+                parts = [t.to(core.device, non_blocking=True)
+                         for t in parts]
+            _scatter_swap_pages(core.k_pages, core.v_pages, idx, parts)
 
 
 def _decode_chunk(
@@ -404,6 +537,11 @@ class EngineCore:
             self.geometry, kv_pool_dtype, self.device
         )
         self.allocator = PageAllocator(num_pages)
+        self.allocator.quantized = kv_quant
+        for name in ("bf16", "f32", "f16", "int8"):
+            metrics.KV_DTYPE.labels(dtype=name).set(
+                1 if name == self.geometry.kv_dtype else 0
+            )
         self.max_slots = dcfg.max_batch_slots
         # radix-tree prefix index: page-granular sharing with COW partial
         # pages; the tree registers itself as the allocator's reclaimer
@@ -417,6 +555,21 @@ class EngineCore:
                 cow=pc.cow, cow_min_tokens=pc.cow_min_tokens,
             )
             self.allocator.set_reclaimer(self.radix_cache)
+        # host-RAM KV swap tier (runtime/kv_swap.py): a budgeted host
+        # pool under the paged allocator.  Preemption parks the victim's
+        # pages there instead of recomputing them, and radix eviction
+        # demotes warm prefixes into it.  0 = off keeps the engine as
+        # before; the device half is _DeviceSwapExecutor.
+        self.kv_swap: Optional[KVSwapManager] = None
+        host_swap_bytes = int(self.config.kv_cache.host_swap_bytes)
+        if host_swap_bytes > 0:
+            self.kv_swap = KVSwapManager(
+                budget_bytes=host_swap_bytes,
+                page_bytes=self.geometry.page_bytes,
+                executor=_DeviceSwapExecutor(self),
+            )
+            if self.radix_cache is not None:
+                self.radix_cache.attach_swap(self.kv_swap)
         self.scheduler = Scheduler(
             allocator=self.allocator,
             max_slots=self.max_slots,
@@ -435,6 +588,7 @@ class EngineCore:
             cache_aware_sched=pc.cache_aware_sched,
             insert_generated=pc.insert_generated,
             evict_watermark=pc.evict_watermark,
+            swap=self.kv_swap,
         )
         # host-side mirror of the device page tables, one row per slot
         self._page_tables_np = np.zeros(
@@ -444,6 +598,11 @@ class EngineCore:
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(self.config.model.max_model_len)
         self._decode_signature_cache: Optional[tuple] = None
+        # the static keys of the prompt passes and decode chunks seen so
+        # far: the reference counts a compilation at each new one, and
+        # on the card a new decode key is a graph capture
+        self._compiled_buckets: set = set()
+        self._compiled_chunks: set = set()
         # in-flight decode chunks awaiting readback:
         # ([(seq, preempt epoch)], chunk length, _Readback)
         self._pending_chunks: list = []
@@ -779,18 +938,41 @@ class EngineCore:
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _row_arrays(self, B: int, rows) -> Dict[str, Any]:
-        """``_row_host`` uploaded, for a prompt pass (``seeds`` None when
-        no row is seeded)."""
-        host = self._row_host(B, rows)
+    def _group_sampling(self, plans: List[PrefillPlan], B: int):
+        """A prompt pass's sampling inputs, uploaded (``seeds`` None when
+        no row is seeded); its logprobs variant (``_num_logprobs``); and
+        the sampling part of its static key as the reference builds it:
+        penalty counts present (only a penalized row that already
+        generated needs them), the padded stop-id width, logprobs, the
+        padded bias width."""
+        host = self._row_host(B, enumerate(p.seq for p in plans))
+        num_lp = self._num_logprobs(p.seq for p in plans)
+        key = (
+            any(p.seq.params.has_penalties and p.seq.generated_ids
+                for p in plans),
+            None if host["min_tok"] is None
+            else _width(host["min_tok"][1].shape[1]),
+            num_lp,
+            None if host["bias"] is None
+            else _width(host["bias"][0].shape[1]),
+        )
         if not (host["seeds"] >= 0).any():
             host["seeds"] = None  # no row hashes its own noise
-        return {
+        sampling = {
             k: None if a is None
             else tuple(map(self._dev, a)) if isinstance(a, tuple)
             else self._dev(a)
             for k, a in host.items()
         }
+        return sampling, num_lp, key
+
+    def _note_key(self, seen: set, key: tuple, kind: str) -> None:
+        """``vgt_engine_compilations{kind}`` at the first sight of a
+        static key, where the reference compiles a program (on the card
+        a new decode key is a graph capture; prompt passes run eagerly)."""
+        if key not in seen:
+            seen.add(key)
+            metrics.RECOMPILES.labels(kind=kind).inc()
 
     def _row_host(self, B: int, rows) -> Dict[str, Any]:
         """Per-row sampling inputs for ``rows`` = [(row, Sequence)], as
@@ -882,13 +1064,24 @@ class EngineCore:
         limit = dcfg.prefill_admit_limit
         decoding = bool(self._running_seqs())
         plans: List[PrefillPlan] = []
-        while not (decoding and limit and len(plans) >= limit):
+        swap_plans: List[SwapInPlan] = []
+        start = time.perf_counter()
+        while not (
+            decoding and limit and len(plans) + len(swap_plans) >= limit
+        ):
             plan = self.scheduler.try_admit()
             if plan is None:
                 break
-            plans.append(plan)
+            if isinstance(plan, SwapInPlan):
+                swap_plans.append(plan)
+            else:
+                plans.append(plan)
+        for plan in swap_plans:
+            # host-swap re-admission: a host->device copy and scatter
+            # replace the re-prefill entirely (zero recompute tokens)
+            self._dispatch_swap_in(plan)
         if not plans:
-            return False
+            return bool(swap_plans)
         ps = self.geometry.page_size
         groups: Dict[tuple, List[PrefillPlan]] = {}
         # (group plans, ([B] device first tokens, logprob triple or None))
@@ -920,6 +1113,14 @@ class EngineCore:
             torch.cat([t for _, (t, _) in dispatched]), *lps
         )
         firsts, *lps = readback.result()
+        # one combined dispatch and readback for the wave: each prompt
+        # is observed with an equal share, as the reference does
+        share = (time.perf_counter() - start) / len(plans)
+        for plan in plans:
+            metrics.observe_with_exemplar(
+                metrics.ENGINE_STEP_TIME.labels(kind="prefill"), share,
+                trace_id=getattr(plan.seq.trace, "trace_id", None),
+            )
         offset = 0
         # one thread owns admission and readback, so every admitted
         # sequence is still RUNNING in its own slot here
@@ -936,6 +1137,16 @@ class EngineCore:
                 self._maybe_finish(plan.seq, token)
             offset += tokens.shape[0]
         return True
+
+    def _dispatch_swap_in(self, plan: SwapInPlan) -> None:
+        """Re-admit a host-swapped preemption victim: its parked KV into
+        the freshly allocated ``seq.pages`` (runtime/kv_swap.py), and it
+        rejoins decode at the exact position it stopped: no prompt pass,
+        no first-token readback (its last sampled token is the next
+        decode feed).  Its new slot and epoch change the membership
+        signature, so ``_build_decode_state`` uploads its row before the
+        next chunk."""
+        self.kv_swap.swap_in_seq(plan.seq, plan.seq.pages)
 
     def _set_slot_row(self, plan: PrefillPlan) -> None:
         """The decode-side page-table row of the plan's slot: its pages,
@@ -977,13 +1188,13 @@ class EngineCore:
             seq_lens[row] = seq.num_prompt_tokens
             self._set_slot_row(plan)
             prefill_pt[row, : len(seq.pages)] = seq.pages[:n_bucket_pages]
+        sampling, num_lp, key = self._group_sampling(plans, B)
+        self._note_key(self._compiled_buckets, (bucket, B, *key), "prefill")
         self.total_prompt_passes += 1
         return _prefill_step(
             self.params, self.spec, self._dev(tokens), self._dev(seq_lens),
             self.k_pages, self.v_pages, self._dev(prefill_pt),
-            self._generator,
-            self._row_arrays(B, enumerate(p.seq for p in plans)),
-            self._num_logprobs(p.seq for p in plans),
+            self._generator, sampling, num_lp,
         )
 
     def _ctx_pages(self, n_tokens: int) -> int:
@@ -1013,6 +1224,7 @@ class EngineCore:
                 _cow_copy_pages(self.k_pages, self.v_pages, *plan.cow)
                 if self.radix_cache is not None:
                     self.radix_cache.total_cow_copies += 1
+                metrics.PREFIX_COW_COPIES.inc()
         ctx_pages = self._ctx_pages(
             max(p.seq.num_prompt_tokens for p in plans)
         )
@@ -1032,14 +1244,18 @@ class EngineCore:
             self._set_slot_row(plan)
             ctx = seq.pages[:ctx_pages]
             ctx_pt[row, : len(ctx)] = ctx
+        sampling, num_lp, key = self._group_sampling(plans, B)
+        self._note_key(
+            self._compiled_buckets,
+            _suffix_key(bucket, B, ctx_pages, *key, unaligned=unaligned),
+            "prefill",
+        )
         self.total_prompt_passes += 1
         return _suffix_prefill_step(
             self.params, self.spec, self._dev(tokens), self._dev(prefix_lens),
             self._dev(suffix_lens), self.k_pages, self.v_pages,
             self._dev(suffix_pt), self._dev(ctx_pt), self._generator,
-            self._row_arrays(B, enumerate(p.seq for p in plans)),
-            unaligned=unaligned,
-            num_logprobs=self._num_logprobs(p.seq for p in plans),
+            sampling, unaligned=unaligned, num_logprobs=num_lp,
         )
 
     def _dispatch_chunked_prefill(self, plan: PrefillPlan):
@@ -1066,6 +1282,11 @@ class EngineCore:
             n_ctx = self._ctx_pages(start + chunk)
             ctx_pt = np.zeros((1, n_ctx), np.int32)
             ctx_pt[0, : min(n_ctx, len(seq.pages))] = seq.pages[:n_ctx]
+            self._note_key(
+                self._compiled_buckets,
+                _suffix_key(chunk, 1, n_ctx, False, None, 0, None),
+                "prefill",
+            )
             prefill_suffix_forward(
                 self.params, self.spec, self._dev(tokens),
                 self._dev(np.asarray([start], np.int32)),
@@ -1164,9 +1385,10 @@ class EngineCore:
                 all_greedy=all_greedy, num_logprobs=num_lp,
             )
 
+        key = state.key(chunk, all_greedy, num_lp)
+        self._note_key(self._compiled_chunks, key, "decode")
         if self.decode_graphs:
-            self._graphs.run(state.key(chunk, all_greedy, num_lp), body,
-                             lambda: body(state.scratch()))
+            self._graphs.run(key, body, lambda: body(state.scratch()))
         else:
             body()
         self.total_chunks += 1
@@ -1187,7 +1409,19 @@ class EngineCore:
         detect stops, discard steps past a stop."""
         while self._pending_chunks:
             seqs, chunk, readback = self._pending_chunks.pop(0)
+            # the host-blocking readback time only: dispatch-to-now would
+            # count the chunks queued ahead of this one
+            block_start = time.perf_counter()
             sampled, *lp = readback.result()  # [chunk, B] (+ logprobs)
+            metrics.observe_with_exemplar(
+                metrics.ENGINE_STEP_TIME.labels(kind="decode"),
+                time.perf_counter() - block_start,
+                trace_id=next(
+                    (s.trace.trace_id for s, _ in seqs
+                     if s.trace is not None and s.trace.trace_id),
+                    None,
+                ),
+            )
             lp_np = tuple(lp) if lp else None
             for seq, epoch in seqs:
                 if (
@@ -1315,22 +1549,85 @@ class EngineCore:
 
     # ------------------------------------------------------------ utilities
 
+    def warmup(self, buckets: Optional[List[int]] = None) -> float:
+        """Run the first use of the decode-chunk ladder and of the given
+        (default: smallest) prefill buckets before serving, as the
+        reference's warm-up compiles them; returns its seconds.  On the
+        card this captures the decode graphs the walk reaches and builds
+        and launches the engine's kernels.  The first sequence generates
+        ``2*decode_chunk`` tokens, which walks the power-of-two chunk
+        descent (K, ..., 2, 1) ``_pick_chunk`` produces near a budget
+        boundary, greedy and then sampled (the ``all_greedy`` keys
+        split).  For the first bucket the batched-prefill ladder (B =
+        prefill_batch_max, ..., 2) is also walked, each group submitted
+        as one burst so it admits as one stacked pass.  Keys with
+        logprobs, penalties, bias or min-tokens stay cold, as in the
+        reference."""
+        start = time.perf_counter()
+        was_running = self._running
+        if not was_running:
+            self.start()
+        ladder = SamplingParams(
+            max_tokens=max(1, 2 * self.decode_chunk), temperature=0.0
+        )
+        ladder_sampled = SamplingParams(
+            max_tokens=max(1, 2 * self.decode_chunk), temperature=0.7
+        )
+        single = SamplingParams(max_tokens=1, temperature=0.0)
+        buckets = buckets or [self.scheduler.prefill_buckets[0]]
+        for i, bucket in enumerate(buckets):
+            n = max(1, min(bucket - 1, 8))
+            seq = self.submit_tokens([5] * n, ladder if i == 0 else single)
+            seq.done_event.wait(timeout=600)
+            if i == 0:
+                seq = self.submit_tokens([5] * n, ladder_sampled)
+                seq.done_event.wait(timeout=600)
+                B = max(1, self.config.device.prefill_batch_max)
+                while B >= 2:
+                    group = [
+                        self.submit_tokens([5] * n, single)
+                        for _ in range(min(B, self.max_slots))
+                    ]
+                    for g in group:
+                        g.done_event.wait(timeout=600)
+                    B //= 2
+        if self.scheduler.prefill_chunk > 0:
+            # chunked prefill runs suffix passes (one per power-of-two
+            # context width) the bucket walk never reaches: one
+            # max-length prompt reaches every width
+            n_long = self.config.model.max_model_len - 2
+            if n_long > self.scheduler.prefill_buckets[-1]:
+                seq = self.submit_tokens([5] * n_long, single)
+                seq.done_event.wait(timeout=600)
+        if not was_running:
+            self.stop()
+        return time.perf_counter() - start
+
     def set_prefix_insert_suspended(self, flag: bool) -> None:
         """Brownout L4 (admission.py "bypass cache writes"): stop
         inserting into the prefix tree, keep serving hits.  Safe from
-        any thread (a bool store).  Host swap's demotions join it when
-        swap is ported (ROADMAP queue 1, item 5)."""
+        any thread (a bool store)."""
         if self.radix_cache is not None:
             self.radix_cache.insert_suspended = bool(flag)
+        if self.kv_swap is not None:
+            # L4 also stops host-pool DEMOTIONS (a demotion is a cache
+            # write) while promotions keep serving.  Preemption
+            # swap-outs are not gated: parking client-owed work beats
+            # recomputing it at any brownout level.
+            self.kv_swap.demote_suspended = bool(flag)
 
     def pressure_signals(self) -> Dict[str, Any]:
         """Gauges for the gateway's admission and brownout controllers:
         plain int and len reads, no lock, no device touch.
         ``kv_free_ratio`` counts reclaimable cached pages as free,
-        ``kv_truly_free_ratio`` does not.  The reference's host-swap
-        block joins with host swap (ROADMAP queue 1, item 5)."""
+        ``kv_truly_free_ratio`` does not.  With the host swap tier on,
+        its occupancy block (``KVSwapManager.signal_block``) joins."""
         total = max(1, self.allocator.num_allocatable)
+        swap_block = (
+            self.kv_swap.signal_block() if self.kv_swap is not None else {}
+        )
         return {
+            **swap_block,
             "kv_free_ratio": round(self.allocator.num_free / total, 4),
             "kv_truly_free_ratio": round(
                 self.allocator.num_truly_free / total, 4
@@ -1399,4 +1696,9 @@ class EngineCore:
             "model": self.spec.name,
             "device": str(self.device),
             "load_time_s": round(self.load_time_s, 2),
+            **(
+                {"kv_swap": self.kv_swap.get_stats()}
+                if self.kv_swap is not None
+                else {}
+            ),
         }

@@ -21,6 +21,7 @@ import torch
 from vgate_tpu_torch.logging_config import get_logger
 from vgate_tpu_torch.models.specs import ModelSpec
 from vgate_tpu_torch.ops.kv_quant import SCALE_DTYPE, QuantPages
+from vgate_tpu_torch.runtime import engine_metrics as metrics
 from vgate_tpu_torch.utils.math import cdiv
 
 logger = get_logger(__name__)
@@ -158,7 +159,17 @@ class PageAllocator:
         self._reclaimer = None
         self.prefix_hits = 0
         self.prefix_evictions = 0
+        # set by the engine when the pool stores int8 KV (kv_cache.dtype:
+        # int8): every in-use page then holds quantized content, and the
+        # vgt_kv_quantized_pages gauge tracks it alongside KV_PAGES_IN_USE
+        self.quantized = False
         self._allocatable = num_pages - len(self.reserved)
+        metrics.KV_PAGES_TOTAL.set(self._allocatable)
+        self._set_in_use(0)
+
+    def _set_in_use(self, used: int) -> None:
+        metrics.KV_PAGES_IN_USE.set(used)
+        metrics.KV_QUANTIZED_PAGES.set(used if self.quantized else 0)
 
     def set_reclaimer(self, reclaimer) -> None:
         """Attach a cache that can free refcounted pages on demand
@@ -214,8 +225,10 @@ class PageAllocator:
                 page, _ = self._evictable.popitem(last=False)
                 self._drop_hash(page)
                 self.prefix_evictions += 1
+                metrics.PREFIX_EVICTIONS.labels(reason="lru").inc()
             self._refs[page] = 1
             pages.append(page)
+        self._set_in_use(self.num_used)
         return pages
 
     def refcount(self, page: int) -> int:
@@ -233,6 +246,7 @@ class PageAllocator:
                 # free page would let allocate() hand it out again
                 raise ValueError(f"retain of unreferenced page {page}")
             self._refs[page] = refs + 1
+        self._set_in_use(self.num_used)
 
     def release(self, pages: List[int]) -> None:
         for page in pages:
@@ -249,6 +263,9 @@ class PageAllocator:
                 self._evictable.move_to_end(page)
             else:
                 self._free.append(page)
+        self._set_in_use(self.num_used)
+        if self._reclaimer is None and self._page_hash:
+            metrics.PREFIX_CACHED_PAGES.set(len(self._evictable))
 
     # ----------------------------------------------------- prefix caching
 
@@ -281,8 +298,10 @@ class PageAllocator:
         if page in self._evictable:  # revive a parked page
             del self._evictable[page]
             self._refs[page] = 1
+            metrics.PREFIX_CACHED_PAGES.set(len(self._evictable))
         else:
             self._refs[page] = self._refs.get(page, 0) + 1
+        self._set_in_use(self.num_used)
         return page
 
     def _drop_hash(self, page: int) -> None:

@@ -43,6 +43,7 @@ import threading
 import time
 from typing import Any, Callable, Dict, List, Optional
 
+from vgate_tpu_torch.runtime import engine_metrics as metrics
 from vgate_tpu_torch.logging_config import get_logger
 from vgate_tpu_torch.runtime.sequence import Sequence, SeqStatus
 
@@ -146,15 +147,20 @@ class KVSwapManager:
 
     def _charge(self, nbytes: int) -> None:
         self.used_bytes += nbytes
+        metrics.KV_HOST_POOL_BYTES.set(self.used_bytes)
 
     def _refund(self, nbytes: int) -> None:
         self.used_bytes = max(0, self.used_bytes - nbytes)
+        metrics.KV_HOST_POOL_BYTES.set(self.used_bytes)
 
     def _count_discard(self, ticket: SwapTicket, reason: str) -> None:
         self._refund(ticket.nbytes)
         ticket.payload = None
         self.total_discard_pages[reason] = (
             self.total_discard_pages.get(reason, 0) + ticket.num_pages
+        )
+        metrics.KV_SWAP_DISCARD_PAGES.labels(reason=reason).inc(
+            ticket.num_pages
         )
 
     def _sweep_stale(self) -> None:
@@ -244,6 +250,7 @@ class KVSwapManager:
             self._charge(nbytes)
             self._seq_tickets[seq.seq_id] = (seq, ticket)
         self.total_swap_out_pages["preempt"] += len(pages)
+        metrics.KV_SWAP_OUT_PAGES.labels(kind="preempt").inc(len(pages))
         return True
 
     def adopt_remote(
@@ -277,6 +284,7 @@ class KVSwapManager:
         self.total_swap_in_pages["handoff"] = (
             self.total_swap_in_pages.get("handoff", 0) + num_pages
         )
+        metrics.KV_SWAP_IN_PAGES.labels(kind="handoff").inc(num_pages)
         return True
 
     def ticket_for(self, seq: Sequence) -> Optional[SwapTicket]:
@@ -312,6 +320,7 @@ class KVSwapManager:
             self._refund(ticket.nbytes)
             ticket.payload = None
         self.total_swap_in_pages["preempt"] += len(pages)
+        metrics.KV_SWAP_IN_PAGES.labels(kind="preempt").inc(len(pages))
         return len(pages)
 
     def discard_for(self, seq: Sequence, reason: str = "settled") -> None:
@@ -357,6 +366,7 @@ class KVSwapManager:
         self._charge(nbytes)
         self._prefix_lru[id(ticket)] = ticket
         self.total_swap_out_pages["prefix"] += len(pages)
+        metrics.KV_SWAP_OUT_PAGES.labels(kind="prefix").inc(len(pages))
         return ticket
 
     def promote_node(self, ticket: SwapTicket, pages: List[int]) -> bool:
@@ -373,6 +383,7 @@ class KVSwapManager:
             ticket.payload = None
             ticket.node = None
         self.total_swap_in_pages["prefix"] += len(pages)
+        metrics.KV_SWAP_IN_PAGES.labels(kind="prefix").inc(len(pages))
         return True
 
     def drop_node_ticket(

@@ -45,6 +45,7 @@ from __future__ import annotations
 import heapq
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from vgate_tpu_torch.runtime import engine_metrics as metrics
 from vgate_tpu_torch.logging_config import get_logger
 
 logger = get_logger(__name__)
@@ -650,6 +651,9 @@ class RadixCache:
             self.total_evictions[reason] = (
                 self.total_evictions.get(reason, 0) + len(released)
             )
+            metrics.PREFIX_EVICTIONS.labels(reason=reason).inc(
+                len(released)
+            )
         if freed:
             self._touch_gauges()
         return freed
@@ -705,7 +709,7 @@ class RadixCache:
     # ----------------------------------------------------- introspection
 
     def _touch_gauges(self) -> None:
-        pass
+        metrics.PREFIX_CACHED_PAGES.set(self.allocator.num_cached)
 
     def pages_in_tree(self) -> Dict[int, RadixNode]:
         """page id -> owning node, for invariant checks (a physical page

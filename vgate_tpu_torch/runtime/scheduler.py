@@ -20,6 +20,7 @@ from typing import Deque, List, Optional, Union
 
 import numpy as np
 
+from vgate_tpu_torch.runtime import engine_metrics as metrics
 from vgate_tpu_torch.errors import DeadlineExceededError, KVCapacityError
 from vgate_tpu_torch.logging_config import get_logger
 from vgate_tpu_torch.runtime.kv_cache import PageAllocator
@@ -252,6 +253,7 @@ class Scheduler:
             # queue position is moot for them.
             self._priority_seen = True
         self.waiting.append(seq)
+        metrics.ENGINE_QUEUE_DEPTH.set(len(self.waiting))
 
     # -- queries --
 
@@ -399,6 +401,8 @@ class Scheduler:
                         phases=phases,
                     )
                 )
+                metrics.CANCELLED_REQUESTS.labels(reason="deadline").inc()
+                metrics.DEADLINE_PARTIAL_TOKENS.observe(seq.num_generated)
                 shed += 1
             elif (
                 self.admission_deadline_ms
@@ -419,6 +423,7 @@ class Scheduler:
         if shed:
             self.waiting = kept
             self.total_deadline_shed += shed
+            metrics.ENGINE_QUEUE_DEPTH.set(len(self.waiting))
             logger.warning(
                 "shed requests past deadline",
                 extra={"extra_data": {"shed": shed}},
@@ -581,6 +586,7 @@ class Scheduler:
             else:
                 kept.append(seq)
         self.waiting = kept
+        metrics.ENGINE_QUEUE_DEPTH.set(len(self.waiting))
 
     def try_admit(self) -> Optional[PrefillPlan]:
         self._shed_expired()
@@ -654,11 +660,13 @@ class Scheduler:
                 )
             return None
         self._dequeue(seq)
+        metrics.ENGINE_QUEUE_DEPTH.set(len(self.waiting))
         seq.pages = matched + pages
         seq.slot = slot
         seq.status = SeqStatus.RUNNING
         self.slots[slot] = seq
         self.total_admitted += 1
+        metrics.ACTIVE_SEQUENCES.set(len(self.running))
         cached_len = len(matched) * self.page_size + cow_tokens
         if getattr(seq, "_preempt_recompute", False):
             # the waste the host swap tier exists to eliminate: suffix
@@ -667,10 +675,14 @@ class Scheduler:
             seq._preempt_recompute = False  # type: ignore[attr-defined]
             waste = max(0, seq.num_prompt_tokens - cached_len)
             self.total_preempt_recompute_tokens += waste
+            metrics.PREEMPT_RECOMPUTE_TOKENS.inc(waste)
         self.total_prefix_hit_tokens += cached_len
         # hits count only on successful admission (a failed allocate above
         # rolls the references back and must not inflate the stat)
         self.allocator.prefix_hits += len(matched)
+        if cached_len:
+            metrics.PREFIX_HIT_TOKENS.inc(cached_len)
+            metrics.PREFIX_HIT_PAGES.inc(len(matched))
         cow = None
         if cow_tokens:
             # dst = the sequence's first OWN page: the engine copies the
@@ -737,11 +749,13 @@ class Scheduler:
                 seq._preempt_recompute = True  # type: ignore[attr-defined]
             return None
         self._dequeue(seq)
+        metrics.ENGINE_QUEUE_DEPTH.set(len(self.waiting))
         seq.pages = pages
         seq.slot = slot
         seq.status = SeqStatus.RUNNING
         self.slots[slot] = seq
         self.total_admitted += 1
+        metrics.ACTIVE_SEQUENCES.set(len(self.running))
         return SwapInPlan(seq=seq, slot=slot, ticket=ticket)
 
     def commit_prefill(self, plan: PrefillPlan, stale: bool = False) -> None:
@@ -919,6 +933,9 @@ class Scheduler:
             seq._preempt_recompute = True  # type: ignore[attr-defined]
         self.waiting.appendleft(seq)
         self.total_preemptions += 1
+        metrics.PREEMPTED_SEQUENCES.inc()
+        metrics.ACTIVE_SEQUENCES.set(len(self.running))
+        metrics.ENGINE_QUEUE_DEPTH.set(len(self.waiting))
 
     # -- disaggregated prefill→decode handoff (runtime/handoff.py) --
 
@@ -962,6 +979,8 @@ class Scheduler:
         seq._handoff_hold = True  # type: ignore[attr-defined]
         self.waiting.appendleft(seq)
         self.total_handoff_holds += 1
+        metrics.ACTIVE_SEQUENCES.set(len(self.running))
+        metrics.ENGINE_QUEUE_DEPTH.set(len(self.waiting))
         return True
 
     def release_hold(self, seq: Sequence) -> None:
@@ -1033,6 +1052,7 @@ class Scheduler:
         if seq.slot is not None and self.slots[seq.slot] is seq:
             self.slots[seq.slot] = None
         seq.slot = None
+        metrics.ACTIVE_SEQUENCES.set(len(self.running))
 
     def remove(self, seq: Sequence) -> None:
         """Release residency after finish/failure.  A sequence finishing
@@ -1062,6 +1082,7 @@ class Scheduler:
             # path on the migration target (the parked KV is local to
             # this core's pool and cannot travel)
             self._discard_swap(seq, "stale")
+            metrics.ENGINE_QUEUE_DEPTH.set(len(self.waiting))
 
     def abort(self, seq: Sequence) -> None:
         """Client cancellation: release any residency, account it as
@@ -1071,6 +1092,7 @@ class Scheduler:
         self._release_residency(seq)
         self._discard_swap(seq, "settled")
         self.total_aborted += 1
+        metrics.CANCELLED_REQUESTS.labels(reason=seq.abort_reason).inc()
         self._event("abort", seq, reason=seq.abort_reason)
         seq.finish("abort")
 
@@ -1096,6 +1118,8 @@ class Scheduler:
         ``total_deadline_shed``."""
         self._release_residency(seq)
         self.total_deadline_shed += 1
+        metrics.CANCELLED_REQUESTS.labels(reason="deadline").inc()
+        metrics.DEADLINE_PARTIAL_TOKENS.observe(seq.num_generated)
         self._event(
             "shed", seq, where="running",
             partial_tokens=seq.num_generated,
