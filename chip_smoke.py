@@ -32,7 +32,12 @@ decode step past the window) against a plain full-sequence forward;
 holds its prompt-pass and decode-step logprobs to the log-softmax of
 the plain forward, and serves the burst once more on the same engine
 with the chunk body run eagerly (every row must repeat), profiling a
-warm burst each way.  Each phase prints the graphs it captured, their
+warm burst each way; (6) after the host-swap phase, a recovery phase
+on a supervised 7B engine: the checksum kernel against its plain
+version and the host digest, a full checksum sweep, the perf snapshot of
+a warm burst, then a crash, a stall, a weight corruption and a tripped
+output guard, each recovered with every request resumed, and the
+guard's cost.  Each phase prints the graphs it captured, their
 capture time and their memory pool's bytes.  It prints the card's
 name and power limit, one JSON line of per-kernel numbers and, last,
 ``{"ok": true, "device": {...}}``.  Any
@@ -1653,6 +1658,7 @@ def kernel_wrappers() -> dict:
     from vgate_tpu_torch.ops.kernels.flash_prefill import (
         flash_prefill_attention,
     )
+    from vgate_tpu_torch.ops.kernels.leaf_digest import leaf_digest
     from vgate_tpu_torch.ops.kernels.paged_decode import (
         paged_decode_attention,
         paged_decode_attention_blocked,
@@ -1673,7 +1679,8 @@ def kernel_wrappers() -> dict:
                                     paged_decode_attention_int8,
                                     paged_multitok_attention_int8,
                                     int8_matmul, int4_matmul,
-                                    paged_decode_attention_blocked)}
+                                    paged_decode_attention_blocked,
+                                    leaf_digest)}
 
 
 def reset_launches() -> None:
@@ -2077,7 +2084,9 @@ def backend_streams_cancel_signals(engine, core, device) -> dict:
 
 def engine_config(model: str, device: str, quantization=None,
                   kv_dtype: str = "auto", host_swap_bytes: int = 0,
-                  **device_section):
+                  sections=None, **device_section):
+    """The smoke's engine config; ``sections`` adds other config sections
+    (recovery, integrity)."""
     from vgate_tpu_torch.config import load_config
 
     return load_config(
@@ -2087,10 +2096,16 @@ def engine_config(model: str, device: str, quantization=None,
         kv_cache={"dtype": kv_dtype, "host_swap_bytes": host_swap_bytes},
         device={"device": device, **device_section},
         logging={"level": "WARNING"},
+        **(sections or {}),
     )
 
 
 def start_engine(cfg, what: str):
+    """A ``VGTEngine`` and the core its backend serves: the
+    ``EngineSupervisor`` around the live ``EngineCore``
+    (``recovery.enabled`` is on by default), which hands every read of an
+    engine attribute to the live core; an attribute is set on the live
+    core itself (``live_core``)."""
     from vgate_tpu_torch.engine import VGTEngine
 
     t0 = time.perf_counter()
@@ -2100,6 +2115,25 @@ def start_engine(cfg, what: str):
           f"{cfg.model.model_id}, {core.geometry.num_pages} KV pages",
           flush=True)
     return engine, core
+
+
+def live_core(core):
+    """The live ``EngineCore`` of a supervised engine (or ``core``)."""
+    return getattr(core, "core", core)
+
+
+def check_no_guard_trips(core, what: str) -> dict:
+    """Every decode chunk's guard words were 0 (a nonzero word trips a
+    sentinel: a crash the supervisor would count) and no sentinel
+    tripped; returns the engine's integrity block."""
+    stats = core.get_stats()
+    block = stats.get("integrity", {})
+    check(block.get("sentinel_trips") == {},
+          f"{what}: sentinel trips {block.get('sentinel_trips')}")
+    sup = stats.get("supervisor")
+    if sup is not None:
+        check(sup["crashes"] == 0, f"{what}: {sup['crashes']} crashes")
+    return block
 
 
 def prefix_texts():
@@ -2169,6 +2203,8 @@ def main_path(model: str = MODEL, device: str = "cuda",
                       f"of {L} layers on the main path")
             check_graphed(stats, "the main path", since=stats0)
         check_results(results, core)
+        # the integrity guard ran in every chunk: no word was nonzero
+        guard = check_no_guard_trips(core, "the main path")
         # the same batch again (same bucket groups, so the same matmul
         # shapes): greedy rows and the seeded sampled row must repeat
         again, warm = serve(engine, batch)
@@ -2181,13 +2217,13 @@ def main_path(model: str = MODEL, device: str = "cuda",
             # the same engine with the same chunk body run eagerly: every
             # row (8 greedy, 1 seeded) must repeat; then a warm burst each
             # way under the profiler, in one call
-            core.decode_graphs = False
+            live_core(core).decode_graphs = False
             eager, _ = serve(engine, batch)
             for a, b in zip(results, eager):
                 check(a.token_ids == b.token_ids,
                       "the eager burst differs from the graphed burst")
             profiles = {"eager": profile_burst(engine, batch, core)}
-            core.decode_graphs = True
+            live_core(core).decode_graphs = True
             profiles["graphed"] = profile_burst(engine, batch, core)
         reference = engine.generate_batch(
             list(reference_prompts), greedy[:1] * len(reference_prompts)
@@ -2204,6 +2240,7 @@ def main_path(model: str = MODEL, device: str = "cuda",
                                             device)
         return {
             "warmup": warmup,
+            "integrity": guard,
             # keys captured after the warm-up (all of them keys the
             # reference's warm-up leaves cold too), with their seconds
             "captured_after_warmup": captured,
@@ -2468,6 +2505,516 @@ class TransferTimer:
         return out
 
 
+# the recovery phase (Qwen2.5-7B bf16, prefix cache off, supervised by
+# default): a lowered stall limit for the stall drill and a restart budget
+# for its four rebuilds, the canary fingerprint recorded at boot, and a
+# sweep due every 2 s checking 64 leaves a tick (the reference's own
+# integrity drill sets the same two), so a flipped leaf is found within
+# seconds
+RECOVERY_STALL_S = 5.0  # recovery.step_stall_s in this phase
+RECOVERY_DELAY_S = 8.0  # the stall drill's delay, past that limit
+RECOVERY_SECTIONS = {
+    # no promotion back to SERVING inside the phase: each drill starts
+    # from DEGRADED and must show recovering -> degraded
+    "recovery": {"backoff_base_s": 0.05, "step_stall_s": RECOVERY_STALL_S,
+                 "max_restarts": 8, "degraded_probation_s": 3600.0},
+    "integrity": {"canary_record_on_start": True, "sweep_interval_s": 2.0,
+                  "sweep_leaves_per_tick": 64},
+    # the perf window read after the warm burst holds that burst alone
+    # (not the warm-up's captures before it)
+    "observability": {"perf_window_s": 2.0},
+}
+RECOVERY_TOKENS = 64
+# leaves the digest kernel is held to its plain version and to the host
+# digest on: the embedding, the lm_head (1.09 GB each at 7B), one norm
+# and the stacked norms of the layers
+DIGEST_LEAVES = ("['embed']", "['lm_head']", "['final_norm']",
+                 "['layers']['input_norm']")
+# the int8 phase's: one int8 weight and its scales
+DIGEST_LEAVES_INT8 = ("['layers']['q']['w'].q", "['layers']['q']['w'].scale")
+
+
+def check_digests(core, paths) -> dict:
+    """The digest of each named leaf of the live tree by the kernel (a
+    CPU leaf: the plain version), equal to the plain version on the same
+    leaf and to ``host_leaf_digest`` of the leaf copied to the host."""
+    from vgate_tpu_torch import integrity
+    from vgate_tpu_torch.ops.kernels.leaf_digest import leaf_digest_plain
+
+    leaves = dict(integrity.leaves_with_path(core.params))
+    out = {}
+    for path in paths:
+        leaf = leaves[path]
+        got = integrity.leaf_digest(leaf)
+        plain = leaf_digest_plain(leaf)
+        host = integrity.host_leaf_digest(leaf.cpu())
+        check(got == plain == host,
+              f"digest of {path}: kernel {got:#010x}, plain {plain:#010x}, "
+              f"host {host:#010x}")
+        out[path] = {"digest": f"{got:08x}", "shape": list(leaf.shape),
+                     "dtype": str(leaf.dtype).replace("torch.", "")}
+    return out
+
+
+def tree_bytes(params) -> int:
+    from vgate_tpu_torch import integrity
+
+    return sum(t.numel() * t.element_size()
+               for _, t in integrity.leaves_with_path(params))
+
+
+def sweep_report(core, device: str) -> dict:
+    """One full checksum sweep over the live tree (``verify_all``, the
+    pass a weights-kept rebuild runs): seconds, GB/s and the share of
+    the 3.35 TB/s bound.  It runs on this thread while the engine idles
+    (its own idle sweeps may interleave)."""
+    verifier = core.integrity.verifier
+    nbytes = tree_bytes(core.params)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mismatch = verifier.verify_all(core.params)
+    seconds = time.perf_counter() - t0
+    check(mismatch is None, f"the sweep found a mismatch on a clean tree: "
+          f"{mismatch}")
+    return {"leaves": len(verifier.baseline), "bytes": nbytes,
+            "seconds": seconds, "gb_s": nbytes / seconds / 1e9,
+            "bound_s": nbytes / H100_BYTES_PER_S,
+            "share_of_bound": nbytes / H100_BYTES_PER_S / seconds}
+
+
+def digest_kernel_entry(core) -> dict:
+    """The digest kernel's line of the kernels JSON, timed on the
+    lm_head (1.09 GB): kernel and plain version on the same leaf (their
+    digests are integers, equal or not: the error is 0), the bound by
+    bytes (two 32-bit integer operations an element on the CUDA cores
+    are far below it), no single PyTorch call computing the function."""
+    from vgate_tpu_torch import integrity
+    from vgate_tpu_torch.ops.kernels.leaf_digest import (
+        leaf_digest,
+        leaf_digest_plain,
+    )
+
+    leaf = dict(integrity.leaves_with_path(core.params))["['lm_head']"]
+    got, plain = leaf_digest(leaf), leaf_digest_plain(leaf)
+    check(got == plain, f"lm_head digest {got:#010x} vs plain {plain:#010x}")
+    word = torch.empty(1, dtype=torch.int32, device=leaf.device)
+    nbytes = leaf.numel() * leaf.element_size()
+    ops = 2 * leaf.numel()
+    bound_ms = 1e3 * max(nbytes / H100_BYTES_PER_S, ops / H100_FP32_FLOPS)
+    return {
+        "name": "leaf_digest", "route": "cuda",
+        "source": "vgate_tpu_torch/csrc/leaf_digest.cu",
+        # no TPU kernel: the reference's fused XLA reduction
+        "replaces": "vgate_tpu/integrity.py:102",
+        "max_abs_err": float(abs(got - plain)),
+        "ms": time_ms(lambda: leaf_digest(leaf, out=word), iters=20),
+        "plain_ms": time_ms(lambda: leaf_digest_plain(leaf), iters=2,
+                            warmup=1),
+        "bound_ms": bound_ms,
+        "bound_by": ("bytes" if nbytes / H100_BYTES_PER_S
+                     >= ops / H100_FP32_FLOPS else "operations"),
+        "library_ms": None,
+        "shape": f"lm_head {list(leaf.shape)} bf16, {nbytes / 1e9:.2f} GB",
+    }
+
+
+class Transitions:
+    """The supervisor's state transitions with their host times, wrapped
+    around ``EngineSupervisor._transition`` for the phase, and the parts
+    of each rebuild (``rebuild_core``: the old core's stop, then the
+    whole rebuild with the successor's warm-up) in ``rebuilds``; ``close``
+    puts the module's ``rebuild_core`` back."""
+
+    def __init__(self, sup):
+        from vgate_tpu_torch.runtime import supervisor
+
+        self.sup, self.log, self.rebuilds = sup, [], []
+        self._module, self._plain_rebuild = supervisor, supervisor.rebuild_core
+        plain = sup._transition
+
+        def record(new):
+            self.log.append((time.perf_counter(), new.value))
+            plain(new)
+
+        def rebuild(old, config, reload_weights=False):
+            t0 = time.perf_counter()
+            stop = old.stop
+
+            def timed_stop():
+                t = time.perf_counter()
+                stop()
+                entry["stop_s"] = time.perf_counter() - t
+
+            entry = {"reload": reload_weights}
+            old.stop = timed_stop
+            self.rebuilds.append(entry)
+            new = self._plain_rebuild(old, config,
+                                      reload_weights=reload_weights)
+            entry["rebuild_s"] = time.perf_counter() - t0
+            return new
+
+        sup._transition = record
+        supervisor.rebuild_core = rebuild
+
+    def close(self) -> None:
+        self._module.rebuild_core = self._plain_rebuild
+
+    def since(self, n: int) -> list:
+        return [state for _, state in self.log[n:]]
+
+    def first(self, state: str, n: int) -> float:
+        return next(t for t, s in self.log[n:] if s == state)
+
+
+def wait_for(cond, what: str, timeout: float = 300.0) -> None:
+    deadline = time.perf_counter() + timeout
+    while not cond():
+        check(time.perf_counter() < deadline,
+              f"{what} did not happen within {timeout:.0f} s")
+        time.sleep(0.02)
+
+
+def recovery_burst(engine, sup, batch, clean, arm, what: str) -> dict:
+    """Serve ``batch`` with ``arm()`` called once the first decode chunk
+    of any row has been read back (2 tokens), through the supervised
+    backend, and check the supervisor brought every request to its
+    ``RECOVERY_TOKENS`` with nothing lost, and the tokens each had at
+    the checkpoint equal the ``clean`` run's.  Returns the drill's
+    timings: containment (RECOVERING) to serving (DEGRADED), and each
+    replayed request's first token after the containment."""
+    h0 = sup.health()
+    n0 = len(sup._watch.log)
+    times = {}
+    fired = threading.Event()
+
+    def hook(prompt, token):
+        times.setdefault(prompt, []).append(time.perf_counter())
+        if not fired.is_set() and len(times[prompt]) >= 2:
+            fired.set()
+            arm()
+
+    with TokenWatch(sup, hook) as watch:
+        results, wall = serve(engine, batch)
+    h = sup.health()
+    check(h["lost"] == h0["lost"], f"{what}: {h['lost'] - h0['lost']} lost")
+    check(h["resumed"] - h0["resumed"] == len(results),
+          f"{what}: {h['resumed'] - h0['resumed']} of {len(results)} resumed")
+    check(h["restarts"] == h0["restarts"] + 1,
+          f"{what}: restarts {h0['restarts']} -> {h['restarts']}")
+    check(sup._watch.since(n0) == ["recovering", "degraded"],
+          f"{what}: transitions {sup._watch.since(n0)}")
+    for r in results:
+        check(r.num_tokens == RECOVERY_TOKENS and r.finish_reason == "length",
+              f"{what}: {r.num_tokens} tokens, finish {r.finish_reason}")
+        check(r.metrics.get("resumed"), f"{what}: a result not resumed")
+    t_contained = sup._watch.first("recovering", n0)
+    t_serving = sup._watch.first("degraded", n0)
+    resume = sup.last_resume
+    by_id = {s["seq_id"]: s["generated_tokens"] for s in resume["sequences"]}
+    # the tokens each request had at the checkpoint must be the clean
+    # run's; after it a prompt pass recomputes the KV in bf16 at another
+    # shape, so agreement is printed, not checked
+    kept = []
+    for text, r, c in zip(batch[0], results, clean):
+        n = by_id[watch.seqs[text].seq_id]
+        check(r.token_ids[:n] == c.token_ids[:n],
+              f"{what}: tokens before the checkpoint differ from the "
+              "clean run")
+        kept.append(n)
+    ttft = sorted(
+        next(t for t in times[text][n:] if t > t_contained) - t_contained
+        for text, n in zip(batch[0], kept)
+    )
+    return {
+        "wall_s": wall["wall_s"],
+        "containment_to_serving_s": t_serving - t_contained,
+        "tokens_at_checkpoint": kept,
+        "replayed_first_token_s_p50": ttft[len(ttft) // 2],
+        "replayed_first_token_s_max": ttft[-1],
+        "agreement_after_checkpoint": agreement(
+            [r.token_ids for r in results], [c.token_ids for c in clean]),
+        "results": results,
+    }
+
+
+def guard_step_cost(core) -> dict:
+    """What the guard adds to one decode step on the card: its kernels
+    (``integrity.logit_guard`` over the ``[slots, vocab]`` f32 logits of
+    a step, plus the copy into the flag buffer) by the profiler, and
+    their device time by CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vgate_tpu_torch import integrity
+
+    logits = torch.randn(core.max_slots, core.spec.vocab_size,
+                         device=core.device)
+    flags = torch.empty(core.max_slots, dtype=torch.uint8,
+                        device=core.device)
+    threshold = core.config.integrity.saturate_threshold
+
+    def step():
+        flags.copy_(integrity.logit_guard(logits, threshold))
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    ops = sum(1 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"device_ops": ops, "ms": time_ms(step, iters=50),
+            "logits": list(logits.shape)}
+
+
+def canary_ok(sup, context: str) -> dict:
+    """The boot fingerprint verifies on the live core."""
+    result = sup._canary.check(sup.core, context=context)
+    check(result["ok"] and not result["recorded"],
+          f"canary after {context}: {result}")
+    return {k: result[k] for k in ("fingerprint", "latency_s")}
+
+
+def recovery_path(model: str = MODEL, device: str = "cuda") -> dict:
+    """Supervised recovery at 7B through the backend, on an engine whose
+    weights are the main path's (random init from seed 0): the digest
+    kernel on the tree's leaves and a full sweep; a clean warm burst of 8
+    greedy requests x 64 tokens (exact K1/K2 launches, every guard word
+    0, the perf snapshot's phases summing to its wall, MFU and the HBM
+    roofline share at most 1.05); then four drills on the same burst,
+    each checked for one restart, every request resumed and completed,
+    nothing lost and the boot canary verifying afterwards: a crash
+    (``decode_step`` raise after the first chunk; tokens before the
+    checkpoint equal to the clean run's, the rebuilt pool's pages and
+    ``memory_allocated`` back within 1 %), a stall (a ``stall`` delay
+    past the lowered ``step_stall_s``), a corruption (``weight_corrupt``
+    flips a leaf on the card; the sweep finds it, the weights are
+    reloaded from the seed and the canary passes), and a tripped guard
+    (``logit_corrupt``: a hard sentinel discards its chunk, a reload);
+    last, the burst's device ops a step and decode tok/s with the guard
+    on and, on a second engine over the same weights, off."""
+    from vgate_tpu_torch import faults
+    from vgate_tpu_torch.backends.base import SamplingParams
+    from vgate_tpu_torch.runtime.engine_core import EngineCore
+
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        # every stream's cuBLAS workspace of the earlier phases goes, as
+        # a rebuild drops them, so the pool is sized alike both times
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+        torch.cuda.empty_cache()
+    cfg = engine_config(model, device, prefix_cache=False,
+                        sections=RECOVERY_SECTIONS)
+    engine, sup = start_engine(cfg, "recovery-phase")
+    out = {}
+    try:
+        check(type(sup).__name__ == "EngineSupervisor",
+              f"the backend serves a {type(sup).__name__}")
+        sup._watch = Transitions(sup)
+        boot = sup._canary.last
+        check(boot is not None and boot["recorded"] and boot["ok"],
+              f"boot canary {boot}")
+        out["canary_boot"] = {k: boot[k] for k in ("fingerprint",
+                                                    "latency_s")}
+        out["warmup"] = warm_up(sup, "recovery-phase engine")
+        tree0 = sup.core.integrity.verifier.baseline
+        if device == "cuda":
+            out["digests"] = check_digests(sup.core, DIGEST_LEAVES)
+            out["sweep"] = sweep_report(sup.core, device)
+            out["kernel"] = digest_kernel_entry(sup.core)
+        texts = prompts()
+        batch = (texts, [SamplingParams(max_tokens=RECOVERY_TOKENS,
+                                        temperature=0.0)] * len(texts))
+        # 1. the clean warm burst, with its launch counts
+        reset_launches()
+        stats0 = sup.core.get_stats()
+        clean, clean_t = serve(engine, batch)
+        launches = read_launches()
+        stats = sup.core.get_stats()
+        if device == "cuda":
+            L = sup.core.spec.num_layers
+            for name, n in (("paged_decode_attention",
+                             stats["steps"] - stats0["steps"]),
+                            ("flash_prefill_attention",
+                             stats["prompt_passes"]
+                             - stats0["prompt_passes"])):
+                check(n > 0 and launches[name] == L * n,
+                      f"recovery phase: {name}: {launches[name]} launches "
+                      f"for {n} passes of {L} layers")
+            check_graphed(stats, "the recovery phase", since=stats0)
+        check_no_guard_trips(sup, "the clean burst")
+        for r in clean:
+            check(r.num_tokens == RECOVERY_TOKENS, f"{r.num_tokens} tokens")
+        out["clean_burst"] = clean_t
+        snap = sup.perf_snapshot()
+        win = snap["window"]
+        phases = sum(win["phase_seconds"].values())
+        check(abs(phases - win["wall_s"]) <= 0.01 * win["wall_s"],
+              f"perf phases {phases} s vs tick wall {win['wall_s']} s")
+        check(win["mfu"] is None or win["mfu"] <= 1.05,
+              f"decode MFU {win['mfu']}")
+        check(win["hbm_roofline_pct"] is None
+              or win["hbm_roofline_pct"] <= 105.0,
+              f"HBM roofline {win['hbm_roofline_pct']} %")
+        if device == "cuda":
+            check(win["mfu"] is not None
+                  and win["hbm_roofline_pct"] is not None,
+                  f"no roofline for {snap['roofline']}")
+        out["perf_snapshot"] = {
+            "window": win, "roofline": snap["roofline"],
+            "compile_ledger": snap["compile_ledger"][:12],
+            "compile_ledger_entries": len(snap["compile_ledger"]),
+        }
+        mem0 = torch.cuda.memory_allocated() if device == "cuda" else 0
+        pages0 = sup.core.geometry.num_pages
+        # 2. a crash after the first chunk
+        reset_launches()
+        crash = recovery_burst(
+            engine, sup, batch, clean,
+            lambda: faults.arm("decode_step", "raise", times=1), "crash")
+        crash.pop("results")
+        crash["launches"] = read_launches()
+        # the kept tree was verified and the new core's baseline taken on
+        # the card
+        check(device != "cuda" or crash["launches"]["leaf_digest"] > 0,
+              "the rebuild launched no digest kernel")
+        out["launches"] = {k: launches[k] + crash["launches"][k]
+                           for k in launches}
+        graphs = sup.core.get_stats()["decode_graphs"]
+        crash["recapture"] = {
+            "graphs": len(captures(sup.core)),
+            "capture_s": sum(s for _, s in captures(sup.core)),
+            "ledger": [e for e in sup.core.perf.compile_ledger()
+                       if e["program"] == "decode"][:8],
+        }
+        check(graphs is None or graphs["captured"] >= 1,
+              "the rebuilt core captured no graph")
+        check(sup.core.geometry.num_pages == pages0,
+              f"rebuilt pool {sup.core.geometry.num_pages} pages, was "
+              f"{pages0}")
+        if device == "cuda":
+            gc.collect()
+            mem = torch.cuda.memory_allocated()
+            crash["memory_allocated_gb"] = [mem0 / 1e9, mem / 1e9]
+            check(abs(mem - mem0) <= 0.01 * mem0,
+                  f"memory allocated {mem0 / 1e9:.3f} GB before the crash, "
+                  f"{mem / 1e9:.3f} GB after the rebuild")
+        crash["canary"] = canary_ok(sup, "the crash rebuild")
+        out["crash"] = crash
+        # 3. a stall past the lowered limit, on other prompts: a request
+        # freshly submitted into two crashes in a row is quarantined as
+        # poison (recovery.poison_threshold)
+        h0 = sup.health()
+        n0 = len(sup._watch.log)
+        faults.arm("stall", "delay", delay_s=RECOVERY_DELAY_S, times=1)
+        t0 = time.perf_counter()
+        stalled, stall_t = serve(
+            engine, ([f"Stall drill. {t}" for t in texts], batch[1]))
+        h = sup.health()
+        check(h["stalls"] == h0["stalls"] + 1
+              and h["restarts"] == h0["restarts"] + 1
+              and h["lost"] == h0["lost"]
+              and h["resumed"] == h0["resumed"] + len(stalled),
+              f"stall drill: {h0} -> {h}")
+        check(sup._watch.since(n0) == ["recovering", "degraded"],
+              f"stall drill: transitions {sup._watch.since(n0)}")
+        for r in stalled:
+            check(r.num_tokens == RECOVERY_TOKENS,
+                  f"stall drill: {r.num_tokens} tokens")
+        out["stall"] = {
+            "wall_s": stall_t["wall_s"],
+            "declared_after_s": sup._watch.first("recovering", n0) - t0,
+            "containment_to_serving_s": (sup._watch.first("degraded", n0)
+                                         - sup._watch.first("recovering",
+                                                            n0)),
+            "stalls": h["stalls"], "restarts": h["restarts"],
+            "canary": canary_ok(sup, "the stall rebuild"),
+        }
+        # 4. a corruption on the card, found by the sweep
+        h0 = sup.health()
+        n0 = len(sup._watch.log)
+        faults.arm("weight_corrupt", "corrupt", times=1)
+        wait_for(lambda: sup.health()["integrity"]["corrupt_reloads"]
+                 == h0["integrity"]["corrupt_reloads"] + 1
+                 and sup.state.value == "degraded", "the corruption reload")
+        last = sup.last_integrity
+        check(last["kind"] == "checksum_mismatch"
+              and sup.last_crash["classification"] == "corrupt"
+              and last["canary"]["ok"],
+              f"corruption drill: {last}, {sup.last_crash['classification']}")
+        check(sup._watch.since(n0) == ["recovering", "degraded"],
+              f"corruption drill: transitions {sup._watch.since(n0)}")
+        check(sup.core.integrity.verifier.baseline == tree0,
+              "the reloaded tree's digests differ from the boot tree's")
+        out["corruption"] = {
+            "leaf": last["detail"].get("leaf"),
+            "reload_to_serving_s": (sup._watch.first("degraded", n0)
+                                    - sup._watch.first("recovering", n0)),
+            "canary": canary_ok(sup, "the reload"),
+        }
+        # 5. a tripped guard discards its chunk: a hard sentinel, a reload
+        h0 = sup.health()
+        guard = recovery_burst(
+            engine, sup, batch, clean,
+            lambda: faults.arm("logit_corrupt", "corrupt", times=1),
+            "tripped guard")
+        guard.pop("results")
+        last = sup.last_integrity
+        check(str(last["kind"]).startswith("logit_")
+              and sup.last_crash["classification"] == "corrupt"
+              and sup.health()["integrity"]["corrupt_reloads"]
+              == h0["integrity"]["corrupt_reloads"] + 1,
+              f"tripped guard: {last}")
+        guard["sentinel"] = last["kind"]
+        guard["canary"] = canary_ok(sup, "the guard reload")
+        out["tripped_guard"] = guard
+        out["supervisor"] = {k: sup.health()[k] for k in (
+            "state", "crashes", "restarts", "stalls", "resumed", "lost",
+            "transitions")}
+        # 6. the guard's cost: the same warm burst, guard on here, then off
+        # on a second engine over the same weights
+        if device == "cuda":
+            on_t = serve(engine, batch)[1]
+            cost = {"on": {**profile_burst(engine, batch, sup),
+                           "decode_tok_s": on_t["decode_tok_s"]},
+                    "guard_a_step": guard_step_cost(sup.core)}
+        params = sup.core.params
+    finally:
+        faults.reset()
+        if getattr(sup, "_watch", None) is not None:
+            sup._watch.close()
+            out["rebuilds"] = sup._watch.rebuilds
+        engine.shutdown()
+    del engine, sup
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        off_cfg = engine_config(model, device, prefix_cache=False,
+                                sections={"integrity": {"enabled": False}})
+        off = EngineCore(off_cfg, params=params)
+        off.start()
+        try:
+            warm_up(off, "guard-off engine")
+            off_engine = again_engine(off)
+            off_t = serve(off_engine, batch)[1]
+            cost["off"] = {**profile_burst(off_engine, batch, off),
+                           "decode_tok_s": off_t["decode_tok_s"]}
+        finally:
+            off.stop()
+        for side in ("on", "off"):
+            cost[side].pop("top")
+        out["guard_cost"] = cost
+        del off, off_engine
+    del params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def swap_path(params, reference_streams, model: str = MODEL,
               device: str = "cuda", texts=None,
               num_pages: int = SWAP_NUM_PAGES,
@@ -2713,6 +3260,9 @@ def quant_path(quantization: str, model: str = MODEL, device: str = "cuda",
             out["agreement_with_bf16_burst"] = agreement(
                 [r.token_ids for r in results[:8]], bf16_streams[:8])
         out["logits"] = check_model_logits(core, texts[2])
+        if bits == 8:
+            # the digest kernel on an int8 weight and its scales
+            out["digests"] = check_digests(core, DIGEST_LEAVES_INT8)
         if with_prefix_traffic:
             system, tails, _, _ = prefix_texts()
             out["logits"].update(check_suffix_logits(core,
@@ -2975,6 +3525,29 @@ def print_profile(what: str, card: str, profile: dict) -> None:
         print(f"  total {group}: {t['ms']:.2f} ms over {t['count']} launches")
 
 
+def print_recovery(card: str, recovery: dict) -> None:
+    shown = {k: v for k, v in recovery.items()
+             if k not in ("kernel", "guard_cost", "perf_snapshot")}
+    print(f"recovery phase on {card}: " + json.dumps(shown), flush=True)
+    print(f"recovery phase perf_snapshot after a warm burst on {card}: "
+          + json.dumps(recovery["perf_snapshot"]), flush=True)
+    cost = recovery.get("guard_cost")
+    if cost is None:
+        return
+    for side in ("on", "off"):
+        prof = cost[side]
+        print(f"recovery phase, a warm burst with the integrity guard "
+              f"{side}, on {card}: device ops a decode step "
+              f"{prof['device_ops_per_step']:.1f}, decode "
+              f"{prof['decode_tok_s']:.1f} tokens/s, busy "
+              f"{prof['device_busy_ms']:.1f} of {prof['wall_ms']:.1f} ms",
+              flush=True)
+    step = cost["guard_a_step"]
+    print(f"recovery phase, the integrity guard of one decode step on "
+          f"{card}: {step['device_ops']} device ops, {step['ms']:.4f} ms "
+          f"over logits {step['logits']}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs "
@@ -3004,6 +3577,14 @@ def main() -> None:
                                 r"loads", line) is not None,
                       f"{kernel_name} spills: {line}")
 
+    if sys.argv[1:] == ["recovery"]:
+        # the recovery phase alone, after the build (a shorter run while
+        # that phase is worked on); with no argument every phase runs
+        recovery = recovery_path()
+        print_recovery(card, recovery)
+        print(card_line())
+        print(json.dumps({"kernels": [recovery["kernel"]]}))
+        return
     kernels = [check_paged_decode(dev), check_flash_prefill(dev),
                check_paged_multitok(dev)]
     torch.cuda.empty_cache()
@@ -3058,6 +3639,11 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     memory("the host-swap phase")
+    # supervised recovery, integrity and the perf recorder at 7B
+    recovery = recovery_path()
+    print_recovery(card, recovery)
+    kernels.append(recovery.pop("kernel"))
+    memory("the recovery phase")
     prefix = prefix_path(reference_streams=reference_streams)
     backend_b = prefix.pop("backend")
     print(f"prefix path on {card}: " + json.dumps(prefix), flush=True)
@@ -3077,8 +3663,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     memory("the prefix phase")
-    runs = [served, backend_a, swap["swap_on"], swap["swap_off"], prefix,
-            backend_b]
+    runs = [served, backend_a, swap["swap_on"], swap["swap_off"], recovery,
+            prefix, backend_b]
     for quantization, traffic in (("int8", True), ("int4", False)):
         quant = quant_path(quantization, with_prefix_traffic=traffic,
                            bf16_streams=bf16_burst)
@@ -3113,6 +3699,7 @@ def main() -> None:
         # launches of every path, each counted from 0 just before it ran
         k["launches"] = sum(run["launches"].get(k["name"], 0)
                             for run in runs)
+        check(k["launches"] > 0, f"{k['name']} was never launched")
         del k["shape"]
     print(card_line())
     print(json.dumps({"kernels": kernels}))

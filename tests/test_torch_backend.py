@@ -297,8 +297,10 @@ def test_signals_health_and_stats(backend):
     assert health["state"] == "serving"
     assert health["alive"] and health["ready"]
     dev = backend.device_health()
+    # supervised (recovery.enabled, the default): the core's block plus
+    # the health state, as the reference's supervisor reports it
     assert dev == {"alive": True, "platform": "cpu", "device_kind": "cpu",
-                   "num_devices": 1}
+                   "num_devices": 1, "state": "serving"}
     stats = backend.get_stats()
     assert stats["kv_page_bytes"] == backend.core.geometry.page_bytes
 

@@ -1030,3 +1030,125 @@ def test_graphed_decode_after_swap_in_matches_the_eager_chunk_on_card(cuda):
         core.stop()
     for g, e in zip(runs[True], runs[False]):
         assert g.generated_ids == e.generated_ids
+
+
+# ------------------------------------------------- integrity (item 7)
+
+# (dtype, elements, start offset in elements): lengths that are not a
+# multiple of the 16-byte vector or of the block, starts off the 16-byte
+# boundary, and a 1 GiB bf16 leaf (512 Mi elements: a 7B embedding is
+# 1.09 GB)
+DIGEST_CASES = [
+    (torch.float32, 1, 0), (torch.float32, 5, 1), (torch.float32, 4099, 3),
+    (torch.bfloat16, 7, 0), (torch.bfloat16, 65521 * 3 + 5, 1),
+    (torch.bfloat16, (1 << 20) + 9, 0), (torch.int8, 33, 0),
+    (torch.int8, 1_000_003, 5), (torch.uint8, 257, 2),
+    (torch.bfloat16, 1 << 29, 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", range(len(DIGEST_CASES)))
+def test_leaf_digest_kernel_matches_plain_on_card(cuda, case):
+    """The digest kernel equals its plain version on the same leaf, bit
+    for bit (a wrapping uint32 sum: no tolerance), and a small leaf's
+    digest equals the host digest of its copy."""
+    from vgate_tpu_torch import integrity
+    from vgate_tpu_torch.ops.kernels import leaf_digest as ld
+
+    dtype, n, offset = DIGEST_CASES[case]
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(case)
+    if dtype.is_floating_point:
+        base = torch.randn(n + offset, generator=gen, device=cuda,
+                           dtype=torch.float32).to(dtype)
+    else:
+        base = torch.randint(0, 256, (n + offset,), generator=gen,
+                             device=cuda, dtype=torch.int32).to(torch.uint8)
+        base = base.view(dtype)
+    leaf = base[offset:]
+    before = ld.leaf_digest.launches
+    got = ld.leaf_digest(leaf)
+    assert ld.leaf_digest.launches == before + 1
+    assert got == ld.leaf_digest_plain(leaf)
+    if n <= (1 << 21):
+        assert got == integrity.host_leaf_digest(leaf.cpu())
+    # into a device word, with no readback
+    word = torch.zeros(1, dtype=torch.int32, device=cuda)
+    assert ld.leaf_digest(leaf, out=word) is None
+    assert int(word.item()) & 0xFFFFFFFF == got
+
+
+@pytest.mark.cuda
+def test_guard_flags_of_a_graph_replay_equal_the_eager_chunk_on_card(cuda):
+    """The guard word each decode step writes inside the captured graph
+    equals the eager chunk's on the same requests.  The saturation
+    threshold is 0, so every word has its saturated bit (a graph that did
+    not write them would leave zeros), and the scan's verdicts are
+    recorded instead of raised."""
+    core = _card_engine()
+    core.config.integrity.saturate_threshold = 0.0
+    words = {}
+
+    def record(sampled, flags, rows, chunk):
+        words.setdefault(core.decode_graphs, []).append(flags.copy())
+        return []
+
+    core.integrity.scan_decode = record
+    requests = _card_requests(13, logprobs=False)
+    try:
+        runs = {}
+        for graphs in (True, False):
+            core.decode_graphs = graphs
+            runs[graphs] = _served(core, requests, "K1", False)
+    finally:
+        core.stop()
+    assert len(words[True]) == len(words[False]) > 0
+    for g, e in zip(words[True], words[False]):
+        np.testing.assert_array_equal(g, e)
+    assert any(w.any() for w in words[True])
+    for g, e in zip(runs[True], runs[False]):
+        assert g.generated_ids == e.generated_ids
+
+
+@pytest.mark.cuda
+def test_rebuild_core_returns_memory_on_card(cuda):
+    """A supervised rebuild gives back everything the old core held on
+    the card but its weights: with both cores warmed and serving on
+    their own threads, ``memory_allocated`` after the rebuild is within
+    1 % of its value before, and the new pool has the old pool's pages."""
+    import gc
+
+    from vgate_tpu_torch.backends.base import SamplingParams
+    from vgate_tpu_torch.runtime.engine_core import rebuild_core
+
+    # the cuBLAS workspaces of the earlier tests' streams go first, as a
+    # rebuild drops them all, so both counts hold this engine's alone
+    torch._C._cuda_clearCublasWorkspaces()
+    gc.collect()
+    torch.cuda.empty_cache()
+    core = _card_engine(kv_num_pages=20000)
+    params = [SamplingParams(max_tokens=24, temperature=0.0)] * 4
+    prompts = ["a b c", "d e f g", "h", "i j"]
+    core.start()
+    try:
+        core.warmup()
+        first = core.generate(prompts, params)
+        torch.cuda.synchronize()
+        gc.collect()
+        before = torch.cuda.memory_allocated()
+        pages = core.geometry.num_pages
+        new = rebuild_core(core, core.config)
+        new.start()
+        again = new.generate(prompts, params)
+        torch.cuda.synchronize()
+        gc.collect()
+        after = torch.cuda.memory_allocated()
+        assert new.geometry.num_pages == pages
+        assert abs(after - before) <= 0.01 * before, (before, after)
+        assert [r["token_ids"] for r in again] == [
+            r["token_ids"] for r in first]
+        assert new.get_stats()["decode_graphs"]["captured"] >= 1
+        new.stop()
+    finally:
+        core.stop()

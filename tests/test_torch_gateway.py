@@ -337,14 +337,19 @@ async def test_idempotency_key_replays_identical_body():
 
 
 async def test_unregistered_routes_are_404():
-    """Routes whose backing is not ported yet stay unregistered."""
+    """Routes whose backing is not ported yet stay unregistered (the pod
+    and the replica operations); the engine's self-observation routes
+    are registered and answer the dry-run backend's "no recorder"
+    bodies, and /v1/profile its 400."""
     client = await _client()
     try:
-        for path in ("/debug/flight", "/debug/perf", "/debug/pod",
-                     "/debug/spans", "/debug/requests", "/admin/replicas"):
+        for path in ("/debug/pod", "/admin/replicas"):
             assert (await client.get(path)).status == 404, path
-        assert (await client.post("/v1/profile", json={})).status == 404
-        assert (await client.get("/debug/faults")).status == 200
+        for path in ("/debug/flight", "/debug/perf", "/debug/spans",
+                     "/debug/requests", "/debug/faults"):
+            assert (await client.get(path)).status == 200, path
+        assert (await client.get("/debug/requests/x")).status == 404
+        assert (await client.post("/v1/profile", json={})).status == 400
     finally:
         await client.close()
 

@@ -54,7 +54,8 @@ def _reset_port_config():
 def port_params(monkeypatch):
     """The port's engine core builds the JAX seed-0 tree, as the
     reference engine does."""
-    def load(spec, checkpoint_path, device, dtype, seed=0):
+    def load(spec, checkpoint_path, device, dtype, seed=0,
+             log_digests=False):
         assert spec.name == TINY_DENSE.name and seed == 0
         tree = j_init(TINY_DENSE, None, np.float32)
         return params_from_jax(jax.tree.map(np.asarray, tree), TINY_DENSE)
@@ -234,5 +235,91 @@ async def test_gateway_bodies_match_the_reference(port_params):
         assert err["type"] == "not_implemented_error"
         assert "queue 1, item 8" in err["message"]
     finally:
+        for c in (ref, port):
+            await c.close()
+
+
+async def test_gateway_recovery_drill_matches_the_reference(port_params):
+    """The recovery drill through both gateways, each supervised (the
+    default): with ``decode_step`` armed to raise once, a chat completes
+    200 with ``"resumed": true`` and the body the undisturbed run gives;
+    ``/stats`` shows one restart, one resumed, none lost and the
+    transitions serving -> recovering -> degraded; ``/health`` and the
+    item-7 routes (``/debug/flight``, ``/debug/perf``,
+    ``/debug/requests`` and one record, ``/debug/spans``, ``/v1/profile``)
+    answer the reference's status codes with its keys."""
+    from vgate_tpu import faults as j_faults
+    from vgate_tpu_torch import faults
+
+    # the result cache off: the drill's request repeats the clean one
+    sections = dict(COMMON, recovery={"backoff_base_s": 0.05},
+                    cache={"enabled": False})
+    apps = [
+        j_create_app(j_load_config(
+            model={**MODEL, "engine_type": "jax_tpu"},
+            tpu={"dp": 1, "tp": 1, "ep": 1, "sp": 1, "num_devices": 1,
+                 "use_pallas": False, **SHAPES},
+            **sections,
+        )),
+        create_app(load_config(
+            model={**MODEL, "engine_type": "torch_cuda"},
+            device={"device": "cpu", **SHAPES}, **sections,
+        )),
+    ]
+    ref, port = [TestClient(TestServer(app)) for app in apps]
+    for c in (ref, port):
+        await c.start_server()
+    faults.reset()
+    try:
+        async def both(method, path, **kw):
+            out = []
+            for c in (ref, port):
+                resp = await getattr(c, method)(path, **kw)
+                out.append((resp.status, await resp.json()))
+            assert out[0][0] == out[1][0], (path, out)
+            return out
+
+        body = _chat("the drill", max_tokens=12)
+        [(_, clean_r), (_, clean_p)] = await both(
+            "post", "/v1/chat/completions", json=body)
+        j_faults.arm("decode_step", mode="raise", times=1)
+        faults.arm("decode_step", mode="raise", times=1)
+        [(status, r), (_, p)] = await both(
+            "post", "/v1/chat/completions", json=body,
+            headers={"X-Request-ID": "drill-1"})
+        assert status == 200
+        assert r.pop("resumed") is True and p.pop("resumed") is True
+        _assert_same(_strip(r), _strip(p))
+        assert clean_p.pop("resumed") is False
+        _assert_same(_strip(clean_p), _strip(p))
+        [(_, rs), (_, ps)] = await both("get", "/stats")
+        for stats in (rs, ps):
+            sup = stats["engine"]["supervisor"]
+            assert (sup["restarts"], sup["resumed"], sup["lost"]) == \
+                (1, 1, 0)
+            assert sup["transitions"][:2] == [["serving", "recovering"],
+                                              ["recovering", "degraded"]]
+            assert stats["engine"]["last_resume"]["replayed"] == 1
+        for block in ("supervisor", "last_crash", "last_resume", "flight",
+                      "perf", "integrity"):
+            assert set(rs["engine"][block]) == set(ps["engine"][block]), \
+                block
+        [(_, rh), (_, ph)] = await both("get", "/health")
+        assert set(rh) == set(ph) and set(rh["engine"]) == set(ph["engine"])
+        assert rh["engine"]["state"] == ph["engine"]["state"] == "degraded"
+        for path in ("/debug/flight", "/debug/perf", "/debug/requests",
+                     "/debug/spans"):
+            [(_, rd), (_, pd)] = await both("get", path)
+            assert set(rd) == set(pd), path
+        [(status, rd), (_, pd)] = await both("get",
+                                             "/debug/requests/drill-1")
+        assert status == 200 and set(rd) == set(pd)
+        assert rd["request_id"] == pd["request_id"] == "drill-1"
+        [(status, rd), (_, pd)] = await both(
+            "post", "/v1/profile", json={"duration_ms": 50})
+        assert status == 200 and set(rd) == set(pd)
+    finally:
+        j_faults.reset()
+        faults.reset()
         for c in (ref, port):
             await c.close()

@@ -457,7 +457,7 @@ def test_the_reference_config_yaml_is_refused(monkeypatch):
      ({"gateway": {"journal_max_bytes": 0}}, ValueError),
      ({"logging": {"format": "xml"}}, ValueError),
      ({"server": {"workers": 2}}, TypeError),
-     ({"observability": {"enabled": True}}, TypeError)],
+     ({"recovery": {"max_restart": 3}}, TypeError)],
 )
 def test_gateway_validators(sections, err):
     with pytest.raises(err):

@@ -157,6 +157,64 @@ def test_swap_engine_warms_up_and_serves_without_prometheus_client():
     assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
+SUPERVISED_PROBE = """
+import sys
+for name in %r:
+    sys.modules[name] = None
+from vgate_tpu_torch import faults
+from vgate_tpu_torch.backends.base import SamplingParams
+from vgate_tpu_torch.backends.torch_backend import TorchCUDABackend
+from vgate_tpu_torch.config import load_config
+backend = TorchCUDABackend()
+backend.load_model(load_config(
+    model={"model_id": "tiny-dense", "dtype": "float32",
+           "max_model_len": 64},
+    device={"device": "cpu", "kv_num_pages": 32, "kv_page_size": 4,
+            "max_batch_slots": 2, "prefill_buckets": [8, 16],
+            "prefix_cache": False},
+    recovery={"backoff_base_s": 0.01},
+    integrity={"canary_record_on_start": True},
+))
+sup = backend.core
+assert type(sup).__name__ == "EngineSupervisor"
+assert sup.core.integrity is not None and sup._canary.expected
+assert sup.warmup() > 0
+sp = [SamplingParams(max_tokens=12, temperature=0.0)] * 2
+clean = backend.generate(["alpha", "beta"], sp)
+faults.arm("decode_step", mode="raise", times=1)
+again = backend.generate(["alpha", "beta"], sp)
+assert [r.token_ids for r in again] == [r.token_ids for r in clean]
+assert all(r.metrics["resumed"] for r in again)
+stats = backend.get_stats()
+assert stats["supervisor"]["restarts"] == 1, stats["supervisor"]
+# the probe fired as an injected fault, not as an ImportError of the
+# HTTP layer's metrics
+assert stats["supervisor"]["last_fatal"].startswith("InjectedFault"), (
+    stats["supervisor"]["last_fatal"])
+assert stats["supervisor"]["resumed"] == 2 and stats["supervisor"]["lost"] == 0
+assert backend.serving_state() == "degraded"
+assert stats["perf"]["enabled"] and stats["flight"]["enabled"]
+assert stats["integrity"]["sentinel_trips"] == {}
+backend.shutdown()
+print("ok")
+""" % (BLOCKED + ("opentelemetry",),)
+
+
+def test_supervised_engine_with_integrity_serves_without_the_http_packages():
+    """The default engine (supervised, integrity on, the flight and perf
+    recorders on) warms up, serves, survives an injected crash by replay
+    and reports its blocks with aiohttp, pydantic, PyYAML,
+    prometheus_client and opentelemetry all missing (a fault firing
+    counts through the engine-side stand-ins)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", SUPERVISED_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
 def test_http_layer_needs_its_packages():
     """The probe is live: with aiohttp blocked, the gateway's import
     fails."""

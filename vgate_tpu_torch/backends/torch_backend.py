@@ -1,8 +1,10 @@
 """The PyTorch/CUDA backend (`engine_type: torch_cuda`), the counterpart
 of vgate_tpu/backends/jax_backend.py's ``JaxTPUBackend``.
 
-It builds one plain :class:`EngineCore` (the supervised, data-parallel
-and pod engines are not ported yet) behind the 4-method protocol
+It builds one :class:`EngineCore`, wrapped by default in the
+:class:`~vgate_tpu_torch.runtime.supervisor.EngineSupervisor`
+(``recovery.enabled``, as the reference does; the data-parallel and pod
+engines are not ported yet), behind the 4-method protocol
 (``load_model`` / ``create_sampling_params`` / ``generate`` /
 ``shutdown``), plus the async surface the gateway uses when a backend
 has it: ``generate_settled_async`` (batches whose sequences join the
@@ -43,7 +45,12 @@ class TorchCUDABackend:
 
     def load_model(self, config: Any) -> None:
         config = config if hasattr(config, "device") else get_config()
-        self.core = EngineCore(config)
+        if config.recovery.enabled:
+            from vgate_tpu_torch.runtime.supervisor import EngineSupervisor
+
+            self.core = EngineSupervisor(config)
+        else:
+            self.core = EngineCore(config)
         self.core.start()
         logger.info(
             "torch_cuda backend ready",
@@ -314,16 +321,26 @@ class TorchCUDABackend:
         return self.core.device_health()
 
     def serving_state(self) -> str:
-        """"serving" while the engine loop runs, "dead" after a fatal
-        error or before loading (the supervisor's degraded and
-        recovering states come with ROADMAP queue 1, item 7)."""
-        if self.core is None or self.core._fatal is not None:
+        """Health-state-machine position ("serving" | "degraded" |
+        "recovering" | "dead"); an unsupervised core is "serving" while
+        alive and "dead" after a fatal."""
+        if self.core is None:
+            return "dead"
+        state = getattr(self.core, "state", None)
+        if state is not None:
+            return state.value
+        if getattr(self.core, "_fatal", None) is not None:
             return "dead"
         return "serving"
 
     def serving_health(self) -> Dict[str, Any]:
-        """The engine block of /health: state, liveness, readiness and
-        the scheduler's queue depth."""
+        """The engine block of /health: the supervisor's health block
+        (state, restarts, resumed, lost, quarantine, integrity) when
+        supervised, else state, liveness, readiness and the scheduler's
+        queue depth."""
+        health_fn = getattr(self.core, "health", None)
+        if health_fn is not None:
+            return health_fn()
         state = self.serving_state()
         body: Dict[str, Any] = {
             "state": state,

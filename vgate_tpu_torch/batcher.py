@@ -53,8 +53,11 @@ from vgate_tpu_torch.errors import (
 )
 from vgate_tpu_torch.lifecycle import CancelToken, all_of
 from vgate_tpu_torch.logging_config import get_logger
-from vgate_tpu_torch.observability.reqtrace import RequestMeta
-from vgate_tpu_torch.tracing import context_trace_id, get_tracer
+from vgate_tpu_torch.observability.reqtrace import (
+    RequestMeta,
+    emit_gateway_phases,
+)
+from vgate_tpu_torch.tracing import capture_context, context_trace_id, get_tracer
 
 logger = get_logger(__name__)
 tracer = get_tracer(__name__)
@@ -178,11 +181,10 @@ class RequestBatcher:
         self._drain_retry_after = 2.0
         # memoized: does the backend's settled path accept cancel_tokens?
         self._settled_takes_tokens: Optional[bool] = None
-        # The observability section (engine phase spans, the flight
-        # recorder) is not ported yet (ROADMAP queue 1, item 7): this copy
-        # is the reference batcher with observability.enabled=false, so
-        # no trace context is captured, no request_meta reaches the
-        # backend and no approximate phase spans are emitted.
+        # memoized: does it accept request_meta (the engine then emits
+        # exact phase spans; otherwise the batcher approximates them)?
+        self._settled_takes_meta: Optional[bool] = None
+        self._obs_enabled = self.config.observability.enabled
         # Backends without generate_async share one worker hop at a time
         # (the reference's global _inference_lock, batcher.py:79).
         self._sync_lock = asyncio.Lock()
@@ -400,6 +402,11 @@ class RequestBatcher:
             priority=tier_rank(tier),
         )
         request_id = request_id or uuid.uuid4().hex[:12]
+        # capture the request's trace context BEFORE opening the
+        # batcher.submit span, so the engine's phase spans become direct
+        # children of the HTTP request span (siblings of batcher.submit)
+        # rather than grandchildren through a span that ends early
+        trace_ctx = capture_context() if self._obs_enabled else None
         with tracer.start_as_current_span("batcher.submit"):
             self._total_requests += 1
             cache_key = ResultCache.make_key(
@@ -479,7 +486,9 @@ class RequestBatcher:
                         if timeout_s is not None
                         else None
                     ),
-                    meta=RequestMeta(request_id=request_id),
+                    meta=RequestMeta(
+                        request_id=request_id, trace_ctx=trace_ctx
+                    ),
                     tier_rank=tier_rank(tier),
                 )
                 # the backlog releases exactly once, whatever the
@@ -734,6 +743,18 @@ class RequestBatcher:
                 self.admission.observe_completion(
                     payload.get("num_tokens", 0)
                 )
+                if self._obs_enabled and not self._settled_takes_meta:
+                    # black-box backend (dry-run / external adapters):
+                    # approximate the engine phase spans from reported
+                    # ttft/gen_time so the trace still attributes queue
+                    # vs prefill vs decode
+                    emit_gateway_phases(
+                        lead.meta,
+                        lead.enqueued_at,
+                        start,
+                        payload.get("metrics", {}),
+                        time.perf_counter(),
+                    )
                 if (
                     payload.get("finish_reason") not in UNCACHEABLE_FINISH
                     and not self.pressure.cache_write_bypass
@@ -815,7 +836,18 @@ class RequestBatcher:
                     self._settled_takes_tokens = (
                         "cancel_tokens" in sig_params
                     )
+                    self._settled_takes_meta = (
+                        "request_meta" in sig_params
+                    )
                 kwargs = {}
+                if self._settled_takes_meta and self._obs_enabled:
+                    # the engine emits exact per-phase spans and stamps
+                    # flight records with request/trace ids (dedup
+                    # followers share the lead's compute, so only the
+                    # lead's trace shows engine phases)
+                    kwargs["request_meta"] = [
+                        req.meta for req in unique
+                    ]
                 if self._settled_takes_tokens and any(
                     req.token is not None for req in unique
                 ):

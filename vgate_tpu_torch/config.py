@@ -9,8 +9,10 @@ feature the port does not have yet raises :class:`NotPortedError`
 naming the ROADMAP queue that owns it — a setting is never silently
 ignored.  The gateway's sections (``server``, ``batch``, ``cache``,
 ``gateway``, ``lifecycle``, ``admission``, ``security``,
-``rate_limit``, ``metrics``, ``benchmark``) take the reference's field
-names, defaults and validators.
+``rate_limit``, ``metrics``, ``benchmark``) and the sections of
+supervision, integrity and self-observation (``recovery``,
+``integrity``, ``observability``) take the reference's field names,
+defaults and validators.
 
 Layers, lowest first, as in the reference: the defaults, the YAML file
 named by ``VGT_CONFIG_PATH`` (only when that variable is set: the
@@ -174,6 +176,76 @@ class TracingConfig:
     service_name: str = "vgate-tpu-torch"
 
 
+@dataclass
+class RecoveryConfig:
+    """Supervised engine recovery (runtime/supervisor.py): a fatal
+    engine-loop error, a watchdog stall or a detected corruption tears
+    the core down and rebuilds it instead of ending serving; the
+    reference's fields and defaults (vgate_tpu/config.py
+    ``RecoveryConfig``, where each is documented)."""
+
+    enabled: bool = True
+    max_restarts: int = 3
+    restart_window_s: float = 300.0
+    backoff_base_s: float = 0.25
+    backoff_cap_s: float = 30.0
+    degraded_probation_s: float = 30.0
+    poison_threshold: int = 2
+    # checkpoint in-flight sequences at a crash and replay them into the
+    # rebuilt core as prefill-continues
+    resume_in_flight: bool = True
+    max_resume_attempts: int = 3
+    # hang watchdog (0 disables); beats stamped ``compiling`` (a graph
+    # capture, a kernel's first nvcc build) get compile_grace_s instead
+    step_stall_s: float = 120.0
+    compile_grace_s: float = 900.0
+
+
+@dataclass
+class IntegrityConfig:
+    """Silent-corruption defense (integrity.py): output sentinels, the
+    budgeted weight-checksum sweep on idle ticks, canary self-probes and
+    the reload-on-corrupt rebuild; the reference's fields and defaults
+    (vgate_tpu/config.py ``IntegrityConfig``)."""
+
+    enabled: bool = True
+    sentinels_enabled: bool = True
+    # the per-slot guard word written inside the decode chunk
+    logit_guard: bool = True
+    saturate_threshold: float = 1.0e4
+    entropy_window: int = 64
+    entropy_min_distinct: int = 2
+    entropy_min_temp: float = 0.5
+    sweep_enabled: bool = True
+    sweep_interval_s: float = 30.0
+    sweep_leaves_per_tick: int = 2
+    canary_enabled: bool = True
+    canary_interval_s: float = 0.0
+    canary_prompt_len: int = 8
+    canary_max_tokens: int = 8
+    canary_record_on_start: bool = False
+    canary_timeout_s: float = 60.0
+    canary_compile_grace_s: float = 900.0
+
+
+@dataclass
+class ObservabilityConfig:
+    """The flight recorder, engine phase spans and perf attribution
+    (observability/); the reference's fields and defaults
+    (vgate_tpu/config.py ``ObservabilityConfig``)."""
+
+    enabled: bool = True
+    flight_ticks: int = 512
+    flight_requests: int = 256
+    crash_dump_ticks: int = 64
+    redact_prompts: bool = True
+    prompt_preview_chars: int = 48
+    perf_enabled: bool = True
+    perf_window_s: float = 30.0
+    perf_ticks: int = 4096
+    perf_compile_ledger_max: int = 256
+
+
 # -- the gateway's sections (vgate_tpu/config.py, same names, defaults
 # and validators; the docs of each field live there) --
 
@@ -321,6 +393,11 @@ class VGTConfig:
     logging: LoggingConfig = field(default_factory=LoggingConfig)
     metrics: MetricsConfig = field(default_factory=MetricsConfig)
     tracing: TracingConfig = field(default_factory=TracingConfig)
+    observability: ObservabilityConfig = field(
+        default_factory=ObservabilityConfig
+    )
+    recovery: RecoveryConfig = field(default_factory=RecoveryConfig)
+    integrity: IntegrityConfig = field(default_factory=IntegrityConfig)
     security: SecurityConfig = field(default_factory=SecurityConfig)
     rate_limit: RateLimitConfig = field(default_factory=RateLimitConfig)
     benchmark: BenchmarkConfig = field(default_factory=BenchmarkConfig)

@@ -318,7 +318,7 @@ def check(point: str, payload: Any = None) -> None:
         spec = _take(point, payload, modes=("raise", "delay"))
     if spec is None:
         return
-    from vgate_tpu_torch import metrics
+    from vgate_tpu_torch.runtime import engine_metrics as metrics
 
     metrics.FAULTS_INJECTED.labels(point=point, mode=spec.mode).inc()
     if spec.mode == "delay":
@@ -350,7 +350,7 @@ def wire_action(point: str, payload: Any = None) -> Optional[str]:
         spec = _take(point, payload, modes=("raise", "delay") + WIRE_MODES)
     if spec is None:
         return None
-    from vgate_tpu_torch import metrics
+    from vgate_tpu_torch.runtime import engine_metrics as metrics
 
     metrics.FAULTS_INJECTED.labels(point=point, mode=spec.mode).inc()
     if spec.mode == "delay":
@@ -374,7 +374,7 @@ def corrupt_array(point: str, array):
         spec = _take(point, None, modes=("corrupt",))
         if spec is None:
             return array
-    from vgate_tpu_torch import metrics
+    from vgate_tpu_torch.runtime import engine_metrics as metrics
 
     metrics.FAULTS_INJECTED.labels(point=point, mode="corrupt").inc()
     return array ^ 0x55
@@ -392,7 +392,7 @@ def take_corrupt(point: str) -> bool:
         spec = _take(point, None, modes=("corrupt",))
     if spec is None:
         return False
-    from vgate_tpu_torch import metrics
+    from vgate_tpu_torch.runtime import engine_metrics as metrics
 
     metrics.FAULTS_INJECTED.labels(point=point, mode="corrupt").inc()
     return True

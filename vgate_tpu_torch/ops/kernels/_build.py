@@ -10,6 +10,11 @@ source or header is rebuilt.  :func:`build` starts one ``nvcc`` per
 source at once.  :func:`workspace` holds the fp32 scratch that the
 kernels' second launches read (split-k and split-decode partials), and
 :func:`sm_count` the card's SM count that the plans size grids by.
+
+A build at first use can take minutes; a thread that wants to know (the
+engine thread, whose watchdog must not read the pause as a stall)
+registers a callback with :func:`observe_builds`, called with
+``(name, None)`` as a build starts and ``(name, seconds)`` when it ends.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 SOURCES = {
@@ -33,6 +38,7 @@ SOURCES = {
     "flash_prefill": "flash_prefill.cu",
     "paged_multitok": "paged_multitok.cu",
     "dequant_matmul": "dequant_matmul.cu",
+    "leaf_digest": "leaf_digest.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -42,6 +48,14 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_observers = threading.local()
+
+
+def observe_builds(callback: Optional[Callable[[str, Optional[float]], None]]
+                   ) -> None:
+    """Register ``callback`` (None clears it) for builds started on the
+    calling thread by :func:`load`."""
+    _observers.callback = callback
 
 
 def build_dir() -> pathlib.Path:
@@ -136,7 +150,13 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             path = _lib_path(name)
             if not path.exists():
+                callback = getattr(_observers, "callback", None)
+                if callback is not None:
+                    callback(name, None)
+                t0 = time.perf_counter()
                 build([name])
+                if callback is not None:
+                    callback(name, time.perf_counter() - t0)
             lib = ctypes.CDLL(str(path))
             _libs[name] = lib
         return lib
@@ -185,3 +205,10 @@ def workspace(device, stream: int, size: int):
         ws = torch.empty(size, dtype=torch.float32, device=device)
         _workspaces[key] = ws
     return ws
+
+
+def release_workspace(device, stream: int) -> None:
+    """Drop the scratch kept for ``stream`` on ``device`` (an engine
+    being torn down frees its stream's share before its successor sizes
+    its KV pool from the free memory)."""
+    _workspaces.pop((device.index or 0, stream), None)

@@ -14,8 +14,9 @@ What a graph needs, and where this module provides it:
 * **Static buffers** (:class:`DecodeState`).  A graph reads and writes
   fixed addresses, so the chunk's inputs (tokens, positions, steps,
   slots in use, page tables, sampling parameters, penalty counts, bias
-  and stop ids) and outputs (tokens, and with logprobs the chosen and
-  top logprobs) live in buffers allocated once per engine, outside any
+  and stop ids) and outputs (tokens, with logprobs the chosen and top
+  logprobs, and with the integrity guard each step's per-slot flag
+  word) live in buffers allocated once per engine, outside any
   capture.  The engine fills them with ``copy_`` on its one stream, so a
   chunk in flight still reads what it was enqueued after.
 * **One memory pool** shared by every graph of an engine.  Nothing
@@ -122,6 +123,10 @@ class DecodeState:
         self.out_lp = buf((chunk, B), torch.float32)
         self.out_top_ids = buf((chunk, B, logprobs_k), torch.int32)
         self.out_top_lps = buf((chunk, B, logprobs_k), torch.float32)
+        # integrity.logit_guard's flag word per step and slot, written
+        # when the engine runs the guard (fixed for an engine, so it is
+        # no part of the key)
+        self.out_flags = buf((chunk, B), torch.uint8)
 
     # ------------------------------------------------------------ loading
 
@@ -214,7 +219,7 @@ class DecodeState:
         read-only inputs are shared."""
         out = copy.copy(self)
         for name in ("tokens", "positions", "steps", "out_tokens", "out_lp",
-                     "out_top_ids", "out_top_lps"):
+                     "out_top_ids", "out_top_lps", "out_flags"):
             setattr(out, name, getattr(self, name).clone())
         if self.counts is not None:
             out.counts = self.counts.clone()

@@ -62,16 +62,34 @@ path — batched, bucketed prompt passes and pipelined decode chunks:
 * **Metrics**: the engine-side Prometheus series, set on the host side
   of each readback (runtime/engine_metrics.py), never inside a captured
   decode body.
+* **Supervision hooks** (runtime/supervisor.py): the loop stamps a
+  watchdog heartbeat around every dispatch and readback (``compiling``
+  around a graph capture or a kernel's first build); a fatal error or a
+  declared stall is *contained* — in-flight sequences are checkpointed
+  for replay (``take_checkpointed``) or failed with a retryable error,
+  and ``on_fatal`` hands off to the supervisor, which tears the core
+  down with :func:`rebuild_core` and replays into its successor with
+  :func:`replay_into`.  On the card each core runs on its own stream.
+* **Integrity** (integrity.py, ``integrity.enabled``): the output
+  sentinels over each chunk's readback (the guard flags written inside
+  the chunk), the weight-checksum sweep on idle ticks, and the fault
+  probes ``stall``, ``prefill``, ``decode_step`` and ``logit_corrupt``.
+* **Observability**: the flight recorder (observability/flight.py) and
+  the per-tick perf attribution (observability/perf.py), both fed on the
+  host side of each readback; ``capture_profile`` writes a
+  ``torch.profiler`` Chrome trace.
 
 Not ported yet (the config refuses them): speculative decoding,
-multi-device meshes.  The supervisor, integrity checks and flight
-recorder come with later slices.
+multi-device meshes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import queue
+import tempfile
 import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence as Seq
@@ -79,13 +97,20 @@ from typing import Any, Callable, Dict, List, Optional, Sequence as Seq
 import numpy as np
 import torch
 
+from vgate_tpu_torch import faults, integrity
 from vgate_tpu_torch.backends.base import SamplingParams
 from vgate_tpu_torch.config import (
     NotPortedError,
     VGTConfig,
     get_config,
 )
-from vgate_tpu_torch.errors import DeadlineExceededError, EngineRecoveringError
+from vgate_tpu_torch.errors import (
+    DeadlineExceededError,
+    EngineRecoveringError,
+    IntegrityError,
+    PoisonRequestError,
+    ResumeExhaustedError,
+)
 from vgate_tpu_torch.logging_config import get_logger
 from vgate_tpu_torch.models.decoder import (
     decode_forward,
@@ -93,6 +118,15 @@ from vgate_tpu_torch.models.decoder import (
     prefill_suffix_forward,
 )
 from vgate_tpu_torch.models.specs import ModelSpec, spec_for_model_id
+from vgate_tpu_torch.observability.flight import FlightRecorder
+from vgate_tpu_torch.observability.perf import PerfRecorder
+from vgate_tpu_torch.observability.reqtrace import RequestTrace
+from vgate_tpu_torch.observability.roofline import (
+    EngineRoofline,
+    kv_bytes_per_token,
+    stream_weight_bytes,
+)
+from vgate_tpu_torch.ops.kernels import _build
 from vgate_tpu_torch.ops.kernels.paged_multitok import check_engine_page_size
 from vgate_tpu_torch.ops.kv_quant import (
     SCALE_BYTES,
@@ -314,7 +348,13 @@ class _DeviceSwapExecutor:
         core = self._core
         cuda = core.device.type == "cuda"
         chunks = []
+        # the watchdog's beat before each blocking gather (a stand-in
+        # core without one, as the executor's tests use, is not watched)
+        beat = getattr(core, "_beat", None)
         for i in range(0, len(pages), SWAP_CHUNK_PAGES):
+            if beat is not None:
+                beat("swap_readback",
+                     batch=len(pages[i : i + SWAP_CHUNK_PAGES]))
             idx = self._index(pages[i : i + SWAP_CHUNK_PAGES])
             parts = _gather_swap_pages(core.k_pages, core.v_pages, idx)
             if cuda:
@@ -360,7 +400,7 @@ class _DeviceSwapExecutor:
 def _decode_chunk(
     params, spec: ModelSpec, state: DecodeState, k_pages, v_pages,
     generator, num_steps: int, max_position: int, all_greedy: bool,
-    num_logprobs: int = 0,
+    num_logprobs: int = 0, guard_threshold: Optional[float] = None,
 ) -> None:
     """``num_steps`` decode steps back to back on the device, without a
     host sync: the body the reference fuses with ``lax.scan``, and the
@@ -370,7 +410,13 @@ def _decode_chunk(
     also the chosen logprobs and the top ids and logprobs to
     ``state.out_lp`` / ``out_top_ids`` / ``out_top_lps``), the counts in
     place each step, and the advanced tokens, positions and steps at the
-    end.  The pools are written in place."""
+    end.  The pools are written in place.
+
+    With ``guard_threshold`` (integrity.logit_guard on), each step's
+    per-slot guard word over the RAW logits — before penalties, bias and
+    min-token suppression, whose deliberate -1e30 writes would trip the
+    saturation check — goes to ``state.out_flags[step]``, as the
+    reference folds the guard into its chunk."""
     tokens, positions, steps = state.tokens, state.positions, state.steps
     active = state.active
     act = active.to(positions.dtype)
@@ -381,6 +427,10 @@ def _decode_chunk(
             params, spec, tokens, positions, k_pages, v_pages,
             state.page_tables, active=active,
         )
+        if guard_threshold is not None:
+            state.out_flags[i].copy_(
+                integrity.logit_guard(logits, guard_threshold)
+            )
         logits = _logit_transforms(logits, steps, pen, min_tok, bias)
         args = (logits, state.temps, state.top_ps, state.top_ks)
         kw = dict(generator=generator, seeds=state.seeds, steps=steps)
@@ -426,10 +476,170 @@ class _Readback:
             self.event = torch.cuda.Event()
             self.event.record()
 
-    def result(self) -> List[np.ndarray]:
+    def wait(self) -> None:
+        """Block until the copies are done (the one host wait)."""
         if self.event is not None:
             self.event.synchronize()
+
+    def result(self) -> List[np.ndarray]:
+        self.wait()
         return [h.numpy() for h in self.host]
+
+
+def _release_device_state(old: "EngineCore") -> None:
+    """Drop every reference the dead core holds to memory on the card or
+    pinned on the host, but its weights: the KV pools, the decode state
+    buffers, the decode graphs (their private pool goes with them), the
+    host swap pool with its pinned chunks, and cuBLAS's workspaces (one a
+    stream; ``stop`` already gave back its share of the kernels'
+    scratch).  No other engine's graphs may replay after this in the
+    process (a supervised process serves one engine): a graph captured
+    earlier may use a cleared workspace.  The supervisor still holds the
+    old core while its successor sizes its pool, so anything left here
+    would be sized out of the new pool."""
+    old.k_pages = None
+    old.v_pages = None
+    old._dec_state = None
+    old._graphs = None
+    old._pending_chunks.clear()
+    # the host swap pool dies with its core: every parked ticket's epoch
+    # went stale when containment folded the owners, and the new core
+    # builds a fresh (empty) pool
+    old.kv_swap = None
+    old.scheduler.swap = None
+    if old.radix_cache is not None:
+        old.radix_cache.swap = None
+    if old.stream is not None:
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+
+
+def rebuild_core(
+    old: "EngineCore",
+    config: VGTConfig,
+    reload_weights: bool = False,
+) -> "EngineCore":
+    """Tear a dead core down and construct its successor (the
+    reference's ``rebuild_core``): stop the old core, release what it
+    holds on the card BEFORE the new pool is sized (an auto-sized pool
+    fills most of the card, and the old core stays referenced by its
+    owner until the swap), and rebuild with the weights KEPT (the old
+    tree is already quantized and on the card) or, with
+    ``reload_weights``, reloaded.  The brownout flag that suspends
+    prefix-tree inserts is carried over, and so is ``decode_graphs``.
+    The caller swaps it in, re-attaches ``on_fatal`` and starts it.  A
+    successor of a warmed core is warmed before it is returned.
+
+    A kept tree is first re-verified against its checksum baseline —
+    restarting on a flipped tree would keep the corruption through every
+    incarnation — and a mismatch raises :class:`IntegrityError` so the
+    caller escalates to ``reload_weights=True``, which drops the old
+    tree before the reload materializes a new one.  The reference's mesh
+    argument (``devices``) is absent: the port serves one device."""
+    old.stop()
+    _release_device_state(old)
+    old_integrity = getattr(old, "integrity", None)
+    if (
+        not reload_weights
+        and old_integrity is not None
+        and old_integrity.verifier is not None
+        and old.params is not None
+    ):
+        mismatch = old_integrity.verifier.verify_all(old.params)
+        if mismatch is not None:
+            metrics.INTEGRITY_EVENTS.labels(
+                kind="rebuild_verify_failed"
+            ).inc()
+            raise IntegrityError(
+                "kept-weights rebuild verification failed: shard "
+                f"{mismatch['leaf']!r} no longer matches its load-time "
+                "checksum; escalate to a weight reload",
+                kind="checksum_mismatch",
+                detail=mismatch,
+            )
+    if reload_weights:
+        # two full trees would not fit next to an auto-sized pool (the
+        # verifier's leaf map holds the old tree's tensors too)
+        old.params = None
+        old.integrity = None
+        metrics.CORRUPT_RELOADS.inc()
+        metrics.INTEGRITY_EVENTS.labels(kind="corrupt_reload").inc()
+        logger.warning(
+            "rebuilding engine with a FULL WEIGHT RELOAD "
+            "(corrupt-classified fatal; weights-kept would preserve "
+            "the corruption)"
+        )
+        new_core = EngineCore(
+            config, spec=old.spec, decode_graphs=old.decode_graphs
+        )
+    else:
+        new_core = EngineCore(
+            config, spec=old.spec, params=old.params,
+            decode_graphs=old.decode_graphs,
+        )
+    new_core.set_prefix_insert_suspended(
+        getattr(old, "prefix_insert_suspended", False)
+    )
+    if getattr(old, "warmed", None) is not None:
+        # the old core's decode graphs died with its buffers (XLA keeps
+        # its compiled programs across a rebuild; a graph is bound to
+        # addresses): capture the warm-up's keys again before the
+        # replay, so the replayed requests do not pay the captures
+        # inside their window.  The captures go into the new core's
+        # compile ledger.
+        new_core.warmup(old.warmed)
+    return new_core
+
+
+def replay_into(
+    core: "EngineCore",
+    seq: Sequence,
+    quarantine: set,
+    retry_after: float = 1.0,
+    kind: str = "resume",
+    **tick_fields: Any,
+) -> str:
+    """Replay ONE checkpointed sequence into ``core`` (the reference's
+    ``replay_into``): a quarantined fingerprint fails with the 400
+    poison error, a refused resubmission with the retryable 503, and a
+    success records the ``kind`` flight tick and, for a crash replay,
+    ``vgt_resumed_sequences``.  Returns "replayed" | "quarantined" |
+    "failed"."""
+    fp = faults.fingerprint(seq.prompt_ids[: seq.orig_prompt_len])
+    if fp in quarantine:
+        metrics.LOST_SEQUENCES.labels(reason="quarantined").inc()
+        seq.fail(
+            PoisonRequestError(
+                f"request {fp} was quarantined while its generation "
+                "was checkpointed and will not be replayed"
+            )
+        )
+        return "quarantined"
+    try:
+        core.submit_existing(seq)
+    except Exception:
+        logger.error("resume resubmission failed", exc_info=True)
+        metrics.LOST_SEQUENCES.labels(reason="resubmit_failed").inc()
+        seq.fail(
+            EngineRecoveringError(
+                "engine restarted but the checkpointed request could "
+                "not be replayed; retry shortly",
+                retry_after=retry_after,
+            )
+        )
+        return "failed"
+    if kind == "resume":
+        metrics.RESUMED_SEQUENCES.inc()
+    core.flight.record_tick(
+        kind,
+        seq_id=seq.seq_id,
+        request_id=seq.request_id,
+        tokens=seq.num_generated,
+        attempt=seq.resume_count if kind == "resume" else seq.migrate_count,
+        **tick_fields,
+    )
+    return "replayed"
 
 
 class EngineCore:
@@ -457,6 +667,13 @@ class EngineCore:
                 self.spec, decode_block_slots=dcfg.decode_block_slots
             )
         self.device = resolve_device(dcfg.device)
+        # on the card every device call of this core runs on its own
+        # stream, so a successor built after a stall never queues behind
+        # its predecessor's work
+        self.stream: Optional[torch.cuda.Stream] = (
+            torch.cuda.Stream(self.device)
+            if self.device.type == "cuda" else None
+        )
         if decode_graphs is None:
             decode_graphs = self.device.type == "cuda"
         if decode_graphs and self.device.type != "cuda":
@@ -487,7 +704,7 @@ class EngineCore:
         if params is None:
             params = load_or_init_params(
                 self.spec, self.config.model.checkpoint_path, self.device,
-                self.dtype,
+                self.dtype, log_digests=self.config.integrity.enabled,
             )
         if self.config.model.quantization:
             params = quantize_params(
@@ -497,6 +714,18 @@ class EngineCore:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.load_time_s = time.perf_counter() - load_start
+        # silent-corruption defense (integrity.py): the sentinel scanner
+        # and the weight-checksum baseline over the FINAL serving tree
+        # (after quantization: the tree a supervised rebuild keeps).
+        # None when disabled, so every probe site is one attribute check
+        # and the decode chunk writes no guard word.
+        icfg = self.config.integrity
+        self.integrity: Optional[integrity.EngineIntegrity] = None
+        if icfg.enabled:
+            self.integrity = integrity.EngineIntegrity(
+                icfg, self.spec.vocab_size
+            )
+            self.integrity.record_baseline(self.params)
 
         # what the pages hold (kv_cache.dtype): int8 halves the page data
         # and adds one bf16 scale per (page, head, slot), so one memory
@@ -543,6 +772,39 @@ class EngineCore:
                 1 if name == self.geometry.kv_dtype else 0
             )
         self.max_slots = dcfg.max_batch_slots
+        # flight recorder (observability/flight.py): per-tick and
+        # per-request post-mortem rings; the supervisor snapshots it on
+        # every crash and /debug serves it live
+        self.flight = FlightRecorder(self.config.observability)
+        # perf attribution (observability/perf.py): the per-tick phase
+        # split, the compile ledger and the MFU / HBM-roofline gauges
+        # from the engine's own geometry; rebuilt fresh with the core
+        self.perf = PerfRecorder(
+            self.config.observability,
+            roofline=EngineRoofline(
+                device_kind=(
+                    torch.cuda.get_device_name(self.device)
+                    if self.device.type == "cuda" else "cpu"
+                ),
+                num_chips=1,
+                num_params=int(self.spec.num_params),
+                weight_stream_bytes=stream_weight_bytes(
+                    self.params, self.spec.tie_embeddings
+                ),
+                kv_token_bytes=kv_bytes_per_token(
+                    self.spec.num_layers, self.spec.num_kv_heads,
+                    self.spec.head_dim, dtype_bytes=kv_bytes,
+                    scale_bytes=kv_scale_bytes,
+                ),
+            ),
+        )
+        # readback/containment mutual exclusion: every token-append
+        # section holds it, and so does containment's checkpoint sweep,
+        # so a stalled thread that wakes late never interleaves appends
+        # with the fold of its sequences (the swap manager's publication
+        # guard shares it)
+        self._readback_lock = threading.Lock()
+        self.prefix_insert_suspended = False
         # radix-tree prefix index: page-granular sharing with COW partial
         # pages; the tree registers itself as the allocator's reclaimer
         # so cached pages stay allocatable.  radix=False keeps the
@@ -567,6 +829,7 @@ class EngineCore:
                 budget_bytes=host_swap_bytes,
                 page_bytes=self.geometry.page_bytes,
                 executor=_DeviceSwapExecutor(self),
+                lock=self._readback_lock,
             )
             if self.radix_cache is not None:
                 self.radix_cache.attach_swap(self.kv_swap)
@@ -584,6 +847,7 @@ class EngineCore:
             prefix_cache=pc.enabled,
             prefill_chunk=dcfg.prefill_chunk,
             text_fn=self.final_text,
+            recorder=self.flight,
             radix=self.radix_cache,
             cache_aware_sched=pc.cache_aware_sched,
             insert_generated=pc.insert_generated,
@@ -628,6 +892,42 @@ class EngineCore:
         self._running = False
         self._thread: Optional[threading.Thread] = None
         self._fatal: Optional[BaseException] = None
+        # hang-watchdog heartbeat, stamped as a whole dict around every
+        # dispatch and readback (atomic under the GIL); ``compiling``
+        # beats (a graph capture, a kernel's first build) get
+        # recovery.compile_grace_s instead of step_stall_s
+        self._heartbeat: Dict[str, Any] = {
+            "t": time.monotonic(), "kind": "init", "compiling": True,
+        }
+        # set by declare_stalled: the engine thread is presumed stuck, so
+        # stop() joins briefly instead of for 30 s
+        self._stalled = False
+        # only the first entry into containment runs (the watchdog and a
+        # woken engine thread can both reach it)
+        self._contain_lock = threading.Lock()
+        # published at the end of containment, before on_fatal
+        self._containment_done = False
+        # in-flight sequences checkpointed by containment for the
+        # supervisor to replay (take_checkpointed), and those it gave up
+        # on (take_resume_losses)
+        self._checkpointed: List[Sequence] = []
+        self._resume_losses = 0
+        self._resume_enabled = bool(self.config.recovery.resume_in_flight)
+        self._max_resume_attempts = max(
+            0, int(self.config.recovery.max_resume_attempts)
+        )
+        # flight snapshot taken on the dying engine thread
+        self._crash_snapshot: Optional[Dict[str, Any]] = None
+        # supervision hook (runtime/supervisor.py), called once after a
+        # fatal error is contained; when set, owed futures fail with the
+        # retryable EngineRecoveringError instead of the raw fault
+        self.on_fatal: Optional[Callable[[BaseException], None]] = None
+        # (fingerprint, resume_count) of the requests resident at death,
+        # for the supervisor's poison heuristic
+        self._fatal_suspects: List[tuple] = []
+        # the buckets ``warmup`` walked (None before it ran): a supervised
+        # rebuild warms the successor the same way
+        self.warmed: Optional[List[int]] = None
         self.total_steps = 0
         self.total_chunks = 0  # decode chunks dispatched
         self.total_prefills = 0
@@ -654,9 +954,22 @@ class EngineCore:
         self._running = False
         self._wakeup.set()
         if self._thread is not None:
-            self._thread.join(timeout=30)
+            # a watchdog-declared stall means the thread is presumed
+            # stuck (in a host wait or a device call): do not hold the
+            # rebuild for 30 s on it (it is a daemon, and the epoch
+            # checks discard whatever it does if it ever wakes)
+            self._thread.join(timeout=1 if self._stalled else 30)
             self._thread = None
-        owed = list(self.scheduler.running) + list(self.scheduler.waiting)
+        # every owed future is resolved, checkpointed sequences nobody
+        # claimed included
+        checkpointed = self.take_checkpointed()
+        for _ in checkpointed:
+            metrics.LOST_SEQUENCES.labels(reason="shutdown").inc()
+        owed = (
+            list(self.scheduler.running)
+            + list(self.scheduler.waiting)
+            + checkpointed
+        )
         while True:
             try:
                 owed.append(self._submit_q.get_nowait())
@@ -669,8 +982,55 @@ class EngineCore:
                     "engine stopped before the request could finish"
                 ))
         self.scheduler.waiting.clear()
+        if self.stream is not None:
+            # this core's stream's share of the kernels' scratch (a
+            # restart re-allocates it at the first use)
+            _build.release_workspace(self.device, self.stream.cuda_stream)
 
     # ----------------------------------------------------------- submission
+
+    def _fail_exception(self, exc: BaseException) -> BaseException:
+        """The exception owed futures fail with after a fatal: a
+        supervised engine (``on_fatal`` set) is about to restart, so
+        clients get the retryable 503 type with the raw fault chained;
+        an unsupervised one keeps the raw fault."""
+        if self.on_fatal is None:
+            return exc
+        wrapped = EngineRecoveringError(
+            f"engine crashed and is restarting: {exc}"
+        )
+        wrapped.__cause__ = exc
+        return wrapped
+
+    def _on_seq_settle(self, seq: Sequence) -> None:
+        """The one settle observer (Sequence.finish/fail): closes the
+        flight recorder's request record and the request's phase spans,
+        on every settle path."""
+        self.flight.on_close(seq)
+        tr = seq.trace
+        if tr is not None:
+            if seq.error is None:
+                tr.end("decode", tokens=seq.num_generated)
+            # a failure leaves the phase span open so close() annotates
+            # it with the exception
+            tr.close(seq.error)
+
+    def _enqueue(self, seq: Sequence) -> None:
+        """Queue ``seq`` and wake the loop.  If the engine died between
+        the caller's check and the put, its sweep may have missed this
+        sequence: everything still queued fails here."""
+        self._submit_q.put(seq)
+        if self._fatal is not None:
+            exc = self._fail_exception(self._fatal)
+            while True:
+                try:
+                    orphan = self._submit_q.get_nowait()
+                except queue.Empty:
+                    break
+                orphan.fail(exc)
+            if seq.status is SeqStatus.FAILED:
+                raise RuntimeError("engine is dead") from exc
+        self._wakeup.set()
 
     def submit_tokens(
         self,
@@ -680,9 +1040,9 @@ class EngineCore:
         meta: Optional[Any] = None,
     ) -> Sequence:
         """Queue one sequence.  ``meta`` (observability/reqtrace.py
-        ``RequestMeta``) rides on the sequence with its request id; the
-        phase spans the reference parents on it come with the flight
-        recorder (ROADMAP queue 1, item 7)."""
+        ``RequestMeta``) rides on the sequence with its request id; with
+        the flight recorder on, the request's phase spans are parented
+        on its trace context and its queue phase starts now."""
         if self._fatal is not None:
             raise RuntimeError("engine is dead") from self._fatal
         seq = Sequence(
@@ -691,17 +1051,56 @@ class EngineCore:
         if meta is not None:
             seq.meta = meta
             seq.request_id = meta.request_id
-        self._submit_q.put(seq)
-        if self._fatal is not None:
-            # the loop died between the check and the put: its sweep
-            # may have missed this sequence, so fail the queue here
-            self._fail_queued(self._fatal)
-            raise RuntimeError("engine is dead") from self._fatal
-        self._wakeup.set()
+        if self.flight.enabled:
+            seq.on_settle = self._on_seq_settle
+            if meta is not None:
+                seq.trace = RequestTrace(meta)
+                seq.trace.start("queue", start_pc=seq.arrival_t)
+        self._enqueue(seq)
         return seq
 
+    def submit_existing(self, seq: Sequence) -> None:
+        """Re-admit a checkpointed sequence from another incarnation of
+        the engine (the supervisor's replay), or the canary probe.  The
+        SAME Sequence object rides in — its waiter, stream callback,
+        cancel hooks and absolute deadline stay valid — re-wired to this
+        core's settle observer, and prefilled-continue on admission
+        (``prepare_resume`` folded its partial generation into the
+        prompt).  A checkpoint taken under another KV format is
+        refused."""
+        if self._fatal is not None:
+            raise RuntimeError("engine is dead") from self._fatal
+        if (
+            seq.kv_dtype is not None
+            and seq.kv_dtype != self.geometry.kv_dtype
+        ):
+            raise ValueError(
+                f"checkpoint was taken under kv dtype "
+                f"{seq.kv_dtype!r} but this core serves "
+                f"{self.geometry.kv_dtype!r}; refusing the replay"
+            )
+        seq.on_settle = (
+            self._on_seq_settle if self.flight.enabled else None
+        )
+        self._enqueue(seq)
+
+    def take_checkpointed(self) -> List[Sequence]:
+        """Hand containment's checkpoint to its replayer (the
+        supervisor); empty after."""
+        out, self._checkpointed = self._checkpointed, []
+        return out
+
+    def take_resume_losses(self) -> int:
+        """Sequences containment gave up on (already failed typed); the
+        replayer folds the count into its lost total.  Zeroed, so
+        repeated sweeps never count twice."""
+        n, self._resume_losses = self._resume_losses, 0
+        return n
+
     def encode_prompt(self, prompt: str) -> List[int]:
-        """Prompt -> token ids, keeping the suffix when too long."""
+        """Prompt -> token ids, keeping the suffix when too long (split
+        out so the supervisor can fingerprint a prompt for the poison
+        quarantine before submission)."""
         ids = self.tokenizer.encode(prompt)
         max_prompt = self.config.model.max_model_len - 1
         if len(ids) > max_prompt:
@@ -729,70 +1128,246 @@ class EngineCore:
             seqs = [
                 self.submit_prompt(p, sp) for p, sp in zip(prompts, params)
             ]
-        results = []
-        for seq in seqs:
-            seq.done_event.wait()
-            if seq.status is SeqStatus.FAILED:
-                raise seq.error  # type: ignore[misc]
-            result = {
-                "text": self.final_text(seq),
-                "token_ids": list(seq.generated_ids),
-                "num_tokens": seq.num_output_tokens,
-                "prompt_tokens": seq.orig_prompt_len,
-                "finish_reason": seq.finish_reason,
-                "metrics": {
-                    "ttft": seq.ttft or 0.0,
-                    "tpot": seq.tpot or 0.0,
-                    "gen_time": (seq.finish_t or 0) - seq.arrival_t,
-                    **seq.resume_metrics(),
-                },
-            }
-            if seq.params.logprobs:
-                result["logprobs"] = self.logprob_entries(seq)
-            results.append(result)
-        return results
+        return [self.result_dict(seq) for seq in seqs]
+
+    def result_dict(self, seq: Sequence) -> Dict[str, Any]:
+        """Wait for ``seq`` and return ``generate``'s result for it;
+        raises its error when it failed."""
+        seq.done_event.wait()
+        if seq.status is SeqStatus.FAILED:
+            raise seq.error  # type: ignore[misc]
+        result = {
+            "text": self.final_text(seq),
+            "token_ids": list(seq.generated_ids),
+            "num_tokens": seq.num_output_tokens,
+            "prompt_tokens": seq.orig_prompt_len,
+            "finish_reason": seq.finish_reason,
+            "metrics": {
+                "ttft": seq.ttft or 0.0,
+                "tpot": seq.tpot or 0.0,
+                "gen_time": (seq.finish_t or 0) - seq.arrival_t,
+                **seq.resume_metrics(),
+            },
+        }
+        if seq.params.logprobs:
+            result["logprobs"] = self.logprob_entries(seq)
+        return result
 
     # ------------------------------------------------------------- the loop
 
     def _loop(self) -> None:
         logger.info("engine thread started")
-        while self._running:
-            try:
-                if not self._tick():
-                    self._wakeup.wait(timeout=0.005)
-                    self._wakeup.clear()
-            except Exception as exc:
-                logger.error("engine loop fatal error", exc_info=True)
-                self._die(exc)
-                return
+        # a kernel's first nvcc build on this thread is a compile pause
+        _build.observe_builds(self._on_kernel_build)
+        stream = (
+            torch.cuda.stream(self.stream) if self.stream is not None
+            else contextlib.nullcontext()
+        )
+        with stream:
+            while self._running:
+                try:
+                    self._beat("tick")
+                    # the phases measured inside the tick are taken from
+                    # its wall; the rest is host time, so the five phases
+                    # sum to the wall by construction
+                    self.perf.tick_begin()
+                    worked = self._tick()
+                    self.perf.tick_end(worked)
+                    if not worked:
+                        self._wakeup.wait(timeout=0.005)
+                        self._wakeup.clear()
+                except Exception as exc:
+                    logger.error("engine loop fatal error", exc_info=True)
+                    self._contain_fatal(exc)
+        _build.observe_builds(None)
+        logger.info("engine thread stopped")
 
-    def _fail_queued(self, exc: BaseException) -> None:
-        while True:
-            try:
-                self._submit_q.get_nowait().fail(exc)
-            except queue.Empty:
-                return
+    def _beat(self, kind: str, compiling: bool = False, **fields) -> None:
+        """Stamp the watchdog heartbeat just BEFORE a dispatch or a wait
+        that can block, so a wedge there is what ages the beat;
+        ``compiling`` widens the limit to recovery.compile_grace_s."""
+        self._heartbeat = {
+            "t": time.monotonic(),
+            "kind": kind,
+            "compiling": bool(compiling),
+            **fields,
+        }
 
-    def _die(self, exc: BaseException) -> None:
-        """Fatal error on the engine thread: fail every owed sequence and
-        stop (restart-and-resume is the supervisor's job, not ported)."""
-        self._fatal = exc
+    def _on_kernel_build(self, name: str, seconds: Optional[float]) -> None:
+        """``_build.observe_builds`` callback: a build starting is a
+        compiling beat; its end goes into the compile ledger."""
+        if seconds is None:
+            self._beat("kernel_build", compiling=True, kernel=name)
+            return
+        self.flight.record_tick("recompile", program="kernel", kernel=name)
+        self.perf.record_compile("kernel", name, seconds,
+                                 trigger="first_build")
+
+    def _contain_fatal(self, exc: BaseException) -> bool:
+        """Fatal containment, shared by the engine thread's crash handler
+        and the watchdog's :meth:`declare_stalled`: record the crash tick
+        and flight snapshot, collect poison suspects, then CHECKPOINT the
+        resumable in-flight sequences for the supervisor to replay
+        (``resume_in_flight`` under supervision) or fail every owed
+        future.  First entry only (returns False otherwise): a stalled
+        thread that wakes into the swept state raises and lands here
+        again, and a second sweep would drop the checkpoint."""
+        with self._contain_lock:
+            if self._fatal is not None:
+                logger.warning(
+                    "fatal containment skipped: engine already contained",
+                    extra={"extra_data": {
+                        "error": f"{type(exc).__name__}: {exc}",
+                        "first": (f"{type(self._fatal).__name__}: "
+                                  f"{self._fatal}"),
+                    }},
+                )
+                return False
+            self._fatal = exc
+        try:
+            self._contain_body(exc)
+        except Exception:  # pragma: no cover - defensive
+            # containment failing must not strand the system: _fatal is
+            # set, so the flag and on_fatal below must still run
+            logger.error(
+                "fatal containment raised; proceeding to publication "
+                "with a possibly partial sweep",
+                exc_info=True,
+            )
+            self._running = False
+        self._containment_done = True
+        if self.on_fatal is not None:
+            try:
+                self.on_fatal(exc)
+            except Exception:  # pragma: no cover - defensive
+                logger.error("on_fatal hook failed", exc_info=True)
+        return True
+
+    def _contain_body(self, exc: BaseException) -> None:
+        """The containment work itself: snapshot, suspects, sweep."""
+        self.flight.record_tick(
+            "crash",
+            error=f"{type(exc).__name__}: {exc}",
+            batch=len(self.scheduler.running),
+            queue_depth=len(self.scheduler.waiting),
+        )
+        self._crash_snapshot = self.flight.crash_snapshot(exc)
+        # poison evidence: the requests resident at the crash, by their
+        # ORIGINAL prompt, with their resume count (only fresh
+        # submissions advance a poison streak); canaries never count
+        self._fatal_suspects = [
+            (
+                faults.fingerprint(s.prompt_ids[: s.orig_prompt_len]),
+                s.resume_count,
+            )
+            for s in self.scheduler.running
+            if not s.canary
+        ]
+        checkpointing = self._resume_enabled and self.on_fatal is not None
+        fail_exc: Optional[BaseException] = None
+        kept: List[Sequence] = []
+        # excluded from the token-append sections: a woken stalled thread
+        # sees either the state before the fold (its epoch check passes
+        # and this waits) or after it (epoch bumped, it skips).  Bounded
+        # and fail-open: a wedge inside an append section (a stuck stream
+        # callback) must not wedge the watchdog thread too.
+        locked = self._readback_lock.acquire(timeout=5.0)
+        if not locked:
+            logger.error(
+                "containment proceeding WITHOUT the readback lock "
+                "(append section appears wedged); sequences mid-append "
+                "may replay with a duplicated token"
+            )
+        try:
+            doomed = list(self.scheduler.running) + list(
+                self.scheduler.waiting
+            )
+            while True:
+                try:
+                    doomed.append(self._submit_q.get_nowait())
+                except queue.Empty:
+                    break
+            for seq in doomed:
+                if (
+                    checkpointing
+                    and not seq.abort_requested
+                    and not seq.canary
+                ):
+                    if seq.resume_count >= self._max_resume_attempts:
+                        metrics.LOST_SEQUENCES.labels(
+                            reason="max_attempts"
+                        ).inc()
+                        self._resume_losses += 1
+                        seq.fail(
+                            ResumeExhaustedError(
+                                "request was in flight across "
+                                f"{seq.resume_count} engine restarts "
+                                "and was given up on; retry shortly"
+                            )
+                        )
+                        continue
+                    if seq.trace is not None:
+                        seq.trace.resumed()
+                    # the pool format the sampling history ran under:
+                    # submit_existing refuses a replay into another
+                    seq.kv_dtype = self.geometry.kv_dtype
+                    seq.prepare_resume()
+                    kept.append(seq)
+                    continue
+                if fail_exc is None:
+                    fail_exc = self._fail_exception(exc)
+                seq.fail(fail_exc)
+            self._checkpointed = kept
+            self.scheduler.waiting.clear()
+            for i in range(len(self.scheduler.slots)):
+                self.scheduler.slots[i] = None
+            self._pending_chunks.clear()
+            self._running = False
+        finally:
+            if locked:
+                self._readback_lock.release()
+
+    def declare_stalled(self, exc: BaseException) -> bool:
+        """Watchdog containment, called OFF the engine thread when the
+        heartbeat went stale: the loop is presumed stuck in a wait that
+        will never raise.  Stops the loop flag first (the stuck thread
+        exits if it ever wakes), then runs the same containment as a
+        crash on the thread.  The preempt-epoch checks of every readback
+        discard what a merely-slow thread reads back late: each
+        checkpointed sequence bumped its epoch.  Returns False when the
+        engine already died or stopped another way."""
+        if self._fatal is not None or not self._running:
+            return False
+        self._stalled = True
         self._running = False
-        self._pending_chunks.clear()
-        for seq in list(self.scheduler.running) + list(
-            self.scheduler.waiting
-        ):
-            if seq.status in (SeqStatus.RUNNING, SeqStatus.WAITING):
-                self.scheduler._release_residency(seq)
-                seq.fail(exc)
-        self.scheduler.waiting.clear()
-        self._fail_queued(exc)
+        self._wakeup.set()
+        hb = self._heartbeat
+        self.flight.record_tick(
+            "stall",
+            phase=hb.get("kind"),
+            stalled_s=round(time.monotonic() - hb.get("t", 0.0), 3),
+            compiling=hb.get("compiling", False),
+            batch=len(self.scheduler.running),
+            queue_depth=len(self.scheduler.waiting),
+        )
+        return self._contain_fatal(exc)
 
     def _tick(self) -> bool:
         """One iteration: admit + prefill, then keep up to
         ``pipeline_depth`` decode chunks in flight, blocking only on the
         oldest one's readback.  Returns False when there was no work."""
         self._drain_submissions()
+        # stall fault probe (faults.py): a `delay` armed here past
+        # recovery.step_stall_s is a wedged loop for the hang watchdog;
+        # probed only while work is resident, so arming it cannot stall
+        # an idle engine into a pointless restart
+        if faults.is_active() and self.scheduler.has_work():
+            faults.check("stall")
+            if not self._running:
+                # the watchdog declared this core stalled while the delay
+                # slept: containment swept the residents already, and
+                # touching scheduler state now would race the replay
+                return False
         self._drain_abort_requests()
         self._handle_aborts()
         self._handle_deadlines()
@@ -849,6 +1424,17 @@ class EngineCore:
         ):
             self._process_chunks(drain=not active)
             worked = True
+        if (
+            self.integrity is not None
+            and not worked
+            and not self._pending_chunks
+            and not self.scheduler.has_work()
+        ):
+            # idle tick: advance the budgeted weight-checksum sweep, never
+            # on a tick that did work and never with a chunk in flight.
+            # A mismatch raises IntegrityError, which containment routes
+            # to the supervisor as a `corrupt` fatal (a weight reload).
+            self.integrity.idle_tick(self)
         return (
             worked
             or bool(self._pending_chunks)
@@ -884,6 +1470,9 @@ class EngineCore:
                     partial_text=self.final_text(seq),
                     partial_tokens=seq.num_generated,
                     deadline_s=seq.params.timeout_s or 0.0,
+                    # where the budget went (flight recorder): the 504
+                    # tells "queued forever" from "decoded slowly"
+                    phases=self.flight.phases_of(seq),
                 ),
             )
 
@@ -966,13 +1555,33 @@ class EngineCore:
         }
         return sampling, num_lp, key
 
-    def _note_key(self, seen: set, key: tuple, kind: str) -> None:
+    def _note_key(self, seen: set, key: tuple, kind: str, seqs=(),
+                  **fields) -> bool:
         """``vgt_engine_compilations{kind}`` at the first sight of a
-        static key, where the reference compiles a program (on the card
-        a new decode key is a graph capture; prompt passes run eagerly)."""
-        if key not in seen:
-            seen.add(key)
-            metrics.RECOMPILES.labels(kind=kind).inc()
+        static key, where the reference compiles a program (on the card a
+        new decode key is a graph capture, and a prompt pass may build a
+        kernel), with its flight tick and a span event on each request;
+        returns whether the key is new."""
+        if key in seen:
+            return False
+        seen.add(key)
+        metrics.RECOMPILES.labels(kind=kind).inc()
+        self.flight.record_tick("recompile", program=kind, **fields)
+        for seq in seqs:
+            if seq.trace is not None:
+                seq.trace.event("compile", **fields)
+        return True
+
+    def _dispatched(self, kind: str, key: tuple, fresh: bool,
+                    t0: float, trigger: str) -> None:
+        """After an enqueue that began at ``t0``: its time into the
+        tick's dispatch phase, and a new key's into the compile ledger
+        (its dispatch ran the capture or the kernel build, on the card
+        synchronously)."""
+        dispatch_s = time.perf_counter() - t0
+        self.perf.phase("dispatch", dispatch_s)
+        if fresh:
+            self.perf.record_compile(kind, key, dispatch_s, trigger=trigger)
 
     def _row_host(self, B: int, rows) -> Dict[str, Any]:
         """Per-row sampling inputs for ``rows`` = [(row, Sequence)], as
@@ -1082,6 +1691,39 @@ class EngineCore:
             self._dispatch_swap_in(plan)
         if not plans:
             return bool(swap_plans)
+        # stale-wake epochs: a watchdog-declared stall may checkpoint
+        # (preempt_count bump) and replay these sequences while this
+        # thread waits on the readback below, so the readback compares
+        # the epoch taken here, not only the status
+        plan_epochs = {id(plan): plan.seq.preempt_count for plan in plans}
+        if self.flight.enabled:
+            for plan in plans:
+                seq = plan.seq
+                preview = None
+                if not self.flight.redact_prompts:
+                    try:
+                        preview = self.tokenizer.decode(seq.prompt_ids[:32])
+                    except Exception:  # pragma: no cover - defensive
+                        preview = None
+                self.flight.on_admit(
+                    seq, plan.bucket, plan.cached_len, preview=preview
+                )
+                if seq.trace is not None:
+                    seq.trace.end("queue")
+                    seq.trace.start(
+                        "prefill", bucket=plan.bucket,
+                        cached_tokens=plan.cached_len, chunked=plan.chunked,
+                    )
+        if faults.is_active():
+            # fault probe: the payload is the request's ORIGINAL prompt,
+            # so a poison fault can target one request
+            for plan in plans:
+                faults.check(
+                    "prefill",
+                    payload=tuple(
+                        plan.seq.prompt_ids[: plan.seq.orig_prompt_len]
+                    ),
+                )
         ps = self.geometry.page_size
         groups: Dict[tuple, List[PrefillPlan]] = {}
         # (group plans, ([B] device first tokens, logprob triple or None))
@@ -1107,12 +1749,25 @@ class EngineCore:
                     tokens = self._dispatch_prefill_group(chunk, bucket)
                 dispatched.append((chunk, tokens))
         for plan in plans:
-            self.scheduler.commit_prefill(plan)
+            stale = (
+                plan.seq.status is not SeqStatus.RUNNING
+                or plan.seq.preempt_count != plan_epochs[id(plan)]
+            )
+            self.scheduler.commit_prefill(plan, stale=stale)
         lps = [t for _, (_, lp) in dispatched if lp is not None for t in lp]
         readback = _Readback(
             torch.cat([t for _, (t, _) in dispatched]), *lps
         )
+        self._beat("prefill_readback", batch=len(plans))
+        # the perf split of the one wait this path has: the event wait
+        # (device_s), then the host-side copy out (readback_s)
+        readback_t0 = time.perf_counter()
+        readback.wait()
+        device_s = time.perf_counter() - readback_t0
         firsts, *lps = readback.result()
+        readback_s = time.perf_counter() - readback_t0 - device_s
+        self.perf.phase("device", device_s)
+        self.perf.phase("readback", readback_s)
         # one combined dispatch and readback for the wave: each prompt
         # is observed with an equal share, as the reference does
         share = (time.perf_counter() - start) / len(plans)
@@ -1121,21 +1776,55 @@ class EngineCore:
                 metrics.ENGINE_STEP_TIME.labels(kind="prefill"), share,
                 trace_id=getattr(plan.seq.trace, "trace_id", None),
             )
+        detok_t0 = time.perf_counter()
+        delivered = 0
         offset = 0
-        # one thread owns admission and readback, so every admitted
-        # sequence is still RUNNING in its own slot here
         for group, (tokens, lp) in dispatched:
+            self.flight.record_tick(
+                "prefill",
+                batch=len(group),
+                bucket=group[0].bucket,
+                step_s=round(share * len(group), 6),
+                device_s=round(device_s * len(group) / len(plans), 6),
+                readback_s=round(readback_s * len(group) / len(plans), 6),
+                kv_used=self.allocator.num_used,
+                kv_free=self.allocator.num_free,
+                queue_depth=len(self.scheduler.waiting),
+            )
             lp_np = None
             if lp is not None:
                 lp_np, lps = tuple(lps[:3]), lps[3:]
-            for row, plan in enumerate(group):
-                token = int(firsts[offset + row])
-                self.total_prefills += 1
-                if lp_np is not None and plan.seq.params.logprobs:
-                    self._attach_logprob(plan.seq, lp_np, None, row)
-                plan.seq.append_token(token)
-                self._maybe_finish(plan.seq, token)
+            # appends under the readback lock: the stale-wake guard is
+            # check-then-append, and a containment fold must not
+            # interleave with it
+            with self._readback_lock:
+                for row, plan in enumerate(group):
+                    seq = plan.seq
+                    if (
+                        seq.status is not SeqStatus.RUNNING
+                        or seq.preempt_count != plan_epochs[id(plan)]
+                    ):
+                        continue  # checkpointed by a declared stall
+                    token = int(firsts[offset + row])
+                    self.total_prefills += 1
+                    if lp_np is not None and seq.params.logprobs:
+                        self._attach_logprob(seq, lp_np, None, row)
+                    # a RE-prefill keeps the original first_token_t; its
+                    # phase boundary is now
+                    fresh_first = seq.first_token_t is None
+                    seq.append_token(token)
+                    delivered += 1
+                    self.flight.on_first_token(seq)
+                    tr = seq.trace
+                    if tr is not None:
+                        boundary = (seq.first_token_t if fresh_first
+                                    else time.perf_counter())
+                        tr.end("prefill", end_pc=boundary)
+                        tr.start("decode", start_pc=boundary)
+                    self._maybe_finish(seq, token)
             offset += tokens.shape[0]
+        self.perf.phase("detok", time.perf_counter() - detok_t0)
+        self.perf.note_tokens(delivered)
         return True
 
     def _dispatch_swap_in(self, plan: SwapInPlan) -> None:
@@ -1146,7 +1835,28 @@ class EngineCore:
         decode feed).  Its new slot and epoch change the membership
         signature, so ``_build_decode_state`` uploads its row before the
         next chunk."""
-        self.kv_swap.swap_in_seq(plan.seq, plan.seq.pages)
+        seq = plan.seq
+        t0 = time.perf_counter()
+        self._beat("swap_in", batch=1)
+        n = self.kv_swap.swap_in_seq(seq, seq.pages)
+        if self.flight.enabled:
+            self.flight.on_admit(seq, bucket=0, cached_len=seq.total_len - 1)
+            # mid-decode, not prefilling: straight to the decode phase
+            self.flight.on_first_token(seq)
+            if seq.trace is not None:
+                seq.trace.end("queue")
+                seq.trace.start("decode", swapped_in_pages=n)
+        self.flight.record_tick(
+            "swap_in",
+            batch=1,
+            pages=n,
+            step_s=round(time.perf_counter() - t0, 6),
+            kv_used=self.allocator.num_used,
+            kv_free=self.allocator.num_free,
+            queue_depth=len(self.scheduler.waiting),
+            seq_id=seq.seq_id,
+            request_id=seq.request_id,
+        )
 
     def _set_slot_row(self, plan: PrefillPlan) -> None:
         """The decode-side page-table row of the plan's slot: its pages,
@@ -1189,13 +1899,21 @@ class EngineCore:
             self._set_slot_row(plan)
             prefill_pt[row, : len(seq.pages)] = seq.pages[:n_bucket_pages]
         sampling, num_lp, key = self._group_sampling(plans, B)
-        self._note_key(self._compiled_buckets, (bucket, B, *key), "prefill")
+        key = (bucket, B, *key)
+        fresh = self._note_key(
+            self._compiled_buckets, key, "prefill",
+            [p.seq for p in plans], bucket=bucket, batch=B,
+        )
+        self._beat("prefill", compiling=fresh, bucket=bucket, batch=B)
+        t0 = time.perf_counter()
         self.total_prompt_passes += 1
-        return _prefill_step(
+        out = _prefill_step(
             self.params, self.spec, self._dev(tokens), self._dev(seq_lens),
             self.k_pages, self.v_pages, self._dev(prefill_pt),
             self._generator, sampling, num_lp,
         )
+        self._dispatched("prefill", key, fresh, t0, trigger="bucket")
+        return out
 
     def _ctx_pages(self, n_tokens: int) -> int:
         """Context-window width for ``n_tokens``: the page count rounded
@@ -1245,18 +1963,23 @@ class EngineCore:
             ctx = seq.pages[:ctx_pages]
             ctx_pt[row, : len(ctx)] = ctx
         sampling, num_lp, key = self._group_sampling(plans, B)
-        self._note_key(
-            self._compiled_buckets,
-            _suffix_key(bucket, B, ctx_pages, *key, unaligned=unaligned),
-            "prefill",
+        key = _suffix_key(bucket, B, ctx_pages, *key, unaligned=unaligned)
+        fresh = self._note_key(
+            self._compiled_buckets, key, "prefill",
+            [p.seq for p in plans], bucket=bucket, batch=B,
         )
+        self._beat("prefill", compiling=fresh, bucket=bucket, batch=B)
+        t0 = time.perf_counter()
         self.total_prompt_passes += 1
-        return _suffix_prefill_step(
+        out = _suffix_prefill_step(
             self.params, self.spec, self._dev(tokens), self._dev(prefix_lens),
             self._dev(suffix_lens), self.k_pages, self.v_pages,
             self._dev(suffix_pt), self._dev(ctx_pt), self._generator,
             sampling, unaligned=unaligned, num_logprobs=num_lp,
         )
+        self._dispatched("prefill", key, fresh, t0,
+                         trigger="cow" if unaligned else "prefix_hit")
+        return out
 
     def _dispatch_chunked_prefill(self, plan: PrefillPlan):
         """A (suffix-)prompt longer than the bucket cap: page-aligned
@@ -1282,11 +2005,14 @@ class EngineCore:
             n_ctx = self._ctx_pages(start + chunk)
             ctx_pt = np.zeros((1, n_ctx), np.int32)
             ctx_pt[0, : min(n_ctx, len(seq.pages))] = seq.pages[:n_ctx]
-            self._note_key(
-                self._compiled_buckets,
-                _suffix_key(chunk, 1, n_ctx, False, None, 0, None),
-                "prefill",
+            key = _suffix_key(chunk, 1, n_ctx, False, None, 0, None)
+            fresh = self._note_key(
+                self._compiled_buckets, key, "prefill", [seq],
+                bucket=chunk, batch=1,
             )
+            self._beat("prefill_chunk", compiling=fresh, bucket=chunk,
+                       batch=1)
+            t0 = time.perf_counter()
             prefill_suffix_forward(
                 self.params, self.spec, self._dev(tokens),
                 self._dev(np.asarray([start], np.int32)),
@@ -1294,6 +2020,7 @@ class EngineCore:
                 self.k_pages, self.v_pages, self._dev(pages),
                 self._dev(ctx_pt),
             )
+            self._dispatched("prefill", key, fresh, t0, trigger="chunk")
             self.total_chunk_passes += 1
             self.total_prompt_passes += 1
             start += chunk
@@ -1373,9 +2100,14 @@ class EngineCore:
         the card the chunk is the replay of its key's graph (captured at
         first use); eagerly otherwise.  The readback is enqueued before
         the next chunk can overwrite the static outputs."""
+        faults.check("decode_step")
         state = self._dec_state
         num_lp = self._num_logprobs(active)
         all_greedy = self._all_greedy(active, num_lp)
+        guard = self.integrity is not None and self.integrity.guard_enabled
+        threshold = (
+            self.config.integrity.saturate_threshold if guard else None
+        )
 
         def body(st: DecodeState = state) -> None:
             _decode_chunk(
@@ -1383,61 +2115,127 @@ class EngineCore:
                 self._generator, num_steps=chunk,
                 max_position=self.config.model.max_model_len - 1,
                 all_greedy=all_greedy, num_logprobs=num_lp,
+                guard_threshold=threshold,
             )
 
         key = state.key(chunk, all_greedy, num_lp)
-        self._note_key(self._compiled_chunks, key, "decode")
+        fresh = self._note_key(self._compiled_chunks, key, "decode", active,
+                               chunk=chunk, batch=len(active))
+        self._beat("decode", compiling=fresh, chunk=chunk, batch=len(active))
+        t0 = time.perf_counter()
         if self.decode_graphs:
             self._graphs.run(key, body, lambda: body(state.scratch()))
         else:
             body()
+        self._dispatched("decode", key, fresh, t0, trigger="chunk_variant")
         self.total_chunks += 1
         outs = [state.out_tokens[:chunk]]
         if num_lp:
             outs += [state.out_lp[:chunk], state.out_top_ids[:chunk],
                      state.out_top_lps[:chunk]]
+        if guard:
+            outs.append(state.out_flags[:chunk])
         # the preempt epoch: a sequence preempted (and maybe re-admitted)
-        # while this chunk is in flight must not receive its tokens
+        # or checkpointed while this chunk is in flight must not receive
+        # its tokens
         self._pending_chunks.append(
             ([(s, s.preempt_count) for s in active], chunk,
-             _Readback(*outs))
+             _Readback(*outs), bool(num_lp), guard)
         )
 
     def _process_chunks(self, drain: bool = False) -> None:
         """Fold the oldest in-flight chunk (all of them when ``drain``)
-        into host state: append tokens (and their logprobs) in order,
-        detect stops, discard steps past a stop."""
+        into host state: the sentinel scan first, then append tokens (and
+        their logprobs) in order, detect stops, discard steps past a
+        stop."""
         while self._pending_chunks:
-            seqs, chunk, readback = self._pending_chunks.pop(0)
+            seqs, chunk, readback, has_lp, guard = self._pending_chunks.pop(0)
+            self._beat("decode_readback", chunk=chunk, batch=len(seqs))
             # the host-blocking readback time only: dispatch-to-now would
-            # count the chunks queued ahead of this one
+            # count the chunks queued ahead of this one.  The one wait is
+            # split into the event wait (device_s) and the copy out.
             block_start = time.perf_counter()
-            sampled, *lp = readback.result()  # [chunk, B] (+ logprobs)
+            readback.wait()
+            device_s = time.perf_counter() - block_start
+            outs = readback.result()
+            sampled = faults.corrupt_array("decode_step", outs[0])
+            lp_np = tuple(outs[1:4]) if has_lp else None
+            block_s = time.perf_counter() - block_start
+            self.perf.phase("device", device_s)
+            self.perf.phase("readback", block_s - device_s)
+            if self.perf.enabled:
+                self.perf.note_decode(
+                    steps=chunk,
+                    ctx_tokens=sum(s.total_len for s, _ in seqs),
+                    device_s=device_s,
+                )
+            flags_np = None
+            if self.integrity is not None and guard:
+                flags_np = np.bitwise_or.reduce(outs[-1], axis=0)
+                faults.check("logit_corrupt")
+                flags_np = faults.corrupt_array("logit_corrupt", flags_np)
+            if self.integrity is not None:
+                # sentinel scan BEFORE any append or stream: a HARD trip
+                # raises, discarding this whole chunk (already popped;
+                # containment clears the rest), so no token sampled from
+                # corrupt logits reaches a client; a SOFT trip (entropy
+                # collapse) fails only its sequence.  Under the readback
+                # lock: the status/epoch snapshot and the fail must not
+                # interleave with a containment fold on another thread.
+                with self._readback_lock:
+                    live_rows = [
+                        (s, s.slot) for s, epoch in seqs
+                        if s.status is SeqStatus.RUNNING
+                        and s.preempt_count == epoch
+                    ]
+                    for _kind, seq, soft_exc in self.integrity.scan_decode(
+                        sampled, flags_np, live_rows, chunk
+                    ):
+                        self.scheduler.fail_sequence(seq, soft_exc)
             metrics.observe_with_exemplar(
                 metrics.ENGINE_STEP_TIME.labels(kind="decode"),
-                time.perf_counter() - block_start,
+                block_s,
                 trace_id=next(
                     (s.trace.trace_id for s, _ in seqs
                      if s.trace is not None and s.trace.trace_id),
                     None,
                 ),
             )
-            lp_np = tuple(lp) if lp else None
-            for seq, epoch in seqs:
-                if (
-                    seq.status is not SeqStatus.RUNNING
-                    or seq.preempt_count != epoch
-                ):
-                    continue  # stopped or preempted since dispatch
-                for k in range(chunk):
-                    token = int(sampled[k, seq.slot])
-                    if lp_np is not None and seq.params.logprobs:
-                        self._attach_logprob(seq, lp_np, k, seq.slot)
-                    seq.append_token(token)
-                    self.total_decode_tokens += 1
-                    self._maybe_finish(seq, token)
-                    if seq.status is not SeqStatus.RUNNING:
-                        break
+            self.flight.record_tick(
+                "decode",
+                batch=len(seqs),
+                chunk=chunk,
+                step_s=round(block_s, 6),
+                device_s=round(device_s, 6),
+                readback_s=round(block_s - device_s, 6),
+                kv_used=self.allocator.num_used,
+                kv_free=self.allocator.num_free,
+                queue_depth=len(self.scheduler.waiting),
+            )
+            detok_t0 = time.perf_counter()
+            delivered = 0
+            # appends under the readback lock: the epoch guard is
+            # check-then-append, and a containment fold on the watchdog
+            # thread must not interleave with it
+            with self._readback_lock:
+                for seq, epoch in seqs:
+                    if (
+                        seq.status is not SeqStatus.RUNNING
+                        or seq.preempt_count != epoch
+                    ):
+                        continue  # stopped, preempted or checkpointed
+                    for k in range(chunk):
+                        token = int(sampled[k, seq.slot])
+                        if lp_np is not None and seq.params.logprobs:
+                            self._attach_logprob(seq, lp_np, k, seq.slot)
+                        seq.append_token(token)
+                        self.total_decode_tokens += 1
+                        delivered += 1
+                        self._maybe_finish(seq, token)
+                        if seq.status is not SeqStatus.RUNNING:
+                            break
+            self.perf.phase("detok", time.perf_counter() - detok_t0)
+            self.perf.note_tokens(delivered)
             self.total_steps += chunk
             if not drain:
                 break
@@ -1601,12 +2399,60 @@ class EngineCore:
                 seq.done_event.wait(timeout=600)
         if not was_running:
             self.stop()
+        self.warmed = buckets
         return time.perf_counter() - start
+
+    def capture_profile(
+        self, duration_s: float = 1.0, out_dir: Optional[str] = None
+    ) -> Dict[str, Any]:
+        """Capture a ``torch.profiler`` trace (host ops and, on the card,
+        every kernel through CUPTI) while serving continues, written as a
+        Chrome trace into ``out_dir`` (default: a new directory under the
+        system temp dir), as the reference captures a ``jax.profiler``
+        trace."""
+        out_dir = out_dir or os.path.join(
+            tempfile.gettempdir(), f"vgt_profile_{int(time.time())}"
+        )
+        duration_s = max(0.05, min(duration_s, 60.0))
+        os.makedirs(out_dir, exist_ok=True)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        capture_start = time.time()
+        with torch.profiler.profile(activities=activities) as prof:
+            time.sleep(duration_s)
+        prof.export_chrome_trace(
+            os.path.join(out_dir, f"trace_{int(capture_start)}.json")
+        )
+        # count only files this capture wrote (out_dir may be reused)
+        n_files = sum(
+            1
+            for root, _, files in os.walk(out_dir)
+            for f in files
+            if os.path.getmtime(os.path.join(root, f)) >= capture_start - 1
+        )
+        result = {
+            "trace_dir": out_dir,
+            "duration_s": duration_s,
+            "files": n_files,
+        }
+        # the flight ring shows when the window sat relative to captures
+        # and sheds; /debug/perf reports the last capture
+        self.flight.record_tick("profile", **result)
+        self.perf.note_profile(result)
+        return result
+
+    def perf_snapshot(self) -> Dict[str, Any]:
+        """The /debug/perf payload (observability/perf.py): the per-tick
+        phase window, the compile ledger, the live MFU / roofline gauges
+        and the last profile capture."""
+        return self.perf.snapshot()
 
     def set_prefix_insert_suspended(self, flag: bool) -> None:
         """Brownout L4 (admission.py "bypass cache writes"): stop
         inserting into the prefix tree, keep serving hits.  Safe from
-        any thread (a bool store)."""
+        any thread (a bool store); carried across supervised rebuilds."""
+        self.prefix_insert_suspended = bool(flag)
         if self.radix_cache is not None:
             self.radix_cache.insert_suspended = bool(flag)
         if self.kv_swap is not None:
@@ -1685,6 +2531,8 @@ class EngineCore:
             "prompt_passes": self.total_prompt_passes,
             "decode_tokens": self.total_decode_tokens,
             "state_rebuilds": self.total_state_rebuilds,
+            "flight": self.flight.get_stats(),
+            "perf": self.perf.get_stats(),
             # on the card: whether chunks replay graphs, the graphs
             # captured, their capture seconds and their pool's bytes
             "decode_graphs": None if self._graphs is None else {
@@ -1699,6 +2547,11 @@ class EngineCore:
             **(
                 {"kv_swap": self.kv_swap.get_stats()}
                 if self.kv_swap is not None
+                else {}
+            ),
+            **(
+                {"integrity": self.integrity.stats()}
+                if self.integrity is not None
                 else {}
             ),
         }

@@ -18,6 +18,7 @@ from typing import Deque, Dict, List, Optional
 
 import torch
 
+from vgate_tpu_torch import faults
 from vgate_tpu_torch.logging_config import get_logger
 from vgate_tpu_torch.models.specs import ModelSpec
 from vgate_tpu_torch.ops.kv_quant import SCALE_DTYPE, QuantPages
@@ -209,6 +210,7 @@ class PageAllocator:
         """All-or-nothing allocation of n pages; None when insufficient.
         Evicts least-recently-used cached pages when the free list runs
         short."""
+        faults.check("kv_alloc", payload=n)
         if n > self.num_free:
             return None
         if self._reclaimer is not None:

@@ -180,8 +180,11 @@ class Sequence:
         if self._settle_notified or self.on_settle is None:
             return
         self._settle_notified = True
+        # the observer is the engine's bound method: a settled sequence a
+        # caller keeps must not keep that engine (and its KV pool) alive
+        hook, self.on_settle = self.on_settle, None
         try:
-            self.on_settle(self)
+            hook(self)
         except Exception:
             pass  # observability must never break delivery
 

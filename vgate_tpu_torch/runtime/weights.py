@@ -185,26 +185,59 @@ def params_from_safetensors(
     return params
 
 
+def load_digests(params: Params) -> Dict[str, Any]:
+    """Per-leaf digests of a loaded tree, summarized for the load log:
+    weight provenance, so a later checksum-mismatch report can tell
+    "wrong on disk" from "flipped on the card".  The serving baseline is
+    recorded after quantization by ``EngineIntegrity``; these describe
+    the tree as loaded.  The reference copies each leaf to the host
+    (``host_leaf_digest``); here a leaf on the card reduces there, with
+    the same value bit for bit (integrity.py ``leaf_digest``), so a 7B
+    tree is not walked by numpy at every engine start."""
+    from vgate_tpu_torch.integrity import digest_summary, tree_digests
+
+    return digest_summary(tree_digests(params))
+
+
 def load_or_init_params(
     spec: ModelSpec,
     checkpoint_path: Optional[str],
     device: torch.device,
     dtype: torch.dtype,
     seed: int = 0,
+    log_digests: bool = False,
 ) -> Params:
     """Checkpoint when one exists on disk, random init from ``seed``
-    otherwise (the zero-egress path; the init runs on ``device``)."""
-    if checkpoint_path and os.path.isdir(checkpoint_path):
-        return params_from_safetensors(spec, checkpoint_path, device, dtype)
-    from vgate_tpu_torch.models.decoder import init_params
+    otherwise (the zero-egress path; the init runs on ``device``).
 
-    logger.warning(
-        "no checkpoint found; using random-init weights",
-        extra={"extra_data": {"model": spec.name, "path": checkpoint_path}},
-    )
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    return init_params(spec, gen, dtype=dtype, device=device)
+    ``log_digests`` (``integrity.enabled`` callers) logs the load-time
+    digest summary (:func:`load_digests`) — one host pass over the tree,
+    paid once at load."""
+    from vgate_tpu_torch import faults
+
+    faults.check("weight_load", payload=checkpoint_path)
+    if checkpoint_path and os.path.isdir(checkpoint_path):
+        params = params_from_safetensors(spec, checkpoint_path, device, dtype)
+    else:
+        from vgate_tpu_torch.models.decoder import init_params
+
+        logger.warning(
+            "no checkpoint found; using random-init weights",
+            extra={"extra_data": {"model": spec.name,
+                                  "path": checkpoint_path}},
+        )
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        params = init_params(spec, gen, dtype=dtype, device=device)
+    if log_digests:
+        try:
+            logger.info(
+                "load-time weight digests",
+                extra={"extra_data": load_digests(params)},
+            )
+        except Exception:  # digest provenance must never block a load
+            logger.warning("load-time digest pass failed", exc_info=True)
+    return params
 
 
 def quantize_params(params: Params, spec: ModelSpec, quantization: str):

@@ -3,14 +3,16 @@
 A copy of vgate_tpu/server/app.py over the port's engine:
 ``/health`` (+ ``/live`` and ``/ready``), ``/v1/chat/completions``
 (plain and SSE), ``/v1/completions``, ``/v1/embeddings``,
-``/v1/models``, ``/metrics``, ``/stats``, ``/v1/benchmark`` and
-``/debug/faults``.  Routes whose backing is not ported yet stay
-unregistered (ROADMAP queue 1): ``/debug/flight``, ``/debug/perf``,
-``/debug/spans``, ``/debug/requests*`` and ``/v1/profile`` (item 7),
-``/debug/pod`` and ``/admin/replicas*`` with the SIGUSR1 replica drain
-(items 10 and 11).  ``/v1/embeddings`` answers 501 on ``torch_cuda``
-until the encoder is ported (item 8).  Engine + batcher construction
-happens in ``on_startup``, not at module import.
+``/v1/models``, ``/metrics``, ``/stats``, ``/v1/benchmark``,
+``/debug/faults``, and the engine's self-observation: ``/debug/flight``,
+``/debug/perf``, ``/debug/spans`` (with ``VGT_MEMTRACE``),
+``/debug/requests``, ``/debug/requests/{ident}`` and ``/v1/profile`` (a
+``torch.profiler`` trace).  Routes whose backing is not ported yet stay
+unregistered (ROADMAP queue 1): ``/debug/pod`` and ``/admin/replicas*``
+with the SIGUSR1 replica drain (items 10 and 11).  ``/v1/embeddings``
+answers 501 on ``torch_cuda`` until the encoder is ported (item 8).
+Engine + batcher construction happens in ``on_startup``, not at module
+import.
 
 Serve with ``python -m vgate_tpu_torch.server.app``; the config comes
 from ``VGT_SECTION__KEY`` variables and the YAML named by
@@ -24,6 +26,7 @@ import json
 import os
 import signal
 import statistics
+import tempfile
 import time
 import uuid
 from typing import Any, Dict, Optional
@@ -49,6 +52,7 @@ from vgate_tpu_torch.errors import (
 )
 from vgate_tpu_torch.lifecycle import CancelToken, DrainController
 from vgate_tpu_torch.logging_config import get_logger, setup_logging
+from vgate_tpu_torch.observability.reqtrace import RequestMeta
 from vgate_tpu_torch.runtime.journal import RequestJournal
 from vgate_tpu_torch.runtime.scheduler import EngineBusyError
 from vgate_tpu_torch.security import build_security_middleware, extract_api_key
@@ -68,6 +72,7 @@ from vgate_tpu_torch.server.openai_models import (
     messages_to_prompt,
 )
 from vgate_tpu_torch.tracing import (
+    capture_context,
     get_tracer,
     init_tracing,
     shutdown_tracing,
@@ -1004,9 +1009,16 @@ async def _stream_chat(
                 kwargs["on_usage"] = (
                     lambda u: usage_box.__setitem__("value", u)
                 )
-            # no request_meta: the observability section is not ported
-            # yet (ROADMAP queue 1, item 7), so this is the reference's
-            # observability.enabled=false branch
+            if (
+                "request_meta" in stream_params
+                and engine.config.observability.enabled
+            ):
+                # streaming bypasses the batcher, so the trace context
+                # and request id cross the seam here instead
+                kwargs["request_meta"] = RequestMeta(
+                    request_id=request.get("request_id"),
+                    trace_ctx=capture_context(),
+                )
             async with _timeout_ctx(timeout_s):
                 async for piece in stream_fn(prompt, params, **kwargs):
                     if isinstance(piece, dict):  # logprobs-carrying delta
@@ -1557,6 +1569,140 @@ def _faults_http_enabled() -> bool:
     return os.environ.get("VGT_FAULTS_HTTP") == "1"
 
 
+def _flight_recorder(request: web.Request):
+    """The live engine's flight recorder, or None for backends without
+    one (dry-run, external adapters).  Supervised engines delegate
+    through EngineSupervisor.__getattr__ to the current core."""
+    engine: Optional[VGTEngine] = request.app.get("engine")
+    core = getattr(engine.backend, "core", None) if engine else None
+    return getattr(core, "flight", None)
+
+
+def _debug_n(request: web.Request, default: int = 128) -> int:
+    try:
+        n = int(request.query.get("n", default))
+    except ValueError:
+        return default
+    return max(1, min(n, 4096))
+
+
+async def debug_flight(request: web.Request) -> web.Response:
+    """GET /debug/flight?n= — the engine flight recorder's most recent
+    ticks (dispatches, readbacks, recompiles, sheds, aborts, crashes).
+    Auth-gated like every non-exempt path; excluded from drain
+    accounting like /stats."""
+    rec = _flight_recorder(request)
+    if rec is None:
+        return web.json_response(
+            {"enabled": False, "ticks": [],
+             "reason": "engine has no flight recorder"}
+        )
+    return web.json_response(
+        {"enabled": rec.enabled, "ticks": rec.ticks(_debug_n(request))}
+    )
+
+
+async def debug_requests(request: web.Request) -> web.Response:
+    """GET /debug/requests?n= — in-flight and recently completed request
+    records with per-phase timings."""
+    rec = _flight_recorder(request)
+    if rec is None:
+        return web.json_response(
+            {"enabled": False, "live": [], "completed": [],
+             "reason": "engine has no flight recorder"}
+        )
+    return web.json_response(
+        {
+            "enabled": rec.enabled,
+            "live": rec.live_requests(),
+            "completed": rec.requests(_debug_n(request)),
+        }
+    )
+
+
+async def debug_request_detail(request: web.Request) -> web.Response:
+    """GET /debug/requests/{ident} — one request record by request id,
+    trace id, or engine seq id (newest attempt wins)."""
+    rec = _flight_recorder(request)
+    if rec is None:
+        return _error(
+            404, "engine has no flight recorder", "invalid_request_error"
+        )
+    record = rec.find_request(request.match_info["ident"])
+    if record is None:
+        return _error(
+            404,
+            f"no request record for {request.match_info['ident']!r} "
+            "(records are bounded rings; it may have aged out)",
+            "invalid_request_error",
+        )
+    return web.json_response(record)
+
+
+async def debug_perf(request: web.Request) -> web.Response:
+    """GET /debug/perf — the engine's perf-attribution snapshot
+    (observability/perf.py): rolling-window phase decomposition +
+    tok/s / MFU / HBM-roofline / host-overhead gauges, the compile
+    ledger, and the last /v1/profile capture.  Auth-gated like every
+    non-exempt path; excluded from drain accounting like /debug."""
+    engine: Optional[VGTEngine] = request.app.get("engine")
+    core = getattr(engine.backend, "core", None) if engine else None
+    snapshot_fn = getattr(core, "perf_snapshot", None)
+    if snapshot_fn is None:
+        return web.json_response(
+            {"enabled": False,
+             "reason": "engine has no perf recorder"}
+        )
+    try:
+        return web.json_response(snapshot_fn())
+    except Exception as exc:
+        # a mid-rebuild engine must not 500 the attribution surface —
+        # operators read it exactly while chasing a perf problem
+        logger.error("perf snapshot failed", exc_info=True)
+        return web.json_response(
+            {"enabled": False,
+             "error": f"{type(exc).__name__}: {exc}"}
+        )
+
+
+async def debug_spans(request: web.Request) -> web.Response:
+    """GET /debug/spans — in-memory span export, for drills and tests
+    that assert trace parentage.  Empty unless the server was launched
+    with ``VGT_MEMTRACE=1``.  An engine that exports spans of its own
+    (``collect_spans``; none in the port yet) adds them."""
+    recorder = request.app.get("memtrace")
+    spans = []
+    if recorder is not None:
+        for s in recorder.spans():
+            spans.append(
+                {
+                    "name": s.name,
+                    "trace_id": s.trace_id_hex,
+                    "span_id": s.span_id_hex,
+                    "parent_span_id": s.parent_span_id_hex,
+                    "start_ns": s.start_time,
+                    "end_ns": s.end_time,
+                    "worker": "gateway",
+                    "attributes": {
+                        k: v
+                        for k, v in (s.attributes or {}).items()
+                        if isinstance(v, (str, int, float, bool))
+                    },
+                }
+            )
+    engine: Optional[VGTEngine] = request.app.get("engine")
+    core = getattr(engine.backend, "core", None) if engine else None
+    collect = getattr(core, "collect_spans", None)
+    if collect is not None:
+        try:
+            spans.extend(collect())
+        except Exception:
+            logger.error("worker span collection failed", exc_info=True)
+    return web.json_response(
+        {"enabled": recorder is not None, "spans": spans}
+    )
+
+
 async def debug_faults(request: web.Request) -> web.Response:
     """GET /debug/faults — armed-fault inventory (same payload shape as
     the /stats faults block)."""
@@ -1682,6 +1828,69 @@ async def run_benchmark(request: web.Request) -> web.Response:
             "tokens_per_second": total_tokens / wall if wall > 0 else 0.0,
         }
     )
+
+
+async def capture_profile(request: web.Request) -> web.Response:
+    """POST /v1/profile — capture a ``torch.profiler`` trace (host ops and
+    the card's kernels) while serving continues, written as a Chrome
+    trace; OTel request tracing stays separate.  Body:
+    ``{"duration_ms": 1000, "out_dir": "/tmp/..."}`` (both optional;
+    out_dir must live under the system temp dir — traces are written as
+    the service user, so arbitrary paths are rejected)."""
+    engine: Optional[VGTEngine] = request.app.get("engine")
+    core = getattr(engine.backend, "core", None) if engine else None
+    if core is None or not hasattr(core, "capture_profile"):
+        # a client error (this deployment can never profile), not a
+        # conflict: 409 is reserved for the concurrent-capture case
+        return _error(
+            400,
+            "profiling requires the torch_cuda engine",
+            "invalid_request_error",
+        )
+    try:
+        raw = await request.json() if request.can_read_body else {}
+    except ValueError:
+        raw = {}
+    if not isinstance(raw, dict):
+        return _error(
+            422, "body must be a JSON object", "invalid_request_error"
+        )
+    try:
+        duration_s = float(raw.get("duration_ms", 1000)) / 1000.0
+    except (TypeError, ValueError):
+        return _error(
+            422, "duration_ms must be a number", "invalid_request_error"
+        )
+    out_dir = raw.get("out_dir")
+    if out_dir is not None:
+        tmp_root = os.path.realpath(tempfile.gettempdir())
+        resolved = os.path.realpath(str(out_dir))
+        if not resolved.startswith(tmp_root + os.sep):
+            return _error(
+                422,
+                f"out_dir must be under {tmp_root}",
+                "invalid_request_error",
+            )
+        out_dir = resolved
+    # lock lives in app state: a module-level asyncio.Lock would bind to
+    # the first event loop that touches it and break across app restarts
+    lock: asyncio.Lock = request.app["profile_lock"]
+    # acquire non-blocking: a concurrent capture must get an immediate 409,
+    # never queue behind a running (up to 60 s) whole-process trace
+    if lock.locked():
+        return _error(
+            409, "a profile capture is already running",
+            "invalid_request_error",
+        )
+    await lock.acquire()
+    try:
+        loop = asyncio.get_running_loop()
+        result = await loop.run_in_executor(
+            None, lambda: core.capture_profile(duration_s, out_dir)
+        )
+    finally:
+        lock.release()
+    return web.json_response(result)
 
 
 def _raise_graceful_exit() -> None:
@@ -1861,7 +2070,23 @@ def _wire_survivability(
 
 async def _on_startup(app: web.Application) -> None:
     config: VGTConfig = app["config"]
+    app["profile_lock"] = asyncio.Lock()
     init_tracing(config)
+    if os.environ.get("VGT_MEMTRACE"):
+        # drill/test span evidence without the OTel SDK: record this
+        # process's spans (the HTTP span and the engine's phase spans
+        # among them) for /debug/spans
+        try:
+            from vgate_tpu_torch.observability.memtrace import (
+                MemorySpanRecorder,
+            )
+
+            app["memtrace"] = MemorySpanRecorder().install()
+        except Exception:
+            logger.warning(
+                "VGT_MEMTRACE set but span recorder install failed",
+                exc_info=True,
+            )
     loop = asyncio.get_running_loop()
     # Model load can take minutes; do it off the event loop.
     engine = await loop.run_in_executor(None, lambda: VGTEngine(config))
@@ -1947,10 +2172,16 @@ def create_app(config: Optional[VGTConfig] = None) -> web.Application:
     app.router.add_get("/stats", get_stats)
     # drill-only chaos surface (403 unless VGT_FAULTS_HTTP=1): the
     # loadlab chaos arm replays fault drills mid-cell through it
+    app.router.add_get("/debug/flight", debug_flight)
+    app.router.add_get("/debug/requests", debug_requests)
+    app.router.add_get("/debug/requests/{ident}", debug_request_detail)
+    app.router.add_get("/debug/perf", debug_perf)
+    app.router.add_get("/debug/spans", debug_spans)
     app.router.add_get("/debug/faults", debug_faults)
     app.router.add_post("/debug/faults", debug_faults_arm)
     app.router.add_delete("/debug/faults", debug_faults_disarm)
     app.router.add_post("/v1/benchmark", run_benchmark)
+    app.router.add_post("/v1/profile", capture_profile)
     app.on_startup.append(_on_startup)
     app.on_cleanup.append(_on_cleanup)
     return app
