@@ -37,7 +37,16 @@ on a supervised 7B engine: the checksum kernel against its plain
 version and the host digest, a full checksum sweep, the perf snapshot of
 a warm burst, then a crash, a stall, a weight corruption and a tripped
 output guard, each recovered with every request resumed, and the
-guard's cost.  Each phase prints the graphs it captured, their
+guard's cost; (7) speculative decoding at 7B over the main path's
+weights (``speculative_k`` 4): a brownout-suspended burst through
+graphed K1 chunks, then an oracle drafter (the plain streams as
+drafts), prompt lookup on repetitive prompts, seeded sampled requests
+served twice, one stream with and without speculation, and a second
+engine drafting with Qwen2.5-0.5B-Instruct, each run's launches exact
+(K3 = 28 x verify rounds, K1 none), after K3 and K3-int8 were held to
+their plain version and timed at the verify widths (S 1..8); (8)
+bge-base-en-v1.5 embeddings of 64 inputs over the three buckets against
+a plain fp32 forward.  Each phase prints the graphs it captured, their
 capture time and their memory pool's bytes.  It prints the card's
 name and power limit, one JSON line of per-kernel numbers and, last,
 ``{"ok": true, "device": {...}}``.  Any
@@ -918,6 +927,135 @@ def check_paged_multitok_int8(dev) -> dict:
         "shape": f"B={B} S={S} prefix={prefix} H={H} KV={KV} hd={hd} "
                  f"ps={ps}, int8",
     }
+
+
+# K3 and K3-int8 at the verify widths of speculative decoding: S = 1..k+1
+# rows a slot (S 1/2/4/5 at k 4, and 8), one slot and 32, Qwen2.5-7B's
+# heads on pages of 32, contexts ragged over 1..2048 tokens, every row
+# starting mid-page
+VERIFY_WIDTHS = (1, 2, 4, 5, 8)
+VERIFY_BATCHES = (1, 32)
+
+
+def verify_positions(B: int, S: int, seed: int) -> list:
+    """positions0 of B verify rows: one slot at the longest context
+    (2,048 tokens after the round), else contexts spread over 2..2048
+    (positions0 + S), every row starting mid-page."""
+    if B == 1:
+        return [2048 - S]
+    gen = torch.Generator().manual_seed(seed)
+    pos = torch.randint(1, 2048 - S, (B,), generator=gen).tolist()
+    pos[0], pos[-1] = 0, 2047 - S
+    return [p if p % 32 else p + 1 for p in pos[:-1]] + pos[-1:]
+
+
+def verify_bound(pos0, S, H, KV, hd, ps, kv_row_bytes):
+    """(flops, bound ms, bound_by) of one verify call: row s of a slot
+    sees positions0 + s + 1 keys; q read and the output written once,
+    each slot's live K and V rows (``kv_row_bytes`` a row and head, the
+    scale included on int8 pools) read once, the tables' live entries,
+    positions0 and input_lens."""
+    pairs = sum(S * (p + 1) + S * (S - 1) // 2 for p in pos0)
+    ctx = sum(p + S for p in pos0)
+    nbytes = (2 * len(pos0) * S * H * hd * 2
+              + 2 * ctx * KV * kv_row_bytes
+              + sum(-(-(p + S) // ps) for p in pos0) * 4
+              + 2 * len(pos0) * 4)
+    return attention_bound(pairs, H, hd, nbytes)
+
+
+def sdpa_verify(q, kd, vd, pt, pos0, S, H, KV, hd, ps):
+    """The library yardstick of a verify call: the slots' K/V gathered
+    to contiguous memory beforehand (bf16, kv heads expanded; not
+    timed), then one SDPA call.  One slot takes ``causal_lower_right``
+    (its S rows end at its context's end); ragged slots a boolean mask
+    (key t visible to row s of slot b iff t <= positions0[b] + s)."""
+    from torch.nn.attention.bias import causal_lower_right
+
+    B = q.shape[0]
+    ctx = max(pos0) + S
+    n_pages = -(-ctx // ps)
+    kc, vc = (t[:, pt[:, :n_pages].long()].reshape(KV, B, n_pages * ps, hd)
+              [:, :, :ctx].permute(1, 0, 2, 3)
+              .repeat_interleave(H // KV, dim=1).contiguous()
+              for t in (kd, vd))
+    if B == 1:
+        mask = causal_lower_right(S, ctx)
+    else:
+        rows = torch.tensor(pos0, device=q.device)[:, None] + torch.arange(
+            S, device=q.device)[None, :]
+        keys = torch.arange(ctx, device=q.device)
+        mask = (keys[None, None, :] <= rows[:, :, None])[:, None]
+    qh = q.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return (lambda: sdpa(qh, kc, vc, attn_mask=mask)), kc, vc
+
+
+def check_k3_verify_shapes(dev) -> dict:
+    """K3 and K3-int8 at every verify shape: held to the plain version
+    (real rows), timed beside their bound (bytes: the context's K and V
+    at 3.35 TB/s), the plain version and SDPA on the gathered K/V.  A
+    128-row query tile holds S <= 8 live rows here, so the kernel is
+    expected far from the bound (ROADMAP queue 2)."""
+    from vgate_tpu_torch.ops import attention as plain
+    from vgate_tpu_torch.ops.kernels.paged_multitok import (
+        paged_multitok_attention,
+        paged_multitok_attention_int8,
+    )
+
+    H, KV, hd, ps = 28, 4, 128, 32
+    rows = {}
+    for int8 in (False, True):
+        kernel = (paged_multitok_attention_int8 if int8
+                  else paged_multitok_attention)
+        mode = "int8" if int8 else "bf16"
+        for B in VERIFY_BATCHES:
+            for S in VERIFY_WIDTHS:
+                pos0 = verify_positions(B, S, seed=B * 10 + S)
+                lens = [S] * B
+                lens[B // 2] = max(1, S - 1)  # a row past input_lens
+                q, k, v, pt, p0, il = suffix_inputs(
+                    B, S, H, KV, hd, ps, pos0, lens, 91 + S, dev)
+                if int8:
+                    k, v = int8_pools(KV, k.shape[1], ps, hd, 92 + S, dev)
+                    kd, vd = dequantized(k).bfloat16(), dequantized(v).bfloat16()
+                    kf, vf = k, v
+                else:
+                    kd, vd, kf, vf = k, v, k.float(), v.float()
+                what = f"K3 verify {mode} [B={B} S={S}]"
+                got = thrice(lambda: kernel(q, k, v, pt, p0, il), what)
+                expect = plain.paged_suffix_attention(q.float(), kf, vf, pt,
+                                                      p0, p0 + il)
+                check(bool(torch.isfinite(got).all()), f"{what}: not finite")
+                real = torch.arange(S, device=dev)[None, :] < il[:, None]
+                err = within(got[real], expect[real], what)
+                del expect
+                il.fill_(S)  # timed with every row real
+                lib, kc, vc = sdpa_verify(q, kd, vd, pt, pos0, S, H, KV, hd,
+                                          ps)
+                lib_err = max_err(kernel(q, k, v, pt, p0, il).float(),
+                                  lib().transpose(1, 2).float())
+                check(lib_err <= 2 * KERNEL_TOL,
+                      f"{what}: {lib_err} from SDPA on the gathered K/V")
+                ms = time_ms(lambda: kernel(q, k, v, pt, p0, il), iters=50)
+                library_ms = time_ms(lib, iters=20)
+                plain_ms = time_ms(
+                    lambda: plain.paged_suffix_attention(
+                        q, kf, vf, pt, p0, p0 + il), iters=3)
+                del kc, vc
+                flops, bound, by = verify_bound(pos0, S, H, KV, hd, ps,
+                                                hd + 2 if int8 else 2 * hd)
+                rows[f"{mode} B={B} S={S}"] = {
+                    "ms": ms, "bound_ms": bound, "bound_by": by,
+                    "plain_ms": plain_ms, "library_ms": library_ms,
+                    "bound_share": bound / ms, "vs_library": ms / library_ms,
+                    "max_abs_err": err,
+                    "context_tokens": sum(p + S for p in pos0),
+                }
+                print(f"  {what}: " + json.dumps(rows[f"{mode} B={B} S={S}"]),
+                      flush=True)
+                torch.cuda.empty_cache()
+    return rows
 
 
 def check_paged_decode_blocked(dev) -> dict:
@@ -3297,6 +3435,433 @@ def quant_path(quantization: str, model: str = MODEL, device: str = "cuda",
     return out
 
 
+# ------------------------------------------------- speculative decoding
+
+SPEC_K = 4  # drafts a round: verify widths 1, 2, 4 and 5
+SPEC_TOKENS = 64
+DRAFT_MODEL = "Qwen/Qwen2.5-0.5B-Instruct"
+
+
+def repetitive_texts(n: int = 8) -> list:
+    """``n`` prompts that repeat a phrase: prompt lookup finds the
+    n-gram at the end of each in its history."""
+    phrases = ("the cat sat on the mat and ", "one two three four ",
+               "red green blue ", "to be or not to be, ")
+    return [(f"Item {i}: " + phrases[i % 4] * 40)[: 160 + 40 * i]
+            for i in range(n)]
+
+
+class OracleDrafter:
+    """The drafter seam fed the plain engine's greedy continuation (as
+    the reference's tests inject oracles): each call's (tokens generated
+    so far, drafts) is recorded by prompt."""
+
+    def __init__(self, truth: dict) -> None:
+        self.truth = truth
+        self.records: dict = {}
+
+    def __call__(self, seq, k: int) -> list:
+        key = tuple(seq.prompt_ids[: seq.orig_prompt_len])
+        done = seq.num_generated
+        draft = self.truth[key][done : done + k]
+        self.records.setdefault(key, []).append((done, list(draft)))
+        return draft
+
+
+def acceptance_before_divergence(records, stream, plain) -> tuple:
+    """(first divergence of ``stream`` from ``plain``, drafts proposed at
+    positions before it, those accepted): a draft is accepted iff it and
+    every draft before it in its round equal the stream's tokens."""
+    div = first_divergence(stream, plain)
+    drafted = accepted = 0
+    for n, draft in records:
+        run = 0
+        while (run < len(draft) and n + run < len(stream)
+               and stream[n + run] == draft[run]):
+            run += 1
+        for j in range(len(draft)):
+            if n + j < div:
+                drafted += 1
+                accepted += j < run
+    return div, drafted, accepted
+
+
+def check_verify_logits(core, text: str, S: int = SPEC_K + 1) -> dict:
+    """The verify pass (``spec_verify_forward``, K3 at S rows starting
+    mid-page) against a plain full-sequence forward (see LogitsCheck): a
+    prompt pass over ``text``, then one verify pass over the plain
+    forward's greedy continuation; row j's logits against the plain
+    forward over the prompt and the first j + 1 candidates."""
+    from vgate_tpu_torch.models.decoder import (
+        prefill_forward,
+        spec_verify_forward,
+    )
+
+    spec, dev, ps = core.spec, core.device, core.geometry.page_size
+    seq = prompt_tokens(core, text)
+    n = seq.shape[1]
+    bucket = -(-n // 128) * 128
+    width = max(bucket, n + S) // ps + 1
+    kp, vp = empty_pools(core, 1 + width)
+    pt = torch.arange(1, 1 + width, dtype=torch.int32, device=dev)[None]
+    tok = torch.zeros((1, bucket), dtype=torch.int32, device=dev)
+    tok[:, :n] = seq
+
+    def i32(values):
+        return torch.tensor(values, dtype=torch.int32, device=dev)
+
+    compare = LogitsCheck(core)
+    with torch.no_grad():
+        got = prefill_forward(core.params, spec, tok, i32([n]), kp, vp,
+                              pt[:, : bucket // ps])
+        cand = [compare("prefill", got, seq)]
+        while len(cand) < S:  # the plain forward's greedy continuation
+            ref, _ = compare._plain(torch.cat([seq, i32([cand])], 1), n)
+            cand.append(int(ref.argmax()))
+        got = spec_verify_forward(core.params, spec, i32([cand]), i32([n]),
+                                  i32([S]), kp, vp, pt,
+                                  active=torch.ones(1, dtype=torch.bool,
+                                                    device=dev))
+        for j in range(S):
+            compare(f"verify row {j}", got[:, j],
+                    torch.cat([seq, i32([cand[: j + 1]])], 1),
+                    pooled_from=n)
+    return compare.report
+
+
+def spec_delta(core, stats0) -> dict:
+    """The speculative counters since ``stats0``."""
+    now, then = core.get_stats(), stats0
+    d = {k: now["speculative"][k] - then["speculative"].get(k, 0)
+         for k in ("drafted", "accepted", "rounds")}
+    if "draft_calls" in now["speculative"]:
+        d["draft_calls"] = (now["speculative"]["draft_calls"]
+                            - then["speculative"]["draft_calls"])
+    for k in ("prompt_passes", "steps", "chunks", "decode_tokens"):
+        d[k] = now[k] - then[k]
+    d["acceptance_rate"] = d["accepted"] / max(1, d["drafted"])
+    # a slot's round appends its accepted drafts and one bonus token, so
+    # the slot-rounds are the tokens less the accepted drafts
+    d["tokens_per_slot_round"] = d["decode_tokens"] / max(
+        1, d["decode_tokens"] - d["accepted"])
+    return d
+
+
+def check_spec_launches(core, delta, launches, what, draft=None) -> None:
+    """While speculation runs: K3 = layers x verify rounds exactly (no
+    suffix pass: the prefix cache is off), K1 never, K2 = layers x prompt
+    passes, plus the draft model's layers x k_max x draft calls."""
+    L = core.spec.num_layers
+    k2 = L * delta["prompt_passes"]
+    if draft is not None:
+        k2 += draft.spec.num_layers * draft.k_max * delta["draft_calls"]
+    want = {"paged_multitok_attention": L * delta["rounds"],
+            "paged_decode_attention": 0, "flash_prefill_attention": k2}
+    got = {name: launches[name] for name in want}
+    check(delta["rounds"] > 0 and got == want,
+          f"{what}: launches {got}, expected {want} ({delta})")
+
+
+def spec_path(params, model: str = MODEL, device: str = "cuda",
+              draft_model: str = DRAFT_MODEL) -> dict:
+    """Speculative decoding at 7B over the main path's weights
+    (``speculative_k`` 4, 2-gram prompt lookup, prefix cache off), driven
+    through ``TorchCUDABackend`` after the engine's warm-up:
+    (e) brownout first: suspended, 8 x 64 greedy tokens decode through
+    graphed K1 chunks (the plain engine's streams); resumed,
+    (a) the oracle drafter (those streams as drafts): the first tokens
+    equal, acceptance >= 0.9 up to each stream's first divergence;
+    (b) prompt lookup on repetitive prompts; (c) seeded sampled requests
+    with logprobs, served twice; (f) one 128-token stream with and
+    without speculation; then (d) a second engine drafting with
+    ``draft_model`` (Qwen2.5-0.5B-Instruct, random init).  Launch counts
+    are exact in every run; ``launches`` sums them over the phase."""
+    from vgate_tpu_torch.backends.base import (
+        GenerationResult,
+        SamplingParams,
+    )
+    from vgate_tpu_torch.backends.torch_backend import TorchCUDABackend
+    from vgate_tpu_torch.runtime.engine_core import EngineCore
+
+    cuda = device == "cuda"
+    out = {}
+
+    def show(name):
+        print(f"  speculative phase, {name}: " + json.dumps(out[name]),
+              flush=True)
+    total: dict = {}
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    cfg = engine_config(model, device, prefix_cache=False,
+                        speculative_k=SPEC_K, speculative_ngram=2)
+    core = EngineCore(cfg, params=params)
+    core.start()
+    backend = TorchCUDABackend()
+    backend.core, backend._config = core, cfg
+    try:
+        out["warmup"] = warm_up(core, "speculative engine")
+        texts = prompts()
+        greedy = [SamplingParams(max_tokens=SPEC_TOKENS,
+                                 temperature=0.0)] * len(texts)
+
+        def run(what, batch, draft=None, spec=True):
+            """One wave: text prompts through the backend, token prompts
+            queued on the core as one wave (the backend takes text)."""
+            reset_launches()
+            stats0 = core.get_stats()
+            t0 = time.perf_counter()
+            if all(isinstance(p, str) for p in batch[0]):
+                results = backend.generate(*batch)
+            else:
+                with core._submit_lock:
+                    seqs = [core.submit_tokens(list(p), sp)
+                            for p, sp in zip(*batch)]
+                results = [GenerationResult(**core.result_dict(s))
+                           for s in seqs]
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            add(launches)
+            delta = spec_delta(core, stats0)
+            delta["wall_s"] = wall
+            if cuda and spec:
+                check_spec_launches(core, delta, launches, what, draft)
+            check_results(results, core, batch[1][0].max_tokens)
+            check_settled(core)
+            return results, delta, launches, stats0
+
+        # (e) brownout L3: the burst decodes through graphed K1 chunks
+        backend.set_spec_suspended(True)
+        plain, delta, launches, stats0 = run("suspended", (texts, greedy),
+                                             spec=False)
+        L = core.spec.num_layers
+        if cuda:
+            check(delta["rounds"] == 0 and
+                  launches["paged_multitok_attention"] == 0 and
+                  launches["paged_decode_attention"] == L * delta["steps"]
+                  and launches["flash_prefill_attention"]
+                  == L * delta["prompt_passes"],
+                  f"suspended burst: launches {launches}, {delta}")
+            check_graphed(core.get_stats(), "the suspended burst",
+                          since=stats0)
+        out["suspended"] = {**delta, "launches": launches}
+        show("suspended")
+        backend.set_spec_suspended(False)
+
+        # (a) the oracle drafter
+        ids = [tuple(core.encode_prompt(t)) for t in texts]
+        truth = {i: r.token_ids for i, r in zip(ids, plain)}
+        oracle = OracleDrafter(truth)
+        core.drafter = oracle
+        spec, delta, launches, _ = run("oracle drafter", (texts, greedy))
+        firsts, divs, drafted, accepted = [], [], 0, 0
+        for i, r, p in zip(ids, spec, plain):
+            firsts.append(r.token_ids[0] == p.token_ids[0])
+            div, d, a = acceptance_before_divergence(
+                oracle.records.get(i, []), r.token_ids, p.token_ids)
+            divs.append(div)
+            drafted, accepted = drafted + d, accepted + a
+        check(all(firsts), "a speculative stream's first token differs "
+                           "from the plain engine's")
+        before = accepted / max(1, drafted)
+        check(drafted > 0 and before >= 0.9,
+              f"oracle acceptance before divergence {before} "
+              f"({accepted}/{drafted})")
+        out["oracle"] = {
+            **delta, "launches": launches,
+            "acceptance_before_divergence": before,
+            "first_divergence": divs,
+            "streams_equal_plain": sum(r.token_ids == p.token_ids
+                                       for r, p in zip(spec, plain)),
+        }
+        show("oracle")
+        # the verify pass's logits against a plain forward
+        out["verify_logits"] = check_verify_logits(core, texts[2])
+        show("verify_logits")
+
+        # (f) one 128-token stream at B = 1, without and with speculation
+        one = [texts[4]], [SamplingParams(max_tokens=128, temperature=0.0)]
+        backend.set_spec_suspended(True)
+        [alone], _, _, _ = run("B=1 plain", one, spec=False)
+        backend.set_spec_suspended(False)
+        core.drafter = OracleDrafter(
+            {tuple(core.encode_prompt(texts[4])): alone.token_ids})
+        [fast], delta1, _, _ = run("B=1 oracle", one)
+
+        def tok_s(r):
+            return (r.num_tokens - 1) / (r.metrics["gen_time"]
+                                         - r.metrics["ttft"])
+
+        out["b1_latency"] = {
+            "plain_tok_s": tok_s(alone), "speculative_tok_s": tok_s(fast),
+            "rounds": delta1["rounds"],
+            "acceptance_rate": delta1["acceptance_rate"],
+            "first_divergence": first_divergence(fast.token_ids,
+                                                 alone.token_ids),
+        }
+        show("b1_latency")
+
+        # (b) prompt lookup on repetitive prompts: phrases repeated, and
+        # prompts holding the model's own greedy continuation (a prompt,
+        # its plain stream, the prompt again), where a random model's
+        # output can recur
+        core.drafter = core._ngram_drafter
+        rep = [core.encode_prompt(t) for t in repetitive_texts(4)]
+        rep += [list(i) + p.token_ids + list(i)
+                for i, p in zip(ids[:4], plain[:4])]
+        _, delta, launches, _ = run("n-gram drafting", (
+            rep, [SamplingParams(max_tokens=SPEC_TOKENS,
+                                 temperature=0.0)] * len(rep)))
+        out["ngram"] = {**delta, "launches": launches}
+        show("ngram")
+
+        # (c) seeded sampled requests with logprobs, served twice
+        sampled = [SamplingParams(max_tokens=32, temperature=0.7,
+                                  seed=7 + i, logprobs=True, top_logprobs=5)
+                   for i in range(4)]
+        first, delta, _, _ = run("seeded sampled", (texts[:4], sampled))
+        second, _, _, _ = run("seeded sampled, again", (texts[:4], sampled))
+        for a, b in zip(first, second):
+            check(a.token_ids == b.token_ids,
+                  "a seeded sampled stream differs between two runs")
+            lps = [e["logprob"] for e in a.logprobs]
+            check(len(lps) == a.num_tokens and all(map(math.isfinite, lps)),
+                  "seeded sampled logprobs not finite")
+        out["sampled"] = {**delta, "repeat": True}
+        show("sampled")
+        out["stats"] = core.get_stats()["speculative"]
+    finally:
+        core.stop()
+    del core, backend
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # (d) draft-model drafting on a second engine over the same weights
+    cfg = engine_config(model, device, prefix_cache=False,
+                        speculative_k=SPEC_K)
+    cfg.model.draft_model_id = draft_model
+    core = EngineCore(cfg, params=params)
+    core.start()
+    backend = TorchCUDABackend()
+    backend.core, backend._config = core, cfg
+    try:
+        draft = core.draft_model
+        out["draft_warmup"] = warm_up(core, "draft-model engine")
+        plain_draft = draft.draft_for
+        seconds = []
+
+        def timed(seq, k):
+            t0 = time.perf_counter()
+            toks = plain_draft(seq, k)
+            seconds.append(time.perf_counter() - t0)
+            return toks
+
+        core.drafter = timed
+        reset_launches()
+        stats0 = core.get_stats()
+        batch = texts[:4], greedy[:4]
+        t0 = time.perf_counter()
+        results = backend.generate(*batch)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        add(launches)
+        delta = spec_delta(core, stats0)
+        if cuda:
+            check_spec_launches(core, delta, launches, "draft-model drafting",
+                                draft)
+        check_results(results, core, SPEC_TOKENS)
+        check_settled(core)
+        out["draft_model"] = {
+            **delta, "wall_s": wall, "launches": launches,
+            "drafter_ms_per_call": 1e3 * sum(seconds) / max(1, len(seconds)),
+            "drafter": core.get_stats()["speculative"]["drafter"],
+            "window": draft.window,
+        }
+        show("draft_model")
+    finally:
+        core.stop()
+    out["launches"] = total
+    return out
+
+
+# ---------------------------------------------------------- embeddings
+
+EMBED_MODEL = "BAAI/bge-base-en-v1.5"
+EMBED_TOL = 1e-2  # bf16 encoder vs the fp32 forward on the same weights
+
+
+def embed_texts(n: int = 64) -> list:
+    """``n`` inputs of 8 to 500 bytes (tokens, with the byte tokenizer)."""
+    words = "the encoder pools the first token of every input ".split()
+    out = []
+    for i in range(n):
+        length = 8 + (500 - 8) * i // (n - 1)
+        text, j = "", i
+        while len(text) < length:
+            text += words[j % len(words)] + " "
+            j += 1
+        out.append(text[:length])
+    return out
+
+
+def embed_path(device: str = "cuda", model: str = EMBED_MODEL) -> dict:
+    """bge-base-en-v1.5 at full width (random init from seed 0, bf16)
+    behind ``TorchCUDABackend.embed``: 64 inputs of 8 to 500 tokens in
+    three calls, one a bucket (32, 128, 512), each call twice (the second
+    timed); the vectors held to a plain fp32 forward of the same weights
+    on the card, every norm 1 within 1e-3."""
+    from vgate_tpu_torch.backends.torch_backend import TorchCUDABackend
+    from vgate_tpu_torch.config import load_config
+    from vgate_tpu_torch.models.encoder import encode_forward
+
+    cfg = load_config(model={"model_id": MODEL, "dtype": "bfloat16",
+                             "embedding_model_id": model},
+                      device={"device": device},
+                      logging={"level": "WARNING"})
+    backend = TorchCUDABackend()
+    backend._config = cfg
+    texts = embed_texts()
+    groups = {32: [t for t in texts if len(t) + 2 <= 32],
+              128: [t for t in texts if 32 < len(t) + 2 <= 128],
+              512: [t for t in texts if len(t) + 2 > 128]}
+    out = {"inputs": len(texts), "buckets": {}}
+    vectors = []
+    for bucket, group in groups.items():
+        backend.embed(group)  # the first call builds the encoder
+        t0 = time.perf_counter()
+        vecs = backend.embed(group)
+        ms = (time.perf_counter() - t0) * 1e3
+        vectors += vecs
+        out["buckets"][bucket] = {"inputs": len(group), "ms_per_batch": ms}
+    emb = backend._embedder
+    f32 = torch.utils._pytree.tree_map(lambda t: t.float(), emb.params)
+    errs, norms = [], []
+    for bucket, group in groups.items():
+        ids = [emb.tokenizer.encode(t)[:510] for t in group]
+        tokens = torch.zeros(len(ids), bucket, dtype=torch.int32)
+        mask = torch.zeros_like(tokens)
+        for row, seq in enumerate(ids):
+            full = [emb.tokenizer.bos_id, *seq, emb.tokenizer.eos_id]
+            tokens[row, : len(full)] = torch.tensor(full)
+            mask[row, : len(full)] = 1
+        with torch.no_grad():
+            ref = encode_forward(f32, emb.spec, tokens.to(emb.device),
+                                 mask.to(emb.device))
+        got = torch.tensor(vectors[:len(group)], device=emb.device)
+        vectors = vectors[len(group):]
+        errs.append(float((got - ref).abs().max()))
+        norms.append(float((got.norm(dim=-1) - 1).abs().max()))
+    out["max_abs_err"], out["max_norm_err"] = max(errs), max(norms)
+    check(out["max_abs_err"] <= EMBED_TOL,
+          f"embeddings {out['max_abs_err']} from the fp32 forward")
+    check(out["max_norm_err"] <= 1e-3,
+          f"an embedding's norm is {out['max_norm_err']} from 1")
+    out["dim"] = emb.spec.hidden_size
+    return out
+
+
 GEMMA = "google/gemma-2-9b-it"
 
 
@@ -3590,6 +4155,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     kernels += [check_paged_decode_int8(dev), check_paged_multitok_int8(dev)]
     torch.cuda.empty_cache()
+    # K3 and K3-int8 at the verify widths of speculative decoding
+    verify = check_k3_verify_shapes(dev)
+    print(f"K3 verify shapes on {card}: " + json.dumps(verify), flush=True)
+    torch.cuda.empty_cache()
     kernels += [check_quant_matmul(dev, 8), check_quant_matmul(dev, 4)]
     torch.cuda.empty_cache()
     kernels.append(check_paged_decode_blocked(dev))
@@ -3635,10 +4204,22 @@ def main() -> None:
     swap = swap_path(params, swap_reference)
     print(f"host-swap phase on {card}, PCIe link "
           f"{swap['pcie_link']}: " + json.dumps(swap), flush=True)
-    del params
     gc.collect()
     torch.cuda.empty_cache()
     memory("the host-swap phase")
+    # speculative decoding over the same weights
+    spec = spec_path(params)
+    print(f"speculative phase on {card}: " + json.dumps(spec), flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory("the speculative phase")
+    embeddings = embed_path()
+    print(f"embeddings phase on {card}: " + json.dumps(embeddings),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory("the embeddings phase")
     # supervised recovery, integrity and the perf recorder at 7B
     recovery = recovery_path()
     print_recovery(card, recovery)
@@ -3663,8 +4244,8 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     memory("the prefix phase")
-    runs = [served, backend_a, swap["swap_on"], swap["swap_off"], recovery,
-            prefix, backend_b]
+    runs = [served, backend_a, swap["swap_on"], swap["swap_off"], spec,
+            recovery, prefix, backend_b]
     for quantization, traffic in (("int8", True), ("int4", False)):
         quant = quant_path(quantization, with_prefix_traffic=traffic,
                            bf16_streams=bf16_burst)

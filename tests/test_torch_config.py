@@ -28,15 +28,12 @@ def test_defaults_and_sections():
 @pytest.mark.parametrize(
     "sections",
     [
-        {"device": {"speculative_k": 2}},
         {"device": {"tp": 2}},
         {"device": {"dp": 2}},
         {"device": {"sp": 2}},
         {"device": {"pp": 2}},
         {"device": {"ep": 2}},
-        {"model": {"draft_model_id": "tiny-dense"}},
         {"model": {"model_id": "tiny-moe"}},
-        {"model": {"model_id": "tiny-encoder"}},
         {"device": {"int8_native": True}},
         {"model": {"model_id": "tiny-moe", "quantization": "int8"}},
     ],
@@ -48,6 +45,34 @@ def test_unported_switches_raise(sections):
         sections["model"] = {"model_id": "tiny-dense", **sections["model"]}
     with pytest.raises(NotPortedError, match="not ported yet"):
         load_config(**sections)
+
+
+@pytest.mark.parametrize(
+    "sections",
+    [
+        {"device": {"speculative_k": 2, "speculative_ngram": 3,
+                    "draft_window": 64}},
+        {"model": {"model_id": "tiny-dense", "draft_model_id": "tiny-dense"},
+         "device": {"speculative_k": 4}},
+        {"model": {"model_id": "tiny-encoder"}},
+    ],
+    ids=["speculative_k", "draft_model_id", "tiny-encoder"],
+)
+def test_item8_switches(sections):
+    """Speculative decoding and draft-model drafting load (ROADMAP queue
+    1, item 8); an encoder named as the generation model raises a plain
+    ValueError pointing at model.embedding_model_id, since the reference
+    has no decoder for it either."""
+    sections = {"model": {"model_id": "tiny-dense"}, **sections}
+    if sections["model"]["model_id"] == "tiny-encoder":
+        with pytest.raises(ValueError, match="embedding_model_id") as info:
+            load_config(**sections)
+        assert not isinstance(info.value, NotPortedError)
+        return
+    cfg = load_config(**sections)
+    assert cfg.device.speculative_k == sections["device"]["speculative_k"]
+    assert cfg.model.draft_model_id == sections["model"].get(
+        "draft_model_id")
 
 
 def test_host_swap_bytes_accepted():

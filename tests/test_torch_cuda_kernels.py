@@ -367,6 +367,53 @@ def test_paged_multitok_kernel_tile_edges_on_card(cuda, case):
                                atol=KERNEL_TOL, rtol=KERNEL_TOL)
 
 
+# K3 and K3-int8 at the verify widths of speculative decoding (S = 1 ..
+# k + 1 rows a slot, any S >= 1): Qwen2.5-7B's heads (H 28, KV 4, hd 128)
+# on pages of 32, rows starting mid-page, ragged contexts, rows past
+# input_lens, and the page table padded with trash page 0.
+VERIFY_WIDTHS = [1, 2, 3, 4, 5, 7, 8, 9, 130]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("S", VERIFY_WIDTHS)
+def test_paged_multitok_at_verify_widths_on_card(cuda, S, int8):
+    hd, H, KV, ps = 128, 28, 4, 32
+    rng = np.random.default_rng(90 + S + 7 * int8)
+    pos0 = [0, 37, 1000, 5, 2047 - S]
+    lens = [S, max(1, S - 1), S, 1, S]
+    B = len(pos0)
+    ctx_pages = -(-(max(pos0) + S) // ps)
+    P = 1 + B * ctx_pages
+    q = _bf16(rng, (B, S, H, hd), cuda)
+    if int8:
+        k = _int8_pool(rng, (KV, P, ps, hd), cuda, L=2)[1]
+        v = _int8_pool(rng, (KV, P, ps, hd), cuda, L=2)[1]
+        kernel = paged_multitok.paged_multitok_attention_int8
+        kf, vf = k, v
+    else:
+        k = _bf16(rng, (KV, P, ps, hd), cuda)
+        v = _bf16(rng, (KV, P, ps, hd), cuda)
+        kernel = paged_multitok.paged_multitok_attention
+        kf, vf = k.float(), v.float()
+    pt = np.concatenate([
+        rng.permutation(np.arange(1, P)).reshape(B, ctx_pages),
+        np.zeros((B, 2), np.int64),  # the bucketed width's padding
+    ], axis=1)
+    pt = torch.from_numpy(pt.astype(np.int32)).to(cuda)
+    p0 = torch.tensor(pos0, dtype=torch.int32, device=cuda)
+    il = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = kernel.launches
+    got = _thrice(lambda: kernel(q, k, v, pt, p0, il))
+    assert kernel.launches == before + 3
+    assert got.shape == q.shape
+    assert bool(torch.isfinite(got).all())  # rows past input_lens too
+    expect = tatt.paged_suffix_attention(q.float(), kf, vf, pt, p0, p0 + il)
+    real = torch.arange(S, device=cuda)[None, :] < il[:, None]
+    torch.testing.assert_close(got.float()[real], expect[real],
+                               atol=KERNEL_TOL, rtol=KERNEL_TOL)
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(2, 4, 128, dtype=torch.float16, device=cuda)
@@ -383,7 +430,6 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     pool3 = torch.zeros(2, 5, 16, 128, dtype=torch.bfloat16, device=cuda)
     for bad_q, bad_pool in (
         (q3.half(), pool3.half()),  # fp16 is not instantiated
-        (q3[:, :24].contiguous(), pool3),  # S not a multiple of ps
         (q3[..., :48].contiguous(), pool3[..., :48].contiguous()),  # hd 48
         (torch.zeros(2, 32, 24, 128, dtype=torch.bfloat16, device=cuda),
          pool3),  # 12 query heads per kv head

@@ -6,26 +6,33 @@ The reference app serves ``tiny-dense`` through ``engine_type: jax_tpu``
 carried over by ``params_from_jax`` (the test swaps the
 ``load_or_init_params`` name the port's engine core uses).  Both get the
 same requests; their bodies, stripped of ids, ``created`` and timings,
-must be equal, logprobs within 1e-4."""
+must be equal, logprobs within 1e-4.  ``/v1/embeddings`` serves
+``tiny-encoder`` on both (the port's encoder gets the JAX seed-0 tree
+too); its vectors agree within 1e-5."""
 
 import json
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 from aiohttp.test_utils import TestClient, TestServer
 
 from vgate_tpu.config import load_config as j_load_config
+from vgate_tpu.models.encoder import init_encoder_params as j_init_encoder
+from vgate_tpu.models.specs import TINY_ENCODER as J_TINY_ENCODER
 from vgate_tpu.runtime.weights import load_or_init_params as j_init
 from vgate_tpu.server.app import create_app as j_create_app
 from vgate_tpu_torch import config as config_mod
 from vgate_tpu_torch.config import load_config
-from vgate_tpu_torch.models.specs import TINY_DENSE
+from vgate_tpu_torch.models import encoder as port_encoder
+from vgate_tpu_torch.models.specs import TINY_DENSE, TINY_ENCODER
 from vgate_tpu_torch.runtime import engine_core as port_engine_core
 from vgate_tpu_torch.runtime.weights import params_from_jax
 from vgate_tpu_torch.server.app import create_app
 
-MODEL = {"model_id": "tiny-dense", "dtype": "float32", "max_model_len": 64}
+MODEL = {"model_id": "tiny-dense", "dtype": "float32", "max_model_len": 64,
+         "embedding_model_id": "tiny-encoder"}
 SHAPES = {
     "kv_num_pages": 64,
     "kv_page_size": 4,
@@ -39,6 +46,7 @@ COMMON = dict(
     logging={"level": "WARNING"},
 )
 LP_TOL = 1e-4
+EMBED_TOL = 1e-5
 # per-response envelope and timing fields, not content
 VOLATILE = {"id", "created", "metrics", "request_id"}
 
@@ -61,6 +69,14 @@ def port_params(monkeypatch):
         return params_from_jax(jax.tree.map(np.asarray, tree), TINY_DENSE)
 
     monkeypatch.setattr(port_engine_core, "load_or_init_params", load)
+
+    def init_encoder(spec, generator, dtype, device):
+        assert spec.name == TINY_ENCODER.name
+        tree = j_init_encoder(J_TINY_ENCODER, jax.random.PRNGKey(0),
+                              jnp.float32)
+        return params_from_jax(jax.tree.map(np.asarray, tree), spec)
+
+    monkeypatch.setattr(port_encoder, "init_encoder_params", init_encoder)
 
 
 async def _clients():
@@ -228,12 +244,16 @@ async def test_gateway_bodies_match_the_reference(port_params):
         stats = await (await port.get("/stats")).json()
         assert stats["engine"]["running"] == 0
         assert stats["engine"]["used_pages"] == 0
-        # no encoder on torch_cuda yet: a typed 501, never mock vectors
-        resp = await port.post("/v1/embeddings", json={"input": ["x"]})
-        assert resp.status == 501
-        err = (await resp.json())["error"]
-        assert err["type"] == "not_implemented_error"
-        assert "queue 1, item 8" in err["message"]
+        # the encoder: the same body, vectors within EMBED_TOL
+        r, p = [await x.json() for x in await both("/v1/embeddings", {
+            "input": ["x", "hello world", "a longer input " * 6]})]
+        vecs = [[d.pop("embedding") for d in b["data"]] for b in (r, p)]
+        _assert_same(_strip(r), _strip(p))
+        np.testing.assert_allclose(np.asarray(vecs[1]), np.asarray(vecs[0]),
+                                   atol=EMBED_TOL)
+        assert p["model"] == "tiny-encoder" and len(vecs[1]) == 3
+        np.testing.assert_allclose(np.linalg.norm(vecs[1], axis=-1), 1.0,
+                                   atol=1e-5)
     finally:
         for c in (ref, port):
             await c.close()

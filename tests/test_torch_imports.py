@@ -215,6 +215,52 @@ def test_supervised_engine_with_integrity_serves_without_the_http_packages():
     assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
+SPEC_PROBE = """
+import sys
+for name in %r:
+    sys.modules[name] = None
+from vgate_tpu_torch.backends.base import SamplingParams
+from vgate_tpu_torch.backends.torch_backend import TorchCUDABackend
+from vgate_tpu_torch.config import load_config
+backend = TorchCUDABackend()
+backend.load_model(load_config(
+    model={"model_id": "tiny-dense", "dtype": "float32",
+           "max_model_len": 64, "draft_model_id": "tiny-dense",
+           "embedding_model_id": "tiny-encoder"},
+    device={"device": "cpu", "kv_num_pages": 32, "kv_page_size": 4,
+            "max_batch_slots": 2, "prefill_buckets": [8, 16],
+            "speculative_k": 3, "draft_window": 16},
+))
+assert backend.core.warmup() > 0
+out = backend.generate(["one two one two", "abc"],
+                       [SamplingParams(max_tokens=10, temperature=0.0)] * 2)
+assert [r.num_tokens for r in out] == [10, 10]
+backend.set_spec_suspended(True)
+assert backend.core.spec_suspended
+backend.set_spec_suspended(False)
+spec = backend.get_stats()["speculative"]
+assert spec["drafter"] == "draft-model:tiny-dense" and spec["draft_calls"] > 0
+vecs = backend.embed(["hello", "world"])
+assert len(vecs) == 2 and len(vecs[0]) == 64
+backend.shutdown()
+print("ok")
+""" % (BLOCKED + ("opentelemetry",),)
+
+
+def test_speculative_engine_and_encoder_serve_without_the_http_packages():
+    """A supervised speculative engine with a draft model warms up and
+    serves, brownout L3 reaches its core, and the encoder embeds, with
+    aiohttp, pydantic, PyYAML, prometheus_client and opentelemetry all
+    missing."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", SPEC_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
 def test_http_layer_needs_its_packages():
     """The probe is live: with aiohttp blocked, the gateway's import
     fails."""

@@ -12,16 +12,20 @@ running engine between decode steps, failures settled per slot, one
 cancel token a slot), ``generate_async``, ``stream_async`` (text deltas
 with stop-string holdback, and logprobs), ``abort_in_flight`` (the
 drain's straggler sweep), ``pressure_signals`` and
-``set_prefix_insert_suspended`` (admission and brownout), and the
-health and stats reads.  There is no ``embed`` yet: the encoder comes
-with ROADMAP queue 1, item 8.
+``set_prefix_insert_suspended`` and ``set_spec_suspended`` (admission
+and brownout), ``embed`` (the encoder behind /v1/embeddings,
+:class:`Embedder`), and the health and stats reads.
 """
 
 from __future__ import annotations
 
 import asyncio
+import os
 import threading
 from typing import Any, AsyncIterator, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
 
 from vgate_tpu_torch import faults
 from vgate_tpu_torch.backends.base import GenerationResult, SamplingParams
@@ -29,10 +33,94 @@ from vgate_tpu_torch.config import get_config
 from vgate_tpu_torch.errors import state_is_alive, state_is_ready
 from vgate_tpu_torch.logging_config import get_logger
 from vgate_tpu_torch.runtime import engine_metrics as metrics
-from vgate_tpu_torch.runtime.engine_core import EngineCore
+from vgate_tpu_torch.models.specs import spec_for_model_id
+from vgate_tpu_torch.runtime.engine_core import (
+    _DTYPES,
+    EngineCore,
+    resolve_device,
+)
 from vgate_tpu_torch.runtime.sequence import SeqStatus
+from vgate_tpu_torch.utils.math import bucket_for
 
 logger = get_logger(__name__)
+
+
+class Embedder:
+    """The encoder model behind /v1/embeddings (the reference backend's
+    ``Embedder``): inputs framed as BOS + ids + EOS, padded to the
+    smallest of the 32/128/512-token buckets that holds the longest, in
+    batches of up to 64 (a power of two), one forward a batch
+    (models/encoder.py ``encode_forward``) under a lock.  Weights come
+    from a safetensors directory, else random init from seed 0 on
+    ``device`` (logged: such vectors mean nothing); ``params`` skips
+    loading."""
+
+    BUCKETS = (32, 128, 512)
+    MAX_BATCH = 64
+
+    def __init__(
+        self,
+        model_id: str,
+        checkpoint_path: Optional[str],
+        dtype: torch.dtype = torch.float32,
+        device: torch.device | str = "cpu",
+        params: Optional[Dict[str, Any]] = None,
+    ) -> None:
+        from vgate_tpu_torch.models import encoder
+        from vgate_tpu_torch.runtime.tokenizer import get_tokenizer
+
+        self.spec = spec_for_model_id(model_id)
+        if not self.spec.is_encoder:
+            raise ValueError(f"{model_id} is not an encoder model")
+        self.tokenizer = get_tokenizer(self.spec, checkpoint_path)
+        self.device = torch.device(device)
+        if params is not None:
+            self.params = params
+        elif checkpoint_path and os.path.isdir(checkpoint_path):
+            self.params = encoder.encoder_params_from_safetensors(
+                self.spec, checkpoint_path, self.device, dtype
+            )
+        else:
+            logger.warning(
+                "no embedding checkpoint found; using random-init weights",
+                extra={"extra_data": {"model": model_id,
+                                      "path": checkpoint_path}},
+            )
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(0)
+            self.params = encoder.init_encoder_params(
+                self.spec, gen, dtype, self.device
+            )
+        self._forward = encoder.encode_forward
+        self._lock = threading.Lock()
+
+    def embed(self, inputs: Sequence[str]) -> List[List[float]]:
+        max_len = self.spec.max_position_embeddings
+        ids = [self.tokenizer.encode(t)[: max_len - 2] for t in inputs]
+        longest = max(1, max(len(i) for i in ids))
+        S = bucket_for(
+            min(longest + 2, max_len),
+            [b for b in self.BUCKETS if b <= max_len] + [max_len],
+        )
+        B = max(1, min(self.MAX_BATCH, 1 << (len(ids) - 1).bit_length()))
+        out: List[List[float]] = []
+        with self._lock, torch.inference_mode():
+            for chunk_start in range(0, len(ids), B):
+                chunk = ids[chunk_start : chunk_start + B]
+                tokens = np.zeros((B, S), np.int32)
+                mask = np.zeros((B, S), np.int32)
+                for row, seq_ids in enumerate(chunk):
+                    full = [self.tokenizer.bos_id, *seq_ids,
+                            self.tokenizer.eos_id]
+                    tokens[row, : len(full)] = full
+                    mask[row, : len(full)] = 1
+                vecs = self._forward(
+                    self.params, self.spec,
+                    torch.from_numpy(tokens).to(self.device),
+                    torch.from_numpy(mask).to(self.device),
+                )
+                out.extend(vecs[: len(chunk)].float().cpu().tolist())
+        return out
 
 
 class TorchCUDABackend:
@@ -40,11 +128,15 @@ class TorchCUDABackend:
 
     def __init__(self) -> None:
         self.core: Optional[EngineCore] = None
+        self._config: Optional[Any] = None
+        self._embedder: Optional[Embedder] = None
+        self._embedder_lock = threading.Lock()
 
     # -- protocol --
 
     def load_model(self, config: Any) -> None:
         config = config if hasattr(config, "device") else get_config()
+        self._config = config
         if config.recovery.enabled:
             from vgate_tpu_torch.runtime.supervisor import EngineSupervisor
 
@@ -91,6 +183,30 @@ class TorchCUDABackend:
         """Brownout L4 (admission.py "bypass cache writes")."""
         if self.core is not None:
             self.core.set_prefix_insert_suspended(bool(flag))
+
+    def set_spec_suspended(self, flag: bool) -> None:
+        """Brownout L3 (admission.py): suspend or resume speculative
+        decoding on the live core (a supervisor delegates)."""
+        if self.core is not None:
+            self.core.set_spec_suspended(bool(flag))
+
+    # -- embeddings --
+
+    def embed(self, inputs: Sequence[str]) -> List[List[float]]:
+        """Encoder vectors for ``inputs`` (``model.embedding_model_id``
+        in the model dtype on the engine's device, from
+        ``model.embedding_checkpoint_path``), the encoder built at the
+        first call."""
+        with self._embedder_lock:
+            if self._embedder is None:
+                config = self._config or get_config()
+                self._embedder = Embedder(
+                    config.model.embedding_model_id,
+                    config.model.embedding_checkpoint_path,
+                    _DTYPES[config.model.dtype],
+                    device=resolve_device(config.device.device),
+                )
+        return self._embedder.embed(inputs)
 
     def pressure_signals(self) -> Dict[str, Any]:
         """KV and queue gauges for gateway admission and brownout; empty

@@ -62,10 +62,15 @@ class ModelConfig:
     # nothing here has that fault, so the port has no such switch.
     quantization: Optional[str] = None
     max_model_len: int = 2048
-    # the model /v1/models lists for /v1/embeddings; the encoder itself
-    # is not ported yet (ROADMAP queue 1, item 8)
+    # the encoder behind /v1/embeddings (models/encoder.py), loaded from
+    # embedding_checkpoint_path when that directory exists, else random
     embedding_model_id: str = "BAAI/bge-base-en-v1.5"
+    embedding_checkpoint_path: Optional[str] = None
+    # speculative decoding with a draft MODEL (device.speculative_k > 0,
+    # runtime/speculative.py DraftModelDrafter) instead of prompt
+    # lookup; None keeps n-gram drafting
     draft_model_id: Optional[str] = None
+    draft_checkpoint_path: Optional[str] = None
 
 
 @dataclass
@@ -123,9 +128,17 @@ class DeviceConfig:
     # blocked grid B/N x KV instead of K1's B x KV); the reference's key
     # and default.  A batch N does not divide, and int8 pools, take K1.
     decode_block_slots: int = 1
+    # speculative decoding: verify up to `speculative_k` drafted tokens
+    # a slot in ONE forward pass (models/decoder.py spec_verify_forward
+    # on K3); greedy rows by argmax match, sampled rows by rejection
+    # sampling.  0 = off.  Drafts come from prompt lookup (an n-gram of
+    # `speculative_ngram` tokens) or from model.draft_model_id, which
+    # sees the last `draft_window` tokens (rounded up to 8).
+    speculative_k: int = 0
+    speculative_ngram: int = 2
+    draft_window: int = 128
     # reference switches the port cannot serve yet: any non-default
     # value raises NotPortedError (see _check)
-    speculative_k: int = 0
     # W8A8 (dynamic int8 activations): pure jnp in the reference
     int8_native: bool = False
     dp: int = 1
@@ -439,8 +452,6 @@ def _check(cfg: VGTConfig) -> None:
             f"model.quantization must be one of {VALID_QUANTIZATION} or "
             f"None, got {m.quantization!r}"
         )
-    if m.draft_model_id:
-        raise _not_ported("model.draft_model_id", "queue 1, item 8")
     if cfg.kv_cache.dtype not in VALID_KV_DTYPES:
         raise ValueError(
             f"kv_cache.dtype must be one of {VALID_KV_DTYPES}, got "
@@ -455,8 +466,6 @@ def _check(cfg: VGTConfig) -> None:
         raise ValueError("prefix_cache.min_share_pages must be >= 1")
     if not 0.0 <= pc.evict_watermark < 1.0:
         raise ValueError("prefix_cache.evict_watermark must be in [0, 1)")
-    if d.speculative_k > 0:
-        raise _not_ported("device.speculative_k", "queue 1, item 8")
     if d.int8_native:
         raise _not_ported("device.int8_native (W8A8)", "queue 1, item 9")
     for axis in ("dp", "tp", "sp", "pp", "ep"):
@@ -476,7 +485,12 @@ def _check(cfg: VGTConfig) -> None:
     if spec.is_moe:
         raise _not_ported(f"MoE model {spec.name}", "queue 1, item 9")
     if spec.is_encoder:
-        raise _not_ported(f"encoder model {spec.name}", "queue 1, item 8")
+        # the reference has no decoder for an encoder either: it is
+        # served behind /v1/embeddings
+        raise ValueError(
+            f"{spec.name} is an encoder, not a generation model: name it "
+            "as model.embedding_model_id (served by /v1/embeddings)"
+        )
     _check_gateway(cfg)
 
 

@@ -10,14 +10,21 @@
 // among the rows, whose own KV the layer wrote before attending),
 // intersected with the sliding window; GQA maps query head h to kv head
 // h / G; logit softcap and a query scale.  It is the suffix prompt pass of
-// a prefix-cache hit, of a copy-on-write hit and of every prefill chunk.
+// a prefix-cache hit, of a copy-on-write hit and of every prefill chunk,
+// and the verify pass of speculative decoding (S = 1..k+1 rows a slot,
+// starting at any position).  Any S >= 1: Q comes by TMA in boxes of 128
+// rows, and rows at or past S lie outside the map's S extent, so they
+// read as zeros; no store reaches a row at or past S.
 // Semantic spec: vgate_tpu_torch/ops/attention.py paged_suffix_attention.
 //
-// What bounds it on an H100: operations.  A suffix pass of S rows over a
-// context of C keys does about 4 * H * hd * S * C flops on
-// (S * 2H + 2 * C * KV) * hd * 2 bytes: at S 512 over a 1536-token context
-// that is ~900 flops per byte, so the limit is the 989 TFLOP/s bf16
-// tensor-core rate.
+// What bounds it on an H100: operations for a suffix pass, bytes for a
+// verify pass.  S rows over a context of C keys do about 4 * H * hd * S * C
+// flops on (S * 2H + 2 * C * KV) * hd * 2 bytes: at S 512 over a
+// 1536-token context that is ~900 flops per byte, so the limit is the 989
+// TFLOP/s bf16 tensor-core rate; at S <= 8 it is ~14 flops per byte, so
+// the limit is reading the context's K and V at 3.35 TB/s.  A verify tile
+// holds S <= 8 live rows of its 128 (packing the G heads of a kv head
+// into one tile is the design for small S, not built yet).
 //
 // What the design does about it, bf16 pools: the Hopper tile pipeline of
 // the flash-prefill kernel (flash_sm90.cuh: one CTA per 128-row query tile

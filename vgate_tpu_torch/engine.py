@@ -2,11 +2,9 @@
 
 ``VGTEngine`` is the entry point the gateway calls: it builds the backend
 the config names (``torch_cuda`` or ``dry_run``), and derives TTFT/TPOT
-for single chat completions from the backend's metrics.  Embeddings are
-the dry-run backend's mock vectors; on ``torch_cuda`` they raise
-:class:`NotPortedError` until the encoder is ported (ROADMAP queue 1,
-item 8), and the gateway answers 501 — never mock vectors passed off as
-a model's.
+for single chat completions from the backend's metrics.  Embeddings come
+from the backend's ``embed``: the encoder on ``torch_cuda``, the
+reference's mock vectors on the dry-run backend.
 """
 
 from __future__ import annotations
@@ -20,7 +18,7 @@ from vgate_tpu_torch.backends.base import (
     InferenceBackend,
     SamplingParams,
 )
-from vgate_tpu_torch.config import NotPortedError, VGTConfig, get_config
+from vgate_tpu_torch.config import VGTConfig, get_config
 from vgate_tpu_torch.logging_config import get_logger
 from vgate_tpu_torch.tracing import get_tracer
 
@@ -101,17 +99,11 @@ class VGTEngine:
         return self.backend.generate(list(prompts), list(sampling_params))
 
     def embeddings(self, inputs: Sequence[str]) -> Dict[str, Any]:
-        """Embedding vectors from the backend's ``embed`` (the dry-run
-        backend's are the reference's mock vectors)."""
-        embed = getattr(self.backend, "embed", None)
-        if embed is None:
-            raise NotPortedError(
-                f"embeddings on engine_type "
-                f"{self.config.model.engine_type!r} are not ported yet "
-                "(ROADMAP queue 1, item 8)"
-            )
+        """Embedding vectors from the backend's ``embed`` (the encoder on
+        ``torch_cuda``; the dry-run backend's are the reference's mock
+        vectors)."""
         with tracer.start_as_current_span("engine.embeddings"):
-            vectors = embed(list(inputs))
+            vectors = self.backend.embed(list(inputs))
         total_tokens = sum(max(1, len(text.split())) for text in inputs)
         return {
             "embeddings": vectors,

@@ -18,9 +18,11 @@ reference leaves them to XLA, and the dequant-matmul kernels (K4 int8,
 K5 int4) for quantized ones.  int8 KV pools (``QuantPages``) quantize on
 every write (``kv_write``) and reach the int8 modes of K1 and K3.  With
 ``spec.decode_block_slots > 1`` decode attention runs K6, the blocked
-grid.  Every attention call takes the layer's window
-(``spec.layer_windows``, 0 = global), the attention softcap and the
-query scale.  MoE is not ported yet; the config rejects it.
+grid.  Speculative verification (``spec_verify_forward``) scores a
+slot's current token and its drafts in one pass through K3.  Every
+attention call takes the layer's window (``spec.layer_windows``, 0 =
+global), the attention softcap and the query scale.  MoE is not ported
+yet; the config rejects it.
 """
 
 from __future__ import annotations
@@ -391,3 +393,54 @@ def prefill_suffix_forward(
         )
         x = _finish_layer(x, attn, lp, spec)
     return _last_logits(params, spec, x, suffix_lens)
+
+
+def spec_verify_forward(
+    params: Params,
+    spec: ModelSpec,
+    tokens: torch.Tensor,  # [B, S]: [current, draft_1, ..., draft_{S-1}]
+    positions0: torch.Tensor,  # [B] int32 global position of tokens[:, 0]
+    input_lens: torch.Tensor,  # [B] int32 1 + real drafts this row (<= S)
+    k_pages: KVPool,  # [L, KV, P, ps, hd], updated in place
+    v_pages: KVPool,
+    page_tables: torch.Tensor,  # [B, pages_per_seq] int32
+    active: Optional[torch.Tensor] = None,  # [B] bool; inactive -> page 0
+) -> torch.Tensor:
+    """Speculative-decoding verification (runtime/speculative.py): score
+    the ``S`` candidates of every slot in one pass over the paged pools.
+    Each layer writes the candidates' KV at positions ``positions0 + j``
+    (clamped into the table; rows past ``input_lens`` and inactive slots
+    write trash page 0) by the per-token scatter, as ``positions0`` is
+    arbitrary, then the rows attend their context through the
+    multi-token kernel (K3, or K3-int8 on int8 pools) with
+    ``input_lens`` as the row count.  Candidates past the accepted
+    prefix leave KV beyond the sequence's new length, which later steps
+    mask and overwrite.  Returns fp32 logits [B, S, V]."""
+    B, S = tokens.shape
+    ps = k_pages.shape[3]
+    width = page_tables.shape[1]
+    j = torch.arange(S, device=tokens.device)
+    # overshoot rows stay in bounds (their writes are trashed anyway)
+    positions = torch.clamp(positions0.long()[:, None] + j[None, :],
+                            max=width * ps - 1)
+    write_ok = j[None, :] < input_lens[:, None]
+    if active is not None:
+        write_ok = write_ok & active[:, None]
+    page_ids = torch.gather(page_tables.long(), 1, positions // ps)
+    page_ids = torch.where(write_ok, page_ids, torch.zeros_like(page_ids))
+    page_off = positions % ps
+    x = _embed(params, spec, tokens)  # [B, S, D]
+    for l in range(spec.num_layers):
+        lp = layer_params(params, l)
+        q, k, v = qkv(x, lp, spec, positions)
+        # advanced indices (dims 1, 2) are adjacent: value [KV, B, S, hd]
+        kv_write(k_pages[l], (slice(None), page_ids, page_off),
+                 k.permute(2, 0, 1, 3))
+        kv_write(v_pages[l], (slice(None), page_ids, page_off),
+                 v.permute(2, 0, 1, 3))
+        attn = paged_multitok_attention(
+            q.contiguous(), k_pages[l], v_pages[l], page_tables, positions0,
+            input_lens, **attn_options(spec, l),
+        )
+        x = _finish_layer(x, attn, lp, spec)
+    return _logits(params, spec, x)

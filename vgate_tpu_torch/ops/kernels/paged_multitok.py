@@ -134,15 +134,13 @@ def _check(q, k_pages, v_pages, page_tables, positions0, input_lens,
             f"{tuple(q.shape)} and {tuple(k_pages.shape)}"
         )
     B, S, H, hd = q.shape
-    KV, _, ps, _ = k_pages.shape
+    KV = k_pages.shape[0]
     if k_pages.shape[3] != hd or hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS} or pool mismatch")
     if H % KV or H // KV > MAX_GROUP:
         raise ValueError(
             f"H={H}, KV={KV}: need KV | H and H/KV <= {MAX_GROUP}"
         )
-    if S % ps:
-        raise ValueError(f"S={S} is not a multiple of the page size {ps}")
     if page_tables.dim() != 2 or page_tables.shape[0] != B:
         raise ValueError(f"page_tables must be [B={B}, ctx_pages]")
     if positions0.shape != (B,) or input_lens.shape != (B,):
@@ -161,8 +159,10 @@ def paged_multitok_attention(
     scale: Optional[float] = None,  # query scale; default hd**-0.5
 ) -> torch.Tensor:
     """Attention of S query rows per slot over the paged context; the
-    rows' own KV must already be in the pool.  Returns [B, S, H, hd];
-    rows past ``input_lens`` are finite and unspecified.
+    rows' own KV must already be in the pool.  Any S >= 1, from any
+    ``positions0`` (a suffix pass, or a speculative verify pass of 1..k+1
+    rows).  Returns [B, S, H, hd]; rows past ``input_lens`` are finite
+    and unspecified.
 
     The kernel reads page-table entries only below ``positions0 +
     input_lens`` and clamps that to ``ctx_pages * ps`` on the device, so

@@ -75,9 +75,11 @@ def _hash_uniform(
     return (x.to(torch.float64) + 0.5) / 4294967296.0
 
 
-def _gumbel(
+def _uniform(
     shape, generator: Optional[torch.Generator], seeds, steps, device
 ) -> torch.Tensor:
+    """Uniform noise [B, n] (float64): the engine generator's, and for
+    rows with ``seeds >= 0`` the (seed, step) hash's."""
     B, n = shape
     u = torch.rand(shape, generator=generator, device=device,
                    dtype=torch.float64)
@@ -85,8 +87,18 @@ def _gumbel(
         seeded = (seeds >= 0)[:, None]
         steps = torch.zeros_like(seeds) if steps is None else steps
         u = torch.where(seeded, _hash_uniform(seeds, steps, n), u)
+    return u
+
+
+def _to_gumbel(u: torch.Tensor) -> torch.Tensor:
     u = torch.clamp(u, min=1e-300)
     return (-torch.log(-torch.log(u))).float()
+
+
+def _gumbel(
+    shape, generator: Optional[torch.Generator], seeds, steps, device
+) -> torch.Tensor:
+    return _to_gumbel(_uniform(shape, generator, seeds, steps, device))
 
 
 def _topk_and_pos(logits, temperature, top_p, top_k, generator, seeds,
@@ -157,6 +169,80 @@ def sample_tokens_with_logprobs(
         top_idx[:, :num_top].to(torch.int32),
         lps[:, :num_top],
     )
+
+
+def verify_and_sample(
+    logits: torch.Tensor,  # [R, V] processed (penalized/suppressed) logits
+    draft_next: torch.Tensor,  # [R] draft token this row verifies
+    is_bonus: torch.Tensor,  # [R] bool: no draft to verify at this row
+    temperature: torch.Tensor,  # [R]
+    top_p: torch.Tensor,  # [R]
+    top_k: torch.Tensor,  # [R] int, 0 => disabled
+    generator: Optional[torch.Generator] = None,
+    seeds: Optional[torch.Tensor] = None,  # [R] int, -1 => unseeded
+    steps: Optional[torch.Tensor] = None,  # [R] per-seq sample index
+    num_top: int = 0,
+    all_greedy: bool = False,  # every row is temperature 0
+):
+    """Distribution-preserving speculative verification (rejection
+    sampling with a point-mass proposal at the draft ``t``), the
+    reference's ``verify_and_sample``: accept ``t`` with probability
+    p(t) under the row's own sampling distribution (temperature,
+    top-k/top-p over the top-``TRUNC`` slice, as ``sample_tokens``
+    draws), else resample from p with ``t`` excluded; the emitted token
+    is p-distributed whatever was drafted.  Greedy rows accept iff ``t``
+    is the argmax; ``is_bonus`` rows draw a plain sample and accept
+    nothing.
+
+    Each row takes one uniform for the acceptance test and ``trunc``
+    Gumbels for the draw, from one [R, 1 + trunc] draw: the engine
+    generator's, or for a seeded row the (seed, step) hash, so a seeded
+    request repeats under speculation.  Returns ``(model_toks [R]
+    int32, accept [R] bool, lp_data)``, ``lp_data`` the triple
+    ``(chosen_lp [R], top_ids [R, num_top], top_lps [R, num_top])``
+    when ``num_top`` > 0, else None."""
+    if all_greedy and num_top == 0:
+        am = torch.argmax(logits, dim=-1).to(torch.int32)
+        return am, (am == draft_next) & ~is_bonus, None
+    top_vals, top_idx, masked = _masked_scaled(
+        logits, temperature, top_p, top_k
+    )
+    R, trunc = top_idx.shape
+    noise = _uniform((R, 1 + trunc), generator, seeds, steps, logits.device)
+    u, gumbel = noise[:, 0], _to_gumbel(noise[:, 1:])
+    probs = torch.softmax(masked, dim=-1)  # ineligible entries ~0
+    is_draft = top_idx == draft_next[:, None].to(top_idx.dtype)
+    p_draft = torch.where(is_draft, probs, torch.zeros_like(probs)).sum(-1)
+    greedy = temperature <= _GREEDY_EPS
+    accept = torch.where(
+        greedy, top_idx[:, 0] == draft_next.to(top_idx.dtype),
+        u < p_draft.double(),
+    ) & ~is_bonus
+    # one Gumbel draw serves the resample (draft excluded: argmax over
+    # the residual support renormalizes implicitly) and the bonus sample;
+    # a rejected row always has another eligible entry (p(t) = 1 makes
+    # rejection impossible)
+    exclude = is_draft & ~is_bonus[:, None]
+    pos_rs = torch.argmax(
+        torch.where(exclude, torch.full_like(masked, -float("inf")), masked)
+        + gumbel, dim=-1,
+    )
+    pos_draft = torch.argmax(is_draft.to(torch.int32), dim=-1)
+    pos = torch.where(
+        greedy, torch.zeros_like(pos_rs),
+        torch.where(accept, pos_draft, pos_rs),
+    )
+    model_toks = torch.gather(top_idx, 1, pos[:, None])[:, 0].to(torch.int32)
+    if num_top > 0:
+        lse = torch.logsumexp(logits.float(), dim=-1, keepdim=True)
+        lps = top_vals - lse
+        chosen_lp = torch.gather(lps, 1, pos[:, None])[:, 0]
+        return model_toks, accept, (
+            chosen_lp,
+            top_idx[:, :num_top].to(torch.int32),
+            lps[:, :num_top],
+        )
+    return model_toks, accept, None
 
 
 def apply_penalties(

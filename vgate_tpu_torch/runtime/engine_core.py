@@ -78,9 +78,17 @@ path — batched, bucketed prompt passes and pipelined decode chunks:
   the per-tick perf attribution (observability/perf.py), both fed on the
   host side of each readback; ``capture_profile`` writes a
   ``torch.profiler`` Chrome trace.
+* **Speculative decoding** (``device.speculative_k`` > 0,
+  runtime/speculative.py): each tick drafts up to k tokens a sequence
+  (prompt lookup, or a draft model with ``model.draft_model_id``) and
+  scores them in ONE verify pass (models/decoder.py
+  ``spec_verify_forward``, K3 on the card), accepting by argmax match
+  (greedy) or rejection sampling (``verify_and_sample``).  Rounds are
+  host-driven and eager: acceptance is data-dependent, so positions come
+  back through the host each round, and no graph is captured for them.
+  Brownout L3 (``set_spec_suspended``) falls back to the decode chunks.
 
-Not ported yet (the config refuses them): speculative decoding,
-multi-device meshes.
+Not ported yet (the config refuses them): multi-device meshes.
 """
 
 from __future__ import annotations
@@ -116,6 +124,7 @@ from vgate_tpu_torch.models.decoder import (
     decode_forward,
     prefill_forward,
     prefill_suffix_forward,
+    spec_verify_forward,
 )
 from vgate_tpu_torch.models.specs import ModelSpec, spec_for_model_id
 from vgate_tpu_torch.observability.flight import FlightRecorder
@@ -140,6 +149,7 @@ from vgate_tpu_torch.ops.sampling import (
     sample_tokens,
     sample_tokens_with_logprobs,
     suppress_stop_tokens,
+    verify_and_sample,
 )
 from vgate_tpu_torch.runtime.decode_graph import (
     CudaCapture,
@@ -162,6 +172,11 @@ from vgate_tpu_torch.runtime.scheduler import (
     SwapInPlan,
 )
 from vgate_tpu_torch.runtime.sequence import Sequence, SeqStatus
+from vgate_tpu_torch.runtime.speculative import (
+    DraftModelDrafter,
+    NgramIndex,
+    count_accepted,
+)
 from vgate_tpu_torch.runtime.tokenizer import get_tokenizer
 from vgate_tpu_torch.runtime.weights import (
     load_or_init_params,
@@ -270,6 +285,91 @@ def _suffix_key(bucket, B, ctx_pages, has_pen, mt_width, num_lp, lb_width,
     the batched suffix groups and the chunked passes."""
     return ("suffix", bucket, B, ctx_pages, has_pen, mt_width, num_lp,
             lb_width, unaligned)
+
+
+def _spec_verify_step(
+    params, spec: ModelSpec, tokens, positions0, input_lens, k_pages,
+    v_pages, page_tables, active, generator, sampling: Dict[str, Any],
+    pen=None, num_logprobs: int = 0, all_greedy: bool = False,
+):
+    """One speculative round on the device: score the current token and
+    the drafts in a single forward (models/decoder.py
+    ``spec_verify_forward``), verify every draft position with the rows'
+    sampling params (``verify_and_sample``: greedy rows by argmax match,
+    sampled rows by rejection sampling) and count the accepted drafts.
+
+    ``sampling`` holds the rows' [B] temperatures, top-p/k, seeds (None
+    when no row is seeded) and steps, and the membership's logit-bias
+    and min-token arrays (or None); ``pen`` the penalty histogram [B, V]
+    with its frequency and presence penalties, or None.  Position j's
+    penalties include the drafts before it (if draft j+1 is rejected,
+    position j+1's output is discarded anyway, so every appended token
+    is exact); bias and min-token suppression apply at every position,
+    each position with its own step index, and the tokens the round
+    appends (accepted run + bonus) are folded into the histogram IN
+    PLACE.  Returns (model_toks [B, S] int32, accepted [B] int32, the
+    logprob triple ``(lp [B, S], top ids [B, S, K], top lps [B, S,
+    K])`` or None), all on the device."""
+    logits = spec_verify_forward(
+        params, spec, tokens, positions0, input_lens, k_pages, v_pages,
+        page_tables, active=active,
+    )  # [B, S, V]
+    B, S = tokens.shape
+    dev = tokens.device
+    rows = torch.arange(B, device=dev)
+    j = torch.arange(S, device=dev)
+    if pen is not None:
+        counts, freq, pres = pen
+        run = counts.clone()
+        per_pos = []
+        for i in range(S):
+            per_pos.append(apply_penalties(logits[:, i], run, freq, pres))
+            if i + 1 < S:
+                inc = ((i + 1) < input_lens) & active
+                run.index_put_((rows, tokens[:, i + 1].long()),
+                               inc.to(run.dtype), accumulate=True)
+        logits = torch.stack(per_pos, dim=1)
+    flat = logits.reshape(B * S, -1)
+
+    def rep(t):
+        return t.repeat_interleave(S, dim=0)
+
+    # per-position step indices keep seeded rows aligned with the token
+    # index, as the decode chunk's per-step increment does
+    steps_flat = (sampling["steps"][:, None] + j[None, :]).reshape(-1)
+    if sampling["bias"] is not None:
+        flat = apply_logit_bias(flat, *map(rep, sampling["bias"]))
+    if sampling["min_tok"] is not None:
+        flat = suppress_stop_tokens(flat, steps_flat,
+                                    *map(rep, sampling["min_tok"]))
+    # row (b, j) verifies draft tokens[b, j+1]; the row at input_len - 1
+    # (and any unused row past it) draws the plain bonus sample
+    draft_next = torch.cat(
+        [tokens[:, 1:], torch.zeros((B, 1), dtype=tokens.dtype, device=dev)],
+        dim=1,
+    )
+    is_bonus = j[None, :] >= (input_lens[:, None] - 1)
+    seeds = sampling["seeds"]
+    flat_toks, _accept, lp = verify_and_sample(
+        flat, draft_next.reshape(-1), is_bonus.reshape(-1),
+        rep(sampling["temps"]), rep(sampling["top_ps"]),
+        rep(sampling["top_ks"]), generator,
+        seeds=None if seeds is None else rep(seeds), steps=steps_flat,
+        num_top=num_logprobs, all_greedy=all_greedy,
+    )
+    model_toks = flat_toks.reshape(B, S)
+    lp_data = None
+    if lp is not None:
+        lp_data = (lp[0].reshape(B, S), lp[1].reshape(B, S, -1),
+                   lp[2].reshape(B, S, -1))
+    accepted = count_accepted(model_toks, tokens, input_lens)
+    if pen is not None:
+        appended = (j[None, :] <= accepted[:, None]) & active[:, None]
+        pen[0].index_put_(
+            (rows[:, None].expand(B, S), model_toks.long()),
+            appended.to(pen[0].dtype), accumulate=True,
+        )
+    return model_toks, accepted, lp_data
 
 
 def _cow_copy_pages(k_pages, v_pages, src: int, dst: int, upto: int):
@@ -502,6 +602,12 @@ def _release_device_state(old: "EngineCore") -> None:
     old._dec_state = None
     old._graphs = None
     old._pending_chunks.clear()
+    old._spec_pen = None
+    old._spec_mt = None
+    # the draft model's weights and scratch pools; the successor loads
+    # its own
+    old.draft_model = None
+    old.drafter = old._ngram_drafter
     # the host swap pool dies with its core: every parked ticket's epoch
     # went stale when containment folded the owners, and the new core
     # builds a fresh (empty) pool
@@ -527,7 +633,9 @@ def rebuild_core(
     owner until the swap), and rebuild with the weights KEPT (the old
     tree is already quantized and on the card) or, with
     ``reload_weights``, reloaded.  The brownout flag that suspends
-    prefix-tree inserts is carried over, and so is ``decode_graphs``.
+    prefix-tree inserts is carried over, and so are ``decode_graphs``
+    and ``spec_suspended`` (a crash at brownout level >= 3 must not
+    silently re-enable speculative decoding).
     The caller swaps it in, re-attaches ``on_fatal`` and starts it.  A
     successor of a warmed core is warmed before it is returned.
 
@@ -578,6 +686,7 @@ def rebuild_core(
             config, spec=old.spec, params=old.params,
             decode_graphs=old.decode_graphs,
         )
+    new_core.spec_suspended = bool(getattr(old, "spec_suspended", False))
     new_core.set_prefix_insert_suspended(
         getattr(old, "prefix_insert_suspended", False)
     )
@@ -883,6 +992,7 @@ class EngineCore:
                 CudaCapture(self.device, self._generator)
             )
         self.pipeline_depth = max(1, dcfg.decode_pipeline)
+        self._init_speculation()
         self._submit_q: "queue.Queue[Sequence]" = queue.Queue()
         # held while a batch is queued and while the loop drains the
         # queue, so one ``generate`` batch is admitted as one wave
@@ -938,6 +1048,55 @@ class EngineCore:
         # forward passes over prompt tokens: prompt, suffix and chunk
         # passes (each runs attention once per layer)
         self.total_prompt_passes = 0
+
+    def _init_speculation(self) -> None:
+        """Speculative decoding's state (runtime/speculative.py): the
+        drafter (prompt lookup, or with ``model.draft_model_id`` a draft
+        model on this engine's device; tests inject oracles through
+        ``drafter``), the brownout flag, the counters and the
+        membership-keyed device caches of the verify rounds."""
+        dcfg = self.config.device
+        self.spec_k = max(0, dcfg.speculative_k)
+        self.spec_ngram = max(1, dcfg.speculative_ngram)
+        # brownout level >= 3 (admission.py) suspends speculation at run
+        # time: one bool read a tick, flipped from any thread by
+        # set_spec_suspended
+        self.spec_suspended = False
+        self.drafter: Callable[[Sequence, int], List[int]] = (
+            self._ngram_drafter
+        )
+        self.draft_model: Optional[DraftModelDrafter] = None
+        draft_id = self.config.model.draft_model_id
+        if draft_id and self.spec_k <= 0:
+            logger.warning(
+                "model.draft_model_id has no effect with "
+                "device.speculative_k=0 — speculative decoding is off",
+                extra={"extra_data": {"draft_model_id": draft_id}},
+            )
+        if self.spec_k > 0 and draft_id:
+            self.draft_model = DraftModelDrafter(
+                draft_id,
+                k_max=self.spec_k,
+                dtype=self.dtype,
+                window=int(dcfg.draft_window),
+                checkpoint_path=self.config.model.draft_checkpoint_path,
+                target_vocab=self.spec.vocab_size,
+                device=self.device,
+                target_has_checkpoint=bool(
+                    self.config.model.checkpoint_path
+                ),
+            )
+            self.drafter = self.draft_model.draft_for
+        self.total_spec_drafted = 0
+        self.total_spec_accepted = 0
+        self.total_spec_rounds = 0
+        # the penalty histogram on the device, keyed by a membership
+        # signature (rebuilt from the host token lists when membership
+        # changes, updated by each round otherwise)
+        self._spec_pen: Optional[Dict[str, Any]] = None
+        # the membership's min-token and logit-bias arrays on the device
+        self._spec_mt: Optional[Dict[str, Any]] = None
+        self._compiled_spec: set = set()
 
     # ------------------------------------------------------------ lifecycle
 
@@ -1374,6 +1533,25 @@ class EngineCore:
         # proactive prefix-cache trim: keep truly-free pages above the
         # evict watermark so allocation never pays the eviction walk
         self.scheduler.maybe_trim()
+        if self.spec_k > 0 and not self.spec_suspended:
+            # chunks dispatched while a brownout suspended speculation
+            # are folded into host state before a round reads the last
+            # tokens and positions; the rounds move tokens and positions
+            # behind the decode state's back, so its signature is dropped
+            # and the next chunk after a suspension reloads it
+            if self._pending_chunks:
+                self._process_chunks(drain=True)
+            self._decode_signature_cache = None
+            worked = self._admit_and_prefill()
+            worked = self._tick_speculative() or worked
+            if (
+                self.integrity is not None
+                and not worked
+                and not self.scheduler.has_work()
+            ):
+                # idle-tick checksum sweep, speculative path
+                self.integrity.idle_tick(self)
+            return worked
         worked = self._admit_and_prefill()
 
         active = self._running_seqs()
@@ -2240,6 +2418,239 @@ class EngineCore:
             if not drain:
                 break
 
+    # ---------------------------------------------------------- speculative
+
+    def _ngram_drafter(self, seq: Sequence, k: int) -> List[int]:
+        """The default drafter: prompt lookup over the sequence's own
+        history, with an index that grows with it."""
+        index = getattr(seq, "_ngram_index", None)
+        if index is None or index.ngram != self.spec_ngram:
+            index = NgramIndex(self.spec_ngram)
+            seq._ngram_index = index  # incremental; dies with the seq
+        return index.draft(seq.prompt_ids + seq.output_ids, k)
+
+    def _tick_speculative(self) -> bool:
+        """One speculative round (``device.speculative_k`` > 0): draft up
+        to k tokens a sequence, verify them all in ONE forward, and
+        append each row's accepted run plus the model's bonus token.  A
+        round advances a sequence by 1..k+1 tokens; with no drafts it is
+        exactly a decode step.  Host-driven and eager (acceptance is
+        data-dependent, so positions feed back through the host): the
+        round's width S is the drafted maximum rounded up to a power of
+        two, and the page-table width the live maximum rounded the same
+        way."""
+        active = self._running_seqs()
+        if not active:
+            return False
+        S = self.spec_k + 1
+        if not self.scheduler.prepare_decode(active, horizon=S):
+            return True  # preemption changed membership; retry next tick
+        active = self._running_seqs()
+        if not active:
+            return True
+        B = self.max_slots
+        max_len = self.config.model.max_model_len
+        if (
+            self.draft_model is not None
+            and self.draft_model.total_draft_calls == 0
+        ):
+            # the drafter's first call may build a kernel: a compile
+            # beat, so the watchdog does not judge it against
+            # step_stall_s
+            self._beat("draft", compiling=True)
+        tokens = np.zeros((B, S), np.int32)
+        positions0 = np.zeros((B,), np.int32)
+        input_lens = np.ones((B,), np.int32)
+        active_mask = np.zeros((B,), bool)
+        temps = np.zeros((B,), np.float32)
+        top_ps = np.ones((B,), np.float32)
+        top_ks = np.zeros((B,), np.int32)
+        seeds = np.full((B,), -1, np.int64)
+        steps = np.zeros((B,), np.int32)
+        for seq in active:
+            slot = seq.slot
+            row = self._page_tables_np[slot]
+            row[:] = 0
+            row[: len(seq.pages)] = seq.pages
+            tokens[slot, 0] = seq.output_ids[-1]
+            positions0[slot] = seq.total_len - 1
+            active_mask[slot] = True
+            temps[slot] = seq.params.temperature
+            top_ps[slot] = seq.params.top_p
+            top_ks[slot] = seq.params.top_k
+            if seq.params.seed is not None:
+                seeds[slot] = seq.params.seed
+            steps[slot] = seq.num_generated
+            # acceptance + bonus never exceeds input_len, so capping the
+            # input at the remaining budget and length bounds overshoot
+            room = min(
+                S,
+                max(1, seq.params.max_tokens) - seq.num_generated,
+                max_len - seq.total_len + 1,
+            )
+            if room > 1:
+                # greedy and sampled sequences both draft
+                draft = self.drafter(seq, room - 1)
+                if draft:
+                    tokens[slot, 1 : 1 + len(draft)] = draft
+                    input_lens[slot] = 1 + len(draft)
+        # a round with few drafts runs a narrower verify: widths are
+        # powers of two, so a no-draft round costs a decode step
+        S_round = 1 << (max(1, int(input_lens.max())) - 1).bit_length()
+        S_round = max(1, min(S, S_round))
+        # the context window bucketed to the live maximum (a power of two
+        # in pages): K3 reads the table only below each row's length, the
+        # plain version gathers the whole width
+        w_needed = max(len(seq.pages) for seq in active)
+        width = self._page_tables_np.shape[1]
+        if w_needed < width:
+            width = min(width, 1 << (max(1, w_needed) - 1).bit_length())
+            width = max(width, w_needed)
+        host: Dict[str, Any] = {}
+
+        def row_host() -> Dict[str, Any]:
+            if not host:
+                host.update(self._row_host(B, ((s.slot, s) for s in active)))
+            return host
+
+        want_pen = any(s.params.has_penalties for s in active)
+        if want_pen:
+            sig = tuple((s.seq_id, s.slot, s.preempt_count) for s in active)
+            if self._spec_pen is None or self._spec_pen["sig"] != sig:
+                h = row_host()
+                self._spec_pen = {
+                    "sig": sig,
+                    "pen": tuple(map(self._dev, (
+                        h["counts"], h["freq_pens"], h["pres_pens"]))),
+                }
+        else:
+            self._spec_pen = None
+        mt_sig = tuple((s.seq_id, s.slot) for s in active)
+        if self._spec_mt is None or self._spec_mt["sig"] != mt_sig:
+            h = row_host()
+            self._spec_mt = {"sig": mt_sig}
+            for name in ("min_tok", "bias"):
+                self._spec_mt[name] = (
+                    None if h[name] is None
+                    else tuple(map(self._dev, h[name]))
+                )
+        faults.check("decode_step")
+        # stale-wake epochs for the readback below (a stall declared
+        # while this thread waits may checkpoint and replay these)
+        spec_epochs = {s.seq_id: s.preempt_count for s in active}
+        start = time.perf_counter()
+        num_lp = self._num_logprobs(active)
+        all_greedy = self._all_greedy(active, num_lp)
+        spec_key = (S_round, width, num_lp, all_greedy, want_pen)
+        fresh = spec_key not in self._compiled_spec
+        self._beat("spec_verify", compiling=fresh, chunk=S_round,
+                   batch=len(active))
+        self._compiled_spec.add(spec_key)
+        sampling = {
+            "temps": self._dev(temps),
+            "top_ps": self._dev(top_ps),
+            "top_ks": self._dev(top_ks),
+            "seeds": self._dev(seeds) if (seeds >= 0).any() else None,
+            "steps": self._dev(steps),
+            "min_tok": self._spec_mt["min_tok"],
+            "bias": self._spec_mt["bias"],
+        }
+        t0 = time.perf_counter()
+        model_toks, accepted, lp_data = _spec_verify_step(
+            self.params, self.spec,
+            self._dev(np.ascontiguousarray(tokens[:, :S_round])),
+            self._dev(positions0), self._dev(input_lens),
+            self.k_pages, self.v_pages,
+            self._dev(np.ascontiguousarray(self._page_tables_np[:, :width])),
+            self._dev(active_mask), self._generator, sampling,
+            pen=self._spec_pen["pen"] if want_pen else None,
+            num_logprobs=num_lp, all_greedy=all_greedy,
+        )
+        self._dispatched("spec_verify", spec_key, fresh, t0,
+                         trigger="spec_width")
+        self.total_spec_rounds += 1
+        readback = _Readback(model_toks, accepted,
+                             *(lp_data if lp_data is not None else ()))
+        self._beat("spec_readback", chunk=S_round, batch=len(active))
+        # the perf split of the one wait: the event wait (device_s),
+        # then the copy out (readback_s)
+        device_t0 = time.perf_counter()
+        readback.wait()
+        device_s = time.perf_counter() - device_t0
+        toks_np, acc_np, *lps = readback.result()
+        lp_np = None
+        if lp_data is not None:
+            # step-major, so _attach_logprob's [step][slot] applies
+            lp_np = (lps[0].T, np.transpose(lps[1], (1, 0, 2)),
+                     np.transpose(lps[2], (1, 0, 2)))
+        spec_s = time.perf_counter() - start
+        readback_s = time.perf_counter() - device_t0 - device_s
+        self.perf.phase("device", device_s)
+        self.perf.phase("readback", readback_s)
+        if self.perf.enabled:
+            self.perf.note_decode(
+                steps=1,
+                ctx_tokens=sum(s.total_len for s in active),
+                device_s=device_s,
+            )
+        metrics.observe_with_exemplar(
+            metrics.ENGINE_STEP_TIME.labels(kind="decode"),
+            spec_s,
+            trace_id=next(
+                (s.trace.trace_id for s in active
+                 if s.trace is not None and s.trace.trace_id),
+                None,
+            ),
+        )
+        self.flight.record_tick(
+            "spec_verify",
+            batch=len(active),
+            chunk=S_round,
+            step_s=round(spec_s, 6),
+            device_s=round(device_s, 6),
+            readback_s=round(readback_s, 6),
+            kv_used=self.allocator.num_used,
+            kv_free=self.allocator.num_free,
+            queue_depth=len(self.scheduler.waiting),
+        )
+        detok_t0 = time.perf_counter()
+        delivered = 0
+        # appends under the readback lock, each sequence checked against
+        # the epoch taken at dispatch (see _admit_and_prefill)
+        with self._readback_lock:
+            for seq in active:
+                if (
+                    seq.status is not SeqStatus.RUNNING
+                    or seq.preempt_count != spec_epochs[seq.seq_id]
+                ):
+                    continue
+                slot = seq.slot
+                self.total_spec_drafted += int(input_lens[slot]) - 1
+                self.total_spec_accepted += int(acc_np[slot])
+                # model_toks[:, j] for j < accepted IS draft j+1; position
+                # `accepted` holds the bonus token
+                for j in range(int(acc_np[slot]) + 1):
+                    token = int(toks_np[slot, j])
+                    if lp_np is not None and seq.params.logprobs:
+                        self._attach_logprob(seq, lp_np, j, slot)
+                    seq.append_token(token)
+                    self.total_decode_tokens += 1
+                    delivered += 1
+                    self._maybe_finish(seq, token)
+                    if seq.status is not SeqStatus.RUNNING:
+                        break
+        self.perf.phase("detok", time.perf_counter() - detok_t0)
+        self.perf.note_tokens(delivered)
+        self.total_steps += 1
+        return True
+
+    def set_spec_suspended(self, flag: bool) -> None:
+        """Brownout L3 (admission.py): suspend or resume speculative
+        decoding without a rebuild.  Safe from any thread (a bool store):
+        the loop reads the flag every tick, and the first round after a
+        resume folds the decode chunks in flight."""
+        self.spec_suspended = bool(flag)
+
     # ------------------------------------------------------------- logprobs
 
     def lp_entry(self, tid: int, lp: float, top) -> Dict[str, Any]:
@@ -2554,4 +2965,34 @@ class EngineCore:
                 if self.integrity is not None
                 else {}
             ),
+            **(
+                {"speculative": self._spec_stats()}
+                if self.spec_k > 0
+                else {}
+            ),
         }
+
+    def _spec_stats(self) -> Dict[str, Any]:
+        """``get_stats()["speculative"]``: the reference's keys, plus
+        the verify rounds run."""
+        out: Dict[str, Any] = {
+            "k": self.spec_k,
+            "drafter": (
+                f"draft-model:{self.draft_model.spec.name}"
+                if self.draft_model is not None
+                else f"ngram:{self.spec_ngram}"
+            ),
+        }
+        if self.draft_model is not None:
+            out["draft_calls"] = self.draft_model.total_draft_calls
+        out.update(
+            drafted=self.total_spec_drafted,
+            accepted=self.total_spec_accepted,
+            acceptance_rate=round(
+                self.total_spec_accepted / max(1, self.total_spec_drafted),
+                3,
+            ),
+            rounds=self.total_spec_rounds,
+            suspended=self.spec_suspended,
+        )
+        return out

@@ -57,7 +57,8 @@ def params_from_jax(
     ``q_packed`` and f32 scales kept as they are, never cast to
     ``dtype``.  A Gemma-2 tree carries its sandwich norms
     (``pre_ffn_norm``, ``post_ffn_norm``) and, with tied embeddings, no
-    ``lm_head``."""
+    ``lm_head``.  The encoder's tree (models/encoder.py, ``spec`` an
+    encoder) carries over leaf for leaf the same way."""
     if spec.is_moe:
         raise NotImplementedError(
             "MoE is not ported yet (ROADMAP queue 1, item 9)"

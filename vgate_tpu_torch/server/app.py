@@ -10,7 +10,7 @@ A copy of vgate_tpu/server/app.py over the port's engine:
 ``torch.profiler`` trace).  Routes whose backing is not ported yet stay
 unregistered (ROADMAP queue 1): ``/debug/pod`` and ``/admin/replicas*``
 with the SIGUSR1 replica drain (items 10 and 11).  ``/v1/embeddings``
-answers 501 on ``torch_cuda`` until the encoder is ported (item 8).
+serves the backend's encoder (models/encoder.py).
 Engine + batcher construction happens in ``on_startup``, not at module
 import.
 
@@ -37,7 +37,7 @@ from pydantic import ValidationError
 from vgate_tpu_torch import metrics
 from vgate_tpu_torch.admission import tier_rank
 from vgate_tpu_torch.batcher import RequestBatcher
-from vgate_tpu_torch.config import NotPortedError, VGTConfig, get_config
+from vgate_tpu_torch.config import VGTConfig, get_config
 from vgate_tpu_torch.engine import VGTEngine
 from vgate_tpu_torch.errors import (
     ClientDisconnectError,
@@ -1467,11 +1467,6 @@ async def embeddings(request: web.Request) -> web.Response:
             f"embedding request exceeded its deadline ({timeout_s:.3f}s)",
             "timeout_error",
         )
-    except NotPortedError as exc:
-        # no encoder on this engine yet: a typed refusal, never mock
-        # vectors passed off as embeddings
-        _journal_fail(request, idem_key)
-        return _error(501, str(exc), "not_implemented_error")
     except BaseException:
         _journal_fail(request, idem_key)
         raise
