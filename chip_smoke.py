@@ -46,7 +46,16 @@ engine drafting with Qwen2.5-0.5B-Instruct, each run's launches exact
 (K3 = 28 x verify rounds, K1 none), after K3 and K3-int8 were held to
 their plain version and timed at the verify widths (S 1..8); (8)
 bge-base-en-v1.5 embeddings of 64 inputs over the three buckets against
-a plain fp32 forward.  Each phase prints the graphs it captured, their
+a plain fp32 forward; (9) last, Mixtral-8x7B-Instruct at full width on
+the one card with int8 weights, its experts included (quantized a layer
+at a time as they are drawn), and a bf16 pool: the burst and the prefix
+traffic, K4 launched exactly 897 times a forward pass (each expert's
+gate, up and down one at a time), its logits held to a plain forward
+over the same padded passes, then a W8A8 engine (``int8_native``) over
+the same weights serving the burst with K4 on the lm_head alone, after
+K4 and K5 were held to their plain versions and timed at the expert
+shapes.  ``python3 chip_smoke.py mixtral`` runs the build and (9)
+alone.  Each phase prints the graphs it captured, their
 capture time and their memory pool's bytes.  It prints the card's
 name and power limit, one JSON line of per-kernel numbers and, last,
 ``{"ok": true, "device": {...}}``.  Any
@@ -73,6 +82,7 @@ MODEL = "Qwen/Qwen2.5-7B-Instruct"
 H100_BYTES_PER_S = 3.35e12  # HBM3, SXM data sheet
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16
 H100_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
+H100_INT8_OPS = 1979e12  # dense tensor-core int8
 KERNEL_TOL = 1e-2  # bf16 kernel vs fp32 plain on the same bf16 inputs
 F32_TOL = 1e-4  # f32 kernel vs f32 plain: the same sums in another order
 # K4/K5 with f32 out: bf16 x int narrow products are exact in fp32, so
@@ -1432,30 +1442,137 @@ def reference_logits(params, spec, tokens, attn):
     return dec._logits(params, spec, x[:, -1])
 
 
+def staged_logits(params, spec, stages, attn):
+    """Last-token logits of a plain forward that runs the kernel path's
+    passes as they ran: ``stages`` is a list of ``(tokens [1, S], n,
+    routes)``, each a pass over a padded batch of ``S`` rows whose first
+    ``n`` are real, starting after the real tokens of the stages before
+    it.  Each pass's queries attend the earlier passes' real keys and its
+    own (causal, keys up to ``n``) through the plain ``attn``, and each
+    pass's MLP sees its own ``[1, S]`` rows.  A MoE layer's capacity
+    comes from that shape, so this is how a plain forward routes as the
+    engine's prompt, suffix and decode passes do.  ``routes`` (a MoE
+    pass's routing as the kernel pass chose it, one entry a layer, from
+    ``recorded_routing``) is replayed in place of the plain forward's
+    own, so a token that sits near a tie between two experts goes where
+    the kernel path sent it and only the arithmetic differs."""
+    from vgate_tpu_torch.models import decoder as dec
+
+    dev = stages[0][0].device
+    xs = [dec._embed(params, spec, t) for t, _, _ in stages]
+    starts = [sum(n for _, n, _ in stages[:i]) for i in range(len(stages))]
+    real = dec._route
+    try:
+        for l in range(spec.num_layers):
+            lp = dec.layer_params(params, l)
+            keys, values = [], []
+            for i, ((tok, n, routes), P) in enumerate(zip(stages, starts)):
+                S = tok.shape[1]
+                pos = (P + torch.arange(S, device=dev))[None]
+                q, k, v = dec.qkv(xs[i], lp, spec, pos)
+                qf = torch.cat([q.new_zeros((1, P, *q.shape[2:])), q], 1)
+                out = attn(qf, torch.cat(keys + [k], 1),
+                           torch.cat(values + [v], 1),
+                           torch.tensor([P + n], dtype=torch.int32,
+                                        device=dev),
+                           **dec.attn_options(spec, l))[:, P:]
+                if routes is not None:
+                    dec._route = replayed_route(routes[l])
+                xs[i] = dec._finish_layer(xs[i], out, lp, spec)
+                dec._route = real
+                keys.append(k[:, :n])
+                values.append(v[:, :n])
+    finally:
+        dec._route = real
+    tok, n, _ = stages[-1]
+    return dec._logits(params, spec, xs[-1][:, n - 1])
+
+
+@contextlib.contextmanager
+def recorded_routing():
+    """Every MoE layer's routing (``decoder._route``: gate values and
+    expert ids) while the block runs, in call order: a forward pass
+    appends one entry a layer."""
+    from vgate_tpu_torch.models import decoder as dec
+
+    real, routes = dec._route, []
+
+    def route(xt, router, k):
+        out = real(xt, router, k)
+        routes.append(out)
+        return out
+
+    dec._route = route
+    try:
+        yield routes
+    finally:
+        dec._route = real
+
+
+def replayed_route(route):
+    """A stand-in for ``decoder._route`` that returns ``route``, the
+    routing recorded for the same rows (checked by shape)."""
+    def fixed(xt, router, k):
+        vals, idx = route
+        check(tuple(idx.shape) == (xt.shape[0], k),
+              f"replayed routing {tuple(idx.shape)} for {xt.shape[0]} rows")
+        return vals, idx
+
+    return fixed
+
+
+def plain_w8a8(x, w, out_dtype):
+    """W8A8 (W4A8 on a packed weight) computed apart from the port's
+    code: each row of ``x`` quantized to int8 by its absmax / 127 with
+    round half to even, its product with the weight's integers in fp64
+    (exact: every sum stays below 2^53), times the row's scale and the
+    weight's ``[out]`` scale, then the cast."""
+    from vgate_tpu_torch.ops.quant import PackedQTensor, unpack_int4
+
+    x32 = x.float()
+    amax = x32.abs().amax(-1, keepdim=True).clamp(min=1e-8)
+    x_scale = amax / torch.full_like(amax, 127.0)
+    x_q = torch.clamp(torch.round(x32 / x_scale), -127, 127)
+    q = unpack_int4(w.q_packed) if isinstance(w, PackedQTensor) else w.q
+    acc = x_q.double() @ q.double()
+    return (acc * x_scale.double() * w.scale.double()).to(out_dtype)
+
+
 @contextlib.contextmanager
 def plain_matmuls():
-    """The decoder's quantized projections through the plain versions of
-    K4/K5 instead of the kernels, for the plain forwards the kernel path
-    is held to (plain weights are unaffected)."""
+    """The decoder's quantized projections (MoE experts one at a time
+    included) through the plain versions of K4/K5 instead of the
+    kernels, and W8A8/W4A8 projections through ``plain_w8a8`` instead of
+    the port's int8 products, for the plain forwards the kernel path is
+    held to (plain weights are unaffected)."""
     from vgate_tpu_torch.models import decoder as dec
     from vgate_tpu_torch.ops.kernels import quant_matmul as qm
     from vgate_tpu_torch.ops.quant import PackedQTensor, QTensor
 
-    real = dec.weighted_einsum
+    real, real_experts = dec.weighted_einsum, dec.int8_native_experts
 
-    def plain(subscripts, x, w, preferred_element_type=None):
+    def plain(subscripts, x, w, preferred_element_type=None,
+              int8_native=False):
         out_dtype = preferred_element_type or x.dtype
+        if int8_native and isinstance(w, (QTensor, PackedQTensor)):
+            return plain_w8a8(x, w, out_dtype)
         if isinstance(w, QTensor):
             return qm.int8_matmul_plain(x, w.q, w.scale, out_dtype)
         if isinstance(w, PackedQTensor):
             return qm.int4_matmul_plain(x, w.q_packed, w.scale, out_dtype)
         return real(subscripts, x, w, preferred_element_type)
 
-    dec.weighted_einsum = plain
+    def experts(subscripts, x, w):
+        return torch.stack([
+            plain_w8a8(x[e], type(w)(*(part[e] for part in w)), x.dtype)
+            for e in range(x.shape[0])
+        ])
+
+    dec.weighted_einsum, dec.int8_native_experts = plain, experts
     try:
         yield
     finally:
-        dec.weighted_einsum = real
+        dec.weighted_einsum, dec.int8_native_experts = real, real_experts
 
 
 def pooled_attention(base, pooled_from):
@@ -1485,7 +1602,11 @@ class LogitsCheck:
     forwards of one sequence are computed once.  With int8 pools the
     rows that read the pool in the kernel path (from ``pooled_from``)
     attend quantized K/V in the plain forwards too; quantized weights go
-    through the plain versions of K4/K5 there."""
+    through the plain versions of K4/K5 there (``plain_matmuls``).  A
+    MoE model's plain forwards run the kernel path's own passes with its
+    routing replayed (``staged_logits``): otherwise a token near a tie
+    between two experts goes to either in two forwards that differ only
+    in rounding, and the floor grows to the size of the logits."""
 
     def __init__(self, core) -> None:
         self.core = core
@@ -1493,7 +1614,7 @@ class LogitsCheck:
         self.report: dict = {}
         self._refs: dict = {}
 
-    def _plain(self, seq, pooled_from):
+    def _plain(self, seq, pooled_from, stages=None):
         from vgate_tpu_torch.ops.attention import (
             causal_prefill_attention,
             flash_prefill_attention,
@@ -1502,6 +1623,8 @@ class LogitsCheck:
         if not self.kv_int8:
             pooled_from = None
         key = (tuple(seq[0].tolist()), pooled_from)
+        if stages is not None:
+            key = tuple((tuple(t[0].tolist()), n) for t, n, _ in stages)
         if key not in self._refs:
             params, spec = self.core.params, self.core.spec
             attns = [causal_prefill_attention, flash_prefill_attention]
@@ -1509,14 +1632,21 @@ class LogitsCheck:
                 attns = [pooled_attention(a, pooled_from) for a in attns]
             with plain_matmuls():
                 self._refs[key] = tuple(
-                    reference_logits(params, spec, seq, a) for a in attns
+                    reference_logits(params, spec, seq, a) if stages is None
+                    else staged_logits(params, spec, stages, a)
+                    for a in attns
                 )
         return self._refs[key]
 
-    def __call__(self, what: str, got, seq, pooled_from=None) -> int:
+    def __call__(self, what: str, got, seq, pooled_from=None,
+                 stages=None) -> int:
         """Compare ``got`` [1, V] with the plain forward over ``seq``
-        [1, n]; returns the plain argmax."""
-        ref, alt = self._plain(seq, pooled_from)
+        [1, n] (with ``stages``, the staged plain forward over the kernel
+        path's own padded passes and routing, ``staged_logits``; bf16
+        pools only); returns the plain argmax."""
+        check(stages is None or not self.kv_int8,
+              "staged plain forwards take bf16 pools")
+        ref, alt = self._plain(seq, pooled_from, stages)
         check(bool(torch.isfinite(got).all()), f"{what} logits not finite")
         err = float((got - ref).abs().max())
         floor = float((alt - ref).abs().max())
@@ -1573,17 +1703,26 @@ def check_model_logits(core, text: str) -> dict:
     tok[:, :n] = seq
     sl = torch.tensor([n], dtype=torch.int32, device=dev)
     compare = LogitsCheck(core)
+    # a MoE forward routes by the pass's padded shape: the plain forward
+    # runs the same passes with the same routing (staged_logits)
+    moe = spec.is_moe
     with torch.no_grad():
-        got = prefill_forward(core.params, spec, tok, sl, kp, vp,
-                              pt[:, : S // ps])
-        nxt = compare("prefill", got, seq)
-        got = decode_forward(
-            core.params, spec,
-            torch.tensor([nxt], dtype=torch.int32, device=dev),
-            torch.tensor([n], dtype=torch.int32, device=dev), kp, vp, pt,
-        )
+        with recorded_routing() as prompt_routes:
+            got = prefill_forward(core.params, spec, tok, sl, kp, vp,
+                                  pt[:, : S // ps])
+        stages = [(tok, n, prompt_routes)]
+        nxt = compare("prefill", got, seq, stages=stages if moe else None)
+        with recorded_routing() as step_routes:
+            got = decode_forward(
+                core.params, spec,
+                torch.tensor([nxt], dtype=torch.int32, device=dev),
+                torch.tensor([n], dtype=torch.int32, device=dev), kp, vp,
+                pt,
+            )
         nxt_t = torch.tensor([[nxt]], dtype=torch.int32, device=dev)
-        compare("decode", got, torch.cat([seq, nxt_t], 1), pooled_from=n)
+        stages.append((nxt_t, 1, step_routes))
+        compare("decode", got, torch.cat([seq, nxt_t], 1), pooled_from=n,
+                stages=stages if moe else None)
     return compare.report
 
 
@@ -1622,8 +1761,10 @@ def check_suffix_logits(core, text: str) -> dict:
             pages = take(S // ps)
             tok = torch.zeros((1, S), dtype=torch.int32, device=dev)
             tok[:, :start] = seq[:, :start]
-            prefill_forward(core.params, spec, tok, i32([start]), kp, vp,
-                            i32([pages]))
+            with recorded_routing() as routes:
+                prefill_forward(core.params, spec, tok, i32([start]), kp,
+                                vp, i32([pages]))
+            stages = [(tok, start, routes)]
             shared = pages[: start // ps]
             unaligned = start % ps != 0
             S = bucket(n - start)
@@ -1634,12 +1775,15 @@ def check_suffix_logits(core, text: str) -> dict:
                 copy_page_prefix(vp, src, own[0], start % ps)
             tok = torch.zeros((1, S), dtype=torch.int32, device=dev)
             tok[:, : n - start] = seq[:, start:]
-            got = prefill_suffix_forward(
-                core.params, spec, tok, i32([start]), i32([n - start]), kp,
-                vp, i32([own[: S // ps + int(unaligned)]]),
-                i32([shared + own]), unaligned=unaligned,
-            )
-            compare(what, got, seq, pooled_from=start)
+            with recorded_routing() as routes:
+                got = prefill_suffix_forward(
+                    core.params, spec, tok, i32([start]), i32([n - start]),
+                    kp, vp, i32([own[: S // ps + int(unaligned)]]),
+                    i32([shared + own]), unaligned=unaligned,
+                )
+            stages.append((tok, n - start, routes))
+            compare(what, got, seq, pooled_from=start,
+                    stages=stages if spec.is_moe else None)
     return compare.report
 
 
@@ -4076,6 +4220,419 @@ def phase_agreement(a: dict, b: dict) -> dict:
             **agreement(b["streams"], a["streams"])}
 
 
+# ---------------------------------------------------------- Mixtral MoE
+
+MIXTRAL = "mistralai/Mixtral-8x7B-Instruct-v0.1"
+# K4 and K5 at Mixtral's expert shapes: the capacity of a decode step at
+# 32 slots (16 rows) and of a 2 x 1,024-token prompt pass (1,024 rows),
+# gate/up 4096 -> 14336 and down 14336 -> 4096
+EXPERT_SHAPES = [(16, 4096, 14336), (16, 14336, 4096), (1024, 4096, 14336),
+                 (1024, 14336, 4096)]
+# (what, rows, in, out, out dtype): K4/K5 at the expert shapes, then at
+# Mixtral's other projections: q/o and k/v at a decode step's 32 rows
+# and a 2 x 1,024-token prompt pass's 2,048, and the f32 lm_head
+MIXTRAL_QMM_SHAPES = (
+    [("expert", r, i, o, torch.bfloat16) for r, i, o in EXPERT_SHAPES]
+    + [("mixtral q/o", 32, 4096, 4096, torch.bfloat16),
+       ("mixtral k/v", 32, 4096, 1024, torch.bfloat16),
+       ("mixtral lm_head", 32, 4096, 32000, torch.float32),
+       ("mixtral q/o", 2048, 4096, 4096, torch.bfloat16),
+       ("mixtral k/v", 2048, 4096, 1024, torch.bfloat16)])
+
+
+def check_mixtral_matmuls(dev) -> dict:
+    """K4 (int8) and K5 (int4) at ``MIXTRAL_QMM_SHAPES``: held to the
+    plain version (KERNEL_TOL, QMM_F32_TOL for f32 out), then timed three
+    times in turns with the library yardstick (one bf16 ``torch.mm`` on
+    the weight dequantized beforehand), with the bound; one line each."""
+    from vgate_tpu_torch.ops.kernels import quant_matmul as qm
+    from vgate_tpu_torch.ops.quant import unpack_int4
+
+    out = {}
+    for bits, name, kernel, plain in (
+            (8, "int8_matmul", qm.int8_matmul, qm.int8_matmul_plain),
+            (4, "int4_matmul", qm.int4_matmul, qm.int4_matmul_plain)):
+        for label, rows, in_dim, out_dim, dtype in MIXTRAL_QMM_SHAPES:
+            f32 = dtype == torch.float32
+            what = (f"{name} at {label} {rows}x{in_dim}x{out_dim}"
+                    + (" f32" if f32 else ""))
+            x, w = qmm_case(rows, in_dim, out_dim, bits, 70, dev)
+            vals = w.q if bits == 8 else w.q_packed
+            run = lambda: kernel(x, vals, w.scale,  # noqa: E731
+                                 out_dtype=dtype)
+            got = run()
+            expect = plain(x, vals, w.scale, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype, f"{what} wrote {got.dtype}")
+            err = within(got, expect, what,
+                         QMM_F32_TOL if f32 else KERNEL_TOL)
+            del got, expect
+            q = w.q if bits == 8 else unpack_int4(w.q_packed)
+            wd = (q.float() * w.scale).bfloat16()
+            del q
+            library = ((lambda: torch.mm(x, wd, out_dtype=dtype)) if f32
+                       else (lambda: torch.mm(x, wd)))
+            ms, library_ms = [], []
+            for _ in range(3):
+                ms.append(time_ms(run, iters=20))
+                library_ms.append(time_ms(library, iters=20))
+            bound, by = qmm_bound(rows, in_dim, out_dim, bits, 4 if f32 else 2)
+            mid, lib_mid = sorted(ms)[1], sorted(library_ms)[1]
+            line = {
+                "ms": mid, "ms_runs": ms, "library_ms": lib_mid,
+                "library_ms_runs": library_ms, "bound_ms": bound,
+                "bound_by": by, "bound_share": bound / mid,
+                "vs_library": mid / lib_mid, "max_abs_err": err,
+                "weight_gb_s": in_dim * out_dim * bits / 8 / mid / 1e6,
+                "plain_ms": time_ms(
+                    lambda: plain(x, vals, w.scale, out_dtype=dtype),
+                    iters=3),
+            }
+            print(f"  {what}: " + json.dumps(line), flush=True)
+            out[what] = line
+            del x, w, wd
+            torch.cuda.empty_cache()
+    out.update(check_w8a8_products(dev))
+    return out
+
+
+def mixtral_attention_shapes(dev) -> None:
+    """K1, K2 and K3 at Mixtral-8x7B's shapes (32/8 heads, hd 128, pages
+    of 32), each held to its plain version at KERNEL_TOL and timed beside
+    its bound and library yardstick, a line each: K1 at the phase's 32
+    slots with contexts 1..2048, K2 on a 2 x 1,024-token prompt pass, K3
+    on 4 slots of a 512-token chunk over a 1,024-token prefix."""
+    from vgate_tpu_torch.ops import attention as plain
+    from vgate_tpu_torch.ops.kernels.paged_decode import (
+        paged_decode_attention as k1,
+    )
+
+    H, KV, hd, ps = 32, 8, 128, 32
+    B, pps = 32, 64
+    q, k, v, pt, sl = decode_inputs(B, H, KV, hd, ps, pps, DECODE_LENS, 81,
+                                    dev)
+    shape = f"B={B} H={H} KV={KV} hd={hd} ps={ps} ctx=1..2048"
+    got = thrice(lambda: k1(q, k, v, pt, sl), f"K1 at mixtral-8x7b {shape}")
+    expect = plain.paged_decode_attention(q.float(), k.float(), v.float(),
+                                          pt, sl)
+    torch.cuda.synchronize()
+    within(got, expect, f"paged decode at mixtral-8x7b [{shape}]")
+    library, lib = sdpa_decode(q, k, v, pt, sl)
+    torch.cuda.synchronize()
+    within(got, lib, f"paged decode at mixtral-8x7b [{shape}] vs SDPA")
+    library_ms = time_ms(library, iters=20)
+    del library, lib, got, expect
+    bound, _ = decode_bound(DECODE_LENS, B, H, KV, hd, ps)
+    time_k1(k1, q, k, v, pt, sl, {}, bound, library_ms,
+            f"mixtral-8x7b [{shape}]")
+    del q, k, v
+    B, S = 2, 1024
+    time_prefill(*prefill_inputs(B, S, H, KV, hd, 82, dev),
+                 torch.full((B,), S, dtype=torch.int32, device=dev),
+                 f"mixtral-8x7b [B={B} S={S} H={H} KV={KV} hd={hd}]")
+    B, S, prefix = 4, 512, 1024
+    time_suffix(dev, B, S, H, KV, hd, ps, prefix, 83,
+                f"mixtral-8x7b [B={B} S={S} prefix={prefix} H={H} KV={KV} "
+                f"hd={hd} ps={ps}]")
+    torch.cuda.empty_cache()
+
+
+def check_w8a8_products(dev) -> dict:
+    """The W8A8 int8 x int8 -> int32 product (``torch._int_mm``, a
+    library call) at ``EXPERT_SHAPES``, on the weight as the port stores
+    it (``[in, out]`` row-major) and on a column-major copy (in
+    contiguous): both equal the exact product, each timed three times in
+    turns, beside the bytes bound of the int8 weight."""
+    from vgate_tpu_torch.ops.quant import int8_mm
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(71)
+    for rows, in_dim, out_dim in EXPERT_SHAPES:
+        what = f"W8A8 int8 product at expert {rows}x{in_dim}x{out_dim}"
+        xq = torch.randint(-127, 128, (max(rows, 32), in_dim),
+                           generator=gen, device=dev, dtype=torch.int8)
+        xq[rows:] = 0
+        wq = torch.randint(-127, 128, (in_dim, out_dim), generator=gen,
+                           device=dev, dtype=torch.int8)
+        wcol = wq.t().contiguous().t()
+        row = lambda: int8_mm(xq[:rows], wq)  # noqa: E731
+        col = lambda: torch._int_mm(xq, wcol)  # noqa: E731
+        exact = bool(torch.equal(
+            row()[:2].cpu(), xq[:2].cpu().int() @ wq.cpu().int()))
+        check(exact, f"{what}: the int8 product is not the exact sum")
+        try:
+            same = bool(torch.equal(row(), col()[:rows]))
+        except RuntimeError as exc:  # a layout the library refuses
+            same, col = repr(exc)[:200], None
+        row_ms, col_ms = [], []
+        for _ in range(3):
+            row_ms.append(time_ms(row, iters=20))
+            if col is not None:
+                col_ms.append(time_ms(col, iters=20))
+        # the int8 weight and activations read once, the int32 out written
+        t_bytes = (in_dim * out_dim + rows * in_dim + 4 * rows * out_dim) \
+            / H100_BYTES_PER_S * 1e3
+        t_ops = 2 * rows * in_dim * out_dim / H100_INT8_OPS * 1e3
+        line = {"row_major_ms": sorted(row_ms)[1], "row_major_runs": row_ms,
+                "col_major_ms": sorted(col_ms)[1] if col_ms else None,
+                "col_major_runs": col_ms, "col_major_equal": same,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        print(f"  {what}: " + json.dumps(line), flush=True)
+        out[what] = line
+        del xq, wq, wcol
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_moe_launches(launches: dict, stats: dict, stats0: dict,
+                       layers: int, per_pass: int, what: str) -> dict:
+    """A MoE phase's exact launch counts on bf16 pools: K1 once a layer
+    a decode step, K2 + K3 once a layer a prompt or suffix pass, K4
+    ``per_pass`` times a forward pass (4 + 3 x experts a layer and the
+    lm_head, or the lm_head alone under W8A8), nothing else."""
+    steps = stats["steps"] - stats0["steps"]
+    passes = stats["prompt_passes"] - stats0["prompt_passes"]
+    k1 = launches["paged_decode_attention"]
+    k2 = launches["flash_prefill_attention"]
+    k3 = launches["paged_multitok_attention"]
+    k4 = launches["int8_matmul"]
+    check(steps > 0 and k1 == layers * steps,
+          f"{what}: {k1} K1 launches for {steps} decode steps")
+    check(passes > 0 and k2 + k3 == layers * passes,
+          f"{what}: K2 {k2} + K3 {k3} launches for {passes} passes")
+    check(k4 == per_pass * (steps + passes),
+          f"{what}: {k4} K4 launches for {steps + passes} forward passes, "
+          f"not {per_pass} each")
+    for name in ("int4_matmul", "paged_decode_attention_int8",
+                 "paged_multitok_attention_int8",
+                 "paged_decode_attention_blocked"):
+        check(launches[name] == 0, f"{what}: {name} launched")
+    return {"decode_steps": steps, "prompt_passes": passes,
+            "int8_matmul_per_pass": per_pass}
+
+
+def check_moe_layer(core, rows=(32, 2048, -2048)) -> dict:
+    """One MoE layer's products at full width on the engine's layer-0
+    weights, on the same bf16 input of ``abs(rows)`` tokens (a decode
+    step at 32 slots; a 2 x 1,024-token prompt pass; negative: the same
+    pass whose second half repeats one row, as pad rows of one token do,
+    so two experts get more than their capacity and tokens are dropped):
+    ``_moe_mlp`` and the q/k/v and o projections as the engine runs them
+    (K4 per expert, or with ``int8_native`` the W8A8 int8 products)
+    against the same functions under ``plain_matmuls`` (K4's plain
+    version; W8A8 as ``plain_w8a8``).  The router runs the same fp32 ops
+    in both, so both route alike and drop the same tokens, and only the
+    products differ: each output within 4 bf16 steps of its largest
+    value.  This holds W8A8 tightly: end to end its per-token rounding
+    of the activations makes the plain-vs-plain floor large."""
+    from vgate_tpu_torch.models import decoder as dec
+    from vgate_tpu_torch.ops.kernels import quant_matmul as qm
+
+    spec, dev = core.spec, core.device
+    lp = dec.layer_params(core.params, 0)
+    gen = torch.Generator(device=dev).manual_seed(72)
+    K, E = spec.experts_per_token, spec.num_experts
+    i8 = spec.int8_native
+
+    def forward(x):
+        q, k, v = dec._project_qkv(x, lp, spec)
+        o = dec.weighted_einsum("...h,hd->...d", x[:, :spec.q_dim],
+                                lp["o"]["w"], int8_native=i8)
+        return {"moe": dec._moe_mlp(x, lp, spec), "q": q, "k": k, "v": v,
+                "o": o}
+
+    out = {}
+    for n in rows:
+        T = abs(n)
+        x = torch.randn((T, spec.hidden_size), generator=gen,
+                        device=dev).bfloat16()
+        if n < 0:
+            x[T // 2:] = x[T // 2]
+        before = qm.int8_matmul.launches
+        with torch.no_grad():
+            got = forward(x)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            launches = qm.int8_matmul.launches - before
+            with plain_matmuls():
+                ref = forward(x)
+        capacity = max(4, int((T * K / E) * 2.0 + 0.5))
+        top = torch.softmax(x.float() @ lp["router"].float(), -1).topk(K)
+        counts = torch.bincount(top.indices.flatten(), minlength=E)
+        dropped = int((counts - capacity).clamp(min=0).sum())
+        what = f"rows {T}" + (", half repeated" if n < 0 else "")
+        out[what] = {"capacity": capacity, "dropped_assignments": dropped,
+                     "int8_matmul_launches": launches}
+        for name in got:
+            err = float((got[name].float() - ref[name].float()).abs().max())
+            scale = float(ref[name].float().abs().max())
+            tol = 4 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+            out[what][name] = {"max_abs_err": err, "tol": tol,
+                               "max_value": scale}
+            check(bool(torch.isfinite(got[name]).all()) and err <= tol,
+                  f"MoE layer {name} at {what} off its plain version: "
+                  f"{out[what][name]}")
+        # (an expert takes every token when capacity >= T: no drop then)
+        check(n > 0 or capacity >= T or dropped > 0,
+              f"MoE layer at {what}: no token dropped")
+        if dev.type == "cuda":
+            # K4 once an expert's gate/up/down and once q/k/v/o; W8A8
+            # runs none of them
+            expect = 0 if i8 else 3 * E + 4
+            check(launches == expect,
+                  f"MoE layer at {what}: {launches} K4 launches, not "
+                  f"{expect}")
+    return out
+
+
+def mixtral_config(model: str, device: str, int8_native: bool = False):
+    """Mixtral with int8 weights (experts included) and a bf16 pool, the
+    prefix cache on and chunked prefill at 512."""
+    return engine_config(model, device, quantization="int8",
+                         prefill_chunk=512, int8_native=int8_native)
+
+
+def mixtral_path(model: str = MIXTRAL, device: str = "cuda") -> dict:
+    """Mixtral-8x7B at full width on one card: int8 weights (its experts
+    quantized a layer at a time as they are drawn from seed 0, so the
+    bf16 tree never exists) and a bf16 pool.  The engine's warm-up, the
+    9-request burst, the prefix phase's traffic (hits, copy-on-write and
+    chunks through K3), exact launch counts (K4 897 a forward pass at 32
+    layers, K1/K2/K3 32 a pass), every decode chunk a graph replay, the
+    logits of a prompt pass, a decode step and two suffix passes against
+    a plain forward over the same padded passes with the same routing
+    (``staged_logits``), one layer's products at full width
+    (``check_moe_layer``), a profile of a warm burst; then a second
+    engine over the same weights with ``int8_native`` (W8A8: K4 runs
+    only the lm_head) serving the burst, its logits held to a plain W8A8
+    forward, its layer products to ``plain_w8a8``, and its streams
+    compared with the first engine's (printed)."""
+    from vgate_tpu_torch.backends.base import SamplingParams
+    from vgate_tpu_torch.runtime.engine_core import EngineCore
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine, core = start_engine(mixtral_config(model, device), "mixtral int8")
+    out = {"init_s": time.perf_counter() - t0,
+           "load_s": core.load_time_s, "kv_pages": core.geometry.num_pages}
+    out["weights_gb"] = sum(t.numel() * t.element_size()
+                            for t in leaves(core.params)) / 1e9
+    if device == "cuda":
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["warmup"] = warm_up(core, "mixtral int8")
+    texts = prompts()
+    greedy = SamplingParams(max_tokens=32, temperature=0.0)
+    sampled = SamplingParams(max_tokens=32, temperature=0.8, top_p=0.9,
+                             top_k=50, seed=1234)
+    batch = (texts + [texts[3]], [greedy] * 8 + [sampled])
+    L, E = core.spec.num_layers, core.spec.num_experts
+    stats0 = core.get_stats()
+    try:
+        results, cold = serve(engine, batch)
+        system, tails, cow, long = prefix_texts()
+        t0 = time.perf_counter()
+        served = list(results)
+        served += engine.generate_batch([system + tails[0]], [greedy])
+        served += engine.generate_batch([system + t for t in tails[1:]],
+                                        [greedy] * 4)
+        served += engine.generate_batch([cow, long], [greedy] * 2)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out["prefix_traffic_s"] = time.perf_counter() - t0
+        launches = read_launches()
+        check_results(served, core)
+        stats = check_settled(core)
+        pc = stats["prefix_cache"]
+        check(pc["hit_tokens"] > 0, f"no prefix hit: {pc}")
+        check(pc["cow_copies"] >= 1, f"no copy-on-write: {pc}")
+        check(pc["chunked_prefills"] >= 1, f"no chunked prefill: {pc}")
+        if device == "cuda":  # no kernel runs on the CPU
+            check_graphed(stats, "the mixtral phase", since=stats0)
+            out["launch_counts"] = check_moe_launches(
+                launches, stats, stats0, L, (4 + 3 * E) * L + 1,
+                "the mixtral phase")
+            check(launches["paged_multitok_attention"] > 0,
+                  "K3 was not launched on the prefix traffic")
+        out.update({
+            "requests": len(served),
+            "cold_burst": cold,
+            "prefix_cache": pc,
+            "kv_token_capacity": stats["kv_token_capacity"],
+            "decode_graphs": stats["decode_graphs"],
+            "launches": launches,
+        })
+        out["logits"] = check_model_logits(core, texts[2])
+        out["logits"].update(check_suffix_logits(core, system + tails[0]))
+        out["moe_layer"] = check_moe_layer(core)
+        if device == "cuda":
+            out["capacity_at_one_budget"] = page_capacity(core)
+            # a warm burst (its prompts now hit)
+            out["profile"] = profile_burst(engine, batch, core)
+        params = core.params
+    finally:
+        engine.shutdown()
+    del engine, core
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # W8A8 over the same weights, on a fresh engine
+    t0 = time.perf_counter()
+    w8 = EngineCore(mixtral_config(model, device, int8_native=True),
+                    params=params)
+    w8.start()
+    w8_out = {"init_s": time.perf_counter() - t0,
+              "kv_pages": w8.geometry.num_pages}
+    try:
+        check(w8.spec.int8_native, "int8_native is off on the W8A8 engine")
+        w8_out["warmup"] = warm_up(w8, "mixtral W8A8")
+        stats0 = w8.get_stats()
+        w8_results, w8_cold = serve(again_engine(w8), batch)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = read_launches()
+        check_results(w8_results, w8)
+        stats = check_settled(w8)
+        if device == "cuda":
+            check_graphed(stats, "the mixtral W8A8 phase", since=stats0)
+            w8_out["launch_counts"] = check_moe_launches(
+                launches, stats, stats0, L, 1, "the mixtral W8A8 phase")
+        w8_out.update({
+            "cold_burst": w8_cold,
+            "decode_graphs": stats["decode_graphs"],
+            "launches": launches,
+            "agreement_with_dequant_engine": agreement(
+                [r.token_ids for r in w8_results[:8]],
+                [r.token_ids for r in results[:8]]),
+            "logits": check_model_logits(w8, texts[2]),
+            "moe_layer": check_moe_layer(w8),
+        })
+    finally:
+        w8.stop()
+    del w8, params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["w8a8"] = w8_out
+    return out
+
+
+def print_mixtral(card: str, mixtral: dict) -> dict:
+    """Print the Mixtral phase's lines (the int8 engine, its profile, the
+    W8A8 engine); returns the report without the profile."""
+    profile = mixtral.pop("profile", None)
+    w8 = mixtral["w8a8"]
+    shown = {k: v for k, v in mixtral.items() if k != "w8a8"}
+    print(f"mixtral-8x7b int8 weights, bf16 KV on {card}: "
+          + json.dumps(shown), flush=True)
+    if profile is not None:
+        print_profile("mixtral-8x7b int8, a warm burst", card, profile)
+    print(f"mixtral-8x7b W8A8 (int8_native) on {card}: " + json.dumps(w8),
+          flush=True)
+    return mixtral
+
+
 def print_profile(what: str, card: str, profile: dict) -> None:
     print(f"profile of {what} on {card}: busy "
           f"{profile['device_busy_ms']:.1f} of {profile['wall_ms']:.1f} ms "
@@ -4142,6 +4699,14 @@ def main() -> None:
                                 r"loads", line) is not None,
                       f"{kernel_name} spills: {line}")
 
+    if sys.argv[1:] == ["mixtral"]:
+        # the Mixtral phase alone, after the build and K1-K5 at its
+        # shapes (a shorter run while that phase is worked on)
+        check_mixtral_matmuls(dev)
+        mixtral_attention_shapes(dev)
+        print_mixtral(card, mixtral_path())
+        print(card_line())
+        return
     if sys.argv[1:] == ["recovery"]:
         # the recovery phase alone, after the build (a shorter run while
         # that phase is worked on); with no argument every phase runs
@@ -4161,6 +4726,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     kernels += [check_quant_matmul(dev, 8), check_quant_matmul(dev, 4)]
     torch.cuda.empty_cache()
+    # K1-K5 at Mixtral-8x7B's shapes
+    check_mixtral_matmuls(dev)
+    mixtral_attention_shapes(dev)
     kernels.append(check_paged_decode_blocked(dev))
     gemma_kernel_shapes(dev)
     print("host swap page round trip at 7B (1, 16, 17 pages; bit-exact, "
@@ -4276,6 +4844,10 @@ def main() -> None:
     torch.cuda.empty_cache()
     print("gemma-2-9b K1 phase vs K6 phase: "
           + json.dumps(phase_agreement(phases[1], phases[8])), flush=True)
+    memory("the gemma-2-9b phases")
+    mixtral = print_mixtral(card, mixtral_path())
+    runs += [mixtral, mixtral["w8a8"]]
+    memory("the mixtral phase")
     for k in kernels:
         # launches of every path, each counted from 0 just before it ran
         k["launches"] = sum(run["launches"].get(k["name"], 0)

@@ -33,9 +33,7 @@ def test_defaults_and_sections():
         {"device": {"sp": 2}},
         {"device": {"pp": 2}},
         {"device": {"ep": 2}},
-        {"model": {"model_id": "tiny-moe"}},
-        {"device": {"int8_native": True}},
-        {"model": {"model_id": "tiny-moe", "quantization": "int8"}},
+        {"model": {"model_id": "tiny-moe"}, "device": {"ep": 2}},
     ],
     ids=lambda s: next(iter(s.values())).__repr__()[:40],
 )
@@ -45,6 +43,30 @@ def test_unported_switches_raise(sections):
         sections["model"] = {"model_id": "tiny-dense", **sections["model"]}
     with pytest.raises(NotPortedError, match="not ported yet"):
         load_config(**sections)
+
+
+@pytest.mark.parametrize(
+    "sections",
+    [
+        {"model": {"model_id": "tiny-moe"}},
+        {"device": {"int8_native": True}},
+        {"model": {"model_id": "tiny-moe", "quantization": "int8"}},
+        {"model": {"model_id": "mistralai/Mixtral-8x7B-Instruct-v0.1",
+                   "quantization": "int8"}},
+        {"model": {"model_id": "mistralai/Mixtral-8x7B-Instruct-v0.1",
+                   "quantization": "int4"}, "device": {"int8_native": True}},
+    ],
+    ids=lambda s: next(iter(s.values())).__repr__()[:40],
+)
+def test_moe_and_w8a8_switches_load(sections):
+    """MoE models (quantized or not) and ``device.int8_native`` (W8A8)
+    load since they were ported; expert parallelism stays refused
+    (above)."""
+    sections = {"model": {"model_id": "tiny-dense"}, **sections}
+    cfg = load_config(**sections)
+    assert cfg.model.model_id == sections["model"]["model_id"]
+    assert cfg.device.int8_native == sections.get("device", {}).get(
+        "int8_native", False)
 
 
 @pytest.mark.parametrize(

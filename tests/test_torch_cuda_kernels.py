@@ -1198,3 +1198,145 @@ def test_rebuild_core_returns_memory_on_card(cuda):
         new.stop()
     finally:
         core.stop()
+
+
+# ------------------------------------------------- MoE experts and W8A8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("C", [1, 16, 130])
+def test_expert_einsum_runs_k4_k5_one_expert_at_a_time_on_card(cuda, bits,
+                                                              C):
+    """Quantized expert weights ``[E, in, out]``: ``_expert_einsum``
+    launches K4 (int8) or K5 (int4) once an expert, on that expert's 2D
+    weight and ``[out]`` scale, and equals the plain version of the same
+    kernel on each expert's rows."""
+    from vgate_tpu_torch.models import decoder as dec
+
+    rng = np.random.default_rng(bits * 100 + C)
+    E, D, F = 4, 256, 512
+    w = torch.from_numpy(
+        rng.normal(size=(1, E, D, F)).astype(np.float32) * 0.02).to(cuda)
+    qw = quant.quantize_expert_stacked(w, bits)
+    qw = type(qw)(*(part[0] for part in qw))
+    x = _bf16(rng, (E, C, D), cuda)
+    wrapper = quant_matmul.int8_matmul if bits == 8 else quant_matmul.int4_matmul
+    plain = (quant_matmul.int8_matmul_plain if bits == 8
+             else quant_matmul.int4_matmul_plain)
+    before = wrapper.launches
+    got = dec._expert_einsum("ecd,edf->ecf", x, qw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + E
+    assert got.shape == (E, C, F) and got.dtype == torch.bfloat16
+    for e in range(E):
+        expect = plain(x[e], qw[0][e], qw.scale[e], out_dtype=torch.float32)
+        torch.testing.assert_close(got[e].float(), expect, atol=KERNEL_TOL,
+                                   rtol=KERNEL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 7, 16, 17, 32, 200])
+def test_int8_product_matches_the_plain_int32_product_on_card(cuda, rows):
+    """``int8_mm`` (``torch._int_mm`` with rows padded past 16), on a
+    row-major weight and on one in ``k_major`` layout, equals the exact
+    int32 product on the CPU, and the W8A8 and W4A8 partials
+    and the weight quantizers on the card equal theirs on the CPU bit
+    for bit."""
+    rng = np.random.default_rng(rows)
+    xq = torch.from_numpy(
+        rng.integers(-127, 128, (rows, 512)).astype(np.int8))
+    wq = torch.from_numpy(rng.integers(-127, 128, (512, 384)).astype(np.int8))
+    exact = xq.to(torch.int32) @ wq.to(torch.int32)
+    got = quant.int8_mm(xq.to(cuda), wq.to(cuda))
+    assert got.dtype == torch.int32 and got.shape == (rows, 384)
+    assert torch.equal(got.cpu(), exact)
+    # the W8A8 layout (the contracted dim contiguous)
+    wk = wq.t().contiguous().t().to(cuda)
+    assert torch.equal(quant.int8_mm(xq.to(cuda), wk).cpu(), exact)
+    x = torch.from_numpy(rng.normal(size=(rows, 512)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(512, 384)).astype(np.float32))
+    for bits in (8, 4):
+        qw = quant.quantize_tensor(w, bits)
+        on_card = quant.int8_native_partial(
+            "...d,dh->...h", x.to(cuda), type(qw)(*(p.to(cuda) for p in qw)))
+        assert torch.equal(on_card.cpu(),
+                           quant.int8_native_partial("...d,dh->...h", x, qw))
+    with pytest.raises(ValueError):
+        quant.int8_mm(xq[:, :500].contiguous().to(cuda), wq[:500].to(cuda))
+    # the quantizers divide as the reference does, on the card too
+    for bits in (8, 4):
+        for on_card, on_cpu in (
+                (quant.quantize_tensor(w.to(cuda), bits),
+                 quant.quantize_tensor(w, bits)),
+                (quant.quantize_expert_stacked(w.reshape(2, 2, 128, 384)
+                                               .to(cuda), bits),
+                 quant.quantize_expert_stacked(w.reshape(2, 2, 128, 384),
+                                               bits))):
+            for a, b in zip(on_card, on_cpu):
+                assert torch.equal(a.cpu(), b)
+
+
+def _moe_card_engine(quantization, int8_native=False, decode_graphs=True):
+    """A ``tiny-moe`` engine widened as ``CARD_SPEC`` with 8 experts
+    (top 2: its decode steps and prompt passes drop tokens)."""
+    import dataclasses
+
+    from vgate_tpu_torch.config import load_config
+    from vgate_tpu_torch.models.specs import TINY_MOE
+    from vgate_tpu_torch.runtime.engine_core import EngineCore
+
+    cfg = load_config(
+        model={"model_id": "tiny-moe", "dtype": "bfloat16",
+               "max_model_len": 256, "quantization": quantization},
+        device={"device": "cuda", "kv_page_size": 16, "kv_num_pages": 96,
+                "max_batch_slots": 4, "prefill_buckets": [32, 64, 128],
+                "prefix_cache": False, "int8_native": int8_native},
+        logging={"level": "WARNING"},
+    )
+    spec = dataclasses.replace(TINY_MOE, num_experts=8, **CARD_SPEC)
+    return EngineCore(cfg, spec=spec, decode_graphs=decode_graphs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantization,int8_native", [
+    (None, False), ("int8", False), ("int4", False), ("int8", True),
+])
+def test_moe_decode_graphs_match_the_eager_chunk_on_card(cuda, quantization,
+                                                         int8_native):
+    """A MoE engine's decode chunks captured as graphs (the dispatch
+    inside: sort, scatter, per-expert products, combine) repeat the same
+    body run eagerly token for token; the launches are exact: K1 once a
+    layer a step, K2 once a layer a prompt pass, and the dequant matmul
+    4 + 3 x 8 times a layer plus the lm_head a pass (only the lm_head
+    with ``int8_native``)."""
+    core = _moe_card_engine(quantization, int8_native)
+    requests = _card_requests(41, logprobs=False)
+    wrappers = {"K1": paged_decode.paged_decode_attention,
+                "K2": flash_prefill.flash_prefill_attention,
+                "K4": quant_matmul.int8_matmul,
+                "K5": quant_matmul.int4_matmul}
+    L, E = core.spec.num_layers, core.spec.num_experts
+    per_pass = 1 if int8_native else (4 + 3 * E) * L + 1
+    mm = {"int8": "K4", "int4": "K5"}.get(quantization)
+    runs = {}
+    try:
+        for graphs in (True, False):
+            core.decode_graphs = graphs
+            before = {k: w.launches for k, w in wrappers.items()}
+            stats0 = core.get_stats()
+            runs[graphs] = _drive(core, requests)
+            stats = core.get_stats()
+            steps = stats["steps"] - stats0["steps"]
+            passes = stats["prompt_passes"] - stats0["prompt_passes"]
+            got = {k: w.launches - before[k] for k, w in wrappers.items()}
+            expect = {"K1": L * steps, "K2": L * passes, "K4": 0, "K5": 0}
+            if mm:
+                expect[mm] = per_pass * (steps + passes)
+            assert steps > 0 and got == expect
+            assert stats["used_pages"] == 0
+        assert core.get_stats()["decode_graphs"]["captured"] >= 1
+    finally:
+        core.stop()
+    for g, e in zip(runs[True], runs[False]):
+        assert g.generated_ids == e.generated_ids

@@ -4,7 +4,9 @@ Both engines get the same weights (the JAX ``init_params`` tree carried
 over with ``params_from_jax``) and the same shape settings (the JAX
 ``tpu`` section is the port's ``device`` section).  Greedy decoding must
 be token-identical, for a concurrent batch on fewer slots than prompts
-and for a tight pool that forces preemption; no page may leak.
+and for a tight pool that forces preemption; no page may leak.  The
+two-engine tests queue each wave and drive both engines' ``_tick``
+themselves, with no engine threads.
 """
 
 import numpy as np
@@ -65,6 +67,21 @@ def _engines(**shape_overrides):
     return j, t
 
 
+def _drive(core, prompts, params):
+    """Queue every request of the wave, then tick the engine to the end
+    with no engine thread: admission and preemption then follow the same
+    event sequence in both engines whatever the host's load (with
+    threads, a busy host can split a wave across ticks in one engine
+    only)."""
+    seqs = [core.submit_prompt(p, sp) for p, sp in zip(prompts, params)]
+    for _ in range(10_000):
+        if all(seq.done_event.is_set() for seq in seqs):
+            break
+        core._tick()
+    assert all(seq.done_event.is_set() for seq in seqs)
+    return seqs
+
+
 def _run(core, prompts, params):
     core.start()
     try:
@@ -80,10 +97,10 @@ def test_greedy_concurrent_batch_token_identical():
     """6 prompts on 4 slots, 24 tokens each at page size 4: the batch
     crosses page boundaries and refills freed slots mid-decode."""
     j, t = _engines()
-    jseqs = _run(j, PROMPTS, [JSamplingParams(max_tokens=24,
-                                              temperature=0.0)] * 6)
-    tseqs = _run(t, PROMPTS, [SamplingParams(max_tokens=24,
-                                             temperature=0.0)] * 6)
+    jseqs = _drive(j, PROMPTS, [JSamplingParams(max_tokens=24,
+                                                temperature=0.0)] * 6)
+    tseqs = _drive(t, PROMPTS, [SamplingParams(max_tokens=24,
+                                               temperature=0.0)] * 6)
     for js, ts in zip(jseqs, tseqs):
         assert ts.generated_ids == js.generated_ids
         assert ts.finish_reason == js.finish_reason
@@ -98,10 +115,10 @@ def test_greedy_preemption_token_identical():
     recompute path must reproduce the JAX engine's tokens exactly."""
     j, t = _engines(kv_num_pages=15, decode_chunk=1)
     prompts = ["preempt probe one", "preempt probe two", "preempt pr three"]
-    jseqs = _run(j, prompts, [JSamplingParams(max_tokens=10,
-                                              temperature=0.0)] * 3)
-    tseqs = _run(t, prompts, [SamplingParams(max_tokens=10,
-                                             temperature=0.0)] * 3)
+    jseqs = _drive(j, prompts, [JSamplingParams(max_tokens=10,
+                                                temperature=0.0)] * 3)
+    tseqs = _drive(t, prompts, [SamplingParams(max_tokens=10,
+                                               temperature=0.0)] * 3)
     assert t.scheduler.total_preemptions >= 1
     assert t.scheduler.total_preemptions == j.scheduler.total_preemptions
     for js, ts in zip(jseqs, tseqs):

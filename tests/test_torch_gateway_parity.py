@@ -63,7 +63,7 @@ def port_params(monkeypatch):
     """The port's engine core builds the JAX seed-0 tree, as the
     reference engine does."""
     def load(spec, checkpoint_path, device, dtype, seed=0,
-             log_digests=False):
+             log_digests=False, quantization=None):
         assert spec.name == TINY_DENSE.name and seed == 0
         tree = j_init(TINY_DENSE, None, np.float32)
         return params_from_jax(jax.tree.map(np.asarray, tree), TINY_DENSE)

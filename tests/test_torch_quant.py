@@ -250,6 +250,58 @@ def test_params_from_jax_carries_a_quantized_tree(bits):
                                   np.asarray(jquant["embed"]))
 
 
+def _qwen_state_dict(spec, seed=0):
+    """HF ``Qwen2ForCausalLM`` names, linear weights [out, in]."""
+    g = torch.Generator().manual_seed(seed)
+    D, F = spec.hidden_size, spec.intermediate_size
+    H, KV, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+
+    def w(*shape):
+        return torch.randn(shape, generator=g) * 0.02
+
+    sd = {"model.embed_tokens.weight": w(spec.vocab_size, D),
+          "model.norm.weight": 1 + w(D),
+          "lm_head.weight": w(spec.vocab_size, D)}
+    for i in range(spec.num_layers):
+        p = f"model.layers.{i}."
+        sd[p + "input_layernorm.weight"] = 1 + w(D)
+        sd[p + "post_attention_layernorm.weight"] = 1 + w(D)
+        for name, out in (("q", H * hd), ("k", KV * hd), ("v", KV * hd)):
+            sd[p + f"self_attn.{name}_proj.weight"] = w(out, D)
+            sd[p + f"self_attn.{name}_proj.bias"] = w(out)
+        sd[p + "self_attn.o_proj.weight"] = w(D, H * hd)
+        sd[p + "mlp.gate_proj.weight"] = w(F, D)
+        sd[p + "mlp.up_proj.weight"] = w(F, D)
+        sd[p + "mlp.down_proj.weight"] = w(D, F)
+    return sd
+
+
+@pytest.mark.parametrize("quantization", ["int8", "int4"])
+def test_params_from_getter_quantizes_a_dense_tree_while_loading(
+        quantization):
+    """A dense checkpoint with ``quantization`` is quantized a layer at
+    a time as it loads: bit for bit the reference's tree from the same
+    state dict, quantized afterwards."""
+    from vgate_tpu.runtime.weights import (
+        params_from_torch_state_dict as j_from_state_dict,
+    )
+    from vgate_tpu_torch.runtime.weights import params_from_getter
+
+    assert TINY_DENSE.qkv_bias and not TINY_DENSE.tie_embeddings
+    sd = _qwen_state_dict(TINY_DENSE)
+    jquant = jq.quantize_decoder_params(
+        jax.tree.map(jnp.asarray, j_from_state_dict(J_TINY, sd)), J_TINY,
+        tq.BITS[quantization])
+    got = params_from_getter(TINY_DENSE, lambda n: sd[n].detach(),
+                             dtype=torch.float32, quantization=quantization)
+    for name in ("q", "k", "v", "o", "gate", "up", "down"):
+        _assert_weights_equal(got["layers"][name]["w"],
+                              jquant["layers"][name]["w"])
+    _assert_weights_equal(got["lm_head"], jquant["lm_head"])
+    np.testing.assert_array_equal(got["layers"]["q"]["b"].numpy(),
+                                  np.asarray(jquant["layers"]["q"]["b"]))
+
+
 # ------------------------------------------------ the engines
 
 

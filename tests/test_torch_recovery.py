@@ -592,7 +592,7 @@ def test_resumed_streams_match_the_reference_supervisor(monkeypatch):
     tree = j_init(TINY_DENSE, None, np.float32)
 
     def port_load(spec, checkpoint_path, device, dtype, seed=0,
-                  log_digests=False):
+                  log_digests=False, quantization=None):
         return params_from_jax(jax.tree.map(np.asarray, tree), TINY_DENSE)
 
     monkeypatch.setattr(port_engine_core, "load_or_init_params", port_load)

@@ -129,7 +129,7 @@ def _pool_parts(pool):
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
-@pytest.mark.parametrize("model", ["tiny-dense", "tiny-gemma2"])
+@pytest.mark.parametrize("model", ["tiny-dense", "tiny-gemma2", "tiny-moe"])
 def test_spec_verify_forward_matches_jax(model, kind):
     """Rows that start mid-page, input_lens below S, an inactive slot;
     Gemma-2's window of 8 on layer 0 and its softcaps.  The logits of
@@ -552,6 +552,17 @@ def test_prefix_cache_and_int8_kv_match_jax():
 
 def test_gemma2_window_matches_jax():
     e = Engines(model_id="tiny-gemma2")
+    try:
+        e.wave([(REPEAT + REPEAT, _greedy(16)), ("abc abc abc", _greedy(12))])
+        e.spec_stats()
+    finally:
+        e.stop()
+
+
+def test_moe_matches_jax():
+    """``tiny-moe``: a verify pass routes its B x S candidate rows through
+    the experts in one dispatch, as the reference's does."""
+    e = Engines(model_id="tiny-moe")
     try:
         e.wave([(REPEAT + REPEAT, _greedy(16)), ("abc abc abc", _greedy(12))])
         e.spec_stats()

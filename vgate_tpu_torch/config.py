@@ -137,10 +137,13 @@ class DeviceConfig:
     speculative_k: int = 0
     speculative_ngram: int = 2
     draft_window: int = 128
-    # reference switches the port cannot serve yet: any non-default
-    # value raises NotPortedError (see _check)
-    # W8A8 (dynamic int8 activations): pure jnp in the reference
+    # W8A8/W4A8 (ops/quant.py int8_native_einsum): per-token int8
+    # activations against the int8 (or int4) weights, an exact int32
+    # product; takes effect only with model.quantization, as in the
+    # reference (the engine logs its warning otherwise)
     int8_native: bool = False
+    # reference switches the port cannot serve yet: any value > 1
+    # raises NotPortedError (see _check)
     dp: int = 1
     tp: int = 1
     sp: int = 1
@@ -466,8 +469,6 @@ def _check(cfg: VGTConfig) -> None:
         raise ValueError("prefix_cache.min_share_pages must be >= 1")
     if not 0.0 <= pc.evict_watermark < 1.0:
         raise ValueError("prefix_cache.evict_watermark must be in [0, 1)")
-    if d.int8_native:
-        raise _not_ported("device.int8_native (W8A8)", "queue 1, item 9")
     for axis in ("dp", "tp", "sp", "pp", "ep"):
         # tp=0 is the reference's "all devices", one device here
         if getattr(d, axis) > 1:
@@ -477,13 +478,6 @@ def _check(cfg: VGTConfig) -> None:
     if d.decode_block_slots < 1:
         raise ValueError("device.decode_block_slots must be >= 1")
     spec = spec_for_model_id(m.model_id)
-    if spec.is_moe and m.quantization:
-        raise _not_ported(
-            f"model.quantization={m.quantization!r} of MoE model "
-            f"{spec.name} (expert quantization)", "queue 1, item 9"
-        )
-    if spec.is_moe:
-        raise _not_ported(f"MoE model {spec.name}", "queue 1, item 9")
     if spec.is_encoder:
         # the reference has no decoder for an encoder either: it is
         # served behind /v1/embeddings

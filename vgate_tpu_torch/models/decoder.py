@@ -1,5 +1,6 @@
-"""The dense decoder families (Qwen2.x / Llama-3 / Mistral, and Gemma-2
-with its sliding windows, softcaps and sandwich norms) in PyTorch.
+"""The decoder families (Qwen2.x / Llama-3 / Mistral dense, Mixtral MoE,
+and Gemma-2 with its sliding windows, softcaps and sandwich norms) in
+PyTorch.
 
 Parameters keep the reference's stacked layout (vgate_tpu/models/
 decoder.py ``init_params``): one dict of ``[L, ...]`` tensors, weights
@@ -21,8 +22,14 @@ every write (``kv_write``) and reach the int8 modes of K1 and K3.  With
 grid.  Speculative verification (``spec_verify_forward``) scores a
 slot's current token and its drafts in one pass through K3.  Every
 attention call takes the layer's window (``spec.layer_windows``, 0 =
-global), the attention softcap and the query scale.  MoE is not ported
-yet; the config rejects it.
+global), the attention softcap and the query scale.
+
+A MoE layer (``_moe_mlp``) routes each token to its top-k experts by
+the reference's sort-based dispatch into per-expert ``[E, capacity, D]``
+buffers, every step of it on the device without a host sync, so it runs
+inside a decode graph.  Quantized experts run K4/K5 one expert at a time
+on that expert's 2D weight; with ``spec.int8_native`` (W8A8/W4A8) every
+eligible projection but the lm_head runs the int8 product instead.
 """
 
 from __future__ import annotations
@@ -42,7 +49,14 @@ from vgate_tpu_torch.ops.kernels.paged_decode import (
 from vgate_tpu_torch.ops.kernels.paged_multitok import paged_multitok_attention
 from vgate_tpu_torch.ops.kv_quant import KVPool, kv_write
 from vgate_tpu_torch.ops.norms import rms_norm
-from vgate_tpu_torch.ops.quant import weighted_einsum
+from vgate_tpu_torch.ops.quant import (
+    BITS,
+    int8_native_experts,
+    is_quantized_weight,
+    quantize_tensor,
+    stack_layers,
+    weighted_einsum,
+)
 from vgate_tpu_torch.ops.rope import apply_rope
 
 Params = Dict[str, Any]
@@ -53,15 +67,23 @@ def init_params(
     generator: torch.Generator,
     dtype: torch.dtype = torch.bfloat16,
     device: torch.device | str = "cpu",
+    quantization: Optional[str] = None,
 ) -> Params:
     """Random-init the parameter dict (std 0.02 normal, drawn in fp32 on
     ``device`` from ``generator``); the zero-egress path benchmarks use —
-    throughput does not depend on weight values."""
-    if spec.is_moe:
-        raise NotImplementedError("MoE init is not ported yet")
+    throughput does not depend on weight values.
+
+    A dense spec draws each stacked leaf whole.  A MoE spec draws its
+    stacked weights one layer at a time, and with ``quantization``
+    (int8/int4) quantizes each layer as soon as it is drawn, into
+    preallocated narrow-int stacks, so the full-precision tree never
+    sits whole on ``device`` (Mixtral-8x7B's experts are 90 GB in bf16,
+    45 GB in int8); a dense spec's tree is quantized afterwards
+    (runtime/weights.py ``quantize_params``)."""
     D, L = spec.hidden_size, spec.num_layers
     H, KV, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     F, V = spec.intermediate_size, spec.vocab_size
+    bits = BITS[quantization] if quantization and spec.is_moe else None
 
     def normal(*shape):
         x = torch.randn(
@@ -80,16 +102,32 @@ def init_params(
         return torch.ones(shape, dtype=dtype, device=device)
 
     layers: Dict[str, Any] = {
-        "input_norm": norm_init(L, D),
-        "post_norm": norm_init(L, D),
-        "q": {"w": normal(L, D, H * hd)},
-        "k": {"w": normal(L, D, KV * hd)},
-        "v": {"w": normal(L, D, KV * hd)},
-        "o": {"w": normal(L, H * hd, D)},
-        "gate": {"w": normal(L, D, F)},
-        "up": {"w": normal(L, D, F)},
-        "down": {"w": normal(L, F, D)},
+        "input_norm": norm_init(L, D), "post_norm": norm_init(L, D),
     }
+    if spec.is_moe:
+        E = spec.num_experts
+
+        def weight(*shape, quantize=True):
+            return stack_layers(lambda l: normal(*shape), L,
+                                bits if quantize else None,
+                                expert=len(shape) == 3)
+
+        names = ("q", "k", "v", "o", "router", "gate", "up", "down")
+        shapes = ((D, H * hd), (D, KV * hd), (D, KV * hd), (H * hd, D),
+                  (D, E), (E, D, F), (E, D, F), (E, F, D))
+        for name, shape in zip(names, shapes):
+            w = weight(*shape, quantize=name != "router")
+            layers[name] = w if name == "router" else {"w": w}
+    else:
+        layers.update({
+            "q": {"w": normal(L, D, H * hd)},
+            "k": {"w": normal(L, D, KV * hd)},
+            "v": {"w": normal(L, D, KV * hd)},
+            "o": {"w": normal(L, H * hd, D)},
+            "gate": {"w": normal(L, D, F)},
+            "up": {"w": normal(L, D, F)},
+            "down": {"w": normal(L, F, D)},
+        })
     if spec.qkv_bias:
         layers["q"]["b"] = zeros(L, H * hd)
         layers["k"]["b"] = zeros(L, KV * hd)
@@ -103,7 +141,9 @@ def init_params(
         "final_norm": norm_init(D),
     }
     if not spec.tie_embeddings:
-        params["lm_head"] = normal(D, V)
+        lm_head = normal(D, V)
+        params["lm_head"] = (lm_head if bits is None
+                             else quantize_tensor(lm_head, bits))
     return params
 
 
@@ -128,9 +168,10 @@ def layer_params(params: Params, l: int) -> Params:
 
 def _project_qkv(x: torch.Tensor, lp: Params, spec: ModelSpec):
     """x: [..., D] -> q [..., H, hd], k/v [..., KV, hd]."""
-    q = weighted_einsum("...d,dh->...h", x, lp["q"]["w"])
-    k = weighted_einsum("...d,dh->...h", x, lp["k"]["w"])
-    v = weighted_einsum("...d,dh->...h", x, lp["v"]["w"])
+    i8 = spec.int8_native
+    q = weighted_einsum("...d,dh->...h", x, lp["q"]["w"], int8_native=i8)
+    k = weighted_einsum("...d,dh->...h", x, lp["k"]["w"], int8_native=i8)
+    v = weighted_einsum("...d,dh->...h", x, lp["v"]["w"], int8_native=i8)
     if spec.qkv_bias:
         q = q + lp["q"]["b"]
         k = k + lp["k"]["b"]
@@ -146,18 +187,116 @@ def _norm(x: torch.Tensor, w: torch.Tensor, spec: ModelSpec) -> torch.Tensor:
 
 
 def _act(x32: torch.Tensor, spec: ModelSpec) -> torch.Tensor:
-    """MLP activation in fp32: SiLU (Qwen/Llama) or tanh-approximate GELU
-    (Gemma's ``gelu_pytorch_tanh``)."""
+    """MLP activation in fp32: SiLU (Qwen/Llama/Mixtral) or
+    tanh-approximate GELU (Gemma's ``gelu_pytorch_tanh``)."""
     if spec.act == "gelu_tanh":
         return torch.nn.functional.gelu(x32, approximate="tanh")
     return torch.nn.functional.silu(x32)
 
 
 def _dense_mlp(x: torch.Tensor, lp: Params, spec: ModelSpec) -> torch.Tensor:
-    gate = weighted_einsum("...d,df->...f", x, lp["gate"]["w"])
-    up = weighted_einsum("...d,df->...f", x, lp["up"]["w"])
+    i8 = spec.int8_native
+    gate = weighted_einsum("...d,df->...f", x, lp["gate"]["w"],
+                           int8_native=i8)
+    up = weighted_einsum("...d,df->...f", x, lp["up"]["w"], int8_native=i8)
     act = _act(gate.float(), spec).to(x.dtype)
-    return weighted_einsum("...f,fd->...d", act * up, lp["down"]["w"])
+    return weighted_einsum("...f,fd->...d", act * up, lp["down"]["w"],
+                           int8_native=i8)
+
+
+# each expert einsum's one-expert form: a 2D [in, out] contraction
+_EXPERT_MATMUL = {"ecd,edf->ecf": "...d,df->...f",
+                  "ecf,efd->ecd": "...f,fd->...d"}
+
+
+def _expert_einsum(subscripts: str, x: torch.Tensor, w,
+                   int8_native: bool = False) -> torch.Tensor:
+    """Per-expert einsum over ``x [E, C, in]`` with plain or quantized
+    expert weights ``[E, in, out]``.  Plain weights are one batched
+    product.  A quantized weight runs one expert at a time on that
+    expert's 2D weight and ``[out]`` scale: through ``weighted_einsum``
+    (K4/K5 on the card, their plain versions on the CPU), or with
+    ``int8_native`` the W8A8/W4A8 int8 products
+    (``int8_native_experts``)."""
+    if not is_quantized_weight(w):
+        return torch.einsum(subscripts, x, w)
+    one = _EXPERT_MATMUL[subscripts]
+    if int8_native:
+        return int8_native_experts(one, x, w)
+    return torch.stack([
+        weighted_einsum(one, x[e], type(w)(*(part[e] for part in w)))
+        for e in range(x.shape[0])
+    ])
+
+
+def _route(xt: torch.Tensor, router: torch.Tensor, k: int):
+    """Each token row's top-``k`` experts: the router's softmax in fp32,
+    the ``k`` largest probabilities (the lower expert first on a tie, as
+    ``lax.top_k``) renormalized to sum to one.  Returns ``(gate_vals
+    f32 [T, k], gate_idx [T, k])``."""
+    probs = torch.softmax(xt.float() @ router.float(), dim=-1)
+    gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
+                                     stable=True)
+    gate_vals, gate_idx = gate_vals[:, :k], gate_idx[:, :k]
+    return gate_vals / gate_vals.sum(dim=-1, keepdim=True), gate_idx
+
+
+def _moe_mlp(x: torch.Tensor, lp: Params, spec: ModelSpec,
+             capacity_factor: float = 2.0) -> torch.Tensor:
+    """Top-k expert routing with the reference's sort-based dispatch.
+
+    The ``T*K`` (token, expert) assignments are stably sorted by expert
+    and scattered into per-expert ``[E, capacity + 1 trash, D]`` buffers
+    at their place in the expert's group; an assignment past an expert's
+    capacity lands in the trash column and is dropped (its residual
+    passes through).  The capacity comes from the flat ``T`` of the
+    call, pad rows included, as in the reference, so callers pass the
+    reference's padded shapes.  The router (:func:`_route`) runs in
+    fp32.  No step reads the
+    device from the host (counts by ``scatter_add_``, masks by
+    ``torch.where``), so a decode graph captures it; the combine adds
+    the K = 2 contributions of a token in the activation dtype, in
+    either order exactly."""
+    orig_shape = x.shape
+    D = orig_shape[-1]
+    xt = x.reshape(-1, D)
+    T, dev = xt.shape[0], x.device
+    E, K = spec.num_experts, spec.experts_per_token
+    capacity = max(4, int((T * K / E) * capacity_factor + 0.5))
+
+    gate_vals, gate_idx = _route(xt, lp["router"], K)
+
+    TK = T * K
+    sorted_expert, order = torch.sort(gate_idx.reshape(TK), stable=True)
+    sorted_token = torch.div(order, K, rounding_mode="floor")
+    sorted_gate = gate_vals.reshape(TK)[order]
+    counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
+        0, sorted_expert, torch.ones_like(sorted_expert)
+    )
+    starts = torch.cumsum(counts, 0) - counts  # first sorted index
+    pos = torch.arange(TK, device=dev) - starts[sorted_expert]
+    within = pos < capacity
+
+    buf = torch.zeros((E, capacity + 1, D), dtype=xt.dtype, device=dev)
+    buf[sorted_expert, torch.clamp(pos, max=capacity)] = xt[sorted_token]
+    expert_in = buf[:, :capacity]  # [E, C, D]
+    i8 = spec.int8_native
+    gate_h = _expert_einsum("ecd,edf->ecf", expert_in, lp["gate"]["w"], i8)
+    up_h = _expert_einsum("ecd,edf->ecf", expert_in, lp["up"]["w"], i8)
+    act = _act(gate_h.float(), spec).to(xt.dtype) * up_h
+    expert_out = _expert_einsum("ecf,efd->ecd", act, lp["down"]["w"], i8)
+
+    contrib = expert_out[sorted_expert, torch.clamp(pos, max=capacity - 1)]
+    contrib = torch.where(within[:, None], contrib,
+                          torch.zeros_like(contrib))
+    out = torch.zeros((T, D), dtype=xt.dtype, device=dev).index_add_(
+        0, sorted_token, contrib * sorted_gate[:, None].to(xt.dtype)
+    )
+    return out.reshape(orig_shape)
+
+
+def _mlp(x: torch.Tensor, lp: Params, spec: ModelSpec) -> torch.Tensor:
+    return _moe_mlp(x, lp, spec) if spec.is_moe else _dense_mlp(x, lp, spec)
 
 
 def _finish_layer(h, attn, lp: Params, spec: ModelSpec):
@@ -166,13 +305,14 @@ def _finish_layer(h, attn, lp: Params, spec: ModelSpec):
     attention OUTPUT before the residual add, and the MLP is wrapped in
     its own pre/post norms."""
     attn = attn.reshape(*h.shape[:-1], spec.q_dim)
-    attn_out = weighted_einsum("...h,hd->...d", attn, lp["o"]["w"])
+    attn_out = weighted_einsum("...h,hd->...d", attn, lp["o"]["w"],
+                               int8_native=spec.int8_native)
     if spec.ffn_sandwich:
         h = h + _norm(attn_out, lp["post_norm"], spec)
-        mlp = _dense_mlp(_norm(h, lp["pre_ffn_norm"], spec), lp, spec)
+        mlp = _mlp(_norm(h, lp["pre_ffn_norm"], spec), lp, spec)
         return h + _norm(mlp, lp["post_ffn_norm"], spec)
     h = h + attn_out
-    return h + _dense_mlp(_norm(h, lp["post_norm"], spec), lp, spec)
+    return h + _mlp(_norm(h, lp["post_norm"], spec), lp, spec)
 
 
 def _logits(params: Params, spec: ModelSpec, x: torch.Tensor) -> torch.Tensor:
@@ -180,7 +320,10 @@ def _logits(params: Params, spec: ModelSpec, x: torch.Tensor) -> torch.Tensor:
     model dtype (the reference's ``preferred_element_type=jnp.float32``,
     which it passes through its quantized branch too), then the final
     softcap.  Tied embeddings are never quantized; their transpose is a
-    view, which the fp32-out product takes as it is."""
+    view, which the fp32-out product takes as it is.  The lm_head never
+    takes W8A8 (``int8_native``), as in the reference: per-token
+    activation rounding could flip a greedy argmax between near-tied
+    logits."""
     x = _norm(x, params["final_norm"], spec)
     w = params["embed"].t() if spec.tie_embeddings else params["lm_head"]
     logits = weighted_einsum(

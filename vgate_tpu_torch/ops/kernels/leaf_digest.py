@@ -44,9 +44,17 @@ def _lib():
 def bits_view(x: torch.Tensor) -> torch.Tensor:
     """The leaf's elements in C order as the signed integers of their
     width (8-byte leaves are cast to float32 first, as the reference
-    does)."""
+    does).  A leaf stored with its last two dims transposed (a W8A8
+    weight in ``ops/quant.py`` ``k_major`` layout) is read in storage
+    order instead, without a copy of the leaf (an expert stack is 15 GB
+    at Mixtral's width).  Such a leaf's digest is then that of its
+    layout, not of its row-major twin: an engine digests the tree it
+    serves, after the layout, and compares only with itself."""
     if x.element_size() == 8:
         x = x.to(torch.float32)
+    if x.dim() >= 2 and not x.is_contiguous() and \
+            x.transpose(-1, -2).is_contiguous():
+        x = x.transpose(-1, -2)
     flat = x.contiguous().reshape(-1)
     return flat.view(_INT_OF_WIDTH[flat.element_size()])
 

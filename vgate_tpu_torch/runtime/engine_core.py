@@ -38,7 +38,9 @@ path — batched, bucketed prompt passes and pipelined decode chunks:
   prompt longer than ``device.prefill_chunk`` as serial suffix passes.
 * **Quantized serving**: ``model.quantization`` (int8/int4) quantizes
   the weights at load, and every projection then runs the dequant
-  matmuls (K4/K5); ``kv_cache.dtype: int8`` makes the pools int8
+  matmuls (K4/K5), or with ``device.int8_native`` the W8A8/W4A8 int8
+  products (the lm_head stays on K4/K5); a checkpoint, and a MoE
+  tree's random init, are quantized a layer at a time as they load.  ``kv_cache.dtype: int8`` makes the pools int8
   ``QuantPages`` (quantized on write, read by the int8 modes of K1/K3),
   ~1.97x the bf16 page count for one memory budget.
 * **Blocked decode**: ``device.decode_block_slots > 1`` is threaded onto
@@ -143,6 +145,7 @@ from vgate_tpu_torch.ops.kv_quant import (
     dtype_short_name,
     is_quantized,
 )
+from vgate_tpu_torch.ops.quant import int8_native_layout
 from vgate_tpu_torch.ops.sampling import (
     apply_logit_bias,
     apply_penalties,
@@ -775,6 +778,18 @@ class EngineCore:
             self.spec = dataclasses.replace(
                 self.spec, decode_block_slots=dcfg.decode_block_slots
             )
+        if self.config.model.quantization in ("int8", "int4"):
+            # W8A8/W4A8 projections, threaded on the spec as the
+            # reference does (models/decoder.py reads it)
+            self.spec = dataclasses.replace(
+                self.spec, int8_native=bool(dcfg.int8_native)
+            )
+        elif dcfg.int8_native:
+            logger.warning(
+                "device.int8_native has no effect without "
+                "model.quantization (int8 or int4) — serving stays on the "
+                "plain dtype path"
+            )
         self.device = resolve_device(dcfg.device)
         # on the card every device call of this core runs on its own
         # stream, so a successor built after a stall never queues behind
@@ -811,14 +826,25 @@ class EngineCore:
 
         load_start = time.perf_counter()
         if params is None:
+            # a checkpoint (and a MoE random init) is quantized a layer
+            # at a time as it loads: Mixtral's experts do not fit the
+            # card in bf16
             params = load_or_init_params(
                 self.spec, self.config.model.checkpoint_path, self.device,
                 self.dtype, log_digests=self.config.integrity.enabled,
+                quantization=self.config.model.quantization,
             )
         if self.config.model.quantization:
             params = quantize_params(
                 params, self.spec, self.config.model.quantization
             )
+            if self.spec.int8_native and self.device.type == "cuda":
+                # W8A8's int8 product reads its weights along the
+                # contracted dim (ops/quant.py k_major).  This rewrites
+                # the tree in place: K4/K5 refuse that layout, so a tree
+                # handed to a W8A8 engine on the card serves no
+                # dequant-matmul engine afterwards.
+                params = int8_native_layout(params)
         self.params = params
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)

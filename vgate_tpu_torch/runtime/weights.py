@@ -4,11 +4,15 @@ The port keeps the reference's stacked parameter layout (``[L, in, out]``
 weights, vgate_tpu/models/decoder.py ``init_params``), so a JAX tree
 converted to numpy maps leaf for leaf (:func:`params_from_jax`).  HF
 state dicts (``[out, in]`` linear weights) are transposed into the same
-layout (:func:`params_from_torch_state_dict`, the HF ``Qwen2ForCausalLM``
-and ``Gemma2ForCausalLM`` names of the reference's runtime/weights.py).
-Dense families only (MoE is not ported).
-:func:`quantize_params` applies ``model.quantization`` (int8/int4) to a
-loaded tree, one leaf at a time (ops/quant.py ``quantize_decoder_params``).
+layout (:func:`params_from_torch_state_dict`, the HF ``Qwen2ForCausalLM``,
+``MixtralForCausalLM`` and ``Gemma2ForCausalLM`` names of the reference's
+runtime/weights.py).  ``model.quantization`` (int8/int4) quantizes a
+checkpoint one layer at a time as it loads, and a MoE random init one
+layer at a time as it is drawn, because Mixtral-8x7B's experts do not
+fit the card in bf16; :func:`quantize_params` quantizes a tree that was
+handed in already built (a dense random init, a tree from the
+reference), one leaf at a time (ops/quant.py
+``quantize_decoder_params``).
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from vgate_tpu_torch.ops.quant import (
     PackedQTensor,
     QTensor,
     quantize_decoder_params,
+    quantize_tensor,
+    stack_layers,
 )
 
 logger = get_logger(__name__)
@@ -57,12 +63,10 @@ def params_from_jax(
     ``q_packed`` and f32 scales kept as they are, never cast to
     ``dtype``.  A Gemma-2 tree carries its sandwich norms
     (``pre_ffn_norm``, ``post_ffn_norm``) and, with tied embeddings, no
-    ``lm_head``.  The encoder's tree (models/encoder.py, ``spec`` an
-    encoder) carries over leaf for leaf the same way."""
-    if spec.is_moe:
-        raise NotImplementedError(
-            "MoE is not ported yet (ROADMAP queue 1, item 9)"
-        )
+    ``lm_head``.  A MoE tree carries its ``router`` [L, D, E] and its
+    expert stacks [L, E, in, out] (quantized: ``[L, E, out]`` scales).
+    The encoder's tree (models/encoder.py, ``spec`` an encoder) carries
+    over leaf for leaf the same way."""
 
     def conv(node):
         if isinstance(node, dict):
@@ -81,36 +85,57 @@ def params_from_getter(
     getter: TensorGetter,
     device: torch.device | str = "cpu",
     dtype: torch.dtype = torch.bfloat16,
+    quantization: Optional[str] = None,
 ) -> Params:
-    """Assemble the stacked parameter dict from HF-named tensors."""
-    if spec.is_moe:
-        raise NotImplementedError(
-            "MoE is not ported yet (ROADMAP queue 1, item 9)"
-        )
+    """Assemble the stacked parameter dict from HF-named tensors, one
+    layer at a time.  A Mixtral tree maps ``block_sparse_moe.gate`` to
+    the router and experts ``w1``/``w3``/``w2`` to gate/up/down, each
+    transposed to ``[in, out]``.  With ``quantization`` (int8/int4) the
+    projections and the lm_head are quantized as they load, a layer at a
+    time, equal to quantizing the whole tree afterwards."""
     L = spec.num_layers
     pre = "model.layers.{}."
+    bits = BITS[quantization] if quantization else None
 
     def get(name):
         return getter(name).to(device=device, dtype=dtype)
 
-    def stack(template: str, transpose: bool = False):
-        return torch.stack([
-            get(template.format(i)).t() if transpose
-            else get(template.format(i))
-            for i in range(L)
-        ]).contiguous()
+    def stack(template: str, transpose: bool = False, quantize=False):
+        def layer(i):
+            w = get(template.format(i))
+            return w.t() if transpose else w
+        return stack_layers(layer, L, bits if quantize else None)
+
+    def proj(name: str):
+        return stack(pre + name + ".weight", True, quantize=True)
 
     layers: Dict[str, Any] = {
         "input_norm": stack(pre + "input_layernorm.weight"),
         "post_norm": stack(pre + "post_attention_layernorm.weight"),
-        "q": {"w": stack(pre + "self_attn.q_proj.weight", True)},
-        "k": {"w": stack(pre + "self_attn.k_proj.weight", True)},
-        "v": {"w": stack(pre + "self_attn.v_proj.weight", True)},
-        "o": {"w": stack(pre + "self_attn.o_proj.weight", True)},
-        "gate": {"w": stack(pre + "mlp.gate_proj.weight", True)},
-        "up": {"w": stack(pre + "mlp.up_proj.weight", True)},
-        "down": {"w": stack(pre + "mlp.down_proj.weight", True)},
+        "q": {"w": proj("self_attn.q_proj")},
+        "k": {"w": proj("self_attn.k_proj")},
+        "v": {"w": proj("self_attn.v_proj")},
+        "o": {"w": proj("self_attn.o_proj")},
     }
+    if spec.is_moe:
+        moe = pre + "block_sparse_moe."
+        layers["router"] = stack(moe + "gate.weight", True)
+
+        def experts(w_name: str):
+            def layer(i):
+                return torch.stack([
+                    get(f"{moe}experts.{e}.{w_name}.weight".format(i)).t()
+                    for e in range(spec.num_experts)
+                ])
+            return stack_layers(layer, L, bits, expert=True)
+
+        layers["gate"] = {"w": experts("w1")}
+        layers["up"] = {"w": experts("w3")}
+        layers["down"] = {"w": experts("w2")}
+    else:
+        layers["gate"] = {"w": proj("mlp.gate_proj")}
+        layers["up"] = {"w": proj("mlp.up_proj")}
+        layers["down"] = {"w": proj("mlp.down_proj")}
     if spec.qkv_bias:
         layers["q"]["b"] = stack(pre + "self_attn.q_proj.bias")
         layers["k"]["b"] = stack(pre + "self_attn.k_proj.bias")
@@ -129,7 +154,9 @@ def params_from_getter(
         "final_norm": get("model.norm.weight").contiguous(),
     }
     if not spec.tie_embeddings:
-        params["lm_head"] = get("lm_head.weight").t().contiguous()
+        lm_head = get("lm_head.weight").t().contiguous()
+        params["lm_head"] = (lm_head if bits is None
+                             else quantize_tensor(lm_head, bits))
     return params
 
 
@@ -150,6 +177,7 @@ def params_from_safetensors(
     checkpoint_path: str,
     device: torch.device | str,
     dtype: torch.dtype,
+    quantization: Optional[str] = None,
 ) -> Params:
     """Load a local directory of ``*.safetensors`` shards.  Needs the
     ``safetensors`` package, imported here so the port runs without it."""
@@ -178,7 +206,7 @@ def params_from_safetensors(
             raise KeyError(f"tensor {name} missing from checkpoint")
         return index[name].get_tensor(name)
 
-    params = params_from_getter(spec, getter, device, dtype)
+    params = params_from_getter(spec, getter, device, dtype, quantization)
     logger.info(
         "checkpoint loaded",
         extra={"extra_data": {"path": checkpoint_path, "files": len(files)}},
@@ -207,9 +235,14 @@ def load_or_init_params(
     dtype: torch.dtype,
     seed: int = 0,
     log_digests: bool = False,
+    quantization: Optional[str] = None,
 ) -> Params:
     """Checkpoint when one exists on disk, random init from ``seed``
     otherwise (the zero-egress path; the init runs on ``device``).
+    ``quantization`` quantizes a checkpoint a layer at a time as it
+    loads, and a MoE random init as it is drawn; a dense random init is
+    returned unquantized (its draws stay those of the whole-leaf init)
+    for :func:`quantize_params`.
 
     ``log_digests`` (``integrity.enabled`` callers) logs the load-time
     digest summary (:func:`load_digests`) — one host pass over the tree,
@@ -218,7 +251,8 @@ def load_or_init_params(
 
     faults.check("weight_load", payload=checkpoint_path)
     if checkpoint_path and os.path.isdir(checkpoint_path):
-        params = params_from_safetensors(spec, checkpoint_path, device, dtype)
+        params = params_from_safetensors(spec, checkpoint_path, device, dtype,
+                                         quantization)
     else:
         from vgate_tpu_torch.models.decoder import init_params
 
@@ -229,7 +263,8 @@ def load_or_init_params(
         )
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        params = init_params(spec, gen, dtype=dtype, device=device)
+        params = init_params(spec, gen, dtype=dtype, device=device,
+                             quantization=quantization)
     if log_digests:
         try:
             logger.info(
@@ -247,7 +282,7 @@ def quantize_params(params: Params, spec: ModelSpec, quantization: str):
     and lm_head quantized IN PLACE, one leaf at a time, so a 7B bf16
     tree and its quantized twin never both sit whole on the card.  A
     tree whose weights are quantized already (carried from the
-    reference) is returned as it is."""
+    reference, or quantized as it loaded) is returned as it is."""
     if isinstance(params["layers"]["q"]["w"], (QTensor, PackedQTensor)):
         return params
     params = quantize_decoder_params(params, spec, bits=BITS[quantization])
