@@ -46,7 +46,7 @@ engine drafting with Qwen2.5-0.5B-Instruct, each run's launches exact
 (K3 = 28 x verify rounds, K1 none), after K3 and K3-int8 were held to
 their plain version and timed at the verify widths (S 1..8); (8)
 bge-base-en-v1.5 embeddings of 64 inputs over the three buckets against
-a plain fp32 forward; (9) last, Mixtral-8x7B-Instruct at full width on
+a plain fp32 forward; (9) Mixtral-8x7B-Instruct at full width on
 the one card with int8 weights, its experts included (quantized a layer
 at a time as they are drawn), and a bf16 pool: the burst and the prefix
 traffic, K4 launched exactly 897 times a forward pass (each expert's
@@ -54,8 +54,16 @@ gate, up and down one at a time), its logits held to a plain forward
 over the same padded passes, then a W8A8 engine (``int8_native``) over
 the same weights serving the burst with K4 on the lm_head alone, after
 K4 and K5 were held to their plain versions and timed at the expert
-shapes.  ``python3 chip_smoke.py mixtral`` runs the build and (9)
-alone.  Each phase prints the graphs it captured, their
+shapes; (10) last, the process-isolated pod on the one card: two 7B
+worker processes (each its own CUDA context, its pool sized against
+half the card) serve the burst through the backend's async surface while
+one is SIGKILLed mid-stream (its streams replay on the other; it
+respawns and passes the canary gate), then ``pod.roles`` [prefill,
+decode] hand each prompt's KV across (a 1,600-token prompt past the 64
+MiB staging floor stays where it prefilled), every greedy stream held to
+an in-process engine's and each worker's launches exact.
+``python3 chip_smoke.py mixtral`` runs the build and (9) alone, ``pod``
+the build and (10).  Each phase prints the graphs it captured, their
 capture time and their memory pool's bytes.  It prints the card's
 name and power limit, one JSON line of per-kernel numbers and, last,
 ``{"ok": true, "device": {...}}``.  Any
@@ -1936,42 +1944,16 @@ PROFILE_GROUPS = {
 }
 
 
-def kernel_wrappers() -> dict:
-    from vgate_tpu_torch.ops.kernels.flash_prefill import (
-        flash_prefill_attention,
-    )
-    from vgate_tpu_torch.ops.kernels.leaf_digest import leaf_digest
-    from vgate_tpu_torch.ops.kernels.paged_decode import (
-        paged_decode_attention,
-        paged_decode_attention_blocked,
-        paged_decode_attention_int8,
-    )
-    from vgate_tpu_torch.ops.kernels.paged_multitok import (
-        paged_multitok_attention,
-        paged_multitok_attention_int8,
-    )
-    from vgate_tpu_torch.ops.kernels.quant_matmul import (
-        int4_matmul,
-        int8_matmul,
-    )
-
-    return {w.__name__: w for w in (paged_decode_attention,
-                                    flash_prefill_attention,
-                                    paged_multitok_attention,
-                                    paged_decode_attention_int8,
-                                    paged_multitok_attention_int8,
-                                    int8_matmul, int4_matmul,
-                                    paged_decode_attention_blocked,
-                                    leaf_digest)}
-
-
 def reset_launches() -> None:
-    for wrapper in kernel_wrappers().values():
-        wrapper.launches = 0
+    from vgate_tpu_torch.ops.kernels import launch_counts
+
+    launch_counts(reset=True)
 
 
 def read_launches() -> dict:
-    return {name: w.launches for name, w in kernel_wrappers().items()}
+    from vgate_tpu_torch.ops.kernels import launch_counts
+
+    return launch_counts()
 
 
 def check_results(results, core, max_tokens: int = 32) -> None:
@@ -4618,6 +4600,424 @@ def mixtral_path(model: str = MIXTRAL, device: str = "cuda") -> dict:
     return out
 
 
+# ----------------------------------------------------------------- pod
+
+POD_TOKENS = 32
+POD_STAGGER_S = 0.4  # arrival spacing of the roles phase's burst
+# a prompt no burst prompt shares a page with, served twice (a hit)
+POD_REPEAT = ("User 8: the engine keeps the pages of a finished request "
+              "in its prefix cache, so the same prompt again is served by "
+              "a suffix pass over the cached pages. ") * 4
+K1, K2, K3 = ("paged_decode_attention", "flash_prefill_attention",
+              "paged_multitok_attention")
+
+
+def pod_engine_config(roles=(), pod: bool = True, model: str = MODEL,
+                      device: str = "cuda"):
+    """The pod phase's engines: the main path's model with the prefix
+    cache on and one prompt a pass (``prefill_batch_max`` 1).  A decode
+    chunk runs every slot at its graph's fixed width, so with one prompt
+    a pass a greedy stream is a function of its prompt alone, whichever
+    worker, batch or arrival order serves it.  ``pod`` False is the
+    in-process engine the workers are held to."""
+    sections = {"pod": {"workers": 2, "roles": list(roles)}} if pod else {}
+    return engine_config(model, device, prefill_batch_max=1,
+                         sections=sections)
+
+
+def pod_worker_stats(pod) -> dict:
+    """{worker: (epoch, stats)} of every live worker, the port-only
+    ``kernel_launches`` and ``memory`` keys included."""
+    out = {}
+    for w in pod.workers:
+        client = w.client
+        if w.alive and client is not None:
+            out[w.idx] = (w.epoch, client.call("stats", timeout=120))
+    return out
+
+
+def pod_memory(stats: dict) -> dict:
+    """Each live worker's weights, pool and peak device memory (GB)."""
+    def gb(n):
+        return None if n is None else round(n / 1e9, 2)
+
+    return {
+        str(idx): {
+            "epoch": epoch,
+            "weights_gb": gb(st["memory"]["weights_bytes"]),
+            "pool_pages": st["memory"]["pool_pages"],
+            "pool_gb": gb(st["memory"]["pool_bytes"]),
+            "budget_gb": gb(st["memory"]["budget_bytes"]),
+            "peak_gb": gb(st["memory"]["peak_bytes"]),
+        }
+        for idx, (epoch, st) in stats.items()
+    }
+
+
+def check_pod_launches(stats0: dict, stats: dict, L: int, what: str) -> dict:
+    """Each live worker's launches since the counts were set to 0 (its
+    stats then in ``stats0``; a worker booted since starts from 0): K1 =
+    L x decode steps and K2 + K3 = L x prompt passes, exactly.  Returns
+    the launches summed over the workers, and each worker's."""
+    total, each = {}, {}
+    for idx, (epoch, st) in stats.items():
+        epoch0, st0 = stats0.get(idx, (None, None))
+        base = st0 if epoch0 == epoch else {"steps": 0, "prompt_passes": 0}
+        steps = st["steps"] - base["steps"]
+        passes = st["prompt_passes"] - base["prompt_passes"]
+        n = st["kernel_launches"]
+        check(n[K1] == L * steps,
+              f"{what}, worker {idx}: K1 {n[K1]} launches for {steps} "
+              f"decode steps of {L} layers")
+        check(n[K2] + n[K3] == L * passes,
+              f"{what}, worker {idx}: K2 {n[K2]} + K3 {n[K3]} launches "
+              f"for {passes} prompt passes of {L} layers")
+        each[str(idx)] = {K1: n[K1], K2: n[K2], K3: n[K3],
+                          "decode_steps": steps, "prompt_passes": passes}
+        for name, count in n.items():
+            total[name] = total.get(name, 0) + count
+    return {"launches": total, "per_worker": each}
+
+
+def pod_backend(cfg, what: str):
+    """A ``TorchCUDABackend`` over a ``PodEngine`` (``pod.workers`` 2),
+    booted, warmed up (each worker captures its own decode graphs) and
+    with every worker's launch counts set to 0."""
+    from vgate_tpu_torch.backends.torch_backend import TorchCUDABackend
+    from vgate_tpu_torch.runtime.pod_engine import PodEngine
+
+    backend = TorchCUDABackend()
+    t0 = time.perf_counter()
+    backend.load_model(cfg)
+    pod = backend.core
+    check(isinstance(pod, PodEngine), f"{what}: the backend built no pod")
+    boot_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm_s = pod.warmup()
+    warm_wall = time.perf_counter() - t0
+    pod.reset_launches()
+    stats0 = pod_worker_stats(pod)
+    check(len(stats0) == 2, f"{what}: {len(stats0)} of 2 workers serving")
+    print(f"{what} pod up in {boot_s:.1f} s (2 workers in parallel, each "
+          f"a CUDA context of its own), warm-up {warm_wall:.1f} s "
+          f"({warm_s:.1f} s of worker time)", flush=True)
+    return backend, pod, stats0, {"boot_s": boot_s, "warmup_s": warm_wall}
+
+
+def collect_submissions(pod) -> list:
+    """The gateway-side sequences of every prompt the pod is handed, in
+    order (the backend submits through ``submit_prompt``)."""
+    seqs = []
+    real = pod.submit_prompt
+
+    def submit_prompt(prompt, params, stream_cb=None, meta=None):
+        seq = real(prompt, params, stream_cb, meta=meta)
+        seqs.append(seq)
+        return seq
+
+    pod.submit_prompt = submit_prompt
+    return seqs
+
+
+def burst_numbers(results) -> dict:
+    ttfts = sorted(r.metrics["ttft"] for r in results)
+    decode_s = max(r.metrics["gen_time"] - r.metrics["ttft"]
+                   for r in results)
+    return {"ttft_s_p50": ttfts[len(ttfts) // 2], "ttft_s_max": ttfts[-1],
+            "decode_tok_s": sum(r.num_tokens - 1 for r in results)
+            / decode_s}
+
+
+def pod_symmetric(batch) -> dict:
+    """Phase (a): ``pod.workers`` 2, all roles mixed.  The burst through
+    the backend's async surface; once a worker holding two streams has
+    streamed 2 tokens of one, it is SIGKILLed.  Its streams fold and
+    replay on the survivor; it respawns in a fresh process and context
+    and passes the canary gate before it is routed to.  Then a new
+    prompt, twice: both go to one worker (the prefix affinity), the
+    second a prefix hit there (K3)."""
+    import os
+    import signal
+
+    backend, pod, stats0, up = pod_backend(pod_engine_config(),
+                                           "symmetric")
+    try:
+        L = pod.spec.num_layers
+        seqs = collect_submissions(pod)
+        folds = {}
+        real_replay = pod._replay
+
+        def replay(seq, exclude, planned):
+            if not (seq.done_event.is_set() or seq.abort_requested):
+                folds[seq._sid] = len(seq.generated_ids)
+            return real_replay(seq, exclude, planned)
+
+        pod._replay = replay
+        kill, done = {}, threading.Event()
+
+        def killer() -> None:
+            while not done.is_set() and "t" not in kill:
+                with pod._lock:
+                    live = [s for s in pod._inflight.values()
+                            if not s.done_event.is_set()]
+                for w in pod.workers:
+                    mine = [s for s in live if s._worker_idx == w.idx]
+                    if len(mine) >= 2 and any(len(s.generated_ids) >= 2
+                                              for s in mine):
+                        kill.update(worker=w.idx, epoch=w.epoch,
+                                    pid=w.proc.pid, inflight=len(mine),
+                                    t=time.perf_counter())
+                        os.kill(w.proc.pid, signal.SIGKILL)
+                        break
+                time.sleep(0.002)
+            if "t" not in kill:
+                return
+            w = pod.workers[kill["worker"]]
+            while not (w.alive and w.epoch > kill["epoch"] + 1):
+                if done.wait(0.01):
+                    return
+            kill["routable_s"] = time.perf_counter() - kill["t"]
+
+        watcher = threading.Thread(target=killer, daemon=True)
+        watcher.start()
+        t0 = time.perf_counter()
+        results = asyncio.run(backend.generate_settled_async(*batch))
+        wall = time.perf_counter() - t0
+        for r in results:
+            check(not isinstance(r, BaseException),
+                  f"a pod stream failed: {r!r}")
+        check("t" in kill, "no worker held two streams to kill")
+        wait_for(lambda: "routable_s" in kill,
+                 "the killed worker's respawn", 600)
+        done.set()
+        watcher.join()
+        victim = pod.workers[kill["worker"]]
+        health = pod.health()
+        check(health["state"] == "serving" and victim.alive,
+              f"the pod after the respawn: {health['state']}")
+        check(pod.total_failovers == 1 and pod.total_restarts == 1,
+              f"failovers {pod.total_failovers}, restarts "
+              f"{pod.total_restarts}")
+        check(pod._canary_expected is not None, "no canary recorded")
+        check(len(folds) == pod.total_resumed >= 1,
+              f"{len(folds)} folds, {pod.total_resumed} resumed "
+              f"({kill['inflight']} streams on the victim at the kill)")
+        index = {s._sid: i for i, s in enumerate(seqs)}
+        twice = []
+        for _ in range(2):
+            [r] = asyncio.run(backend.generate_settled_async(
+                [POD_REPEAT], [batch[1][0]]))
+            check(not isinstance(r, BaseException), f"the repeat: {r!r}")
+            twice.append(r.token_ids)
+        where = {seqs[-1]._worker_idx, seqs[-2]._worker_idx}
+        check(len(where) == 1, f"the repeat went to workers {where}")
+        stats = pod_worker_stats(pod)
+        launches = check_pod_launches(stats0, stats, L, "the symmetric pod")
+        check(launches["launches"][K3] > 0,
+              "the repeat ran no suffix pass (K3)")
+        hits = sum(st["scheduler"]["prefix_cache"]["hit_tokens"]
+                   for _, st in stats.values())
+        return {
+            **up,
+            "wall_s": wall,
+            **burst_numbers(results),
+            "final_worker": [s._worker_idx for s in seqs[:len(results)]],
+            "killed": {k: kill[k] for k in ("worker", "epoch", "inflight")},
+            "kill_to_routable_s": kill["routable_s"],
+            "folds": {str(index[sid]): n for sid, n in folds.items()},
+            "respawned_epoch": victim.epoch,
+            "canary": pod._canary_expected,
+            "repeat": {"worker": where.pop(), "hit_tokens": hits},
+            "memory": pod_memory(stats),
+            **launches,
+            "streams": [r.token_ids for r in results],
+            "repeat_streams": twice,
+            "fold_points": {index[sid]: n for sid, n in folds.items()},
+        }
+    finally:
+        backend.shutdown()
+
+
+def pod_roles(batch, long_text: str) -> dict:
+    """Phase (b): ``pod.roles`` [prefill, decode].  The burst arrives
+    ``POD_STAGGER_S`` apart; each prompt prefills on worker 0, its KV is
+    staged through the host pool and crosses to worker 1 by the chunked,
+    checksummed transfer, and worker 1 decodes from the adopted pages.
+    Then a prompt longer than the staging floor (64 MiB, ~1,170 tokens of
+    7B bf16 KV): it stays on worker 0 (monolithic decode), counted."""
+    backend, pod, stats0, up = pod_backend(
+        pod_engine_config(roles=("prefill", "decode")), "roles")
+    try:
+        L = pod.spec.num_layers
+        seqs = collect_submissions(pod)
+        moved = []
+        real_accept = pod._finalize_accept
+
+        def accept(rec, target):
+            ok = real_accept(rec, target)
+            if ok:
+                moved.append((rec.nbytes,
+                              time.perf_counter() - rec.t_transfer_pc))
+            return ok
+
+        pod._finalize_accept = accept
+
+        async def staggered():
+            async def one(i):
+                await asyncio.sleep(i * POD_STAGGER_S)
+                out = await backend.generate_settled_async(
+                    [batch[0][i]], [batch[1][i]])
+                return out[0]
+
+            return await asyncio.gather(*(one(i)
+                                          for i in range(len(batch[0]))))
+
+        t0 = time.perf_counter()
+        results = asyncio.run(staggered())
+        wall = time.perf_counter() - t0
+        greedy = batch[1][0]
+        long_r = asyncio.run(backend.generate_settled_async(
+            [long_text], [greedy]))[0]
+        for r in [*results, long_r]:
+            check(not isinstance(r, BaseException),
+                  f"a pod stream failed: {r!r}")
+        handoffs = pod._handoff_stats()
+        n = len(results) + 1
+        check(handoffs["completed"] + handoffs["fallback_monolithic"] == n
+              and handoffs["failed"] == 0,
+              f"handoffs {handoffs} for {n} requests")
+        check(handoffs["completed"] == len(moved) >= 1,
+              f"{handoffs['completed']} handoffs, {len(moved)} accepted")
+        long_seq = seqs[-1]
+        check(long_seq.handoff_count == 0 and long_seq._worker_idx == 0,
+              "the prompt past the staging floor crossed to the decode "
+              "worker")
+        stats = pod_worker_stats(pod)
+        swap = stats[1][1]["kv_swap"]
+        check(swap["refused"] == 0,
+              f"the decode worker refused {swap['refused']} adoptions "
+              "(their streams re-prefilled)")
+        launches = check_pod_launches(stats0, stats, L, "the roles pod")
+        check(launches["per_worker"]["1"][K1] > 0,
+              "the decode worker launched no K1")
+        check(launches["per_worker"]["0"][K2] > 0,
+              "the prefill worker launched no K2")
+        nbytes = sum(b for b, _ in moved)
+        seconds = sum(s for _, s in moved)
+        return {
+            **up,
+            "wall_s": wall,
+            **burst_numbers(results),
+            "handoffs_done": handoffs["completed"],
+            "fallbacks": handoffs["fallback_monolithic"],
+            "staging_floor_mib":
+                pod._pod_cfg.transfer_staging_bytes / 2 ** 20,
+            "long_prompt_tokens": long_r.prompt_tokens,
+            "kv_bytes_moved": nbytes,
+            "transfer_s": seconds,
+            "transfer_gb_s": nbytes / seconds / 1e9 if seconds else None,
+            "decode_worker_adopted_pages":
+                swap["swap_in_pages"].get("handoff", 0),
+            "memory": pod_memory(stats),
+            **launches,
+            "streams": [r.token_ids for r in results],
+            "long_stream": long_r.token_ids,
+        }
+    finally:
+        backend.shutdown()
+
+
+def pod_reference(batch, long_text: str, folded: dict) -> dict:
+    """The in-process engine the workers are held to, over the same
+    random weights (seed 0).  With cache inserts suspended, so each is
+    cold as it was on its worker: each folded stream's continuation (its
+    prompt and the tokens it had when its worker died, ``folded``), and
+    the long prompt.  Then, inserts on, the burst (cold) and the new
+    prompt twice (cold, then a hit)."""
+    from vgate_tpu_torch.backends.base import SamplingParams
+
+    engine, core = start_engine(pod_engine_config(pod=False),
+                                "pod reference (in-process)")
+    try:
+        backend = engine.backend
+        backend.set_prefix_insert_suspended(True)
+        conts = {}
+        for i, head in folded.items():
+            seq = core.submit_tokens(
+                core.encode_prompt(batch[0][i]) + list(head),
+                SamplingParams(max_tokens=POD_TOKENS - len(head),
+                               temperature=0.0),
+            )
+            check(seq.done_event.wait(300), "a continuation never finished")
+            conts[i] = list(head) + list(seq.generated_ids)
+        [long_r] = engine.generate_batch([long_text], [batch[1][0]])
+        backend.set_prefix_insert_suspended(False)
+        burst = asyncio.run(backend.generate_settled_async(*batch))
+        twice = [engine.generate_batch([POD_REPEAT], [batch[1][0]])[0]
+                 .token_ids for _ in range(2)]
+        return {"burst": [r.token_ids for r in burst],
+                "long": long_r.token_ids, "repeat": twice,
+                "conts": conts}
+    finally:
+        engine.shutdown()
+
+
+def pod_path(card: str) -> list:
+    """Phases (a) and (b) on one card, then the in-process engine; every
+    greedy stream of the pods must equal the in-process engine's: a
+    folded stream its continuation, the repeat the in-process repeat.
+    Prints each phase; returns the two runs (their summed launches)."""
+    from vgate_tpu_torch.backends.base import SamplingParams
+
+    texts = prompts()
+    greedy = [SamplingParams(max_tokens=POD_TOKENS, temperature=0.0)] * 8
+    sampled = SamplingParams(max_tokens=POD_TOKENS, temperature=0.8,
+                             top_p=0.9, top_k=50, seed=1234)
+    batch = (texts + [texts[3]], greedy + [sampled])
+    long_text = prefix_texts()[3]
+    sym = pod_symmetric(batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    roles = pod_roles(batch, long_text)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the greedy streams' folds (the seeded sampled row is printed only)
+    folded = {i: sym["streams"][i][:n]
+              for i, n in sym.pop("fold_points").items() if i < 8}
+    ref = pod_reference(batch, long_text, folded)
+    gc.collect()
+    torch.cuda.empty_cache()
+    expect = [ref["conts"].get(i, s) for i, s in enumerate(ref["burst"])]
+    for i in range(8):
+        check(sym["streams"][i] == expect[i],
+              f"symmetric pod, prompt {i}: the stream differs from the "
+              f"in-process engine's (fold at {folded.get(i)})")
+        check(roles["streams"][i] == ref["burst"][i],
+              f"roles pod, prompt {i}: the stream differs from the "
+              "in-process engine's")
+    for i, head in folded.items():
+        check(head == ref["burst"][i][:len(head)],
+              f"symmetric pod, prompt {i}: tokens before the kill differ")
+    check(sym.pop("repeat_streams") == ref["repeat"],
+          "the new prompt, cold then a hit, differs from the in-process "
+          "engine's")
+    check(roles.pop("long_stream") == ref["long"],
+          "the long prompt's stream differs from the in-process engine's")
+    sym["sampled_row_agrees"] = sym["streams"][8] == ref["burst"][8]
+    roles["sampled_row_agrees"] = roles["streams"][8] == ref["burst"][8]
+    sym.pop("streams")
+    roles.pop("streams")
+    print(f"pod phase (a), 2 mixed workers, a SIGKILL mid-stream, on "
+          f"{card}: " + json.dumps(sym), flush=True)
+    print(f"pod phase (b), roles [prefill, decode], on {card}: "
+          + json.dumps(roles), flush=True)
+    print(f"pod TTFT p50: phase (a) {sym['ttft_s_p50']:.4f} s (the burst "
+          f"at once), phase (b) {roles['ttft_s_p50']:.4f} s (arrivals "
+          f"{POD_STAGGER_S} s apart, each first token read back on the "
+          "prefill worker)", flush=True)
+    return [sym, roles]
+
+
 def print_mixtral(card: str, mixtral: dict) -> dict:
     """Print the Mixtral phase's lines (the int8 engine, its profile, the
     W8A8 engine); returns the report without the profile."""
@@ -4705,6 +5105,13 @@ def main() -> None:
         check_mixtral_matmuls(dev)
         mixtral_attention_shapes(dev)
         print_mixtral(card, mixtral_path())
+        print(card_line())
+        return
+    if sys.argv[1:] == ["pod"]:
+        # the pod phase alone, after the build (a shorter run while that
+        # phase is worked on)
+        for run in pod_path(card):
+            print(f"pod launches: {json.dumps(run['launches'])}")
         print(card_line())
         return
     if sys.argv[1:] == ["recovery"]:
@@ -4848,6 +5255,10 @@ def main() -> None:
     mixtral = print_mixtral(card, mixtral_path())
     runs += [mixtral, mixtral["w8a8"]]
     memory("the mixtral phase")
+    # the process-isolated pod: its workers' launches, read over the RPC
+    # plane, join the count
+    runs += pod_path(card)
+    memory("the pod phase")
     for k in kernels:
         # launches of every path, each counted from 0 just before it ran
         k["launches"] = sum(run["launches"].get(k["name"], 0)

@@ -1340,3 +1340,60 @@ def test_moe_decode_graphs_match_the_eager_chunk_on_card(cuda, quantization,
         core.stop()
     for g, e in zip(runs[True], runs[False]):
         assert g.generated_ids == e.generated_ids
+
+
+# --------------------------------------------------------------- the pod
+
+
+@pytest.mark.cuda
+def test_pod_with_a_handoff_streams_as_the_in_process_engine(cuda):
+    """Two worker processes on the card, each in its own CUDA context,
+    ``pod.roles`` [prefill, decode], Qwen2.5-0.5B (random weights, seed
+    0): each prompt prefills on worker 0, its KV crosses to worker 1,
+    and the greedy streams equal an in-process engine's on the same
+    weights.  One prompt a pass (``prefill_batch_max`` 1), so a stream
+    depends on its prompt alone."""
+    from vgate_tpu_torch.backends.base import SamplingParams
+    from vgate_tpu_torch.config import load_config
+    from vgate_tpu_torch.runtime.engine_core import EngineCore
+    from vgate_tpu_torch.runtime.pod_engine import PodEngine
+
+    def config(**pod):
+        return load_config(
+            model={"model_id": "Qwen/Qwen2.5-0.5B-Instruct",
+                   "dtype": "bfloat16", "max_model_len": 256},
+            device={"device": "cuda", "kv_page_size": 16,
+                    "max_batch_slots": 4, "prefill_buckets": [32, 64, 128],
+                    "prefill_batch_max": 1},
+            logging={"level": "WARNING"}, pod=pod,
+        )
+
+    rng = np.random.default_rng(43)
+    prompts = [rng.integers(3, 5000, size=n).tolist() for n in (9, 40, 70)]
+    params = SamplingParams(max_tokens=12, temperature=0.0)
+    core = EngineCore(config())
+    try:
+        want = [s.generated_ids for s in _drive(
+            core, [(p, dict(max_tokens=12, temperature=0.0))
+                   for p in prompts])]
+    finally:
+        core.stop()
+    del core
+    torch.cuda.empty_cache()
+    pod = PodEngine(config(workers=2, roles=["prefill", "decode"]))
+    pod.start()
+    try:
+        got = []
+        for p in prompts:
+            seq = pod.submit_tokens(p, params)
+            assert seq.done_event.wait(300)
+            got.append(list(seq.generated_ids))
+        assert got == want
+        handoffs = pod.get_stats()["pod"]["handoffs"]
+        assert handoffs["completed"] == len(prompts), handoffs
+        launches = {w.idx: w.client.call("stats")["kernel_launches"]
+                    for w in pod.workers}
+        assert launches[0]["flash_prefill_attention"] > 0
+        assert launches[1]["paged_decode_attention"] > 0
+    finally:
+        pod.stop()

@@ -337,14 +337,23 @@ async def test_idempotency_key_replays_identical_body():
 
 
 async def test_unregistered_routes_are_404():
-    """Routes whose backing is not ported yet stay unregistered (the pod
-    and the replica operations); the engine's self-observation routes
-    are registered and answer the dry-run backend's "no recorder"
-    bodies, and /v1/profile its 400."""
+    """Without a worker pod, the pod's and the replicas' reads answer
+    the reference's single-engine bodies, a replica drain its 409, and
+    the pod-only add and DELETE stay unregistered; the engine's
+    self-observation routes are registered and answer the dry-run
+    backend's "no recorder" bodies, and /v1/profile its 400."""
     client = await _client()
     try:
-        for path in ("/debug/pod", "/admin/replicas"):
-            assert (await client.get(path)).status == 404, path
+        pod = await client.get("/debug/pod")
+        assert pod.status == 200
+        assert (await pod.json())["enabled"] is False
+        replicas = await client.get("/admin/replicas")
+        assert replicas.status == 200
+        assert (await replicas.json())["replicas"] == []
+        assert (await client.post("/admin/replicas/0/drain")).status == 409
+        assert (await client.post("/admin/replicas")).status in (404, 405)
+        assert (await client.delete("/admin/replicas/0")).status in (404,
+                                                                     405)
         for path in ("/debug/flight", "/debug/perf", "/debug/spans",
                      "/debug/requests", "/debug/faults"):
             assert (await client.get(path)).status == 200, path

@@ -296,3 +296,59 @@ def test_chip_smoke_without_a_card_exits_nonzero_without_result():
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+POD_PROBE = """
+import sys
+for name in %r:
+    sys.modules[name] = None
+import asyncio
+from vgate_tpu_torch.backends.base import SamplingParams
+from vgate_tpu_torch.backends.torch_backend import TorchCUDABackend
+from vgate_tpu_torch.config import load_config
+from vgate_tpu_torch.runtime.pod_engine import PodEngine
+backend = TorchCUDABackend()
+backend.load_model(load_config(
+    model={"model_id": "tiny-dense", "dtype": "float32",
+           "max_model_len": 64},
+    device={"device": "cpu", "kv_num_pages": 32, "kv_page_size": 4,
+            "max_batch_slots": 2, "prefill_buckets": [8, 16]},
+    pod={"workers": 1, "spawn_timeout_s": 90.0, "heartbeat_timeout_s": 60.0},
+))
+try:
+    assert isinstance(backend.core, PodEngine)
+    usage = []
+    async def stream():
+        sp = SamplingParams(max_tokens=3, min_tokens=3, temperature=0.0)
+        return [p async for p in backend.stream_async(
+            "hi", sp, on_usage=usage.append)]
+    asyncio.run(stream())
+    assert usage[0]["completion_tokens"] == 3, usage
+    modules = backend.core.workers[0].client.call("stats")["memory"]
+    assert modules["pool_pages"] == 32, modules
+finally:
+    backend.shutdown()
+print("ok")
+""" % (BLOCKED,)
+
+SITECUSTOMIZE = """
+import sys
+for name in %r:
+    sys.modules[name] = None
+""" % (BLOCKED,)
+
+
+def test_pod_worker_and_gateway_serve_a_stream_without_the_http_packages(
+        tmp_path):
+    """A PodEngine and its worker process, both with the HTTP layer's
+    packages and PyYAML blocked (the worker by a ``sitecustomize`` on its
+    inherited ``PYTHONPATH``), serve a stream through the backend."""
+    (tmp_path / "sitecustomize.py").write_text(SITECUSTOMIZE)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(tmp_path)
+    proc = subprocess.run(
+        [sys.executable, "-c", POD_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "ok"

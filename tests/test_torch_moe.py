@@ -20,6 +20,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from reference_uploads import private_uploads
 from vgate_tpu.backends.base import SamplingParams as JSamplingParams
 from vgate_tpu.config import load_config as j_load_config
 from vgate_tpu.models import decoder as jdec
@@ -442,11 +443,14 @@ class Pair:
         for core, sp in ((self.j, JSamplingParams), (self.t, SamplingParams)):
             params = sp(max_tokens=tokens, min_tokens=tokens,
                         temperature=0.0)
-            seqs = [core.submit_tokens(list(p), params) for p in prompts]
-            for _ in range(10_000):
-                if all(seq.done_event.is_set() for seq in seqs):
-                    break
-                core._tick()
+            # the JAX engine's page-table uploads without their race
+            # (tests/reference_uploads.py)
+            with private_uploads():
+                seqs = [core.submit_tokens(list(p), params) for p in prompts]
+                for _ in range(10_000):
+                    if all(seq.done_event.is_set() for seq in seqs):
+                        break
+                    core._tick()
             assert all(seq.done_event.is_set() for seq in seqs)
             outs.append([list(s.generated_ids) for s in seqs])
         assert outs[1] == outs[0]

@@ -247,3 +247,92 @@ def test_flat_hash_chain_mode():
         pair.settle()
     finally:
         pair.stop()
+
+
+class _Spans:
+    """A request trace that records the names of the events the engine
+    puts on it (every other trace call is accepted and dropped)."""
+
+    def __init__(self, sink):
+        self.sink = sink
+
+    def event(self, name, **fields):
+        self.sink.append(name)
+
+    def __getattr__(self, name):
+        return lambda *a, **k: None
+
+
+def _variants(registry):
+    """``vgt_recompiles{variant}`` as {variant: count}."""
+    out = {}
+    for family in registry.RECOMPILES_BY_VARIANT.collect():
+        for sample in family.samples:
+            if sample.name.endswith("_total"):
+                out[sample.labels["variant"]] = sample.value
+    return out
+
+
+def test_compile_telemetry_names_match_the_reference():
+    """A COW hit and a chunked prompt (fault 8): the compile ledger's
+    (program, trigger) entries, the recompile ticks of the flight
+    recorder, the ``vgt_recompiles{variant}`` deltas and the span
+    events of both engines carry the reference's names: a COW hit is
+    (``suffix_prefill``, ``bucket``) with a ``suffix_prefill`` tick, a
+    chunked prompt's lean passes (``chunked_prefill``, ``ctx_width``)
+    with no tick, and the event is ``xla_compile``."""
+    from vgate_tpu import metrics as j_metrics
+    from vgate_tpu_torch import metrics as t_metrics
+
+    pair = Pair(prefill_chunk=8)
+    spans = {"j": [], "t": []}
+    try:
+        before = {"j": _variants(j_metrics), "t": _variants(t_metrics)}
+        rng = np.random.default_rng(17)
+        base = [7, 3, 9, 4, 11, 6, 2, 13, 5, 8, 12, 10, 14, 9]
+        long = rng.integers(3, TINY_DENSE.vocab_size, size=30).tolist()
+        other = long[:20] + rng.integers(3, 500, size=18).tolist()
+        waves = [[base], [base[:10] + [21, 22, 23, 24]], [long], [other]]
+        for prompts in waves:
+            outs = []
+            for name, core, sp in (("j", pair.j, JSamplingParams),
+                                   ("t", pair.t, SamplingParams)):
+                params = sp(max_tokens=4, temperature=0.0)
+                seqs = [core.submit_tokens(list(p), params) for p in prompts]
+                for seq in seqs:
+                    seq.trace = _Spans(spans[name])
+                while not all(seq.done_event.is_set() for seq in seqs):
+                    core._tick()
+                outs.append([list(s.generated_ids) for s in seqs])
+            assert outs[1] == outs[0]
+        assert pair.t.radix_cache.total_cow_copies > 0
+        assert pair.t.get_stats()["prefix_cache"]["chunked_prefills"] >= 2
+
+        def ledger(core):
+            return sorted((e["program"], e["trigger"]) for e in
+                          core.perf.snapshot()["compile_ledger"]
+                          if e["program"] != "kernel")
+
+        def ticks(core):
+            return sorted(t["program"] for t in core.flight.ticks()
+                          if t["kind"] == "recompile"
+                          and t["program"] != "kernel")
+
+        assert ledger(pair.t) == ledger(pair.j)
+        assert ("suffix_prefill", "bucket") in ledger(pair.t)
+        assert ("chunked_prefill", "ctx_width") in ledger(pair.t)
+        assert ticks(pair.t) == ticks(pair.j)
+        assert "suffix_prefill" in ticks(pair.t)
+        assert "chunked_prefill" not in ticks(pair.t)
+        deltas = {
+            name: {v: n - before[name].get(v, 0.0)
+                   for v, n in _variants(reg).items()
+                   if n - before[name].get(v, 0.0)}
+            for name, reg in (("j", j_metrics), ("t", t_metrics))
+        }
+        assert deltas["t"] == deltas["j"]
+        assert {"suffix_prefill", "chunked_prefill"} <= set(deltas["t"])
+        assert spans["t"] and sorted(spans["t"]) == sorted(spans["j"])
+        assert set(spans["t"]) == {"xla_compile"}
+    finally:
+        pair.stop()

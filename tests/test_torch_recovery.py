@@ -151,6 +151,7 @@ def _bare_core(resume=True, max_attempts=3, supervised=True):
     )
     core.geometry = SimpleNamespace(kv_dtype="f32")
     core._submit_q = queue.Queue()
+    core._evac_q = queue.Queue()  # containment unblocks evacuate() callers
     core._pending_chunks = []
     core._checkpointed = []
     core._resume_losses = 0

@@ -3,8 +3,9 @@ of vgate_tpu/backends/jax_backend.py's ``JaxTPUBackend``.
 
 It builds one :class:`EngineCore`, wrapped by default in the
 :class:`~vgate_tpu_torch.runtime.supervisor.EngineSupervisor`
-(``recovery.enabled``, as the reference does; the data-parallel and pod
-engines are not ported yet), behind the 4-method protocol
+(``recovery.enabled``, as the reference does), or, with
+``pod.workers > 0``, the :class:`~vgate_tpu_torch.runtime.pod_engine.PodEngine`
+of worker processes (the data-parallel engine is not ported yet), behind the 4-method protocol
 (``load_model`` / ``create_sampling_params`` / ``generate`` /
 ``shutdown``), plus the async surface the gateway uses when a backend
 has it: ``generate_settled_async`` (batches whose sequences join the
@@ -137,7 +138,14 @@ class TorchCUDABackend:
     def load_model(self, config: Any) -> None:
         config = config if hasattr(config, "device") else get_config()
         self._config = config
-        if config.recovery.enabled:
+        if config.pod.workers > 0:
+            # process-isolated workers: the gateway routes over N engine
+            # processes with fencing and failover, ahead of the
+            # supervisor (each worker runs its own engine stack)
+            from vgate_tpu_torch.runtime.pod_engine import PodEngine
+
+            self.core = PodEngine(config)
+        elif config.recovery.enabled:
             from vgate_tpu_torch.runtime.supervisor import EngineSupervisor
 
             self.core = EngineSupervisor(config)

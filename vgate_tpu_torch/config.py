@@ -106,6 +106,11 @@ class DeviceConfig:
     device: str = "cuda"
     kv_page_size: int = 32
     kv_num_pages: int = 0  # 0 => size from free device memory
+    # this engine's share of the card in bytes (0 = the whole card): the
+    # pool gets what the share leaves once the engine's own weights are
+    # resident, never what happens to be free at boot.  A pod whose
+    # workers share one card writes hbm_utilization x total / N here.
+    kv_budget_bytes: int = 0
     hbm_utilization: float = 0.9
     max_batch_slots: int = 32
     prefill_buckets: List[int] = field(
@@ -290,6 +295,52 @@ class CacheConfig:
 
 
 @dataclass
+class PodConfig:
+    """Process-isolated engine workers (runtime/pod_engine.py and
+    runtime/worker.py), with the reference's 17 fields, defaults and
+    validators (vgate_tpu/config.py ``PodConfig``): the gateway process
+    runs the HTTP surface, batcher and admission; each engine lives in
+    its own worker process, reached over length-prefixed frames on a
+    unix-domain (or localhost TCP) socket.  ``workers=0`` (the default)
+    keeps the in-process engines; the restart budget and backoff and the
+    canary gate reuse ``recovery.*`` and ``integrity.*``.  On one card,
+    N workers share it, each in its own CUDA context."""
+
+    # engine worker processes; 0 = in-process engines
+    workers: int = 0
+    # uds = unix-domain sockets under socket_dir (default: a private
+    # tempdir); tcp = 127.0.0.1:port_base+i
+    transport: str = "uds"
+    socket_dir: str = ""
+    port_base: int = 9310
+    # worker interpreter override; empty = sys.executable
+    python: str = ""
+    # every connect and every call carries a deadline
+    connect_timeout_s: float = 10.0
+    call_timeout_s: float = 30.0
+    # worker boot -> hello budget (imports, weights, pools)
+    spawn_timeout_s: float = 180.0
+    # heartbeat liveness: ping cadence, and the age past which a worker
+    # is declared lost (the engine beat rides back on each ping)
+    heartbeat_interval_s: float = 0.5
+    heartbeat_timeout_s: float = 10.0
+    # frame-size ceiling, both directions
+    max_frame_bytes: int = 8 * 1024 * 1024
+    # one role per worker, each "prefill" | "decode" | "mixed"; empty
+    # keeps every worker "mixed"
+    roles: List[str] = field(default_factory=list)
+    # the KV handoff's transfer plane: chunk size, retries before the
+    # monolithic fallback, per-RPC deadline, and the host staging floor
+    # injected into role-split workers
+    transfer_chunk_bytes: int = 1 * 1024 * 1024
+    transfer_max_retries: int = 3
+    transfer_timeout_s: float = 30.0
+    transfer_staging_bytes: int = 64 * 1024 * 1024
+    # how long a worker outlives its gateway (0: gateway EOF drains it)
+    orphan_grace_s: float = 0.0
+
+
+@dataclass
 class GatewayConfig:
     """The Idempotency-Key request journal (runtime/journal.py); an
     empty path keeps keys for one gateway lifetime, in memory."""
@@ -417,6 +468,7 @@ class VGTConfig:
     security: SecurityConfig = field(default_factory=SecurityConfig)
     rate_limit: RateLimitConfig = field(default_factory=RateLimitConfig)
     benchmark: BenchmarkConfig = field(default_factory=BenchmarkConfig)
+    pod: PodConfig = field(default_factory=PodConfig)
 
 
 def _not_ported(what: str, where: str) -> NotPortedError:
@@ -477,6 +529,9 @@ def _check(cfg: VGTConfig) -> None:
         raise ValueError("kv_page_size and max_batch_slots must be > 0")
     if d.decode_block_slots < 1:
         raise ValueError("device.decode_block_slots must be >= 1")
+    if d.kv_budget_bytes < 0:
+        raise ValueError("device.kv_budget_bytes must be >= 0")
+    _check_pod(cfg.pod)
     spec = spec_for_model_id(m.model_id)
     if spec.is_encoder:
         # the reference has no decoder for an encoder either: it is
@@ -486,6 +541,34 @@ def _check(cfg: VGTConfig) -> None:
             "as model.embedding_model_id (served by /v1/embeddings)"
         )
     _check_gateway(cfg)
+
+
+def _check_pod(pod: PodConfig) -> None:
+    """The reference's ``PodConfig`` validators, in its order."""
+    if pod.workers < 0:
+        raise ValueError("pod.workers must be >= 0")
+    if pod.transport not in ("uds", "tcp"):
+        raise ValueError(
+            f"pod.transport must be 'uds' or 'tcp', got {pod.transport!r}"
+        )
+    for r in pod.roles:
+        if r not in ("prefill", "decode", "mixed"):
+            raise ValueError(
+                "pod.roles entries must be 'prefill', 'decode' or "
+                f"'mixed', got {r!r}"
+            )
+    for name in ("transfer_chunk_bytes", "transfer_max_retries",
+                 "transfer_timeout_s", "transfer_staging_bytes"):
+        if getattr(pod, name) <= 0:
+            raise ValueError(f"pod.{name} must be > 0")
+    if pod.orphan_grace_s < 0:
+        raise ValueError("pod.orphan_grace_s must be >= 0")
+    if pod.roles and len(pod.roles) != pod.workers:
+        raise ValueError(
+            f"pod.roles has {len(pod.roles)} entries but "
+            f"pod.workers={pod.workers}; give one role per worker "
+            "(or leave roles empty for an all-mixed pod)"
+        )
 
 
 def _check_gateway(cfg: VGTConfig) -> None:
@@ -585,18 +668,10 @@ def _deep_merge(base: Dict[str, Any], over: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def load_config(**sections: Dict[str, Any]) -> VGTConfig:
-    """Build a config from section dicts, e.g.
-    ``load_config(model={"model_id": "tiny-dense"}, device={...})``,
-    over the environment and the ``VGT_CONFIG_PATH`` YAML (the caller's
-    values win, then the environment's, then the file's)."""
+def _build(merged: Dict[str, Any]) -> VGTConfig:
     classes = {
         f.name: f.default_factory for f in dataclasses.fields(VGTConfig)
     }
-    merged = _deep_merge(_yaml_values(), _env_overrides())
-    merged = _deep_merge(
-        merged, {k: dict(v or {}) for k, v in sections.items()}
-    )
     unknown = sorted(set(merged) - set(classes))
     if unknown:
         raise TypeError(f"unknown config section(s): {unknown}")
@@ -608,6 +683,25 @@ def load_config(**sections: Dict[str, Any]) -> VGTConfig:
     cfg.device.prefix_cache = _coerce_prefix_cache(cfg.device.prefix_cache)
     _check(cfg)
     return cfg
+
+
+def config_from_dict(values: Dict[str, Any]) -> VGTConfig:
+    """A resolved config from its ``dataclasses.asdict`` form (a pod's
+    worker config file), with the same checks as :func:`load_config`
+    but without the environment and the ``VGT_CONFIG_PATH`` file: the
+    writer resolved those already."""
+    return _build({k: dict(v or {}) for k, v in values.items()})
+
+
+def load_config(**sections: Dict[str, Any]) -> VGTConfig:
+    """Build a config from section dicts, e.g.
+    ``load_config(model={"model_id": "tiny-dense"}, device={...})``,
+    over the environment and the ``VGT_CONFIG_PATH`` YAML (the caller's
+    values win, then the environment's, then the file's)."""
+    merged = _deep_merge(_yaml_values(), _env_overrides())
+    return _build(_deep_merge(
+        merged, {k: dict(v or {}) for k, v in sections.items()}
+    ))
 
 
 _config_lock = threading.Lock()

@@ -40,6 +40,9 @@ class QuantPages:
     unchanged; ``pool[l]`` is layer ``l``'s pool as views of both."""
 
     __slots__ = ("data", "scale")
+    # the handoff codec (runtime/handoff.py) ships and rebuilds a pool by
+    # these fields, as the reference's NamedTuple
+    _fields = ("data", "scale")
 
     def __init__(self, data: torch.Tensor, scale: torch.Tensor) -> None:
         if data.dtype != torch.int8 or scale.dtype != SCALE_DTYPE:

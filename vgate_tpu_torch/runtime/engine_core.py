@@ -118,6 +118,7 @@ from vgate_tpu_torch.errors import (
     DeadlineExceededError,
     EngineRecoveringError,
     IntegrityError,
+    MigrationError,
     PoisonRequestError,
     ResumeExhaustedError,
 )
@@ -754,6 +755,34 @@ def replay_into(
     return "replayed"
 
 
+class _EvacRequest:
+    """One planned-evacuation command in flight between a caller thread
+    (the pod worker's ``evacuate`` verb, a drain) and the engine thread:
+    the engine fills ``result`` (the checkpointed live sequences) or
+    ``error`` and sets ``event``.  ``lock`` arbitrates the timeout race
+    — a caller that gives up sets ``cancelled`` under it, and the engine
+    checks it both before starting and before publishing, so a stale
+    command can never strand ownerless sequences: not-yet-started work
+    is skipped, just-finished work is folded straight back into the
+    source scheduler."""
+
+    __slots__ = (
+        "seq_ids", "reason", "event", "result", "error",
+        "lock", "cancelled",
+    )
+
+    def __init__(
+        self, seq_ids: Optional[List[int]], reason: str
+    ) -> None:
+        self.seq_ids = seq_ids
+        self.reason = reason
+        self.event = threading.Event()
+        self.result: Optional[List[Sequence]] = None
+        self.error: Optional[BaseException] = None
+        self.lock = threading.Lock()
+        self.cancelled = False
+
+
 class EngineCore:
     """Owns the parameters, the KV pools and the engine thread."""
 
@@ -884,6 +913,7 @@ class EngineCore:
             auto_num_pages(
                 self.spec, ps, dcfg.hbm_utilization, self.device,
                 dtype_bytes=kv_bytes, scale_bytes=kv_scale_bytes,
+                budget_bytes=self._pool_budget(dcfg.kv_budget_bytes),
             ),
         )
         self.geometry = KVGeometry(
@@ -1024,6 +1054,23 @@ class EngineCore:
         # queue, so one ``generate`` batch is admitted as one wave
         self._submit_lock = threading.Lock()
         self._abort_q: "queue.Queue[tuple]" = queue.Queue()
+        # planned-evacuation commands (the pod's drain): the caller
+        # blocks on the request's event while the engine thread
+        # checkpoints the selected sequences between ticks
+        self._evac_q: "queue.Queue[_EvacRequest]" = queue.Queue()
+        # disaggregated prefill->decode handoff (runtime/handoff.py):
+        # sequences submitted with handoff_requested are watched here
+        # until their first token exists, then folded and staged through
+        # scheduler.hold_for_handoff and announced by on_handoff_staged
+        # (the pod worker wires it to a gateway notification).
+        # _handoff_q carries the cross-thread verdicts back in: ("done",
+        # seq) the decode worker accepted, evacuate; ("cancel", seq) the
+        # transfer fell through, release the hold and decode here.
+        self._handoff_pending: List[Sequence] = []
+        self._handoff_q: "queue.Queue[tuple]" = queue.Queue()
+        self.on_handoff_staged: Optional[
+            Callable[[Sequence, bool], None]
+        ] = None
         self._wakeup = threading.Event()
         self._running = False
         self._thread: Optional[threading.Thread] = None
@@ -1124,6 +1171,21 @@ class EngineCore:
         self._spec_mt: Optional[Dict[str, Any]] = None
         self._compiled_spec: set = set()
 
+    def _pool_budget(self, share: int) -> Optional[int]:
+        """The pool's bytes under a fixed share of the card
+        (``device.kv_budget_bytes``, which a pod writes when its workers
+        share one card): the share less what this engine holds already
+        (its weights, read after the allocator released its cached
+        blocks).  None without a share: the pool sizes from the free
+        memory.  The CUDA context and the activations come out of the
+        headroom that ``hbm_utilization`` leaves."""
+        if share <= 0:
+            return None
+        if self.device.type != "cuda":
+            return share
+        torch.cuda.empty_cache()
+        return max(0, share - torch.cuda.memory_reserved(self.device))
+
     # ------------------------------------------------------------ lifecycle
 
     def start(self) -> None:
@@ -1145,6 +1207,7 @@ class EngineCore:
             # checks discard whatever it does if it ever wakes)
             self._thread.join(timeout=1 if self._stalled else 30)
             self._thread = None
+        self._fail_pending_evacuations(RuntimeError("engine stopped"))
         # every owed future is resolved, checkpointed sequences nobody
         # claimed included
         checkpointed = self.take_checkpointed()
@@ -1421,6 +1484,9 @@ class EngineCore:
             )
             self._running = False
         self._containment_done = True
+        # unblock any evacuate() caller: the containment checkpoint now
+        # owns the residents
+        self._fail_pending_evacuations(exc)
         if self.on_fatal is not None:
             try:
                 self.on_fatal(exc)
@@ -1537,11 +1603,265 @@ class EngineCore:
         )
         return self._contain_fatal(exc)
 
+    # ------------------------------------------------ planned evacuation
+
+    def evacuate(
+        self,
+        seq_ids: Optional[List[int]] = None,
+        reason: str = "drain",
+        timeout: float = 30.0,
+    ) -> List[Sequence]:
+        """Checkpoint selected RUNNING/WAITING sequences WITHOUT a fatal
+        (the pod's per-worker drain, a worker's SIGTERM): the core stays
+        alive and keeps serving its other residents; the selected
+        sequences' slots and KV pages free this tick, nothing settles,
+        and the LIVE Sequence objects come back folded as
+        prefill-continues (``prepare_migrate``, with the kv-dtype stamp
+        set so a mismatched replay target refuses cleanly).
+
+        Thread-safe: enqueues a command the engine thread applies between
+        ticks and blocks up to ``timeout``.  ``seq_ids=None`` selects
+        everything resident or queued.  Raises RuntimeError when the
+        engine is (or dies while) evacuating, and MigrationError on
+        timeout."""
+        if self._fatal is not None:
+            raise RuntimeError("engine is dead") from self._fatal
+        req = _EvacRequest(
+            list(seq_ids) if seq_ids is not None else None, reason
+        )
+        self._evac_q.put(req)
+        self._wakeup.set()
+        if not req.event.wait(timeout=timeout):
+            with req.lock:
+                published = (
+                    req.result is not None or req.error is not None
+                )
+                if not published:
+                    req.cancelled = True
+            if not published:
+                if self._fatal is not None:
+                    raise RuntimeError(
+                        "engine died while evacuating"
+                    ) from self._fatal
+                raise MigrationError(
+                    f"evacuation did not complete within "
+                    f"{timeout:.1f}s (engine loop busy or wedged); "
+                    "sequences stayed put"
+                )
+            # publication raced the timeout: the evacuation completed
+            # and the caller owns the result after all
+        if req.error is not None:
+            raise req.error
+        return req.result or []
+
+    def _fail_pending_evacuations(self, exc: BaseException) -> None:
+        """Unblock evacuate() callers when the loop can no longer serve
+        them (stop, fatal); their sequences are untouched."""
+        while True:
+            try:
+                req = self._evac_q.get_nowait()
+            except queue.Empty:
+                return
+            with req.lock:
+                if not req.cancelled:
+                    req.error = RuntimeError(
+                        f"engine unavailable for evacuation: {exc}"
+                    )
+            req.event.set()
+
+    def _process_evacuations(self) -> None:
+        """Apply queued evacuation commands (engine thread only)."""
+        while True:
+            try:
+                req = self._evac_q.get_nowait()
+            except queue.Empty:
+                return
+            with req.lock:
+                if req.cancelled:
+                    continue  # caller timed out; sequences stayed put
+            result: Optional[List[Sequence]] = None
+            error: Optional[BaseException] = None
+            try:
+                result = self._evacuate_now(req.seq_ids, req.reason)
+            except Exception as exc:  # pragma: no cover - defensive
+                logger.error("evacuation failed", exc_info=True)
+                error = exc
+            with req.lock:
+                if req.cancelled:
+                    # the caller gave up MID-evacuation: nobody will
+                    # place these sequences, so they fold straight back
+                    # into this core and keep streaming here
+                    for seq in result or []:
+                        try:
+                            self.submit_existing(seq)
+                        except RuntimeError:
+                            seq.fail(self._fail_exception(
+                                self._fatal
+                                or RuntimeError("engine stopped")
+                            ))
+                    if result:
+                        logger.warning(
+                            "evacuation abandoned by timed-out caller; "
+                            "re-admitted locally",
+                            extra={"extra_data": {
+                                "count": len(result),
+                                "reason": req.reason,
+                            }},
+                        )
+                else:
+                    req.result = result
+                    req.error = error
+            req.event.set()
+
+    def _evacuate_now(
+        self, seq_ids: Optional[List[int]], reason: str
+    ) -> List[Sequence]:
+        targets = None if seq_ids is None else set(seq_ids)
+        candidates = list(self.scheduler.running) + list(
+            self.scheduler.waiting
+        )
+        if not any(
+            targets is None or s.seq_id in targets for s in candidates
+        ):
+            return []
+        # fold in-flight decode chunks into host state first: tokens
+        # already sampled on the device would otherwise be discarded by
+        # the epoch guard and regenerated on the target
+        if self._pending_chunks:
+            self._process_chunks(drain=True)
+            self._decode_signature_cache = None
+            candidates = list(self.scheduler.running) + list(
+                self.scheduler.waiting
+            )
+        out: List[Sequence] = []
+        for seq in candidates:
+            if targets is not None and seq.seq_id not in targets:
+                continue
+            if seq.status not in (SeqStatus.RUNNING, SeqStatus.WAITING):
+                continue  # settled while the chunks drained
+            if seq.abort_requested:
+                continue  # about to settle as abort; nothing to move
+            # the KV storage format the generated prefix was sampled
+            # under: submit_existing on the target refuses a mismatch
+            seq.kv_dtype = self.geometry.kv_dtype
+            if seq.trace is not None:
+                seq.trace.migrated()
+            self.scheduler.evacuate(seq)
+            seq.prepare_migrate()
+            self.flight.record_tick(
+                "migrate",
+                seq_id=seq.seq_id,
+                request_id=seq.request_id,
+                tokens=seq.num_generated,
+                reason=reason,
+            )
+            out.append(seq)
+        if out:
+            # membership changed: the device decode state is stale
+            self._decode_signature_cache = None
+            logger.info(
+                "evacuated sequences for planned migration",
+                extra={"extra_data": {"count": len(out), "reason": reason}},
+            )
+        return out
+
+    # ------------------ disaggregated prefill->decode handoff staging
+
+    def handoff_done(self, seq: Sequence) -> None:
+        """Cross-thread (the worker's RPC plane): the decode worker
+        ACCEPTED this sequence's KV transfer; drop its queue slot and
+        staged ticket WITHOUT settling it (the decode worker owns the
+        stream now).  Applied on the engine thread next tick."""
+        self._handoff_q.put(("done", seq))
+        self._wakeup.set()
+
+    def handoff_cancel(self, seq: Sequence) -> None:
+        """Cross-thread: the transfer fell through; lift the hold so the
+        next try_admit swaps the staged KV in and decode continues here
+        with zero recompute."""
+        self._handoff_q.put(("cancel", seq))
+        self._wakeup.set()
+
+    def _process_handoffs(self) -> None:
+        """Handoff staging pump, run each tick after evacuations: apply
+        the cross-thread done/cancel verdicts, then fold and stage every
+        watched sequence whose first token now exists and announce it
+        through ``on_handoff_staged``."""
+        while True:
+            try:
+                verb, seq = self._handoff_q.get_nowait()
+            except queue.Empty:
+                break
+            if verb == "done":
+                if getattr(seq, "_handoff_hold", False):
+                    seq._handoff_hold = False  # type: ignore[attr-defined]
+                    self.scheduler.evacuate(seq)
+                    self.flight.record_tick(
+                        "handoff_done", seq_id=seq.seq_id,
+                        request_id=seq.request_id,
+                    )
+            else:  # "cancel"
+                self.scheduler.release_hold(seq)
+        if not self._handoff_pending:
+            return
+        pending: List[Sequence] = []
+        ready: List[Sequence] = []
+        for seq in self._handoff_pending:
+            if (
+                not seq.handoff_requested
+                or seq.status not in (SeqStatus.WAITING, SeqStatus.RUNNING)
+                or seq.abort_requested
+            ):
+                continue  # settled or cancelled: stop watching
+            if seq.status is SeqStatus.RUNNING and seq.num_generated >= 1:
+                ready.append(seq)
+            else:
+                pending.append(seq)  # still queued or mid-prefill
+        self._handoff_pending = pending
+        if not ready:
+            return
+        if self._pending_chunks:
+            # the staged KV must cover every token already streamed
+            self._process_chunks(drain=True)
+            self._decode_signature_cache = None
+        for seq in ready:
+            seq.handoff_requested = False
+            if seq.status is not SeqStatus.RUNNING or seq.abort_requested:
+                staged = False  # settled while the chunks drained
+            else:
+                # the KV storage format, as every checkpoint path stamps
+                # it: submit_existing on the decode worker refuses a
+                # mismatched pool
+                seq.kv_dtype = self.geometry.kv_dtype
+                staged = self.scheduler.hold_for_handoff(seq)
+            if staged:
+                self._decode_signature_cache = None
+                self.flight.record_tick(
+                    "handoff_stage", seq_id=seq.seq_id,
+                    request_id=seq.request_id, tokens=seq.num_generated,
+                )
+            cb = self.on_handoff_staged
+            if cb is not None:
+                try:
+                    cb(seq, staged)
+                except Exception:  # pragma: no cover - defensive
+                    logger.error(
+                        "on_handoff_staged callback failed", exc_info=True
+                    )
+
     def _tick(self) -> bool:
         """One iteration: admit + prefill, then keep up to
         ``pipeline_depth`` decode chunks in flight, blocking only on the
         oldest one's readback.  Returns False when there was no work."""
         self._drain_submissions()
+        # planned evacuations before anything dispatches: a drain is
+        # blocked on them, and the selected sequences must not burn
+        # another decode chunk here first
+        self._process_evacuations()
+        # then handoff staging: fold first-token'd handoff candidates off
+        # the device before they burn decode chunks that belong on the
+        # decode pool
+        self._process_handoffs()
         # stall fault probe (faults.py): a `delay` armed here past
         # recovery.step_stall_s is a wedged loop for the hang watchdog;
         # probed only while work is resident, so arming it cannot stall
@@ -1715,10 +2035,39 @@ class EngineCore:
                     seq = self._submit_q.get_nowait()
                 except queue.Empty:
                     return
+                adopt = getattr(seq, "_handoff_adopt", None)
+                if adopt is not None:
+                    # decode-side arrival of a prefill->decode handoff:
+                    # park the shipped KV as a local swap ticket so
+                    # try_admit swaps it in with zero recompute.  A
+                    # refusal (no swap tier, pool full) folds to the
+                    # recompute path: slower, still token-identical.
+                    seq._handoff_adopt = None  # type: ignore[attr-defined]
+                    payload, num_pages = adopt
+                    adopted = (
+                        self.kv_swap is not None
+                        and self.kv_swap.adopt_remote(
+                            seq, payload, num_pages
+                        )
+                    )
+                    if not adopted:
+                        seq.reset_for_recompute()
+                        logger.warning(
+                            "handoff payload adoption refused; falling "
+                            "back to re-prefill",
+                            extra={"extra_data": {
+                                "seq_id": seq.seq_id,
+                                "request_id": seq.request_id,
+                                "pages": num_pages,
+                            }},
+                        )
                 try:
                     self.scheduler.add(seq)
                 except Exception as exc:
                     seq.fail(exc)
+                    continue
+                if seq.handoff_requested:
+                    self._handoff_pending.append(seq)
 
     # -------------------------------------------------------- device inputs
 
@@ -1760,20 +2109,27 @@ class EngineCore:
         return sampling, num_lp, key
 
     def _note_key(self, seen: set, key: tuple, kind: str, seqs=(),
-                  **fields) -> bool:
+                  program: Optional[str] = None, **fields) -> bool:
         """``vgt_engine_compilations{kind}`` at the first sight of a
         static key, where the reference compiles a program (on the card a
         new decode key is a graph capture, and a prompt pass may build a
-        kernel), with its flight tick and a span event on each request;
-        returns whether the key is new."""
+        kernel), with a flight tick of ``program`` (default ``kind``;
+        None-free ``fields``) and an ``xla_compile`` span event on each
+        request, under the reference's names; returns whether the key is
+        new.  ``program=""`` records no tick and no event, as the
+        reference's chunked passes do."""
         if key in seen:
             return False
         seen.add(key)
         metrics.RECOMPILES.labels(kind=kind).inc()
-        self.flight.record_tick("recompile", program=kind, **fields)
+        if program == "":
+            return True
+        self.flight.record_tick("recompile", program=program or kind,
+                                **fields)
+        event = {k: fields[k] for k in ("bucket", "chunk") if k in fields}
         for seq in seqs:
             if seq.trace is not None:
-                seq.trace.event("compile", **fields)
+                seq.trace.event("xla_compile", **event)
         return True
 
     def _dispatched(self, kind: str, key: tuple, fresh: bool,
@@ -2170,7 +2526,8 @@ class EngineCore:
         key = _suffix_key(bucket, B, ctx_pages, *key, unaligned=unaligned)
         fresh = self._note_key(
             self._compiled_buckets, key, "prefill",
-            [p.seq for p in plans], bucket=bucket, batch=B,
+            [p.seq for p in plans], program="suffix_prefill",
+            bucket=bucket, batch=B,
         )
         self._beat("prefill", compiling=fresh, bucket=bucket, batch=B)
         t0 = time.perf_counter()
@@ -2181,8 +2538,7 @@ class EngineCore:
             self._dev(suffix_pt), self._dev(ctx_pt), self._generator,
             sampling, unaligned=unaligned, num_logprobs=num_lp,
         )
-        self._dispatched("prefill", key, fresh, t0,
-                         trigger="cow" if unaligned else "prefix_hit")
+        self._dispatched("suffix_prefill", key, fresh, t0, trigger="bucket")
         return out
 
     def _dispatch_chunked_prefill(self, plan: PrefillPlan):
@@ -2211,8 +2567,7 @@ class EngineCore:
             ctx_pt[0, : min(n_ctx, len(seq.pages))] = seq.pages[:n_ctx]
             key = _suffix_key(chunk, 1, n_ctx, False, None, 0, None)
             fresh = self._note_key(
-                self._compiled_buckets, key, "prefill", [seq],
-                bucket=chunk, batch=1,
+                self._compiled_buckets, key, "prefill", [seq], program="",
             )
             self._beat("prefill_chunk", compiling=fresh, bucket=chunk,
                        batch=1)
@@ -2224,7 +2579,8 @@ class EngineCore:
                 self.k_pages, self.v_pages, self._dev(pages),
                 self._dev(ctx_pt),
             )
-            self._dispatched("prefill", key, fresh, t0, trigger="chunk")
+            self._dispatched("chunked_prefill", key, fresh, t0,
+                             trigger="ctx_width")
             self.total_chunk_passes += 1
             self.total_prompt_passes += 1
             start += chunk

@@ -7,9 +7,11 @@ A copy of vgate_tpu/server/app.py over the port's engine:
 ``/debug/faults``, and the engine's self-observation: ``/debug/flight``,
 ``/debug/perf``, ``/debug/spans`` (with ``VGT_MEMTRACE``),
 ``/debug/requests``, ``/debug/requests/{ident}`` and ``/v1/profile`` (a
-``torch.profiler`` trace).  Routes whose backing is not ported yet stay
-unregistered (ROADMAP queue 1): ``/debug/pod`` and ``/admin/replicas*``
-with the SIGUSR1 replica drain (items 10 and 11).  ``/v1/embeddings``
+``torch.profiler`` trace).  With a worker pod (``pod.workers > 0``):
+``/debug/pod`` and ``/admin/replicas`` (GET, and one worker's drain and
+undrain; add and DELETE answer the pod's refusal).  The SIGUSR1 replica
+drain waits for the data-parallel engine (ROADMAP queue 1, item 10b).
+``/v1/embeddings``
 serves the backend's encoder (models/encoder.py).
 Engine + batcher construction happens in ``on_startup``, not at module
 import.
@@ -44,6 +46,8 @@ from vgate_tpu_torch.errors import (
     ClientQuotaExceededError,
     DeadlineExceededError,
     DuplicateRequestError,
+    MigrationError,
+    MigrationRefusedError,
     PoisonRequestError,
     RetryableError,
     ServerDrainingError,
@@ -53,6 +57,7 @@ from vgate_tpu_torch.errors import (
 from vgate_tpu_torch.lifecycle import CancelToken, DrainController
 from vgate_tpu_torch.logging_config import get_logger, setup_logging
 from vgate_tpu_torch.observability.reqtrace import RequestMeta
+from vgate_tpu_torch.runtime.journal import PENDING as _JOURNAL_PENDING
 from vgate_tpu_torch.runtime.journal import RequestJournal
 from vgate_tpu_torch.runtime.scheduler import EngineBusyError
 from vgate_tpu_torch.security import build_security_middleware, extract_api_key
@@ -1660,11 +1665,142 @@ async def debug_perf(request: web.Request) -> web.Response:
         )
 
 
+async def debug_pod(request: web.Request) -> web.Response:
+    """GET /debug/pod — pod topology and RPC-plane detail: per-worker
+    pid/epoch/role/state/beat-age/compiling/last-fatal plus in-flight
+    load, the live KV-handoff table (state, worker pair, age), and the
+    fencing/orphan counters.  Answers ``enabled: false`` (not 404) when
+    the engine is not a worker pod, so probes read the same shape in
+    every mode."""
+    engine: Optional[VGTEngine] = request.app.get("engine")
+    core = getattr(engine.backend, "core", None) if engine else None
+    pod_fn = getattr(core, "pod_debug", None)
+    if pod_fn is None:
+        return web.json_response(
+            {"enabled": False,
+             "reason": "engine is not a worker pod (pod.workers = 0)"}
+        )
+    try:
+        return web.json_response({"enabled": True, **pod_fn()})
+    except Exception as exc:
+        # a pod mid-failover must not 500 its own diagnosis surface
+        logger.error("pod debug failed", exc_info=True)
+        return web.json_response(
+            {"enabled": True,
+             "error": f"{type(exc).__name__}: {exc}"}
+        )
+
+
+def _replica_manager(request: web.Request):
+    """The worker pod behind the /admin/replicas surface, or None: an
+    in-process engine has no replicas here (the data-parallel engine,
+    ROADMAP queue 1 item 10b, is not ported)."""
+    engine: Optional[VGTEngine] = request.app.get("engine")
+    core = getattr(engine.backend, "core", None) if engine else None
+    if core is not None and hasattr(core, "drain_replica"):
+        return core
+    return None
+
+
+def _replica_idx(request: web.Request) -> int:
+    try:
+        return int(request.match_info["idx"])
+    except (KeyError, ValueError):
+        raise web.HTTPNotFound(
+            text=json.dumps(
+                {"error": {"message": "replica index must be an integer",
+                           "type": "invalid_request_error"}}
+            ),
+            content_type="application/json",
+        )
+
+
+async def _run_replica_op(
+    request: web.Request, fn, idx_op: bool = True
+) -> web.Response:
+    """Run one blocking replica operation in the executor (a drain
+    blocks on the worker's evacuation) and map the typed errors:
+    ValueError → 404 (no such replica, for ``idx_op`` ops),
+    MigrationRefusedError → 409 (nothing moved; the body says why).
+    The reference also answers 409 while ``migration.enabled`` is false;
+    that section comes with item 10b."""
+    core = _replica_manager(request)
+    if core is None:
+        return _error(
+            409,
+            "replica operations require a worker pod (pod.workers > 0; "
+            "a single engine drains via SIGTERM)",
+            "invalid_request_error",
+        )
+    loop = asyncio.get_running_loop()
+    try:
+        result = await loop.run_in_executor(None, lambda: fn(core))
+    except ValueError as exc:
+        if idx_op:
+            return _error(404, str(exc), "invalid_request_error")
+        return _error(500, str(exc), "migration_error")
+    except MigrationRefusedError as exc:
+        return _error(409, str(exc), "migration_refused")
+    except MigrationError as exc:
+        return _error(500, str(exc), "migration_error")
+    return web.json_response(result)
+
+
+async def admin_replicas(request: web.Request) -> web.Response:
+    """GET /admin/replicas — the pod's per-worker health detail (state,
+    drain marks, epochs, migration counters); 200 with a dp=1 note for a
+    single engine so dashboards can probe unconditionally."""
+    core = _replica_manager(request)
+    if core is None:
+        return web.json_response(
+            {"dp": 1, "replicas": [],
+             "note": "no replica manager (dp=1 or external backend)"}
+        )
+    return web.json_response(core.health())
+
+
+async def admin_drain_replica(request: web.Request) -> web.Response:
+    """POST /admin/replicas/{idx}/drain — stop new placements on the
+    worker and move its residents to the least-loaded survivors (they
+    complete elsewhere, marked migrated).  Health reports DEGRADED until
+    undrain."""
+    idx = _replica_idx(request)
+    return await _run_replica_op(
+        request, lambda core: core.drain_replica(idx)
+    )
+
+
+async def admin_undrain_replica(request: web.Request) -> web.Response:
+    """POST /admin/replicas/{idx}/undrain — return a drained worker to
+    the placement rotation."""
+    idx = _replica_idx(request)
+    return await _run_replica_op(
+        request, lambda core: core.undrain_replica(idx)
+    )
+
+
+async def admin_add_replica(request: web.Request) -> web.Response:
+    """POST /admin/replicas — a pod's worker count is fixed at boot:
+    answered with the pod's MigrationRefusedError (409)."""
+    return await _run_replica_op(
+        request, lambda core: core.add_replica(), idx_op=False
+    )
+
+
+async def admin_remove_replica(request: web.Request) -> web.Response:
+    """DELETE /admin/replicas/{idx} — a pod refuses it (409): drain the
+    worker instead."""
+    idx = _replica_idx(request)
+    return await _run_replica_op(
+        request, lambda core: core.remove_replica(idx)
+    )
+
+
 async def debug_spans(request: web.Request) -> web.Response:
     """GET /debug/spans — in-memory span export, for drills and tests
     that assert trace parentage.  Empty unless the server was launched
     with ``VGT_MEMTRACE=1``.  An engine that exports spans of its own
-    (``collect_spans``; none in the port yet) adds them."""
+    (a pod's workers, ``collect_spans``) adds them."""
     recorder = request.app.get("memtrace")
     spans = []
     if recorder is not None:
@@ -1981,13 +2117,24 @@ def _wire_survivability(
     batcher: RequestBatcher,
     loop: asyncio.AbstractEventLoop,
 ) -> None:
-    """Gateway-crash survivability wiring: build the request journal
-    and resubmit every record a predecessor accepted but never settled
-    through the normal admission path (``vgt_journal_replays{outcome=
-    "resubmitted"}``), so the promise survives even when the client
-    never retries.  Adopting records a pod worker still holds waits for
-    the pod (ROADMAP queue 1, item 11); with no pod the reference takes
-    this same path."""
+    """Gateway-crash survivability wiring: build the request journal,
+    reconcile its inherited pending records against the pod's adopted
+    in-flight work, and resubmit the rest.
+
+    Three fates for a record the predecessor accepted but never
+    settled:
+
+    * its generation is STILL RUNNING on an adopted worker — the
+      ``on_adopted_done`` hook settles the record when the done frame
+      lands (a waiting client retry then serves it);
+    * it already FINISHED while the worker was orphaned — the buffered
+      done frame replays during adoption and parks in
+      ``drain_adopted_results``; settled here, synchronously;
+    * nobody holds it (worker died too / no pod) — resubmitted through
+      the normal admission path (``vgt_journal_replays{outcome=
+      "resubmitted"}``), so the promise survives even when the client
+      never retries.
+    """
     gcfg = config.gateway
     journal = RequestJournal(
         gcfg.journal_path or None,
@@ -1996,10 +2143,79 @@ def _wire_survivability(
         retention_s=gcfg.journal_retention_s,
     )
     app["journal"] = journal
-    to_resubmit = [r for r in journal.pending() if r.inherited]
+    pod = getattr(engine.backend, "core", None)
+    adoption = getattr(pod, "adopted_request_ids", None) is not None
+    inherited = [r for r in journal.pending() if r.inherited]
+    if inherited and not adoption:
+        # pod boots count restarts off the worker registry scan; a
+        # journal-only (non-pod) deployment counts them here
+        metrics.GATEWAY_RESTARTS.inc()
+    if not inherited:
+        return
+    by_rid = {r.request_id: r.key for r in inherited if r.request_id}
+
+    def _on_adopted(
+        request_id: str,
+        result: Optional[Dict[str, Any]],
+        error: Optional[str],
+    ) -> None:
+        # fires on a pod RPC reader thread — the journal carries its
+        # own lock, so settling here is safe
+        key = by_rid.get(str(request_id))
+        if key is None:
+            return
+        rec = journal.lookup(key)
+        if rec is None or rec.state != _JOURNAL_PENDING:
+            return
+        body = None
+        if result is not None:
+            body = _journal_body(
+                rec.endpoint,
+                str(
+                    (rec.snapshot or {}).get("model")
+                    or config.model.model_id
+                ),
+                str(result.get("text") or ""),
+                str(result.get("finish_reason") or "stop"),
+                0,
+                int(result.get("generated_tokens") or 0),
+            )
+        if body is None:
+            journal.fail(key)
+            metrics.JOURNAL_REPLAYS.labels(outcome="failed").inc()
+            logger.warning(
+                "adopted request failed; journal key released",
+                extra={
+                    "extra_data": {
+                        "request_id": request_id, "error": error,
+                    }
+                },
+            )
+            return
+        journal.settle(key, body)
+        logger.info(
+            "adopted request settled into journal",
+            extra={"extra_data": {"request_id": request_id}},
+        )
+
+    adopted_rids: set = set()
+    if adoption:
+        pod.on_adopted_done = _on_adopted
+        adopted_rids = set(pod.adopted_request_ids)
+        for rid, (result, error) in pod.drain_adopted_results().items():
+            adopted_rids.add(rid)
+            _on_adopted(rid, result, error)
+
+    to_resubmit = []
+    for rec in inherited:
+        cur = journal.lookup(rec.key)
+        if cur is None or cur.state != _JOURNAL_PENDING:
+            continue
+        if rec.request_id and rec.request_id in adopted_rids:
+            continue  # the adopted worker finishes it; the hook settles
+        to_resubmit.append(rec)
     if not to_resubmit:
         return
-    metrics.GATEWAY_RESTARTS.inc()
 
     async def _replay_journal_pending() -> None:
         for rec in to_resubmit:
@@ -2171,10 +2387,26 @@ def create_app(config: Optional[VGTConfig] = None) -> web.Application:
     app.router.add_get("/debug/requests", debug_requests)
     app.router.add_get("/debug/requests/{ident}", debug_request_detail)
     app.router.add_get("/debug/perf", debug_perf)
+    app.router.add_get("/debug/pod", debug_pod)
     app.router.add_get("/debug/spans", debug_spans)
     app.router.add_get("/debug/faults", debug_faults)
     app.router.add_post("/debug/faults", debug_faults_arm)
     app.router.add_delete("/debug/faults", debug_faults_disarm)
+    # replica operations over a worker pod, auth-gated like every
+    # non-exempt path; add and DELETE exist only for a pod, which
+    # refuses them (a single engine keeps the 404 it had)
+    app.router.add_get("/admin/replicas", admin_replicas)
+    app.router.add_post(
+        "/admin/replicas/{idx}/drain", admin_drain_replica
+    )
+    app.router.add_post(
+        "/admin/replicas/{idx}/undrain", admin_undrain_replica
+    )
+    if config.pod.workers > 0:
+        app.router.add_post("/admin/replicas", admin_add_replica)
+        app.router.add_delete(
+            "/admin/replicas/{idx}", admin_remove_replica
+        )
     app.router.add_post("/v1/benchmark", run_benchmark)
     app.router.add_post("/v1/profile", capture_profile)
     app.on_startup.append(_on_startup)
