@@ -61,9 +61,17 @@ one is SIGKILLed mid-stream (its streams replay on the other; it
 respawns and passes the canary gate), then ``pod.roles`` [prefill,
 decode] hand each prompt's KV across (a 1,600-token prompt past the 64
 MiB staging floor stays where it prefilled), every greedy stream held to
-an in-process engine's and each worker's launches exact.
+an in-process engine's and each worker's launches exact; (11) last,
+tensor parallelism: K1-K3 at a tp rank's heads (14/2 and 7/1) against
+their plain versions, then a tp=1 engine and a tp=2 group of Qwen2.5-7B
+(the engine here as rank 0, a follower process as rank 1) over the same
+weights: on the one card both ranks share it over a gloo device group
+with eager chunks (phase a: each rank's launches exact, every prompt's
+logits held to the plain forward, greedy streams to tp=1's up to the
+first near-tie, a follower SIGKILLed mid-burst), and where two cards are
+visible over NCCL with decode graphs (phase b).
 ``python3 chip_smoke.py mixtral`` runs the build and (9) alone, ``pod``
-the build and (10).  Each phase prints the graphs it captured, their
+the build and (10), ``tp`` the build and (11).  Each phase prints the graphs it captured, their
 capture time and their memory pool's bytes.  It prints the card's
 name and power limit, one JSON line of per-kernel numbers and, last,
 ``{"ok": true, "device": {...}}``.  Any
@@ -1891,7 +1899,7 @@ def profile_burst(engine, batch, core) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     steps = core.get_stats()["steps"] - steps0
-    kernels = {}
+    kernels, host = {}, {}
     graph_launches = 0
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
@@ -1900,6 +1908,13 @@ def profile_burst(engine, batch, core) -> dict:
             entry[1] += evt.device_time_total / 1e3  # ms
         elif evt.name == "cudaGraphLaunch":
             graph_launches += 1
+        elif any(part in evt.name.lower() for part in COLLECTIVE_OPS):
+            # a tp group's collectives, as the host waits on them (gloo
+            # runs them on the host, staged through copies it times on
+            # the card)
+            entry = host.setdefault(evt.name, [0, 0.0])
+            entry[0] += 1
+            entry[1] += evt.cpu_time_total / 1e3  # ms
     busy_ms = sum(ms for _, ms in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]
     groups = {}
@@ -1922,7 +1937,14 @@ def profile_burst(engine, batch, core) -> dict:
         "top": [{"name": name[:90], "count": n, "ms": ms}
                 for name, (n, ms) in top],
         "groups": groups,
+        "host_collectives": {name: {"count": n, "ms": ms}
+                             for name, (n, ms) in host.items()},
     }
+
+
+# host events of the collectives a tp group's rank issues
+COLLECTIVE_OPS = ("c10d", "gloo", "nccl", "allreduce", "all_reduce",
+                  "allgather", "all_gather", "broadcast")
 
 
 # kernel totals a profile reports by name: K4 and K5 on decode rows (the
@@ -2901,7 +2923,7 @@ class Transitions:
             self.log.append((time.perf_counter(), new.value))
             plain(new)
 
-        def rebuild(old, config, reload_weights=False):
+        def rebuild(old, config, devices=None, reload_weights=False):
             t0 = time.perf_counter()
             stop = old.stop
 
@@ -2913,7 +2935,7 @@ class Transitions:
             entry = {"reload": reload_weights}
             old.stop = timed_stop
             self.rebuilds.append(entry)
-            new = self._plain_rebuild(old, config,
+            new = self._plain_rebuild(old, config, devices,
                                       reload_weights=reload_weights)
             entry["rebuild_s"] = time.perf_counter() - t0
             return new
@@ -5045,6 +5067,8 @@ def print_profile(what: str, card: str, profile: dict) -> None:
         print(f"  {t['ms']:9.2f} ms  {t['count']:6d}x  {t['name']}")
     for group, t in profile["groups"].items():
         print(f"  total {group}: {t['ms']:.2f} ms over {t['count']} launches")
+    for name, t in profile.get("host_collectives", {}).items():
+        print(f"  host {name}: {t['ms']:.2f} ms over {t['count']} calls")
 
 
 def print_recovery(card: str, recovery: dict) -> None:
@@ -5068,6 +5092,451 @@ def print_recovery(card: str, recovery: dict) -> None:
     print(f"recovery phase, the integrity guard of one decode step on "
           f"{card}: {step['device_ops']} device ops, {step['ms']:.4f} ms "
           f"over logits {step['logits']}", flush=True)
+
+
+# ------------------------------------------------------------------- tp
+
+TP_TOKENS = 32
+# one card, two ranks (phase a); two cards, one rank each (phase b)
+TP_ONE_CARD = ["cuda:0", "cuda:0"]
+TP_TWO_CARDS = ["cuda:0", "cuda:1"]
+
+
+def check_tp_kernel_shapes(dev) -> dict:
+    """K1, K2 and K3 at a tp rank's shard of Qwen2.5-7B (28/4 heads: 14/2
+    on each of 2 ranks, 7/1 on each of 4), each held against its plain
+    version and timed beside one SDPA call; returns the numbers by
+    shape."""
+    from vgate_tpu_torch.ops import attention as plain
+    from vgate_tpu_torch.ops.kernels.paged_decode import (
+        paged_decode_attention as kernel,
+    )
+
+    out = {}
+    B, hd, ps, pps = 32, 128, 32, 64
+    for H, KV in ((14, 2), (7, 1)):
+        shape = f"B={B} H={H} KV={KV} hd={hd} ps={ps} ctx=1..2048"
+        q, k, v, pt, sl = decode_inputs(B, H, KV, hd, ps, pps, DECODE_LENS,
+                                        31, dev)
+        got = thrice(lambda: kernel(q, k, v, pt, sl), f"K1 at [{shape}]")
+        expect = plain.paged_decode_attention(q.float(), k.float(),
+                                              v.float(), pt, sl)
+        torch.cuda.synchronize()
+        err = within(got, expect, f"K1 at the tp shard [{shape}]")
+        plain_ms = time_ms(
+            lambda: plain.paged_decode_attention(q, k, v, pt, sl), iters=5)
+        library, lib = sdpa_decode(q, k, v, pt, sl)
+        torch.cuda.synchronize()
+        within(got, lib, f"K1 at [{shape}] vs the library call")
+        library_ms = time_ms(library, iters=20)
+        del library, lib
+        bound, by = decode_bound(DECODE_LENS, B, H, KV, hd, ps)
+        ms = time_k1(kernel, q, k, v, pt, sl, {}, bound, library_ms,
+                     f"the tp shard [{shape}]")
+        out[f"paged_decode_attention [{shape}]"] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
+    shape = "B=2 S=1024 H=14 KV=2 hd=128"
+    q, k, v = prefill_inputs(2, 1024, 14, 2, 128, 32, dev)
+    sl = torch.tensor([1024, 1024], dtype=torch.int32, device=dev)
+    out[f"flash_prefill_attention [{shape}]"] = time_prefill(
+        q, k, v, sl, f"the tp shard [{shape}]", with_plain=True)
+    del q, k, v
+    shape = "B=4 S=512 prefix=1024 H=14 KV=2 hd=128 ps=32"
+    out[f"paged_multitok_attention [{shape}]"] = time_suffix(
+        dev, 4, 512, 14, 2, 128, 32, 1024, 33, f"the tp shard [{shape}]",
+        with_plain=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_config(devices):
+    """The tp phase's engines: the main path's model, prefix cache on,
+    chunked prefill at 512, pages of 32 and 32 slots; ``devices`` names
+    each rank's card (one entry: tp 1)."""
+    return engine_config(MODEL, "cuda", prefill_chunk=512, kv_page_size=32,
+                         max_batch_slots=32, tp=len(devices),
+                         devices=list(devices) if len(devices) > 1 else [])
+
+
+def tp_traffic():
+    """(name, texts, params) of the phase's traffic, in order: the
+    9-request burst (8 greedy with their top-2 logprobs, 1 seeded
+    sampled), a shared system prompt's first turn, its second turn (4
+    more tails, prefix hits through K3, and the copy-on-write prompt) and
+    a 1,600-token prompt (chunked at 512)."""
+    from vgate_tpu_torch.backends.base import SamplingParams
+
+    greedy = SamplingParams(max_tokens=TP_TOKENS, temperature=0.0,
+                            logprobs=True, top_logprobs=2)
+    sampled = SamplingParams(max_tokens=TP_TOKENS, temperature=0.8,
+                             top_p=0.9, top_k=50, seed=1234)
+    texts = prompts()
+    system, tails, cow, long = prefix_texts()
+    return [("burst", texts + [texts[3]], [greedy] * 8 + [sampled]),
+            ("first_turn", [system + tails[0]], [greedy]),
+            ("second_turn", [system + t for t in tails[1:]] + [cow],
+             [greedy] * 5),
+            ("long", [long], [greedy])]
+
+
+def tp_serve(engine, traffic) -> dict:
+    """Each group of the traffic through ``generate_batch``; its streams,
+    each greedy step's top-2 logit gap and its serving numbers."""
+    out = {}
+    for name, texts, params in traffic:
+        results, numbers = serve(engine, (texts, params))
+        out[name] = {
+            "streams": [r.token_ids for r in results],
+            "gaps": [None if not r.logprobs else
+                     [e["top_logprobs"][0]["logprob"]
+                      - e["top_logprobs"][1]["logprob"] for e in r.logprobs]
+                     for r in results],
+            "numbers": numbers,
+        }
+    return out
+
+
+def tp_prompt_logits(core, ids) -> torch.Tensor:
+    """The last-token logits (fp32, [V]) of one cold prompt pass over
+    ``ids`` on the engine's pools, on pages taken from its allocator and
+    given back; on a tp group the pass is named to the followers as the
+    engine names its own, and the logits are all-gathered on rank 0.  The
+    engine must be idle."""
+    import numpy as np
+
+    from vgate_tpu_torch.models.decoder import prefill_forward
+
+    live = live_core(core)
+    ps, dev = live.geometry.page_size, live.device
+    n = len(ids)
+    S = -(-n // 128) * 128
+    pages = live.allocator.allocate(S // ps)
+    check(pages is not None, "no free pages for a prompt-logits pass")
+    tok = np.zeros((1, S), np.int32)
+    tok[0, :n] = ids
+    sl = np.asarray([n], np.int32)
+    pt = np.asarray([pages], np.int32)
+    try:
+        with torch.no_grad(), live._program("prefill", tokens=tok,
+                                            seq_lens=sl, page_tables=pt):
+            logits = prefill_forward(
+                live.params, live.spec, torch.from_numpy(tok).to(dev),
+                torch.from_numpy(sl).to(dev), live.k_pages, live.v_pages,
+                torch.from_numpy(pt).to(dev))
+        torch.cuda.synchronize()
+    finally:
+        live.allocator.release(pages)
+    return logits[0].float().cpu()
+
+
+def tp_plain_tolerance(core, ids) -> dict:
+    """The rounding noise of bf16 through 28 layers on one prompt, as
+    ``LogitsCheck`` measures it: two plain full-sequence forwards (fp32
+    vs bf16 probabilities before PV) on the full weights; the tolerance
+    is 3x their difference, and never less than 4 bf16 steps of the
+    largest logit."""
+    from vgate_tpu_torch.ops.attention import (
+        causal_prefill_attention,
+        flash_prefill_attention,
+    )
+
+    live = live_core(core)
+    seq = torch.tensor([ids], dtype=torch.int32, device=live.device)
+    with torch.no_grad():
+        ref, alt = (reference_logits(live.params, live.spec, seq, a)[0]
+                    .float().cpu()
+                    for a in (causal_prefill_attention,
+                              flash_prefill_attention))
+    floor = float((alt - ref).abs().max())
+    scale = float(ref.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+    return {"ref": ref, "floor": floor, "tol": max(3 * floor, 4 * ulp)}
+
+
+def tp_reference(traffic) -> dict:
+    """The tp = 1 engine over the same random weights (seed 0): its
+    streams and greedy top-2 gaps and its serving numbers, and for every
+    greedy request, by (group, index), its prompt's ids, prompt-pass
+    logits and the plain forward's reference and tolerance (the tp = 1
+    logits held within it)."""
+    engine, core = start_engine(tp_config(["cuda:0"]), "tp=1 reference")
+    try:
+        warm_up(core, "tp=1 reference engine")
+        served = tp_serve(engine, traffic)
+        prompts_ = {}
+        for name, texts, params in traffic:
+            for i, (text, sp) in enumerate(zip(texts, params)):
+                if sp.temperature != 0.0:
+                    continue
+                ids = core.encode_prompt(text)
+                logits = tp_prompt_logits(core, ids)
+                tol = tp_plain_tolerance(core, ids)
+                err = float((logits - tol["ref"]).abs().max())
+                check(err <= tol["tol"],
+                      f"tp=1 {name} {i}: logits {err} off the plain forward"
+                      f" (tolerance {tol['tol']})")
+                prompts_[(name, i)] = {"ids": ids, "logits": logits,
+                                       "vs_plain": err, **tol}
+        return {"served": served, "prompts": prompts_}
+    finally:
+        engine.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def tp_streams_agree(ref: dict, served: dict, what: str) -> dict:
+    """Each greedy stream equals tp = 1's up to the first step where tp =
+    1's top-2 gap is below its prompt's tolerance (either token may win
+    there).  Returns each stream's checked length (the stream's length
+    when no such step comes) and how many streams are equal whole."""
+    checked, whole = {}, 0
+    for name, group in ref["served"].items():
+        for i, (a, gaps) in enumerate(zip(group["streams"], group["gaps"])):
+            if gaps is None:
+                continue  # the seeded sampled row
+            b = served[name]["streams"][i]
+            tol = ref["prompts"][(name, i)]["tol"]
+            upto = next((j for j, g in enumerate(gaps) if g < tol), len(a))
+            check(b[:upto] == a[:upto],
+                  f"{what}, {name} {i}: the stream leaves tp=1's before "
+                  f"step {upto} (gaps {gaps[:upto + 1]}, tolerance {tol})")
+            checked[f"{name} {i}"] = upto
+            whole += a == b
+    return {"checked_steps": checked,
+            "equal_streams": f"{whole}/{len(checked)}"}
+
+
+def tp_launches(core, s0: dict, f0: dict, L: int, what: str) -> dict:
+    """Each rank's K1/K2/K3 launches since the counts were set to 0:
+    K1 = L x decode steps and K2 + K3 = L x prompt passes, exactly, on
+    rank 0 (this process) and on the follower (its counts read over the
+    control group), which must have run rank 0's steps and passes.
+    Returns the launches summed over the ranks, and each rank's."""
+    live = live_core(core)
+    s = live.get_stats()
+    [f] = live.follower_stats()
+    steps = s["steps"] - s0["steps"]
+    passes = s["prompt_passes"] - s0["prompt_passes"]
+    check(f["steps"] - f0["steps"] == steps,
+          f"{what}: the follower ran {f['steps'] - f0['steps']} decode steps,"
+          f" rank 0 {steps}")
+    check(f["prompt_passes"] - f0["prompt_passes"] == passes,
+          f"{what}: the follower ran {f['prompt_passes'] - f0['prompt_passes']}"
+          f" prompt passes, rank 0 {passes}")
+    total, each = {}, {}
+    for rank, n in ((0, read_launches()), (1, f["kernel_launches"])):
+        check(n[K1] == L * steps,
+              f"{what}, rank {rank}: K1 {n[K1]} launches for {steps} "
+              f"decode steps of {L} layers")
+        check(n[K2] + n[K3] == L * passes,
+              f"{what}, rank {rank}: K2 {n[K2]} + K3 {n[K3]} launches for "
+              f"{passes} prompt passes of {L} layers")
+        each[str(rank)] = {K1: n[K1], K2: n[K2], K3: n[K3]}
+        for name, count in n.items():
+            total[name] = total.get(name, 0) + count
+    return {"launches": total, "per_rank": each, "decode_steps": steps,
+            "prompt_passes": passes}
+
+
+def tp_memory(core) -> dict:
+    """Each rank's weights, pool and peak device memory (GB)."""
+    live = live_core(core)
+
+    def gb(n):
+        return None if n is None else round(n / 1e9, 2)
+
+    weights = sum(t.numel() * t.element_size()
+                  for t in _tree_leaves(live.params))
+    pool = sum(t.numel() * t.element_size()
+               for t in (live.k_pages, live.v_pages))
+    out = {"0": {"weights_gb": gb(weights),
+                 "pool_pages": live.geometry.num_pages, "pool_gb": gb(pool),
+                 "peak_gb": gb(torch.cuda.max_memory_allocated())}}
+    for f in live.follower_stats():
+        m = f["memory"]
+        out[str(f["rank"])] = {
+            "weights_gb": gb(m["weights_bytes"]),
+            "pool_pages": m["pool_pages"], "pool_gb": gb(m["pool_bytes"]),
+            "peak_gb": gb(m["peak_bytes"])}
+    return out
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_leaves(v)
+    else:
+        yield tree
+
+
+def tp_kill_drill(engine, core, batch) -> dict:
+    """The follower SIGKILLed once a stream of the burst has 2 tokens:
+    rank 0's collectives raise on the closed peer, the supervisor
+    contains the crash, shuts the mesh down, spawns a new follower (its
+    shard loaded afresh, rank 0's kept), warms the group up and replays
+    every request.  Returns the seconds from the kill to serving
+    (DEGRADED) and the resumed streams."""
+    import os
+    import signal
+
+    from vgate_tpu_torch.runtime.supervisor import HealthState
+
+    sup = core
+    live = live_core(core)
+    h0 = sup.health()
+    pid = live.mesh.followers[0].pid
+    kill, fired = {}, threading.Event()
+
+    def watch() -> None:
+        while sup.total_restarts == h0["restarts"] or sup.state not in (
+                HealthState.DEGRADED, HealthState.SERVING):
+            time.sleep(0.005)
+        kill["serving"] = time.perf_counter()
+
+    def hook(prompt, token):
+        if not fired.is_set() and len(watcher.seqs[prompt].generated_ids) >= 2:
+            fired.set()
+            kill["t"] = time.perf_counter()
+            os.kill(pid, signal.SIGKILL)
+            threading.Thread(target=watch, daemon=True).start()
+
+    with TokenWatch(sup, hook) as watcher:
+        results, numbers = serve(engine, batch)
+    wait_for(lambda: "serving" in kill, "the tp group serving again", 600)
+    h = sup.health()
+    check(h["restarts"] == h0["restarts"] + 1,
+          f"tp kill drill: restarts {h0['restarts']} -> {h['restarts']}")
+    check(h["lost"] == h0["lost"], f"tp kill drill: {h['lost']} lost")
+    check(h["resumed"] - h0["resumed"] >= 1, "tp kill drill: none resumed")
+    for r in results:
+        check(r.num_tokens == TP_TOKENS,
+              f"tp kill drill: a request ended at {r.num_tokens} tokens")
+    new = live_core(core)
+    check(new is not live and new.mesh.healthy()
+          and new.mesh.followers[0].pid != pid,
+          "tp kill drill: the group was not rebuilt with a new follower")
+    return {"kill_to_serving_s": kill["serving"] - kill["t"],
+            "resumed": h["resumed"] - h0["resumed"],
+            "follower_pid": [pid, new.mesh.followers[0].pid],
+            "streams": [r.token_ids for r in results],
+            "wall_s": numbers["wall_s"]}
+
+
+def tp_group(devices, ref: dict, traffic, what: str) -> dict:
+    """One tp = 2 group on ``devices`` through the backend: boot, warm-up,
+    the traffic with every rank's launches exact, the streams held to tp =
+    1's, a profile of rank 0, every prompt's prompt-pass logits against
+    tp = 1's and the plain forward, and (one card) the follower-kill
+    drill."""
+    print(f"memory allocated before the tp=2 {what} group: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    engine, core = start_engine(tp_config(devices), f"tp=2 {what}")
+    try:
+        live = live_core(core)
+        stats = live.get_stats()
+        check(stats["mesh"]["tp"] == 2, f"{what}: mesh {stats['mesh']}")
+        backend = stats["mesh"]["backend"]
+        graphs = live.decode_graphs
+        print(f"tp=2 {what}: device group {backend}, decode chunks "
+              f"{'graph replays' if graphs else 'eager (gloo cannot be captured)'}",
+              flush=True)
+        warm = warm_up(core, f"tp=2 {what}")
+        live.reset_follower_launches()
+        torch.cuda.reset_peak_memory_stats()
+        L = live.spec.num_layers
+        s0 = live.get_stats()
+        [f0] = live.follower_stats()
+        served = tp_serve(engine, traffic)
+        launches = tp_launches(core, s0, f0, L, f"tp=2 {what}")
+        s1 = live.get_stats()
+        if graphs:
+            g0, g1 = s0["decode_graphs"], s1["decode_graphs"]
+            check(g1["replays"] - g0["replays"] == s1["chunks"] - s0["chunks"],
+                  f"{what}: {g1['replays'] - g0['replays']} replays for "
+                  f"{s1['chunks'] - s0['chunks']} chunks")
+        agree = tp_streams_agree(ref, served, f"tp=2 {what}")
+        pc = s1["prefix_cache"]
+        check(pc["hit_tokens"] > 0 and pc["cow_copies"] >= 1
+              and pc["chunk_passes"] > 0,
+              f"{what}: the traffic missed a prefix hit, a copy-on-write or "
+              f"a chunked pass: {pc}")
+        memory = tp_memory(core)
+        burst = traffic[0]
+        profile = profile_burst(engine, (burst[1], burst[2]), live)
+        errs = {}
+        for (name, i), p in ref["prompts"].items():
+            got = tp_prompt_logits(core, p["ids"])
+            check(bool(torch.isfinite(got).all()), "tp logits not finite")
+            err_plain = float((got - p["ref"]).abs().max())
+            check(err_plain <= p["tol"],
+                  f"{what}, {name} {i}: logits {err_plain} off the plain "
+                  f"forward (tolerance {p['tol']})")
+            errs[f"{name} {i}"] = {
+                "vs_tp1": float((got - p["logits"]).abs().max()),
+                "vs_plain": err_plain, "tp1_vs_plain": p["vs_plain"],
+                "tol": p["tol"]}
+        out = {
+            "backend": backend, "decode_graphs": graphs,
+            "warmup_s": warm["warmup_s"],
+            "burst": served["burst"]["numbers"],
+            "tp1_burst": ref["served"]["burst"]["numbers"],
+            "second_turn": served["second_turn"]["numbers"],
+            "long": served["long"]["numbers"],
+            "streams": agree,
+            "sampled_row_agrees": served["burst"]["streams"][8]
+            == ref["served"]["burst"]["streams"][8],
+            "logits_max_abs_vs_tp1": max(e["vs_tp1"] for e in errs.values()),
+            "logits": errs,
+            "memory": memory,
+            "prefix_cache": {k: pc[k] for k in ("hit_tokens", "cow_copies",
+                                                "chunk_passes")},
+            **launches,
+            "profile": profile,
+        }
+        if backend == "gloo":
+            out["kill_drill"] = tp_kill_drill(engine, core,
+                                              (burst[1], burst[2]))
+        return out
+    finally:
+        engine.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def tp_path(card: str) -> list:
+    """Phase (a): a tp = 2 group on the one card (two processes, two CUDA
+    contexts, a gloo device group, eager chunks), held to the tp = 1
+    engine; phase (b), over NCCL with decode graphs, where two cards are
+    visible.  Prints each; returns the runs (their summed launches)."""
+    traffic = tp_traffic()
+    ref = tp_reference(traffic)
+    # the tp=1 engine's cycles hold its weights until a collection
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = []
+    a = tp_group(TP_ONE_CARD, ref, traffic, "phase (a), one card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print_profile("a tp=2 burst on one card, rank 0", card, a.pop("profile"))
+    drill = a.pop("kill_drill")
+    drill.pop("streams")
+    print(f"tp phase (a), 2 ranks on {card}: " + json.dumps(a), flush=True)
+    print(f"tp phase (a) follower kill drill on {card}: "
+          + json.dumps(drill), flush=True)
+    runs.append(a)
+    if torch.cuda.device_count() >= 2:
+        b = tp_group(TP_TWO_CARDS, ref, traffic, "phase (b), two cards")
+        print_profile("a tp=2 burst on two cards, rank 0", card,
+                      b.pop("profile"))
+        print(f"tp phase (b), 2 ranks over NCCL: " + json.dumps(b),
+              flush=True)
+        runs.append(b)
+    else:
+        print(f"tp phase (b) did not run: {torch.cuda.device_count()} card "
+              "visible, and it needs 2 (one rank a card, NCCL, decode "
+              "graphs)", flush=True)
+    return runs
 
 
 def main() -> None:
@@ -5114,6 +5583,15 @@ def main() -> None:
             print(f"pod launches: {json.dumps(run['launches'])}")
         print(card_line())
         return
+    if sys.argv[1:] == ["tp"]:
+        # the tp phase alone, after the build and K1-K3 at the shard
+        # shapes (a shorter run while that phase is worked on)
+        print(f"K1-K3 at the tp shard shapes on {card}: "
+              + json.dumps(check_tp_kernel_shapes(dev)), flush=True)
+        for run in tp_path(card):
+            print(f"tp launches: {json.dumps(run['launches'])}")
+        print(card_line())
+        return
     if sys.argv[1:] == ["recovery"]:
         # the recovery phase alone, after the build (a shorter run while
         # that phase is worked on); with no argument every phase runs
@@ -5138,6 +5616,8 @@ def main() -> None:
     mixtral_attention_shapes(dev)
     kernels.append(check_paged_decode_blocked(dev))
     gemma_kernel_shapes(dev)
+    print(f"K1-K3 at the tp shard shapes on {card}: "
+          + json.dumps(check_tp_kernel_shapes(dev)), flush=True)
     print("host swap page round trip at 7B (1, 16, 17 pages; bit-exact, "
           "pools in place): " + json.dumps(check_swap_round_trip(dev)),
           flush=True)
@@ -5259,6 +5739,10 @@ def main() -> None:
     # plane, join the count
     runs += pod_path(card)
     memory("the pod phase")
+    # the tp group: both ranks' launches (the follower's read over the
+    # control group) join the count
+    runs += tp_path(card)
+    memory("the tp phase")
     for k in kernels:
         # launches of every path, each counted from 0 just before it ran
         k["launches"] = sum(run["launches"].get(k["name"], 0)

@@ -28,7 +28,8 @@ def test_defaults_and_sections():
 @pytest.mark.parametrize(
     "sections",
     [
-        {"device": {"tp": 2}},
+        # tp=2 serves since item 10a; MoE under tp still refuses (10c)
+        {"device": {"tp": 2}, "model": {"model_id": "tiny-moe"}},
         {"device": {"dp": 2}},
         {"device": {"sp": 2}},
         {"device": {"pp": 2}},

@@ -1397,3 +1397,85 @@ def test_pod_with_a_handoff_streams_as_the_in_process_engine(cuda):
         assert launches[1]["paged_decode_attention"] > 0
     finally:
         pod.stop()
+
+
+# ----------------------------------------------- tp shard shapes (item 10a)
+
+# a tp rank's heads of Qwen2.5-7B (28 query heads, 4 kv heads): 14/2 at
+# tp 2, 7/1 at tp 4; ragged decode contexts 1..2048 on pages of 32
+TP_DECODE_LENS = [1, 31, 32, 33, 64, 65, 100, 127, 128, 129, 255, 256, 257,
+                  300, 511, 512, 513, 700, 1000, 1023, 1024, 1025, 1200,
+                  1500, 1535, 1536, 1600, 1800, 2000, 2047, 2048, 2048]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV", [(14, 2), (7, 1)], ids=["tp2", "tp4"])
+def test_k1_at_a_tp_ranks_heads_on_card(cuda, H, KV):
+    """K1 at B 32, hd 128, pages of 32 and contexts 1..2048 on one rank's
+    heads, against the plain version."""
+    rng = np.random.default_rng(41)
+    B, hd, ps, pps = 32, 128, 32, 64
+    P = 1 + B * pps
+    q = _bf16(rng, (B, H, hd), cuda)
+    k = _bf16(rng, (KV, P, ps, hd), cuda)
+    v = _bf16(rng, (KV, P, ps, hd), cuda)
+    pt = torch.from_numpy(
+        rng.permutation(np.arange(1, P)).reshape(B, pps).astype(np.int32)
+    ).to(cuda)
+    lens = torch.tensor(TP_DECODE_LENS, dtype=torch.int32, device=cuda)
+    before = paged_decode.paged_decode_attention.launches
+    got = _thrice(lambda: paged_decode.paged_decode_attention(q, k, v, pt,
+                                                              lens))
+    assert paged_decode.paged_decode_attention.launches == before + 3
+    expect = tatt.paged_decode_attention(q.float(), k.float(), v.float(),
+                                         pt, lens)
+    torch.testing.assert_close(got.float(), expect, atol=KERNEL_TOL,
+                               rtol=KERNEL_TOL)
+
+
+@pytest.mark.cuda
+def test_k2_at_a_tp_ranks_heads_on_card(cuda):
+    """K2 at B 2, S 1024 on one tp=2 rank's 14/2 heads."""
+    rng = np.random.default_rng(42)
+    B, S, H, KV, hd = 2, 1024, 14, 2, 128
+    q = _bf16(rng, (B, S, H, hd), cuda)
+    k = _bf16(rng, (B, S, KV, hd), cuda)
+    v = _bf16(rng, (B, S, KV, hd), cuda)
+    lens = torch.tensor([1024, 777], dtype=torch.int32, device=cuda)
+    before = flash_prefill.flash_prefill_attention.launches
+    got = flash_prefill.flash_prefill_attention(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert flash_prefill.flash_prefill_attention.launches == before + 1
+    expect = tatt.flash_prefill_attention(q.float(), k.float(), v.float(),
+                                          lens)
+    real = torch.arange(S, device=cuda)[None, :] < lens[:, None]
+    torch.testing.assert_close(got.float()[real], expect[real],
+                               atol=KERNEL_TOL, rtol=KERNEL_TOL)
+
+
+@pytest.mark.cuda
+def test_k3_at_a_tp_ranks_heads_on_card(cuda):
+    """K3 at B 4, S 512 over a 1,024-token prefix on one tp=2 rank's 14/2
+    heads, pages of 32."""
+    rng = np.random.default_rng(43)
+    B, S, H, KV, hd, ps, prefix = 4, 512, 14, 2, 128, 32, 1024
+    ctx_pages = (prefix + S) // ps
+    P = 1 + B * ctx_pages
+    q = _bf16(rng, (B, S, H, hd), cuda)
+    k = _bf16(rng, (KV, P, ps, hd), cuda)
+    v = _bf16(rng, (KV, P, ps, hd), cuda)
+    pt = torch.from_numpy(
+        rng.permutation(np.arange(1, P)).reshape(B, ctx_pages)
+        .astype(np.int32)
+    ).to(cuda)
+    p0 = torch.full((B,), prefix, dtype=torch.int32, device=cuda)
+    il = torch.tensor([512, 512, 300, 1], dtype=torch.int32, device=cuda)
+    before = paged_multitok.paged_multitok_attention.launches
+    got = paged_multitok.paged_multitok_attention(q, k, v, pt, p0, il)
+    torch.cuda.synchronize()
+    assert paged_multitok.paged_multitok_attention.launches == before + 1
+    expect = tatt.paged_suffix_attention(q.float(), k.float(), v.float(),
+                                         pt, p0, p0 + il)
+    real = torch.arange(S, device=cuda)[None, :] < il[:, None]
+    torch.testing.assert_close(got.float()[real], expect[real],
+                               atol=KERNEL_TOL, rtol=KERNEL_TOL)

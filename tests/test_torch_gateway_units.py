@@ -475,5 +475,6 @@ def test_singleton_and_reset():
 
 
 def test_not_ported_switches_still_refuse():
+    # tp=2 serves since item 10a; data parallelism is item 10b
     with pytest.raises(NotPortedError, match="queue 1, item 10"):
-        load_config(device={"tp": 2})
+        load_config(device={"dp": 2})

@@ -352,3 +352,56 @@ def test_pod_worker_and_gateway_serve_a_stream_without_the_http_packages(
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+TP_PROBE = """
+import sys
+from vgate_tpu_torch.backends.base import SamplingParams
+from vgate_tpu_torch.config import load_config
+from vgate_tpu_torch.runtime.engine_core import EngineCore
+core = EngineCore(load_config(
+    model={"model_id": "tiny-dense", "dtype": "float32",
+           "max_model_len": 64},
+    device={"device": "cpu", "tp": 2, "kv_num_pages": 32,
+            "kv_page_size": 4, "max_batch_slots": 2,
+            "prefill_buckets": [8, 16]},
+    logging={"level": "ERROR"},
+))
+try:
+    seq = core.submit_tokens([5, 6, 7], SamplingParams(max_tokens=4,
+                                                       temperature=0.0))
+    for _ in range(1000):
+        if seq.done_event.is_set():
+            break
+        core._tick()
+    assert seq.error is None and len(seq.generated_ids) == 4, seq.error
+    [stats] = core.follower_stats()
+    assert stats["steps"] > 0 and stats["prompt_passes"] == 1, stats
+finally:
+    core.close()
+print("ok")
+"""
+
+# the follower inherits PYTHONPATH, so the same sitecustomize blocks JAX,
+# the JAX package and the HTTP layer's packages in both processes
+TP_SITECUSTOMIZE = """
+import sys
+for name in %r:
+    sys.modules[name] = None
+""" % (BLOCKED + ("jax", "jaxlib", "vgate_tpu"),)
+
+
+def test_tp_follower_serves_without_jax_or_the_jax_package(tmp_path):
+    """A tp=2 engine and its follower process serve a stream with JAX, the
+    JAX package, the HTTP layer's packages and PyYAML blocked in both
+    interpreters: an import of any of them in the follower would end it,
+    and rank 0's collectives would fail."""
+    (tmp_path / "sitecustomize.py").write_text(TP_SITECUSTOMIZE)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(tmp_path)
+    proc = subprocess.run(
+        [sys.executable, "-c", TP_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "ok"

@@ -177,8 +177,11 @@ class TorchCUDABackend:
         return [GenerationResult(**r) for r in raw]
 
     def shutdown(self) -> None:
+        """Stop the engine; a tp group's followers and process groups go
+        with it (``close``), so none outlives the backend."""
         if self.core is not None:
-            self.core.stop()
+            # a pod has no followers of its own: it stops
+            getattr(self.core, "close", self.core.stop)()
             self.core = None
 
     def abort_in_flight(self, reason: str = "drain") -> None:

@@ -147,13 +147,18 @@ class DeviceConfig:
     # product; takes effect only with model.quantization, as in the
     # reference (the engine logs its warning otherwise)
     int8_native: bool = False
-    # reference switches the port cannot serve yet: any value > 1
-    # raises NotPortedError (see _check)
+    # the mesh axes (parallel/mesh.py): tp > 1 shards the model over tp
+    # ranks, each a process (tp 0 takes every visible device); dp, sp,
+    # pp and ep > 1 are not ported yet and raise NotPortedError (_check)
     dp: int = 1
     tp: int = 1
     sp: int = 1
     pp: int = 1
     ep: int = 1
+    # port-only: each rank's device, rank 0 first (empty = derived from
+    # `device` and tp).  Naming one card more than once runs that many
+    # ranks on it, over a gloo device group: the one-card test layout.
+    devices: List[str] = field(default_factory=list)
 
 
 @dataclass
@@ -521,10 +526,18 @@ def _check(cfg: VGTConfig) -> None:
         raise ValueError("prefix_cache.min_share_pages must be >= 1")
     if not 0.0 <= pc.evict_watermark < 1.0:
         raise ValueError("prefix_cache.evict_watermark must be in [0, 1)")
-    for axis in ("dp", "tp", "sp", "pp", "ep"):
-        # tp=0 is the reference's "all devices", one device here
+    for axis, item in (("dp", "10b"), ("sp", "10d"), ("pp", "10d"),
+                       ("ep", "10c")):
+        # 0 is the reference's "all devices": one device for these axes
         if getattr(d, axis) > 1:
-            raise _not_ported(f"device.{axis}>1", "queue 1, item 10")
+            raise _not_ported(f"device.{axis}>1", f"queue 1, item {item}")
+    if d.tp < 0:
+        raise ValueError("device.tp must be >= 0 (0 = every visible device)")
+    if d.devices and d.tp not in (0, len(d.devices)):
+        raise ValueError(
+            f"device.devices names {len(d.devices)} devices but device.tp "
+            f"is {d.tp}"
+        )
     if d.kv_page_size <= 0 or d.max_batch_slots <= 0:
         raise ValueError("kv_page_size and max_batch_slots must be > 0")
     if d.decode_block_slots < 1:
@@ -533,6 +546,13 @@ def _check(cfg: VGTConfig) -> None:
         raise ValueError("device.kv_budget_bytes must be >= 0")
     _check_pod(cfg.pod)
     spec = spec_for_model_id(m.model_id)
+    # a tp known at load (tp 0 resolves against the devices at the
+    # engine, which checks again)
+    tp = d.tp or len(d.devices)
+    if tp > 1:
+        from vgate_tpu_torch.parallel.sharding import check_tp_config
+
+        check_tp_config(cfg, spec, tp)
     if spec.is_encoder:
         # the reference has no decoder for an encoder either: it is
         # served behind /v1/embeddings

@@ -305,11 +305,20 @@ class WeightVerifier:
                 }
         return None
 
+    def check_paths(
+        self, params: Any, paths: List[str]
+    ) -> Optional[Dict[str, Any]]:
+        """The first mismatch among ``paths`` of ``params`` (a tp
+        follower's check of the slice rank 0 sweeps), or None."""
+        return self._check(paths, self._leaf_map(params))
+
     def verify_chunk(
-        self, params: Any, now: Optional[float] = None
+        self, params: Any, now: Optional[float] = None, remote=None
     ) -> Optional[Dict[str, Any]]:
         """Verify the next budgeted slice of leaves; returns the first
-        mismatch found (None while clean or between passes)."""
+        mismatch found (None while clean or between passes).  ``remote``
+        (a tp group's rank 0) checks the same paths in the other ranks'
+        shards, and its mismatch is returned like a local one."""
         if not self.baseline:
             return None
         now = time.monotonic() if now is None else now
@@ -319,6 +328,8 @@ class WeightVerifier:
         n = max(1, self.cfg.sweep_leaves_per_tick)
         paths = self._order[self._cursor : self._cursor + n]
         mismatch = self._check(paths, self._leaf_map(params))
+        if mismatch is None and remote is not None:
+            mismatch = remote(paths)
         metrics.WEIGHT_VERIFY_SECONDS.observe(
             time.perf_counter() - start
         )
@@ -331,13 +342,18 @@ class WeightVerifier:
             self._next_pass_t = now + self.cfg.sweep_interval_s
         return None
 
-    def verify_all(self, params: Any) -> Optional[Dict[str, Any]]:
+    def verify_all(
+        self, params: Any, remote=None
+    ) -> Optional[Dict[str, Any]]:
         """Full-tree verification (supervised rebuilds ALWAYS run this
-        before keeping the old incarnation's weights)."""
+        before keeping the old incarnation's weights), ``remote`` as in
+        :meth:`verify_chunk`."""
         if not self.baseline:
             return None
         start = time.perf_counter()
         mismatch = self._check(self._order, self._leaf_map(params))
+        if mismatch is None and remote is not None:
+            mismatch = remote(self._order)
         metrics.WEIGHT_VERIFY_SECONDS.observe(
             time.perf_counter() - start
         )
@@ -488,7 +504,11 @@ class EngineIntegrity:
         self.maybe_inject_weight_fault(core)
         if self.verifier is None:
             return
-        mismatch = self.verifier.verify_chunk(core.params)
+        # under tp each follower sweeps the same leaves of its own shard
+        mesh = getattr(core, "mesh", None)
+        remote = core._follower_check if mesh is not None and mesh.tp > 1 \
+            else None
+        mismatch = self.verifier.verify_chunk(core.params, remote=remote)
         if mismatch is None:
             return
         raise IntegrityError(

@@ -30,12 +30,21 @@ buffers, every step of it on the device without a host sync, so it runs
 inside a decode graph.  Quantized experts run K4/K5 one expert at a time
 on that expert's 2D weight; with ``spec.int8_native`` (W8A8/W4A8) every
 eligible projection but the lm_head runs the int8 product instead.
+
+Under tensor parallelism (``spec.mesh``, parallel/sharding.py
+``local_spec``) the forwards run on a rank's shard: its query and kv
+heads, its FFN channels and, when tp divides the vocab, its rows of the
+embedding and columns of the lm_head.  The collectives are all here: the
+vocab-parallel lookup's all-reduce (``_embed``), an all-reduce right
+after the o product and after the down product (``_reduce``), and the
+fp32 logits' all-gather before the final softcap (``_logits``).  With
+no mesh none is issued.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -68,10 +77,17 @@ def init_params(
     dtype: torch.dtype = torch.bfloat16,
     device: torch.device | str = "cpu",
     quantization: Optional[str] = None,
+    keep: Optional[Callable[[Tuple[str, ...], torch.Tensor],
+                            torch.Tensor]] = None,
 ) -> Params:
     """Random-init the parameter dict (std 0.02 normal, drawn in fp32 on
     ``device`` from ``generator``); the zero-egress path benchmarks use —
     throughput does not depend on weight values.
+
+    ``keep`` (a tp rank's, parallel/sharding.py ``leaf_keeper``) is
+    called on each dense leaf with its path as soon as it is drawn, and
+    its result is kept: a rank keeps its shard, and the draws, and so the
+    values, stay those of the whole tree.
 
     A dense spec draws each stacked leaf whole.  A MoE spec draws its
     stacked weights one layer at a time, and with ``quantization``
@@ -89,7 +105,10 @@ def init_params(
         x = torch.randn(
             shape, generator=generator, dtype=torch.float32, device=device
         )
-        return (x * 0.02).to(dtype)
+        return x.mul_(0.02).to(dtype)
+
+    def kept(path, leaf):
+        return leaf if keep is None else keep(path, leaf)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -119,29 +138,25 @@ def init_params(
             w = weight(*shape, quantize=name != "router")
             layers[name] = w if name == "router" else {"w": w}
     else:
-        layers.update({
-            "q": {"w": normal(L, D, H * hd)},
-            "k": {"w": normal(L, D, KV * hd)},
-            "v": {"w": normal(L, D, KV * hd)},
-            "o": {"w": normal(L, H * hd, D)},
-            "gate": {"w": normal(L, D, F)},
-            "up": {"w": normal(L, D, F)},
-            "down": {"w": normal(L, F, D)},
-        })
+        # drawn in this order, each leaf whole
+        for name, shape in (("q", (L, D, H * hd)), ("k", (L, D, KV * hd)),
+                            ("v", (L, D, KV * hd)), ("o", (L, H * hd, D)),
+                            ("gate", (L, D, F)), ("up", (L, D, F)),
+                            ("down", (L, F, D))):
+            layers[name] = {"w": kept(("layers", name, "w"), normal(*shape))}
     if spec.qkv_bias:
-        layers["q"]["b"] = zeros(L, H * hd)
-        layers["k"]["b"] = zeros(L, KV * hd)
-        layers["v"]["b"] = zeros(L, KV * hd)
+        for name, width in (("q", H * hd), ("k", KV * hd), ("v", KV * hd)):
+            layers[name]["b"] = kept(("layers", name, "b"), zeros(L, width))
     if spec.ffn_sandwich:
         layers["pre_ffn_norm"] = norm_init(L, D)
         layers["post_ffn_norm"] = norm_init(L, D)
     params: Params = {
-        "embed": normal(V, D),
+        "embed": kept(("embed",), normal(V, D)),
         "layers": layers,
         "final_norm": norm_init(D),
     }
     if not spec.tie_embeddings:
-        lm_head = normal(D, V)
+        lm_head = kept(("lm_head",), normal(D, V))
         params["lm_head"] = (lm_head if bits is None
                              else quantize_tensor(lm_head, bits))
     return params
@@ -194,14 +209,23 @@ def _act(x32: torch.Tensor, spec: ModelSpec) -> torch.Tensor:
     return torch.nn.functional.silu(x32)
 
 
+def _reduce(x: torch.Tensor, spec: ModelSpec) -> torch.Tensor:
+    """Sum a row-parallel product's partial results over the tp ranks
+    (in place; no collective on one device)."""
+    return x if spec.mesh is None else spec.mesh.all_reduce(x)
+
+
 def _dense_mlp(x: torch.Tensor, lp: Params, spec: ModelSpec) -> torch.Tensor:
+    """gate/up column-parallel over F, down row-parallel: under tp each
+    rank's F/tp channels give a partial sum, reduced right after the
+    down product."""
     i8 = spec.int8_native
     gate = weighted_einsum("...d,df->...f", x, lp["gate"]["w"],
                            int8_native=i8)
     up = weighted_einsum("...d,df->...f", x, lp["up"]["w"], int8_native=i8)
     act = _act(gate.float(), spec).to(x.dtype)
-    return weighted_einsum("...f,fd->...d", act * up, lp["down"]["w"],
-                           int8_native=i8)
+    return _reduce(weighted_einsum("...f,fd->...d", act * up,
+                                   lp["down"]["w"], int8_native=i8), spec)
 
 
 # each expert einsum's one-expert form: a 2D [in, out] contraction
@@ -303,10 +327,12 @@ def _finish_layer(h, attn, lp: Params, spec: ModelSpec):
     """Layer back half: o-projection residual + post-norm MLP residual.
     With ``ffn_sandwich`` (Gemma-2) the post-attention norm applies to the
     attention OUTPUT before the residual add, and the MLP is wrapped in
-    its own pre/post norms."""
+    its own pre/post norms.  Under tp the o product's partial sums are
+    reduced right after it, before Gemma-2's post-attention norm, which
+    is not linear."""
     attn = attn.reshape(*h.shape[:-1], spec.q_dim)
-    attn_out = weighted_einsum("...h,hd->...d", attn, lp["o"]["w"],
-                               int8_native=spec.int8_native)
+    attn_out = _reduce(weighted_einsum("...h,hd->...d", attn, lp["o"]["w"],
+                                       int8_native=spec.int8_native), spec)
     if spec.ffn_sandwich:
         h = h + _norm(attn_out, lp["post_norm"], spec)
         mlp = _mlp(_norm(h, lp["pre_ffn_norm"], spec), lp, spec)
@@ -323,12 +349,15 @@ def _logits(params: Params, spec: ModelSpec, x: torch.Tensor) -> torch.Tensor:
     view, which the fp32-out product takes as it is.  The lm_head never
     takes W8A8 (``int8_native``), as in the reference: per-token
     activation rounding could flip a greedy argmax between near-tied
-    logits."""
+    logits.  A vocab-sharded head (tp > 1 dividing V) gives each rank its
+    columns of the fp32 logits, all-gathered before the final softcap."""
     x = _norm(x, params["final_norm"], spec)
     w = params["embed"].t() if spec.tie_embeddings else params["lm_head"]
     logits = weighted_einsum(
         "...d,dv->...v", x, w, preferred_element_type=torch.float32
     )
+    if spec.mesh is not None and logits.shape[-1] != spec.vocab_size:
+        logits = spec.mesh.all_gather_last(logits)
     return _softcap(logits, spec.final_softcap)
 
 
@@ -346,7 +375,22 @@ def attn_options(spec: ModelSpec, layer: int) -> Dict[str, Any]:
 
 
 def _embed(params: Params, spec: ModelSpec, tokens: torch.Tensor):
-    x = params["embed"][tokens.long()]
+    """The embedding lookup.  A vocab-sharded table (tp > 1 dividing V)
+    holds rows ``rank*V/tp ..``: each rank looks up the tokens it holds,
+    zeroes the others, and the all-reduce sums the one nonzero row of
+    each token, exactly.  Gemma's scale comes after the reduce."""
+    table = params["embed"]
+    ids = tokens.long()
+    if spec.mesh is not None and table.shape[0] != spec.vocab_size:
+        rows = table.shape[0]
+        ids = ids - spec.mesh.rank * rows
+        held = (ids >= 0) & (ids < rows)
+        x = table[torch.clamp(ids, 0, rows - 1)]
+        x = spec.mesh.all_reduce(
+            torch.where(held[..., None], x, torch.zeros_like(x))
+        )
+    else:
+        x = table[ids]
     if spec.embed_scale:
         # Gemma scales embeddings by sqrt(hidden), cast to the model dtype
         # BEFORE the multiply (the HF convention the reference keeps)

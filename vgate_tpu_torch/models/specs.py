@@ -10,7 +10,7 @@ Gemma-2 (sliding-window + softcap attention, sandwich norms).
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Dict, Optional
+from typing import Any, Dict, Optional
 
 
 @dataclass(frozen=True)
@@ -72,6 +72,11 @@ class ModelSpec:
     # win is measured on hardware (threaded on the spec like
     # quant_kernel so it reaches the jitted decode as a static arg)
     decode_block_slots: int = 1
+    # tensor parallelism (parallel/sharding.py local_spec): the mesh of a
+    # rank whose heads and FFN channels above are its own shard; the
+    # forwards issue their collectives on its device group.  None = one
+    # device, no collective.
+    mesh: Any = field(default=None, compare=False, repr=False)
 
     @property
     def is_moe(self) -> bool:

@@ -1,0 +1,599 @@
+"""The serving mesh over ``torch.distributed``: SPMD over processes.
+
+The reference (vgate_tpu/parallel/mesh.py) is single-controller: one
+process owns every device of a ``jax.sharding.Mesh`` and GSPMD inserts
+the collectives.  The port has no GSPMD, so a mesh of ``tp`` devices is
+``tp`` processes, as Megatron runs it:
+
+* **rank 0** is the engine (runtime/engine_core.py).  It owns the
+  scheduler, the sequences, the sampling, the readbacks and the gateway.
+* **ranks 1..tp-1** are followers (parallel/follower.py), spawned by
+  :func:`build_mesh`.  Each holds its shard of the weights and its own
+  pools, and runs exactly the device programs rank 0 names, on the
+  inputs rank 0 sends.
+
+Two process groups join them:
+
+* the **control group** (gloo, the default group) carries host data:
+  each program's name and host arrays (rank 0 broadcasts, the followers
+  receive), replies (gathered to rank 0) and the pool size (the minimum
+  over the ranks);
+* the **device group** carries the model's collectives on tensors: the
+  all-reduces after the o and down products and of the vocab-parallel
+  embedding, the logits' all-gather and the broadcast of each decode
+  step's sampled tokens.  It is NCCL when every rank has a card of its
+  own, and gloo on the CPU or when ``devices`` names one card more than
+  once (the one-card test layout: NCCL refuses two ranks on one card);
+  gloo's collectives then stage the card's tensors through host memory.
+  The choice follows from the device list, is logged and is reported in
+  ``get_stats()["mesh"]["backend"]``; it is never made after a failure,
+  and an NCCL init that fails raises.
+
+A follower's death breaks the mesh: gloo's collectives raise at once on a
+closed peer, and rank 0's monitor thread marks the mesh broken (and
+aborts an NCCL device group, whose collectives would block), so the
+engine's next tick raises :class:`FollowerLostError` into the
+supervisor's containment.  The device group's timeout is longer than
+``recovery.step_stall_s`` so the supervisor acts first.
+"""
+
+from __future__ import annotations
+
+import atexit
+import dataclasses
+import datetime
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from vgate_tpu_torch.logging_config import get_logger
+
+logger = get_logger(__name__)
+
+AXIS_DP = "dp"
+AXIS_PP = "pp"
+AXIS_EP = "ep"
+AXIS_SP = "sp"
+AXIS_TP = "tp"
+# the reference's axis order: pp outermost after dp, tp innermost
+MESH_AXES = (AXIS_DP, AXIS_PP, AXIS_EP, AXIS_SP, AXIS_TP)
+
+# followers wait on the control group for their next program for as long
+# as the engine idles: its waits never time out (a dead rank 0 closes the
+# connection, and gloo raises at once)
+CONTROL_TIMEOUT = datetime.timedelta(days=7)
+# the rendezvous through rank 0's store: a follower's interpreter start
+STORE_TIMEOUT = datetime.timedelta(seconds=300)
+NCCL_ABORT_TIMEOUT_S = 60.0
+
+
+class FollowerLostError(RuntimeError):
+    """A follower rank exited or its collectives failed: the mesh is
+    broken and the supervisor rebuilds it with new followers."""
+
+
+@dataclass(frozen=True)
+class MeshPlan:
+    """Resolved mesh geometry."""
+
+    dp: int
+    pp: int
+    ep: int
+    sp: int
+    tp: int
+
+    @property
+    def shape(self) -> Tuple[int, int, int, int, int]:
+        return (self.dp, self.pp, self.ep, self.sp, self.tp)
+
+    @property
+    def num_devices(self) -> int:
+        return self.dp * self.pp * self.ep * self.sp * self.tp
+
+
+def resolve_plan(device_config, num_devices: int) -> MeshPlan:
+    """Resolve config axis sizes (0 = absorb the remaining devices)
+    against ``num_devices``, with the reference's errors."""
+    n = num_devices
+    dp, pp, ep, sp, tp = (
+        device_config.dp,
+        getattr(device_config, "pp", 1),
+        device_config.ep,
+        device_config.sp,
+        device_config.tp,
+    )
+    fixed = [x for x in (dp, pp, ep, sp, tp) if x > 0]
+    free = [x for x in (dp, pp, ep, sp, tp) if x == 0]
+    used = int(np.prod(fixed)) if fixed else 1
+    if len(free) > 1:
+        raise ValueError("at most one mesh axis may be 0 (auto)")
+    if free:
+        if n % used:
+            raise ValueError(
+                f"devices ({n}) not divisible by fixed axes product ({used})"
+            )
+        auto = n // used
+        dp, pp, ep, sp, tp = [
+            x if x > 0 else auto for x in (dp, pp, ep, sp, tp)
+        ]
+    plan = MeshPlan(dp=dp, pp=pp, ep=ep, sp=sp, tp=tp)
+    if plan.num_devices != n:
+        raise ValueError(
+            f"mesh {plan.shape} covers {plan.num_devices} devices but "
+            f"{n} are visible"
+        )
+    return plan
+
+
+def visible_devices(device: str) -> List[str]:
+    """The devices of ``device``'s kind this process sees: every card,
+    or the CPU as one device."""
+    if torch.device(device).type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} requested but torch.cuda.is_available() "
+                "is false; pass device='cpu' explicitly to run on the CPU"
+            )
+        return [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    return ["cpu"]
+
+
+def _named(device: str) -> str:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+        return f"cuda:{torch.cuda.current_device()}"
+    return str(dev)
+
+
+def mesh_devices(device_config, devices: Optional[List[Any]] = None
+                 ) -> List[str]:
+    """Each rank's device, rank 0 first: ``devices`` (the engine's
+    argument), else ``device.devices``, else derived from ``device.device``
+    and ``tp``: one rank on ``device`` at tp 1, the CPU once per rank,
+    or the first ``tp`` cards (every card at tp 0).  A list that names one
+    card more than once is the one-card test layout."""
+    if devices is None and getattr(device_config, "devices", None):
+        devices = list(device_config.devices)
+    if devices is not None:
+        return [_named(str(d)) for d in devices]
+    tp = device_config.tp
+    if tp == 1:
+        # resolved by the engine, which refuses a card that is not there
+        return [device_config.device]
+    visible = visible_devices(device_config.device)
+    if visible == ["cpu"]:
+        return ["cpu"] * max(1, tp)
+    n = tp or len(visible)
+    if n > len(visible):
+        raise ValueError(
+            f"device.tp={tp} needs {n} cards but {len(visible)} are "
+            "visible; name a card once per rank in device.devices to run "
+            "the ranks on fewer cards"
+        )
+    return visible[:n]
+
+
+def device_backend(devices: List[str]) -> str:
+    """The device group's backend: NCCL when every rank has a card of
+    its own, else gloo."""
+    if all(torch.device(d).type == "cuda" for d in devices) and len(
+        set(devices)
+    ) == len(devices):
+        return "nccl"
+    return "gloo"
+
+
+def device_group_timeout(recovery) -> datetime.timedelta:
+    """Longer than the supervisor's stall limits, so its watchdog (and
+    the follower monitor) act before a collective times out."""
+    return datetime.timedelta(
+        seconds=max(recovery.step_stall_s, recovery.compile_grace_s) + 60
+    )
+
+
+# meshes with live followers in this process, for the exit hook
+_LIVE: "set[Mesh]" = set()
+
+
+def _kill_live() -> None:
+    for mesh in list(_LIVE):
+        mesh.kill_followers()
+
+
+atexit.register(_kill_live)
+
+
+class Mesh:
+    """One rank's view of the mesh: the plan, every rank's device, this
+    rank and its device, the two process groups (tp > 1) and, on rank 0,
+    the follower processes.  A tp = 1 mesh has no groups and issues no
+    collective."""
+
+    def __init__(self, plan: MeshPlan, devices: List[str], rank: int = 0,
+                 backend: Optional[str] = None) -> None:
+        self.plan = plan
+        self.devices = list(devices)
+        self.rank = rank
+        self.device = torch.device(self.devices[rank])
+        self.backend = backend
+        self.ctrl: Any = None
+        self.group: Any = None
+        self.followers: List[subprocess.Popen] = []
+        # why the mesh broke (a follower's exit, a failed collective)
+        self.broken: Optional[str] = None
+        # rank 0: the program the followers were named and rank 0 has not
+        # finished its own part of (runtime/engine_core.py _program)
+        self.pending: Optional[str] = None
+        self.lock = threading.RLock()
+        self._config_path: Optional[str] = None
+        self._closed = False
+
+    # ------------------------------------------------------------ geometry
+
+    @property
+    def tp(self) -> int:
+        return self.plan.tp
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(MESH_AXES, self.plan.shape))
+
+    @property
+    def num_devices(self) -> int:
+        return self.plan.num_devices
+
+    @property
+    def card_share(self) -> int:
+        """How many ranks share this rank's device."""
+        return self.devices.count(self.devices[self.rank])
+
+    @property
+    def staged(self) -> bool:
+        """gloo over a card's tensors: each collective goes through
+        host memory."""
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    # -------------------------------------------------- device collectives
+
+    def _failed(self, exc: BaseException) -> None:
+        if self.broken is None:
+            self.broken = f"collective failed: {exc}"
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the ranks, in place; returns it."""
+        try:
+            if self.staged:
+                host = t.cpu()
+                dist.all_reduce(host, group=self.group)
+                t.copy_(host)
+            else:
+                dist.all_reduce(t, group=self.group)
+        except Exception as exc:
+            self._failed(exc)
+            raise
+        return t
+
+    def all_gather_last(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` joined along the last axis, rank order.
+        Over NCCL one gather into a ``[tp, ...]`` buffer (allocated on
+        the calling stream, so a graph capture holds it in its pool);
+        over gloo a list of parts."""
+        try:
+            src = t.contiguous().cpu() if self.staged else t.contiguous()
+            if self.backend == "nccl":
+                flat = src.new_empty((self.tp, *src.shape))
+                dist.all_gather_into_tensor(flat, src, group=self.group)
+                return torch.movedim(flat, 0, -2).reshape(
+                    *src.shape[:-1], self.tp * src.shape[-1])
+            parts = [torch.empty_like(src) for _ in range(self.tp)]
+            dist.all_gather(parts, src, group=self.group)
+        except Exception as exc:
+            self._failed(exc)
+            raise
+        out = torch.cat(parts, dim=-1)
+        return out.to(t.device) if self.staged else out
+
+    def broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``t`` into every rank's ``t``, in place; returns it."""
+        try:
+            if self.staged:
+                host = t.cpu()
+                dist.broadcast(host, src=0, group=self.group)
+                if self.rank:
+                    t.copy_(host)
+            else:
+                dist.broadcast(t, src=0, group=self.group)
+        except Exception as exc:
+            self._failed(exc)
+            raise
+        return t
+
+    # ------------------------------------------------------ control plane
+
+    def send(self, op: str, **fields: Any) -> None:
+        """Rank 0: name the next program, with its host inputs (numpy
+        arrays and scalars), to every follower."""
+        with self.lock:
+            self.check()
+            try:
+                dist.broadcast_object_list(
+                    [{"op": op, **fields}], src=0, group=self.ctrl
+                )
+            except Exception as exc:
+                self._failed(exc)
+                raise FollowerLostError(self.broken) from exc
+
+    def recv(self) -> Dict[str, Any]:
+        """A follower: the next program rank 0 names (blocks)."""
+        box: List[Any] = [None]
+        dist.broadcast_object_list(box, src=0, group=self.ctrl)
+        return box[0]
+
+    def gather(self, obj: Any) -> Optional[List[Any]]:
+        """Every rank's ``obj``, in rank order, on rank 0 (None
+        elsewhere)."""
+        out = [None] * self.tp if self.rank == 0 else None
+        dist.gather_object(obj, out, dst=0, group=self.ctrl)
+        return out
+
+    def request(self, op: str, **fields: Any) -> List[Any]:
+        """Rank 0: ``send`` a program that replies, and return the
+        followers' replies in rank order."""
+        with self.lock:
+            self.send(op, **fields)
+            try:
+                return self.gather(None)[1:]
+            except Exception as exc:
+                self._failed(exc)
+                raise FollowerLostError(self.broken) from exc
+
+    def all_min(self, value: int) -> int:
+        """The smallest of every rank's ``value`` (the pool's page count:
+        rank 0's scheduler hands out page ids for every rank)."""
+        if self.tp == 1:
+            return value
+        with self.lock:
+            t = torch.tensor([int(value)], dtype=torch.int64)
+            dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.ctrl)
+            return int(t.item())
+
+    # ---------------------------------------------------------- lifecycle
+
+    def check(self) -> None:
+        """Raise :class:`FollowerLostError` if the mesh broke."""
+        if self.broken is not None:
+            raise FollowerLostError(self.broken)
+
+    def healthy(self) -> bool:
+        """Every follower alive and no collective failed."""
+        return self.broken is None and all(
+            p.poll() is None for p in self.followers
+        )
+
+    def _monitor(self) -> None:
+        """Rank 0: poll the followers; the first exit breaks the mesh
+        (and aborts an NCCL device group, whose collectives would wait
+        on the dead rank)."""
+        while not self._closed:
+            for rank, proc in enumerate(self.followers, start=1):
+                rc = proc.poll()
+                if rc is not None and not self._closed:
+                    if self.broken is None:
+                        self.broken = (
+                            f"tp follower rank {rank} exited with code {rc}"
+                        )
+                    logger.error("tp follower lost", extra={
+                        "extra_data": {"rank": rank, "code": rc}})
+                    if self.backend == "nccl":
+                        abort = getattr(dist.distributed_c10d,
+                                        "_abort_process_group", None)
+                        if abort is not None:
+                            abort(self.group)
+                    return
+            time.sleep(0.1)
+
+    def _leave_groups(self) -> None:
+        """Destroy this rank's groups.  An NCCL group is aborted: its
+        graceful shutdown waits for every peer's (seen to hang on the
+        card when the peers leave at different times), an abort is
+        local."""
+        if self.ctrl is None or not dist.is_initialized():
+            self.ctrl = self.group = None
+            return
+        self.ctrl = self.group = None
+        if self.backend != "nccl":
+            dist.destroy_process_group()
+            return
+        # an NCCL communicator is held by every graph that captured its
+        # collectives (the caller frees them first); an abort that still
+        # waits fails here instead of hanging the gateway
+        done = threading.Event()
+
+        def abort() -> None:
+            dist.distributed_c10d._abort_process_group()
+            done.set()
+
+        threading.Thread(target=abort, name="vgt-tp-abort",
+                         daemon=True).start()
+        if not done.wait(NCCL_ABORT_TIMEOUT_S):
+            raise RuntimeError(
+                f"the NCCL groups did not abort in {NCCL_ABORT_TIMEOUT_S} s"
+            )
+
+    def kill_followers(self) -> None:
+        for proc in self.followers:
+            if proc.poll() is None:
+                proc.kill()
+        for proc in self.followers:
+            proc.wait()
+        _LIVE.discard(self)
+
+    def shutdown(self, timeout: float = 30.0) -> None:
+        """Stop the followers (a ``stop`` program), leave the groups, wait
+        up to ``timeout`` for the followers to exit and SIGKILL any still
+        running, and remove the followers' config file.  Idempotent."""
+        with self.lock:
+            if self._closed:
+                return
+            if self.rank == 0 and self.followers and self.healthy():
+                try:
+                    self.send("stop")
+                except FollowerLostError:
+                    pass  # the kill below ends whatever is left
+            self._closed = True
+        self._leave_groups()
+        deadline = time.monotonic() + timeout
+        for proc in self.followers:
+            try:
+                proc.wait(max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+        self.kill_followers()
+        if self._config_path is not None:
+            try:
+                os.unlink(self._config_path)
+            except FileNotFoundError:
+                pass
+            self._config_path = None
+
+    # ------------------------------------------------------------ bring-up
+
+    def join(self, store: Any, recovery) -> None:
+        """Join both process groups as this rank, then run one warm
+        collective on the device group (an NCCL communicator is built at
+        its first collective, which must not fall inside a graph
+        capture)."""
+        if dist.is_initialized():
+            raise RuntimeError(
+                "this process already belongs to a process group: one tp "
+                "mesh a process"
+            )
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        dist.init_process_group(
+            "gloo", store=store, rank=self.rank, world_size=self.tp,
+            timeout=CONTROL_TIMEOUT,
+        )
+        self.ctrl = dist.group.WORLD
+        self.group = dist.new_group(
+            list(range(self.tp)), backend=self.backend,
+            timeout=device_group_timeout(recovery),
+        )
+        warm = torch.ones(
+            1, device=self.device if self.backend == "nccl" else "cpu"
+        )
+        dist.all_reduce(warm, group=self.group)
+        if int(warm.item()) != self.tp:
+            raise RuntimeError(
+                f"device group warm-up summed {warm.item()} over {self.tp} "
+                "ranks"
+            )
+
+    def wait_for_followers(self, store: Any) -> None:
+        """Rank 0: wait until every follower has reached the store (each
+        sets ``joined<rank>`` before it joins the groups), raising as
+        soon as one exits instead of waiting out the rendezvous."""
+        keys = [f"joined{rank}" for rank in range(1, self.tp)]
+        deadline = time.monotonic() + STORE_TIMEOUT.total_seconds()
+        while not store.check(keys):
+            for rank, proc in enumerate(self.followers, start=1):
+                if proc.poll() is not None:
+                    raise FollowerLostError(
+                        f"tp follower rank {rank} exited with code "
+                        f"{proc.returncode} before joining the mesh"
+                    )
+            if time.monotonic() > deadline:
+                raise FollowerLostError(
+                    "tp followers did not reach the store in "
+                    f"{STORE_TIMEOUT.total_seconds():.0f} s"
+                )
+            time.sleep(0.05)
+
+    def spawn_followers(self, config, port: int) -> None:
+        """Rank 0: write the resolved config for the followers and start
+        ranks 1..tp-1 (``python -m vgate_tpu_torch.parallel.follower``)."""
+        dump = dataclasses.asdict(config)
+        fd, path = tempfile.mkstemp(prefix="vgt-tp-config-", suffix=".json")
+        with os.fdopen(fd, "w") as fh:
+            json.dump(dump, fh)
+        self._config_path = path
+        env = dict(os.environ)
+        # the follower module must resolve THIS package whatever the cwd
+        import vgate_tpu_torch as _pkg
+
+        root = os.path.dirname(os.path.dirname(_pkg.__file__))
+        paths = env.get("PYTHONPATH", "")
+        if root not in paths.split(os.pathsep):
+            env["PYTHONPATH"] = root + (os.pathsep + paths if paths else "")
+        # faults armed for the engine process are not the followers'
+        env.pop("VGT_FAULTS", None)
+        env.pop("VGT_CHAOS", None)
+        for rank in range(1, self.tp):
+            cmd = [
+                sys.executable, "-m", "vgate_tpu_torch.parallel.follower",
+                "--config", path, "--rank", str(rank), "--port", str(port),
+                "--devices", ",".join(self.devices),
+            ]
+            self.followers.append(subprocess.Popen(cmd, env=env))
+        _LIVE.add(self)
+        threading.Thread(
+            target=self._monitor, name="vgt-tp-monitor", daemon=True
+        ).start()
+
+
+def build_mesh(config, devices: Optional[List[Any]] = None) -> Mesh:
+    """Rank 0's mesh for the engine: resolve the plan against the device
+    list (:func:`mesh_devices`), and with tp > 1 build the kernels (on the
+    card, before any follower starts, so no rank runs ``nvcc`` inside a
+    collective's wait), start a ``TCPStore`` at a free localhost port,
+    spawn the followers and join both groups (the counterpart of the
+    reference's ``initialize_distributed``).  A follower that fails to
+    start fails the build."""
+    dcfg = config.device
+    devs = mesh_devices(dcfg, devices)
+    plan = resolve_plan(dcfg, len(devs))
+    if plan.tp == 1:
+        return Mesh(plan, devs)
+    backend = device_backend(devs)
+    mesh = Mesh(plan, devs, 0, backend)
+    if mesh.device.type == "cuda":
+        from vgate_tpu_torch.ops.kernels import _build
+
+        _build.build()
+    store = dist.TCPStore(
+        "127.0.0.1", 0, plan.tp, True, timeout=STORE_TIMEOUT,
+        wait_for_workers=False,
+    )
+    mesh.spawn_followers(config, store.port)
+    try:
+        mesh.wait_for_followers(store)
+        mesh.join(store, config.recovery)
+    except BaseException:
+        mesh.shutdown(timeout=0.0)
+        raise
+    logger.info("mesh built", extra={"extra_data": {
+        "shape": mesh.shape, "devices": devs, "backend": backend}})
+    return mesh
+
+
+def join_mesh(config, devices: List[str], rank: int, port: int) -> Mesh:
+    """A follower's mesh: the same plan, this rank, both groups joined
+    through rank 0's store."""
+    plan = resolve_plan(config.device, len(devices))
+    mesh = Mesh(plan, devices, rank, device_backend(devices))
+    store = dist.TCPStore(
+        "127.0.0.1", port, plan.tp, False, timeout=STORE_TIMEOUT
+    )
+    store.set(f"joined{rank}", "1")
+    mesh.join(store, config.recovery)
+    return mesh

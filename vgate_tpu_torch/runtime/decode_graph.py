@@ -142,6 +142,15 @@ class DecodeState:
     def load_page_tables(self, tables: np.ndarray) -> None:
         self._put(self.page_tables, tables)
 
+    def load_feed(self, tokens, positions, active, page_tables) -> None:
+        """What a tp follower's chunk reads (runtime/engine_core.py
+        ``follower_decode_chunk``): tokens, positions, slots in use and
+        page tables, from host arrays."""
+        for dst, arr in ((self.tokens, tokens), (self.positions, positions),
+                         (self.active, active)):
+            self._put(dst, arr)
+        self.load_page_tables(page_tables)
+
     def load(self, tokens, positions, active, page_tables,
              rows: Dict[str, Any]) -> None:
         """Every input, from host arrays (``rows`` as

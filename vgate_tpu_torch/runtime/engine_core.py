@@ -90,13 +90,24 @@ path — batched, bucketed prompt passes and pipelined decode chunks:
   back through the host each round, and no graph is captured for them.
   Brownout L3 (``set_spec_suspended``) falls back to the decode chunks.
 
-Not ported yet (the config refuses them): multi-device meshes.
+* **Tensor parallelism** (``device.tp`` > 1, parallel/): this core is
+  rank 0 of a mesh of processes.  It holds its shard of the weights and
+  its pools' kv heads, names every device program to the follower ranks
+  (``_program``) before running its own part, and samples: each decode
+  step's tokens are broadcast to the followers inside the chunk.  The
+  collectives live in models/decoder.py.  A follower's death breaks the
+  mesh, and the next tick raises into containment.
+
+Not ported yet (the config refuses them): data, sequence, pipeline and
+expert parallelism, and under tp MoE, quantized weights, int8 KV, the
+host swap tier, speculation and the pod.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import os
 import queue
 import tempfile
@@ -147,6 +158,17 @@ from vgate_tpu_torch.ops.kv_quant import (
     is_quantized,
 )
 from vgate_tpu_torch.ops.quant import int8_native_layout
+from vgate_tpu_torch.parallel.mesh import (
+    Mesh,
+    build_mesh,
+    mesh_devices,
+    resolve_plan,
+)
+from vgate_tpu_torch.parallel.sharding import (
+    check_tp_config,
+    local_spec,
+    shard_params,
+)
 from vgate_tpu_torch.ops.sampling import (
     apply_logit_bias,
     apply_penalties,
@@ -547,6 +569,9 @@ def _decode_chunk(
             state.out_top_lps[i].copy_(top_lps)
         else:
             tokens = sample_tokens(*args, **kw, all_greedy=all_greedy)
+        if spec.mesh is not None:
+            # the next step's embedding needs them on every tp rank
+            spec.mesh.broadcast(tokens)
         state.out_tokens[i].copy_(tokens)
         positions = positions + act
         steps = steps + act
@@ -561,6 +586,29 @@ def _decode_chunk(
     state.tokens.copy_(tokens)
     state.positions.copy_(positions)
     state.steps.copy_(steps)
+
+
+def follower_decode_chunk(
+    params, spec: ModelSpec, state: DecodeState, k_pages, v_pages,
+    num_steps: int, max_position: int,
+) -> None:
+    """A tp follower's part of :func:`_decode_chunk` (parallel/
+    follower.py): the same steps on its own shard and pools, with the
+    same collectives in the same order, but no sampling: each step's
+    tokens come from rank 0's broadcast.  It reads and writes only
+    ``state``'s tokens and positions, so it is captured as rank 0's body
+    is."""
+    tokens, positions = state.tokens, state.positions
+    act = state.active.to(positions.dtype)
+    for _ in range(num_steps):
+        decode_forward(
+            params, spec, tokens, positions, k_pages, v_pages,
+            state.page_tables, active=state.active,
+        )
+        tokens = spec.mesh.broadcast(torch.empty_like(tokens))
+        positions = torch.clamp(positions + act, max=max_position)
+    state.tokens.copy_(tokens)
+    state.positions.copy_(positions)
 
 
 class _Readback:
@@ -588,6 +636,74 @@ class _Readback:
     def result(self) -> List[np.ndarray]:
         self.wait()
         return [h.numpy() for h in self.host]
+
+
+def pool_budget(share: int, device: torch.device) -> Optional[int]:
+    """The pool's bytes under a fixed share of the card
+    (``device.kv_budget_bytes``, which a pod writes when its workers
+    share one card, or a tp rank's share of a card it shares): the share
+    less what this process holds already (its weights, read after the
+    allocator released its cached blocks).  None without a share: the
+    pool sizes from the free memory.  The CUDA context and the
+    activations come out of the headroom that ``hbm_utilization``
+    leaves."""
+    if share <= 0:
+        return None
+    if device.type != "cuda":
+        return share
+    torch.cuda.empty_cache()
+    return max(0, share - torch.cuda.memory_reserved(device))
+
+
+def kv_layout(config: VGTConfig, spec: ModelSpec, device: torch.device,
+              model_dtype: torch.dtype, mesh: Mesh):
+    """The pool's geometry and element type on this rank: what the pages
+    hold (``kv_cache.dtype``: int8 halves the page data and adds one bf16
+    scale per (page, head, slot), so one budget holds ~2x the bf16 page
+    count) and how many pages, over ``spec``'s kv heads (a tp rank's
+    own).  Under tp the count is the minimum over the ranks (rank 0's
+    scheduler hands out page ids for all of them), and ranks that share
+    one card size against ``hbm_utilization`` x total / (ranks on it),
+    as a pod's workers do."""
+    dcfg = config.device
+    kv_mode = config.kv_cache.dtype
+    kv_quant = kv_mode == "int8"
+    if kv_quant:
+        kv_pool_dtype = torch.int8
+    elif kv_mode == "bf16":
+        kv_pool_dtype = torch.bfloat16
+    else:  # auto: the model dtype
+        kv_pool_dtype = model_dtype
+    kv_bytes = kv_pool_dtype.itemsize
+    kv_scale_bytes = SCALE_BYTES if kv_quant else 0
+    ps = dcfg.kv_page_size
+    pages_per_seq = cdiv(config.model.max_model_len, ps)
+    # more pages than every slot's full context can never be used
+    max_useful = dcfg.max_batch_slots * pages_per_seq + 1
+    share = dcfg.kv_budget_bytes
+    if not share and device.type == "cuda" and mesh.card_share > 1:
+        total = torch.cuda.get_device_properties(device).total_memory
+        share = int(dcfg.hbm_utilization * total / mesh.card_share)
+    num_pages = mesh.all_min(dcfg.kv_num_pages or min(
+        max_useful,
+        auto_num_pages(
+            spec, ps, dcfg.hbm_utilization, device,
+            dtype_bytes=kv_bytes, scale_bytes=kv_scale_bytes,
+            budget_bytes=pool_budget(share, device),
+        ),
+    ))
+    geometry = KVGeometry(
+        num_layers=spec.num_layers,
+        num_pages=num_pages,
+        page_size=ps,
+        kv_heads=spec.num_kv_heads,
+        head_dim=spec.head_dim,
+        max_model_len=config.model.max_model_len,
+        dtype_bytes=kv_bytes,
+        scale_bytes=kv_scale_bytes,
+        kv_dtype=dtype_short_name(kv_pool_dtype),
+    )
+    return geometry, kv_pool_dtype
 
 
 def _release_device_state(old: "EngineCore") -> None:
@@ -628,6 +744,7 @@ def _release_device_state(old: "EngineCore") -> None:
 def rebuild_core(
     old: "EngineCore",
     config: VGTConfig,
+    devices: Optional[list] = None,
     reload_weights: bool = False,
 ) -> "EngineCore":
     """Tear a dead core down and construct its successor (the
@@ -647,10 +764,24 @@ def rebuild_core(
     restarting on a flipped tree would keep the corruption through every
     incarnation — and a mismatch raises :class:`IntegrityError` so the
     caller escalates to ``reload_weights=True``, which drops the old
-    tree before the reload materializes a new one.  The reference's mesh
-    argument (``devices``) is absent: the port serves one device."""
+    tree before the reload materializes a new one.
+
+    Under tp the rebuild is broadcast when the followers are in step
+    (all alive, no collective failed, none named a program rank 0 did
+    not finish, the old engine thread gone): each verifies its kept
+    shard in the same sweep, then frees and rebuilds its pool and graphs
+    (``rebuild``), reloading its shard with ``reload_weights``.
+    Otherwise the mesh is shut down and the successor spawns new
+    followers, which load their shards afresh."""
+    thread = old._thread
     old.stop()
     _release_device_state(old)
+    mesh = old.mesh
+    reuse = mesh.tp > 1 and mesh.healthy() and mesh.pending is None and (
+        thread is None or not thread.is_alive()
+    )
+    if mesh.tp > 1 and not reuse:
+        mesh.shutdown(timeout=0.0)
     old_integrity = getattr(old, "integrity", None)
     if (
         not reload_weights
@@ -658,7 +789,9 @@ def rebuild_core(
         and old_integrity.verifier is not None
         and old.params is not None
     ):
-        mismatch = old_integrity.verifier.verify_all(old.params)
+        mismatch = old_integrity.verifier.verify_all(
+            old.params, remote=old._follower_check if reuse else None
+        )
         if mismatch is not None:
             metrics.INTEGRITY_EVENTS.labels(
                 kind="rebuild_verify_failed"
@@ -682,14 +815,19 @@ def rebuild_core(
             "(corrupt-classified fatal; weights-kept would preserve "
             "the corruption)"
         )
+    if reuse:
+        mesh.send("rebuild", reload=reload_weights)
+    try:
         new_core = EngineCore(
-            config, spec=old.spec, decode_graphs=old.decode_graphs
+            config, spec=old.model_spec, params=old.params, devices=devices,
+            params_ready=not reload_weights,
+            decode_graphs=old.decode_graphs, mesh=mesh if reuse else None,
         )
-    else:
-        new_core = EngineCore(
-            config, spec=old.spec, params=old.params,
-            decode_graphs=old.decode_graphs,
-        )
+    except BaseException:
+        if reuse:
+            # the followers are rebuilding against a core that never came
+            mesh.shutdown(timeout=0.0)
+        raise
     new_core.spec_suspended = bool(getattr(old, "spec_suspended", False))
     new_core.set_prefix_insert_suspended(
         getattr(old, "prefix_insert_suspended", False)
@@ -791,15 +929,48 @@ class EngineCore:
         config: Optional[VGTConfig] = None,
         spec: Optional[ModelSpec] = None,
         params: Optional[Dict[str, Any]] = None,
+        devices: Optional[list] = None,
+        params_ready: bool = False,
         decode_graphs: Optional[bool] = None,
+        mesh: Optional[Mesh] = None,
     ) -> None:
-        """``decode_graphs`` (default: on for a CUDA device) runs each
-        decode chunk as the replay of a captured CUDA graph
-        (runtime/decode_graph.py).  ``False`` on the card runs the same
-        chunk body eagerly, for comparisons with the graphs; ``True`` on
-        the CPU raises."""
+        """``devices`` (the reference's argument) names each tp rank's
+        device, rank 0 first (default: ``device.devices``, else derived
+        from ``device.device`` and ``device.tp``; parallel/mesh.py).  With
+        tp > 1 this core is rank 0: it spawns the follower ranks, keeps
+        its own shard of the weights and pools, and names every device
+        program to the followers.  ``params`` is the full tree, sharded
+        here, or with ``params_ready`` this rank's shard already (a
+        supervised rebuild's kept tree).  ``mesh`` is a live mesh to
+        reuse (a rebuild whose followers kept their shards).
+
+        ``decode_graphs`` (default: on for a CUDA device, unless a tp
+        group's device group is gloo) runs each decode chunk as the
+        replay of a captured CUDA graph (runtime/decode_graph.py).
+        ``False`` on the card runs the same chunk body eagerly, for
+        comparisons with the graphs; ``True`` on the CPU or over gloo
+        raises."""
         self.config = config or get_config()
-        self.spec = spec or spec_for_model_id(self.config.model.model_id)
+        spec = spec or spec_for_model_id(self.config.model.model_id)
+        owns_mesh = mesh is None
+        if mesh is None:
+            dcfg = self.config.device
+            tp = resolve_plan(dcfg, len(mesh_devices(dcfg, devices))).tp
+            if tp > 1:
+                # before any follower starts
+                check_tp_config(self.config, spec, tp)
+            mesh = build_mesh(self.config, devices)
+        self.mesh = mesh
+        try:
+            self._init_engine(spec, params, params_ready, decode_graphs)
+        except BaseException:
+            if owns_mesh:
+                self.mesh.shutdown(timeout=0.0)
+            raise
+
+    def _init_engine(self, spec: ModelSpec, params, params_ready: bool,
+                     decode_graphs: Optional[bool]) -> None:
+        self.spec = spec
         dcfg = self.config.device
         if dcfg.decode_block_slots > 1:
             # decode attention through K6, threaded on the spec as the
@@ -819,7 +990,12 @@ class EngineCore:
                 "model.quantization (int8 or int4) — serving stays on the "
                 "plain dtype path"
             )
-        self.device = resolve_device(dcfg.device)
+        # the whole model (reports, the sharding rules), and the spec
+        # this rank's forwards and pools run on: its own heads and FFN
+        # channels under tp, with the mesh the collectives use
+        self.model_spec = self.spec
+        self.spec = local_spec(self.spec, self.mesh.tp, self.mesh)
+        self.device = resolve_device(self.mesh.devices[0])
         # on the card every device call of this core runs on its own
         # stream, so a successor built after a stall never queues behind
         # its predecessor's work
@@ -827,11 +1003,17 @@ class EngineCore:
             torch.cuda.Stream(self.device)
             if self.device.type == "cuda" else None
         )
+        # gloo collectives cannot be captured: a tp group whose device
+        # group is gloo (the one-card layout) runs its chunks eagerly
+        capturable = self.device.type == "cuda" and (
+            self.mesh.tp == 1 or self.mesh.backend == "nccl"
+        )
         if decode_graphs is None:
-            decode_graphs = self.device.type == "cuda"
-        if decode_graphs and self.device.type != "cuda":
+            decode_graphs = capturable
+        if decode_graphs and not capturable:
             raise ValueError(
-                f"decode_graphs=True needs a CUDA device, not {self.device}"
+                f"decode_graphs=True needs a CUDA device (and NCCL under "
+                f"tp), not {self.device} over {self.mesh.backend}"
             )
         self.decode_graphs = decode_graphs
         self.dtype = _DTYPES[self.config.model.dtype]
@@ -854,15 +1036,20 @@ class EngineCore:
         )
 
         load_start = time.perf_counter()
+        tp_shard = self.mesh if self.mesh.tp > 1 else None
         if params is None:
             # a checkpoint (and a MoE random init) is quantized a layer
             # at a time as it loads: Mixtral's experts do not fit the
-            # card in bf16
+            # card in bf16.  A tp rank keeps its shard of each leaf.
             params = load_or_init_params(
-                self.spec, self.config.model.checkpoint_path, self.device,
-                self.dtype, log_digests=self.config.integrity.enabled,
+                self.model_spec, self.config.model.checkpoint_path,
+                self.device, self.dtype,
+                log_digests=self.config.integrity.enabled,
                 quantization=self.config.model.quantization,
+                **({} if tp_shard is None else {"shard": tp_shard}),
             )
+        elif tp_shard is not None and not params_ready:
+            params = shard_params(params, self.model_spec, tp_shard)
         if self.config.model.quantization:
             params = quantize_params(
                 params, self.spec, self.config.model.quantization
@@ -891,42 +1078,14 @@ class EngineCore:
             )
             self.integrity.record_baseline(self.params)
 
-        # what the pages hold (kv_cache.dtype): int8 halves the page data
-        # and adds one bf16 scale per (page, head, slot), so one memory
-        # budget holds ~2x the bf16 page count
-        kv_mode = self.config.kv_cache.dtype
-        kv_quant = kv_mode == "int8"
-        if kv_quant:
-            kv_pool_dtype = torch.int8
-        elif kv_mode == "bf16":
-            kv_pool_dtype = torch.bfloat16
-        else:  # auto: the model dtype
-            kv_pool_dtype = self.dtype
-        kv_bytes = kv_pool_dtype.itemsize
-        kv_scale_bytes = SCALE_BYTES if kv_quant else 0
+        self.geometry, kv_pool_dtype = kv_layout(
+            self.config, self.spec, self.device, self.dtype, self.mesh
+        )
+        kv_quant = kv_pool_dtype == torch.int8
+        kv_bytes = self.geometry.dtype_bytes
+        kv_scale_bytes = self.geometry.scale_bytes
         ps = dcfg.kv_page_size
-        pages_per_seq = cdiv(self.config.model.max_model_len, ps)
-        # more pages than every slot's full context can never be used
-        max_useful = dcfg.max_batch_slots * pages_per_seq + 1
-        num_pages = dcfg.kv_num_pages or min(
-            max_useful,
-            auto_num_pages(
-                self.spec, ps, dcfg.hbm_utilization, self.device,
-                dtype_bytes=kv_bytes, scale_bytes=kv_scale_bytes,
-                budget_bytes=self._pool_budget(dcfg.kv_budget_bytes),
-            ),
-        )
-        self.geometry = KVGeometry(
-            num_layers=self.spec.num_layers,
-            num_pages=num_pages,
-            page_size=ps,
-            kv_heads=self.spec.num_kv_heads,
-            head_dim=self.spec.head_dim,
-            max_model_len=self.config.model.max_model_len,
-            dtype_bytes=kv_bytes,
-            scale_bytes=kv_scale_bytes,
-            kv_dtype=dtype_short_name(kv_pool_dtype),
-        )
+        num_pages = self.geometry.num_pages
         self.k_pages, self.v_pages = make_kv_buffers(
             self.geometry, kv_pool_dtype, self.device
         )
@@ -951,13 +1110,14 @@ class EngineCore:
                     torch.cuda.get_device_name(self.device)
                     if self.device.type == "cuda" else "cpu"
                 ),
-                num_chips=1,
-                num_params=int(self.spec.num_params),
-                weight_stream_bytes=stream_weight_bytes(
+                # the whole group's: every rank streams its own shard
+                num_chips=self.mesh.num_devices,
+                num_params=int(self.model_spec.num_params),
+                weight_stream_bytes=self.mesh.tp * stream_weight_bytes(
                     self.params, self.spec.tie_embeddings
                 ),
                 kv_token_bytes=kv_bytes_per_token(
-                    self.spec.num_layers, self.spec.num_kv_heads,
+                    self.spec.num_layers, self.model_spec.num_kv_heads,
                     self.spec.head_dim, dtype_bytes=kv_bytes,
                     scale_bytes=kv_scale_bytes,
                 ),
@@ -1171,21 +1331,6 @@ class EngineCore:
         self._spec_mt: Optional[Dict[str, Any]] = None
         self._compiled_spec: set = set()
 
-    def _pool_budget(self, share: int) -> Optional[int]:
-        """The pool's bytes under a fixed share of the card
-        (``device.kv_budget_bytes``, which a pod writes when its workers
-        share one card): the share less what this engine holds already
-        (its weights, read after the allocator released its cached
-        blocks).  None without a share: the pool sizes from the free
-        memory.  The CUDA context and the activations come out of the
-        headroom that ``hbm_utilization`` leaves."""
-        if share <= 0:
-            return None
-        if self.device.type != "cuda":
-            return share
-        torch.cuda.empty_cache()
-        return max(0, share - torch.cuda.memory_reserved(self.device))
-
     # ------------------------------------------------------------ lifecycle
 
     def start(self) -> None:
@@ -1196,6 +1341,19 @@ class EngineCore:
             target=self._loop, name="vgt-torch-engine", daemon=True
         )
         self._thread.start()
+
+    def close(self) -> None:
+        """Stop the core and, under tp, its followers and groups (a
+        supervised rebuild stops a core but keeps its mesh).  Under tp the
+        pools and decode graphs go first: a graph holds the NCCL
+        communicator whose collectives it captured."""
+        self.stop()
+        if self.mesh.tp > 1:
+            _release_device_state(self)
+            gc.collect()
+            if self.stream is not None:
+                torch.cuda.synchronize(self.device)
+        self.mesh.shutdown()
 
     def stop(self) -> None:
         self._running = False
@@ -1853,6 +2011,10 @@ class EngineCore:
         """One iteration: admit + prefill, then keep up to
         ``pipeline_depth`` decode chunks in flight, blocking only on the
         oldest one's readback.  Returns False when there was no work."""
+        if self.mesh.broken is not None:
+            # a follower rank died or a collective failed: a crash of
+            # this core, which the supervisor rebuilds with new followers
+            self.mesh.check()
         self._drain_submissions()
         # planned evacuations before anything dispatches: a drain is
         # blocked on them, and the selected sequences must not burn
@@ -2070,6 +2232,46 @@ class EngineCore:
                     self._handoff_pending.append(seq)
 
     # -------------------------------------------------------- device inputs
+
+    def follower_stats(self) -> List[Dict[str, Any]]:
+        """Each tp follower's counters, kernel launches (they live in the
+        follower's process) and memory, in rank order, as a pod worker's
+        ``stats`` (port-only); empty on one device."""
+        return self.mesh.request("stats") if self.mesh.tp > 1 else []
+
+    def reset_follower_launches(self) -> None:
+        """Set every tp follower's launch counts to 0."""
+        if self.mesh.tp > 1:
+            self.mesh.send("reset_launches")
+
+    def _follower_check(self, paths: List[str]) -> Optional[Dict[str, Any]]:
+        """The tp followers' checksum check of ``paths`` in their own
+        shards (each against its own load-time baseline): the first
+        mismatch, with its ``rank``, or None."""
+        self._beat("tp_sweep", batch=len(paths))
+        replies = self.mesh.request("sweep", paths=list(paths))
+        for rank, mismatch in enumerate(replies, start=1):
+            if mismatch is not None:
+                return {**mismatch, "rank": rank}
+        return None
+
+    @contextlib.contextmanager
+    def _program(self, op: str, **fields: Any):
+        """One device program of this core's, named to the tp followers
+        (parallel/follower.py) with its host inputs before rank 0 runs
+        its own part, so every rank runs it on the same inputs in the
+        same order.  ``mesh.pending`` names it until rank 0's part
+        returns: a fault inside leaves it set, the followers may then be
+        waiting inside a collective, and a rebuild replaces them rather
+        than reuse them.  No-op on one device."""
+        mesh = self.mesh
+        if mesh.tp == 1:
+            yield
+            return
+        mesh.send(op, **fields)
+        mesh.pending = op
+        yield
+        mesh.pending = None
 
     def _dev(self, arr: np.ndarray) -> torch.Tensor:
         """Upload a host array.  On CUDA it is staged through pinned
@@ -2467,11 +2669,13 @@ class EngineCore:
         self._beat("prefill", compiling=fresh, bucket=bucket, batch=B)
         t0 = time.perf_counter()
         self.total_prompt_passes += 1
-        out = _prefill_step(
-            self.params, self.spec, self._dev(tokens), self._dev(seq_lens),
-            self.k_pages, self.v_pages, self._dev(prefill_pt),
-            self._generator, sampling, num_lp,
-        )
+        with self._program("prefill", tokens=tokens, seq_lens=seq_lens,
+                           page_tables=prefill_pt):
+            out = _prefill_step(
+                self.params, self.spec, self._dev(tokens),
+                self._dev(seq_lens), self.k_pages, self.v_pages,
+                self._dev(prefill_pt), self._generator, sampling, num_lp,
+            )
         self._dispatched("prefill", key, fresh, t0, trigger="bucket")
         return out
 
@@ -2499,7 +2703,8 @@ class EngineCore:
         n_suffix_pages = bucket // ps + (1 if unaligned else 0)
         for plan in plans:
             if plan.cow is not None:
-                _cow_copy_pages(self.k_pages, self.v_pages, *plan.cow)
+                with self._program("cow", page=plan.cow):
+                    _cow_copy_pages(self.k_pages, self.v_pages, *plan.cow)
                 if self.radix_cache is not None:
                     self.radix_cache.total_cow_copies += 1
                 metrics.PREFIX_COW_COPIES.inc()
@@ -2532,12 +2737,16 @@ class EngineCore:
         self._beat("prefill", compiling=fresh, bucket=bucket, batch=B)
         t0 = time.perf_counter()
         self.total_prompt_passes += 1
-        out = _suffix_prefill_step(
-            self.params, self.spec, self._dev(tokens), self._dev(prefix_lens),
-            self._dev(suffix_lens), self.k_pages, self.v_pages,
-            self._dev(suffix_pt), self._dev(ctx_pt), self._generator,
-            sampling, unaligned=unaligned, num_logprobs=num_lp,
-        )
+        with self._program("suffix", tokens=tokens, prefix_lens=prefix_lens,
+                           suffix_lens=suffix_lens, suffix_pt=suffix_pt,
+                           ctx_pt=ctx_pt, unaligned=unaligned):
+            out = _suffix_prefill_step(
+                self.params, self.spec, self._dev(tokens),
+                self._dev(prefix_lens), self._dev(suffix_lens),
+                self.k_pages, self.v_pages, self._dev(suffix_pt),
+                self._dev(ctx_pt), self._generator, sampling,
+                unaligned=unaligned, num_logprobs=num_lp,
+            )
         self._dispatched("suffix_prefill", key, fresh, t0, trigger="bucket")
         return out
 
@@ -2572,13 +2781,18 @@ class EngineCore:
             self._beat("prefill_chunk", compiling=fresh, bucket=chunk,
                        batch=1)
             t0 = time.perf_counter()
-            prefill_suffix_forward(
-                self.params, self.spec, self._dev(tokens),
-                self._dev(np.asarray([start], np.int32)),
-                self._dev(np.asarray([chunk], np.int32)),
-                self.k_pages, self.v_pages, self._dev(pages),
-                self._dev(ctx_pt),
-            )
+            prefix_lens = np.asarray([start], np.int32)
+            suffix_lens = np.asarray([chunk], np.int32)
+            with self._program("suffix", tokens=tokens,
+                               prefix_lens=prefix_lens,
+                               suffix_lens=suffix_lens, suffix_pt=pages,
+                               ctx_pt=ctx_pt, unaligned=False):
+                prefill_suffix_forward(
+                    self.params, self.spec, self._dev(tokens),
+                    self._dev(prefix_lens), self._dev(suffix_lens),
+                    self.k_pages, self.v_pages, self._dev(pages),
+                    self._dev(ctx_pt),
+                )
             self._dispatched("chunked_prefill", key, fresh, t0,
                              trigger="ctx_width")
             self.total_chunk_passes += 1
@@ -2619,10 +2833,13 @@ class EngineCore:
             tokens[slot] = seq.output_ids[-1]
             positions[slot] = seq.total_len - 1
             active[slot] = True
-        self._dec_state.load(
-            tokens, positions, active, self._page_tables_np,
-            self._row_host(B, ((s.slot, s) for s in seqs)),
-        )
+        with self._program("decode_state", tokens=tokens,
+                           positions=positions, active=active,
+                           page_tables=self._page_tables_np):
+            self._dec_state.load(
+                tokens, positions, active, self._page_tables_np,
+                self._row_host(B, ((s.slot, s) for s in seqs)),
+            )
 
     def _refresh_page_tables(self, seqs: List[Sequence]) -> None:
         """Rewrite ONLY the page tables after in-place page growth, in
@@ -2634,7 +2851,8 @@ class EngineCore:
             row = self._page_tables_np[seq.slot]
             row[:] = 0
             row[: len(seq.pages)] = seq.pages
-        self._dec_state.load_page_tables(self._page_tables_np)
+        with self._program("page_tables", page_tables=self._page_tables_np):
+            self._dec_state.load_page_tables(self._page_tables_np)
 
     def _pick_chunk(self, active: List[Sequence], lead: int = 0) -> int:
         """The next chunk length: the largest power of two that neither
@@ -2673,7 +2891,7 @@ class EngineCore:
             _decode_chunk(
                 self.params, self.spec, st, self.k_pages, self.v_pages,
                 self._generator, num_steps=chunk,
-                max_position=self.config.model.max_model_len - 1,
+                max_position=max_position,
                 all_greedy=all_greedy, num_logprobs=num_lp,
                 guard_threshold=threshold,
             )
@@ -2683,10 +2901,14 @@ class EngineCore:
                                chunk=chunk, batch=len(active))
         self._beat("decode", compiling=fresh, chunk=chunk, batch=len(active))
         t0 = time.perf_counter()
-        if self.decode_graphs:
-            self._graphs.run(key, body, lambda: body(state.scratch()))
-        else:
-            body()
+        max_position = self.config.model.max_model_len - 1
+        with self._program("decode", key=key, num_steps=chunk,
+                           max_position=max_position,
+                           graphs=self.decode_graphs):
+            if self.decode_graphs:
+                self._graphs.run(key, body, lambda: body(state.scratch()))
+            else:
+                body()
         self._dispatched("decode", key, fresh, t0, trigger="chunk_variant")
         self.total_chunks += 1
         outs = [state.out_tokens[:chunk]]
@@ -3292,7 +3514,7 @@ class EngineCore:
                     torch.cuda.get_device_name(self.device) if cuda
                     else "cpu"
                 ),
-                "num_devices": 1,
+                "num_devices": self.mesh.num_devices,
             }
         except Exception as exc:  # pragma: no cover
             return {"alive": False, "error": str(exc)}
@@ -3335,6 +3557,8 @@ class EngineCore:
             "kv_dtype": self.geometry.kv_dtype,
             "kv_page_bytes": self.geometry.page_bytes,
             "model": self.spec.name,
+            # the reference's {axis: size}, and the device group's backend
+            "mesh": {**self.mesh.shape, "backend": self.mesh.backend},
             "device": str(self.device),
             "load_time_s": round(self.load_time_s, 2),
             **(

@@ -158,9 +158,13 @@ class EngineSupervisor:
     def __init__(
         self,
         config: Optional[VGTConfig] = None,
+        devices: Optional[list] = None,
     ) -> None:
         self.config = config or get_config()
         self._recovery = self.config.recovery
+        # the mesh's devices (the reference's argument), for every
+        # incarnation of the core
+        self._devices = devices
         self._lock = threading.RLock()
         self._state = HealthState.SERVING
         self._degraded_since: Optional[float] = None
@@ -223,7 +227,7 @@ class EngineSupervisor:
         self.last_crash: Optional[Dict[str, Any]] = None
         # first build: construction failures (bad config, weight-load
         # faults) propagate — there is nothing to recover *to* yet
-        self.core = EngineCore(self.config)
+        self.core = EngineCore(self.config, devices=devices)
         self._attach(self.core)
         self._set_state_metric(self._state)
 
@@ -263,6 +267,11 @@ class EngineSupervisor:
             reason="shutdown",
         )
         self.core.stop()
+
+    def close(self) -> None:
+        """Stop, then stop the live core's tp followers and groups."""
+        self.stop()
+        self.core.close()
 
     # ------------------------------------------------------------ the state
 
@@ -681,7 +690,7 @@ class EngineSupervisor:
                 # kept (checksum-verified first) or RELOADED for
                 # corrupt fatals, brownout spec-suspension carried over
                 new_core = rebuild_core(
-                    self.core, self.config,
+                    self.core, self.config, self._devices,
                     reload_weights=reload_weights,
                 )
             except IntegrityError:

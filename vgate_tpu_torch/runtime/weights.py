@@ -236,9 +236,15 @@ def load_or_init_params(
     seed: int = 0,
     log_digests: bool = False,
     quantization: Optional[str] = None,
+    shard: Optional[Any] = None,
 ) -> Params:
     """Checkpoint when one exists on disk, random init from ``seed``
     otherwise (the zero-egress path; the init runs on ``device``).
+    ``shard`` (a tp rank's mesh) keeps only that rank's shard
+    (parallel/sharding.py): the random init slices each leaf as it is
+    drawn, so a rank holds at most one full leaf at a time and its
+    values equal a tp=1 engine's; a checkpoint is sharded after it
+    loads.
     ``quantization`` quantizes a checkpoint a layer at a time as it
     loads, and a MoE random init as it is drawn; a dense random init is
     returned unquantized (its draws stay those of the whole-leaf init)
@@ -250,9 +256,13 @@ def load_or_init_params(
     from vgate_tpu_torch import faults
 
     faults.check("weight_load", payload=checkpoint_path)
+    from vgate_tpu_torch.parallel import sharding
+
     if checkpoint_path and os.path.isdir(checkpoint_path):
         params = params_from_safetensors(spec, checkpoint_path, device, dtype,
                                          quantization)
+        if shard is not None:
+            params = sharding.shard_params(params, spec, shard)
     else:
         from vgate_tpu_torch.models.decoder import init_params
 
@@ -263,8 +273,10 @@ def load_or_init_params(
         )
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
+        keep = (None if shard is None
+                else sharding.leaf_keeper(spec, shard.tp, shard.rank))
         params = init_params(spec, gen, dtype=dtype, device=device,
-                             quantization=quantization)
+                             quantization=quantization, keep=keep)
     if log_digests:
         try:
             logger.info(
