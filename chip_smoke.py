@@ -17,8 +17,9 @@ pool over the same weights (swap on, then off), then with the prefix
 cache on (radix tree, copy-on-write, generated-token reuse, chunked
 prefill at 512), then quantized: int8 weights with int8 KV pools (the
 burst and the prefix traffic), and int4 weights with int8 KV pools (the
-burst), then Gemma-2-9B-it at full width (sliding window 4096 on even
-layers, softcaps, hd 256) twice over the same weights: decode through
+burst), then Gemma-2-9B-it at full width, 28 of its 42 layers (sliding
+window 4096 on even layers, softcaps, hd 256), twice over the same
+weights: decode through
 K1, then through K6 (``decode_block_slots`` 8), each serving the burst,
 a 4,600-token chunked document beside 7 short requests and a second
 turn that hits the document's pages; counting the kernel launches of
@@ -46,11 +47,12 @@ engine drafting with Qwen2.5-0.5B-Instruct, each run's launches exact
 (K3 = 28 x verify rounds, K1 none), after K3 and K3-int8 were held to
 their plain version and timed at the verify widths (S 1..8); (8)
 bge-base-en-v1.5 embeddings of 64 inputs over the three buckets against
-a plain fp32 forward; (9) Mixtral-8x7B-Instruct at full width on
-the one card with int8 weights, its experts included (quantized a layer
-at a time as they are drawn), and a bf16 pool: the burst and the prefix
-traffic, K4 launched exactly 897 times a forward pass (each expert's
-gate, up and down one at a time), its logits held to a plain forward
+a plain fp32 forward; (9) Mixtral-8x7B-Instruct at full width, 16 of
+its 32 layers, on the one card with int8 weights, its experts included
+(quantized a layer at a time as they are drawn), and a bf16 pool: the
+burst and the prefix traffic, K4 launched exactly (4 + 3 x 8) x layers
++ 1 times a forward pass (each expert's gate, up and down one at a
+time), its logits held to a plain forward
 over the same padded passes, then a W8A8 engine (``int8_native``) over
 the same weights serving the burst with K4 on the lm_head alone, after
 K4 and K5 were held to their plain versions and timed at the expert
@@ -69,9 +71,27 @@ weights: on the one card both ranks share it over a gloo device group
 with eager chunks (phase a: each rank's launches exact, every prompt's
 logits held to the plain forward, greedy streams to tp=1's up to the
 first near-tie, a follower SIGKILLed mid-burst), and where two cards are
-visible over NCCL with decode graphs (phase b).
+visible over NCCL with decode graphs (phase b); (12) last, expert
+parallelism and quantized weights under the mesh: K4 and K5 on every
+tp=2 shard of Qwen2.5-7B's quantized weights (the row-parallel int4
+ones repacked) against their plain versions, then Mixtral-8x7B int8
+served by an ep=2 group on the one card (two ranks, each four experts
+of every layer, gloo, eager chunks; K4 exactly 513 times a pass on each
+rank, a follower SIGKILLed mid-burst), then, with the group shut down,
+its prompt-pass and decode-step logits held to a plain forward over the
+whole int8 tree with the group's routing replayed, and layer 0's MoE
+output, as the live group computed it in those passes (after its expert
+all-reduce) and as computed rank by rank, held to the one-rank layer;
+Qwen2.5-7B int4
+at tp=2 on the one card (K5 exactly 197 times a pass on each rank, on
+the repacked row-parallel o and down shards) held to a tp=1 int4 engine
+and the plain forward; and where two or more cards are visible bf16
+Mixtral (93 GB, no one card holds it) one rank a card over NCCL with
+decode graphs, its live layer-0 MoE output held the same way.
 ``python3 chip_smoke.py mixtral`` runs the build and (9) alone, ``pod``
-the build and (10), ``tp`` the build and (11).  Each phase prints the graphs it captured, their
+the build and (10), ``tp`` the build and (11), ``ep`` the build, K4/K5
+at Mixtral's shapes and (12), ``ep b`` the build and (12)'s bf16
+group alone.  Each phase prints the graphs it captured, their
 capture time and their memory pool's bytes.  It prints the card's
 name and power limit, one JSON line of per-kernel numbers and, last,
 ``{"ok": true, "device": {...}}``.  Any
@@ -1523,6 +1543,30 @@ def recorded_routing():
         yield routes
     finally:
         dec._route = real
+
+
+@contextlib.contextmanager
+def recorded_moe_layer0(params):
+    """Layer 0's MoE input and output (on a mesh, after the expert
+    group's all-reduce) of every eager forward pass while the block runs,
+    in call order: a stand-in for ``decoder._moe_mlp`` that knows layer 0
+    by its router (the first layer of the replicated stack)."""
+    from vgate_tpu_torch.models import decoder as dec
+
+    real, calls = dec._moe_mlp, []
+    router0 = params["layers"]["router"].data_ptr()
+
+    def moe_mlp(x, lp, spec, *args, **kwargs):
+        out = real(x, lp, spec, *args, **kwargs)
+        if lp["router"].data_ptr() == router0:
+            calls.append((x.detach().clone(), out.detach().clone()))
+        return out
+
+    dec._moe_mlp = moe_mlp
+    try:
+        yield calls
+    finally:
+        dec._moe_mlp = real
 
 
 def replayed_route(route):
@@ -4011,6 +4055,26 @@ def embed_path(device: str = "cuda", model: str = EMBED_MODEL) -> dict:
 
 
 GEMMA = "google/gemma-2-9b-it"
+# the whole smoke must end inside its time limit, so two earlier paths run
+# at a cut depth (widths, heads, experts and kernels' shapes unchanged):
+# Gemma-2-9B's phases at 28 of 42 layers (14 windowed, 14 global) and the
+# one-rank Mixtral phase at 16 of 32 (the ep phase serves all 32)
+GEMMA_LAYERS = 28
+MIXTRAL_PHASE_LAYERS = 16
+
+
+def cut_depth(model: str, layers: int) -> str:
+    """Register ``model``'s spec cut to ``layers`` layers under the id
+    ``model@layers`` in this process's presets and return that id: the
+    phase's engines draw and serve only those layers."""
+    import dataclasses
+
+    from vgate_tpu_torch.models import specs
+
+    spec = specs.spec_for_model_id(model)
+    name = f"{model}@{layers}"
+    specs._register(dataclasses.replace(spec, name=name, num_layers=layers))
+    return name
 
 
 def filler(head: str, n: int, stride: int) -> str:
@@ -5150,11 +5214,110 @@ def check_tp_kernel_shapes(dev) -> dict:
     return out
 
 
-def tp_config(devices):
+# (leaf path, in, out, out dtype) of Qwen2.5-7B's K4/K5 weights, whole;
+# at tp = 2 q, k/v and gate/up keep half their columns, o and down half
+# their input rows (the row-parallel shards, int4 repacked), the lm_head
+# half the vocab (f32 out)
+TP_QMM_LEAVES = (
+    (("layers", "q", "w"), 3584, 3584, torch.bfloat16),
+    (("layers", "k", "w"), 3584, 512, torch.bfloat16),
+    (("layers", "o", "w"), 3584, 3584, torch.bfloat16),
+    (("layers", "gate", "w"), 3584, 18944, torch.bfloat16),
+    (("layers", "down", "w"), 18944, 3584, torch.bfloat16),
+    (("lm_head",), 3584, 152064, torch.float32),
+)
+TP_QMM_ROWS = (32, 1024)  # a decode step at 32 slots; a prompt chunk
+
+
+def check_tp_qmm_shapes(dev) -> dict:
+    """K4 (int8) and K5 (int4) on every tp = 2 shard of Qwen2.5-7B's
+    quantized weights: each weight drawn and quantized whole, then cut
+    to each rank's shard by ``shard_leaf`` (a row-parallel int4 shard
+    repacked by ``shard_int4_rows``), each rank's shard held to the
+    plain version at ``TP_QMM_ROWS`` rows (KERNEL_TOL, QMM_F32_TOL for
+    f32 out); rank 0's timed three times in turns with the library
+    yardstick (one bf16 ``torch.mm`` on the shard dequantized
+    beforehand), beside its bound.  One line each."""
+    from vgate_tpu_torch.models.specs import spec_for_model_id
+    from vgate_tpu_torch.ops.kernels import quant_matmul as qm
+    from vgate_tpu_torch.ops.quant import quantize_leaf, unpack_int4
+    from vgate_tpu_torch.parallel.mesh import Mesh, MeshPlan
+    from vgate_tpu_torch.parallel.sharding import shard_leaf
+
+    spec = spec_for_model_id(MODEL)
+    meshes = [Mesh(MeshPlan(1, 1, 1, 1, 2), TP_ONE_CARD, rank=r)
+              for r in range(2)]
+    out = {}
+    for bits, name, kernel, plain in (
+            (8, "int8_matmul", qm.int8_matmul, qm.int8_matmul_plain),
+            (4, "int4_matmul", qm.int4_matmul, qm.int4_matmul_plain)):
+        for path, in_dim, out_dim, dtype in TP_QMM_LEAVES:
+            gen = torch.Generator(device=dev).manual_seed(80)
+            whole = torch.randn(in_dim, out_dim, generator=gen,
+                                device=dev).mul_(0.02).bfloat16()
+            # a layer leaf is one layer's (lead 0); the lm_head whole
+            lead = 1 if path == ("lm_head",) else 0
+            q = quantize_leaf(path, whole, spec, bits, lead)
+            del whole
+            shards = [shard_leaf(path, q, spec, m, lead) for m in meshes]
+            del q
+            f32 = dtype == torch.float32
+            label = path[-2] if lead == 0 else "lm_head"
+            s_in = shards[0][0].shape[0] * (2 if bits == 4 else 1)
+            s_out = shards[0][0].shape[1]
+            for rows in TP_QMM_ROWS:
+                what = (f"{name} at the tp=2 {label} shard "
+                        f"{rows}x{s_in}x{s_out}" + (" f32" if f32 else ""))
+                x = torch.randn(rows, s_in, generator=gen,
+                                device=dev).bfloat16()
+                errs = []
+                for w in shards:
+                    got = kernel(x, w[0], w.scale, out_dtype=dtype)
+                    expect = plain(x, w[0], w.scale, out_dtype=torch.float32)
+                    torch.cuda.synchronize()
+                    check(got.dtype == dtype, f"{what} wrote {got.dtype}")
+                    errs.append(within(got, expect, what,
+                                       QMM_F32_TOL if f32 else KERNEL_TOL))
+                    del got, expect
+                w = shards[0]
+                vals = w.q if bits == 8 else unpack_int4(w.q_packed)
+                wd = (vals.float() * w.scale).bfloat16()
+                del vals
+                run = lambda: kernel(x, w[0], w.scale,  # noqa: E731
+                                     out_dtype=dtype)
+                library = ((lambda: torch.mm(x, wd, out_dtype=dtype)) if f32
+                           else (lambda: torch.mm(x, wd)))
+                ms, library_ms = [], []
+                for _ in range(3):
+                    ms.append(time_ms(run, iters=20))
+                    library_ms.append(time_ms(library, iters=20))
+                bound, by = qmm_bound(rows, s_in, s_out, bits,
+                                      4 if f32 else 2)
+                mid, lib_mid = sorted(ms)[1], sorted(library_ms)[1]
+                line = {
+                    "ms": mid, "ms_runs": ms, "library_ms": lib_mid,
+                    "library_ms_runs": library_ms, "bound_ms": bound,
+                    "bound_by": by, "bound_share": bound / mid,
+                    "vs_library": mid / lib_mid, "max_abs_err": max(errs),
+                    "plain_ms": time_ms(
+                        lambda: plain(x, w[0], w.scale, out_dtype=dtype),
+                        iters=3),
+                }
+                print(f"  {what}: " + json.dumps(line), flush=True)
+                out[what] = line
+                del x, wd
+            del shards
+            torch.cuda.empty_cache()
+    return out
+
+
+def tp_config(devices, quantization=None):
     """The tp phase's engines: the main path's model, prefix cache on,
-    chunked prefill at 512, pages of 32 and 32 slots; ``devices`` names
-    each rank's card (one entry: tp 1)."""
-    return engine_config(MODEL, "cuda", prefill_chunk=512, kv_page_size=32,
+    chunked prefill at 512, pages of 32 and 32 slots, ``quantization``
+    weights and a bf16 pool; ``devices`` names each rank's card (one
+    entry: tp 1)."""
+    return engine_config(MODEL, "cuda", quantization=quantization,
+                         prefill_chunk=512, kv_page_size=32,
                          max_batch_slots=32, tp=len(devices),
                          devices=list(devices) if len(devices) > 1 else [])
 
@@ -5233,9 +5396,10 @@ def tp_prompt_logits(core, ids) -> torch.Tensor:
 def tp_plain_tolerance(core, ids) -> dict:
     """The rounding noise of bf16 through 28 layers on one prompt, as
     ``LogitsCheck`` measures it: two plain full-sequence forwards (fp32
-    vs bf16 probabilities before PV) on the full weights; the tolerance
-    is 3x their difference, and never less than 4 bf16 steps of the
-    largest logit."""
+    vs bf16 probabilities before PV; quantized weights through K4/K5's
+    plain versions) on the full weights; the tolerance is 3x their
+    difference, and never less than 4 bf16 steps of the largest
+    logit."""
     from vgate_tpu_torch.ops.attention import (
         causal_prefill_attention,
         flash_prefill_attention,
@@ -5243,7 +5407,7 @@ def tp_plain_tolerance(core, ids) -> dict:
 
     live = live_core(core)
     seq = torch.tensor([ids], dtype=torch.int32, device=live.device)
-    with torch.no_grad():
+    with torch.no_grad(), plain_matmuls():
         ref, alt = (reference_logits(live.params, live.spec, seq, a)[0]
                     .float().cpu()
                     for a in (causal_prefill_attention,
@@ -5254,13 +5418,14 @@ def tp_plain_tolerance(core, ids) -> dict:
     return {"ref": ref, "floor": floor, "tol": max(3 * floor, 4 * ulp)}
 
 
-def tp_reference(traffic) -> dict:
+def tp_reference(traffic, quantization=None) -> dict:
     """The tp = 1 engine over the same random weights (seed 0): its
     streams and greedy top-2 gaps and its serving numbers, and for every
     greedy request, by (group, index), its prompt's ids, prompt-pass
     logits and the plain forward's reference and tolerance (the tp = 1
     logits held within it)."""
-    engine, core = start_engine(tp_config(["cuda:0"]), "tp=1 reference")
+    engine, core = start_engine(tp_config(["cuda:0"], quantization),
+                                f"tp=1 {quantization or 'bf16'} reference")
     try:
         warm_up(core, "tp=1 reference engine")
         served = tp_serve(engine, traffic)
@@ -5307,25 +5472,34 @@ def tp_streams_agree(ref: dict, served: dict, what: str) -> dict:
             "equal_streams": f"{whole}/{len(checked)}"}
 
 
-def tp_launches(core, s0: dict, f0: dict, L: int, what: str) -> dict:
-    """Each rank's K1/K2/K3 launches since the counts were set to 0:
-    K1 = L x decode steps and K2 + K3 = L x prompt passes, exactly, on
-    rank 0 (this process) and on the follower (its counts read over the
-    control group), which must have run rank 0's steps and passes.
-    Returns the launches summed over the ranks, and each rank's."""
+def mesh_launches(core, s0: dict, f0s: list, L: int, what: str,
+                  qmm=None) -> dict:
+    """Each rank's launches since the counts were set to 0: K1 = L x
+    decode steps and K2 + K3 = L x prompt passes, exactly, and with
+    ``qmm`` (a dequant-matmul kernel, its launches a forward pass) that
+    kernel so many times a pass, on rank 0 (this process) and on every
+    follower (its counts read over the control group), each of which must
+    have run rank 0's steps and passes.  Returns the launches summed over
+    the ranks, and each rank's."""
     live = live_core(core)
     s = live.get_stats()
-    [f] = live.follower_stats()
+    fs = live.follower_stats()
     steps = s["steps"] - s0["steps"]
     passes = s["prompt_passes"] - s0["prompt_passes"]
-    check(f["steps"] - f0["steps"] == steps,
-          f"{what}: the follower ran {f['steps'] - f0['steps']} decode steps,"
-          f" rank 0 {steps}")
-    check(f["prompt_passes"] - f0["prompt_passes"] == passes,
-          f"{what}: the follower ran {f['prompt_passes'] - f0['prompt_passes']}"
-          f" prompt passes, rank 0 {passes}")
+    check(steps > 0 and passes > 0, f"{what}: {steps} steps, {passes} passes")
+    ranks = [(0, read_launches())]
+    for f, f0 in zip(fs, f0s):
+        rank = f["rank"]
+        check(f["steps"] - f0["steps"] == steps,
+              f"{what}: follower {rank} ran {f['steps'] - f0['steps']} "
+              f"decode steps, rank 0 {steps}")
+        check(f["prompt_passes"] - f0["prompt_passes"] == passes,
+              f"{what}: follower {rank} ran "
+              f"{f['prompt_passes'] - f0['prompt_passes']} prompt passes, "
+              f"rank 0 {passes}")
+        ranks.append((rank, f["kernel_launches"]))
     total, each = {}, {}
-    for rank, n in ((0, read_launches()), (1, f["kernel_launches"])):
+    for rank, n in ranks:
         check(n[K1] == L * steps,
               f"{what}, rank {rank}: K1 {n[K1]} launches for {steps} "
               f"decode steps of {L} layers")
@@ -5333,6 +5507,12 @@ def tp_launches(core, s0: dict, f0: dict, L: int, what: str) -> dict:
               f"{what}, rank {rank}: K2 {n[K2]} + K3 {n[K3]} launches for "
               f"{passes} prompt passes of {L} layers")
         each[str(rank)] = {K1: n[K1], K2: n[K2], K3: n[K3]}
+        if qmm is not None:
+            name, per_pass = qmm
+            check(n[name] == per_pass * (steps + passes),
+                  f"{what}, rank {rank}: {name} {n[name]} launches for "
+                  f"{steps + passes} forward passes, not {per_pass} each")
+            each[str(rank)][name] = n[name]
         for name, count in n.items():
             total[name] = total.get(name, 0) + count
     return {"launches": total, "per_rank": each, "decode_steps": steps,
@@ -5347,7 +5527,7 @@ def tp_memory(core) -> dict:
         return None if n is None else round(n / 1e9, 2)
 
     weights = sum(t.numel() * t.element_size()
-                  for t in _tree_leaves(live.params))
+                  for t in leaves(live.params))
     pool = sum(t.numel() * t.element_size()
                for t in (live.k_pages, live.v_pages))
     out = {"0": {"weights_gb": gb(weights),
@@ -5362,15 +5542,7 @@ def tp_memory(core) -> dict:
     return out
 
 
-def _tree_leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tree_leaves(v)
-    else:
-        yield tree
-
-
-def tp_kill_drill(engine, core, batch) -> dict:
+def tp_kill_drill(engine, core, batch, what: str = "tp kill drill") -> dict:
     """The follower SIGKILLed once a stream of the burst has 2 tokens:
     rank 0's collectives raise on the closed peer, the supervisor
     contains the crash, shuts the mesh down, spawns a new follower (its
@@ -5403,19 +5575,20 @@ def tp_kill_drill(engine, core, batch) -> dict:
 
     with TokenWatch(sup, hook) as watcher:
         results, numbers = serve(engine, batch)
-    wait_for(lambda: "serving" in kill, "the tp group serving again", 600)
+    wait_for(lambda: "serving" in kill, f"{what}: the group serving again",
+             600)
     h = sup.health()
     check(h["restarts"] == h0["restarts"] + 1,
-          f"tp kill drill: restarts {h0['restarts']} -> {h['restarts']}")
-    check(h["lost"] == h0["lost"], f"tp kill drill: {h['lost']} lost")
-    check(h["resumed"] - h0["resumed"] >= 1, "tp kill drill: none resumed")
+          f"{what}: restarts {h0['restarts']} -> {h['restarts']}")
+    check(h["lost"] == h0["lost"], f"{what}: {h['lost']} lost")
+    check(h["resumed"] - h0["resumed"] >= 1, f"{what}: none resumed")
     for r in results:
         check(r.num_tokens == TP_TOKENS,
-              f"tp kill drill: a request ended at {r.num_tokens} tokens")
+              f"{what}: a request ended at {r.num_tokens} tokens")
     new = live_core(core)
     check(new is not live and new.mesh.healthy()
           and new.mesh.followers[0].pid != pid,
-          "tp kill drill: the group was not rebuilt with a new follower")
+          f"{what}: the group was not rebuilt with a new follower")
     return {"kill_to_serving_s": kill["serving"] - kill["t"],
             "resumed": h["resumed"] - h0["resumed"],
             "follower_pid": [pid, new.mesh.followers[0].pid],
@@ -5423,15 +5596,23 @@ def tp_kill_drill(engine, core, batch) -> dict:
             "wall_s": numbers["wall_s"]}
 
 
-def tp_group(devices, ref: dict, traffic, what: str) -> dict:
+# K5 (int4) launches a forward pass of Qwen2.5-7B: q/k/v/o and
+# gate/up/down of 28 layers, and the lm_head; the same on each tp rank
+QWEN_QMM_PER_PASS = 7 * 28 + 1
+
+
+def tp_group(devices, ref: dict, traffic, what: str, quantization=None,
+             extras: bool = True) -> dict:
     """One tp = 2 group on ``devices`` through the backend: boot, warm-up,
-    the traffic with every rank's launches exact, the streams held to tp =
-    1's, a profile of rank 0, every prompt's prompt-pass logits against
-    tp = 1's and the plain forward, and (one card) the follower-kill
-    drill."""
+    the traffic with every rank's launches exact (with int4 weights K5
+    197 a pass on each rank, on the repacked row-parallel o and down
+    shards), the streams held to tp = 1's, every prompt's prompt-pass
+    logits against tp = 1's and the plain forward, and with ``extras`` a
+    profile of rank 0 and (one card) the follower-kill drill."""
     print(f"memory allocated before the tp=2 {what} group: "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
-    engine, core = start_engine(tp_config(devices), f"tp=2 {what}")
+    engine, core = start_engine(tp_config(devices, quantization),
+                                f"tp=2 {what}")
     try:
         live = live_core(core)
         stats = live.get_stats()
@@ -5446,9 +5627,11 @@ def tp_group(devices, ref: dict, traffic, what: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         L = live.spec.num_layers
         s0 = live.get_stats()
-        [f0] = live.follower_stats()
+        f0s = live.follower_stats()
         served = tp_serve(engine, traffic)
-        launches = tp_launches(core, s0, f0, L, f"tp=2 {what}")
+        qmm = ("int4_matmul", QWEN_QMM_PER_PASS) if quantization else None
+        check(quantization in (None, "int4"), f"{what}: {quantization}")
+        launches = mesh_launches(core, s0, f0s, L, f"tp=2 {what}", qmm)
         s1 = live.get_stats()
         if graphs:
             g0, g1 = s0["decode_graphs"], s1["decode_graphs"]
@@ -5457,13 +5640,15 @@ def tp_group(devices, ref: dict, traffic, what: str) -> dict:
                   f"{s1['chunks'] - s0['chunks']} chunks")
         agree = tp_streams_agree(ref, served, f"tp=2 {what}")
         pc = s1["prefix_cache"]
-        check(pc["hit_tokens"] > 0 and pc["cow_copies"] >= 1
-              and pc["chunk_passes"] > 0,
+        check(len(traffic) == 1 or (
+            pc["hit_tokens"] > 0 and pc["cow_copies"] >= 1
+            and pc["chunk_passes"] > 0),
               f"{what}: the traffic missed a prefix hit, a copy-on-write or "
               f"a chunked pass: {pc}")
         memory = tp_memory(core)
         burst = traffic[0]
-        profile = profile_burst(engine, (burst[1], burst[2]), live)
+        profile = (profile_burst(engine, (burst[1], burst[2]), live)
+                   if extras else None)
         errs = {}
         for (name, i), p in ref["prompts"].items():
             got = tp_prompt_logits(core, p["ids"])
@@ -5478,11 +5663,13 @@ def tp_group(devices, ref: dict, traffic, what: str) -> dict:
                 "tol": p["tol"]}
         out = {
             "backend": backend, "decode_graphs": graphs,
+            "weights": quantization or "bf16",
             "warmup_s": warm["warmup_s"],
             "burst": served["burst"]["numbers"],
             "tp1_burst": ref["served"]["burst"]["numbers"],
-            "second_turn": served["second_turn"]["numbers"],
-            "long": served["long"]["numbers"],
+            **{name: served[name]["numbers"] for name in ("second_turn",
+                                                         "long")
+               if name in served},
             "streams": agree,
             "sampled_row_agrees": served["burst"]["streams"][8]
             == ref["served"]["burst"]["streams"][8],
@@ -5494,7 +5681,7 @@ def tp_group(devices, ref: dict, traffic, what: str) -> dict:
             **launches,
             "profile": profile,
         }
-        if backend == "gloo":
+        if backend == "gloo" and extras:
             out["kill_drill"] = tp_kill_drill(engine, core,
                                               (burst[1], burst[2]))
         return out
@@ -5539,6 +5726,396 @@ def tp_path(card: str) -> list:
     return runs
 
 
+# ----------------------------------------------------------------- ep
+
+def ep_config(devices, quantization="int8"):
+    """The ep phase's Mixtral-8x7B group: ``quantization`` weights (int8,
+    experts too, or None: bf16), a bf16 pool, the prefix cache on,
+    chunked prefill at 512, pages of 32, 32 slots, ep = the ranks."""
+    return engine_config(MIXTRAL, "cuda", quantization=quantization,
+                         prefill_chunk=512, kv_page_size=32,
+                         max_batch_slots=32, ep=len(devices),
+                         devices=list(devices))
+
+
+def ep_k4_per_pass(spec, ep: int) -> int:
+    """K4 launches a forward pass on each ep rank: q/k/v/o, and gate, up
+    and down of each of its E/ep experts, every layer, and the lm_head
+    (513 for Mixtral at ep 2, against 897 on one rank)."""
+    return (4 + 3 * spec.num_experts // ep) * spec.num_layers + 1
+
+
+def group_logits(core, text: str) -> dict:
+    """A prompt pass and one decode step of ``text`` through the whole
+    group, on pages taken from the engine's allocator and given back,
+    each named to the followers as the engine names its own (the decode
+    step at the engine's slot count, slot 0 alone active, its token
+    broadcast as a chunk's are).  Returns rank 0's logits of each, the
+    routing rank 0 recorded (every rank routes alike: the router and the
+    tokens are replicated) and the tokens: the stages of a staged plain
+    forward, and layer 0's MoE input and output of each pass
+    (``recorded_moe_layer0``).  The engine must be idle."""
+    import numpy as np
+
+    from vgate_tpu_torch.models.decoder import decode_forward, prefill_forward
+
+    live = live_core(core)
+    spec, dev = live.spec, live.device
+    ps, pps = live.geometry.page_size, live.geometry.pages_per_seq
+    ids = live.encode_prompt(text)
+    n = len(ids)
+    S = -(-n // 128) * 128
+    pages = live.allocator.allocate(S // ps + 1)
+    check(pages is not None, "no free pages for the group's logits")
+    slots = live.max_slots
+    tok = np.zeros((1, S), np.int32)
+    tok[0, :n] = ids
+    sl = np.asarray([n], np.int32)
+    pt = np.asarray([pages[:S // ps]], np.int32)
+
+    def up(a):
+        return torch.from_numpy(a).to(dev)
+
+    try:
+        with torch.no_grad(), recorded_moe_layer0(live.params) as moe0:
+            with recorded_routing() as prompt_routes, live._program(
+                    "prefill", tokens=tok, seq_lens=sl, page_tables=pt):
+                prefill = prefill_forward(
+                    live.params, spec, up(tok), up(sl), live.k_pages,
+                    live.v_pages, up(pt))
+            nxt = int(prefill[0].argmax())
+            tokens = np.zeros(slots, np.int32)
+            tokens[0] = nxt
+            positions = np.zeros(slots, np.int32)
+            positions[0] = n
+            active = np.arange(slots) == 0
+            table = np.zeros((slots, pps), np.int32)
+            table[0, :min(len(pages), pps)] = pages[:pps]
+            with live._program("decode_state", tokens=tokens,
+                               positions=positions, active=active,
+                               page_tables=table):
+                pass
+            with recorded_routing() as step_routes, live._program(
+                    "decode", key=None, num_steps=1,
+                    max_position=pps * ps - 1, graphs=False):
+                decode = decode_forward(
+                    live.params, spec, up(tokens), up(positions),
+                    live.k_pages, live.v_pages, up(table),
+                    active=up(active))
+                # the step's token, which the followers wait for
+                live.mesh.broadcast(up(tokens))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+    finally:
+        live.allocator.release(pages)
+    return {"ids": ids, "tok": tok, "n": n, "next": nxt,
+            "prefill": prefill[:1].float(), "decode": decode[:1].float(),
+            "prompt_routes": prompt_routes, "moe_layer0": moe0,
+            # slot 0's rows: the only real token of the step
+            "step_routes": [(v[:1], i[:1]) for v, i in step_routes]}
+
+
+def check_group_logits(params, spec, rec: dict) -> dict:
+    """The group's prompt-pass and decode-step logits (``group_logits``)
+    against a staged plain forward over ``params``, the whole tree on this
+    card (K4's plain version, the group's routing replayed), with
+    ``LogitsCheck``'s tolerance."""
+    import types
+
+    dev = rec["prefill"].device
+    stand_in = types.SimpleNamespace(
+        params=params, spec=spec, device=dev,
+        geometry=types.SimpleNamespace(kv_dtype="bf16"))
+    compare = LogitsCheck(stand_in)
+    n = rec["n"]
+    tok = torch.from_numpy(rec["tok"]).to(dev)
+    seq = tok[:, :n]
+    nxt = torch.tensor([[rec["next"]]], dtype=torch.int32, device=dev)
+    stages = [(tok, n, rec["prompt_routes"])]
+    with torch.no_grad():
+        compare("ep prefill", rec["prefill"], seq, stages=stages)
+        stages.append((nxt, 1, rec["step_routes"]))
+        compare("ep decode", rec["decode"], torch.cat([seq, nxt], 1),
+                stages=stages)
+    return compare.report
+
+
+def check_moe_layer_ep(lp, spec, ep: int, rows=(32, 2048)) -> dict:
+    """Layer 0's MoE output at full width as an ep group computes it: each
+    rank's ``_moe_mlp`` over its E/ep experts' weights (K4 per expert on
+    int8 weights), the partials summed in bf16 in rank order (the expert
+    group's all-reduce), against the one-rank layer with all E experts
+    (K4's plain version), each within 4 bf16 steps of its largest value,
+    on the same bf16 input of ``rows`` tokens.  ``lp`` is layer 0 of the
+    whole tree."""
+    import dataclasses
+
+    from vgate_tpu_torch.models import decoder as dec
+    from vgate_tpu_torch.ops.kernels import quant_matmul as qm
+
+    E = spec.num_experts
+    n = E // ep
+    dev = lp["router"].device
+    gen = torch.Generator(device=dev).manual_seed(73)
+    out = {}
+    for T in rows:
+        x = torch.randn((T, spec.hidden_size), generator=gen,
+                        device=dev).bfloat16()
+        before = qm.int8_matmul.launches
+        with torch.no_grad():
+            got = None
+            for rank in range(ep):
+                first = rank * n
+                local = dataclasses.replace(spec, expert_range=(first, n))
+                llp = dict(lp)
+                for name in ("gate", "up", "down"):
+                    w = lp[name]["w"]
+                    llp[name] = {"w": type(w)(*(p[first:first + n]
+                                                for p in w))
+                                 if isinstance(w, tuple)
+                                 else w[first:first + n]}
+                part = dec._moe_mlp(x, llp, local)
+                got = part if got is None else got + part
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            launches = qm.int8_matmul.launches - before
+            with plain_matmuls():
+                ref = dec._moe_mlp(x, lp, spec)
+        err = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        tol = 4 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+        out[f"rows {T}"] = {"max_abs_err": err, "tol": tol,
+                            "max_value": scale,
+                            "int8_matmul_launches": launches}
+        check(bool(torch.isfinite(got).all()) and err <= tol,
+              f"MoE layer at ep {ep}, {T} rows, off the one-rank layer: "
+              f"{out[f'rows {T}']}")
+        quantized = isinstance(lp["gate"]["w"], tuple)
+        check(dev.type != "cuda" or launches == (3 * E if quantized else 0),
+              f"MoE layer at ep {ep}: {launches} K4 launches")
+    return out
+
+
+def check_moe_layer_live(calls, lp, spec, what: str) -> dict:
+    """The live group's layer-0 MoE outputs (``group_logits``' prompt
+    pass and decode step, each after the expert group's all-reduce)
+    against the one-rank layer over all E experts (K4's plain version on
+    int8 weights) on the same inputs, each within 4 bf16 steps of its
+    largest value.  ``lp`` is layer 0 of the whole tree."""
+    from vgate_tpu_torch.models import decoder as dec
+
+    out = {}
+    for name, (x, got) in zip(("prompt pass", "decode step"), calls):
+        with torch.no_grad(), plain_matmuls():
+            ref = dec._moe_mlp(x, lp, spec)
+        err = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        tol = 4 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+        out[name] = {"max_abs_err": err, "tol": tol, "max_value": scale,
+                     "rows": x.numel() // x.shape[-1]}
+        check(bool(torch.isfinite(got).all()) and err <= tol,
+              f"{what}: the live group's layer-0 MoE output ({name}) is "
+              f"off the one-rank layer: {out[name]}")
+    check(len(out) == 2, f"{what}: {len(calls)} layer-0 MoE calls recorded")
+    return out
+
+
+def moe_layer0(spec, device="cuda", dtype=torch.bfloat16) -> dict:
+    """Layer 0's router and expert weights of the seed-0 random init,
+    drawn on the card in ``init_params``' order (every leaf of every layer
+    is drawn; only layer 0 of the MoE leaves is kept), for a check
+    against a group whose whole bf16 tree no card can hold."""
+    D, L = spec.hidden_size, spec.num_layers
+    H, KV, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    E, F = spec.num_experts, spec.intermediate_size
+    gen = torch.Generator(device=device).manual_seed(0)
+    out = {}
+    for name, shape in (("q", (D, H * hd)), ("k", (D, KV * hd)),
+                        ("v", (D, KV * hd)), ("o", (H * hd, D)),
+                        ("router", (D, E)), ("gate", (E, D, F)),
+                        ("up", (E, D, F)), ("down", (E, F, D))):
+        for l in range(L):
+            w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=device).mul_(0.02).to(dtype)
+            if l == 0 and name in ("router", "gate", "up", "down"):
+                out[name] = w if name == "router" else {"w": w}
+            del w
+    return out
+
+
+def ep_group(devices, traffic, what: str, quantization="int8") -> dict:
+    """One ep group of Mixtral-8x7B on ``devices`` through the backend:
+    boot, warm-up, the traffic with every rank's launches exact (K4
+    ``ep_k4_per_pass`` a pass with int8 weights, none in bf16), each
+    rank's weights and peak memory, the group's prompt-pass and
+    decode-step logits and (gloo) the follower-kill drill; after the
+    group is shut down (so one Mixtral sits on the card at a time) the
+    logits against a plain forward over the whole int8 tree with the
+    group's routing replayed, and layer 0's MoE output, as the live group
+    computed it in those two passes and as computed rank by rank, against
+    the one-rank layer (bf16: layer 0 drawn alone)."""
+    from vgate_tpu_torch.models.decoder import init_params, layer_params
+    from vgate_tpu_torch.models.specs import spec_for_model_id
+
+    ep = len(devices)
+    print(f"memory allocated before the ep={ep} {what} group: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    t0 = time.perf_counter()
+    engine, core = start_engine(ep_config(devices, quantization),
+                                f"ep={ep} {what}")
+    out = {"boot_s": time.perf_counter() - t0,
+           "weights": quantization or "bf16"}
+    try:
+        live = live_core(core)
+        stats = live.get_stats()
+        check(stats["mesh"]["ep"] == ep and stats["mesh"]["tp"] == 1,
+              f"{what}: mesh {stats['mesh']}")
+        backend, graphs = stats["mesh"]["backend"], live.decode_graphs
+        chunks = ("graph replays" if graphs
+                  else "eager (gloo cannot be captured)")
+        print(f"ep={ep} {what}: device group {backend}, decode chunks "
+              f"{chunks}", flush=True)
+        out.update(backend=backend, decode_graphs=graphs,
+                   warmup_s=warm_up(core, f"ep={ep} {what}")["warmup_s"])
+        live.reset_follower_launches()
+        torch.cuda.reset_peak_memory_stats()
+        spec = live.model_spec
+        s0 = live.get_stats()
+        f0s = live.follower_stats()
+        served = tp_serve(engine, traffic)
+        qmm = ("int8_matmul", ep_k4_per_pass(spec, ep)) if quantization \
+            else None
+        out.update(mesh_launches(core, s0, f0s, spec.num_layers,
+                                 f"ep={ep} {what}", qmm))
+        for name in ("int4_matmul", "paged_decode_attention_int8",
+                     "paged_multitok_attention_int8",
+                     "paged_decode_attention_blocked") + (
+                         () if quantization else ("int8_matmul",)):
+            check(out["launches"].get(name, 0) == 0,
+                  f"{what}: {name} launched")
+        s1 = live.get_stats()
+        if graphs:
+            g0, g1 = s0["decode_graphs"], s1["decode_graphs"]
+            check(g1["replays"] - g0["replays"] == s1["chunks"] - s0["chunks"],
+                  f"{what}: {g1['replays'] - g0['replays']} replays for "
+                  f"{s1['chunks'] - s0['chunks']} chunks")
+            out["replays"] = g1["replays"] - g0["replays"]
+        pc = s1["prefix_cache"]
+        check(pc["hit_tokens"] > 0 and pc["cow_copies"] >= 1
+              and pc["chunk_passes"] > 0,
+              f"{what}: the traffic missed a prefix hit, a copy-on-write or "
+              f"a chunked pass: {pc}")
+        for group in served.values():
+            for stream in group["streams"]:
+                check(len(stream) == TP_TOKENS
+                      and all(0 <= t < spec.vocab_size for t in stream),
+                      f"{what}: a stream of {len(stream)} tokens")
+        out.update({
+            "burst": served["burst"]["numbers"],
+            "second_turn": served["second_turn"]["numbers"],
+            "long": served["long"]["numbers"],
+            "prefix_cache": {k: pc[k] for k in ("hit_tokens", "cow_copies",
+                                                "chunk_passes")},
+            "memory": tp_memory(core),
+        })
+        rec = group_logits(core, prompts()[2])
+        gate0 = None
+        if quantization is None:
+            # rank 0's layer-0 gate shard, held to a fresh draw below
+            gate0 = live.params["layers"]["gate"]["w"][0].cpu()
+        if backend == "gloo":
+            burst = traffic[0]
+            drill = tp_kill_drill(engine, core, (burst[1], burst[2]),
+                                  "ep kill drill")
+            drill.pop("streams")
+            out["kill_drill"] = drill
+    finally:
+        t0 = time.perf_counter()
+        engine.shutdown()
+        out["shutdown_s"] = time.perf_counter() - t0
+        del engine, core
+        gc.collect()
+        torch.cuda.empty_cache()
+    spec = spec_for_model_id(MIXTRAL)
+    t0 = time.perf_counter()
+    if quantization:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = init_params(spec, gen, dtype=torch.bfloat16, device="cuda",
+                             quantization=quantization)
+        out["plain_tree_s"] = time.perf_counter() - t0
+        out["logits"] = check_group_logits(params, spec, rec)
+        lp = layer_params(params, 0)
+    else:
+        lp = moe_layer0(spec)
+        n = spec.num_experts // ep
+        check(torch.equal(gate0, lp["gate"]["w"][:n].cpu()),
+              f"{what}: rank 0's layer-0 experts are not the seed's")
+        out["logits"] = {"prefill_finite": bool(
+            torch.isfinite(rec["prefill"]).all()),
+            "decode_finite": bool(torch.isfinite(rec["decode"]).all())}
+        check(all(out["logits"].values()), f"{what}: logits not finite")
+    out["moe_layer_live"] = check_moe_layer_live(
+        rec["moe_layer0"], lp, spec, f"ep={ep} {what}")
+    out["moe_layer"] = check_moe_layer_ep(lp, spec, ep)
+    del lp
+    params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_path(card: str) -> list:
+    """Phase (a): Mixtral-8x7B int8 served by an ep=2 group on the one card
+    (gloo, eager chunks); (a'): Qwen2.5-7B int4 at tp=2 on the one card,
+    held to the tp = 1 int4 engine and the plain forward; (b), where two
+    or more cards are visible, Mixtral bf16 at ep = 4 (four cards) or 2,
+    one rank a card, over NCCL with decode graphs.  Prints each; returns
+    the runs (their summed launches)."""
+    traffic = tp_traffic()
+    runs = []
+    # two ranks on the one card: two processes, two CUDA contexts, a gloo
+    # device group, eager chunks
+    a = ep_group(TP_ONE_CARD, traffic, "phase (a), one card")
+    drill = a.pop("kill_drill")
+    print(f"ep phase (a), Mixtral-8x7B int8, 2 ranks on {card}: "
+          + json.dumps(a), flush=True)
+    print(f"ep phase (a) follower kill drill on {card}: "
+          + json.dumps(drill), flush=True)
+    runs.append(a)
+    burst = traffic[:1]
+    ref = tp_reference(burst, "int4")
+    gc.collect()
+    torch.cuda.empty_cache()
+    a2 = tp_group(TP_ONE_CARD, ref, burst, "phase (a'), int4 on one card",
+                  quantization="int4", extras=False)
+    a2.pop("profile")
+    print(f"ep phase (a'), Qwen2.5-7B int4 at tp=2 on {card}: "
+          + json.dumps(a2), flush=True)
+    runs.append(a2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs + ep_phase_b(traffic)
+
+
+def ep_phase_b(traffic) -> list:
+    """Phase (b), where two or more cards are visible: Mixtral-8x7B bf16
+    (93 GB, which no one card holds) at ep = 4 (four cards) or 2, one rank
+    a card, over NCCL with decode graphs; otherwise a line says why it
+    did not run.  Returns its run (its summed launches), if any."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"ep phase (b) did not run: {count} card visible, and it "
+              "needs 2 or more (bf16 Mixtral, 93 GB, fits no one card: one "
+              "rank a card, NCCL, decode graphs)", flush=True)
+        return []
+    ep = 4 if count >= 4 else 2
+    b = ep_group([f"cuda:{i}" for i in range(ep)], traffic,
+                 f"phase (b), {ep} cards", quantization=None)
+    print(f"ep phase (b), Mixtral-8x7B bf16, {ep} ranks over NCCL: "
+          + json.dumps(b), flush=True)
+    return [b]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs "
@@ -5573,7 +6150,8 @@ def main() -> None:
         # shapes (a shorter run while that phase is worked on)
         check_mixtral_matmuls(dev)
         mixtral_attention_shapes(dev)
-        print_mixtral(card, mixtral_path())
+        print_mixtral(card, mixtral_path(cut_depth(MIXTRAL,
+                                                   MIXTRAL_PHASE_LAYERS)))
         print(card_line())
         return
     if sys.argv[1:] == ["pod"]:
@@ -5590,6 +6168,20 @@ def main() -> None:
               + json.dumps(check_tp_kernel_shapes(dev)), flush=True)
         for run in tp_path(card):
             print(f"tp launches: {json.dumps(run['launches'])}")
+        print(card_line())
+        return
+    if sys.argv[1:2] == ["ep"]:
+        # the ep phase alone, after the build and K4 at Mixtral's expert
+        # shapes (a shorter run while that phase is worked on); ``ep b``
+        # its phase (b) alone, after the build (the cards' run)
+        if sys.argv[2:] == ["b"]:
+            runs = ep_phase_b(tp_traffic())
+        else:
+            check_mixtral_matmuls(dev)
+            check_tp_qmm_shapes(dev)
+            runs = ep_path(card)
+        for run in runs:
+            print(f"ep launches: {json.dumps(run['launches'])}")
         print(card_line())
         return
     if sys.argv[1:] == ["recovery"]:
@@ -5618,6 +6210,8 @@ def main() -> None:
     gemma_kernel_shapes(dev)
     print(f"K1-K3 at the tp shard shapes on {card}: "
           + json.dumps(check_tp_kernel_shapes(dev)), flush=True)
+    # K4/K5 at the tp=2 shards, row-parallel int4 repacked
+    check_tp_qmm_shapes(dev)
     print("host swap page round trip at 7B (1, 16, 17 pages; bit-exact, "
           "pools in place): " + json.dumps(check_swap_round_trip(dev)),
           flush=True)
@@ -5630,7 +6224,9 @@ def main() -> None:
 
     def memory(after: str) -> None:
         print(f"memory allocated after {after}: "
-              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB "
+              f"({time.perf_counter() - t0:.1f} s into the smoke)",
+              flush=True)
 
     memory("the kernel checks")
     system, tails, cow, long = prefix_texts()
@@ -5715,7 +6311,9 @@ def main() -> None:
     # on a second engine over the same weights
     phases, params = {}, None
     for block_slots in (1, 8):
-        phase, params = gemma_path(block_slots, params=params)
+        phase, params = gemma_path(block_slots,
+                                   cut_depth(GEMMA, GEMMA_LAYERS),
+                                   params=params)
         gprofile = phase.pop("profile")
         shown = {k: v for k, v in phase.items()
                  if k not in ("streams", "first_tokens")}
@@ -5732,7 +6330,8 @@ def main() -> None:
     print("gemma-2-9b K1 phase vs K6 phase: "
           + json.dumps(phase_agreement(phases[1], phases[8])), flush=True)
     memory("the gemma-2-9b phases")
-    mixtral = print_mixtral(card, mixtral_path())
+    mixtral = print_mixtral(card, mixtral_path(
+        cut_depth(MIXTRAL, MIXTRAL_PHASE_LAYERS)))
     runs += [mixtral, mixtral["w8a8"]]
     memory("the mixtral phase")
     # the process-isolated pod: its workers' launches, read over the RPC
@@ -5743,6 +6342,10 @@ def main() -> None:
     # control group) join the count
     runs += tp_path(card)
     memory("the tp phase")
+    # the ep group and the quantized shards under the mesh: every rank's
+    # launches join the count
+    runs += ep_path(card)
+    memory("the ep phase")
     for k in kernels:
         # launches of every path, each counted from 0 just before it ran
         k["launches"] = sum(run["launches"].get(k["name"], 0)

@@ -28,13 +28,16 @@ def test_defaults_and_sections():
 @pytest.mark.parametrize(
     "sections",
     [
-        # tp=2 serves since item 10a; MoE under tp still refuses (10c)
-        {"device": {"tp": 2}, "model": {"model_id": "tiny-moe"}},
+        # tp and ep serve since items 10a and 10c, MoE and quantized
+        # weights under them too; the pod and speculation on such a mesh
+        # still refuse
+        {"device": {"tp": 2}, "pod": {"workers": 2}},
         {"device": {"dp": 2}},
         {"device": {"sp": 2}},
         {"device": {"pp": 2}},
-        {"device": {"ep": 2}},
-        {"model": {"model_id": "tiny-moe"}, "device": {"ep": 2}},
+        {"device": {"ep": 2}, "pod": {"workers": 2}},
+        {"model": {"model_id": "tiny-moe"},
+         "device": {"ep": 2, "speculative_k": 2}},
     ],
     ids=lambda s: next(iter(s.values())).__repr__()[:40],
 )
@@ -61,8 +64,7 @@ def test_unported_switches_raise(sections):
 )
 def test_moe_and_w8a8_switches_load(sections):
     """MoE models (quantized or not) and ``device.int8_native`` (W8A8)
-    load since they were ported; expert parallelism stays refused
-    (above)."""
+    load since they were ported."""
     sections = {"model": {"model_id": "tiny-dense"}, **sections}
     cfg = load_config(**sections)
     assert cfg.model.model_id == sections["model"]["model_id"]

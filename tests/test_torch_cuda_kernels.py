@@ -23,6 +23,8 @@ out: atol = rtol = 1e-3 — bf16 x int8 products are exact in fp32, so
 only the order of a few thousand fp32 additions differs.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1479,3 +1481,82 @@ def test_k3_at_a_tp_ranks_heads_on_card(cuda):
     real = torch.arange(S, device=cuda)[None, :] < il[:, None]
     torch.testing.assert_close(got.float()[real], expect[real],
                                atol=KERNEL_TOL, rtol=KERNEL_TOL)
+
+
+# ------------------------------------- ep and quantized shards (item 10c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [16, 130])
+def test_k4_on_an_ep_ranks_expert_shard_on_card(cuda, C):
+    """An ep=2 rank's half of 8 int8 experts (quantized whole, then
+    sharded): ``_expert_einsum`` launches K4 once a local expert and
+    equals the plain version on each."""
+    from vgate_tpu_torch.models import decoder as dec
+    from vgate_tpu_torch.models.specs import TINY_MOE
+    from vgate_tpu_torch.parallel.mesh import Mesh, MeshPlan
+    from vgate_tpu_torch.parallel.sharding import shard_leaf
+
+    rng = np.random.default_rng(200 + C)
+    E, D, F = 8, 256, 512
+    spec = dataclasses.replace(TINY_MOE, num_experts=E, hidden_size=D,
+                               intermediate_size=F)
+    w = torch.from_numpy(
+        rng.normal(size=(1, E, D, F)).astype(np.float32) * 0.02).to(cuda)
+    full = quant.quantize_expert_stacked(w, 8)
+    mesh = Mesh(MeshPlan(1, 1, 2, 1, 1), ["cpu", "cpu"], rank=1)
+    shard = shard_leaf(("layers", "gate", "w"), full, spec, mesh)
+    assert shard.q.shape == (1, E // 2, D, F)
+    torch.testing.assert_close(shard.scale, full.scale[:, E // 2:])
+    qw = type(shard)(*(part[0] for part in shard))
+    x = _bf16(rng, (E // 2, C, D), cuda)
+    before = quant_matmul.int8_matmul.launches
+    got = dec._expert_einsum("ecd,edf->ecf", x, qw)
+    torch.cuda.synchronize()
+    assert quant_matmul.int8_matmul.launches == before + E // 2
+    for e in range(E // 2):
+        expect = quant_matmul.int8_matmul_plain(x[e], qw.q[e], qw.scale[e],
+                                                out_dtype=torch.float32)
+        torch.testing.assert_close(got[e].float(), expect, atol=KERNEL_TOL,
+                                   rtol=KERNEL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 32, 200])
+def test_k5_on_repacked_row_parallel_shards_on_card(cuda, rows):
+    """A down projection quantized to int4 whole, then split over tp=2
+    by rows (each shard repacked): K5 on each shard equals its plain
+    version, and the two partial products sum to the whole product."""
+    from vgate_tpu_torch.models.specs import TINY_DENSE
+    from vgate_tpu_torch.parallel.mesh import Mesh, MeshPlan
+    from vgate_tpu_torch.parallel.sharding import shard_leaf
+
+    rng = np.random.default_rng(300 + rows)
+    F, D = 1024, 256
+    spec = dataclasses.replace(TINY_DENSE, hidden_size=D,
+                               intermediate_size=F)
+    w = torch.from_numpy(
+        rng.normal(size=(1, F, D)).astype(np.float32) * 0.02).to(cuda)
+    full = quant.quantize_stacked(w, 4)
+    x = _bf16(rng, (rows, F), cuda)
+    whole = quant_matmul.int4_matmul_plain(x, full.q_packed[0], full.scale[0],
+                                           out_dtype=torch.float32)
+    total = torch.zeros_like(whole)
+    for rank in range(2):
+        mesh = Mesh(MeshPlan(1, 1, 1, 1, 2), ["cpu", "cpu"], rank=rank)
+        shard = shard_leaf(("layers", "down", "w"), full, spec, mesh)
+        assert shard.q_packed.shape == (1, F // 4, D)
+        torch.testing.assert_close(shard.scale, full.scale)
+        xr = x[:, rank * F // 2:(rank + 1) * F // 2].contiguous()
+        before = quant_matmul.int4_matmul.launches
+        got = quant_matmul.int4_matmul(xr, shard.q_packed[0], shard.scale[0],
+                                       out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert quant_matmul.int4_matmul.launches == before + 1
+        expect = quant_matmul.int4_matmul_plain(
+            xr, shard.q_packed[0], shard.scale[0], out_dtype=torch.float32)
+        torch.testing.assert_close(got, expect, atol=QMM_F32_TOL,
+                                   rtol=QMM_F32_TOL)
+        total += got
+    torch.testing.assert_close(total, whole, atol=QMM_F32_TOL,
+                               rtol=QMM_F32_TOL)

@@ -405,3 +405,28 @@ def test_tp_follower_serves_without_jax_or_the_jax_package(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+EP_PROBE = TP_PROBE.replace(
+    '"model_id": "tiny-dense"', '"model_id": "tiny-moe"'
+).replace('"tp": 2', '"ep": 2').replace(
+    "    [stats] = core.follower_stats()",
+    "    assert core.get_stats()['mesh']['ep'] == 2\n"
+    "    [stats] = core.follower_stats()",
+)
+
+
+def test_ep_follower_serves_without_jax_or_the_jax_package(tmp_path):
+    """An ep=2 MoE engine and its follower (the other half of the
+    experts) serve a stream with JAX, the JAX package, the HTTP layer's
+    packages and PyYAML blocked in both interpreters."""
+    assert '"ep": 2' in EP_PROBE and "tiny-moe" in EP_PROBE
+    (tmp_path / "sitecustomize.py").write_text(TP_SITECUSTOMIZE)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(tmp_path)
+    proc = subprocess.run(
+        [sys.executable, "-c", EP_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "ok"

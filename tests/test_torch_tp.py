@@ -448,10 +448,14 @@ def test_sampled_streams_at_tp2_equal_tp1_with_the_same_seed(models):
          r"kv_cache.host_swap_bytes requires a plain mesh, got \{'tp': 2\}"),
         ({"device": {"speculative_k": 2}}, NotPortedError,
          r"speculative decoding .* item 10d"),
-        ({"model": {"model_id": "tiny-moe"}}, NotPortedError,
-         r"MoE .* item 10c"),
-        ({"model": {"quantization": "int8"}}, NotPortedError,
-         r"model.quantization=int8 .* item 10c"),
+        # MoE and quantized weights serve under a mesh since item 10c:
+        # an ep the experts do not split into, and int8 KV beside int8
+        # weights, still refuse
+        ({"model": {"model_id": "tiny-moe"}, "device": {"ep": 3}},
+         NotPortedError, r"num_experts=4 is not divisible by device.ep=3"),
+        ({"model": {"quantization": "int8"}, "kv_cache": {"dtype": "int8"}},
+         ValueError,
+         r"kv_cache.dtype=int8 requires a plain mesh, got \{'tp': 2\}"),
         ({"pod": {"workers": 2}}, NotPortedError,
          r"pod.workers>0 .* item 10a \(rest\)"),
         ({"device": {"tp": 3}}, NotPortedError,
@@ -464,7 +468,10 @@ def test_sampled_streams_at_tp2_equal_tp1_with_the_same_seed(models):
          r"num_kv_heads=4 is not divisible by device.tp=7"),
         ({"device": {"dp": 2}}, NotPortedError, r"device.dp>1 .* item 10b"),
         ({"device": {"sp": 2}}, NotPortedError, r"device.sp>1 .* item 10d"),
-        ({"device": {"ep": 2}}, NotPortedError, r"device.ep>1 .* item 10c"),
+        # speculation under an expert-parallel mesh
+        ({"model": {"model_id": "tiny-moe"},
+          "device": {"ep": 2, "speculative_k": 2}}, NotPortedError,
+         r"speculative decoding .* item 10d"),
         ({"device": {"devices": ["cpu", "cpu", "cpu"]}}, ValueError,
          r"device.devices names 3 devices but device.tp is 2"),
     ],

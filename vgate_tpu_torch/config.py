@@ -148,15 +148,16 @@ class DeviceConfig:
     # reference (the engine logs its warning otherwise)
     int8_native: bool = False
     # the mesh axes (parallel/mesh.py): tp > 1 shards the model over tp
-    # ranks, each a process (tp 0 takes every visible device); dp, sp,
-    # pp and ep > 1 are not ported yet and raise NotPortedError (_check)
+    # ranks and ep > 1 a MoE model's experts over ep, one process a rank
+    # (ep x tp ranks; tp 0 takes every visible device); dp, sp and pp >
+    # 1 are not ported yet and raise NotPortedError (_check)
     dp: int = 1
     tp: int = 1
     sp: int = 1
     pp: int = 1
     ep: int = 1
     # port-only: each rank's device, rank 0 first (empty = derived from
-    # `device` and tp).  Naming one card more than once runs that many
+    # `device`, ep and tp).  Naming one card more than once runs that many
     # ranks on it, over a gloo device group: the one-card test layout.
     devices: List[str] = field(default_factory=list)
 
@@ -526,17 +527,25 @@ def _check(cfg: VGTConfig) -> None:
         raise ValueError("prefix_cache.min_share_pages must be >= 1")
     if not 0.0 <= pc.evict_watermark < 1.0:
         raise ValueError("prefix_cache.evict_watermark must be in [0, 1)")
-    for axis, item in (("dp", "10b"), ("sp", "10d"), ("pp", "10d"),
-                       ("ep", "10c")):
+    for axis, item in (("dp", "10b"), ("sp", "10d"), ("pp", "10d")):
         # 0 is the reference's "all devices": one device for these axes
         if getattr(d, axis) > 1:
             raise _not_ported(f"device.{axis}>1", f"queue 1, item {item}")
-    if d.tp < 0:
-        raise ValueError("device.tp must be >= 0 (0 = every visible device)")
-    if d.devices and d.tp not in (0, len(d.devices)):
+    if d.tp < 0 or d.ep < 0:
+        raise ValueError(
+            "device.tp and device.ep must be >= 0 (0 = every visible device)"
+        )
+    if d.tp == 0 and d.ep == 0:
+        raise ValueError("at most one mesh axis may be 0 (auto)")
+    fixed = max(d.tp, 1) * max(d.ep, 1)
+    if d.devices and (
+        len(d.devices) % fixed
+        or (d.tp and d.ep and len(d.devices) != fixed)
+    ):
         raise ValueError(
             f"device.devices names {len(d.devices)} devices but device.tp "
-            f"is {d.tp}"
+            f"is {d.tp} and device.ep {d.ep}: their product must cover "
+            "every device"
         )
     if d.kv_page_size <= 0 or d.max_batch_slots <= 0:
         raise ValueError("kv_page_size and max_batch_slots must be > 0")
@@ -546,13 +555,14 @@ def _check(cfg: VGTConfig) -> None:
         raise ValueError("device.kv_budget_bytes must be >= 0")
     _check_pod(cfg.pod)
     spec = spec_for_model_id(m.model_id)
-    # a tp known at load (tp 0 resolves against the devices at the
-    # engine, which checks again)
-    tp = d.tp or len(d.devices)
-    if tp > 1:
-        from vgate_tpu_torch.parallel.sharding import check_tp_config
+    # the mesh known at load (an axis at 0 counts as 1 without a device
+    # list; the engine resolves it against the devices and checks again)
+    ranks = len(d.devices) or fixed
+    if ranks > 1:
+        from vgate_tpu_torch.parallel.sharding import check_mesh_config
 
-        check_tp_config(cfg, spec, tp)
+        tp = d.tp or ranks // max(d.ep, 1)
+        check_mesh_config(cfg, spec, tp, ranks // tp)
     if spec.is_encoder:
         # the reference has no decoder for an encoder either: it is
         # served behind /v1/embeddings

@@ -504,10 +504,10 @@ class EngineIntegrity:
         self.maybe_inject_weight_fault(core)
         if self.verifier is None:
             return
-        # under tp each follower sweeps the same leaves of its own shard
+        # on a mesh each follower sweeps the same leaves of its own shard
         mesh = getattr(core, "mesh", None)
-        remote = core._follower_check if mesh is not None and mesh.tp > 1 \
-            else None
+        multi = mesh is not None and mesh.num_devices > 1
+        remote = core._follower_check if multi else None
         mismatch = self.verifier.verify_chunk(core.params, remote=remote)
         if mismatch is None:
             return

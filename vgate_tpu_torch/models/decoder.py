@@ -34,17 +34,20 @@ eligible projection but the lm_head runs the int8 product instead.
 Under tensor parallelism (``spec.mesh``, parallel/sharding.py
 ``local_spec``) the forwards run on a rank's shard: its query and kv
 heads, its FFN channels and, when tp divides the vocab, its rows of the
-embedding and columns of the lm_head.  The collectives are all here: the
-vocab-parallel lookup's all-reduce (``_embed``), an all-reduce right
-after the o product and after the down product (``_reduce``), and the
-fp32 logits' all-gather before the final softcap (``_logits``).  With
-no mesh none is issued.
+embedding and columns of the lm_head.  Under expert parallelism a rank
+holds ``spec.expert_range``'s experts of every MoE layer.  The
+collectives are all here: the vocab-parallel lookup's all-reduce
+(``_embed``), an all-reduce right after the o product and after a dense
+down product (``_reduce``, over the tp group), a MoE layer's one
+all-reduce over every rank (``_moe_mlp``), and the fp32 logits'
+all-gather before the final softcap (``_logits``).  With no mesh none is
+issued, and at tp 1 no tp collective.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -59,10 +62,8 @@ from vgate_tpu_torch.ops.kernels.paged_multitok import paged_multitok_attention
 from vgate_tpu_torch.ops.kv_quant import KVPool, kv_write
 from vgate_tpu_torch.ops.norms import rms_norm
 from vgate_tpu_torch.ops.quant import (
-    BITS,
     int8_native_experts,
     is_quantized_weight,
-    quantize_tensor,
     stack_layers,
     weighted_einsum,
 )
@@ -77,38 +78,37 @@ def init_params(
     dtype: torch.dtype = torch.bfloat16,
     device: torch.device | str = "cpu",
     quantization: Optional[str] = None,
-    keep: Optional[Callable[[Tuple[str, ...], torch.Tensor],
-                            torch.Tensor]] = None,
+    mesh=None,
 ) -> Params:
     """Random-init the parameter dict (std 0.02 normal, drawn in fp32 on
     ``device`` from ``generator``); the zero-egress path benchmarks use —
     throughput does not depend on weight values.
 
-    ``keep`` (a tp rank's, parallel/sharding.py ``leaf_keeper``) is
-    called on each dense leaf with its path as soon as it is drawn, and
-    its result is kept: a rank keeps its shard, and the draws, and so the
-    values, stay those of the whole tree.
+    Each leaf passes, as soon as it is drawn whole, through the keep
+    hook (parallel/sharding.py ``leaf_keeper``): with ``quantization``
+    (int8/int4) it is quantized, and on ``mesh`` (a rank's mesh of more
+    than one rank) the rank keeps its shard.  The draws, and so the
+    values and the quantization scales, stay those of the whole tree.
 
     A dense spec draws each stacked leaf whole.  A MoE spec draws its
-    stacked weights one layer at a time, and with ``quantization``
-    (int8/int4) quantizes each layer as soon as it is drawn, into
-    preallocated narrow-int stacks, so the full-precision tree never
-    sits whole on ``device`` (Mixtral-8x7B's experts are 90 GB in bf16,
-    45 GB in int8); a dense spec's tree is quantized afterwards
-    (runtime/weights.py ``quantize_params``)."""
+    stacked weights one layer at a time, each layer quantized and cut to
+    the rank's shard (its experts and F slice) as soon as it is drawn,
+    into preallocated stacks, so the full-precision tree never sits
+    whole on ``device`` (Mixtral-8x7B's experts are 90 GB in bf16, 45 GB
+    in int8) and a rank never holds more of another rank's experts than
+    the layer being drawn."""
+    from vgate_tpu_torch.parallel.sharding import leaf_keeper
+
     D, L = spec.hidden_size, spec.num_layers
     H, KV, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     F, V = spec.intermediate_size, spec.vocab_size
-    bits = BITS[quantization] if quantization and spec.is_moe else None
+    keep = leaf_keeper(spec, mesh, quantization)
 
     def normal(*shape):
         x = torch.randn(
             shape, generator=generator, dtype=torch.float32, device=device
         )
         return x.mul_(0.02).to(dtype)
-
-    def kept(path, leaf):
-        return leaf if keep is None else keep(path, leaf)
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -125,40 +125,35 @@ def init_params(
     }
     if spec.is_moe:
         E = spec.num_experts
-
-        def weight(*shape, quantize=True):
-            return stack_layers(lambda l: normal(*shape), L,
-                                bits if quantize else None,
-                                expert=len(shape) == 3)
-
         names = ("q", "k", "v", "o", "router", "gate", "up", "down")
         shapes = ((D, H * hd), (D, KV * hd), (D, KV * hd), (H * hd, D),
                   (D, E), (E, D, F), (E, D, F), (E, F, D))
         for name, shape in zip(names, shapes):
-            w = weight(*shape, quantize=name != "router")
-            layers[name] = w if name == "router" else {"w": w}
+            router = name == "router"
+            path = ("layers", name) if router else ("layers", name, "w")
+            w = stack_layers(
+                lambda l: keep(path, normal(*shape), lead=0), L)
+            layers[name] = w if router else {"w": w}
     else:
         # drawn in this order, each leaf whole
         for name, shape in (("q", (L, D, H * hd)), ("k", (L, D, KV * hd)),
                             ("v", (L, D, KV * hd)), ("o", (L, H * hd, D)),
                             ("gate", (L, D, F)), ("up", (L, D, F)),
                             ("down", (L, F, D))):
-            layers[name] = {"w": kept(("layers", name, "w"), normal(*shape))}
+            layers[name] = {"w": keep(("layers", name, "w"), normal(*shape))}
     if spec.qkv_bias:
         for name, width in (("q", H * hd), ("k", KV * hd), ("v", KV * hd)):
-            layers[name]["b"] = kept(("layers", name, "b"), zeros(L, width))
+            layers[name]["b"] = keep(("layers", name, "b"), zeros(L, width))
     if spec.ffn_sandwich:
         layers["pre_ffn_norm"] = norm_init(L, D)
         layers["post_ffn_norm"] = norm_init(L, D)
     params: Params = {
-        "embed": kept(("embed",), normal(V, D)),
+        "embed": keep(("embed",), normal(V, D)),
         "layers": layers,
         "final_norm": norm_init(D),
     }
     if not spec.tie_embeddings:
-        lm_head = kept(("lm_head",), normal(D, V))
-        params["lm_head"] = (lm_head if bits is None
-                             else quantize_tensor(lm_head, bits))
+        params["lm_head"] = keep(("lm_head",), normal(D, V))
     return params
 
 
@@ -210,9 +205,11 @@ def _act(x32: torch.Tensor, spec: ModelSpec) -> torch.Tensor:
 
 
 def _reduce(x: torch.Tensor, spec: ModelSpec) -> torch.Tensor:
-    """Sum a row-parallel product's partial results over the tp ranks
-    (in place; no collective on one device)."""
-    return x if spec.mesh is None else spec.mesh.all_reduce(x)
+    """Sum a row-parallel product's partial results over the rank's tp
+    group (in place; no collective at tp 1)."""
+    if spec.mesh is None or spec.mesh.tp == 1:
+        return x
+    return spec.mesh.all_reduce(x)
 
 
 def _dense_mlp(x: torch.Tensor, lp: Params, spec: ModelSpec) -> torch.Tensor:
@@ -236,7 +233,8 @@ _EXPERT_MATMUL = {"ecd,edf->ecf": "...d,df->...f",
 def _expert_einsum(subscripts: str, x: torch.Tensor, w,
                    int8_native: bool = False) -> torch.Tensor:
     """Per-expert einsum over ``x [E, C, in]`` with plain or quantized
-    expert weights ``[E, in, out]``.  Plain weights are one batched
+    expert weights ``[E, in, out]`` (under ep a rank's ``E/ep`` experts
+    and their rows of ``x``).  Plain weights are one batched
     product.  A quantized weight runs one expert at a time on that
     expert's 2D weight and ``[out]`` scale: through ``weighted_einsum``
     (K4/K5 on the card, their plain versions on the CPU), or with
@@ -280,7 +278,16 @@ def _moe_mlp(x: torch.Tensor, lp: Params, spec: ModelSpec,
     device from the host (counts by ``scatter_add_``, masks by
     ``torch.where``), so a decode graph captures it; the combine adds
     the K = 2 contributions of a token in the activation dtype, in
-    either order exactly."""
+    either order exactly.
+
+    On a mesh (``spec.mesh``) every rank holds every token (the KV pool
+    and the attention are replicated over ep), so each builds the whole
+    dispatch and no token all-to-all is needed; the rank runs only its
+    experts' rows (``spec.expert_range``) over its F slice, combines only
+    their contributions, and one all-reduce over every rank sums the
+    other experts and the tp ranks' F partials.  With K = 2 a token's
+    output is at most two non-zero partials plus zeros, so at tp 1 the
+    reduce gives the one-rank sum exactly."""
     orig_shape = x.shape
     D = orig_shape[-1]
     xt = x.reshape(-1, D)
@@ -304,18 +311,27 @@ def _moe_mlp(x: torch.Tensor, lp: Params, spec: ModelSpec,
     buf = torch.zeros((E, capacity + 1, D), dtype=xt.dtype, device=dev)
     buf[sorted_expert, torch.clamp(pos, max=capacity)] = xt[sorted_token]
     expert_in = buf[:, :capacity]  # [E, C, D]
+    first, n = spec.expert_range or (0, E)
+    if n != E:
+        # this rank's experts; the others' assignments contribute zeros
+        expert_in = expert_in[first:first + n]
+        within = within & (sorted_expert >= first) & (
+            sorted_expert < first + n)
     i8 = spec.int8_native
     gate_h = _expert_einsum("ecd,edf->ecf", expert_in, lp["gate"]["w"], i8)
     up_h = _expert_einsum("ecd,edf->ecf", expert_in, lp["up"]["w"], i8)
     act = _act(gate_h.float(), spec).to(xt.dtype) * up_h
     expert_out = _expert_einsum("ecf,efd->ecd", act, lp["down"]["w"], i8)
 
-    contrib = expert_out[sorted_expert, torch.clamp(pos, max=capacity - 1)]
+    local = torch.clamp(sorted_expert - first, 0, n - 1)
+    contrib = expert_out[local, torch.clamp(pos, max=capacity - 1)]
     contrib = torch.where(within[:, None], contrib,
                           torch.zeros_like(contrib))
     out = torch.zeros((T, D), dtype=xt.dtype, device=dev).index_add_(
         0, sorted_token, contrib * sorted_gate[:, None].to(xt.dtype)
     )
+    if spec.mesh is not None:
+        out = spec.mesh.all_reduce(out, experts=True)
     return out.reshape(orig_shape)
 
 
@@ -383,7 +399,7 @@ def _embed(params: Params, spec: ModelSpec, tokens: torch.Tensor):
     ids = tokens.long()
     if spec.mesh is not None and table.shape[0] != spec.vocab_size:
         rows = table.shape[0]
-        ids = ids - spec.mesh.rank * rows
+        ids = ids - spec.mesh.tp_rank * rows
         held = (ids >= 0) & (ids < rows)
         x = table[torch.clamp(ids, 0, rows - 1)]
         x = spec.mesh.all_reduce(

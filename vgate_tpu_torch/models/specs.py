@@ -10,7 +10,7 @@ Gemma-2 (sliding-window + softcap attention, sandwich norms).
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -72,11 +72,14 @@ class ModelSpec:
     # win is measured on hardware (threaded on the spec like
     # quant_kernel so it reaches the jitted decode as a static arg)
     decode_block_slots: int = 1
-    # tensor parallelism (parallel/sharding.py local_spec): the mesh of a
-    # rank whose heads and FFN channels above are its own shard; the
-    # forwards issue their collectives on its device group.  None = one
-    # device, no collective.
+    # tensor and expert parallelism (parallel/sharding.py local_spec):
+    # the mesh of a rank whose heads and FFN channels above are its own
+    # shard; the forwards issue their collectives on its device groups.
+    # None = one device, no collective.
     mesh: Any = field(default=None, compare=False, repr=False)
+    # expert parallelism (parallel/sharding.py local_spec): the first of
+    # this rank's experts and how many it holds; None = every expert
+    expert_range: Optional[Tuple[int, int]] = None
 
     @property
     def is_moe(self) -> bool:

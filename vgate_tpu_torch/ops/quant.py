@@ -94,6 +94,23 @@ def pack_int4(q: torch.Tensor) -> torch.Tensor:
     return lo | (hi << 4)
 
 
+def shard_int4_rows(p: torch.Tensor, index: int, parts: int) -> torch.Tensor:
+    """Part ``index`` of ``parts`` of a half-split packed weight's input
+    rows, packed again: logical rows ``[index*in/parts, (index+1)*in/
+    parts)`` of ``p`` (uint8 ``[..., in/2, out]``) as their own
+    half-split ``[..., in/(2*parts), out]``.  In the half-split layout a
+    slice of the input rows lies in both nibble planes, so a row-parallel
+    shard is unpacked, sliced and repacked; exact."""
+    q = unpack_int4(p)
+    rows = q.shape[-2]
+    if rows % (2 * parts):
+        raise ValueError(
+            f"in-dim {rows} does not split into {parts} even parts"
+        )
+    part = rows // parts
+    return pack_int4(q.narrow(-2, index * part, part))
+
+
 def _sext4(nibble: torch.Tensor) -> torch.Tensor:
     """two's-complement 4-bit -> int8."""
     return (nibble.to(torch.int8) ^ 8) - 8
@@ -164,14 +181,16 @@ def quantize_tensor(w: torch.Tensor, bits: int = 8) -> Weight:
 def quantize_stacked(w: torch.Tensor, bits: int = 8) -> Weight:
     """Quantize a stacked-layer weight [L, ..., out] per (layer, channel),
     one layer at a time, so the f32 temporaries are one layer's."""
-    return stack_layers(w.__getitem__, w.shape[0], bits)
+    return stack_layers(lambda l: quantize_layer(w[l], bits, False),
+                        w.shape[0])
 
 
 def quantize_expert_stacked(w: torch.Tensor, bits: int = 8) -> Weight:
     """Quantize stacked MoE expert weights [L, E, in, out] per (layer,
     expert, out channel), reducing only the contracted ``in`` dim, one
     layer at a time."""
-    return stack_layers(w.__getitem__, w.shape[0], bits, expert=True)
+    return stack_layers(lambda l: quantize_layer(w[l], bits, True),
+                        w.shape[0])
 
 
 def quantize_layer(w: torch.Tensor, bits: int, expert: bool) -> Weight:
@@ -182,17 +201,17 @@ def quantize_layer(w: torch.Tensor, bits: int, expert: bool) -> Weight:
     return _finish(*_quantize(w, reduce_dims, bits), bits)
 
 
-def stack_layers(layer, num_layers: int, bits: Optional[int] = None,
-                 expert: bool = False) -> Weight:
+def stack_layers(layer, num_layers: int) -> Weight:
     """A stacked ``[L, ...]`` weight built from ``layer(l)``, one layer
-    at a time, into a preallocated stack.  With ``bits`` each layer is
-    quantized (:func:`quantize_layer`) as soon as it exists, so neither
+    at a time, into a preallocated stack.  A ``layer`` may return a
+    quantized weight (a layer quantized as soon as it exists, so neither
     the full-precision stack nor more than one full-precision layer ever
-    exists; the result equals quantizing the whole stack."""
-    stacks = None
+    exists) or a mesh rank's shard of the layer."""
+    stacks, kind = None, None
     for l in range(num_layers):
         w = layer(l)
-        part = (w,) if bits is None else quantize_layer(w, bits, expert)
+        kind = type(w) if is_quantized_weight(w) else None
+        part = tuple(w) if kind is not None else (w,)
         del w
         if stacks is None:
             stacks = [torch.empty((num_layers, *p.shape), dtype=p.dtype,
@@ -200,9 +219,35 @@ def stack_layers(layer, num_layers: int, bits: Optional[int] = None,
         for stack, p in zip(stacks, part):
             stack[l] = p
         del part
-    if bits is None:
-        return stacks[0]
-    return (PackedQTensor if bits == 4 else QTensor)(*stacks)
+    return stacks[0] if kind is None else kind(*stacks)
+
+
+# the projections ``model.quantization`` quantizes in every layer (and the
+# lm_head); a MoE model's gate, up and down are its experts
+PROJECTIONS = ("q", "k", "v", "o", "gate", "up", "down")
+EXPERT_PROJECTIONS = ("gate", "up", "down")
+
+
+def quantize_leaf(path, leaf, spec, bits: int, lead: int = 1):
+    """The leaf at ``path`` of a decoder tree as ``model.quantization``
+    stores it: the projections per (layer, out channel), a MoE model's
+    experts per (layer, expert, out channel), the lm_head per channel;
+    any other leaf (the embedding, norms, biases, the router), and a
+    leaf quantized already, as it is.  ``lead`` 0: one layer of a
+    stacked leaf."""
+    path = tuple(path)
+    if is_quantized_weight(leaf):
+        return leaf
+    if path == ("lm_head",):
+        return quantize_tensor(leaf, bits)
+    if not (len(path) == 3 and path[0] == "layers"
+            and path[1] in PROJECTIONS and path[2] == "w"):
+        return leaf
+    expert = spec.is_moe and path[1] in EXPERT_PROJECTIONS
+    if lead == 0:
+        return quantize_layer(leaf, bits, expert)
+    return stack_layers(lambda l: quantize_layer(leaf[l], bits, expert),
+                        leaf.shape[0])
 
 
 def _quantize_activations(x: torch.Tensor):
@@ -404,19 +449,19 @@ def weighted_einsum(
 
 def quantize_decoder_params(params: Any, spec, bits: int = 8) -> Any:
     """The parameter dict with its seven projection weights and the
-    lm_head quantized; the embedding and norms stay as they are.  MoE
-    models quantize q/k/v/o per channel and gate/up/down per (expert,
-    channel), leaving the router exact.  The dict is updated IN PLACE,
-    one leaf at a time, each full-precision leaf replaced (and so freed)
-    as soon as its quantized version exists, so the full-precision and
-    the quantized trees never both sit whole in device memory."""
+    lm_head quantized (:func:`quantize_leaf`); the embedding, norms and
+    a MoE model's router stay as they are.  The dict is updated IN
+    PLACE, one leaf at a time, each full-precision leaf replaced (and so
+    freed) as soon as its quantized version exists, so the
+    full-precision and the quantized trees never both sit whole in
+    device memory."""
     if bits not in _QMAX:
         raise ValueError(f"bits must be 8 or 4, got {bits}")
-    for name in ("q", "k", "v", "o", "gate", "up", "down"):
+    for name in PROJECTIONS:
         entry = params["layers"][name]
-        expert = spec.is_moe and name in ("gate", "up", "down")
-        quantize = quantize_expert_stacked if expert else quantize_stacked
-        entry["w"] = quantize(entry["w"], bits)
+        entry["w"] = quantize_leaf(("layers", name, "w"), entry["w"], spec,
+                                   bits)
     if "lm_head" in params:
-        params["lm_head"] = quantize_tensor(params["lm_head"], bits)
+        params["lm_head"] = quantize_leaf(("lm_head",), params["lm_head"],
+                                          spec, bits)
     return params

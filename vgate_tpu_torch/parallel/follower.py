@@ -1,14 +1,16 @@
-"""A tensor-parallel follower rank: ``python -m vgate_tpu_torch.parallel.follower``.
+"""A mesh follower rank: ``python -m vgate_tpu_torch.parallel.follower``.
 
-Rank 0 (runtime/engine_core.py) spawns ranks 1..tp-1 of its mesh
-(parallel/mesh.py ``build_mesh``), each with the resolved config as
+Rank 0 (runtime/engine_core.py) spawns ranks 1..n-1 of its ``ep x tp``
+mesh (parallel/mesh.py ``build_mesh``), each with the resolved config as
 JSON, its rank, the port of rank 0's store and every rank's device.  A
 follower:
 
 * joins the control and device groups;
-* loads or initializes the same tree as a tp = 1 engine (seed 0 or the
-  checkpoint) and keeps its own shard (parallel/sharding.py), a leaf at a
-  time;
+* loads or initializes the same tree as a one-rank engine (seed 0 or
+  the checkpoint) and keeps its own shard (parallel/sharding.py: its
+  heads and FFN channels, its experts), a leaf (an expert leaf, a layer)
+  at a time, each quantized leaf quantized whole first, as rank 0 does;
+  W8A8 (``device.int8_native``) lays its shard out as rank 0 does;
 * records its shard's checksum baseline (``integrity.enabled``);
 * sizes its pools ``[L, KV/tp, P, ps, hd]`` with rank 0 (the minimum
   over the ranks);
@@ -29,7 +31,7 @@ follower:
     its shard kept (or reloaded); ``stop``: leave.
 
 It never samples: rank 0 samples and broadcasts each step's tokens, so
-a tp group's streams are those of one engine with the same seed.  It
+a mesh's streams are those of one engine with the same seed.  It
 imports neither JAX nor anything of the HTTP layer.  An error ends the
 process; rank 0 sees a closed peer, and its supervisor rebuilds the
 group.
@@ -60,6 +62,7 @@ from vgate_tpu_torch.models.decoder import (
 )
 from vgate_tpu_torch.models.specs import spec_for_model_id
 from vgate_tpu_torch.ops.kernels import _build, launch_counts
+from vgate_tpu_torch.ops.quant import int8_native_layout
 from vgate_tpu_torch.parallel.mesh import Mesh, join_mesh
 from vgate_tpu_torch.parallel.sharding import local_spec
 from vgate_tpu_torch.runtime.decode_graph import (
@@ -101,6 +104,10 @@ class Follower:
             spec = dataclasses.replace(
                 spec, decode_block_slots=config.device.decode_block_slots
             )
+        if config.model.quantization in ("int8", "int4"):
+            spec = dataclasses.replace(
+                spec, int8_native=bool(config.device.int8_native)
+            )
         self.model_spec = spec
         self.spec = local_spec(spec, mesh.tp, mesh)
         self.dtype = _DTYPES[config.model.dtype]
@@ -119,8 +126,12 @@ class Follower:
         if self.params is None:
             self.params = load_or_init_params(
                 self.model_spec, cfg.model.checkpoint_path, self.device,
-                self.dtype, shard=self.mesh,
+                self.dtype, quantization=cfg.model.quantization,
+                shard=self.mesh,
             )
+            if self.spec.int8_native and self.cuda:
+                # as rank 0 lays its shard out (ops/quant.py k_major)
+                self.params = int8_native_layout(self.params)
             if self.cuda:
                 torch.cuda.synchronize(self.device)
         icfg = cfg.integrity
@@ -144,7 +155,7 @@ class Follower:
         self.graphs = DecodeGraphs(CudaCapture(
             self.device, torch.Generator(device=self.device)
         )) if self.cuda else None
-        logger.info("tp follower ready", extra={"extra_data": {
+        logger.info("mesh follower ready", extra={"extra_data": {
             "rank": self.mesh.rank, "pages": self.geometry.num_pages}})
 
     def release(self) -> None:
@@ -264,7 +275,7 @@ def _watch_parent(ppid: int) -> None:
 
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
-        description="vgate-tpu PyTorch tensor-parallel follower rank"
+        description="vgate-tpu PyTorch mesh follower rank"
     )
     parser.add_argument("--config", required=True,
                         help="rank 0's resolved config, JSON")
@@ -281,7 +292,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     set_config(config)
     logging.basicConfig(
         level=getattr(logging, config.logging.level.upper(), logging.INFO),
-        format=f"%(asctime)s tp-rank[{args.rank}] %(levelname)s %(name)s: "
+        format=f"%(asctime)s mesh-rank[{args.rank}] %(levelname)s %(name)s: "
                "%(message)s",
         stream=sys.stderr,
     )

@@ -2,30 +2,36 @@
 
 The reference (vgate_tpu/parallel/mesh.py) is single-controller: one
 process owns every device of a ``jax.sharding.Mesh`` and GSPMD inserts
-the collectives.  The port has no GSPMD, so a mesh of ``tp`` devices is
-``tp`` processes, as Megatron runs it:
+the collectives.  The port has no GSPMD, so a mesh of ``ep x tp``
+devices is ``ep x tp`` processes, as Megatron runs it, rank ``ep_index
+* tp + tp_index`` (the reference's device order: tp innermost):
 
 * **rank 0** is the engine (runtime/engine_core.py).  It owns the
   scheduler, the sequences, the sampling, the readbacks and the gateway.
-* **ranks 1..tp-1** are followers (parallel/follower.py), spawned by
+* **ranks 1..n-1** are followers (parallel/follower.py), spawned by
   :func:`build_mesh`.  Each holds its shard of the weights and its own
   pools, and runs exactly the device programs rank 0 names, on the
   inputs rank 0 sends.
 
-Two process groups join them:
+The process groups that join them:
 
-* the **control group** (gloo, the default group) carries host data:
-  each program's name and host arrays (rank 0 broadcasts, the followers
-  receive), replies (gathered to rank 0) and the pool size (the minimum
-  over the ranks);
-* the **device group** carries the model's collectives on tensors: the
-  all-reduces after the o and down products and of the vocab-parallel
-  embedding, the logits' all-gather and the broadcast of each decode
-  step's sampled tokens.  It is NCCL when every rank has a card of its
-  own, and gloo on the CPU or when ``devices`` names one card more than
-  once (the one-card test layout: NCCL refuses two ranks on one card);
-  gloo's collectives then stage the card's tensors through host memory.
-  The choice follows from the device list, is logged and is reported in
+* the **control group** (gloo, the default group, every rank) carries
+  host data: each program's name and host arrays (rank 0 broadcasts,
+  the followers receive), replies (gathered to rank 0) and the pool
+  size (the minimum over the ranks);
+* the **device groups** carry the model's collectives on tensors.  The
+  **tp group** of each ep index (its tp ranks) carries the all-reduces
+  after the o and down products of dense layers and of the
+  vocab-parallel embedding, and the logits' all-gather; at tp 1 none is
+  issued.  The **expert group** (every rank) carries a MoE layer's one
+  all-reduce, which sums both the experts of the other ep ranks and the
+  F partials of the other tp ranks, and the broadcast of each decode
+  step's sampled tokens.  At ep 1 the two are one group.  They are NCCL
+  when every rank has a card of its own, and gloo on the CPU or when
+  ``devices`` names one card more than once (the one-card test layout:
+  NCCL refuses two ranks on one card); gloo's collectives then stage the
+  card's tensors through host memory.  The choice follows from the
+  device list, is logged and is reported in
   ``get_stats()["mesh"]["backend"]``; it is never made after a failure,
   and an NCCL init that fails raises.
 
@@ -159,26 +165,27 @@ def mesh_devices(device_config, devices: Optional[List[Any]] = None
                  ) -> List[str]:
     """Each rank's device, rank 0 first: ``devices`` (the engine's
     argument), else ``device.devices``, else derived from ``device.device``
-    and ``tp``: one rank on ``device`` at tp 1, the CPU once per rank,
-    or the first ``tp`` cards (every card at tp 0).  A list that names one
-    card more than once is the one-card test layout."""
+    and ``ep x tp``: one rank on ``device`` at 1, the CPU once per rank,
+    or the first ``ep x tp`` cards (every card with an axis at 0).  A
+    list that names one card more than once is the one-card test
+    layout."""
     if devices is None and getattr(device_config, "devices", None):
         devices = list(device_config.devices)
     if devices is not None:
         return [_named(str(d)) for d in devices]
-    tp = device_config.tp
-    if tp == 1:
+    tp, ep = device_config.tp, device_config.ep
+    if tp == 1 and ep == 1:
         # resolved by the engine, which refuses a card that is not there
         return [device_config.device]
     visible = visible_devices(device_config.device)
     if visible == ["cpu"]:
-        return ["cpu"] * max(1, tp)
-    n = tp or len(visible)
+        return ["cpu"] * max(1, tp * ep)
+    n = tp * ep or len(visible)
     if n > len(visible):
         raise ValueError(
-            f"device.tp={tp} needs {n} cards but {len(visible)} are "
-            "visible; name a card once per rank in device.devices to run "
-            "the ranks on fewer cards"
+            f"device.ep={ep} x device.tp={tp} needs {n} cards but "
+            f"{len(visible)} are visible; name a card once per rank in "
+            "device.devices to run the ranks on fewer cards"
         )
     return visible[:n]
 
@@ -215,9 +222,9 @@ atexit.register(_kill_live)
 
 class Mesh:
     """One rank's view of the mesh: the plan, every rank's device, this
-    rank and its device, the two process groups (tp > 1) and, on rank 0,
-    the follower processes.  A tp = 1 mesh has no groups and issues no
-    collective."""
+    rank (its tp and ep index) and its device, the process groups (more
+    than one rank) and, on rank 0, the follower processes.  A one-rank
+    mesh has no groups and issues no collective."""
 
     def __init__(self, plan: MeshPlan, devices: List[str], rank: int = 0,
                  backend: Optional[str] = None) -> None:
@@ -227,7 +234,10 @@ class Mesh:
         self.device = torch.device(self.devices[rank])
         self.backend = backend
         self.ctrl: Any = None
+        # the expert group (every rank) and this rank's tp group (the
+        # same group at ep 1, none at tp 1)
         self.group: Any = None
+        self.tp_group: Any = None
         self.followers: List[subprocess.Popen] = []
         # why the mesh broke (a follower's exit, a failed collective)
         self.broken: Optional[str] = None
@@ -243,6 +253,20 @@ class Mesh:
     @property
     def tp(self) -> int:
         return self.plan.tp
+
+    @property
+    def ep(self) -> int:
+        return self.plan.ep
+
+    @property
+    def tp_rank(self) -> int:
+        """This rank's index on the tp axis (innermost)."""
+        return self.rank % self.plan.tp
+
+    @property
+    def ep_rank(self) -> int:
+        """This rank's index on the ep axis."""
+        return self.rank // self.plan.tp
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -269,34 +293,37 @@ class Mesh:
         if self.broken is None:
             self.broken = f"collective failed: {exc}"
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the ranks, in place; returns it."""
+    def all_reduce(self, t: torch.Tensor,
+                   experts: bool = False) -> torch.Tensor:
+        """Sum ``t`` over this rank's tp group (with ``experts``, over
+        every rank), in place; returns it."""
+        group = self.group if experts else self.tp_group
         try:
             if self.staged:
                 host = t.cpu()
-                dist.all_reduce(host, group=self.group)
+                dist.all_reduce(host, group=group)
                 t.copy_(host)
             else:
-                dist.all_reduce(t, group=self.group)
+                dist.all_reduce(t, group=group)
         except Exception as exc:
             self._failed(exc)
             raise
         return t
 
     def all_gather_last(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``t`` joined along the last axis, rank order.
-        Over NCCL one gather into a ``[tp, ...]`` buffer (allocated on
-        the calling stream, so a graph capture holds it in its pool);
-        over gloo a list of parts."""
+        """Every rank's ``t`` of this rank's tp group joined along the
+        last axis, tp order.  Over NCCL one gather into a ``[tp, ...]``
+        buffer (allocated on the calling stream, so a graph capture holds
+        it in its pool); over gloo a list of parts."""
         try:
             src = t.contiguous().cpu() if self.staged else t.contiguous()
             if self.backend == "nccl":
                 flat = src.new_empty((self.tp, *src.shape))
-                dist.all_gather_into_tensor(flat, src, group=self.group)
+                dist.all_gather_into_tensor(flat, src, group=self.tp_group)
                 return torch.movedim(flat, 0, -2).reshape(
                     *src.shape[:-1], self.tp * src.shape[-1])
             parts = [torch.empty_like(src) for _ in range(self.tp)]
-            dist.all_gather(parts, src, group=self.group)
+            dist.all_gather(parts, src, group=self.tp_group)
         except Exception as exc:
             self._failed(exc)
             raise
@@ -304,7 +331,8 @@ class Mesh:
         return out.to(t.device) if self.staged else out
 
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
-        """Rank 0's ``t`` into every rank's ``t``, in place; returns it."""
+        """Rank 0's ``t`` into every rank's ``t`` (the expert group), in
+        place; returns it."""
         try:
             if self.staged:
                 host = t.cpu()
@@ -342,7 +370,7 @@ class Mesh:
     def gather(self, obj: Any) -> Optional[List[Any]]:
         """Every rank's ``obj``, in rank order, on rank 0 (None
         elsewhere)."""
-        out = [None] * self.tp if self.rank == 0 else None
+        out = [None] * self.num_devices if self.rank == 0 else None
         dist.gather_object(obj, out, dst=0, group=self.ctrl)
         return out
 
@@ -360,7 +388,7 @@ class Mesh:
     def all_min(self, value: int) -> int:
         """The smallest of every rank's ``value`` (the pool's page count:
         rank 0's scheduler hands out page ids for every rank)."""
-        if self.tp == 1:
+        if self.num_devices == 1:
             return value
         with self.lock:
             t = torch.tensor([int(value)], dtype=torch.int64)
@@ -390,15 +418,18 @@ class Mesh:
                 if rc is not None and not self._closed:
                     if self.broken is None:
                         self.broken = (
-                            f"tp follower rank {rank} exited with code {rc}"
+                            f"mesh follower rank {rank} exited with code "
+                            f"{rc}"
                         )
-                    logger.error("tp follower lost", extra={
+                    logger.error("mesh follower lost", extra={
                         "extra_data": {"rank": rank, "code": rc}})
                     if self.backend == "nccl":
                         abort = getattr(dist.distributed_c10d,
                                         "_abort_process_group", None)
                         if abort is not None:
-                            abort(self.group)
+                            for group in {self.group, self.tp_group}:
+                                if group is not None:
+                                    abort(group)
                     return
             time.sleep(0.1)
 
@@ -408,9 +439,9 @@ class Mesh:
         card when the peers leave at different times), an abort is
         local."""
         if self.ctrl is None or not dist.is_initialized():
-            self.ctrl = self.group = None
+            self.ctrl = self.group = self.tp_group = None
             return
-        self.ctrl = self.group = None
+        self.ctrl = self.group = self.tp_group = None
         if self.backend != "nccl":
             dist.destroy_process_group()
             return
@@ -469,59 +500,71 @@ class Mesh:
     # ------------------------------------------------------------ bring-up
 
     def join(self, store: Any, recovery) -> None:
-        """Join both process groups as this rank, then run one warm
-        collective on the device group (an NCCL communicator is built at
+        """Join the process groups as this rank, then run one warm
+        collective on each device group (an NCCL communicator is built at
         its first collective, which must not fall inside a graph
-        capture)."""
+        capture).  Every rank creates every tp group, in ep order, as
+        ``new_group`` requires, and keeps its own."""
         if dist.is_initialized():
             raise RuntimeError(
-                "this process already belongs to a process group: one tp "
+                "this process already belongs to a process group: one "
                 "mesh a process"
             )
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
+        n, tp = self.num_devices, self.tp
         dist.init_process_group(
-            "gloo", store=store, rank=self.rank, world_size=self.tp,
+            "gloo", store=store, rank=self.rank, world_size=n,
             timeout=CONTROL_TIMEOUT,
         )
         self.ctrl = dist.group.WORLD
-        self.group = dist.new_group(
-            list(range(self.tp)), backend=self.backend,
-            timeout=device_group_timeout(recovery),
-        )
-        warm = torch.ones(
-            1, device=self.device if self.backend == "nccl" else "cpu"
-        )
-        dist.all_reduce(warm, group=self.group)
-        if int(warm.item()) != self.tp:
-            raise RuntimeError(
-                f"device group warm-up summed {warm.item()} over {self.tp} "
-                "ranks"
+        timeout = device_group_timeout(recovery)
+        self.group = dist.new_group(list(range(n)), backend=self.backend,
+                                    timeout=timeout)
+        # at tp 1 no tp collective is issued: no tp group
+        self.tp_group = self.group if self.ep == 1 else None
+        warm_groups = [(self.group, n)]
+        if self.ep > 1 and tp > 1:
+            for e in range(self.ep):
+                group = dist.new_group(list(range(e * tp, (e + 1) * tp)),
+                                       backend=self.backend, timeout=timeout)
+                if e == self.ep_rank:
+                    self.tp_group = group
+            warm_groups.append((self.tp_group, tp))
+        for group, size in warm_groups:
+            warm = torch.ones(
+                1, device=self.device if self.backend == "nccl" else "cpu"
             )
+            dist.all_reduce(warm, group=group)
+            if int(warm.item()) != size:
+                raise RuntimeError(
+                    f"device group warm-up summed {warm.item()} over "
+                    f"{size} ranks"
+                )
 
     def wait_for_followers(self, store: Any) -> None:
         """Rank 0: wait until every follower has reached the store (each
         sets ``joined<rank>`` before it joins the groups), raising as
         soon as one exits instead of waiting out the rendezvous."""
-        keys = [f"joined{rank}" for rank in range(1, self.tp)]
+        keys = [f"joined{rank}" for rank in range(1, self.num_devices)]
         deadline = time.monotonic() + STORE_TIMEOUT.total_seconds()
         while not store.check(keys):
             for rank, proc in enumerate(self.followers, start=1):
                 if proc.poll() is not None:
                     raise FollowerLostError(
-                        f"tp follower rank {rank} exited with code "
+                        f"mesh follower rank {rank} exited with code "
                         f"{proc.returncode} before joining the mesh"
                     )
             if time.monotonic() > deadline:
                 raise FollowerLostError(
-                    "tp followers did not reach the store in "
+                    "mesh followers did not reach the store in "
                     f"{STORE_TIMEOUT.total_seconds():.0f} s"
                 )
             time.sleep(0.05)
 
     def spawn_followers(self, config, port: int) -> None:
         """Rank 0: write the resolved config for the followers and start
-        ranks 1..tp-1 (``python -m vgate_tpu_torch.parallel.follower``)."""
+        ranks 1..n-1 (``python -m vgate_tpu_torch.parallel.follower``)."""
         dump = dataclasses.asdict(config)
         fd, path = tempfile.mkstemp(prefix="vgt-tp-config-", suffix=".json")
         with os.fdopen(fd, "w") as fh:
@@ -538,7 +581,7 @@ class Mesh:
         # faults armed for the engine process are not the followers'
         env.pop("VGT_FAULTS", None)
         env.pop("VGT_CHAOS", None)
-        for rank in range(1, self.tp):
+        for rank in range(1, self.num_devices):
             cmd = [
                 sys.executable, "-m", "vgate_tpu_torch.parallel.follower",
                 "--config", path, "--rank", str(rank), "--port", str(port),
@@ -553,7 +596,8 @@ class Mesh:
 
 def build_mesh(config, devices: Optional[List[Any]] = None) -> Mesh:
     """Rank 0's mesh for the engine: resolve the plan against the device
-    list (:func:`mesh_devices`), and with tp > 1 build the kernels (on the
+    list (:func:`mesh_devices`), and with more than one rank build the
+    kernels (on the
     card, before any follower starts, so no rank runs ``nvcc`` inside a
     collective's wait), start a ``TCPStore`` at a free localhost port,
     spawn the followers and join both groups (the counterpart of the
@@ -562,7 +606,7 @@ def build_mesh(config, devices: Optional[List[Any]] = None) -> Mesh:
     dcfg = config.device
     devs = mesh_devices(dcfg, devices)
     plan = resolve_plan(dcfg, len(devs))
-    if plan.tp == 1:
+    if plan.num_devices == 1:
         return Mesh(plan, devs)
     backend = device_backend(devs)
     mesh = Mesh(plan, devs, 0, backend)
@@ -571,7 +615,7 @@ def build_mesh(config, devices: Optional[List[Any]] = None) -> Mesh:
 
         _build.build()
     store = dist.TCPStore(
-        "127.0.0.1", 0, plan.tp, True, timeout=STORE_TIMEOUT,
+        "127.0.0.1", 0, plan.num_devices, True, timeout=STORE_TIMEOUT,
         wait_for_workers=False,
     )
     mesh.spawn_followers(config, store.port)
@@ -592,7 +636,7 @@ def join_mesh(config, devices: List[str], rank: int, port: int) -> Mesh:
     plan = resolve_plan(config.device, len(devices))
     mesh = Mesh(plan, devices, rank, device_backend(devices))
     store = dist.TCPStore(
-        "127.0.0.1", port, plan.tp, False, timeout=STORE_TIMEOUT
+        "127.0.0.1", port, plan.num_devices, False, timeout=STORE_TIMEOUT
     )
     store.set(f"joined{rank}", "1")
     mesh.join(store, config.recovery)

@@ -23,6 +23,6 @@ from __future__ import annotations
 def tp_divisible(mesh, num_heads: int, num_kv_heads: int) -> bool:
     """True when the kernels can run per shard under this mesh's tp (the
     reference's test).  The port refuses the other case at load
-    (parallel/sharding.py ``check_tp``)."""
+    (parallel/sharding.py ``check_mesh``)."""
     tp = int(mesh.shape.get("tp", 1))
     return tp > 1 and num_heads % tp == 0 and num_kv_heads % tp == 0

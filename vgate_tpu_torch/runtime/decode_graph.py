@@ -143,7 +143,7 @@ class DecodeState:
         self._put(self.page_tables, tables)
 
     def load_feed(self, tokens, positions, active, page_tables) -> None:
-        """What a tp follower's chunk reads (runtime/engine_core.py
+        """What a mesh follower's chunk reads (runtime/engine_core.py
         ``follower_decode_chunk``): tokens, positions, slots in use and
         page tables, from host arrays."""
         for dst, arr in ((self.tokens, tokens), (self.positions, positions),

@@ -90,17 +90,19 @@ path — batched, bucketed prompt passes and pipelined decode chunks:
   back through the host each round, and no graph is captured for them.
   Brownout L3 (``set_spec_suspended``) falls back to the decode chunks.
 
-* **Tensor parallelism** (``device.tp`` > 1, parallel/): this core is
-  rank 0 of a mesh of processes.  It holds its shard of the weights and
-  its pools' kv heads, names every device program to the follower ranks
-  (``_program``) before running its own part, and samples: each decode
-  step's tokens are broadcast to the followers inside the chunk.  The
-  collectives live in models/decoder.py.  A follower's death breaks the
-  mesh, and the next tick raises into containment.
+* **Tensor and expert parallelism** (``device.tp`` or ``device.ep`` >
+  1, parallel/): this core is rank 0 of a mesh of ``ep x tp``
+  processes.  It holds its shard of the weights (its heads and FFN
+  channels, its experts) and its pools' kv heads, names every device
+  program to the follower ranks (``_program``) before running its own
+  part, and samples: each decode step's tokens are broadcast to the
+  followers inside the chunk.  The collectives live in
+  models/decoder.py.  A follower's death breaks the mesh, and the next
+  tick raises into containment.
 
-Not ported yet (the config refuses them): data, sequence, pipeline and
-expert parallelism, and under tp MoE, quantized weights, int8 KV, the
-host swap tier, speculation and the pod.
+Not ported yet (the config refuses them): data, sequence and pipeline
+parallelism, and under a model-parallel mesh int8 KV, the host swap
+tier, speculation and the pod.
 """
 
 from __future__ import annotations
@@ -165,7 +167,7 @@ from vgate_tpu_torch.parallel.mesh import (
     resolve_plan,
 )
 from vgate_tpu_torch.parallel.sharding import (
-    check_tp_config,
+    check_mesh_config,
     local_spec,
     shard_params,
 )
@@ -592,7 +594,7 @@ def follower_decode_chunk(
     params, spec: ModelSpec, state: DecodeState, k_pages, v_pages,
     num_steps: int, max_position: int,
 ) -> None:
-    """A tp follower's part of :func:`_decode_chunk` (parallel/
+    """A mesh follower's part of :func:`_decode_chunk` (parallel/
     follower.py): the same steps on its own shard and pools, with the
     same collectives in the same order, but no sampling: each step's
     tokens come from rank 0's broadcast.  It reads and writes only
@@ -766,7 +768,7 @@ def rebuild_core(
     caller escalates to ``reload_weights=True``, which drops the old
     tree before the reload materializes a new one.
 
-    Under tp the rebuild is broadcast when the followers are in step
+    On a mesh the rebuild is broadcast when the followers are in step
     (all alive, no collective failed, none named a program rank 0 did
     not finish, the old engine thread gone): each verifies its kept
     shard in the same sweep, then frees and rebuilds its pool and graphs
@@ -777,10 +779,10 @@ def rebuild_core(
     old.stop()
     _release_device_state(old)
     mesh = old.mesh
-    reuse = mesh.tp > 1 and mesh.healthy() and mesh.pending is None and (
-        thread is None or not thread.is_alive()
-    )
-    if mesh.tp > 1 and not reuse:
+    reuse = (mesh.num_devices > 1 and mesh.healthy()
+             and mesh.pending is None
+             and (thread is None or not thread.is_alive()))
+    if mesh.num_devices > 1 and not reuse:
         mesh.shutdown(timeout=0.0)
     old_integrity = getattr(old, "integrity", None)
     if (
@@ -934,18 +936,20 @@ class EngineCore:
         decode_graphs: Optional[bool] = None,
         mesh: Optional[Mesh] = None,
     ) -> None:
-        """``devices`` (the reference's argument) names each tp rank's
+        """``devices`` (the reference's argument) names each mesh rank's
         device, rank 0 first (default: ``device.devices``, else derived
-        from ``device.device`` and ``device.tp``; parallel/mesh.py).  With
-        tp > 1 this core is rank 0: it spawns the follower ranks, keeps
-        its own shard of the weights and pools, and names every device
-        program to the followers.  ``params`` is the full tree, sharded
-        here, or with ``params_ready`` this rank's shard already (a
+        from ``device.device``, ``device.ep`` and ``device.tp``;
+        parallel/mesh.py).  With more than one rank this core is rank 0:
+        it spawns the follower ranks, keeps its own shard of the weights
+        and pools, and names every device program to the followers.
+        ``params`` is the full tree, quantized whole (with
+        ``model.quantization``) and sharded here, or with
+        ``params_ready`` this rank's shard already (a
         supervised rebuild's kept tree).  ``mesh`` is a live mesh to
         reuse (a rebuild whose followers kept their shards).
 
-        ``decode_graphs`` (default: on for a CUDA device, unless a tp
-        group's device group is gloo) runs each decode chunk as the
+        ``decode_graphs`` (default: on for a CUDA device, unless a mesh's
+        device groups are gloo) runs each decode chunk as the
         replay of a captured CUDA graph (runtime/decode_graph.py).
         ``False`` on the card runs the same chunk body eagerly, for
         comparisons with the graphs; ``True`` on the CPU or over gloo
@@ -955,10 +959,10 @@ class EngineCore:
         owns_mesh = mesh is None
         if mesh is None:
             dcfg = self.config.device
-            tp = resolve_plan(dcfg, len(mesh_devices(dcfg, devices))).tp
-            if tp > 1:
+            plan = resolve_plan(dcfg, len(mesh_devices(dcfg, devices)))
+            if plan.num_devices > 1:
                 # before any follower starts
-                check_tp_config(self.config, spec, tp)
+                check_mesh_config(self.config, spec, plan.tp, plan.ep)
             mesh = build_mesh(self.config, devices)
         self.mesh = mesh
         try:
@@ -992,7 +996,8 @@ class EngineCore:
             )
         # the whole model (reports, the sharding rules), and the spec
         # this rank's forwards and pools run on: its own heads and FFN
-        # channels under tp, with the mesh the collectives use
+        # channels under tp, its experts under ep, with the mesh the
+        # collectives use
         self.model_spec = self.spec
         self.spec = local_spec(self.spec, self.mesh.tp, self.mesh)
         self.device = resolve_device(self.mesh.devices[0])
@@ -1003,17 +1008,17 @@ class EngineCore:
             torch.cuda.Stream(self.device)
             if self.device.type == "cuda" else None
         )
-        # gloo collectives cannot be captured: a tp group whose device
-        # group is gloo (the one-card layout) runs its chunks eagerly
+        # gloo collectives cannot be captured: a mesh whose device
+        # groups are gloo (the one-card layout) runs its chunks eagerly
         capturable = self.device.type == "cuda" and (
-            self.mesh.tp == 1 or self.mesh.backend == "nccl"
+            self.mesh.num_devices == 1 or self.mesh.backend == "nccl"
         )
         if decode_graphs is None:
             decode_graphs = capturable
         if decode_graphs and not capturable:
             raise ValueError(
-                f"decode_graphs=True needs a CUDA device (and NCCL under "
-                f"tp), not {self.device} over {self.mesh.backend}"
+                f"decode_graphs=True needs a CUDA device (and NCCL on a "
+                f"mesh), not {self.device} over {self.mesh.backend}"
             )
         self.decode_graphs = decode_graphs
         self.dtype = _DTYPES[self.config.model.dtype]
@@ -1036,24 +1041,28 @@ class EngineCore:
         )
 
         load_start = time.perf_counter()
-        tp_shard = self.mesh if self.mesh.tp > 1 else None
+        quantization = self.config.model.quantization
+        shard = self.mesh if self.mesh.num_devices > 1 else None
         if params is None:
-            # a checkpoint (and a MoE random init) is quantized a layer
-            # at a time as it loads: Mixtral's experts do not fit the
-            # card in bf16.  A tp rank keeps its shard of each leaf.
+            # each leaf is quantized as it loads (a MoE model's experts a
+            # layer at a time: Mixtral's do not fit the card in bf16),
+            # whole, and a mesh rank then keeps its shard of it (the
+            # reference's global scales)
             params = load_or_init_params(
                 self.model_spec, self.config.model.checkpoint_path,
                 self.device, self.dtype,
                 log_digests=self.config.integrity.enabled,
-                quantization=self.config.model.quantization,
-                **({} if tp_shard is None else {"shard": tp_shard}),
+                quantization=quantization,
+                **({} if shard is None else {"shard": shard}),
             )
-        elif tp_shard is not None and not params_ready:
-            params = shard_params(params, self.model_spec, tp_shard)
-        if self.config.model.quantization:
-            params = quantize_params(
-                params, self.spec, self.config.model.quantization
-            )
+        elif shard is not None and not params_ready:
+            # a whole tree handed in: quantized whole, then sharded
+            if quantization:
+                params = quantize_params(params, self.model_spec,
+                                         quantization)
+            params = shard_params(params, self.model_spec, shard)
+        if quantization:
+            params = quantize_params(params, self.spec, quantization)
             if self.spec.int8_native and self.device.type == "cuda":
                 # W8A8's int8 product reads its weights along the
                 # contracted dim (ops/quant.py k_major).  This rewrites
@@ -1113,9 +1122,8 @@ class EngineCore:
                 # the whole group's: every rank streams its own shard
                 num_chips=self.mesh.num_devices,
                 num_params=int(self.model_spec.num_params),
-                weight_stream_bytes=self.mesh.tp * stream_weight_bytes(
-                    self.params, self.spec.tie_embeddings
-                ),
+                weight_stream_bytes=self.mesh.num_devices
+                * stream_weight_bytes(self.params, self.spec.tie_embeddings),
                 kv_token_bytes=kv_bytes_per_token(
                     self.spec.num_layers, self.model_spec.num_kv_heads,
                     self.spec.head_dim, dtype_bytes=kv_bytes,
@@ -1343,12 +1351,12 @@ class EngineCore:
         self._thread.start()
 
     def close(self) -> None:
-        """Stop the core and, under tp, its followers and groups (a
-        supervised rebuild stops a core but keeps its mesh).  Under tp the
-        pools and decode graphs go first: a graph holds the NCCL
+        """Stop the core and, on a mesh, its followers and groups (a
+        supervised rebuild stops a core but keeps its mesh).  On a mesh
+        the pools and decode graphs go first: a graph holds the NCCL
         communicator whose collectives it captured."""
         self.stop()
-        if self.mesh.tp > 1:
+        if self.mesh.num_devices > 1:
             _release_device_state(self)
             gc.collect()
             if self.stream is not None:
@@ -2234,18 +2242,19 @@ class EngineCore:
     # -------------------------------------------------------- device inputs
 
     def follower_stats(self) -> List[Dict[str, Any]]:
-        """Each tp follower's counters, kernel launches (they live in the
-        follower's process) and memory, in rank order, as a pod worker's
-        ``stats`` (port-only); empty on one device."""
-        return self.mesh.request("stats") if self.mesh.tp > 1 else []
+        """Each mesh follower's counters, kernel launches (they live in
+        the follower's process) and memory, in rank order, as a pod
+        worker's ``stats`` (port-only); empty on one device."""
+        return (self.mesh.request("stats") if self.mesh.num_devices > 1
+                else [])
 
     def reset_follower_launches(self) -> None:
-        """Set every tp follower's launch counts to 0."""
-        if self.mesh.tp > 1:
+        """Set every mesh follower's launch counts to 0."""
+        if self.mesh.num_devices > 1:
             self.mesh.send("reset_launches")
 
     def _follower_check(self, paths: List[str]) -> Optional[Dict[str, Any]]:
-        """The tp followers' checksum check of ``paths`` in their own
+        """The mesh followers' checksum check of ``paths`` in their own
         shards (each against its own load-time baseline): the first
         mismatch, with its ``rank``, or None."""
         self._beat("tp_sweep", batch=len(paths))
@@ -2257,7 +2266,7 @@ class EngineCore:
 
     @contextlib.contextmanager
     def _program(self, op: str, **fields: Any):
-        """One device program of this core's, named to the tp followers
+        """One device program of this core's, named to the mesh followers
         (parallel/follower.py) with its host inputs before rank 0 runs
         its own part, so every rank runs it on the same inputs in the
         same order.  ``mesh.pending`` names it until rank 0's part
@@ -2265,7 +2274,7 @@ class EngineCore:
         waiting inside a collective, and a rebuild replaces them rather
         than reuse them.  No-op on one device."""
         mesh = self.mesh
-        if mesh.tp == 1:
+        if mesh.num_devices == 1:
             yield
             return
         mesh.send(op, **fields)

@@ -269,7 +269,7 @@ class EngineSupervisor:
         self.core.stop()
 
     def close(self) -> None:
-        """Stop, then stop the live core's tp followers and groups."""
+        """Stop, then stop the live core's mesh followers and groups."""
         self.stop()
         self.core.close()
 

@@ -7,12 +7,11 @@ state dicts (``[out, in]`` linear weights) are transposed into the same
 layout (:func:`params_from_torch_state_dict`, the HF ``Qwen2ForCausalLM``,
 ``MixtralForCausalLM`` and ``Gemma2ForCausalLM`` names of the reference's
 runtime/weights.py).  ``model.quantization`` (int8/int4) quantizes a
-checkpoint one layer at a time as it loads, and a MoE random init one
-layer at a time as it is drawn, because Mixtral-8x7B's experts do not
-fit the card in bf16; :func:`quantize_params` quantizes a tree that was
-handed in already built (a dense random init, a tree from the
-reference), one leaf at a time (ops/quant.py
-``quantize_decoder_params``).
+checkpoint and a random init a leaf at a time as it loads or is drawn,
+a MoE model's experts a layer at a time, because Mixtral-8x7B's experts
+do not fit the card in bf16; :func:`quantize_params` quantizes a tree
+that was handed in already built (a tree from the reference), one leaf
+at a time (ops/quant.py ``quantize_decoder_params``).
 """
 
 from __future__ import annotations
@@ -30,7 +29,6 @@ from vgate_tpu_torch.ops.quant import (
     PackedQTensor,
     QTensor,
     quantize_decoder_params,
-    quantize_tensor,
     stack_layers,
 )
 
@@ -86,77 +84,82 @@ def params_from_getter(
     device: torch.device | str = "cpu",
     dtype: torch.dtype = torch.bfloat16,
     quantization: Optional[str] = None,
+    mesh=None,
 ) -> Params:
     """Assemble the stacked parameter dict from HF-named tensors, one
     layer at a time.  A Mixtral tree maps ``block_sparse_moe.gate`` to
     the router and experts ``w1``/``w3``/``w2`` to gate/up/down, each
-    transposed to ``[in, out]``.  With ``quantization`` (int8/int4) the
-    projections and the lm_head are quantized as they load, a layer at a
-    time, equal to quantizing the whole tree afterwards."""
+    transposed to ``[in, out]``.  Each layer (and each whole leaf)
+    passes through the keep hook as it loads (parallel/sharding.py
+    ``leaf_keeper``): with ``quantization`` (int8/int4) it is quantized,
+    equal to quantizing the whole tree afterwards, and on ``mesh`` (a
+    rank's mesh of more than one rank) the rank keeps its shard."""
+    from vgate_tpu_torch.parallel.sharding import leaf_keeper
+
     L = spec.num_layers
     pre = "model.layers.{}."
-    bits = BITS[quantization] if quantization else None
+    keep = leaf_keeper(spec, mesh, quantization)
 
     def get(name):
         return getter(name).to(device=device, dtype=dtype)
 
-    def stack(template: str, transpose: bool = False, quantize=False):
+    def stack(template: str, path, transpose: bool = False):
         def layer(i):
             w = get(template.format(i))
-            return w.t() if transpose else w
-        return stack_layers(layer, L, bits if quantize else None)
+            return keep(path, w.t() if transpose else w, lead=0)
+        return stack_layers(layer, L)
 
-    def proj(name: str):
-        return stack(pre + name + ".weight", True, quantize=True)
+    def proj(name: str, key: str):
+        return stack(pre + name + ".weight", ("layers", key, "w"), True)
 
     layers: Dict[str, Any] = {
-        "input_norm": stack(pre + "input_layernorm.weight"),
-        "post_norm": stack(pre + "post_attention_layernorm.weight"),
-        "q": {"w": proj("self_attn.q_proj")},
-        "k": {"w": proj("self_attn.k_proj")},
-        "v": {"w": proj("self_attn.v_proj")},
-        "o": {"w": proj("self_attn.o_proj")},
+        "input_norm": stack(pre + "input_layernorm.weight",
+                            ("layers", "input_norm")),
+        "post_norm": stack(pre + "post_attention_layernorm.weight",
+                           ("layers", "post_norm")),
+        "q": {"w": proj("self_attn.q_proj", "q")},
+        "k": {"w": proj("self_attn.k_proj", "k")},
+        "v": {"w": proj("self_attn.v_proj", "v")},
+        "o": {"w": proj("self_attn.o_proj", "o")},
     }
     if spec.is_moe:
         moe = pre + "block_sparse_moe."
-        layers["router"] = stack(moe + "gate.weight", True)
+        layers["router"] = stack(moe + "gate.weight", ("layers", "router"),
+                                 transpose=True)
 
-        def experts(w_name: str):
+        def experts(w_name: str, key: str):
             def layer(i):
-                return torch.stack([
+                return keep(("layers", key, "w"), torch.stack([
                     get(f"{moe}experts.{e}.{w_name}.weight".format(i)).t()
                     for e in range(spec.num_experts)
-                ])
-            return stack_layers(layer, L, bits, expert=True)
+                ]), lead=0)
+            return stack_layers(layer, L)
 
-        layers["gate"] = {"w": experts("w1")}
-        layers["up"] = {"w": experts("w3")}
-        layers["down"] = {"w": experts("w2")}
+        layers["gate"] = {"w": experts("w1", "gate")}
+        layers["up"] = {"w": experts("w3", "up")}
+        layers["down"] = {"w": experts("w2", "down")}
     else:
-        layers["gate"] = {"w": proj("mlp.gate_proj")}
-        layers["up"] = {"w": proj("mlp.up_proj")}
-        layers["down"] = {"w": proj("mlp.down_proj")}
+        layers["gate"] = {"w": proj("mlp.gate_proj", "gate")}
+        layers["up"] = {"w": proj("mlp.up_proj", "up")}
+        layers["down"] = {"w": proj("mlp.down_proj", "down")}
     if spec.qkv_bias:
-        layers["q"]["b"] = stack(pre + "self_attn.q_proj.bias")
-        layers["k"]["b"] = stack(pre + "self_attn.k_proj.bias")
-        layers["v"]["b"] = stack(pre + "self_attn.v_proj.bias")
+        for key in ("q", "k", "v"):
+            layers[key]["b"] = stack(pre + f"self_attn.{key}_proj.bias",
+                                     ("layers", key, "b"))
     if spec.ffn_sandwich:
         # Gemma-2 sandwich norms (HF Gemma2ForCausalLM names)
-        layers["pre_ffn_norm"] = stack(
-            pre + "pre_feedforward_layernorm.weight"
-        )
-        layers["post_ffn_norm"] = stack(
-            pre + "post_feedforward_layernorm.weight"
-        )
+        for key, name in (("pre_ffn_norm", "pre_feedforward_layernorm"),
+                          ("post_ffn_norm", "post_feedforward_layernorm")):
+            layers[key] = stack(pre + name + ".weight", ("layers", key))
     params: Params = {
-        "embed": get("model.embed_tokens.weight").contiguous(),
+        "embed": keep(("embed",),
+                      get("model.embed_tokens.weight").contiguous()),
         "layers": layers,
         "final_norm": get("model.norm.weight").contiguous(),
     }
     if not spec.tie_embeddings:
-        lm_head = get("lm_head.weight").t().contiguous()
-        params["lm_head"] = (lm_head if bits is None
-                             else quantize_tensor(lm_head, bits))
+        params["lm_head"] = keep(("lm_head",),
+                                 get("lm_head.weight").t().contiguous())
     return params
 
 
@@ -178,9 +181,11 @@ def params_from_safetensors(
     device: torch.device | str,
     dtype: torch.dtype,
     quantization: Optional[str] = None,
+    mesh=None,
 ) -> Params:
-    """Load a local directory of ``*.safetensors`` shards.  Needs the
-    ``safetensors`` package, imported here so the port runs without it."""
+    """Load a local directory of ``*.safetensors`` shards (``mesh`` as
+    in :func:`params_from_getter`).  Needs the ``safetensors`` package,
+    imported here so the port runs without it."""
     try:
         from safetensors import safe_open
     except ImportError as exc:
@@ -206,7 +211,8 @@ def params_from_safetensors(
             raise KeyError(f"tensor {name} missing from checkpoint")
         return index[name].get_tensor(name)
 
-    params = params_from_getter(spec, getter, device, dtype, quantization)
+    params = params_from_getter(spec, getter, device, dtype, quantization,
+                                mesh)
     logger.info(
         "checkpoint loaded",
         extra={"extra_data": {"path": checkpoint_path, "files": len(files)}},
@@ -240,15 +246,12 @@ def load_or_init_params(
 ) -> Params:
     """Checkpoint when one exists on disk, random init from ``seed``
     otherwise (the zero-egress path; the init runs on ``device``).
-    ``shard`` (a tp rank's mesh) keeps only that rank's shard
-    (parallel/sharding.py): the random init slices each leaf as it is
-    drawn, so a rank holds at most one full leaf at a time and its
-    values equal a tp=1 engine's; a checkpoint is sharded after it
-    loads.
-    ``quantization`` quantizes a checkpoint a layer at a time as it
-    loads, and a MoE random init as it is drawn; a dense random init is
-    returned unquantized (its draws stay those of the whole-leaf init)
-    for :func:`quantize_params`.
+    ``quantization`` quantizes each leaf (a MoE model's expert leaves,
+    each layer) as it is read or drawn, whole, so its scales are the
+    whole tree's; ``shard`` (a mesh rank's mesh) then keeps only that
+    rank's shard of it (parallel/sharding.py ``leaf_keeper``), so a rank
+    holds at most one full leaf (layer) at a time and its values equal a
+    one-rank engine's.
 
     ``log_digests`` (``integrity.enabled`` callers) logs the load-time
     digest summary (:func:`load_digests`) — one host pass over the tree,
@@ -256,13 +259,9 @@ def load_or_init_params(
     from vgate_tpu_torch import faults
 
     faults.check("weight_load", payload=checkpoint_path)
-    from vgate_tpu_torch.parallel import sharding
-
     if checkpoint_path and os.path.isdir(checkpoint_path):
         params = params_from_safetensors(spec, checkpoint_path, device, dtype,
-                                         quantization)
-        if shard is not None:
-            params = sharding.shard_params(params, spec, shard)
+                                         quantization, shard)
     else:
         from vgate_tpu_torch.models.decoder import init_params
 
@@ -273,10 +272,8 @@ def load_or_init_params(
         )
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        keep = (None if shard is None
-                else sharding.leaf_keeper(spec, shard.tp, shard.rank))
         params = init_params(spec, gen, dtype=dtype, device=device,
-                             quantization=quantization, keep=keep)
+                             quantization=quantization, mesh=shard)
     if log_digests:
         try:
             logger.info(
