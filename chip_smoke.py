@@ -87,11 +87,22 @@ at tp=2 on the one card (K5 exactly 197 times a pass on each rank, on
 the repacked row-parallel o and down shards) held to a tp=1 int4 engine
 and the plain forward; and where two or more cards are visible bf16
 Mixtral (93 GB, no one card holds it) one rank a card over NCCL with
-decode graphs, its live layer-0 MoE output held the same way.
+decode graphs, its live layer-0 MoE output held the same way; (13)
+last, data parallelism through the backend's async surface: a dp=1
+Qwen2.5-7B engine's burst, then two replicas of it on the one card in
+one process (each its own pool, streams and graphs): the burst, a drain
+of replica 0 mid-burst and its undrain, a shared system prompt's turns
+on one replica by prefix affinity, a 1,600-token prompt, the removal of
+replica 1 and an add on its banked slice, then a crash of replica 1
+mid-burst (its streams resume on replica 0, the repair rebuilds it
+while replica 0 replays), each replica's replays equal to its chunks
+and the launches exact over every core that served; where four cards
+are visible, four replicas, one a card, serve the burst and a drain.
 ``python3 chip_smoke.py mixtral`` runs the build and (9) alone, ``pod``
 the build and (10), ``tp`` the build and (11), ``ep`` the build, K4/K5
 at Mixtral's shapes and (12), ``ep b`` the build and (12)'s bf16
-group alone.  Each phase prints the graphs it captured, their
+group alone, ``dp`` the build and (13), ``dp b`` the build and (13)'s
+four-card part alone.  Each phase prints the graphs it captured, their
 capture time and their memory pool's bytes.  It prints the card's
 name and power limit, one JSON line of per-kernel numbers and, last,
 ``{"ok": true, "device": {...}}``.  Any
@@ -6116,6 +6127,424 @@ def ep_phase_b(traffic) -> list:
     return [b]
 
 
+# ------------------------------------------------------ data parallelism
+
+DP_ONE_CARD = ["cuda:0", "cuda:0"]
+DP_DRAIN_TOKENS = 96  # the drained burst's streams, long enough to move
+
+
+def dp_config(dp: int, devices, model: str = MODEL, device: str = "cuda"):
+    """The dp phase's engines: Qwen2.5-7B bf16, the prefix cache on,
+    chunked prefill at 512, the rebalancing thread off (moves only when
+    the phase asks), a short repair backoff; ``dp`` 1 is the one-engine
+    reference on the same card."""
+    sections = {"migration": {"rebalance_enabled": False},
+                "recovery": {"backoff_base_s": 0.1, "backoff_cap_s": 1.0}}
+    if dp == 1:
+        return engine_config(model, device, prefill_chunk=512,
+                             sections=sections)
+    return engine_config(model, device, prefill_chunk=512, dp=dp,
+                         devices=list(devices), sections=sections)
+
+
+class DpLedger:
+    """Every replica core that served in the phase (one removed, one
+    rebuilt, one added included) and its counters when first seen, so the
+    launch counts of the whole phase can be held to the steps and passes
+    of all of them: K1 = layers x decode steps, K2 + K3 = layers x prompt
+    passes, summed over the cores.  A core counts a chunk's steps at its
+    readback, so the steps of the chunks in flight when a core crashed
+    (launched, their readback discarded by containment) join through
+    ``dropped_steps``."""
+
+    def __init__(self, dp) -> None:
+        self.dp = dp
+        self.cores = list(dp.replicas)
+        self.base = {id(c): (c.total_steps, c.total_prompt_passes)
+                     for c in self.cores}
+        self.dropped_steps = 0
+
+    def note(self) -> None:
+        """Take in the replicas built since (a rebuild, an add): they
+        were built after the counts were set to 0, so count from 0."""
+        for core in list(self.dp.replicas):
+            if id(core) not in self.base:
+                self.base[id(core)] = (0, 0)
+                self.cores.append(core)
+
+    def check(self, what: str) -> dict:
+        self.note()
+        launches = read_launches()
+        L = self.dp.spec.num_layers
+        steps = self.dropped_steps + sum(
+            c.total_steps - self.base[id(c)][0] for c in self.cores)
+        passes = sum(c.total_prompt_passes - self.base[id(c)][1]
+                     for c in self.cores)
+        check(steps > 0 and launches[K1] == L * steps,
+              f"{what}: K1 {launches[K1]} launches for {steps} decode "
+              f"steps of {L} layers over {len(self.cores)} cores")
+        check(passes > 0 and launches[K2] + launches[K3] == L * passes,
+              f"{what}: K2 {launches[K2]} + K3 {launches[K3]} launches "
+              f"for {passes} prompt passes of {L} layers")
+        return {"launches": launches, "decode_steps": steps,
+                "prompt_passes": passes, "cores": len(self.cores)}
+
+
+def replays(core) -> int:
+    """A core's decode-graph replays (its eager chunks on the CPU)."""
+    return core.total_chunks if core._graphs is None else core._graphs.replays
+
+
+def dp_replicas(dp) -> list:
+    """Each replica's requests, pool, graphs and replays; on the card
+    replays must equal decode chunks on every one (each chunk a graph
+    replay)."""
+    out = []
+    for i, core in enumerate(list(dp.replicas)):
+        g = core._graphs
+        check(core.total_chunks > 0 and (g is None or (
+            core.decode_graphs and g.replays == core.total_chunks)),
+              f"replica {i}: {None if g is None else g.replays} replays "
+              f"for {core.total_chunks} decode chunks")
+        out.append({
+            "replica": i, "device": str(core.device),
+            "requests": core.scheduler.total_admitted,
+            "kv_pages": core.geometry.num_pages,
+            "budget_gb": round(core.config.device.kv_budget_bytes / 1e9, 2),
+            "graphs": 0 if g is None else len(g.graphs),
+            "chunks": core.total_chunks, "replays": replays(core),
+            "hit_tokens": core.scheduler.total_prefix_hit_tokens,
+        })
+    return out
+
+
+def dp_memory(dp) -> dict:
+    """Each replica's weights and pool (GB), and the card's peak."""
+    def gb(n):
+        return round(n / 1e9, 2)
+
+    out = {}
+    for i, core in enumerate(dp.replicas):
+        out[str(i)] = {
+            "weights_gb": gb(sum(t.numel() * t.element_size()
+                                 for t in leaves(core.params))),
+            "pool_gb": gb(sum(t.numel() * t.element_size()
+                              for t in (core.k_pages, core.v_pages))),
+        }
+    if torch.cuda.is_available():
+        out["peak_gb"] = gb(torch.cuda.max_memory_allocated())
+    return out
+
+
+def dp_warm_up(dp, what: str) -> dict:
+    """``ReplicatedEngine.warmup`` (each replica's in turn), its graphs,
+    then the launch counts set to 0."""
+    n0 = sum(len(captures(c)) for c in dp.replicas)
+    t0 = time.perf_counter()
+    seconds = dp.warmup()
+    graphs = sum(len(captures(c)) for c in dp.replicas) - n0
+    print(f"{what} warm-up: {time.perf_counter() - t0:.2f} s ({seconds:.2f} "
+          f"s of replica time), {graphs} decode graphs captured",
+          flush=True)
+    reset_launches()
+    return {"warmup_s": seconds, "graphs_captured": graphs}
+
+
+def routed(dp) -> list:
+    """The replica index the router picks for each submission, in order
+    (``_pick_replica`` recorded)."""
+    picks = []
+    real = dp._pick_replica
+
+    def pick(prompt_ids=None):
+        core = real(prompt_ids)
+        picks.append(dp.replicas.index(core))
+        return core
+
+    dp._pick_replica = pick
+    return picks
+
+
+def settled(backend, batch) -> list:
+    results = asyncio.run(backend.generate_settled_async(*batch))
+    for r in results:
+        check(not isinstance(r, BaseException), f"a dp stream failed: {r!r}")
+    return results
+
+
+def dp_reference(batch, model: str = MODEL, device: str = "cuda") -> dict:
+    """The burst on a dp = 1 engine (same config) on the same card, for
+    the replicas' numbers to stand beside."""
+    engine, core = start_engine(dp_config(1, None, model, device),
+                                "dp=1 reference")
+    try:
+        warm_up(core, "dp=1 reference")
+        settled(engine.backend, batch)  # the burst's cold keys
+        t0 = time.perf_counter()
+        results = settled(engine.backend, batch)
+        return {"wall_s": time.perf_counter() - t0,
+                **burst_numbers(results)}
+    finally:
+        engine.shutdown()
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+
+
+def dp_drain_burst(backend, dp, batch, idx: int) -> dict:
+    """The burst with replica ``idx`` drained mid-decode: once one of its
+    streams has 2 tokens, ``drain_replica`` moves its residents to the
+    other replicas (they finish there, migrated, none lost), then
+    ``undrain_replica`` returns it."""
+    source = dp.replicas[idx]
+    out, done = {}, threading.Event()
+
+    def drainer() -> None:
+        while not done.is_set():
+            live = [s for s in list(source.scheduler.running)
+                    if 2 <= s.num_generated <= DP_DRAIN_TOKENS // 2]
+            if live:
+                t0 = time.perf_counter()
+                out["drain"] = dp.drain_replica(idx)
+                out["migrate_s"] = time.perf_counter() - t0
+                return
+            time.sleep(0.002)
+
+    watcher = threading.Thread(target=drainer, daemon=True)
+    watcher.start()
+    results = settled(backend, batch)
+    done.set()
+    watcher.join()
+    check("drain" in out, f"replica {idx} held no stream to drain")
+    drain = out["drain"]
+    check(drain["migrated"] >= 1 and drain["lost"] == 0,
+          f"the drain of replica {idx}: {drain}")
+    check(dp.health()["draining"] == [idx], "the replica is not draining")
+    moved = [r for r in results if r.metrics.get("migrated")]
+    check(len(moved) == drain["migrated"],
+          f"{len(moved)} streams say migrated, the drain {drain}")
+    dp.undrain_replica(idx)
+    check(dp.health()["state"] == "serving", "undrain did not serve")
+    return {**drain, "migrate_s": out["migrate_s"],
+            "streams_migrated": len(moved), **burst_numbers(results)}
+
+
+def dp_crash_drill(backend, dp, batch, ledger, victim_idx: int = 1
+                   ) -> dict:
+    """A decode crash armed on replica ``victim_idx`` (``faults``, on its
+    engine thread only) once it holds streams: its residents are
+    checkpointed and resume on the other replica, the repair thread
+    rebuilds it (weights kept, its decode graphs captured again) while
+    the other replica's graphs go on replaying, and health returns to
+    serving.  The survivor's own streams finish uninterrupted."""
+    from vgate_tpu_torch import faults
+
+    victim, survivor = dp.replicas[victim_idx], dp.replicas[1 - victim_idx]
+    crash, done = {}, threading.Event()
+    replays0 = replays(survivor)
+    contain = victim._contain_fatal
+
+    def contain_and_count(exc):
+        # the victim's chunks in flight: launched, never read back
+        crash["dropped_steps"] = sum(c[1] for c in victim._pending_chunks)
+        return contain(exc)
+
+    victim._contain_fatal = contain_and_count
+
+    def arm() -> None:
+        while not done.is_set():
+            mine = [s for s in list(victim.scheduler.running)
+                    if s.num_generated >= 2]
+            if len(mine) >= 1:
+                faults.arm("decode_step", mode="raise", times=1,
+                           match=lambda _: threading.current_thread()
+                           is victim._thread)
+                crash["armed_t"] = time.perf_counter()
+                break
+            time.sleep(0.002)
+        while not done.is_set() and "serving_t" not in crash:
+            if victim._fatal is not None and "fatal_t" not in crash:
+                crash["fatal_t"] = time.perf_counter()
+                crash["survivor_replays_at_fatal"] = replays(survivor)
+            if "fatal_t" in crash and dp.replicas[victim_idx] is not victim \
+                    and dp.health()["state"] == "serving":
+                crash["serving_t"] = time.perf_counter()
+                crash["survivor_replays_at_serving"] = replays(survivor)
+            time.sleep(0.005)
+
+    watcher = threading.Thread(target=arm, daemon=True)
+    watcher.start()
+    results = settled(backend, batch)
+    wait_for(lambda: "serving_t" in crash, "the crashed replica's rebuild",
+             600)
+    done.set()
+    watcher.join()
+    faults.reset()
+    ledger.dropped_steps += crash.get("dropped_steps", 0)
+    health = dp.health()
+    check(health["restarts"] == 1 and health["lost"] == 0
+          and health["resumed"] >= 1 and dp.total_failovers == 1,
+          f"the crash drill's health: {health}")
+    resumed = [r for r in results if r.metrics.get("resumed")]
+    check(len(resumed) == health["resumed"],
+          f"{len(resumed)} streams resumed, health {health['resumed']}")
+    # the survivor's graphs replayed while the victim was down and rebuilt
+    during = (crash["survivor_replays_at_serving"]
+              - crash["survivor_replays_at_fatal"])
+    return {"resumed": health["resumed"],
+            "crash_to_serving_s": crash["serving_t"] - crash["fatal_t"],
+            "survivor_replays_during_rebuild": during,
+            "survivor_replays": replays(survivor) - replays0,
+            "dropped_steps": crash.get("dropped_steps", 0),
+            "streams_resumed": len(resumed), **burst_numbers(results)}
+
+
+def dp_phase(devices, what: str, ref: dict = None, drills: bool = True,
+             model: str = MODEL) -> dict:
+    """One dp engine on ``devices`` (one device a replica) through the
+    backend's async surface: boot, warm-up, the burst with replica 0
+    drained mid-decode and undrained, a shared system prompt's two turns
+    (one replica by affinity, prefix hits there), a 1,600-token prompt;
+    with ``drills`` then ``remove_replica(1)`` and ``add_replica()`` on
+    the banked slice, and a crash of replica 1 during a burst.  On the
+    card every replica's replays equal its chunks, and the launches of
+    every core that served are exact (the CPU rehearsal, ``devices``
+    ["cpu", "cpu"] and a tiny ``model``, runs the same path without
+    them)."""
+    from vgate_tpu_torch.backends.base import SamplingParams
+    from vgate_tpu_torch.runtime.dp_engine import ReplicatedEngine
+
+    cuda = torch.device(devices[0]).type == "cuda"
+    if cuda:
+        print(f"memory allocated before the dp {what} engine: "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+    dp_n = len(devices)
+    engine, dp = start_engine(
+        dp_config(dp_n, devices, model, "cuda" if cuda else "cpu"),
+        f"dp={dp_n} {what}")
+    backend = engine.backend
+    try:
+        check(isinstance(dp, ReplicatedEngine) and len(dp.replicas) == dp_n,
+              f"{what}: the backend built {type(dp).__name__}")
+        for core, devs in zip(dp.replicas, dp._device_slices):
+            check(str(core.device) == devs[0]
+                  and core.decode_graphs == cuda,
+                  f"{what}: a replica on {core.device}, not {devs[0]}")
+        boot_s = dp.load_time_s
+        warm = dp_warm_up(dp, f"dp={dp_n} {what}")
+        picks = routed(dp)
+        ledger = DpLedger(dp)
+        traffic = tp_traffic()
+        burst = traffic[0]
+        drain_params = [SamplingParams(max_tokens=DP_DRAIN_TOKENS,
+                                       min_tokens=DP_DRAIN_TOKENS,
+                                       temperature=0.0)] * len(burst[1])
+        settled(backend, (burst[1], burst[2]))  # the burst's cold keys
+        t0 = time.perf_counter()
+        results = settled(backend, (burst[1], burst[2]))
+        out = {"boot_s": boot_s, "warmup_s": warm["warmup_s"],
+               "burst": {"wall_s": time.perf_counter() - t0,
+                         **burst_numbers(results)}}
+        if ref is not None:
+            out["dp1_burst"] = ref
+        out["drain"] = dp_drain_burst(backend, dp,
+                                      (burst[1], drain_params), 0)
+        turns = {}
+        for name, texts, params in traffic[1:]:
+            n0 = len(picks)
+            settled(backend, (texts, params))
+            turns[name] = picks[n0:]
+        turn_replicas = set(turns["first_turn"] + turns["second_turn"])
+        check(len(turn_replicas) == 1,
+              f"{what}: the system prompt's turns went to {turn_replicas}")
+        sticky = dp.replicas[turn_replicas.pop()]
+        check(sticky.scheduler.total_prefix_hit_tokens > 0,
+              f"{what}: the second turn hit no cached page")
+        out["affinity"] = {"routes": turns,
+                           "hit_tokens": sticky.scheduler
+                           .total_prefix_hit_tokens}
+        out["replicas"] = dp_replicas(dp)
+        out["memory"] = dp_memory(dp)
+        if drills:
+            t0 = time.perf_counter()
+            removed = dp.remove_replica(1)
+            remove_s = time.perf_counter() - t0
+            check(removed["dp"] == dp_n - 1 and removed["lost"] == 0,
+                  f"{what}: remove {removed}")
+            gc.collect()
+            t0 = time.perf_counter()
+            added = dp.add_replica()
+            add_s = time.perf_counter() - t0
+            check(added["dp"] == dp_n and dp.health()["state"] == "serving",
+                  f"{what}: add {added}")
+            ledger.note()
+            # warmed as at boot, so its rebuild after the crash below
+            # captures its graphs again while the other replica replays
+            t0 = time.perf_counter()
+            dp.replicas[1].warmup()
+            add_warmup_s = time.perf_counter() - t0
+            settled(backend, (burst[1], burst[2]))
+            out["elastic"] = {"remove_s": remove_s, "add_s": add_s,
+                              "add_warmup_s": add_warmup_s,
+                              "added": added,
+                              "memory_after_add": dp_memory(dp)}
+            out["crash"] = dp_crash_drill(
+                backend, dp, (burst[1], drain_params), ledger)
+            # the rebuilt replica serves again beside the survivor
+            out["after_crash"] = burst_numbers(
+                settled(backend, (burst[1], burst[2])))
+            out["replicas_after_drills"] = dp_replicas(dp)
+        if cuda:
+            out.update(ledger.check(f"dp={dp_n} {what}"))
+        for core in dp.replicas:
+            check_settled(core)
+        out["routes"] = {str(i): picks.count(i) for i in set(picks)}
+        return out
+    finally:
+        engine.shutdown()
+        # the replicas' pools, graphs and weights go now, before the next
+        # engine sizes its pool
+        for core in list(dp.replicas):
+            dp._retire(core)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+
+def dp_path(card: str) -> list:
+    """Phase (a): two replicas of Qwen2.5-7B on the one card, one process,
+    beside a dp = 1 engine's burst on the same card; phase (b), where four
+    cards are visible, one replica a card.  Prints each; returns the runs
+    (their summed launches)."""
+    traffic = tp_traffic()
+    burst = traffic[0]
+    ref = dp_reference((burst[1], burst[2]))
+    # the reference engine's pool goes before the replicas size theirs
+    gc.collect()
+    torch.cuda.empty_cache()
+    a = dp_phase(DP_ONE_CARD, "phase (a), one card", ref)
+    print(f"dp phase (a), Qwen2.5-7B, 2 replicas on {card}: "
+          + json.dumps(a), flush=True)
+    return [a] + dp_phase_b(card)
+
+
+def dp_phase_b(card: str) -> list:
+    """Phase (b), where four cards are visible: dp = 4, one replica a
+    card (``cuda:0`` .. ``cuda:3``) in one process, the burst and a drain
+    (each replica's threads on its own device)."""
+    count = torch.cuda.device_count()
+    if count < 4:
+        print(f"dp phase (b) did not run: {count} card(s) visible, and it "
+              "needs 4 (one replica a card)", flush=True)
+        return []
+    b = dp_phase([f"cuda:{i}" for i in range(4)], "phase (b), four cards",
+                 drills=False)
+    print(f"dp phase (b), Qwen2.5-7B, 4 replicas on 4 x {card}: "
+          + json.dumps(b), flush=True)
+    return [b]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs "
@@ -6182,6 +6611,14 @@ def main() -> None:
             runs = ep_path(card)
         for run in runs:
             print(f"ep launches: {json.dumps(run['launches'])}")
+        print(card_line())
+        return
+    if sys.argv[1:2] == ["dp"]:
+        # the dp phase alone, after the build (a shorter run while that
+        # phase is worked on); ``dp b`` its phase (b) alone (four cards)
+        runs = dp_phase_b(card) if sys.argv[2:] == ["b"] else dp_path(card)
+        for run in runs:
+            print(f"dp launches: {json.dumps(run['launches'])}")
         print(card_line())
         return
     if sys.argv[1:] == ["recovery"]:
@@ -6346,6 +6783,9 @@ def main() -> None:
     # launches join the count
     runs += ep_path(card)
     memory("the ep phase")
+    # dp replicas in this process: every core's launches join the count
+    runs += dp_path(card)
+    memory("the dp phase")
     for k in kernels:
         # launches of every path, each counted from 0 just before it ran
         k["launches"] = sum(run["launches"].get(k["name"], 0)

@@ -29,10 +29,11 @@ def test_defaults_and_sections():
     "sections",
     [
         # tp and ep serve since items 10a and 10c, MoE and quantized
-        # weights under them too; the pod and speculation on such a mesh
-        # still refuse
+        # weights under them too, dp since item 10b; the pod and
+        # speculation on such a mesh, and a dp replica that is itself a
+        # mesh, still refuse
         {"device": {"tp": 2}, "pod": {"workers": 2}},
-        {"device": {"dp": 2}},
+        pytest.param({"device": {"dp": 2, "tp": 2}}, id="{'dp': 2}"),
         {"device": {"sp": 2}},
         {"device": {"pp": 2}},
         {"device": {"ep": 2}, "pod": {"workers": 2}},

@@ -31,6 +31,7 @@ from vgate_tpu.runtime.weights import load_or_init_params as j_init
 from vgate_tpu_torch.backends.base import SamplingParams
 from vgate_tpu_torch.config import load_config
 from vgate_tpu_torch.models.specs import TINY_DENSE
+from vgate_tpu_torch.ops.kernels import _build
 from vgate_tpu_torch.ops.kernels.paged_decode import paged_decode_attention
 from vgate_tpu_torch.ops.kernels.quant_matmul import int8_matmul
 from vgate_tpu_torch.runtime import decode_graph
@@ -272,12 +273,13 @@ class StandIn:
 
 
 def test_graph_cache_counts_launches_per_replay():
-    """A step that launches K1 twice and K4 five times: neither the
+    """A step that launches K1 twice and K4 five times (counted as the
+    wrappers count, through ``_build.count_launch``): neither the
     warm-up nor the capture counts, every replay adds the capture's
     launches, one capture per key."""
     def body():
-        paged_decode_attention.launches += 2
-        int8_matmul.launches += 5
+        _build.count_launch(paged_decode_attention, 2)
+        _build.count_launch(int8_matmul, 5)
 
     k1, k4 = paged_decode_attention.launches, int8_matmul.launches
     stand_in = StandIn()

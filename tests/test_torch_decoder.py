@@ -40,6 +40,16 @@ def _pools(num_pages):
     return np.zeros(shape, np.float32), np.zeros(shape, np.float32)
 
 
+def _assert_pool(tpool, jpool, atol):
+    """Every page but trash page 0 equals the reference's; on page 0 the
+    port writes zeros (``ops/kv_quant.py`` ``kv_write``: the winner of
+    duplicate trash writes is not fixed on the card), where the
+    reference keeps the last duplicate written."""
+    t, j = tpool.numpy(), np.asarray(jpool)
+    np.testing.assert_allclose(t[:, :, 1:], j[:, :, 1:], atol=atol)
+    assert not t[:, :, 0].any()
+
+
 def test_params_from_jax_keeps_layout():
     jparams, tparams = _jax_params()
     assert tparams["layers"]["q"]["w"].shape == tuple(
@@ -98,8 +108,8 @@ def test_prefill_and_decode_match_jax():
             t_logits.numpy(), np.asarray(j_logits), atol=ATOL, rtol=0,
             err_msg=f"decode step {step}",
         )
-        np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=ATOL)
-        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=ATOL)
+        _assert_pool(tk, jk, ATOL)
+        _assert_pool(tv, jv, ATOL)
         next_tok = np.argmax(np.asarray(j_logits), axis=-1).astype(np.int32)
         positions = positions + act.astype(np.int32)
 

@@ -441,7 +441,13 @@ def test_forwards_across_processes_match_the_jax_oracle(models, ep, tp):
         want, jk, jv = jdec.decode_forward(
             jtree, jspec, jnp.asarray(nxt), jnp.asarray(positions), jk, jv,
             jnp.asarray(table), active=jnp.asarray(active))
-        close(got, want, "decode")
+        # the active rows; the idle ones read trash page 0, zeros in the
+        # port (ops/kv_quant.py kv_write), and agree with each other
+        close(got[:B], want[:B], "decode")
+        idle = got[B:]
+        assert torch.isfinite(idle).all()
+        torch.testing.assert_close(idle, idle[:1].expand_as(idle),
+                                   atol=TOL, rtol=TOL)
         for start, unaligned in ((12, False), (10, True)):
             suffix = rng.integers(3, spec.vocab_size, 9).astype(np.int32)
             tok = np.zeros((1, 12), np.int32)
@@ -471,8 +477,11 @@ def test_forwards_across_processes_match_the_jax_oracle(models, ep, tp):
             close(got, want, f"suffix from {start}")
         # every ep rank holds the pool of its tp heads: rank 0 the first
         kv = spec.num_kv_heads // tp
-        np.testing.assert_allclose(tk.numpy(), np.asarray(jk)[:, :kv],
+        # (every page but trash page 0, which holds zeros in the port)
+        np.testing.assert_allclose(tk.numpy()[:, :, 1:],
+                                   np.asarray(jk)[:, :kv, 1:],
                                    atol=TOL, rtol=TOL)
+        assert not tk[:, :, 0].any()
         stats = mesh.request("stats")
         assert len(stats) == ep * tp - 1
         for s in stats:

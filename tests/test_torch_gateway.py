@@ -416,3 +416,80 @@ async def test_drain_completes_inflight_and_sheds_new_work():
     finally:
         release.set()
         await client.close()
+
+
+# ---------------------------------------------------- dp replicas (10b)
+
+
+def _dp_sections(**migration):
+    return dict(
+        model={"model_id": "tiny-dense", "dtype": "float32",
+               "max_model_len": 64, "engine_type": "torch_cuda"},
+        device={"device": "cpu", "dp": 2, "kv_num_pages": 32,
+                "kv_page_size": 4, "max_batch_slots": 2,
+                "prefill_buckets": [8, 16]},
+        migration={"rebalance_enabled": False, **migration},
+    )
+
+
+async def test_dp_replica_routes_add_remove_drain_and_signal(monkeypatch):
+    """A dp=2 engine behind the gateway: GET shows both replicas, DELETE
+    removes one (its slice banked), POST adds it back, a drain and an
+    undrain answer, an unknown index is 404, and SIGUSR1 drains the
+    replica named by $VGT_DRAIN_REPLICA."""
+    import os
+    import signal
+
+    client = await _client(**_dp_sections())
+    try:
+        app = client.server.app
+        body = await (await client.get("/admin/replicas")).json()
+        assert body["dp"] == 2 and body["state"] == "serving"
+        resp = await client.delete("/admin/replicas/1")
+        assert resp.status == 200, await resp.text()
+        assert (await resp.json())["dp"] == 1
+        stats = await (await client.get("/stats")).json()
+        assert stats["engine"]["migration"]["free_slices"] == 1
+        resp = await client.post("/admin/replicas")
+        assert resp.status == 200, await resp.text()
+        assert (await resp.json())["dp"] == 2
+        drained = await (await client.post("/admin/replicas/0/drain")).json()
+        assert drained["draining"] is True and drained["lost"] == 0
+        body = await (await client.get("/admin/replicas")).json()
+        assert body["draining"] == [0] and body["state"] == "degraded"
+        resp = await client.post("/admin/replicas/0/undrain")
+        assert (await resp.json())["draining"] is False
+        assert (await client.post("/admin/replicas/7/drain")).status == 404
+        assert (await client.delete("/admin/replicas/7")).status == 404
+        assert app["replica_drain_signal_installed"] is True
+        monkeypatch.setenv("VGT_DRAIN_REPLICA", "1")
+        os.kill(os.getpid(), signal.SIGUSR1)
+        for _ in range(500):
+            body = await (await client.get("/admin/replicas")).json()
+            if body["draining"] == [1]:
+                break
+            await asyncio.sleep(0.02)
+        assert body["draining"] == [1]
+        resp = await client.post(
+            "/v1/chat/completions", json=_chat(max_tokens=3))
+        assert resp.status == 200, await resp.text()
+    finally:
+        await client.close()
+
+
+async def test_dp_replica_ops_answer_409_while_migration_is_disabled():
+    client = await _client(**_dp_sections(enabled=False))
+    try:
+        assert not client.server.app.get("replica_drain_signal_installed")
+        for resp in (await client.post("/admin/replicas/0/drain"),
+                     await client.post("/admin/replicas/0/undrain"),
+                     await client.post("/admin/replicas"),
+                     await client.delete("/admin/replicas/0")):
+            assert resp.status == 409
+            assert "migration.enabled=false" in (
+                await resp.json())["error"]["message"]
+        body = await (await client.get("/admin/replicas")).json()
+        assert body["dp"] == 2
+    finally:
+        await client.close()
+

@@ -475,6 +475,7 @@ def test_singleton_and_reset():
 
 
 def test_not_ported_switches_still_refuse():
-    # tp=2 serves since item 10a; data parallelism is item 10b
-    with pytest.raises(NotPortedError, match="queue 1, item 10"):
-        load_config(device={"dp": 2})
+    # tp=2 serves since item 10a and dp=2 since item 10b; a dp replica
+    # that is itself a mesh is item 10b's rest
+    with pytest.raises(NotPortedError, match="queue 1, item 10b \\(rest\\)"):
+        load_config(device={"dp": 2, "tp": 2})

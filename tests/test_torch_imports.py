@@ -111,6 +111,52 @@ def test_engine_path_imports_and_streams_without_the_http_packages():
     assert proc.stdout.strip().splitlines()[-1] == "ok"
 
 
+DP_PROBE = """
+import sys
+for name in %r:
+    sys.modules[name] = None
+import asyncio
+from vgate_tpu_torch.backends.base import SamplingParams
+from vgate_tpu_torch.backends.torch_backend import TorchCUDABackend
+from vgate_tpu_torch.config import load_config
+from vgate_tpu_torch.runtime.dp_engine import ReplicatedEngine
+backend = TorchCUDABackend()
+backend.load_model(load_config(
+    model={"model_id": "tiny-dense", "dtype": "float32",
+           "max_model_len": 64},
+    device={"device": "cpu", "dp": 2, "kv_num_pages": 32,
+            "kv_page_size": 4, "max_batch_slots": 2,
+            "prefill_buckets": [8, 16]},
+))
+assert isinstance(backend.core, ReplicatedEngine)
+usage = []
+async def stream():
+    sp = SamplingParams(max_tokens=3, min_tokens=3, temperature=0.0)
+    return [p async for p in backend.stream_async("hi", sp,
+                                                  on_usage=usage.append)]
+asyncio.run(stream())
+assert usage[0]["completion_tokens"] == 3, usage
+out = backend.core.drain_replica(0)
+assert out["lost"] == 0, out
+backend.core.undrain_replica(0)
+assert backend.core.health()["state"] == "serving"
+backend.shutdown()
+print("ok")
+""" % (BLOCKED,)
+
+
+def test_dp_engine_streams_and_drains_without_the_http_packages():
+    """A dp=2 backend (two replicas in one process) streams, drains and
+    undrains with the HTTP layer's packages and PyYAML missing."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", DP_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
 SWAP_PROBE = """
 import sys
 for name in %r:

@@ -240,12 +240,22 @@ def _pools(spec, P):
     return np.zeros(shape, np.float32), np.zeros(shape, np.float32)
 
 
+def _assert_pool(tpool, jpool, atol):
+    """Every page but trash page 0 equals the reference's; on page 0 the
+    port writes zeros (``ops/kv_quant.py`` ``kv_write``: the winner of
+    duplicate trash writes is not fixed on the card), where the
+    reference keeps the last duplicate written."""
+    t, j = tpool.numpy(), np.asarray(jpool)
+    np.testing.assert_allclose(t[:, :, 1:], j[:, :, 1:], atol=atol)
+    assert not t[:, :, 0].any()
+
+
 @pytest.mark.parametrize("bits", [None, 8, 4])
 @pytest.mark.parametrize("spec", ["tiny-moe", "e8"])
 def test_forwards_match_jax_at_padded_shapes(spec, bits):
     """The prompt pass over a padded [B, S] batch (pad rows compete for
     capacity), a suffix pass, and decode steps with an idle slot: the
-    logits and the pools, float32."""
+    logits and the pools (trash page 0 zeros on the port), float32."""
     jspec, tspec = SPECS[spec]
     jparams, tparams = _trees(jspec, tspec, bits, seed=5)
     rng = np.random.default_rng(1)
@@ -292,7 +302,7 @@ def test_forwards_match_jax_at_padded_shapes(spec, bits):
             torch.from_numpy(positions), tk, tv, torch.from_numpy(pt),
             active=torch.from_numpy(act))
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4)
-        np.testing.assert_allclose(tk.numpy(), np.asarray(jk), atol=1e-4)
+        _assert_pool(tk, jk, 1e-4)
         nxt = np.argmax(np.asarray(jl), -1).astype(np.int32)
         positions = positions + act.astype(np.int32)
 

@@ -281,7 +281,13 @@ def test_forwards_across_two_processes_match_the_jax_oracle(models, name):
         want, jk, jv = jdec.decode_forward(
             jtree, jspec, jnp.asarray(nxt), jnp.asarray(positions), jk, jv,
             jnp.asarray(table), active=jnp.asarray(active))
-        close(got, want, "decode")
+        # the active rows; the idle ones read trash page 0, zeros in the
+        # port (ops/kv_quant.py kv_write), and agree with each other
+        close(got[:B], want[:B], "decode")
+        idle = got[B:]
+        assert torch.isfinite(idle).all()
+        torch.testing.assert_close(idle, idle[:1].expand_as(idle),
+                                   atol=TOL, rtol=TOL)
         # suffix passes over row 0's resident 12 tokens (3 pages): from
         # the page boundary, then from 10 tokens after copying the head
         # of page 3 into a page of its own
@@ -314,8 +320,11 @@ def test_forwards_across_two_processes_match_the_jax_oracle(models, name):
             close(got, want, f"suffix from {start}")
         # rank 0's pool holds the first KV/2 heads of the oracle's
         kv = spec.num_kv_heads // 2
-        np.testing.assert_allclose(tk.numpy(), np.asarray(jk)[:, :kv],
+        # (every page but trash page 0, which holds zeros in the port)
+        np.testing.assert_allclose(tk.numpy()[:, :, 1:],
+                                   np.asarray(jk)[:, :kv, 1:],
                                    atol=TOL, rtol=TOL)
+        assert not tk[:, :, 0].any()
         assert tuple(tk.shape) == (spec.num_layers, kv, P, PS, spec.head_dim)
         [stats] = mesh.request("stats")
         assert stats["prompt_passes"] == 3 and stats["steps"] == 1

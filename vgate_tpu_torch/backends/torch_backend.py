@@ -5,7 +5,10 @@ It builds one :class:`EngineCore`, wrapped by default in the
 :class:`~vgate_tpu_torch.runtime.supervisor.EngineSupervisor`
 (``recovery.enabled``, as the reference does), or, with
 ``pod.workers > 0``, the :class:`~vgate_tpu_torch.runtime.pod_engine.PodEngine`
-of worker processes (the data-parallel engine is not ported yet), behind the 4-method protocol
+of worker processes, or, with ``device.dp > 1``, the
+:class:`~vgate_tpu_torch.runtime.dp_engine.ReplicatedEngine` of dp
+replicas in this process (unsupervised: it fails over and repairs its
+replicas itself), behind the 4-method protocol
 (``load_model`` / ``create_sampling_params`` / ``generate`` /
 ``shutdown``), plus the async surface the gateway uses when a backend
 has it: ``generate_settled_async`` (batches whose sequences join the
@@ -145,6 +148,11 @@ class TorchCUDABackend:
             from vgate_tpu_torch.runtime.pod_engine import PodEngine
 
             self.core = PodEngine(config)
+        elif config.device.dp > 1:
+            # dp replicas have their own failover; unsupervised
+            from vgate_tpu_torch.runtime.dp_engine import ReplicatedEngine
+
+            self.core = ReplicatedEngine(config)
         elif config.recovery.enabled:
             from vgate_tpu_torch.runtime.supervisor import EngineSupervisor
 

@@ -149,8 +149,10 @@ class DeviceConfig:
     int8_native: bool = False
     # the mesh axes (parallel/mesh.py): tp > 1 shards the model over tp
     # ranks and ep > 1 a MoE model's experts over ep, one process a rank
-    # (ep x tp ranks; tp 0 takes every visible device); dp, sp and pp >
-    # 1 are not ported yet and raise NotPortedError (_check)
+    # (ep x tp ranks; tp 0 takes every visible device); dp > 1 serves dp
+    # replicas of a one-device engine in this process behind a router
+    # (runtime/dp_engine.py); sp and pp > 1 are not ported yet and raise
+    # NotPortedError (_check)
     dp: int = 1
     tp: int = 1
     sp: int = 1
@@ -159,6 +161,8 @@ class DeviceConfig:
     # port-only: each rank's device, rank 0 first (empty = derived from
     # `device`, ep and tp).  Naming one card more than once runs that many
     # ranks on it, over a gloo device group: the one-card test layout.
+    # With dp > 1 it names dp x ep x tp devices, replica i taking slice i
+    # (one device a replica: ["cuda:0", "cuda:0"] puts two on one card).
     devices: List[str] = field(default_factory=list)
 
 
@@ -347,6 +351,43 @@ class PodConfig:
 
 
 @dataclass
+class MigrationConfig:
+    """Planned live request migration (runtime/dp_engine.py and
+    /admin/replicas), with the reference's 10 fields and defaults
+    (vgate_tpu/config.py ``MigrationConfig``): drain a replica for a
+    rolling deploy with zero 5xx, rebalance long decodes off a pressured
+    replica, grow and shrink the dp degree without a restart.  Needs
+    device.dp > 1 (a dp=1 deployment has no in-process migration target;
+    it drains by SIGTERM)."""
+
+    # master switch for the admin drain/undrain/scale surface and the
+    # VGT_DRAIN_REPLICA signal path
+    enabled: bool = True
+    # how long an evacuation may wait for the source engine loop to
+    # checkpoint the selected sequences
+    evacuate_timeout_s: float = 30.0
+    # the rebalancing thread (vgt-dp-balance): moves the longest-running
+    # decodes off a pressured replica while a sibling sits idle, with
+    # hysteresis, a rate limit and a bounded batch
+    rebalance_enabled: bool = True
+    rebalance_interval_s: float = 2.0
+    # hot: kv_free_ratio at or below this, or queue depth at or above
+    # hot_queue_depth (the pressure_signals admission keys off)
+    hot_kv_free_ratio: float = 0.15
+    hot_queue_depth: int = 8
+    # idle: at least this free-KV ratio and an empty engine queue
+    idle_kv_free_ratio: float = 0.5
+    # continuously hot this long before the first move
+    rebalance_hold_s: float = 10.0
+    # at most one move batch per cooldown window
+    rebalance_cooldown_s: float = 30.0
+    # sequences moved a batch (longest-running decodes first)
+    max_moves_per_cycle: int = 2
+    # never move a decode younger than this many generated tokens
+    min_generated_tokens: int = 8
+
+
+@dataclass
 class GatewayConfig:
     """The Idempotency-Key request journal (runtime/journal.py); an
     empty path keeps keys for one gateway lifetime, in memory."""
@@ -475,6 +516,7 @@ class VGTConfig:
     rate_limit: RateLimitConfig = field(default_factory=RateLimitConfig)
     benchmark: BenchmarkConfig = field(default_factory=BenchmarkConfig)
     pod: PodConfig = field(default_factory=PodConfig)
+    migration: MigrationConfig = field(default_factory=MigrationConfig)
 
 
 def _not_ported(what: str, where: str) -> NotPortedError:
@@ -527,18 +569,32 @@ def _check(cfg: VGTConfig) -> None:
         raise ValueError("prefix_cache.min_share_pages must be >= 1")
     if not 0.0 <= pc.evict_watermark < 1.0:
         raise ValueError("prefix_cache.evict_watermark must be in [0, 1)")
-    for axis, item in (("dp", "10b"), ("sp", "10d"), ("pp", "10d")):
+    for axis in ("sp", "pp"):
         # 0 is the reference's "all devices": one device for these axes
         if getattr(d, axis) > 1:
-            raise _not_ported(f"device.{axis}>1", f"queue 1, item {item}")
+            raise _not_ported(f"device.{axis}>1", "queue 1, item 10d")
+    if d.dp < 1:
+        raise ValueError("device.dp must be >= 1")
     if d.tp < 0 or d.ep < 0:
         raise ValueError(
             "device.tp and device.ep must be >= 0 (0 = every visible device)"
         )
     if d.tp == 0 and d.ep == 0:
         raise ValueError("at most one mesh axis may be 0 (auto)")
+    if d.dp > 1 and (d.tp != 1 or d.ep != 1):
+        # torch.distributed's default group is every mesh's control
+        # group, so a process holds one mesh, and dp replicas share it
+        raise _not_ported(
+            "device.dp>1 with device.tp or device.ep other than 1 (a dp "
+            "replica that is itself a mesh)", "queue 1, item 10b (rest)",
+        )
     fixed = max(d.tp, 1) * max(d.ep, 1)
-    if d.devices and (
+    if d.dp > 1 and d.devices and len(d.devices) != d.dp:
+        raise ValueError(
+            f"device.devices names {len(d.devices)} devices but device.dp "
+            f"is {d.dp}: name one device a replica"
+        )
+    if d.dp == 1 and d.devices and (
         len(d.devices) % fixed
         or (d.tp and d.ep and len(d.devices) != fixed)
     ):
@@ -557,7 +613,7 @@ def _check(cfg: VGTConfig) -> None:
     spec = spec_for_model_id(m.model_id)
     # the mesh known at load (an axis at 0 counts as 1 without a device
     # list; the engine resolves it against the devices and checks again)
-    ranks = len(d.devices) or fixed
+    ranks = len(d.devices) // d.dp or fixed
     if ranks > 1:
         from vgate_tpu_torch.parallel.sharding import check_mesh_config
 

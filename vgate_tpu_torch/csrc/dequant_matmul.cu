@@ -338,7 +338,7 @@ template <class Q, typename OutT>
 cudaError_t launch(const void* x, const void* w, const void* scale,
                    void* out, void* partial, int R, int in_dim, int out_dim,
                    int splits, int grid, cudaStream_t stream) {
-  static bool configured = false;  // once per instantiation
+  static PerDevice configured;  // once per instantiation and device
   // x: bf16 boxes of BM rows x 64 (128-byte swizzle), int4: x 32 (64-byte
   // swizzle); w: boxes of 64 int8 rows, or 32 packed rows, x BN columns,
   // dense

@@ -108,7 +108,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int B, int S, int Sk, int H, int KV, int window,
                    float scale, float softcap, cudaStream_t stream) {
   using C = Cfg<HD, false>;
-  static bool configured = false;  // once per instantiation
+  static PerDevice configured;  // once per instantiation and device
   CUtensorMap qm, km, vm;
   if (!rows_map<HD>(&qm, q, B, S, H, kRows) ||
       !rows_map<HD>(&km, k, B, Sk, KV, C::kN) ||

@@ -1267,16 +1267,35 @@ inline bool cached_map(CUtensorMap* map, CUtensorMapDataType type,
   return true;
 }
 
-// Set the dynamic shared-memory limit of `kern` once, then launch.
+// Whether a kernel's dynamic shared-memory limit is set, one flag a
+// device: the limit is an attribute of the kernel on one device, and one
+// process may launch on several cards (data-parallel replicas), the
+// launching thread's current device being the one launched on.
+class PerDevice {
+ public:
+  bool& flag() {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    return set_[dev & (kDevices - 1)];
+  }
+
+ private:
+  static constexpr int kDevices = 64;
+  bool set_[kDevices] = {};
+};
+
+// Set the dynamic shared-memory limit of `kern` once a device, then
+// launch.
 template <class C, int kBlockThreads = kThreads, typename Kernel,
           typename... Args>
-cudaError_t launch_sm90(Kernel kern, bool& configured, dim3 grid,
+cudaError_t launch_sm90(Kernel kern, PerDevice& configured, dim3 grid,
                         cudaStream_t stream, Args... args) {
-  if (!configured) {
+  bool& done = configured.flag();
+  if (!done) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
     if (err != cudaSuccess) return err;
-    configured = true;
+    done = true;
   }
   kern<<<grid, kBlockThreads, C::bytes, stream>>>(args...);
   return cudaGetLastError();

@@ -736,12 +736,13 @@ cudaError_t launch(const Geo& geo, const void* q, const void* k,
                    const void* v, const int* pt, const int* sl, void* out,
                    float* ws, int grid, cudaStream_t stream) {
   auto kern = paged_decode_split_kernel<T, HD, GM>;
-  static bool configured = false;  // once per instantiation
-  if (!configured) {
+  static vgt_sm90::PerDevice configured;  // once per instantiation, device
+  bool& done = configured.flag();
+  if (!done) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return err;
-    configured = true;
+    done = true;
   }
   const size_t smem = smem_bytes<T, HD, GM>(geo);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
@@ -758,13 +759,14 @@ cudaError_t launch(const Geo& geo, const void* q, const void* k,
   const size_t merge_smem =
       sizeof(float) * merge_smem_floats(geo.G, geo.max_chunks);
   if (merge_smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-  static bool merge_configured = false;
-  if (!merge_configured) {
+  static vgt_sm90::PerDevice merge_configured;
+  bool& merged = merge_configured.flag();
+  if (!merged) {
     cudaError_t e = cudaFuncSetAttribute(
         merge_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmem);
     if (e != cudaSuccess) return e;
-    merge_configured = true;
+    merged = true;
   }
   merge_kernel<T><<<dim3(geo.B, geo.KV), kMergeThreads, merge_smem,
                     stream>>>(ws_ml, ws_acc, sl, static_cast<T*>(out), HD,
@@ -1426,12 +1428,13 @@ cudaError_t tc_launch(const Geo& geo, const void* q, const void* k,
                             geo.tile_rows, box_cols))
     return cudaErrorInvalidValue;
   auto kern = paged_decode_tc_kernel<KT, HD>;
-  static bool configured = false;  // once per instantiation
-  if (!configured) {
+  static vgt_sm90::PerDevice configured;  // once per instantiation, device
+  bool& done = configured.flag();
+  if (!done) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return err;
-    configured = true;
+    done = true;
   }
   float* ws_ml = ws;
   float* ws_acc =
@@ -1443,13 +1446,14 @@ cudaError_t tc_launch(const Geo& geo, const void* q, const void* k,
       ws_acc, geo, scale_bulk);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || geo.max_chunks == 1) return err;
-  static bool merge_configured = false;
-  if (!merge_configured) {
+  static vgt_sm90::PerDevice merge_configured;
+  bool& merged = merge_configured.flag();
+  if (!merged) {
     cudaError_t e = cudaFuncSetAttribute(
         tc_merge_kernel<bf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmem);
     if (e != cudaSuccess) return e;
-    merge_configured = true;
+    merged = true;
   }
   tc_merge_kernel<bf16><<<dim3(geo.B, geo.KV), kMergeThreads,
                           sizeof(float) *

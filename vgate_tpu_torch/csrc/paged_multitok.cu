@@ -316,7 +316,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    float scale, float softcap, cudaStream_t stream) {
   using C = Cfg<HD, true, kInt8>;
   constexpr int kN = C::kN;
-  static bool configured = false;  // once per instantiation
+  static PerDevice configured;  // once per instantiation and device
   const int box_rows = ps < kN ? ps : kN;
   if (ps % 8 != 0 || (kN % ps != 0 && ps % kN != 0))
     return cudaErrorInvalidValue;

@@ -106,7 +106,8 @@ def _tensors(node: Any):
         yield node
 
 
-def _nbytes(node: Any) -> int:
+def param_bytes(node: Any) -> int:
+    """Bytes of every tensor of a parameter tree."""
     return sum(t.numel() * t.element_size() for t in _tensors(node))
 
 
@@ -115,9 +116,9 @@ def stream_weight_bytes(params: Any, tie_embeddings: bool) -> int:
     tree minus an untied embedding table (gathered one row per token,
     not read fully; tied models read it as lm_head so it stays in).
     Accepts the engine's parameter tree of torch tensors."""
-    total = _nbytes(params)
+    total = param_bytes(params)
     if not tie_embeddings and isinstance(params, dict) and "embed" in params:
-        total -= _nbytes(params["embed"])
+        total -= param_bytes(params["embed"])
     return total
 
 

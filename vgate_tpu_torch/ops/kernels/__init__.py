@@ -32,8 +32,11 @@ def launch_counts(reset: bool = False) -> Dict[str, int]:
         paged_multitok_attention_int8, int8_matmul, int4_matmul,
         paged_decode_attention_blocked, leaf_digest,
     )
-    out = {w.__name__: int(w.launches) for w in wrappers}
-    if reset:
-        for w in wrappers:
-            w.launches = 0
+    from vgate_tpu_torch.ops.kernels import _build
+
+    with _build._count_lock:
+        out = {w.__name__: int(w.launches) for w in wrappers}
+        if reset:
+            for w in wrappers:
+                w.launches = 0
     return out

@@ -10,6 +10,9 @@ source or header is rebuilt.  :func:`build` starts one ``nvcc`` per
 source at once.  :func:`workspace` holds the fp32 scratch that the
 kernels' second launches read (split-k and split-decode partials), and
 :func:`sm_count` the card's SM count that the plans size grids by.
+:func:`count_launch` is the one place a wrapper counts a launch of its
+kernel, and :func:`tallied_launches` lets a thread keep its counts apart
+(a decode-graph capture, whose launches are replayed, not served).
 
 A build at first use can take minutes; a thread that wants to know (the
 engine thread, whose watchdog must not read the pause as a stall)
@@ -30,7 +33,8 @@ import subprocess
 import tempfile
 import threading
 import time
-from typing import Callable, Dict, Iterable, Optional, Tuple
+from contextlib import contextmanager
+from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parents[2] / "csrc"
 SOURCES = {
@@ -49,6 +53,36 @@ NVCC_FLAGS = [
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _observers = threading.local()
+# launch counting: one lock for the wrappers' process-wide counts (engines
+# on several threads launch at once), and a per-thread tally that diverts
+# a thread's counts while it is set
+_count_lock = threading.Lock()
+_tally = threading.local()
+
+
+def count_launch(wrapper: Callable, n: int = 1) -> None:
+    """Add ``n`` launches to ``wrapper.launches``, or to the calling
+    thread's tally while :func:`tallied_launches` is open on it."""
+    tally = getattr(_tally, "counts", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + n
+        return
+    with _count_lock:
+        wrapper.launches += n
+
+
+@contextmanager
+def tallied_launches() -> Iterator[Dict[Callable, int]]:
+    """Within the block, the launches counted on this thread go to the
+    dict it yields, not to the wrappers: another thread's launches in
+    the meantime still reach the wrappers' counts."""
+    outer = getattr(_tally, "counts", None)
+    counts: Dict[Callable, int] = {}
+    _tally.counts = counts
+    try:
+        yield counts
+    finally:
+        _tally.counts = outer
 
 
 def observe_builds(callback: Optional[Callable[[str, Optional[float]], None]]

@@ -98,7 +98,7 @@ def flash_prefill_attention(
     )
     if rc != 0:
         raise RuntimeError(f"flash-prefill kernel launch failed: cuda error {rc}")
-    flash_prefill_attention.launches += 1
+    _build.count_launch(flash_prefill_attention)
     return out
 
 

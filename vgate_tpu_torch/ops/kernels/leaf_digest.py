@@ -101,7 +101,7 @@ def leaf_digest(x: torch.Tensor,
     )
     if rc != 0:
         raise RuntimeError(f"leaf-digest kernel launch failed: cuda error {rc}")
-    leaf_digest.launches += 1
+    _build.count_launch(leaf_digest)
     if out is not None:
         return None
     return int(word.item()) & 0xFFFFFFFF

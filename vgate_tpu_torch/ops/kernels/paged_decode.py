@@ -472,7 +472,7 @@ def paged_decode_attention(
     else:
         out = _tc_launch(q, k_pages, v_pages, None, None, page_tables,
                          seq_lens, float(softcap), int(window), scale)
-    paged_decode_attention.launches += 1
+    _build.count_launch(paged_decode_attention)
     return out
 
 
@@ -501,7 +501,7 @@ def paged_decode_attention_int8(
     out = _tc_launch(q, k_pages.data, v_pages.data, k_pages.scale,
                      v_pages.scale, page_tables, seq_lens, float(softcap),
                      int(window), scale)
-    paged_decode_attention_int8.launches += 1
+    _build.count_launch(paged_decode_attention_int8)
     return out
 
 
@@ -539,7 +539,7 @@ def paged_decode_attention_blocked(
     _check(q, k_pages, v_pages, page_tables, seq_lens)
     out = _split_launch(q, k_pages, v_pages, page_tables, seq_lens, softcap,
                         window, scale, block_slots)
-    paged_decode_attention_blocked.launches += 1
+    _build.count_launch(paged_decode_attention_blocked)
     return out
 
 

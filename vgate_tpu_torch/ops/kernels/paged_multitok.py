@@ -205,7 +205,7 @@ def paged_multitok_attention(
         raise RuntimeError(
             f"paged multi-token kernel launch failed: cuda error {rc}"
         )
-    paged_multitok_attention.launches += 1
+    _build.count_launch(paged_multitok_attention)
     return out
 
 
@@ -260,7 +260,7 @@ def paged_multitok_attention_int8(
         raise RuntimeError(
             f"paged multi-token int8 kernel launch failed: cuda error {rc}"
         )
-    paged_multitok_attention_int8.launches += 1
+    _build.count_launch(paged_multitok_attention_int8)
     return out
 
 

@@ -201,7 +201,7 @@ def int8_matmul(
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     out = _launch(x, q, scale, out_dtype or x.dtype, q.shape[0], int4=False)
-    int8_matmul.launches += 1
+    _build.count_launch(int8_matmul)
     return out
 
 
@@ -222,7 +222,7 @@ def int4_matmul(
         raise ValueError(f"unsupported device {x.device}")
     out = _launch(x, q_packed, scale, out_dtype or x.dtype, x.shape[-1],
                   int4=True)
-    int4_matmul.launches += 1
+    _build.count_launch(int4_matmul)
     return out
 
 

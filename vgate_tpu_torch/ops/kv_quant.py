@@ -116,10 +116,22 @@ def kv_write(pool: KVPool, idx: tuple, value: torch.Tensor) -> None:
     """``pool[idx] = value`` IN PLACE, quantizing on write for int8 pools.
 
     ``idx`` indexes every pool dim except the trailing head_dim (the
-    value carries it) and mixes slices and index tensors; the scale pool
-    takes the identical index.  Duplicate indices are allowed only where
-    they all target trash page 0, whose content is never read, so which
-    duplicate wins does not matter."""
+    value carries it) and mixes slices and index tensors, the page ids
+    second (``idx[1]``, with the value's dims after the first following
+    its shape); the scale pool takes the identical index.  Duplicate
+    indices are allowed only where they all target trash page 0 (an
+    inactive decode slot, a padding row or page), and every write there
+    is zeros: on the card the winner of duplicate writes is not fixed,
+    and a decode slot that never served reads page 0, so a mesh's ranks
+    (or two runs) would otherwise read different trash and compute
+    different inactive rows, which a MoE layer's capacity counts.  No
+    live row reads page 0."""
+    pages = idx[1] if len(idx) > 1 else None
+    if torch.is_tensor(pages):
+        keep = pages != 0
+        keep = keep.reshape(1, *keep.shape,
+                            *([1] * (value.dim() - 1 - keep.dim())))
+        value = value.masked_fill(~keep, 0)
     if is_quantized(pool):
         q, s = quantize(value)
         pool.data[idx] = q

@@ -29,10 +29,21 @@ What a graph needs, and where this module provides it:
   maps, cuBLAS workspaces) and sizes the kernels' shared workspace for
   this stream (``_build.workspace`` refuses to grow during a capture).
 * **Launch counts.**  A kernel wrapper counts a launch when its Python
-  code runs, which under a graph is once, at capture.  Each graph keeps
-  the counts its capture made, the counts of the warm-up and the capture
-  are taken back out, and every replay adds the graph's counts: the
-  totals stay the launches that served decode steps.
+  code runs, which under a graph is once, at capture.  The warm-up and
+  the capture count into a tally of the capturing thread
+  (``_build.tallied_launches``), never into the wrappers; each graph
+  keeps its capture's tally, and every replay adds it: the totals stay
+  the launches that served decode steps, also while another engine of
+  the process launches kernels on its own thread.
+* **Several engines in one process** (data-parallel replicas,
+  runtime/dp_engine.py).  Each engine captures on a capture stream of
+  its own, so the kernels' scratch and cuBLAS's workspace that its
+  graphs bake in are never the ones another engine's graphs replay
+  over.  A capture forbids device-wide synchronization on its device
+  (CUDA's rule for a device with a capturing stream), so captures on
+  one card, and the device-wide calls of engine construction and
+  teardown, serialize on :func:`device_lock`; and the collector is off
+  while any capture of the process runs, on again when the last ends.
 
 There is no fallback: a capture or replay that fails raises, and the
 engine dies as on any device error.
@@ -40,30 +51,17 @@ engine dies as on any device error.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
+import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from vgate_tpu_torch.ops.kernels.paged_decode import (
-    paged_decode_attention,
-    paged_decode_attention_blocked,
-    paged_decode_attention_int8,
-)
-from vgate_tpu_torch.ops.kernels.quant_matmul import int4_matmul, int8_matmul
-
-# the wrappers of the kernels a decode step launches (K1, K1-int8, K6,
-# K4, K5): their counts are kept per graph
-DECODE_WRAPPERS = (
-    paged_decode_attention,
-    paged_decode_attention_int8,
-    paged_decode_attention_blocked,
-    int8_matmul,
-    int4_matmul,
-)
+from vgate_tpu_torch.ops.kernels import _build
 
 
 def _width(n: int) -> int:
@@ -246,42 +244,83 @@ class CapturedChunk:
     def replay(self) -> None:
         self.graph.replay()
         for wrapper, n in self.launches.items():
-            wrapper.launches += n
+            _build.count_launch(wrapper, n)
 
 
-# one capture stream per device, shared by every engine: the kernels'
-# workspace is kept per stream, so the engines share one
-_capture_streams: Dict[int, "torch.cuda.Stream"] = {}
+_device_locks: Dict[int, "threading.RLock"] = {}
+_device_locks_guard = threading.Lock()
+
+
+def device_lock(device: torch.device) -> "threading.RLock":
+    """The process's lock of one card: held by a capture (its warm-up
+    included) and by every device-wide call an engine makes
+    (``torch.cuda.synchronize``, ``empty_cache``), which CUDA forbids
+    while a stream of that device captures."""
+    index = device.index or 0
+    with _device_locks_guard:
+        lock = _device_locks.get(index)
+        if lock is None:
+            lock = _device_locks[index] = threading.RLock()
+        return lock
+
+
+_gc_guard = threading.Lock()
+_gc_holds = 0
+_gc_restore = False
+
+
+@contextlib.contextmanager
+def no_collection() -> Iterator[None]:
+    """No cyclic garbage collection while the block runs on any thread
+    that holds it: the collector is switched off by the first holder and
+    back on (if it was on) by the last, so one capture ending can never
+    turn it on inside another's."""
+    global _gc_holds, _gc_restore
+    with _gc_guard:
+        if _gc_holds == 0:
+            _gc_restore = gc.isenabled()
+            gc.disable()
+        _gc_holds += 1
+    try:
+        yield
+    finally:
+        with _gc_guard:
+            _gc_holds -= 1
+            if _gc_holds == 0 and _gc_restore:
+                gc.enable()
 
 
 class CudaCapture:
-    """Warm-up and capture on the card: the warm-up on the capture
-    stream, then ``torch.cuda.graph`` into the engine's pool with the
-    engine's sampling generator registered, so each replay draws new
-    noise for unseeded sampled rows."""
+    """Warm-up and capture on the card: the warm-up on the engine's own
+    capture stream, then ``torch.cuda.graph`` into the engine's pool with
+    the engine's sampling generator registered, so each replay draws new
+    noise for unseeded sampled rows.  Both hold the card's
+    :func:`device_lock`."""
 
     def __init__(self, device: torch.device,
                  generator: torch.Generator) -> None:
-        index = device.index or 0
-        if index not in _capture_streams:
-            _capture_streams[index] = torch.cuda.Stream(device)
         self.device = device
-        self.stream = _capture_streams[index]
+        # the kernels' scratch (``_build.workspace``) and cuBLAS's
+        # workspace are kept per stream, and a graph bakes their
+        # addresses in: a stream of its own keeps this engine's graphs
+        # off every other engine's scratch
+        self.stream = torch.cuda.Stream(device)
         self.generator = generator
         self.pool = torch.cuda.graph_pool_handle()
 
     def warmup(self, fn: Callable[[], None]) -> None:
         current = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
+        with device_lock(self.device), torch.cuda.stream(self.stream):
             fn()
         current.wait_stream(self.stream)
 
     def capture(self, fn: Callable[[], None]) -> Any:
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                              capture_error_mode="thread_local"):
+        with device_lock(self.device), torch.cuda.graph(
+                graph, pool=self.pool, stream=self.stream,
+                capture_error_mode="thread_local"):
             fn()
         return graph
 
@@ -323,25 +362,17 @@ class DecodeGraphs:
         self.replays += 1
 
     def _capture(self, body, warmup) -> CapturedChunk:
-        before = {w: w.launches for w in DECODE_WRAPPERS}
-        self.capture.warmup(warmup)
-        at_capture = {w: w.launches for w in DECODE_WRAPPERS}
+        # neither the warm-up nor the capture serves a decode step: their
+        # launches go to this thread's tallies, the capture's is replayed
+        with _build.tallied_launches():
+            self.capture.warmup(warmup)
         # No cyclic garbage collection inside a capture: the finalizers
         # of what it frees can make CUDA calls on this thread that a
         # capture forbids, and the capture is then invalidated (seen on
         # the card when a collection fell inside one).  ``torch.cuda.graph``
         # collects explicitly before the capture begins.
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
+        with _build.tallied_launches() as launches, no_collection():
             graph = self.capture.capture(body)
-        finally:
-            if collecting:
-                gc.enable()
-        launches = {w: w.launches - at_capture[w] for w in DECODE_WRAPPERS}
-        # neither the warm-up nor the capture served a decode step
-        for w, n in before.items():
-            w.launches = n
         return CapturedChunk(graph, launches)
 
     def stats(self) -> Dict[str, Any]:

@@ -100,9 +100,17 @@ path — batched, bucketed prompt passes and pipelined decode chunks:
   models/decoder.py.  A follower's death breaks the mesh, and the next
   tick raises into containment.
 
-Not ported yet (the config refuses them): data, sequence and pipeline
-parallelism, and under a model-parallel mesh int8 KV, the host swap
-tier, speculation and the pod.
+* **Several cores in one process** (data parallelism,
+  runtime/dp_engine.py): each replica is a one-device core built with
+  ``shared_process``.  Its threads run under an explicit device guard
+  (the kernels launch on the current device), its pool is sized against
+  its share of the card less its own weights, its decode graphs capture
+  on a stream of its own, and its teardown leaves cuBLAS's workspaces to
+  the siblings whose graphs still use them.
+
+Not ported yet (the config refuses them): sequence and pipeline
+parallelism, dp replicas that are meshes, and under a model-parallel
+mesh int8 KV, the host swap tier, speculation and the pod.
 """
 
 from __future__ import annotations
@@ -115,6 +123,7 @@ import queue
 import tempfile
 import threading
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional, Sequence as Seq
 
 import numpy as np
@@ -149,6 +158,7 @@ from vgate_tpu_torch.observability.reqtrace import RequestTrace
 from vgate_tpu_torch.observability.roofline import (
     EngineRoofline,
     kv_bytes_per_token,
+    param_bytes,
     stream_weight_bytes,
 )
 from vgate_tpu_torch.ops.kernels import _build
@@ -184,6 +194,7 @@ from vgate_tpu_torch.runtime.decode_graph import (
     DecodeGraphs,
     DecodeState,
     _width,
+    device_lock,
 )
 from vgate_tpu_torch.runtime import engine_metrics as metrics
 from vgate_tpu_torch.runtime.kv_cache import (
@@ -640,25 +651,41 @@ class _Readback:
         return [h.numpy() for h in self.host]
 
 
-def pool_budget(share: int, device: torch.device) -> Optional[int]:
+def _device_guard(device: torch.device):
+    """``device`` as the calling thread's current CUDA device for the
+    block (a no-op on the CPU): the kernels launch through ``ctypes`` on
+    the current device."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def pool_budget(share: int, device: torch.device,
+                held: Optional[int] = None) -> Optional[int]:
     """The pool's bytes under a fixed share of the card
     (``device.kv_budget_bytes``, which a pod writes when its workers
-    share one card, or a tp rank's share of a card it shares): the share
-    less what this process holds already (its weights, read after the
-    allocator released its cached blocks).  None without a share: the
-    pool sizes from the free memory.  The CUDA context and the
-    activations come out of the headroom that ``hbm_utilization``
+    share one card, a dp engine for each replica, or a tp rank's share
+    of a card it shares): the share less what this engine holds already
+    — ``held``, its weights, where other engines share the process (dp
+    replicas), else everything the process holds (its weights, read
+    after the allocator released its cached blocks).  None without a
+    share: the pool sizes from the free memory.  The CUDA context and
+    the activations come out of the headroom that ``hbm_utilization``
     leaves."""
     if share <= 0:
         return None
     if device.type != "cuda":
         return share
-    torch.cuda.empty_cache()
+    if held is not None:
+        return max(0, share - held)
+    with device_lock(device):
+        torch.cuda.empty_cache()
     return max(0, share - torch.cuda.memory_reserved(device))
 
 
 def kv_layout(config: VGTConfig, spec: ModelSpec, device: torch.device,
-              model_dtype: torch.dtype, mesh: Mesh):
+              model_dtype: torch.dtype, mesh: Mesh,
+              held: Optional[int] = None):
     """The pool's geometry and element type on this rank: what the pages
     hold (``kv_cache.dtype``: int8 halves the page data and adds one bf16
     scale per (page, head, slot), so one budget holds ~2x the bf16 page
@@ -666,7 +693,7 @@ def kv_layout(config: VGTConfig, spec: ModelSpec, device: torch.device,
     own).  Under tp the count is the minimum over the ranks (rank 0's
     scheduler hands out page ids for all of them), and ranks that share
     one card size against ``hbm_utilization`` x total / (ranks on it),
-    as a pod's workers do."""
+    as a pod's workers do (``held``: see :func:`pool_budget`)."""
     dcfg = config.device
     kv_mode = config.kv_cache.dtype
     kv_quant = kv_mode == "int8"
@@ -691,7 +718,7 @@ def kv_layout(config: VGTConfig, spec: ModelSpec, device: torch.device,
         auto_num_pages(
             spec, ps, dcfg.hbm_utilization, device,
             dtype_bytes=kv_bytes, scale_bytes=kv_scale_bytes,
-            budget_bytes=pool_budget(share, device),
+            budget_bytes=pool_budget(share, device, held),
         ),
     ))
     geometry = KVGeometry(
@@ -708,17 +735,27 @@ def kv_layout(config: VGTConfig, spec: ModelSpec, device: torch.device,
     return geometry, kv_pool_dtype
 
 
+# the cores of this process whose engine thread runs on a card (from
+# start to stop): cuBLAS's workspaces are cleared only when none is left,
+# since a graph of a running core may address any of them
+_card_cores: "weakref.WeakSet[EngineCore]" = weakref.WeakSet()
+
+
 def _release_device_state(old: "EngineCore") -> None:
     """Drop every reference the dead core holds to memory on the card or
     pinned on the host, but its weights: the KV pools, the decode state
-    buffers, the decode graphs (their private pool goes with them), the
-    host swap pool with its pinned chunks, and cuBLAS's workspaces (one a
-    stream; ``stop`` already gave back its share of the kernels'
-    scratch).  No other engine's graphs may replay after this in the
-    process (a supervised process serves one engine): a graph captured
-    earlier may use a cleared workspace.  The supervisor still holds the
-    old core while its successor sizes its pool, so anything left here
-    would be sized out of the new pool."""
+    buffers, the decode graphs (their private pool goes with them, and
+    the kernels' scratch of their capture stream), the host swap pool
+    with its pinned chunks, and cuBLAS's workspaces (one a stream;
+    ``stop`` already gave back the engine stream's share of the kernels'
+    scratch).  cuBLAS's are cleared process-wide, so only when no other
+    core of the process runs on a card: a sibling's graphs (dp replicas)
+    bake its workspaces in, and the old core's few MiB then stay.  The owner still holds the old core while its successor sizes
+    its pool, so anything left here would be sized out of the new
+    pool."""
+    graphs = old._graphs
+    if graphs is not None and old.stream is not None:
+        _build.release_workspace(old.device, graphs.capture.stream.cuda_stream)
     old.k_pages = None
     old.v_pages = None
     old._dec_state = None
@@ -737,7 +774,8 @@ def _release_device_state(old: "EngineCore") -> None:
     old.scheduler.swap = None
     if old.radix_cache is not None:
         old.radix_cache.swap = None
-    if old.stream is not None:
+    _card_cores.discard(old)
+    if old.stream is not None and not len(_card_cores):
         clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
         if clear is not None:
             clear()
@@ -824,6 +862,7 @@ def rebuild_core(
             config, spec=old.model_spec, params=old.params, devices=devices,
             params_ready=not reload_weights,
             decode_graphs=old.decode_graphs, mesh=mesh if reuse else None,
+            shared_process=old.shared_process,
         )
     except BaseException:
         if reuse:
@@ -935,6 +974,7 @@ class EngineCore:
         params_ready: bool = False,
         decode_graphs: Optional[bool] = None,
         mesh: Optional[Mesh] = None,
+        shared_process: bool = False,
     ) -> None:
         """``devices`` (the reference's argument) names each mesh rank's
         device, rank 0 first (default: ``device.devices``, else derived
@@ -953,8 +993,19 @@ class EngineCore:
         replay of a captured CUDA graph (runtime/decode_graph.py).
         ``False`` on the card runs the same chunk body eagerly, for
         comparisons with the graphs; ``True`` on the CPU or over gloo
-        raises."""
+        raises.
+
+        ``shared_process``: other cores serve in this process (a dp
+        replica, runtime/dp_engine.py), so the pool's budget subtracts
+        only this core's weights (:func:`pool_budget`).  A config with
+        ``device.dp > 1`` is the dp engine's, not a core's."""
         self.config = config or get_config()
+        if self.config.device.dp > 1:
+            raise ValueError(
+                "device.dp > 1 is served by runtime/dp_engine.py "
+                "ReplicatedEngine, whose replicas each take a dp=1 config"
+            )
+        self.shared_process = bool(shared_process)
         spec = spec or spec_for_model_id(self.config.model.model_id)
         owns_mesh = mesh is None
         if mesh is None:
@@ -966,7 +1017,10 @@ class EngineCore:
             mesh = build_mesh(self.config, devices)
         self.mesh = mesh
         try:
-            self._init_engine(spec, params, params_ready, decode_graphs)
+            # the kernels launch on the current device: a core on a card
+            # other than the thread's current one builds under a guard
+            with _device_guard(resolve_device(mesh.devices[0])):
+                self._init_engine(spec, params, params_ready, decode_graphs)
         except BaseException:
             if owns_mesh:
                 self.mesh.shutdown(timeout=0.0)
@@ -1072,7 +1126,8 @@ class EngineCore:
                 params = int8_native_layout(params)
         self.params = params
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with device_lock(self.device):
+                torch.cuda.synchronize(self.device)
         self.load_time_s = time.perf_counter() - load_start
         # silent-corruption defense (integrity.py): the sentinel scanner
         # and the weight-checksum baseline over the FINAL serving tree
@@ -1088,7 +1143,8 @@ class EngineCore:
             self.integrity.record_baseline(self.params)
 
         self.geometry, kv_pool_dtype = kv_layout(
-            self.config, self.spec, self.device, self.dtype, self.mesh
+            self.config, self.spec, self.device, self.dtype, self.mesh,
+            held=param_bytes(self.params) if self.shared_process else None,
         )
         kv_quant = kv_pool_dtype == torch.int8
         kv_bytes = self.geometry.dtype_bytes
@@ -1143,6 +1199,8 @@ class EngineCore:
         # so cached pages stay allocatable.  radix=False keeps the
         # scheduler's flat whole-page hash chain.
         pc = dcfg.prefix_cache
+        # the reference's name (the dp router's prefix affinity reads it)
+        self.prefix_cache_enabled = bool(pc.enabled)
         self.radix_cache: Optional[RadixCache] = None
         if pc.enabled and pc.radix:
             self.radix_cache = RadixCache(
@@ -1345,6 +1403,8 @@ class EngineCore:
         if self._running:
             return
         self._running = True
+        if self.stream is not None:
+            _card_cores.add(self)
         self._thread = threading.Thread(
             target=self._loop, name="vgt-torch-engine", daemon=True
         )
@@ -1360,11 +1420,13 @@ class EngineCore:
             _release_device_state(self)
             gc.collect()
             if self.stream is not None:
-                torch.cuda.synchronize(self.device)
+                with device_lock(self.device):
+                    torch.cuda.synchronize(self.device)
         self.mesh.shutdown()
 
     def stop(self) -> None:
         self._running = False
+        _card_cores.discard(self)
         self._wakeup.set()
         if self._thread is not None:
             # a watchdog-declared stall means the thread is presumed
@@ -1577,7 +1639,7 @@ class EngineCore:
             torch.cuda.stream(self.stream) if self.stream is not None
             else contextlib.nullcontext()
         )
-        with stream:
+        with _device_guard(self.device), stream:
             while self._running:
                 try:
                     self._beat("tick")

@@ -328,6 +328,14 @@ class Sequence:
         if getattr(self, "_handoff_hold", False):
             self._handoff_hold = False
         self.handoff_requested = False
+        # the radix-tree path locks and probe memo belong to the source
+        # core's tree: a crash fold never unlocks them there (the core is
+        # dying), and the replay target's scheduler must not unlock them
+        # as its own (its evictable count would grow by pages it does not
+        # hold).  A planned fold released them with the residency first.
+        self._radix_match = None
+        self._radix_insert_node = None
+        self._radix_probe_cache = None
         if self.status is SeqStatus.RUNNING or self.output_ids:
             self.reset_for_recompute()
         else:

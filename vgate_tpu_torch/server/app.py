@@ -9,8 +9,12 @@ A copy of vgate_tpu/server/app.py over the port's engine:
 ``/debug/requests``, ``/debug/requests/{ident}`` and ``/v1/profile`` (a
 ``torch.profiler`` trace).  With a worker pod (``pod.workers > 0``):
 ``/debug/pod`` and ``/admin/replicas`` (GET, and one worker's drain and
-undrain; add and DELETE answer the pod's refusal).  The SIGUSR1 replica
-drain waits for the data-parallel engine (ROADMAP queue 1, item 10b).
+undrain; add and DELETE answer the pod's refusal).  With data
+parallelism (``device.dp > 1``, runtime/dp_engine.py) ``/admin/replicas``
+also adds a replica on a banked device slice (POST) and removes one
+(DELETE), and SIGUSR1 drains the replica named by
+``$VGT_DRAIN_REPLICA``; every replica operation answers 409 while
+``migration.enabled`` is false.
 ``/v1/embeddings``
 serves the backend's encoder (models/encoder.py).
 Engine + batcher construction happens in ``on_startup``, not at module
@@ -1691,15 +1695,25 @@ async def debug_pod(request: web.Request) -> web.Response:
         )
 
 
-def _replica_manager(request: web.Request):
-    """The worker pod behind the /admin/replicas surface, or None: an
-    in-process engine has no replicas here (the data-parallel engine,
-    ROADMAP queue 1 item 10b, is not ported)."""
-    engine: Optional[VGTEngine] = request.app.get("engine")
+def _replica_manager_of(app: web.Application):
+    """The replica manager behind the /admin/replicas surface and the
+    SIGUSR1 drain path — the dp ReplicatedEngine or the worker pod — or
+    None: a dp=1 engine (EngineCore / EngineSupervisor) has no
+    in-process migration target."""
+    engine: Optional[VGTEngine] = app.get("engine")
     core = getattr(engine.backend, "core", None) if engine else None
     if core is not None and hasattr(core, "drain_replica"):
         return core
     return None
+
+
+def _replica_manager(request: web.Request):
+    return _replica_manager_of(request.app)
+
+
+def _migration_enabled(request: web.Request) -> bool:
+    config: VGTConfig = request.app["config"]
+    return bool(config.migration.enabled)
 
 
 def _replica_idx(request: web.Request) -> int:
@@ -1721,15 +1735,20 @@ async def _run_replica_op(
     """Run one blocking replica operation in the executor (a drain
     blocks on the worker's evacuation) and map the typed errors:
     ValueError → 404 (no such replica, for ``idx_op`` ops),
-    MigrationRefusedError → 409 (nothing moved; the body says why).
-    The reference also answers 409 while ``migration.enabled`` is false;
-    that section comes with item 10b."""
+    MigrationRefusedError → 409 (nothing moved; the body says why),
+    and 409 while ``migration.enabled`` is false."""
+    if not _migration_enabled(request):
+        return _error(
+            409,
+            "live migration is disabled (migration.enabled=false)",
+            "invalid_request_error",
+        )
     core = _replica_manager(request)
     if core is None:
         return _error(
             409,
-            "replica operations require a worker pod (pod.workers > 0; "
-            "a single engine drains via SIGTERM)",
+            "replica operations require device.dp > 1 or a worker pod "
+            "(pod.workers > 0; a single engine drains via SIGTERM)",
             "invalid_request_error",
         )
     loop = asyncio.get_running_loop()
@@ -1747,9 +1766,10 @@ async def _run_replica_op(
 
 
 async def admin_replicas(request: web.Request) -> web.Response:
-    """GET /admin/replicas — the pod's per-worker health detail (state,
-    drain marks, epochs, migration counters); 200 with a dp=1 note for a
-    single engine so dashboards can probe unconditionally."""
+    """GET /admin/replicas — the dp fleet's per-replica (or the pod's
+    per-worker) health detail (state, drain marks, migration counters);
+    200 with a dp=1 note for a single engine so dashboards can probe
+    unconditionally."""
     core = _replica_manager(request)
     if core is None:
         return web.json_response(
@@ -1780,16 +1800,19 @@ async def admin_undrain_replica(request: web.Request) -> web.Response:
 
 
 async def admin_add_replica(request: web.Request) -> web.Response:
-    """POST /admin/replicas — a pod's worker count is fixed at boot:
-    answered with the pod's MigrationRefusedError (409)."""
+    """POST /admin/replicas — grow the dp degree on a banked device
+    slice (elastic dp; see ReplicatedEngine.add_replica).  A pod's
+    worker count is fixed at boot: answered with the pod's
+    MigrationRefusedError (409)."""
     return await _run_replica_op(
         request, lambda core: core.add_replica(), idx_op=False
     )
 
 
 async def admin_remove_replica(request: web.Request) -> web.Response:
-    """DELETE /admin/replicas/{idx} — a pod refuses it (409): drain the
-    worker instead."""
+    """DELETE /admin/replicas/{idx} — drain, migrate, tear down, and
+    bank the device slice (elastic dp scale-down).  A pod refuses it
+    (409): drain the worker instead."""
     idx = _replica_idx(request)
     return await _run_replica_op(
         request, lambda core: core.remove_replica(idx)
@@ -2317,6 +2340,50 @@ async def _on_startup(app: web.Application) -> None:
             # non-main thread / platforms without signal support: drain
             # stays reachable programmatically (drain.begin())
             app["drain_signal_installed"] = False
+    if config.migration.enabled:
+        # replica drain without an HTTP round trip: a preStop hook (or an
+        # operator) sends SIGUSR1 and the replica named by
+        # $VGT_DRAIN_REPLICA (an index, default 0) drains — the
+        # live-migration twin of the SIGTERM whole-process drain
+        def _signal_drain_replica() -> None:
+            raw = os.environ.get("VGT_DRAIN_REPLICA", "0")
+            try:
+                idx = int(raw)
+            except ValueError:
+                logger.error(
+                    "VGT_DRAIN_REPLICA=%r is not a replica index", raw
+                )
+                return
+            core = _replica_manager_of(app)
+            if core is None:
+                logger.error(
+                    "SIGUSR1 replica drain ignored: no replica "
+                    "manager (dp=1 or external backend)"
+                )
+                return
+            logger.warning(
+                "SIGUSR1: draining replica via VGT_DRAIN_REPLICA",
+                extra={"extra_data": {"replica": idx}},
+            )
+
+            def _do() -> None:
+                try:
+                    core.drain_replica(idx)
+                except Exception:
+                    logger.error(
+                        "signal-initiated replica drain failed",
+                        exc_info=True,
+                    )
+
+            loop.run_in_executor(None, _do)
+
+        try:
+            loop.add_signal_handler(
+                signal.SIGUSR1, _signal_drain_replica
+            )
+            app["replica_drain_signal_installed"] = True
+        except (NotImplementedError, RuntimeError, ValueError):
+            app["replica_drain_signal_installed"] = False
     metrics.init_app_info(
         __version__, config.model.model_id, config.model.engine_type
     )
@@ -2337,6 +2404,11 @@ async def _on_cleanup(app: web.Application) -> None:
     if app.get("drain_signal_installed"):
         try:
             asyncio.get_running_loop().remove_signal_handler(signal.SIGTERM)
+        except (NotImplementedError, RuntimeError, ValueError):
+            pass
+    if app.get("replica_drain_signal_installed"):
+        try:
+            asyncio.get_running_loop().remove_signal_handler(signal.SIGUSR1)
         except (NotImplementedError, RuntimeError, ValueError):
             pass
     replay_task: Optional[asyncio.Task] = app.get("journal_replay_task")
@@ -2392,9 +2464,9 @@ def create_app(config: Optional[VGTConfig] = None) -> web.Application:
     app.router.add_get("/debug/faults", debug_faults)
     app.router.add_post("/debug/faults", debug_faults_arm)
     app.router.add_delete("/debug/faults", debug_faults_disarm)
-    # replica operations over a worker pod, auth-gated like every
-    # non-exempt path; add and DELETE exist only for a pod, which
-    # refuses them (a single engine keeps the 404 it had)
+    # replica operations over dp replicas or a worker pod, auth-gated
+    # like every non-exempt path; add and DELETE exist only for those (a
+    # pod refuses them; a single engine keeps the 404 it had)
     app.router.add_get("/admin/replicas", admin_replicas)
     app.router.add_post(
         "/admin/replicas/{idx}/drain", admin_drain_replica
@@ -2402,7 +2474,7 @@ def create_app(config: Optional[VGTConfig] = None) -> web.Application:
     app.router.add_post(
         "/admin/replicas/{idx}/undrain", admin_undrain_replica
     )
-    if config.pod.workers > 0:
+    if config.pod.workers > 0 or config.device.dp > 1:
         app.router.add_post("/admin/replicas", admin_add_replica)
         app.router.add_delete(
             "/admin/replicas/{idx}", admin_remove_replica
