@@ -97,12 +97,32 @@ replica 1 and an add on its banked slice, then a crash of replica 1
 mid-burst (its streams resume on replica 0, the repair rebuilds it
 while replica 0 replays), each replica's replays equal to its chunks
 and the launches exact over every core that served; where four cards
-are visible, four replicas, one a card, serve the burst and a drain.
+are visible, four replicas, one a card, serve the burst and a drain;
+(14) last, pipeline parallelism: a pp=1 Qwen2.5-7B engine (the prefix
+cache off, no chunked prefill, as pp forces) serves the burst and a
+1,600-token prompt, then a pp=2 group over the same weights (the engine
+here as stage 0 with the embedding, its 14 layers and the head, a
+follower process as stage 1 with the other 14) on the one card over a
+gloo device group with eager chunks: each stage's launches exact (K1
+14 x 2 microbatches a decode step, K2 14 x M(B) a prompt pass of B
+rows), each stage's weights and memory, greedy streams held to pp=1's
+up to the first near-tie, every prompt's logits held to pp=1's and the
+plain forward, trash page 0 still zeros, a stage-1 follower SIGKILLed
+mid-burst; where two cards are visible, bf16 Mixtral-8x7B (no one card
+holds it) one stage a card over NCCL with decode graphs, its live
+layer-0 MoE output held to the one-rank layer.
+The recovery, tp, ep (Mixtral (a) and Qwen (a')) and dp phases serve
+their models cut to half their depth at full width (``cut_depth``:
+Qwen2.5-7B at 14 of 28 layers, Mixtral at 16 of 32), and the
+speculative phase drafts with Qwen2.5-0.5B at 12 of 24, for the smoke's
+time limit; the main path, the speculative phase's target, the pod and
+the pp phase serve Qwen2.5-7B whole.
 ``python3 chip_smoke.py mixtral`` runs the build and (9) alone, ``pod``
 the build and (10), ``tp`` the build and (11), ``ep`` the build, K4/K5
 at Mixtral's shapes and (12), ``ep b`` the build and (12)'s bf16
 group alone, ``dp`` the build and (13), ``dp b`` the build and (13)'s
-four-card part alone.  Each phase prints the graphs it captured, their
+four-card part alone, ``pp`` the build and (14), ``pp b`` the build and
+(14)'s two-card part alone.  Each phase prints the graphs it captured, their
 capture time and their memory pool's bytes.  It prints the card's
 name and power limit, one JSON line of per-kernel numbers and, last,
 ``{"ok": true, "device": {...}}``.  Any
@@ -3643,6 +3663,9 @@ def quant_path(quantization: str, model: str = MODEL, device: str = "cuda",
 SPEC_K = 4  # drafts a round: verify widths 1, 2, 4 and 5
 SPEC_TOKENS = 64
 DRAFT_MODEL = "Qwen/Qwen2.5-0.5B-Instruct"
+# the draft model's depth in the whole smoke: 12 of its 24 layers, for
+# the smoke's time limit
+DRAFT_LAYERS = 12
 
 
 def repetitive_texts(n: int = 8) -> list:
@@ -4075,17 +4098,11 @@ MIXTRAL_PHASE_LAYERS = 16
 
 
 def cut_depth(model: str, layers: int) -> str:
-    """Register ``model``'s spec cut to ``layers`` layers under the id
-    ``model@layers`` in this process's presets and return that id: the
-    phase's engines draw and serve only those layers."""
-    import dataclasses
-
-    from vgate_tpu_torch.models import specs
-
-    spec = specs.spec_for_model_id(model)
-    name = f"{model}@{layers}"
-    specs._register(dataclasses.replace(spec, name=name, num_layers=layers))
-    return name
+    """The id of ``model`` cut to its first ``layers`` layers at full
+    width (``model@layers``: models/specs.py ``spec_for_model_id``
+    resolves it in this process and in every follower or pod worker):
+    the phase's engines draw and serve only those layers."""
+    return f"{model}@{layers}"
 
 
 def filler(head: str, n: int, stride: int) -> str:
@@ -5172,6 +5189,12 @@ def print_recovery(card: str, recovery: dict) -> None:
 # ------------------------------------------------------------------- tp
 
 TP_TOKENS = 32
+# Qwen2.5-7B's depth in the recovery, tp, ep (a') and dp phases: 14 of
+# its 28 layers at full width, for the smoke's time limit (the pod phase
+# serves all 28: its 1,600-token prompt's KV must pass the staging
+# floor); the Mixtral ep phase (a) serves MIXTRAL_PHASE_LAYERS of its 32
+MESH_LAYERS = 14
+MESH_MODEL = f"{MODEL}@{MESH_LAYERS}"
 # one card, two ranks (phase a); two cards, one rank each (phase b)
 TP_ONE_CARD = ["cuda:0", "cuda:0"]
 TP_TWO_CARDS = ["cuda:0", "cuda:1"]
@@ -5327,10 +5350,15 @@ def tp_config(devices, quantization=None):
     chunked prefill at 512, pages of 32 and 32 slots, ``quantization``
     weights and a bf16 pool; ``devices`` names each rank's card (one
     entry: tp 1)."""
-    return engine_config(MODEL, "cuda", quantization=quantization,
+    return engine_config(MESH_MODEL, "cuda", quantization=quantization,
                          prefill_chunk=512, kv_page_size=32,
                          max_batch_slots=32, tp=len(devices),
                          devices=list(devices) if len(devices) > 1 else [])
+
+
+# a traffic group's name suffix: the named group's requests once more, on
+# a warm engine (its decode graph keys already captured)
+AGAIN = " again"
 
 
 def tp_traffic():
@@ -5429,29 +5457,33 @@ def tp_plain_tolerance(core, ids) -> dict:
     return {"ref": ref, "floor": floor, "tol": max(3 * floor, 4 * ulp)}
 
 
-def tp_reference(traffic, quantization=None) -> dict:
-    """The tp = 1 engine over the same random weights (seed 0): its
-    streams and greedy top-2 gaps and its serving numbers, and for every
-    greedy request, by (group, index), its prompt's ids, prompt-pass
-    logits and the plain forward's reference and tolerance (the tp = 1
-    logits held within it)."""
-    engine, core = start_engine(tp_config(["cuda:0"], quantization),
-                                f"tp=1 {quantization or 'bf16'} reference")
+def tp_reference(traffic, quantization=None, cfg=None,
+                 what: str = "tp=1") -> dict:
+    """The tp = 1 engine (``cfg``, default ``tp_config``'s) over the same
+    random weights (seed 0): its streams and greedy top-2 gaps and its
+    serving numbers, and for every greedy request, by (group, index), its
+    prompt's ids, prompt-pass logits and the plain forward's reference
+    and tolerance (the tp = 1 logits held within it); a group served
+    ``again`` (``AGAIN``) repeats an earlier one's prompts, and its
+    streams are held with theirs."""
+    cfg = cfg or tp_config(["cuda:0"], quantization)
+    engine, core = start_engine(cfg,
+                                f"{what} {quantization or 'bf16'} reference")
     try:
-        warm_up(core, "tp=1 reference engine")
+        warm_up(core, f"{what} reference engine")
         served = tp_serve(engine, traffic)
         prompts_ = {}
         for name, texts, params in traffic:
             for i, (text, sp) in enumerate(zip(texts, params)):
-                if sp.temperature != 0.0:
+                if sp.temperature != 0.0 or name.endswith(AGAIN):
                     continue
                 ids = core.encode_prompt(text)
                 logits = tp_prompt_logits(core, ids)
                 tol = tp_plain_tolerance(core, ids)
                 err = float((logits - tol["ref"]).abs().max())
                 check(err <= tol["tol"],
-                      f"tp=1 {name} {i}: logits {err} off the plain forward"
-                      f" (tolerance {tol['tol']})")
+                      f"{what} {name} {i}: logits {err} off the plain "
+                      f"forward (tolerance {tol['tol']})")
                 prompts_[(name, i)] = {"ids": ids, "logits": logits,
                                        "vs_plain": err, **tol}
         return {"served": served, "prompts": prompts_}
@@ -5472,7 +5504,7 @@ def tp_streams_agree(ref: dict, served: dict, what: str) -> dict:
             if gaps is None:
                 continue  # the seeded sampled row
             b = served[name]["streams"][i]
-            tol = ref["prompts"][(name, i)]["tol"]
+            tol = ref["prompts"][(name.removesuffix(AGAIN), i)]["tol"]
             upto = next((j for j, g in enumerate(gaps) if g < tol), len(a))
             check(b[:upto] == a[:upto],
                   f"{what}, {name} {i}: the stream leaves tp=1's before "
@@ -5607,9 +5639,11 @@ def tp_kill_drill(engine, core, batch, what: str = "tp kill drill") -> dict:
             "wall_s": numbers["wall_s"]}
 
 
-# K5 (int4) launches a forward pass of Qwen2.5-7B: q/k/v/o and
-# gate/up/down of 28 layers, and the lm_head; the same on each tp rank
-QWEN_QMM_PER_PASS = 7 * 28 + 1
+def qmm_per_pass(spec) -> int:
+    """K5 (int4) launches a forward pass of a dense model: q/k/v/o and
+    gate/up/down of every layer, and the lm_head; the same on each tp
+    rank (197 at Qwen2.5-7B's 28 layers)."""
+    return 7 * spec.num_layers + 1
 
 
 def tp_group(devices, ref: dict, traffic, what: str, quantization=None,
@@ -5640,7 +5674,8 @@ def tp_group(devices, ref: dict, traffic, what: str, quantization=None,
         s0 = live.get_stats()
         f0s = live.follower_stats()
         served = tp_serve(engine, traffic)
-        qmm = ("int4_matmul", QWEN_QMM_PER_PASS) if quantization else None
+        qmm = (("int4_matmul", qmm_per_pass(live.spec)) if quantization
+               else None)
         check(quantization in (None, "int4"), f"{what}: {quantization}")
         launches = mesh_launches(core, s0, f0s, L, f"tp=2 {what}", qmm)
         s1 = live.get_stats()
@@ -5739,11 +5774,11 @@ def tp_path(card: str) -> list:
 
 # ----------------------------------------------------------------- ep
 
-def ep_config(devices, quantization="int8"):
+def ep_config(devices, quantization="int8", model: str = MIXTRAL):
     """The ep phase's Mixtral-8x7B group: ``quantization`` weights (int8,
     experts too, or None: bf16), a bf16 pool, the prefix cache on,
     chunked prefill at 512, pages of 32, 32 slots, ep = the ranks."""
-    return engine_config(MIXTRAL, "cuda", quantization=quantization,
+    return engine_config(model, "cuda", quantization=quantization,
                          prefill_chunk=512, kv_page_size=32,
                          max_batch_slots=32, ep=len(devices),
                          devices=list(devices))
@@ -5813,8 +5848,10 @@ def group_logits(core, text: str) -> dict:
                     live.params, spec, up(tokens), up(positions),
                     live.k_pages, live.v_pages, up(table),
                     active=up(active))
-                # the step's token, which the followers wait for
-                live.mesh.broadcast(up(tokens))
+                # the step's token, which the followers wait for (a
+                # pipeline's stages take activations instead)
+                if live.mesh.pp == 1:
+                    live.mesh.broadcast(up(tokens))
             if dev.type == "cuda":
                 torch.cuda.synchronize()
     finally:
@@ -5954,7 +5991,8 @@ def moe_layer0(spec, device="cuda", dtype=torch.bfloat16) -> dict:
     return out
 
 
-def ep_group(devices, traffic, what: str, quantization="int8") -> dict:
+def ep_group(devices, traffic, what: str, quantization="int8",
+             model: str = MIXTRAL) -> dict:
     """One ep group of Mixtral-8x7B on ``devices`` through the backend:
     boot, warm-up, the traffic with every rank's launches exact (K4
     ``ep_k4_per_pass`` a pass with int8 weights, none in bf16), each
@@ -5972,7 +6010,7 @@ def ep_group(devices, traffic, what: str, quantization="int8") -> dict:
     print(f"memory allocated before the ep={ep} {what} group: "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
     t0 = time.perf_counter()
-    engine, core = start_engine(ep_config(devices, quantization),
+    engine, core = start_engine(ep_config(devices, quantization, model),
                                 f"ep={ep} {what}")
     out = {"boot_s": time.perf_counter() - t0,
            "weights": quantization or "bf16"}
@@ -6047,7 +6085,7 @@ def ep_group(devices, traffic, what: str, quantization="int8") -> dict:
         del engine, core
         gc.collect()
         torch.cuda.empty_cache()
-    spec = spec_for_model_id(MIXTRAL)
+    spec = spec_for_model_id(model)
     t0 = time.perf_counter()
     if quantization:
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -6086,7 +6124,8 @@ def ep_path(card: str) -> list:
     runs = []
     # two ranks on the one card: two processes, two CUDA contexts, a gloo
     # device group, eager chunks
-    a = ep_group(TP_ONE_CARD, traffic, "phase (a), one card")
+    a = ep_group(TP_ONE_CARD, traffic, "phase (a), one card",
+                 model=cut_depth(MIXTRAL, MIXTRAL_PHASE_LAYERS))
     drill = a.pop("kill_drill")
     print(f"ep phase (a), Mixtral-8x7B int8, 2 ranks on {card}: "
           + json.dumps(a), flush=True)
@@ -6519,11 +6558,11 @@ def dp_path(card: str) -> list:
     (their summed launches)."""
     traffic = tp_traffic()
     burst = traffic[0]
-    ref = dp_reference((burst[1], burst[2]))
+    ref = dp_reference((burst[1], burst[2]), MESH_MODEL)
     # the reference engine's pool goes before the replicas size theirs
     gc.collect()
     torch.cuda.empty_cache()
-    a = dp_phase(DP_ONE_CARD, "phase (a), one card", ref)
+    a = dp_phase(DP_ONE_CARD, "phase (a), one card", ref, model=MESH_MODEL)
     print(f"dp phase (a), Qwen2.5-7B, 2 replicas on {card}: "
           + json.dumps(a), flush=True)
     return [a] + dp_phase_b(card)
@@ -6542,6 +6581,246 @@ def dp_phase_b(card: str) -> list:
                  drills=False)
     print(f"dp phase (b), Qwen2.5-7B, 4 replicas on 4 x {card}: "
           + json.dumps(b), flush=True)
+    return [b]
+
+
+# ------------------------------------------------------ pipeline parallelism
+
+PP_ONE_CARD = ["cuda:0", "cuda:0"]
+PP_TWO_CARDS = ["cuda:0", "cuda:1"]
+# a prompt pass of one row runs the same kernels on the same shapes at pp
+# = 1 and 2 (M = 1), and the stages' bf16 activations pass unchanged: the
+# logits are equal (0.0 off for all 9 prompts in the first run on
+# NVIDIA H100 80GB HBM3, 700.00 W), and held so
+PP_LOGITS_BOUND = 0.0
+
+
+def pp_config(devices, model: str = MODEL):
+    """The pp phase's engines: bf16 weights and pool, the prefix cache off
+    (pp forces it off) and no chunked prefill (pp refuses it), pages of
+    32 and 32 slots; ``devices`` names each stage's card (one entry: the
+    pp = 1 reference)."""
+    return engine_config(model, "cuda", kv_page_size=32, max_batch_slots=32,
+                         prefix_cache={"enabled": False},
+                         pp=len(devices),
+                         devices=list(devices) if len(devices) > 1 else [])
+
+
+def pp_traffic():
+    """(name, texts, params) of the phase's traffic: the 9-request burst
+    (8 greedy with their top-2 logprobs, 1 seeded sampled), a
+    1,600-token prompt (one prompt pass of the 2,048 bucket), then the
+    burst again on the warm engine (the first burst's logprobs keys are
+    captured inside it at pp = 1)."""
+    burst, long = [g for g in tp_traffic() if g[0] in ("burst", "long")]
+    return [burst, long, ("burst" + AGAIN, *burst[1:])]
+
+
+@contextlib.contextmanager
+def pp_recorded_passes():
+    """The batch of every prompt pass the relay runs in this process
+    (stage 0's, eager in every layout) while the block runs."""
+    from vgate_tpu_torch.parallel import pipeline
+
+    real, passes = pipeline.pp_prefill_forward, []
+
+    def recorded(params, spec, tokens, *args, **kwargs):
+        passes.append(int(tokens.shape[0]))
+        return real(params, spec, tokens, *args, **kwargs)
+
+    pipeline.pp_prefill_forward = recorded
+    try:
+        yield passes
+    finally:
+        pipeline.pp_prefill_forward = real
+
+
+def pp_launches(core, s0: dict, f0s: list, passes: list, what: str) -> dict:
+    """Each stage's launches since the counts were set to 0, exactly: K1
+    ``L/pp x M`` a decode step (M = pp microbatches of the 32 slots) and
+    K2 ``L/pp x M(B)`` a prompt pass of B rows (``passes``), no K3 (no
+    prefix hit or chunk under pp); every follower ran rank 0's steps and
+    passes.  Returns the launches summed over the stages (K1 ``L x M`` a
+    step and K2 ``L x M(B)`` a pass over the group), and each stage's."""
+    from vgate_tpu_torch.parallel.pipeline import microbatches
+
+    live = live_core(core)
+    s = live.get_stats()
+    fs = live.follower_stats()
+    pp, Ls = live.mesh.pp, live.spec.num_layers
+    steps = s["steps"] - s0["steps"]
+    n_passes = s["prompt_passes"] - s0["prompt_passes"]
+    check(steps > 0 and n_passes == len(passes) > 0,
+          f"{what}: {steps} steps, {n_passes} passes ({passes} recorded)")
+    k1 = Ls * microbatches(live.max_slots, pp) * steps
+    k2 = Ls * sum(microbatches(B, pp) for B in passes)
+    ranks = [(0, read_launches())]
+    for f, f0 in zip(fs, f0s):
+        rank = f["rank"]
+        check(f["steps"] - f0["steps"] == steps
+              and f["prompt_passes"] - f0["prompt_passes"] == n_passes,
+              f"{what}: stage {rank} ran {f['steps'] - f0['steps']} steps "
+              f"and {f['prompt_passes'] - f0['prompt_passes']} passes, "
+              f"stage 0 {steps} and {n_passes}")
+        ranks.append((rank, f["kernel_launches"]))
+    total, each = {}, {}
+    for rank, n in ranks:
+        check(n[K1] == k1 and n[K2] == k2 and n.get(K3, 0) == 0,
+              f"{what}, stage {rank}: K1 {n[K1]} (expected {k1}), K2 "
+              f"{n[K2]} (expected {k2}), K3 {n.get(K3, 0)}")
+        each[str(rank)] = {K1: n[K1], K2: n[K2]}
+        for name, count in n.items():
+            total[name] = total.get(name, 0) + count
+    return {"launches": total, "per_stage": each, "decode_steps": steps,
+            "prompt_passes": n_passes, "pass_rows": passes,
+            "layers_a_stage": Ls}
+
+
+def pp_group(devices, ref: dict, traffic, what: str,
+             model: str = MODEL) -> dict:
+    """One pp group of ``model`` on ``devices`` through the backend:
+    boot, warm-up, the traffic with every stage's launches exact, the
+    greedy streams held to the pp = 1 engine's (``ref``; none for a
+    model no card holds), each stage's weights, pool and peak memory,
+    every greedy prompt's prompt-pass logits against pp = 1's and the
+    plain forward, trash page 0 still zeros on stage 0, and over gloo
+    the stage-1 follower kill drill."""
+    pp = len(devices)
+    print(f"memory allocated before the pp={pp} {what} group: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    t0 = time.perf_counter()
+    engine, core = start_engine(pp_config(devices, model), f"pp={pp} {what}")
+    out = {"boot_s": time.perf_counter() - t0}
+    try:
+        live = live_core(core)
+        stats = live.get_stats()
+        check(stats["mesh"]["pp"] == pp and live.spec.pipeline is not None
+              and not live.prefix_cache_enabled,
+              f"{what}: mesh {stats['mesh']}")
+        backend, graphs = stats["mesh"]["backend"], live.decode_graphs
+        chunks = ("graph replays" if graphs
+                  else "eager (gloo cannot be captured)")
+        print(f"pp={pp} {what}: device group {backend}, decode chunks "
+              f"{chunks}", flush=True)
+        out.update(backend=backend, decode_graphs=graphs,
+                   warmup_s=warm_up(core, f"pp={pp} {what}")["warmup_s"])
+        live.reset_follower_launches()
+        torch.cuda.reset_peak_memory_stats()
+        s0 = live.get_stats()
+        f0s = live.follower_stats()
+        with pp_recorded_passes() as passes:
+            served = tp_serve(engine, traffic)
+        out.update(pp_launches(core, s0, f0s, passes, f"pp={pp} {what}"))
+        s1 = live.get_stats()
+        if graphs:
+            g0, g1 = s0["decode_graphs"], s1["decode_graphs"]
+            check(g1["replays"] - g0["replays"] == s1["chunks"] - s0["chunks"],
+                  f"{what}: {g1['replays'] - g0['replays']} replays for "
+                  f"{s1['chunks'] - s0['chunks']} chunks")
+            out["replays"] = g1["replays"] - g0["replays"]
+            out["chunks"] = s1["chunks"] - s0["chunks"]
+        spec = live.model_spec
+        for group in served.values():
+            for stream in group["streams"]:
+                check(len(stream) == TP_TOKENS
+                      and all(0 <= t < spec.vocab_size for t in stream),
+                      f"{what}: a stream of {len(stream)} tokens")
+        check(not live.k_pages[:, :, 0].any() and
+              not live.v_pages[:, :, 0].any(),
+              f"{what}: stage 0 wrote trash page 0")
+        out.update({name: served[name]["numbers"] for name in served})
+        out["memory"] = tp_memory(core)
+        if ref is not None:
+            for name in served:
+                out[f"pp1 {name}"] = ref["served"][name]["numbers"]
+            out["streams"] = tp_streams_agree(ref, served, f"pp={pp} {what}")
+            out["sampled_row_agrees"] = (
+                served["burst"]["streams"][8]
+                == ref["served"]["burst"]["streams"][8])
+            errs = {}
+            for (name, i), p in ref["prompts"].items():
+                got = tp_prompt_logits(core, p["ids"])
+                check(bool(torch.isfinite(got).all()), "pp logits not finite")
+                vs_pp1 = float((got - p["logits"]).abs().max())
+                err_plain = float((got - p["ref"]).abs().max())
+                check(err_plain <= p["tol"] and vs_pp1 <= PP_LOGITS_BOUND,
+                      f"{what}, {name} {i}: logits {vs_pp1} off pp=1's "
+                      f"(bound {PP_LOGITS_BOUND}), {err_plain} off the "
+                      f"plain forward (tolerance {p['tol']})")
+                errs[f"{name} {i}"] = {"vs_pp1": vs_pp1,
+                                       "vs_plain": err_plain,
+                                       "pp1_vs_plain": p["vs_plain"],
+                                       "tol": p["tol"]}
+            out["logits_max_abs_vs_pp1"] = max(e["vs_pp1"]
+                                               for e in errs.values())
+            out["logits"] = errs
+        else:
+            rec = group_logits(core, prompts()[2])
+            out["logits_finite"] = bool(
+                torch.isfinite(rec["prefill"]).all()
+                and torch.isfinite(rec["decode"]).all())
+            check(out["logits_finite"], f"{what}: logits not finite")
+            gate0 = live.params["layers"]["gate"]["w"][0].cpu()
+        if backend == "gloo":
+            burst = traffic[0]
+            drill = tp_kill_drill(engine, core, (burst[1], burst[2]),
+                                  f"pp={pp} kill drill")
+            drill.pop("streams")
+            out["kill_drill"] = drill
+    finally:
+        engine.shutdown()
+        del engine, core
+        gc.collect()
+        torch.cuda.empty_cache()
+    if ref is None:
+        # layer 0 (stage 0's) as the live group computed it, against the
+        # one-rank layer drawn alone: no card holds the whole bf16 tree
+        spec = live.model_spec
+        lp = moe_layer0(spec)
+        check(torch.equal(gate0, lp["gate"]["w"].cpu()),
+              f"{what}: stage 0's layer-0 experts are not the seed's")
+        out["moe_layer_live"] = check_moe_layer_live(
+            rec["moe_layer0"], lp, spec, f"pp={pp} {what}")
+        del lp
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def pp_path(card: str) -> list:
+    """Phase (a): Qwen2.5-7B bf16 at pp = 2, both stages on the one card
+    (two processes, a gloo device group, eager chunks), beside a pp = 1
+    engine's traffic on the same card; phase (b), where two or more cards
+    are visible, bf16 Mixtral-8x7B at pp = 2, one stage a card.  Prints
+    each; returns the runs (their summed launches)."""
+    traffic = pp_traffic()
+    ref = tp_reference(traffic, cfg=pp_config(["cuda:0"]), what="pp=1")
+    gc.collect()
+    torch.cuda.empty_cache()
+    a = pp_group(PP_ONE_CARD, ref, traffic, "phase (a), one card")
+    drill = a.pop("kill_drill")
+    print(f"pp phase (a), Qwen2.5-7B bf16, 2 stages on {card}: "
+          + json.dumps(a), flush=True)
+    print(f"pp phase (a) follower kill drill on {card}: "
+          + json.dumps(drill), flush=True)
+    return [a] + pp_phase_b(card, traffic)
+
+
+def pp_phase_b(card: str, traffic) -> list:
+    """Phase (b), where two or more cards are visible: bf16 Mixtral-8x7B
+    (93 GB, which no one card holds) at pp = 2, one stage a card, over
+    NCCL with decode graphs; otherwise a line says why it did not run."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"pp phase (b) did not run: {count} card visible, and it "
+              "needs 2 (bf16 Mixtral, 93 GB, fits no one card: one stage "
+              "a card, NCCL, decode graphs)", flush=True)
+        return []
+    # the burst, then again on the warm group
+    b = pp_group(PP_TWO_CARDS, None, traffic[::2], "phase (b), two cards",
+                 model=MIXTRAL)
+    print(f"pp phase (b), Mixtral-8x7B bf16, 2 stages over NCCL on "
+          f"2 x {card}: " + json.dumps(b), flush=True)
     return [b]
 
 
@@ -6621,10 +6900,19 @@ def main() -> None:
             print(f"dp launches: {json.dumps(run['launches'])}")
         print(card_line())
         return
+    if sys.argv[1:2] == ["pp"]:
+        # the pp phase alone, after the build (a shorter run while that
+        # phase is worked on); ``pp b`` its phase (b) alone (two cards)
+        runs = (pp_phase_b(card, pp_traffic()) if sys.argv[2:] == ["b"]
+                else pp_path(card))
+        for run in runs:
+            print(f"pp launches: {json.dumps(run['launches'])}")
+        print(card_line())
+        return
     if sys.argv[1:] == ["recovery"]:
         # the recovery phase alone, after the build (a shorter run while
         # that phase is worked on); with no argument every phase runs
-        recovery = recovery_path()
+        recovery = recovery_path(MESH_MODEL)
         print_recovery(card, recovery)
         print(card_line())
         print(json.dumps({"kernels": [recovery["kernel"]]}))
@@ -6696,7 +6984,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     memory("the host-swap phase")
     # speculative decoding over the same weights
-    spec = spec_path(params)
+    spec = spec_path(params, draft_model=cut_depth(DRAFT_MODEL,
+                                                   DRAFT_LAYERS))
     print(f"speculative phase on {card}: " + json.dumps(spec), flush=True)
     del params
     gc.collect()
@@ -6709,7 +6998,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     memory("the embeddings phase")
     # supervised recovery, integrity and the perf recorder at 7B
-    recovery = recovery_path()
+    recovery = recovery_path(MESH_MODEL)
     print_recovery(card, recovery)
     kernels.append(recovery.pop("kernel"))
     memory("the recovery phase")
@@ -6786,6 +7075,10 @@ def main() -> None:
     # dp replicas in this process: every core's launches join the count
     runs += dp_path(card)
     memory("the dp phase")
+    # the pipeline: every stage's launches (the followers' read over the
+    # control group) join the count
+    runs += pp_path(card)
+    memory("the pp phase")
     for k in kernels:
         # launches of every path, each counted from 0 just before it ran
         k["launches"] = sum(run["launches"].get(k["name"], 0)

@@ -35,7 +35,8 @@ def test_defaults_and_sections():
         {"device": {"tp": 2}, "pod": {"workers": 2}},
         pytest.param({"device": {"dp": 2, "tp": 2}}, id="{'dp': 2}"),
         {"device": {"sp": 2}},
-        {"device": {"pp": 2}},
+        # pp serves since item 10d's first part, at tp = ep = 1 only
+        pytest.param({"device": {"pp": 2, "tp": 2}}, id="{'pp': 2}"),
         {"device": {"ep": 2}, "pod": {"workers": 2}},
         {"model": {"model_id": "tiny-moe"},
          "device": {"ep": 2, "speculative_k": 2}},
@@ -48,6 +49,56 @@ def test_unported_switches_raise(sections):
         sections["model"] = {"model_id": "tiny-dense", **sections["model"]}
     with pytest.raises(NotPortedError, match="not ported yet"):
         load_config(**sections)
+
+
+PP_REFUSALS = [
+    # the reference's permanent exclusions and its pp rules, its words
+    ({"device": {"pp": 2, "sp": 2}}, ValueError,
+     r"sp=2 and pp=2 cannot combine: .* a permanent design exclusion"),
+    ({"device": {"pp": 2, "speculative_k": 2}}, ValueError,
+     r"speculative decoding cannot combine with pp>1: .* permanent"),
+    ({"device": {"pp": 2, "prefill_chunk": 8}}, ValueError,
+     r"prefill_chunk \(chunked prefill\) requires pp == 1"),
+    ({"device": {"pp": 2}, "kv_cache": {"dtype": "int8"}}, ValueError,
+     r"kv_cache.dtype=int8 requires a plain mesh, got \{'pp': 2\}"),
+    ({"device": {"pp": 2}, "kv_cache": {"host_swap_bytes": 1 << 20}},
+     ValueError,
+     r"kv_cache.host_swap_bytes requires a plain mesh, got \{'pp': 2\}"),
+    ({"device": {"pp": 3}}, ValueError, r"^2 layers not divisible by pp=3$"),
+    # the port's own: the rest of item 10d, and dp replicas as meshes
+    ({"device": {"pp": 2, "tp": 2}}, NotPortedError,
+     r"device.pp=2 with device.tp=2 .* item 10d \(rest\)"),
+    ({"model": {"model_id": "tiny-moe"}, "device": {"pp": 2, "ep": 2}},
+     NotPortedError, r"device.pp=2 with .*device.ep=2 .* item 10d \(rest\)"),
+    ({"device": {"pp": 2, "dp": 2}}, NotPortedError,
+     r"device.dp>1 with .*device.pp .* item 10b \(rest\)"),
+    ({"device": {"sp": 2}}, NotPortedError, r"device.sp>1 .* 10d \(rest\)"),
+    ({"device": {"pp": 2}, "pod": {"workers": 2}}, NotPortedError,
+     r"pod.workers>0 under a model-parallel mesh .*device.pp"),
+]
+
+
+@pytest.mark.parametrize(
+    "sections,error,match", PP_REFUSALS,
+    ids=["pp_x_sp", "speculation", "prefill_chunk", "int8_kv", "host_swap",
+         "layers", "pp_x_tp", "pp_x_ep", "dp_x_pp", "sp", "pod"])
+def test_pipeline_refusals(sections, error, match):
+    """Every rule the reference enforces under pp raises its
+    ``ValueError`` with its words; pp with tp or ep, and sp, raise
+    ``NotPortedError`` citing item 10d (rest), dp x pp citing 10b
+    (rest)."""
+    model = {"model_id": "tiny-dense", **sections.pop("model", {})}
+    with pytest.raises(error, match=match):
+        load_config(model=model, **sections)
+
+
+def test_pipeline_loads_at_tp_ep_one():
+    """pp > 1 at tp = ep = 1 loads, and pp 0 (every device) with it."""
+    for model in ("tiny-dense", "tiny-gemma2", "tiny-moe"):
+        cfg = load_config(model={"model_id": model, "quantization": "int8"},
+                          device={"pp": 2, "prefix_cache": True})
+        assert cfg.device.pp == 2
+    assert load_config(device={"pp": 0}).device.pp == 0
 
 
 @pytest.mark.parametrize(
@@ -224,3 +275,21 @@ def test_decode_block_slots_accepted(slots):
 def test_decode_block_slots_below_one_raise():
     with pytest.raises(ValueError, match="decode_block_slots"):
         load_config(device={"decode_block_slots": 0})
+
+
+def test_a_cut_depth_model_id_names_the_preset_cut():
+    """``<preset>@<n>`` is the preset cut to its first n layers, at full
+    width, in any process (a follower or a pod worker resolves it from
+    the config); a depth past the preset's raises."""
+    from vgate_tpu_torch.models.specs import spec_for_model_id
+
+    whole = spec_for_model_id("Qwen/Qwen2.5-7B-Instruct")
+    cut = spec_for_model_id("Qwen/Qwen2.5-7B-Instruct@14")
+    assert (cut.num_layers, cut.name) == (14, "Qwen/Qwen2.5-7B-Instruct@14")
+    assert cut.hidden_size == whole.hidden_size and cut.num_heads == 28
+    for bad in ("Qwen/Qwen2.5-7B-Instruct@29", "tiny-dense@0",
+                "tiny-dense@x"):
+        with pytest.raises(KeyError):
+            spec_for_model_id(bad)
+    assert load_config(model={"model_id": "tiny-dense@1"},
+                       device={"pp": 1}).model.model_id == "tiny-dense@1"

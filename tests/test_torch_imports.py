@@ -476,3 +476,28 @@ def test_ep_follower_serves_without_jax_or_the_jax_package(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+PP_PROBE = TP_PROBE.replace('"tp": 2', '"pp": 2').replace(
+    "    [stats] = core.follower_stats()",
+    "    assert core.get_stats()['mesh']['pp'] == 2\n"
+    "    assert core.spec.pipeline is core.mesh\n"
+    "    [stats] = core.follower_stats()\n"
+    "    assert 'embed' not in stats['memory']['leaves']",
+)
+
+
+def test_pp_stage_serves_without_jax_or_the_jax_package(tmp_path):
+    """A pp=2 engine (stage 0) and its stage-1 follower serve a stream
+    through the pipeline relay with JAX, the JAX package, the HTTP
+    layer's packages and PyYAML blocked in both interpreters."""
+    assert '"pp": 2' in PP_PROBE and '"tp"' not in PP_PROBE
+    (tmp_path / "sitecustomize.py").write_text(TP_SITECUSTOMIZE)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(tmp_path)
+    proc = subprocess.run(
+        [sys.executable, "-c", PP_PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=240,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().splitlines()[-1] == "ok"

@@ -92,7 +92,11 @@ def test_replica_slices_take_one_device_each(device, expect):
     ({"dp": 2, "ep": 2}, config_mod.NotPortedError,
      r"queue 1, item 10b \(rest\)"),
     ({"dp": 2, "sp": 2}, config_mod.NotPortedError, r"queue 1, item 10d"),
-    ({"dp": 2, "pp": 2}, config_mod.NotPortedError, r"queue 1, item 10d"),
+    # pp serves since item 10d's first part: dp x pp is a dp replica that
+    # is itself a mesh (the test keeps its id)
+    pytest.param({"dp": 2, "pp": 2}, config_mod.NotPortedError,
+                 r"device.dp>1 .*device.pp .* queue 1, item 10b \(rest\)",
+                 id="device3-NotPortedError-queue 1, item 10d"),
     ({"dp": 2, "devices": ["cpu", "cpu", "cpu"]}, ValueError,
      r"names 3 devices but device.dp is 2"),
     ({"dp": 0}, ValueError, r"device.dp must be >= 1"),

@@ -149,17 +149,18 @@ class DeviceConfig:
     int8_native: bool = False
     # the mesh axes (parallel/mesh.py): tp > 1 shards the model over tp
     # ranks and ep > 1 a MoE model's experts over ep, one process a rank
-    # (ep x tp ranks; tp 0 takes every visible device); dp > 1 serves dp
-    # replicas of a one-device engine in this process behind a router
-    # (runtime/dp_engine.py); sp and pp > 1 are not ported yet and raise
-    # NotPortedError (_check)
+    # (ep x tp ranks; tp 0 takes every visible device); pp > 1 splits the
+    # layers over pp pipeline stages, one process a stage, at tp = ep = 1
+    # (parallel/pipeline.py); dp > 1 serves dp replicas of a one-device
+    # engine in this process behind a router (runtime/dp_engine.py); sp >
+    # 1 is not ported yet and raises NotPortedError (_check)
     dp: int = 1
     tp: int = 1
     sp: int = 1
     pp: int = 1
     ep: int = 1
     # port-only: each rank's device, rank 0 first (empty = derived from
-    # `device`, ep and tp).  Naming one card more than once runs that many
+    # `device`, pp, ep and tp).  Naming one card more than once runs that many
     # ranks on it, over a gloo device group: the one-card test layout.
     # With dp > 1 it names dp x ep x tp devices, replica i taking slice i
     # (one device a replica: ["cuda:0", "cuda:0"] puts two on one card).
@@ -569,26 +570,38 @@ def _check(cfg: VGTConfig) -> None:
         raise ValueError("prefix_cache.min_share_pages must be >= 1")
     if not 0.0 <= pc.evict_watermark < 1.0:
         raise ValueError("prefix_cache.evict_watermark must be in [0, 1)")
-    for axis in ("sp", "pp"):
-        # 0 is the reference's "all devices": one device for these axes
-        if getattr(d, axis) > 1:
-            raise _not_ported(f"device.{axis}>1", "queue 1, item 10d")
+    if d.sp > 1 and d.pp > 1:
+        raise ValueError(
+            f"sp={d.sp} and pp={d.pp} cannot combine: ring-"
+            "attention prefill and the pipeline relay restructure "
+            "the same forward along incompatible axes (sequence-"
+            "inside-layers vs layers-across-stages) — a permanent "
+            "design exclusion, not a missing feature; rationale and "
+            "the supported matrix: docs/composition.md. For large "
+            "meshes use sp*tp (long context) or pp*tp (deep model) "
+            "with dp over the remainder."
+        )
+    if d.sp > 1:
+        # 0 is the reference's "all devices": one device here
+        raise _not_ported("device.sp>1", "queue 1, item 10d (rest)")
     if d.dp < 1:
         raise ValueError("device.dp must be >= 1")
-    if d.tp < 0 or d.ep < 0:
+    if d.tp < 0 or d.ep < 0 or d.pp < 0:
         raise ValueError(
-            "device.tp and device.ep must be >= 0 (0 = every visible device)"
+            "device.tp, device.ep and device.pp must be >= 0 (0 = every "
+            "visible device)"
         )
-    if d.tp == 0 and d.ep == 0:
+    if [d.tp, d.ep, d.pp].count(0) > 1:
         raise ValueError("at most one mesh axis may be 0 (auto)")
-    if d.dp > 1 and (d.tp != 1 or d.ep != 1):
+    if d.dp > 1 and (d.tp != 1 or d.ep != 1 or d.pp != 1):
         # torch.distributed's default group is every mesh's control
         # group, so a process holds one mesh, and dp replicas share it
         raise _not_ported(
-            "device.dp>1 with device.tp or device.ep other than 1 (a dp "
-            "replica that is itself a mesh)", "queue 1, item 10b (rest)",
+            "device.dp>1 with device.tp, device.ep or device.pp other than "
+            "1 (a dp replica that is itself a mesh)",
+            "queue 1, item 10b (rest)",
         )
-    fixed = max(d.tp, 1) * max(d.ep, 1)
+    fixed = max(d.tp, 1) * max(d.ep, 1) * max(d.pp, 1)
     if d.dp > 1 and d.devices and len(d.devices) != d.dp:
         raise ValueError(
             f"device.devices names {len(d.devices)} devices but device.dp "
@@ -596,12 +609,12 @@ def _check(cfg: VGTConfig) -> None:
         )
     if d.dp == 1 and d.devices and (
         len(d.devices) % fixed
-        or (d.tp and d.ep and len(d.devices) != fixed)
+        or (d.tp and d.ep and d.pp and len(d.devices) != fixed)
     ):
         raise ValueError(
             f"device.devices names {len(d.devices)} devices but device.tp "
-            f"is {d.tp} and device.ep {d.ep}: their product must cover "
-            "every device"
+            f"is {d.tp}, device.ep {d.ep} and device.pp {d.pp}: their "
+            "product must cover every device"
         )
     if d.kv_page_size <= 0 or d.max_batch_slots <= 0:
         raise ValueError("kv_page_size and max_batch_slots must be > 0")
@@ -617,8 +630,9 @@ def _check(cfg: VGTConfig) -> None:
     if ranks > 1:
         from vgate_tpu_torch.parallel.sharding import check_mesh_config
 
-        tp = d.tp or ranks // max(d.ep, 1)
-        check_mesh_config(cfg, spec, tp, ranks // tp)
+        rest = ranks // fixed  # the axis at 0, if any
+        tp, ep, pp = (x or rest for x in (d.tp, d.ep, d.pp))
+        check_mesh_config(cfg, spec, tp, ep, pp)
     if spec.is_encoder:
         # the reference has no decoder for an encoder either: it is
         # served behind /v1/embeddings

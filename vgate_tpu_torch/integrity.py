@@ -308,9 +308,12 @@ class WeightVerifier:
     def check_paths(
         self, params: Any, paths: List[str]
     ) -> Optional[Dict[str, Any]]:
-        """The first mismatch among ``paths`` of ``params`` (a tp
-        follower's check of the slice rank 0 sweeps), or None."""
-        return self._check(paths, self._leaf_map(params))
+        """The first mismatch among ``paths`` of ``params`` (a mesh
+        follower's check of the slice rank 0 sweeps: those of its own
+        leaves, as a pipeline stage past 0 holds no embedding or head),
+        or None."""
+        held = [p for p in paths if p in self.baseline]
+        return self._check(held, self._leaf_map(params))
 
     def verify_chunk(
         self, params: Any, now: Optional[float] = None, remote=None

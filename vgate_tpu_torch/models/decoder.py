@@ -42,6 +42,15 @@ down product (``_reduce``, over the tp group), a MoE layer's one
 all-reduce over every rank (``_moe_mlp``), and the fp32 logits'
 all-gather before the final softcap (``_logits``).  With no mesh none is
 issued, and at tp 1 no tp collective.
+
+The prompt pass and the decode step are each three parts: the embedding
+(``_embed``), a run over the spec's layers that writes their pools
+(``prefill_layers``, ``decode_layers``) and the logits (``_logits``).
+Under pipeline parallelism a stage's spec (``spec.pipeline``,
+parallel/sharding.py ``local_spec``) holds its own layers, and
+``prefill_forward`` / ``decode_forward`` route through the relay
+(parallel/pipeline.py), which runs those parts stage by stage, as the
+reference routes a pp mesh.
 """
 
 from __future__ import annotations
@@ -96,13 +105,16 @@ def init_params(
     into preallocated stacks, so the full-precision tree never sits
     whole on ``device`` (Mixtral-8x7B's experts are 90 GB in bf16, 45 GB
     in int8) and a rank never holds more of another rank's experts than
-    the layer being drawn."""
-    from vgate_tpu_torch.parallel.sharding import leaf_keeper
+    the layer being drawn.  A pipeline stage keeps its layers of every
+    stacked leaf (each MoE layer is still drawn, in order) and, past
+    stage 0, no embedding, final norm or head."""
+    from vgate_tpu_torch.parallel.sharding import leaf_keeper, stage_layers
 
     D, L = spec.hidden_size, spec.num_layers
     H, KV, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     F, V = spec.intermediate_size, spec.vocab_size
     keep = leaf_keeper(spec, mesh, quantization)
+    kept = stage_layers(spec, mesh)
 
     def normal(*shape):
         x = torch.randn(
@@ -121,7 +133,8 @@ def init_params(
         return torch.ones(shape, dtype=dtype, device=device)
 
     layers: Dict[str, Any] = {
-        "input_norm": norm_init(L, D), "post_norm": norm_init(L, D),
+        name: keep(("layers", name), norm_init(L, D))
+        for name in ("input_norm", "post_norm")
     }
     if spec.is_moe:
         E = spec.num_experts
@@ -132,7 +145,7 @@ def init_params(
             router = name == "router"
             path = ("layers", name) if router else ("layers", name, "w")
             w = stack_layers(
-                lambda l: keep(path, normal(*shape), lead=0), L)
+                lambda l: keep(path, normal(*shape), lead=0), L, kept)
             layers[name] = w if router else {"w": w}
     else:
         # drawn in this order, each leaf whole
@@ -145,16 +158,16 @@ def init_params(
         for name, width in (("q", H * hd), ("k", KV * hd), ("v", KV * hd)):
             layers[name]["b"] = keep(("layers", name, "b"), zeros(L, width))
     if spec.ffn_sandwich:
-        layers["pre_ffn_norm"] = norm_init(L, D)
-        layers["post_ffn_norm"] = norm_init(L, D)
+        for name in ("pre_ffn_norm", "post_ffn_norm"):
+            layers[name] = keep(("layers", name), norm_init(L, D))
     params: Params = {
         "embed": keep(("embed",), normal(V, D)),
         "layers": layers,
-        "final_norm": norm_init(D),
+        "final_norm": keep(("final_norm",), norm_init(D)),
     }
     if not spec.tie_embeddings:
         params["lm_head"] = keep(("lm_head",), normal(D, V))
-    return params
+    return {k: v for k, v in params.items() if v is not None}
 
 
 def _layer_slice(t, l: int):
@@ -475,6 +488,30 @@ def _last_logits(params, spec, x, lens) -> torch.Tensor:
     return _logits(params, spec, x[torch.arange(B, device=x.device), last])
 
 
+def prefill_layers(
+    params: Params,
+    spec: ModelSpec,
+    x: torch.Tensor,  # [B, S, D] the prompt's activations
+    seq_lens: torch.Tensor,  # [B] int32
+    k_pages: KVPool,  # [L, KV, P, ps, hd], updated in place
+    v_pages: KVPool,
+    page_tables: torch.Tensor,  # [B, S // ps] page ids for this prompt
+) -> torch.Tensor:
+    """Every layer of ``spec`` (a pipeline stage's own) over the prompt's
+    activations: writes each layer's KV into the prompt's pages and
+    returns the activations after the last layer."""
+    B, S = x.shape[:2]
+    positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    for l in range(spec.num_layers):
+        lp = layer_params(params, l)
+        q, k, v = _prefill_qkv_write(x, lp, spec, positions, page_tables,
+                                     k_pages[l], v_pages[l])
+        attn = flash_prefill_attention(q, k, v, seq_lens,
+                                       **attn_options(spec, l))
+        x = _finish_layer(x, attn, lp, spec)
+    return x
+
+
 def prefill_forward(
     params: Params,
     spec: ModelSpec,
@@ -483,19 +520,20 @@ def prefill_forward(
     k_pages: KVPool,  # [L, KV, P, ps, hd], updated in place
     v_pages: KVPool,
     page_tables: torch.Tensor,  # [B, S // ps] page ids for this prompt
-) -> torch.Tensor:
+) -> Optional[torch.Tensor]:
     """The prompt pass: writes every layer's KV into the prompt's pages
-    and returns the last real token's logits [B, V] (fp32)."""
-    B, S = tokens.shape
-    positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
+    and returns the last real token's logits [B, V] (fp32).  A pipeline
+    stage's spec (``spec.pipeline``) routes it through the relay
+    (parallel/pipeline.py), as the reference routes a pp mesh: stage 0
+    returns the logits, the other stages None."""
+    if spec.pipeline is not None:
+        from vgate_tpu_torch.parallel.pipeline import pp_prefill_forward
+
+        return pp_prefill_forward(params, spec, tokens, seq_lens, k_pages,
+                                  v_pages, page_tables)
     x = _embed(params, spec, tokens)  # [B, S, D]
-    for l in range(spec.num_layers):
-        lp = layer_params(params, l)
-        q, k, v = _prefill_qkv_write(x, lp, spec, positions, page_tables,
-                                     k_pages[l], v_pages[l])
-        attn = flash_prefill_attention(q, k, v, seq_lens,
-                                       **attn_options(spec, l))
-        x = _finish_layer(x, attn, lp, spec)
+    x = prefill_layers(params, spec, x, seq_lens, k_pages, v_pages,
+                       page_tables)
     return _last_logits(params, spec, x, seq_lens)
 
 
@@ -512,30 +550,27 @@ def decode_attn_inputs(positions, page_tables, active, page_size):
     return seq_lens, page_ids.long(), page_off
 
 
-def decode_forward(
+def decode_layers(
     params: Params,
     spec: ModelSpec,
-    tokens: torch.Tensor,  # [B] current token per slot
-    positions: torch.Tensor,  # [B] 0-indexed position of `tokens`
+    x: torch.Tensor,  # [B, D] the step's activations
+    positions: torch.Tensor,  # [B] 0-indexed position of the step's token
     k_pages: KVPool,  # [L, KV, P, ps, hd], updated in place
     v_pages: KVPool,
     page_tables: torch.Tensor,  # [B, pages_per_seq] int32
-    active: Optional[torch.Tensor] = None,  # [B] bool; inactive -> page 0
+    attn_inputs,  # decode_attn_inputs' (seq_lens, page_ids, page_off)
 ) -> torch.Tensor:
-    """One continuous-batching decode step: returns logits [B, V] (fp32)
-    after writing each layer's new K/V at ``positions``.  Attention runs
-    K1, or K6 (``block_slots`` slots per CTA) when
-    ``spec.decode_block_slots > 1``."""
-    ps = k_pages.shape[3]
-    seq_lens, page_ids, page_off = decode_attn_inputs(
-        positions, page_tables, active, ps
-    )
+    """Every layer of ``spec`` (a pipeline stage's own) over one decode
+    step's activations: writes each layer's new K/V at ``positions`` and
+    returns the activations after the last layer.  Attention runs K1, or
+    K6 (``block_slots`` slots per CTA) when ``spec.decode_block_slots``
+    > 1."""
+    seq_lens, page_ids, page_off = attn_inputs
     if spec.decode_block_slots > 1:
         attention = functools.partial(paged_decode_attention_blocked,
                                       block_slots=spec.decode_block_slots)
     else:
         attention = paged_decode_attention
-    x = _embed(params, spec, tokens)  # [B, D]
     pos = positions[:, None]
     for l in range(spec.num_layers):
         lp = layer_params(params, l)
@@ -549,6 +584,33 @@ def decode_forward(
         attn = attention(q.contiguous(), k_pages[l], v_pages[l], page_tables,
                          seq_lens, **attn_options(spec, l))
         x = _finish_layer(x, attn, lp, spec)
+    return x
+
+
+def decode_forward(
+    params: Params,
+    spec: ModelSpec,
+    tokens: torch.Tensor,  # [B] current token per slot
+    positions: torch.Tensor,  # [B] 0-indexed position of `tokens`
+    k_pages: KVPool,  # [L, KV, P, ps, hd], updated in place
+    v_pages: KVPool,
+    page_tables: torch.Tensor,  # [B, pages_per_seq] int32
+    active: Optional[torch.Tensor] = None,  # [B] bool; inactive -> page 0
+) -> Optional[torch.Tensor]:
+    """One continuous-batching decode step: returns logits [B, V] (fp32)
+    after writing each layer's new K/V at ``positions``
+    (:func:`decode_layers`).  A pipeline stage's spec routes it through
+    the relay, as :func:`prefill_forward` does."""
+    if spec.pipeline is not None:
+        from vgate_tpu_torch.parallel.pipeline import pp_decode_forward
+
+        return pp_decode_forward(params, spec, tokens, positions, k_pages,
+                                 v_pages, page_tables, active)
+    attn_inputs = decode_attn_inputs(positions, page_tables, active,
+                                     k_pages.shape[3])
+    x = _embed(params, spec, tokens)  # [B, D]
+    x = decode_layers(params, spec, x, positions, k_pages, v_pages,
+                      page_tables, attn_inputs)
     return _logits(params, spec, x)
 
 

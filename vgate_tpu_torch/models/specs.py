@@ -80,6 +80,12 @@ class ModelSpec:
     # expert parallelism (parallel/sharding.py local_spec): the first of
     # this rank's experts and how many it holds; None = every expert
     expert_range: Optional[Tuple[int, int]] = None
+    # pipeline parallelism (parallel/sharding.py local_spec): a stage's
+    # spec holds its ``num_layers`` layers, the first of them global
+    # layer ``first_layer``, and the mesh its relay (parallel/
+    # pipeline.py) sends the activations over; None = the whole stack
+    first_layer: int = 0
+    pipeline: Any = field(default=None, compare=False, repr=False)
 
     @property
     def is_moe(self) -> bool:
@@ -108,14 +114,18 @@ class ModelSpec:
 
     @property
     def layer_windows(self) -> tuple:
-        """Per-layer attention window (0 = global).  Gemma-2 alternates:
-        even-indexed layers are sliding-window, odd layers are global
-        (HF ``Gemma2Config.layer_types``)."""
+        """Per-layer attention window (0 = global), indexed by this
+        spec's layers.  Gemma-2 alternates: even-indexed layers are
+        sliding-window, odd layers are global (HF
+        ``Gemma2Config.layer_types``), counted on the global index, so a
+        pipeline stage's layer ``l`` takes global layer ``first_layer +
+        l``'s window."""
         if self.sliding_window <= 0:
             return tuple(0 for _ in range(self.num_layers))
         return tuple(
             self.sliding_window if i % 2 == 0 else 0
-            for i in range(self.num_layers)
+            for i in range(self.first_layer,
+                           self.first_layer + self.num_layers)
         )
 
     @property
@@ -459,6 +469,9 @@ TINY_ENCODER = _register(
 
 
 def spec_for_model_id(model_id: str) -> ModelSpec:
+    """The preset of ``model_id``; ``<preset>@<n>`` names the preset cut
+    to its first ``n`` layers at full width (every process of a mesh or
+    a pod resolves it alike)."""
     key = model_id.lower()
     if key in _PRESETS:
         return _PRESETS[key]
@@ -466,6 +479,11 @@ def spec_for_model_id(model_id: str) -> ModelSpec:
     for name, spec in _PRESETS.items():
         if name.split("/")[-1] == key:
             return spec
+    base, _, depth = model_id.rpartition("@")
+    if base and depth.isdigit():
+        spec = spec_for_model_id(base)
+        if 0 < int(depth) <= spec.num_layers:
+            return replace(spec, name=model_id, num_layers=int(depth))
     raise KeyError(
         f"no architecture preset for {model_id!r}; known: "
         f"{sorted(_PRESETS)}"

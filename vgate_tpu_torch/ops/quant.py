@@ -201,23 +201,31 @@ def quantize_layer(w: torch.Tensor, bits: int, expert: bool) -> Weight:
     return _finish(*_quantize(w, reduce_dims, bits), bits)
 
 
-def stack_layers(layer, num_layers: int) -> Weight:
+def stack_layers(layer, num_layers: int, kept: Optional[range] = None
+                 ) -> Weight:
     """A stacked ``[L, ...]`` weight built from ``layer(l)``, one layer
     at a time, into a preallocated stack.  A ``layer`` may return a
     quantized weight (a layer quantized as soon as it exists, so neither
     the full-precision stack nor more than one full-precision layer ever
-    exists) or a mesh rank's shard of the layer."""
+    exists) or a mesh rank's shard of the layer.  With ``kept`` (a
+    pipeline stage's layers) ``layer`` is still called for every layer,
+    in order (a random init draws each), and only ``kept``'s are
+    stacked."""
+    kept = range(num_layers) if kept is None else kept
     stacks, kind = None, None
     for l in range(num_layers):
         w = layer(l)
+        if l not in kept:
+            del w
+            continue
         kind = type(w) if is_quantized_weight(w) else None
         part = tuple(w) if kind is not None else (w,)
         del w
         if stacks is None:
-            stacks = [torch.empty((num_layers, *p.shape), dtype=p.dtype,
+            stacks = [torch.empty((len(kept), *p.shape), dtype=p.dtype,
                                   device=p.device) for p in part]
         for stack, p in zip(stacks, part):
-            stack[l] = p
+            stack[l - kept.start] = p
         del part
     return stacks[0] if kind is None else kind(*stacks)
 

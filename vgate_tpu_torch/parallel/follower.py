@@ -1,14 +1,15 @@
 """A mesh follower rank: ``python -m vgate_tpu_torch.parallel.follower``.
 
-Rank 0 (runtime/engine_core.py) spawns ranks 1..n-1 of its ``ep x tp``
-mesh (parallel/mesh.py ``build_mesh``), each with the resolved config as
-JSON, its rank, the port of rank 0's store and every rank's device.  A
-follower:
+Rank 0 (runtime/engine_core.py) spawns ranks 1..n-1 of its ``pp x ep x
+tp`` mesh (parallel/mesh.py ``build_mesh``), each with the resolved
+config as JSON, its rank, the port of rank 0's store and every rank's
+device.  A follower:
 
 * joins the control and device groups;
 * loads or initializes the same tree as a one-rank engine (seed 0 or
   the checkpoint) and keeps its own shard (parallel/sharding.py: its
-  heads and FFN channels, its experts), a leaf (an expert leaf, a layer)
+  heads and FFN channels, its experts, or as a pipeline stage its
+  layers and no embedding or head), a leaf (an expert leaf, a layer)
   at a time, each quantized leaf quantized whole first, as rank 0 does;
   W8A8 (``device.int8_native``) lays its shard out as rank 0 does;
 * records its shard's checksum baseline (``integrity.enabled``);
@@ -19,12 +20,18 @@ follower:
 
   - ``prefill``, ``suffix`` (prefix hits, copy-on-write hits and chunked
     passes) and ``cow``: the prompt passes and the page copy on its own
-    pools; the logits are all-gathered with rank 0's and dropped;
+    pools; the logits are all-gathered with rank 0's and dropped.  A
+    pipeline stage runs the relay's stage body instead (parallel/
+    pipeline.py): it receives the activations from the previous stage,
+    runs its layers and sends them on;
   - ``decode_state`` and ``page_tables``: its copy of the decode
-    chunk's feed; ``decode``: the chunk's steps
-    (``follower_decode_chunk``), each step's tokens from rank 0's
-    broadcast, as a graph replay where rank 0 replays one (NCCL);
-  - ``sweep``: the checksum check of the leaves rank 0 sweeps, replied;
+    chunk's feed (a stage keeps its own positions and active mask);
+    ``decode``: the chunk's steps (``follower_decode_chunk``), each
+    step's tokens from rank 0's broadcast, or a stage's activations
+    from the previous stage, as a graph replay where rank 0 replays one
+    (NCCL);
+  - ``sweep``: the checksum check of the leaves rank 0 sweeps that it
+    holds, replied;
   - ``stats`` and ``reset_launches``: its kernel launch counts (which
     live in this process), memory and counters, as a pod worker's;
   - ``rebuild``: free its pool and graphs and build them again, with
@@ -246,7 +253,12 @@ class Follower:
             else self.graphs.stats(),
             "memory": {
                 "weights_bytes": _nbytes(self.params),
+                "leaves": sorted(self.params),
                 "pool_pages": self.geometry.num_pages,
+                # inactive slots and padding write nothing to trash page
+                # 0 (ops/kv_quant.py kv_write)
+                "trash_page_zero": not (self.k_pages[:, :, 0].any()
+                                        or self.v_pages[:, :, 0].any()),
                 "pool_bytes": _nbytes([self.k_pages, self.v_pages]),
                 "peak_bytes": (torch.cuda.max_memory_allocated(self.device)
                                if self.cuda else None),

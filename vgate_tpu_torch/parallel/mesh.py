@@ -2,9 +2,11 @@
 
 The reference (vgate_tpu/parallel/mesh.py) is single-controller: one
 process owns every device of a ``jax.sharding.Mesh`` and GSPMD inserts
-the collectives.  The port has no GSPMD, so a mesh of ``ep x tp``
-devices is ``ep x tp`` processes, as Megatron runs it, rank ``ep_index
-* tp + tp_index`` (the reference's device order: tp innermost):
+the collectives.  The port has no GSPMD, so a mesh of ``pp x ep x tp``
+devices is ``pp x ep x tp`` processes, as Megatron runs it, rank
+``(pp_index * ep + ep_index) * tp + tp_index`` (the reference's axis
+order ``(dp, pp, ep, sp, tp)``: tp innermost, pp outermost, so at tp =
+ep = 1 a rank is its pipeline stage):
 
 * **rank 0** is the engine (runtime/engine_core.py).  It owns the
   scheduler, the sequences, the sampling, the readbacks and the gateway.
@@ -26,7 +28,10 @@ The process groups that join them:
   issued.  The **expert group** (every rank) carries a MoE layer's one
   all-reduce, which sums both the experts of the other ep ranks and the
   F partials of the other tp ranks, and the broadcast of each decode
-  step's sampled tokens.  At ep 1 the two are one group.  They are NCCL
+  step's sampled tokens.  At ep 1 the two are one group.  Under pp the
+  device group (every rank) carries the pipeline relay's point-to-point
+  sends of activations (parallel/pipeline.py): each stage to the next,
+  and the last stage's hiddens back to rank 0.  They are NCCL
   when every rank has a card of its own, and gloo on the CPU or when
   ``devices`` names one card more than once (the one-card test layout:
   NCCL refuses two ranks on one card); gloo's collectives then stage the
@@ -165,27 +170,28 @@ def mesh_devices(device_config, devices: Optional[List[Any]] = None
                  ) -> List[str]:
     """Each rank's device, rank 0 first: ``devices`` (the engine's
     argument), else ``device.devices``, else derived from ``device.device``
-    and ``ep x tp``: one rank on ``device`` at 1, the CPU once per rank,
-    or the first ``ep x tp`` cards (every card with an axis at 0).  A
-    list that names one card more than once is the one-card test
+    and ``pp x ep x tp``: one rank on ``device`` at 1, the CPU once per
+    rank, or the first ``pp x ep x tp`` cards (every card with an axis at
+    0).  A list that names one card more than once is the one-card test
     layout."""
     if devices is None and getattr(device_config, "devices", None):
         devices = list(device_config.devices)
     if devices is not None:
         return [_named(str(d)) for d in devices]
     tp, ep = device_config.tp, device_config.ep
-    if tp == 1 and ep == 1:
+    pp = getattr(device_config, "pp", 1)
+    if tp == 1 and ep == 1 and pp == 1:
         # resolved by the engine, which refuses a card that is not there
         return [device_config.device]
     visible = visible_devices(device_config.device)
     if visible == ["cpu"]:
-        return ["cpu"] * max(1, tp * ep)
-    n = tp * ep or len(visible)
+        return ["cpu"] * (max(1, tp) * max(1, ep) * max(1, pp))
+    n = tp * ep * pp or len(visible)
     if n > len(visible):
         raise ValueError(
-            f"device.ep={ep} x device.tp={tp} needs {n} cards but "
-            f"{len(visible)} are visible; name a card once per rank in "
-            "device.devices to run the ranks on fewer cards"
+            f"device.pp={pp} x device.ep={ep} x device.tp={tp} needs {n} "
+            f"cards but {len(visible)} are visible; name a card once per "
+            "rank in device.devices to run the ranks on fewer cards"
         )
     return visible[:n]
 
@@ -259,14 +265,29 @@ class Mesh:
         return self.plan.ep
 
     @property
+    def pp(self) -> int:
+        return self.plan.pp
+
+    @property
     def tp_rank(self) -> int:
         """This rank's index on the tp axis (innermost)."""
         return self.rank % self.plan.tp
 
     @property
     def ep_rank(self) -> int:
-        """This rank's index on the ep axis."""
-        return self.rank // self.plan.tp
+        """This rank's index on the ep axis (inside its stage)."""
+        return self.rank // self.plan.tp % self.plan.ep
+
+    @property
+    def pp_rank(self) -> int:
+        """This rank's pipeline stage (outermost)."""
+        return self.rank // (self.plan.tp * self.plan.ep)
+
+    def stage_rank(self, stage: int) -> int:
+        """The rank of ``stage`` (mod pp) at this rank's ep and tp
+        index."""
+        inner = self.plan.tp * self.plan.ep
+        return stage % self.plan.pp * inner + self.rank % inner
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -344,6 +365,44 @@ class Mesh:
         except Exception as exc:
             self._failed(exc)
             raise
+        return t
+
+    def _p2p(self, t: torch.Tensor, peer: int, send: bool) -> None:
+        """One point-to-point send of ``t`` to, or receive into ``t``
+        from, rank ``peer`` on the device group (through host memory
+        when staged)."""
+        op = dist.send if send else dist.recv
+        try:
+            if self.staged:
+                host = t.cpu() if send else torch.empty(t.shape,
+                                                        dtype=t.dtype)
+                op(host, peer, group=self.group)
+                if not send:
+                    t.copy_(host)
+            else:
+                op(t, peer, group=self.group)
+        except Exception as exc:
+            self._failed(exc)
+            raise
+
+    def send_next(self, t: torch.Tensor) -> None:
+        """The pipeline relay: ``t`` to the next stage."""
+        self._p2p(t, self.stage_rank(self.pp_rank + 1), True)
+
+    def recv_prev(self, t: torch.Tensor) -> torch.Tensor:
+        """The pipeline relay: the previous stage's activations into
+        ``t``; returns it."""
+        self._p2p(t, self.stage_rank(self.pp_rank - 1), False)
+        return t
+
+    def send_first(self, t: torch.Tensor) -> None:
+        """The last stage's hiddens back to stage 0 (the ring's
+        wrap-around link)."""
+        self._p2p(t, self.stage_rank(0), True)
+
+    def recv_last(self, t: torch.Tensor) -> torch.Tensor:
+        """Stage 0: the last stage's hiddens into ``t``; returns it."""
+        self._p2p(t, self.stage_rank(self.pp - 1), False)
         return t
 
     # ------------------------------------------------------ control plane
@@ -541,6 +600,31 @@ class Mesh:
                     f"device group warm-up summed {warm.item()} over "
                     f"{size} ranks"
                 )
+        if self.pp > 1:
+            self._warm_ring()
+
+    def _warm_ring(self) -> None:
+        """One value around the pipeline ring, in the relay's order
+        (stage 0 sends, then receives from the last stage): NCCL builds
+        a point-to-point link at its first use, which must not fall
+        inside a graph capture."""
+        dev = self.device if self.backend == "nccl" else "cpu"
+        t = torch.full((1,), float(self.pp_rank), device=dev)
+        if self.pp_rank == 0:
+            self.send_next(t)
+            self.recv_last(t)
+        else:
+            self.recv_prev(t)
+            t.add_(1)
+            if self.pp_rank == self.pp - 1:
+                self.send_first(t)
+            else:
+                self.send_next(t)
+        if self.pp_rank == 0 and int(t.item()) != self.pp - 1:
+            raise RuntimeError(
+                f"pipeline ring warm-up carried {t.item()} around "
+                f"{self.pp} stages"
+            )
 
     def wait_for_followers(self, store: Any) -> None:
         """Rank 0: wait until every follower has reached the store (each

@@ -1,4 +1,5 @@
-"""The sharding rules over the serving mesh's ``tp`` and ``ep`` axes.
+"""The sharding rules over the serving mesh's ``tp``, ``ep`` and ``pp``
+axes.
 
 The reference (vgate_tpu/parallel/sharding.py ``param_pspecs``) states
 them as PartitionSpecs and lets GSPMD place the tree.  The port's rank
@@ -29,6 +30,16 @@ and a row-parallel packed int4 leaf is repacked
 (ops/quant.py ``shard_int4_rows``).  A tree is quantized whole before it
 is sharded, as the reference places its tree and then quantizes it, so
 every scale comes from the whole input axis.
+
+Under pipeline parallelism (``pp`` > 1, at tp = ep = 1) the stacked
+layer axis L of every ``layers`` leaf shards over pp, as ``param_pspecs``
+puts it: stage s keeps layers ``[s*L/pp, (s+1)*L/pp)``, a quantized
+leaf its layers' values and scales (a per-output-channel scale depends
+on its layer alone), and its pool holds those layers
+(:func:`local_spec`).  Only stage 0 keeps ``embed``, ``final_norm`` and
+``lm_head``: it alone embeds the tokens and computes the logits
+(parallel/pipeline.py), where the reference replicates them and every
+stage computes the logits.
 
 The reference tests divisibility on the flattened ``KV * hd`` (its
 ``_spec``), so at tp 4 a 2-kv-head model splits inside a head and serves
@@ -61,9 +72,18 @@ from vgate_tpu_torch.parallel.mesh import AXIS_EP, AXIS_TP
 Rule = Tuple[int, int, str]
 
 
-def check_mesh(spec: ModelSpec, tp: int, ep: int = 1) -> None:
-    """Refuse a tp the port cannot shard by whole heads and channels, and
-    an ep that does not divide the experts."""
+# the leaves only pipeline stage 0 keeps
+STAGE0_LEAVES = ("embed", "final_norm", "lm_head")
+
+
+def check_mesh(spec: ModelSpec, tp: int, ep: int = 1, pp: int = 1) -> None:
+    """Refuse a tp the port cannot shard by whole heads and channels, an
+    ep that does not divide the experts, and a pp that does not divide
+    the layers (the reference's error)."""
+    if pp > 1 and spec.num_layers % pp:
+        raise ValueError(
+            f"{spec.num_layers} layers not divisible by pp={pp}"
+        )
     if tp > 1:
         for what, n in (("num_heads", spec.num_heads),
                         ("num_kv_heads", spec.num_kv_heads),
@@ -84,18 +104,25 @@ def check_mesh(spec: ModelSpec, tp: int, ep: int = 1) -> None:
 
 def _not_ported(what: str, item: str) -> NotPortedError:
     return NotPortedError(
-        f"{what} under a model-parallel mesh (device.tp or device.ep > 1) "
-        f"is not ported yet (ROADMAP queue 1, item {item})"
+        f"{what} under a model-parallel mesh (device.tp, device.ep or "
+        f"device.pp > 1) is not ported yet (ROADMAP queue 1, item {item})"
     )
 
 
-def check_mesh_config(config, spec: ModelSpec, tp: int, ep: int = 1) -> None:
-    """What a model-parallel mesh of ``ep x tp`` refuses, at config load
-    and again at the engine: the reference's plain-mesh errors for int8
-    KV pools and the host swap tier (vgate_tpu/runtime/engine_core.py),
-    then the port's own, each citing its ROADMAP item."""
+def check_mesh_config(config, spec: ModelSpec, tp: int, ep: int = 1,
+                      pp: int = 1) -> None:
+    """What a model-parallel mesh of ``pp x ep x tp`` refuses, at config
+    load and again at the engine: the reference's errors (vgate_tpu/
+    runtime/engine_core.py) for int8 KV pools and the host swap tier on
+    any model-parallel mesh, and under pp for chunked prefill, layers pp
+    does not divide and speculation; then the port's own, each citing its
+    ROADMAP item."""
+    if pp > 1 and (tp > 1 or ep > 1):
+        raise _not_ported(
+            f"device.pp={pp} with device.tp={tp} and device.ep={ep} "
+            "(pp x tp, pp x ep)", "10d (rest)")
     check_mesh(spec, tp, ep)
-    bad = {k: v for k, v in (("tp", tp), ("ep", ep)) if v > 1}
+    bad = {k: v for k, v in (("tp", tp), ("pp", pp), ("ep", ep)) if v > 1}
     if config.kv_cache.dtype == "int8":
         raise ValueError(
             f"kv_cache.dtype=int8 requires a plain mesh, got "
@@ -110,8 +137,26 @@ def check_mesh_config(config, spec: ModelSpec, tp: int, ep: int = 1) -> None:
             "pages globally across an unsharded pool — dp "
             "composes (each replica owns its pool + host tier)"
         )
+    if pp > 1:
+        if config.device.prefill_chunk > 0:
+            raise ValueError(
+                "prefill_chunk (chunked prefill) requires pp == 1 — the "
+                "relay prompt pass reshapes the program incompatibly "
+                "(sp is fine: chunks ride the sp-capable suffix program)"
+            )
+        check_mesh(spec, tp, ep, pp)
+        if config.device.speculative_k > 0:
+            raise ValueError(
+                "speculative decoding cannot combine with pp>1: a "
+                "verify round would relay candidates through every "
+                "stage and roll back rejected KV writes per stage, "
+                "serializing the pipeline — a permanent design "
+                "exclusion (docs/composition.md). Speculation composes "
+                "with sp, its long-context home turf; pp's throughput "
+                "workloads are served by continuous batching."
+            )
     if config.device.speculative_k > 0:
-        raise _not_ported("speculative decoding", "10d")
+        raise _not_ported("speculative decoding", "10d (rest)")
     if config.pod.workers > 0:
         raise _not_ported("pod.workers>0", "10a (rest)")
 
@@ -195,13 +240,34 @@ def _contiguous(leaf):
     return leaf.contiguous()
 
 
+def stage_layers(spec: ModelSpec, mesh=None) -> range:
+    """The global layers of ``mesh``'s pipeline stage (every layer
+    without a mesh or at pp 1)."""
+    L = spec.num_layers
+    if mesh is None or mesh.pp <= 1:
+        return range(L)
+    check_mesh(spec, mesh.tp, mesh.ep, mesh.pp)
+    n = L // mesh.pp
+    return range(mesh.pp_rank * n, (mesh.pp_rank + 1) * n)
+
+
 def shard_leaf(path: Tuple[str, ...], leaf, spec: ModelSpec, mesh,
                lead: int = 1):
     """``mesh``'s rank's slice of one leaf (a contiguous copy, so the
     full leaf can be freed), or the leaf itself where it is replicated.
     ``lead`` 0 takes one layer's slice of a stacked leaf (no ``L``
-    axis)."""
-    rules = leaf_rules(spec, mesh.tp, mesh.ep).get(tuple(path))
+    axis).  Under pp a stacked leaf keeps the stage's layers (a single
+    layer is kept or dropped by its caller, ``stack_layers``), and a
+    stage other than 0 drops ``STAGE0_LEAVES`` (None)."""
+    path = tuple(path)
+    if mesh.pp > 1:
+        if path[0] in STAGE0_LEAVES:
+            return leaf if mesh.pp_rank == 0 else None
+        if lead == 1:
+            return _contiguous(_narrow(leaf, 0, spec.num_layers, mesh.pp,
+                                       mesh.pp_rank))
+        return leaf
+    rules = leaf_rules(spec, mesh.tp, mesh.ep).get(path)
     if not rules:
         return leaf
     for axis, size, name in rules:
@@ -214,11 +280,12 @@ def shard_leaf(path: Tuple[str, ...], leaf, spec: ModelSpec, mesh,
 def shard_params(params: Dict[str, Any], spec: ModelSpec, mesh
                  ) -> Dict[str, Any]:
     """``mesh.rank``'s shard of a full tree (``param_pspecs``' rules over
-    ``mesh.tp`` and ``mesh.ep``), a leaf at a time: each full leaf is
-    dropped from ``params`` as soon as its slice exists, so the two never
-    both sit whole in memory.  Quantize a tree whole before it is
-    sharded (the engine does), so its scales are the whole axis's."""
-    check_mesh(spec, mesh.tp, mesh.ep)
+    ``mesh.tp``, ``mesh.ep`` and ``mesh.pp``), a leaf at a time: each
+    full leaf is dropped from ``params`` as soon as its slice exists, so
+    the two never both sit whole in memory.  Quantize a tree whole before
+    it is sharded (the engine does), so its scales are the whole
+    axis's."""
+    check_mesh(spec, mesh.tp, mesh.ep, mesh.pp)
     if mesh.num_devices == 1:
         return params
 
@@ -229,7 +296,9 @@ def shard_params(params: Dict[str, Any], spec: ModelSpec, mesh
             if isinstance(value, dict):
                 out[key] = walk(value, path + (key,))
             else:
-                out[key] = shard_leaf(path + (key,), value, spec, mesh)
+                value = shard_leaf(path + (key,), value, spec, mesh)
+                if value is not None:
+                    out[key] = value
         return out
 
     return walk(params, ())
@@ -243,11 +312,11 @@ def leaf_keeper(spec: ModelSpec, mesh=None,
     ``quantization`` the full leaf is quantized (ops/quant.py
     ``quantize_leaf``: the reference's global scales); then, on a mesh
     of more than one rank, the rank keeps its slice and the full draw is
-    freed."""
+    freed (None: a leaf the rank does not hold, ``shard_leaf``)."""
     bits = BITS[quantization] if quantization else None
     sharded = mesh is not None and mesh.num_devices > 1
     if sharded:
-        check_mesh(spec, mesh.tp, mesh.ep)
+        check_mesh(spec, mesh.tp, mesh.ep, mesh.pp)
 
     def keep(path, leaf, lead: int = 1):
         if bits is not None:
@@ -265,9 +334,17 @@ def local_spec(spec: ModelSpec, tp: int, mesh=None) -> ModelSpec:
     needs no other change), the vocab whole (the logits are gathered),
     under ep the rank's experts (``expert_range``; routing still runs
     over all E), and the mesh whose device groups the forwards'
-    collectives use."""
+    collectives use.  Under pp (tp = ep = 1) the stage's ``L/pp``
+    layers from global layer ``first_layer`` (whose windows
+    ``layer_windows`` gives), no mesh for collectives, and the mesh the
+    relay sends over as ``pipeline``."""
     ep = mesh.ep if mesh is not None else 1
     check_mesh(spec, tp, ep)
+    if mesh is not None and mesh.pp > 1:
+        layers = stage_layers(spec, mesh)
+        return dataclasses.replace(
+            spec, num_layers=len(layers), first_layer=layers.start,
+            pipeline=mesh)
     if tp <= 1 and ep <= 1:
         return spec
     out = dataclasses.replace(spec, mesh=mesh)

@@ -100,6 +100,16 @@ path — batched, bucketed prompt passes and pipelined decode chunks:
   models/decoder.py.  A follower's death breaks the mesh, and the next
   tick raises into containment.
 
+* **Pipeline parallelism** (``device.pp`` > 1 at tp = ep = 1,
+  parallel/pipeline.py): this core is stage 0 of ``pp`` processes, each
+  holding ``L/pp`` layers and their pools.  It names the prompt passes
+  and decode chunks to the followers as under tp; each forward relays
+  the activations stage to stage, and the last stage's hiddens come
+  back to this core, which alone holds the embedding and head, computes
+  the logits and samples.  The reference's rules hold: the prefix cache
+  is off, and chunked prefill, int8 KV, the host swap tier, sp and
+  speculation refuse (parallel/sharding.py ``check_mesh_config``).
+
 * **Several cores in one process** (data parallelism,
   runtime/dp_engine.py): each replica is a one-device core built with
   ``shared_process``.  Its threads run under an explicit device guard
@@ -108,9 +118,10 @@ path — batched, bucketed prompt passes and pipelined decode chunks:
   on a stream of its own, and its teardown leaves cuBLAS's workspaces to
   the siblings whose graphs still use them.
 
-Not ported yet (the config refuses them): sequence and pipeline
-parallelism, dp replicas that are meshes, and under a model-parallel
-mesh int8 KV, the host swap tier, speculation and the pod.
+Not ported yet (the config refuses them): sequence parallelism, pp
+together with tp or ep, dp replicas that are meshes, and under a
+model-parallel mesh int8 KV, the host swap tier, speculation and the
+pod.
 """
 
 from __future__ import annotations
@@ -583,7 +594,8 @@ def _decode_chunk(
         else:
             tokens = sample_tokens(*args, **kw, all_greedy=all_greedy)
         if spec.mesh is not None:
-            # the next step's embedding needs them on every tp rank
+            # the next step's embedding needs them on every tp rank (a
+            # pipeline's stage 0 alone embeds: no broadcast)
             spec.mesh.broadcast(tokens)
         state.out_tokens[i].copy_(tokens)
         positions = positions + act
@@ -608,9 +620,10 @@ def follower_decode_chunk(
     """A mesh follower's part of :func:`_decode_chunk` (parallel/
     follower.py): the same steps on its own shard and pools, with the
     same collectives in the same order, but no sampling: each step's
-    tokens come from rank 0's broadcast.  It reads and writes only
-    ``state``'s tokens and positions, so it is captured as rank 0's body
-    is."""
+    tokens come from rank 0's broadcast, or on a pipeline stage are not
+    needed (its activations come from the previous stage).  It reads and
+    writes only ``state``'s tokens and positions, so it is captured as
+    rank 0's body is."""
     tokens, positions = state.tokens, state.positions
     act = state.active.to(positions.dtype)
     for _ in range(num_steps):
@@ -618,7 +631,8 @@ def follower_decode_chunk(
             params, spec, tokens, positions, k_pages, v_pages,
             state.page_tables, active=state.active,
         )
-        tokens = spec.mesh.broadcast(torch.empty_like(tokens))
+        if spec.pipeline is None:
+            tokens = spec.mesh.broadcast(torch.empty_like(tokens))
         positions = torch.clamp(positions + act, max=max_position)
     state.tokens.copy_(tokens)
     state.positions.copy_(positions)
@@ -1013,7 +1027,8 @@ class EngineCore:
             plan = resolve_plan(dcfg, len(mesh_devices(dcfg, devices)))
             if plan.num_devices > 1:
                 # before any follower starts
-                check_mesh_config(self.config, spec, plan.tp, plan.ep)
+                check_mesh_config(self.config, spec, plan.tp, plan.ep,
+                                  plan.pp)
             mesh = build_mesh(self.config, devices)
         self.mesh = mesh
         try:
@@ -1051,7 +1066,8 @@ class EngineCore:
         # the whole model (reports, the sharding rules), and the spec
         # this rank's forwards and pools run on: its own heads and FFN
         # channels under tp, its experts under ep, with the mesh the
-        # collectives use
+        # collectives use; under pp its stage's layers, with the mesh the
+        # relay sends over
         self.model_spec = self.spec
         self.spec = local_spec(self.spec, self.mesh.tp, self.mesh)
         self.device = resolve_device(self.mesh.devices[0])
@@ -1081,10 +1097,15 @@ class EngineCore:
                 f"model.dtype={self.config.model.dtype} on CUDA: the "
                 "flash-prefill kernel takes bf16 (ROADMAP queue 2, K2)"
             )
+        # the prefix cache rides the suffix pass, which the pipeline
+        # relay does not run: the reference turns it off under pp (the
+        # batcher mirrors it)
+        pc = dcfg.prefix_cache
+        self.prefix_cache_enabled = bool(pc.enabled and self.mesh.pp == 1)
         # a page size K3 refuses would fail at the first hit or chunk
         check_engine_page_size(
             self.device.type, dcfg.kv_page_size, self.spec.head_dim,
-            self.config.kv_cache.dtype == "int8", dcfg.prefix_cache.enabled,
+            self.config.kv_cache.dtype == "int8", self.prefix_cache_enabled,
             dcfg.prefill_chunk,
         )
         self._stop_ids = frozenset(self.spec.extra_stop_ids)
@@ -1168,6 +1189,16 @@ class EngineCore:
         # perf attribution (observability/perf.py): the per-tick phase
         # split, the compile ledger and the MFU / HBM-roofline gauges
         # from the engine's own geometry; rebuilt fresh with the core
+        # the whole group's: every rank streams its own shard (under tp
+        # and ep alike); under pp stage 0 streams the head and its
+        # layers, and every other stage as many layers of the same size
+        weight_stream = stream_weight_bytes(self.params,
+                                            self.spec.tie_embeddings)
+        if self.mesh.pp > 1:
+            weight_stream += (self.mesh.pp - 1) * param_bytes(
+                self.params["layers"])
+        else:
+            weight_stream *= self.mesh.num_devices
         self.perf = PerfRecorder(
             self.config.observability,
             roofline=EngineRoofline(
@@ -1175,13 +1206,11 @@ class EngineCore:
                     torch.cuda.get_device_name(self.device)
                     if self.device.type == "cuda" else "cpu"
                 ),
-                # the whole group's: every rank streams its own shard
                 num_chips=self.mesh.num_devices,
                 num_params=int(self.model_spec.num_params),
-                weight_stream_bytes=self.mesh.num_devices
-                * stream_weight_bytes(self.params, self.spec.tie_embeddings),
+                weight_stream_bytes=weight_stream,
                 kv_token_bytes=kv_bytes_per_token(
-                    self.spec.num_layers, self.model_spec.num_kv_heads,
+                    self.model_spec.num_layers, self.model_spec.num_kv_heads,
                     self.spec.head_dim, dtype_bytes=kv_bytes,
                     scale_bytes=kv_scale_bytes,
                 ),
@@ -1198,11 +1227,10 @@ class EngineCore:
         # pages; the tree registers itself as the allocator's reclaimer
         # so cached pages stay allocatable.  radix=False keeps the
         # scheduler's flat whole-page hash chain.
-        pc = dcfg.prefix_cache
-        # the reference's name (the dp router's prefix affinity reads it)
-        self.prefix_cache_enabled = bool(pc.enabled)
+        # (prefix_cache_enabled, the reference's name, is set above; the
+        # dp router's prefix affinity reads it)
         self.radix_cache: Optional[RadixCache] = None
-        if pc.enabled and pc.radix:
+        if self.prefix_cache_enabled and pc.radix:
             self.radix_cache = RadixCache(
                 self.allocator, ps, min_share_pages=pc.min_share_pages,
                 cow=pc.cow, cow_min_tokens=pc.cow_min_tokens,
@@ -1235,7 +1263,7 @@ class EngineCore:
             admission_deadline_ms=(
                 self.config.scheduler.admission_deadline_ms
             ),
-            prefix_cache=pc.enabled,
+            prefix_cache=self.prefix_cache_enabled,
             prefill_chunk=dcfg.prefill_chunk,
             text_fn=self.final_text,
             recorder=self.flight,

@@ -93,21 +93,27 @@ def params_from_getter(
     passes through the keep hook as it loads (parallel/sharding.py
     ``leaf_keeper``): with ``quantization`` (int8/int4) it is quantized,
     equal to quantizing the whole tree afterwards, and on ``mesh`` (a
-    rank's mesh of more than one rank) the rank keeps its shard."""
-    from vgate_tpu_torch.parallel.sharding import leaf_keeper
+    rank's mesh of more than one rank) the rank keeps its shard: a
+    pipeline stage reads only its own layers, and past stage 0 no
+    embedding, final norm or head."""
+    from vgate_tpu_torch.parallel.sharding import leaf_keeper, stage_layers
 
     L = spec.num_layers
     pre = "model.layers.{}."
     keep = leaf_keeper(spec, mesh, quantization)
+    kept = stage_layers(spec, mesh)
+    stage0 = kept.start == 0
 
     def get(name):
         return getter(name).to(device=device, dtype=dtype)
 
     def stack(template: str, path, transpose: bool = False):
         def layer(i):
+            if i not in kept:
+                return None
             w = get(template.format(i))
             return keep(path, w.t() if transpose else w, lead=0)
-        return stack_layers(layer, L)
+        return stack_layers(layer, L, kept)
 
     def proj(name: str, key: str):
         return stack(pre + name + ".weight", ("layers", key, "w"), True)
@@ -129,11 +135,13 @@ def params_from_getter(
 
         def experts(w_name: str, key: str):
             def layer(i):
+                if i not in kept:
+                    return None
                 return keep(("layers", key, "w"), torch.stack([
                     get(f"{moe}experts.{e}.{w_name}.weight".format(i)).t()
                     for e in range(spec.num_experts)
                 ]), lead=0)
-            return stack_layers(layer, L)
+            return stack_layers(layer, L, kept)
 
         layers["gate"] = {"w": experts("w1", "gate")}
         layers["up"] = {"w": experts("w3", "up")}
@@ -151,6 +159,8 @@ def params_from_getter(
         for key, name in (("pre_ffn_norm", "pre_feedforward_layernorm"),
                           ("post_ffn_norm", "post_feedforward_layernorm")):
             layers[key] = stack(pre + name + ".weight", ("layers", key))
+    if not stage0:
+        return {"layers": layers}
     params: Params = {
         "embed": keep(("embed",),
                       get("model.embed_tokens.weight").contiguous()),
