@@ -110,10 +110,21 @@ up to the first near-tie, every prompt's logits held to pp=1's and the
 plain forward, trash page 0 still zeros, a stage-1 follower SIGKILLed
 mid-burst; where two cards are visible, bf16 Mixtral-8x7B (no one card
 holds it) one stage a card over NCCL with decode graphs, its live
-layer-0 MoE output held to the one-rank layer.
+layer-0 MoE output held to the one-rank layer; (15) last, sequence
+parallelism: K1-sp, K2-ring and K3-sp (the partial modes of K1, K2 and
+K3) against their plain versions (rows that see no owned key exactly
+(0, -1e30, 0); two ranks' partials merged against K1/K3 over the whole
+pool; K2-ring against K2), then an sp=1 Qwen2.5-7B engine at a
+32,768-token context and an sp=2 group over the same weights on the one
+card (gloo, eager): the burst, the system prompt's turns (prefix hits
+through K3-sp), a 16,000-token prompt through the ring with its pages
+across both shards, each rank's launches exact (K1-sp L a step, K2-ring
+L x (r + 1) a ring pass, K3-sp L a suffix pass), every prompt's logits
+held to sp=1's, a follower SIGKILLed mid-burst.
 The recovery, tp, ep (Mixtral (a) and Qwen (a')) and dp phases serve
 their models cut to half their depth at full width (``cut_depth``:
-Qwen2.5-7B at 14 of 28 layers, Mixtral at 16 of 32), and the
+Qwen2.5-7B at 14 of 28 layers, Mixtral at 16 of 32), as the sp phase
+does, and the
 speculative phase drafts with Qwen2.5-0.5B at 12 of 24, for the smoke's
 time limit; the main path, the speculative phase's target, the pod and
 the pp phase serve Qwen2.5-7B whole.
@@ -122,7 +133,9 @@ the build and (10), ``tp`` the build and (11), ``ep`` the build, K4/K5
 at Mixtral's shapes and (12), ``ep b`` the build and (12)'s bf16
 group alone, ``dp`` the build and (13), ``dp b`` the build and (13)'s
 four-card part alone, ``pp`` the build and (14), ``pp b`` the build and
-(14)'s two-card part alone.  Each phase prints the graphs it captured, their
+(14)'s two-card part alone, ``sp`` the build and (15) at full depth with
+a chunked leg (prefill_chunk 512), ``sp b`` (15) one rank a card over
+NCCL with decode graphs.  Each phase prints the graphs it captured, their
 capture time and their memory pool's bytes.  It prints the card's
 name and power limit, one JSON line of per-kernel numbers and, last,
 ``{"ok": true, "device": {...}}``.  Any
@@ -2445,14 +2458,15 @@ def backend_streams_cancel_signals(engine, core, device) -> dict:
 
 def engine_config(model: str, device: str, quantization=None,
                   kv_dtype: str = "auto", host_swap_bytes: int = 0,
-                  sections=None, **device_section):
+                  sections=None, max_model_len: int = 2048,
+                  **device_section):
     """The smoke's engine config; ``sections`` adds other config sections
     (recovery, integrity)."""
     from vgate_tpu_torch.config import load_config
 
     return load_config(
         model={"model_id": model, "engine_type": "torch_cuda",
-               "dtype": "bfloat16", "max_model_len": 2048,
+               "dtype": "bfloat16", "max_model_len": max_model_len,
                "quantization": quantization},
         kv_cache={"dtype": kv_dtype, "host_swap_bytes": host_swap_bytes},
         device={"device": device, **device_section},
@@ -6824,6 +6838,713 @@ def pp_phase_b(card: str, traffic) -> list:
     return [b]
 
 
+# ------------------------------------- sequence parallelism (sp, item 10d)
+
+K1SP, K2RING, K3SP = ("paged_decode_partial", "flash_prefill_partial",
+                      "paged_multitok_partial")
+SP_TOL = KERNEL_TOL  # bf16 kernel vs fp32 plain, merged outputs
+SP_ML_TOL = 1e-3  # m and l: fp32 sums of the same unrounded weights
+
+
+def sp_shard_inputs(B, H, KV, hd, ps, pps, shard, seed, dev, owned=None):
+    """One sp=2 rank's inputs (rank 1, pages [shard, 2 * shard)): q, its
+    pool shard ``[KV, shard, ps, hd]`` (local page 0 zeros, the trash
+    page), the global page tables ``[B, pps]`` over both shards' pages
+    (the reserved 0 and ``shard`` never used) and the base.  ``owned``
+    [B] fractions of each row's pages on this rank (default one half;
+    0.0 gives a row with no owned page)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    base = shard
+    q = torch.randn(B, H, hd, generator=gen, device=dev).bfloat16()
+    k = torch.randn(KV, shard, ps, hd, generator=gen, device=dev).bfloat16()
+    v = torch.randn(KV, shard, ps, hd, generator=gen, device=dev).bfloat16()
+    k[:, 0] = 0
+    v[:, 0] = 0
+    mine = (torch.randperm(shard - 1, generator=gen, device=dev) + 1 + base)
+    theirs = torch.randperm(shard - 1, generator=gen, device=dev) + 1
+    pt = torch.empty(B, pps, dtype=torch.int64, device=dev)
+    used_m = used_t = 0
+    for b in range(B):
+        frac = 0.5 if owned is None else owned[b]
+        pick = torch.rand(pps, generator=gen, device=dev) < frac
+        n_m = int(pick.sum())
+        check(used_m + n_m <= shard - 1 and used_t + pps - n_m <= shard - 1,
+              "sp inputs: too few pages")
+        pt[b, pick] = mine[used_m:used_m + n_m]
+        pt[b, ~pick] = theirs[used_t:used_t + pps - n_m]
+        used_m += n_m
+        used_t += pps - n_m
+    return q, k, v, pt.to(torch.int32), base
+
+
+def partials_agree(got, expect, what: str) -> float:
+    """K-sp partials ``(acc, m, l)`` against the plain version's: the
+    normalised rows within the kernel tolerance, m and l within
+    ``SP_ML_TOL`` (relative for l), and rows that saw no key exactly
+    ``(0, -1e30, 0)``.  Returns the max abs error of the rows."""
+    acc, m, l = got
+    e_acc, e_m, e_l = expect
+    for t in got:
+        check(bool(torch.isfinite(t).all()), f"{what}: partials not finite")
+    empty = e_l == 0
+    check(bool(torch.equal(l == 0, empty)), f"{what}: rows seeing no key "
+          "differ from the plain version's")
+    check(bool((acc[empty] == 0).all() and (m[empty] == -1e30).all()),
+          f"{what}: an empty row is not (0, -1e30, 0)")
+    live = ~empty
+    check(bool(torch.allclose(m[live], e_m[live], atol=SP_ML_TOL,
+                              rtol=SP_ML_TOL)),
+          f"{what}: m off by {float((m - e_m)[live].abs().max())}")
+    check(bool(torch.allclose(l[live], e_l[live], rtol=SP_ML_TOL, atol=0)),
+          f"{what}: l off by {float(((l - e_l) / e_l)[live].abs().max())} "
+          "relative")
+    out = acc / l.clamp_min(1e-30)[..., None]
+    e_out = e_acc / e_l.clamp_min(1e-30)[..., None]
+    return within(out[live], e_out[live], f"{what}: rows")
+
+
+def sp_thrice(fn, what: str):
+    """``thrice`` over the three partials at once."""
+    flat = thrice(lambda: torch.cat([t.reshape(-1) for t in fn()]), what)
+    acc, m, l = fn()
+    n, k = acc.numel(), m.numel()
+    return (flat[:n].view_as(acc), flat[n:n + k].view_as(m),
+            flat[n + k:].view_as(l))
+
+
+def sp_entry(name, source, replaces, shape, err, ms, plain_ms, bound, by,
+             library_ms) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms, "shape": shape}
+
+
+def check_k1_sp(dev) -> dict:
+    """K1-sp against its plain version: hd 64/128/256, GQA groups, window,
+    softcap and scale, a row with no owned page and an empty slot, three
+    runs bit-identical; the two ranks' partials merged against K1 over
+    the whole pool; then timed at the sp phase's decode shape (32 slots
+    at 7B, pages of 32, about half of each row's pages owned)."""
+    from vgate_tpu_torch.ops import attention as plain
+    from vgate_tpu_torch.ops.kernels.paged_decode import (
+        paged_decode_attention,
+        paged_decode_partial as kernel,
+    )
+
+    def expect(q, k, v, pt, sl, base, **kw):
+        local, owned = plain.local_pages(pt, base, k.shape[1])
+        return plain.partial_paged_attention(
+            q.float(), k.float(), v.float(), local, owned, sl, **{
+                "window": kw.get("window", 0),
+                "softcap": kw.get("softcap", 0.0),
+                "scale": kw.get("scale")})
+
+    for hd, H, KV, ps, kw in ((64, 8, 4, 16, {}), (128, 28, 4, 32, {}),
+                              (256, 16, 2, 16, {"window": 100}),
+                              (128, 14, 2, 32,
+                               {"softcap": 30.0, "scale": 0.1})):
+        pps = 12
+        lens = [1, 31, 33, 150, pps * ps, 0]
+        q, k, v, pt, base = sp_shard_inputs(len(lens), H, KV, hd, ps, pps,
+                                            64, 41, dev,
+                                            owned=[0.5, 0.0, 1.0, 0.5, 0.5,
+                                                   0.5])
+        sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        what = f"K1-sp hd={hd} H={H} KV={KV} ps={ps} {kw}"
+        got = sp_thrice(lambda: kernel(q, k, v, pt, sl, base, **kw), what)
+        partials_agree(got, expect(q, k, v, pt, sl, base, **kw), what)
+    # both ranks' partials, merged, are K1 over the whole pool
+    B, H, KV, hd, ps, pps, shard = 8, 28, 4, 128, 32, 16, 96
+    q, k1, v1, pt, base = sp_shard_inputs(B, H, KV, hd, ps, pps, shard, 42,
+                                          dev)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    k0, v0 = (torch.randn(KV, shard, ps, hd, generator=gen, device=dev)
+              .bfloat16() for _ in range(2))
+    k0[:, 0] = 0
+    v0[:, 0] = 0
+    sl = torch.randint(1, pps * ps + 1, (B,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    parts = [kernel(q, k0, v0, pt, sl, 0), kernel(q, k1, v1, pt, sl, base)]
+    merged = plain.merge_partials(*(torch.stack(t) for t in zip(*parts)))
+    whole = paged_decode_attention(q, torch.cat([k0, k1], 1),
+                                   torch.cat([v0, v1], 1), pt, sl)
+    torch.cuda.synchronize()
+    within(merged, whole, "K1-sp: two ranks merged vs K1 over the pool")
+
+    # the sp phase's decode step: 32 slots at 7B, contexts 1..2048, about
+    # half of each slot's pages on this rank
+    B, H, KV, hd, ps, pps, shard = 32, 28, 4, 128, 32, 64, 1100
+    lens = DECODE_LENS
+    q, k, v, pt, base = sp_shard_inputs(B, H, KV, hd, ps, pps, shard, 44,
+                                        dev)
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = kernel(q, k, v, pt, sl, base)
+    err = partials_agree(got, expect(q, k, v, pt, sl, base),
+                         "K1-sp at the sp decode shape")
+    ms = time_ms(lambda: kernel(q, k, v, pt, sl, base), iters=50)
+    plain_ms = time_ms(lambda: expect(q, k, v, pt, sl, base), iters=5)
+    # what this run's data needs: the owned live tokens' K and V once
+    local, owned = plain.local_pages(pt, base, shard)
+    t = torch.arange(pps * ps, device=dev)[None, :]
+    live = (t < sl[:, None]) & owned.repeat_interleave(ps, dim=1)
+    n_live = int(live.sum())
+    n_pages = int((owned & (torch.arange(pps, device=dev)[None, :] * ps
+                            < sl[:, None])).sum())
+    nbytes = (2 * n_live * KV * hd * 2 + B * H * hd * 2 + B * H * (hd + 2) * 4
+              + n_pages * 4 + B * 4)
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = 4 * n_live * H * hd / H100_FP32_FLOPS * 1e3
+    bound, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                      else "operations")
+    # the library yardstick: SDPA over the owned K/V gathered to
+    # contiguous memory beforehand (not timed), masked to the owned live
+    # keys (a row with none gives NaN there; none such at this shape)
+    ctx = pps * ps
+    kh, vh = (x[:, local].reshape(KV, B, ctx, hd).permute(1, 0, 2, 3)
+              .repeat_interleave(H // KV, dim=1).contiguous() for x in (k, v))
+    mask = live[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = sdpa(q[:, :, None], kh, vh, attn_mask=mask)[:, :, 0]
+    acc, _, l = got
+    seen = l > 0  # SDPA gives NaN to a head with no owned key
+    within((acc / l.clamp_min(1e-30)[..., None])[seen], lib[seen],
+           "K1-sp vs SDPA")
+    library_ms = time_ms(lambda: sdpa(q[:, :, None], kh, vh, attn_mask=mask),
+                         iters=20)
+    shape = (f"B={B} H={H} KV={KV} hd={hd} ps={ps} ctx=1..2048, "
+             f"{n_live} owned live keys")
+    print(f"  {K1SP} at 7b [{shape}]: " + json.dumps({
+        "ms": ms, "bound_ms": bound, "bound_by": by, "bound_share":
+        bound / ms, "library_ms": library_ms, "max_abs_err": err}),
+          flush=True)
+    return sp_entry(K1SP, "vgate_tpu_torch/csrc/paged_decode.cu",
+                    "vgate_tpu/ops/pallas/paged_attention.py:299", shape,
+                    err, ms, plain_ms, bound, by, library_ms)
+
+
+def check_k2_ring(dev) -> dict:
+    """K2-ring against its plain version: the diagonal hop (causal, ragged
+    key lengths, a padded block of no real key), an earlier rank's block
+    (q_offsets past it), window + softcap + scale, hd 64/128/256, three
+    runs bit-identical; then at the 16,384-token prompt's hop at 7B (8,192
+    query rows against an earlier rank's 8,192 keys) against the plain
+    version and K2 on the same block, timed beside both and SDPA."""
+    from vgate_tpu_torch.ops import attention as plain
+    from vgate_tpu_torch.ops.kernels.flash_prefill import (
+        flash_prefill_attention,
+        flash_prefill_partial as kernel,
+    )
+
+    def plain_partial(q, k, v, kl, off, **kw):
+        return plain.prefill_partial_attention(
+            q.float(), k.float(), v.float(), kl, off, **kw)
+
+    for hd, H, KV, n, lens, offs, kw in (
+        (64, 8, 2, 192, [192, 100, 0], [0, 0, 0], {}),
+        (128, 28, 4, 256, [256, 256, 7], [256, 512, 256], {}),
+        (256, 16, 2, 128, [128, 60, 128], [128, 0, 4096],
+         {"window": 100, "softcap": 30.0, "scale": 0.1}),
+        (128, 8, 4, 320, [320, 320], [640, 0], {"window": 129}),
+    ):
+        B = len(lens)
+        q, k, v = prefill_inputs(B, n, H, KV, hd, 51 + n, dev)
+        kl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        off = torch.tensor(offs, dtype=torch.int32, device=dev)
+        what = f"K2-ring hd={hd} H={H} KV={KV} n={n} {lens} {offs} {kw}"
+        got = sp_thrice(lambda: kernel(q, k, v, kl, off, **kw), what)
+        partials_agree(got, plain_partial(q, k, v, kl, off, **kw), what)
+
+    # the 16,384-token prompt's hop at 7B: 8,192 query rows against an
+    # earlier rank's 8,192 keys, against the plain version and against K2
+    # on the same block (every key visible: the query block placed after
+    # the keys)
+    B, H, KV, hd, n = 1, 28, 4, 128, 8192
+    q, k, v = prefill_inputs(B, n, H, KV, hd, 53, dev)
+    kl = torch.full((B,), n, dtype=torch.int32, device=dev)
+    off = torch.full((B,), n, dtype=torch.int32, device=dev)
+    got = kernel(q, k, v, kl, off)
+    err = partials_agree(got, plain_partial(q, k, v, kl, off),
+                         f"K2-ring at n={n}")
+    torch.cuda.empty_cache()
+    plain_ms = time_ms(lambda: plain_partial(q, k, v, kl, off), iters=1,
+                       warmup=0)
+    torch.cuda.empty_cache()
+    acc, _, l = got
+    whole = flash_prefill_attention(q, k, v, kl, q_offsets=off)
+    torch.cuda.synchronize()
+    within(acc / l.clamp_min(1e-30)[..., None], whole,
+           "K2-ring vs K2 at the 16,384-token hop")
+    del acc, l, got, whole
+    ms = time_ms(lambda: kernel(q, k, v, kl, off), iters=10)
+    kh = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    vh = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(q.transpose(1, 2), kh, vh), iters=10)
+    flops, bound, by = attention_bound(
+        B * n * n, H, hd, B * n * (H + 2 * KV) * hd * 2
+        + B * n * H * (hd + 2) * 4 + 2 * B * 4)
+    shape = f"B={B} rows={n} keys={n} H={H} KV={KV} hd={hd}, every key seen"
+    print(f"  {K2RING} at 7b [{shape}]: " + json.dumps({
+        "ms": ms, "bound_ms": bound, "bound_by": by, "tflops":
+        flops / ms / 1e9, "bound_share": bound / ms, "library_ms":
+        library_ms, "vs_library": ms / library_ms, "max_abs_err": err}),
+          flush=True)
+    del q, k, v, kh, vh
+    torch.cuda.empty_cache()
+    return sp_entry(K2RING, "vgate_tpu_torch/csrc/flash_prefill.cu",
+                    "vgate_tpu/ops/pallas/flash_prefill.py:127", shape, err,
+                    ms, plain_ms, bound, by, library_ms)
+
+
+def check_k3_sp(dev) -> dict:
+    """K3-sp against its plain version: suffix rows over contexts whose
+    pages lie on both ranks, a row with no owned page, idle rows past
+    input_lens, hd 64/128/256, window + softcap + scale, pages of 16 and
+    32, three runs bit-identical; both ranks merged against K3 over the
+    whole pool; then timed at a 512-row prefill chunk over a 1,536-token
+    context at 7B."""
+    from vgate_tpu_torch.ops import attention as plain
+    from vgate_tpu_torch.ops.kernels.paged_multitok import (
+        paged_multitok_attention,
+        paged_multitok_partial as kernel,
+    )
+
+    def expect(q, k, v, pt, p0, il, base, **kw):
+        local, owned = plain.local_pages(pt, base, k.shape[1])
+        return plain.partial_suffix_attention(
+            q.float(), k.float(), v.float(), local, owned, p0, p0 + il,
+            window=kw.get("window", 0), softcap=kw.get("softcap", 0.0),
+            scale=kw.get("scale"))
+
+    def inputs(B, S, H, KV, hd, ps, pos0, lens, seed, owned=None):
+        ctx_pages = -(-(max(pos0) + S) // ps)
+        q1, k, v, pt, base = sp_shard_inputs(B, H, KV, hd, ps, ctx_pages,
+                                             B * ctx_pages + 8, seed, dev,
+                                             owned=owned)
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        q = torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
+        p0 = torch.tensor(pos0, dtype=torch.int32, device=dev)
+        il = torch.tensor(lens, dtype=torch.int32, device=dev)
+        return q, k, v, pt, p0, il, base
+
+    for hd, H, KV, ps, S, pos0, lens, kw, owned in (
+        (64, 8, 2, 16, 128, [0, 32, 64], [128, 20, 1], {}, [0.5, 0.0, 0.5]),
+        (128, 28, 4, 32, 256, [512, 96, 0], [256, 70, 3], {"window": 300},
+         None),
+        (256, 16, 2, 16, 64, [16, 48, 64], [60, 64, 7],
+         {"softcap": 30.0, "scale": 0.1}, [1.0, 0.5, 0.5]),
+    ):
+        q, k, v, pt, p0, il, base = inputs(len(pos0), S, H, KV, hd, ps, pos0,
+                                           lens, 61 + hd, owned)
+        what = f"K3-sp hd={hd} ps={ps} pos0={pos0} lens={lens} {kw}"
+        got = sp_thrice(lambda: kernel(q, k, v, pt, p0, il, base, **kw),
+                        what)
+        real = torch.arange(S, device=dev)[None, :] < il[:, None]
+        partials_agree(tuple(t[real] for t in got),
+                       tuple(t[real] for t in expect(q, k, v, pt, p0, il,
+                                                     base, **kw)), what)
+    # the timing shape: a 512-row chunk over a 1,536-token context (1,024
+    # resident) at 7B, pages of 32 on both ranks; both ranks merged
+    # against K3 over the whole pool
+    B, S, H, KV, hd, ps, prefix = 1, 512, 28, 4, 128, 32, 1024
+    q, k1, v1, pt, p0, il, base = inputs(B, S, H, KV, hd, ps, [prefix], [S],
+                                         62)
+    gen = torch.Generator(device=dev).manual_seed(63)
+    shard = k1.shape[1]
+    k0, v0 = (torch.randn(KV, shard, ps, hd, generator=gen, device=dev)
+              .bfloat16() for _ in range(2))
+    k0[:, 0] = 0
+    v0[:, 0] = 0
+    parts = [kernel(q, k0, v0, pt, p0, il, 0),
+             kernel(q, k1, v1, pt, p0, il, base)]
+    merged = plain.merge_partials(*(torch.stack(t) for t in zip(*parts)))
+    whole = paged_multitok_attention(q, torch.cat([k0, k1], 1),
+                                     torch.cat([v0, v1], 1), pt, p0, il)
+    torch.cuda.synchronize()
+    within(merged, whole, "K3-sp: two ranks merged vs K3 over the pool")
+    got = parts[1]
+    err = partials_agree(got, expect(q, k1, v1, pt, p0, il, base),
+                         "K3-sp at the chunk shape")
+    ms = time_ms(lambda: kernel(q, k1, v1, pt, p0, il, base), iters=50)
+    plain_ms = time_ms(lambda: expect(q, k1, v1, pt, p0, il, base), iters=3)
+    ctx = prefix + S
+    local, owned = plain.local_pages(pt, base, shard)
+    own_keys = owned.repeat_interleave(ps, dim=1)[:, :ctx]  # [B, ctx]
+    rows = prefix + torch.arange(S, device=dev)[:, None]
+    keys = torch.arange(ctx, device=dev)[None, :]
+    mask = (keys <= rows) & own_keys[0][None, :]  # [S, ctx]
+    pairs = int(mask.sum())
+    n_own = int(own_keys.sum())
+    nbytes = (B * S * H * hd * 2 + 2 * n_own * KV * hd * 2
+              + B * S * H * (hd + 2) * 4 + int(owned.sum()) * 4 + 2 * B * 4)
+    flops, bound, by = attention_bound(pairs, H, hd, nbytes)
+    kc, vc = (x[:, local].reshape(KV, B, -1, hd)[:, :, :ctx]
+              .permute(1, 0, 2, 3).repeat_interleave(H // KV, dim=1)
+              .contiguous() for x in (k1, v1))
+    qh = q.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = sdpa(qh, kc, vc, attn_mask=mask).transpose(1, 2)
+    acc, _, l = got
+    seen = l > 0  # SDPA gives NaN to a row with no owned key
+    within((acc / l.clamp_min(1e-30)[..., None])[seen], lib[seen],
+           "K3-sp vs SDPA")
+    library_ms = time_ms(lambda: sdpa(qh, kc, vc, attn_mask=mask), iters=20)
+    shape = (f"B={B} S={S} prefix={prefix} H={H} KV={KV} hd={hd} ps={ps}, "
+             f"{n_own} of {ctx} keys owned")
+    print(f"  {K3SP} at 7b [{shape}]: " + json.dumps({
+        "ms": ms, "bound_ms": bound, "bound_by": by, "tflops":
+        flops / ms / 1e9, "bound_share": bound / ms, "library_ms":
+        library_ms, "vs_library": ms / library_ms, "max_abs_err": err}),
+          flush=True)
+    return sp_entry(K3SP, "vgate_tpu_torch/csrc/paged_multitok.cu",
+                    "vgate_tpu/ops/pallas/paged_attention.py:847", shape,
+                    err, ms, plain_ms, bound, by, library_ms)
+
+
+def check_sp_kernels(dev) -> list:
+    """K1-sp, K2-ring and K3-sp, each held to its plain version and
+    timed; returns their kernel entries."""
+    out = [check_k1_sp(dev), check_k2_ring(dev), check_k3_sp(dev)]
+    torch.cuda.empty_cache()
+    return out
+
+
+SP_ONE_CARD = ["cuda:0", "cuda:0"]
+# the whole smoke leaves the chunked leg (its second pair of engines, a
+# 68.6 s warm-up at full depth: a 32,766-token prompt chunked at 512 over
+# gloo) to ``chip_smoke.py sp``; the ring group's hits run K3-sp there
+SP_CHUNKED_IN_SMOKE = False
+SP_TWO_CARDS = ["cuda:0", "cuda:1"]
+SP_MAX_LEN = 32768  # Qwen2.5's published context
+# every bucket sp = 2 divides into whole pages of 32 (the scheduler adds
+# the top bucket, max_model_len, itself)
+SP_BUCKETS = [128, 256, 512, 1024, 2048, 4096, 8192, 16384]
+SP_RING_TOKENS = 16000  # the long prompt: one pass of the 16,384 bucket
+SP_CHUNK = 512  # the chunked leg's prefill_chunk
+# The ring's prompt logits against sp = 1's, where no plain forward fits
+# the card (a [28 heads, 16K, 16K] fp32 score matrix): the ring folds
+# per-block fp32 partials where K2 runs one online softmax, and each
+# rounds P to bf16 at other places, through every layer.  Written before
+# the first chip run of the phase, from the tp phase's 0.21-0.30 (PERF.md,
+# PR 17) and twice that for the 16x longer prompt.
+SP_RING_LOGITS_TOL = 0.6
+
+
+def sp_config(devices, model: str = MESH_MODEL, chunk: int = 0):
+    """The sp phase's engines: ``model`` in bf16 at Qwen2.5's 32,768-token
+    context, the prefix cache on (copy-on-write off under sp, as the
+    reference), ``chunk`` as prefill_chunk (0: every cold prompt one ring
+    pass), pages of 32, 32 slots, buckets sp divides; ``devices`` names
+    each rank's card (one entry: the sp = 1 reference)."""
+    return engine_config(model, "cuda", max_model_len=SP_MAX_LEN,
+                         prefill_chunk=chunk, kv_page_size=32,
+                         max_batch_slots=32, prefill_buckets=SP_BUCKETS,
+                         prefix_cache={"enabled": True}, sp=len(devices),
+                         devices=list(devices) if len(devices) > 1 else [])
+
+
+def sp_traffic(ring_tokens: int = SP_RING_TOKENS):
+    """(name, texts, params) of the ring group's traffic: the 9-request
+    burst, the shared system prompt's first turn and its second turn
+    (prefix hits through K3-sp; the copy-on-write prompt reuses its whole
+    pages only), then one prompt of ``ring_tokens`` tokens (a prompt pass
+    of its bucket through the ring)."""
+    from vgate_tpu_torch.backends.base import SamplingParams
+
+    groups = [g for g in tp_traffic() if g[0] != "long"]
+    greedy = SamplingParams(max_tokens=TP_TOKENS, temperature=0.0,
+                            logprobs=True, top_logprobs=2)
+    return groups + [("ring", [filler("Document: ", ring_tokens, 7)],
+                      [greedy])]
+
+
+def sp_chunk_traffic():
+    """The chunked leg's traffic: the 1,600-token prompt, chunked at 512
+    (three suffix passes through K3-sp and a final one)."""
+    return [g for g in tp_traffic() if g[0] == "long"]
+
+
+@contextlib.contextmanager
+def sp_recorded_passes():
+    """The batch of every ring prompt pass rank 0 runs while the block
+    runs (a prefix hit or a chunk is a suffix pass instead)."""
+    from vgate_tpu_torch.models import decoder
+
+    real, passes = decoder.sp_prefill_forward, []
+
+    def recorded(params, spec, tokens, *args, **kwargs):
+        passes.append(int(tokens.shape[0]))
+        return real(params, spec, tokens, *args, **kwargs)
+
+    decoder.sp_prefill_forward = recorded
+    try:
+        yield passes
+    finally:
+        decoder.sp_prefill_forward = real
+
+
+def sp_launches(core, s0: dict, f0s: list, ring: list, what: str) -> dict:
+    """Each rank's launches since the counts were set to 0, exactly, one
+    rank at a time: K1-sp L a decode step, K2-ring L x (r + 1) a ring
+    pass on sp rank r (the blocks of later ranks are skipped), K3-sp L a
+    suffix pass (a hit or a chunk), and none of K1, K2 or K3; every
+    follower ran rank 0's steps and passes.  Returns the launches summed
+    over the ranks, and each rank's."""
+    live = live_core(core)
+    s = live.get_stats()
+    fs = live.follower_stats()
+    L = live.spec.num_layers
+    steps = s["steps"] - s0["steps"]
+    passes = s["prompt_passes"] - s0["prompt_passes"]
+    suffix = passes - len(ring)
+    check(steps > 0 and passes > 0 and suffix >= 0,
+          f"{what}: {steps} steps, {passes} passes, {len(ring)} ring passes")
+    ranks = [(0, read_launches())]
+    for f, f0 in zip(fs, f0s):
+        check(f["steps"] - f0["steps"] == steps
+              and f["prompt_passes"] - f0["prompt_passes"] == passes,
+              f"{what}: rank {f['rank']} ran {f['steps'] - f0['steps']} "
+              f"steps and {f['prompt_passes'] - f0['prompt_passes']} "
+              f"passes, rank 0 {steps} and {passes}")
+        ranks.append((f["rank"], f["kernel_launches"]))
+    total, each = {}, {}
+    for rank, n in ranks:
+        want = {K1SP: L * steps, K2RING: L * (rank + 1) * len(ring),
+                K3SP: L * suffix, K1: 0, K2: 0, K3: 0}
+        got = {name: n.get(name, 0) for name in want}
+        # no kernel launches on the CPU (a rehearsal)
+        check(got == want or live.device.type != "cuda",
+              f"{what}, rank {rank}: launches {got}, expected {want}")
+        each[str(rank)] = got
+        for name, count in n.items():
+            total[name] = total.get(name, 0) + count
+    return {"launches": total, "per_rank": each, "decode_steps": steps,
+            "prompt_passes": passes, "ring_passes": len(ring),
+            "ring_rows": ring, "suffix_passes": suffix, "layers": L}
+
+
+def sp_pages(core) -> dict:
+    """Pages a rank's pool holds, and the global pages each shard has in
+    use (live or cached) right now."""
+    live = live_core(core)
+    geo = live.geometry
+    free = set(live.allocator._free) | set(live.allocator.reserved)
+    used = [0] * geo.shards
+    for p in range(geo.num_pages):
+        if p not in free:
+            used[p // geo.local_pages] += 1
+    return {"pages_a_rank": geo.local_pages, "pages": geo.num_pages,
+            "reserved": sorted(live.allocator.reserved),
+            "in_use_by_shard": used}
+
+
+def sp_straddle(core, tokens: int) -> list:
+    """Pages taken from the allocator and held, so that the next prompt of
+    ``tokens`` tokens gets about half its pages from shard 0 and half
+    from shard 1: the allocator hands out the lowest free ids first, so a
+    pool far larger than the traffic would keep every page on rank 0, and
+    rank 1's partials would all be empty.  Give them back with
+    ``allocator.release``.  The engine must be idle."""
+    live = live_core(core)
+    alloc, shard = live.allocator, live.geometry.local_pages
+    lead = 0  # the free list's leading run of shard-0 pages
+    for p in alloc._free:
+        if p >= shard:
+            break
+        lead += 1
+    take = lead - math.ceil(tokens / live.geometry.page_size) // 2
+    return alloc.allocate(take) if take > 0 else []
+
+
+def sp_serve(engine, core, traffic) -> dict:
+    """``tp_serve`` of the traffic, each group whose longest prompt has
+    1,000 tokens or more served with its pages straddling the two
+    shards (``sp_straddle``)."""
+    out = {}
+    for group in traffic:
+        longest = max(len(live_core(core).encode_prompt(t)) for t in group[1])
+        held = (sp_straddle(core, longest)
+                if longest >= 1000 and live_core(core).mesh.sp > 1 else [])
+        try:
+            out.update(tp_serve(engine, [group]))
+        finally:
+            live_core(core).allocator.release(held)
+    return out
+
+
+def sp_reference(traffic, cfg, what: str = "sp=1") -> dict:
+    """The sp = 1 engine over the same random weights: its streams, gaps
+    and serving numbers, and each greedy prompt's prompt-pass logits
+    with the plain forward's tolerance (``tp_plain_tolerance``, held as
+    tp = 1's are), or for the ring's long prompt ``SP_RING_LOGITS_TOL``."""
+    engine, core = start_engine(cfg, f"{what} bf16 reference")
+    try:
+        warm_up(core, f"{what} reference engine")
+        served = tp_serve(engine, traffic)
+        prompts_ = {}
+        for name, texts, params in traffic:
+            for i, (text, sp) in enumerate(zip(texts, params)):
+                if sp.temperature != 0.0 or name.endswith(AGAIN):
+                    continue
+                ids = core.encode_prompt(text)
+                entry = {"ids": ids, "logits": tp_prompt_logits(core, ids),
+                         "tol": SP_RING_LOGITS_TOL}
+                if name != "ring":  # no plain forward of it fits the card
+                    tol = tp_plain_tolerance(core, ids)
+                    err = float((entry["logits"] - tol["ref"]).abs().max())
+                    check(err <= tol["tol"],
+                          f"{what} {name} {i}: logits {err} off the plain "
+                          f"forward (tolerance {tol['tol']})")
+                    entry.update(vs_plain=err, tol=tol["tol"])
+                prompts_[(name, i)] = entry
+        return {"served": served, "prompts": prompts_}
+    finally:
+        engine.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def sp_group(devices, ref, traffic, what: str, model: str = MESH_MODEL,
+             chunk: int = 0, drill: bool = True) -> dict:
+    """One sp group of ``model`` on ``devices`` through the backend: boot,
+    warm-up, the traffic with every rank's launches exact, the greedy
+    streams held to sp = 1's (``ref``) up to the first near-tie, every
+    greedy prompt's prompt-pass logits against sp = 1's, pages a rank and
+    in use by shard, each rank's weights, pool and peak memory, trash page
+    0 of every rank still zeros, and over gloo (``drill``) the follower
+    kill drill."""
+    sp = len(devices)
+    print(f"memory allocated before the sp={sp} {what} group: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
+    t0 = time.perf_counter()
+    engine, core = start_engine(sp_config(devices, model, chunk),
+                                f"sp={sp} {what}")
+    out = {"boot_s": time.perf_counter() - t0}
+    try:
+        live = live_core(core)
+        stats = live.get_stats()
+        check(stats["mesh"]["sp"] == sp and live.spec.seq_parallel is not None
+              and live.radix_cache is not None and not live.radix_cache.cow,
+              f"{what}: mesh {stats['mesh']}, copy-on-write on")
+        shard = live.geometry.local_pages
+        check(set(live.allocator.reserved) == {i * shard for i in range(sp)},
+              f"{what}: reserved pages {sorted(live.allocator.reserved)}")
+        backend, graphs = stats["mesh"]["backend"], live.decode_graphs
+        print(f"sp={sp} {what}: device group {backend}, decode chunks "
+              f"{'graph replays' if graphs else 'eager (gloo)'}", flush=True)
+        out.update(backend=backend, decode_graphs=graphs,
+                   warmup_s=warm_up(core, f"sp={sp} {what}")["warmup_s"])
+        live.reset_follower_launches()
+        torch.cuda.reset_peak_memory_stats()
+        s0 = live.get_stats()
+        f0s = live.follower_stats()
+        with sp_recorded_passes() as ring:
+            served = sp_serve(engine, core, traffic)
+        out.update(sp_launches(core, s0, f0s, ring, f"sp={sp} {what}"))
+        s1 = live.get_stats()
+        if graphs:
+            g0, g1 = s0["decode_graphs"], s1["decode_graphs"]
+            check(g1["replays"] - g0["replays"] == s1["chunks"] - s0["chunks"],
+                  f"{what}: {g1['replays'] - g0['replays']} replays for "
+                  f"{s1['chunks'] - s0['chunks']} chunks")
+            out["replays"] = g1["replays"] - g0["replays"]
+            out["chunks"] = s1["chunks"] - s0["chunks"]
+        out["prefix_cache"] = s1.get("prefix_cache")
+        out["pages"] = sp_pages(core)
+        spec = live.model_spec
+        for group in served.values():
+            for stream in group["streams"]:
+                check(len(stream) == TP_TOKENS
+                      and all(0 <= t < spec.vocab_size for t in stream),
+                      f"{what}: a stream of {len(stream)} tokens")
+        out.update({name: served[name]["numbers"] for name in served})
+        out["memory"] = tp_memory(core)
+        check(not live.k_pages[:, :, 0].any()
+              and not live.v_pages[:, :, 0].any()
+              and all(f["memory"]["trash_page_zero"]
+                      for f in live.follower_stats()),
+              f"{what}: a rank wrote its trash page 0")
+        if ref is not None:
+            for name in served:
+                out[f"sp1 {name}"] = ref["served"][name]["numbers"]
+            out["streams"] = tp_streams_agree(ref, served, f"sp={sp} {what}")
+            errs = {}
+            for (name, i), p in ref["prompts"].items():
+                got = tp_prompt_logits(core, p["ids"])
+                check(bool(torch.isfinite(got).all()), "sp logits not finite")
+                vs_sp1 = float((got - p["logits"]).abs().max())
+                check(vs_sp1 <= p["tol"],
+                      f"{what}, {name} {i}: logits {vs_sp1} off sp=1's "
+                      f"(tolerance {p['tol']})")
+                errs[f"{name} {i}"] = {"vs_sp1": vs_sp1, "tol": p["tol"],
+                                       "tokens": len(p["ids"])}
+            out["logits_max_abs_vs_sp1"] = max(e["vs_sp1"]
+                                               for e in errs.values())
+            out["logits"] = errs
+        if drill and backend == "gloo":
+            burst = traffic[0]
+            kill = tp_kill_drill(engine, core, (burst[1], burst[2]),
+                                 f"sp={sp} kill drill")
+            kill.pop("streams")
+            out["kill_drill"] = kill
+    finally:
+        engine.shutdown()
+        del engine, core
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_path(card: str, model: str = MESH_MODEL, chunked: bool = True) -> list:
+    """Phase (a): ``model`` in bf16 at sp = 2, both ranks on the one card
+    (two processes, a gloo device group, eager chunks), beside an sp = 1
+    engine's traffic on the same card: the ring group (the burst, the
+    system prompt's turns, the 16,000-token prompt, the kill drill), then
+    with ``chunked`` the chunked leg (prefill_chunk 512) on a second pair
+    of engines.  Prints each; returns the runs."""
+    traffic = sp_traffic()
+    ref = sp_reference(traffic, sp_config(["cuda:0"], model))
+    gc.collect()
+    torch.cuda.empty_cache()
+    a = sp_group(SP_ONE_CARD, ref, traffic, "phase (a), one card", model)
+    kill = a.pop("kill_drill")
+    print(f"sp phase (a), {model} bf16, 2 ranks on {card}: "
+          + json.dumps(a), flush=True)
+    print(f"sp phase (a) follower kill drill on {card}: " + json.dumps(kill),
+          flush=True)
+    runs = [a]
+    if chunked:
+        traffic = sp_chunk_traffic()
+        ref = sp_reference(traffic, sp_config(["cuda:0"], model, SP_CHUNK))
+        gc.collect()
+        torch.cuda.empty_cache()
+        c = sp_group(SP_ONE_CARD, ref, traffic, "phase (a), chunked leg",
+                     model, chunk=SP_CHUNK, drill=False)
+        print(f"sp phase (a) chunked leg, {model} bf16, 2 ranks on {card}: "
+              + json.dumps(c), flush=True)
+        runs.append(c)
+    return runs
+
+
+def sp_phase_b(card: str) -> list:
+    """Phase (b), where two or more cards are visible: Qwen2.5-7B whole at
+    sp = 2, one rank a card over NCCL with decode graphs (every chunk a
+    replay), serving the burst and a prompt of 32,000 tokens (a pass of
+    the 32,768 bucket); otherwise a line says why it did not run."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"sp phase (b) did not run: {count} card visible, and it "
+              "needs 2 (one rank a card, NCCL, decode graphs)", flush=True)
+        return []
+    traffic = sp_traffic(ring_tokens=32000)
+    traffic = [traffic[0], traffic[-1]]
+    b = sp_group(SP_TWO_CARDS, None, traffic, "phase (b), two cards", MODEL)
+    print(f"sp phase (b), Qwen2.5-7B bf16, 2 ranks over NCCL on "
+          f"2 x {card}: " + json.dumps(b), flush=True)
+    return [b]
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs "
@@ -6909,6 +7630,20 @@ def main() -> None:
             print(f"pp launches: {json.dumps(run['launches'])}")
         print(card_line())
         return
+    if sys.argv[1:2] == ["sp"]:
+        # the sp phase alone at full depth, after the build and the
+        # partial modes' checks; ``sp b`` its phase (b) alone (two cards)
+        if sys.argv[2:] == ["b"]:
+            runs = sp_phase_b(card)
+        else:
+            for k in check_sp_kernels(dev):
+                print(f"kernel {k['name']} [{k['shape']}]: "
+                      + json.dumps(k), flush=True)
+            runs = sp_path(card, MODEL)
+        for run in runs:
+            print(f"sp launches: {json.dumps(run['launches'])}")
+        print(card_line())
+        return
     if sys.argv[1:] == ["recovery"]:
         # the recovery phase alone, after the build (a shorter run while
         # that phase is worked on); with no argument every phase runs
@@ -6932,6 +7667,8 @@ def main() -> None:
     check_mixtral_matmuls(dev)
     mixtral_attention_shapes(dev)
     kernels.append(check_paged_decode_blocked(dev))
+    # the partial modes of sequence parallelism: K1-sp, K2-ring, K3-sp
+    kernels += check_sp_kernels(dev)
     gemma_kernel_shapes(dev)
     print(f"K1-K3 at the tp shard shapes on {card}: "
           + json.dumps(check_tp_kernel_shapes(dev)), flush=True)
@@ -7079,6 +7816,10 @@ def main() -> None:
     # control group) join the count
     runs += pp_path(card)
     memory("the pp phase")
+    # sequence parallelism: every rank's launches (the follower's read
+    # over the control group) join the count
+    runs += sp_path(card, MESH_MODEL, chunked=SP_CHUNKED_IN_SMOKE)
+    memory("the sp phase")
     for k in kernels:
         # launches of every path, each counted from 0 just before it ran
         k["launches"] = sum(run["launches"].get(k["name"], 0)

@@ -34,7 +34,11 @@ def test_defaults_and_sections():
         # mesh, still refuse
         {"device": {"tp": 2}, "pod": {"workers": 2}},
         pytest.param({"device": {"dp": 2, "tp": 2}}, id="{'dp': 2}"),
-        {"device": {"sp": 2}},
+        # sp serves since item 10d (rest)'s first part, at tp = ep = 1
+        # only: sp x tp and sp x ep still refuse
+        pytest.param({"device": {"sp": 2, "tp": 2}}, id="{'sp': 2}"),
+        pytest.param({"model": {"model_id": "tiny-moe"},
+                      "device": {"sp": 2, "ep": 2}}, id="{'sp': 2, 'ep': 2}"),
         # pp serves since item 10d's first part, at tp = ep = 1 only
         pytest.param({"device": {"pp": 2, "tp": 2}}, id="{'pp': 2}"),
         {"device": {"ep": 2}, "pod": {"workers": 2}},
@@ -72,7 +76,8 @@ PP_REFUSALS = [
      NotPortedError, r"device.pp=2 with .*device.ep=2 .* item 10d \(rest\)"),
     ({"device": {"pp": 2, "dp": 2}}, NotPortedError,
      r"device.dp>1 with .*device.pp .* item 10b \(rest\)"),
-    ({"device": {"sp": 2}}, NotPortedError, r"device.sp>1 .* 10d \(rest\)"),
+    ({"device": {"sp": 2, "tp": 2}}, NotPortedError,
+     r"device.sp=2 with device.tp=2 .* item 10d \(rest\)"),
     ({"device": {"pp": 2}, "pod": {"workers": 2}}, NotPortedError,
      r"pod.workers>0 under a model-parallel mesh .*device.pp"),
 ]
@@ -84,8 +89,8 @@ PP_REFUSALS = [
          "layers", "pp_x_tp", "pp_x_ep", "dp_x_pp", "sp", "pod"])
 def test_pipeline_refusals(sections, error, match):
     """Every rule the reference enforces under pp raises its
-    ``ValueError`` with its words; pp with tp or ep, and sp, raise
-    ``NotPortedError`` citing item 10d (rest), dp x pp citing 10b
+    ``ValueError`` with its words; pp with tp or ep, and sp with tp,
+    raise ``NotPortedError`` citing item 10d (rest), dp x pp citing 10b
     (rest)."""
     model = {"model_id": "tiny-dense", **sections.pop("model", {})}
     with pytest.raises(error, match=match):

@@ -91,7 +91,11 @@ def test_replica_slices_take_one_device_each(device, expect):
      r"device.dp>1 .* queue 1, item 10b \(rest\)"),
     ({"dp": 2, "ep": 2}, config_mod.NotPortedError,
      r"queue 1, item 10b \(rest\)"),
-    ({"dp": 2, "sp": 2}, config_mod.NotPortedError, r"queue 1, item 10d"),
+    # sp serves since item 10d (rest)'s first part: dp x sp is a dp
+    # replica that is itself a mesh (the test keeps its id)
+    pytest.param({"dp": 2, "sp": 2}, config_mod.NotPortedError,
+                 r"device.dp>1 .*device.sp .* queue 1, item 10b \(rest\)",
+                 id="device2-NotPortedError-queue 1, item 10d"),
     # pp serves since item 10d's first part: dp x pp is a dp replica that
     # is itself a mesh (the test keeps its id)
     pytest.param({"dp": 2, "pp": 2}, config_mod.NotPortedError,

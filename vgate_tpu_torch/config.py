@@ -151,16 +151,18 @@ class DeviceConfig:
     # ranks and ep > 1 a MoE model's experts over ep, one process a rank
     # (ep x tp ranks; tp 0 takes every visible device); pp > 1 splits the
     # layers over pp pipeline stages, one process a stage, at tp = ep = 1
-    # (parallel/pipeline.py); dp > 1 serves dp replicas of a one-device
-    # engine in this process behind a router (runtime/dp_engine.py); sp >
-    # 1 is not ported yet and raises NotPortedError (_check)
+    # (parallel/pipeline.py); sp > 1 splits each prompt's rows and the
+    # KV pool's pages over sp ranks, one process a rank, at tp = ep = 1
+    # (parallel/ring_attention.py, parallel/sp_decode.py); dp > 1 serves
+    # dp replicas of a one-device engine in this process behind a router
+    # (runtime/dp_engine.py)
     dp: int = 1
     tp: int = 1
     sp: int = 1
     pp: int = 1
     ep: int = 1
     # port-only: each rank's device, rank 0 first (empty = derived from
-    # `device`, pp, ep and tp).  Naming one card more than once runs that many
+    # `device`, pp, ep, sp and tp).  Naming one card more than once runs that many
     # ranks on it, over a gloo device group: the one-card test layout.
     # With dp > 1 it names dp x ep x tp devices, replica i taking slice i
     # (one device a replica: ["cuda:0", "cuda:0"] puts two on one card).
@@ -581,27 +583,24 @@ def _check(cfg: VGTConfig) -> None:
             "meshes use sp*tp (long context) or pp*tp (deep model) "
             "with dp over the remainder."
         )
-    if d.sp > 1:
-        # 0 is the reference's "all devices": one device here
-        raise _not_ported("device.sp>1", "queue 1, item 10d (rest)")
     if d.dp < 1:
         raise ValueError("device.dp must be >= 1")
-    if d.tp < 0 or d.ep < 0 or d.pp < 0:
+    if d.tp < 0 or d.ep < 0 or d.pp < 0 or d.sp < 0:
         raise ValueError(
-            "device.tp, device.ep and device.pp must be >= 0 (0 = every "
-            "visible device)"
+            "device.tp, device.ep, device.pp and device.sp must be >= 0 (0 "
+            "= every visible device)"
         )
-    if [d.tp, d.ep, d.pp].count(0) > 1:
+    if [d.tp, d.ep, d.pp, d.sp].count(0) > 1:
         raise ValueError("at most one mesh axis may be 0 (auto)")
-    if d.dp > 1 and (d.tp != 1 or d.ep != 1 or d.pp != 1):
+    if d.dp > 1 and (d.tp != 1 or d.ep != 1 or d.pp != 1 or d.sp != 1):
         # torch.distributed's default group is every mesh's control
         # group, so a process holds one mesh, and dp replicas share it
         raise _not_ported(
-            "device.dp>1 with device.tp, device.ep or device.pp other than "
-            "1 (a dp replica that is itself a mesh)",
+            "device.dp>1 with device.tp, device.ep, device.pp or device.sp "
+            "other than 1 (a dp replica that is itself a mesh)",
             "queue 1, item 10b (rest)",
         )
-    fixed = max(d.tp, 1) * max(d.ep, 1) * max(d.pp, 1)
+    fixed = max(d.tp, 1) * max(d.ep, 1) * max(d.pp, 1) * max(d.sp, 1)
     if d.dp > 1 and d.devices and len(d.devices) != d.dp:
         raise ValueError(
             f"device.devices names {len(d.devices)} devices but device.dp "
@@ -609,12 +608,12 @@ def _check(cfg: VGTConfig) -> None:
         )
     if d.dp == 1 and d.devices and (
         len(d.devices) % fixed
-        or (d.tp and d.ep and d.pp and len(d.devices) != fixed)
+        or (d.tp and d.ep and d.pp and d.sp and len(d.devices) != fixed)
     ):
         raise ValueError(
             f"device.devices names {len(d.devices)} devices but device.tp "
-            f"is {d.tp}, device.ep {d.ep} and device.pp {d.pp}: their "
-            "product must cover every device"
+            f"is {d.tp}, device.ep {d.ep}, device.pp {d.pp} and device.sp "
+            f"{d.sp}: their product must cover every device"
         )
     if d.kv_page_size <= 0 or d.max_batch_slots <= 0:
         raise ValueError("kv_page_size and max_batch_slots must be > 0")
@@ -631,8 +630,8 @@ def _check(cfg: VGTConfig) -> None:
         from vgate_tpu_torch.parallel.sharding import check_mesh_config
 
         rest = ranks // fixed  # the axis at 0, if any
-        tp, ep, pp = (x or rest for x in (d.tp, d.ep, d.pp))
-        check_mesh_config(cfg, spec, tp, ep, pp)
+        tp, ep, pp, sp = (x or rest for x in (d.tp, d.ep, d.pp, d.sp))
+        check_mesh_config(cfg, spec, tp, ep, pp, sp)
     if spec.is_encoder:
         # the reference has no decoder for an encoder either: it is
         # served behind /v1/embeddings

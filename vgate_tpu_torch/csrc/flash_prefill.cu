@@ -32,6 +32,13 @@
 //  * CTAs start longest causal rows first across the whole grid: a CTA's
 //    work runs from 1 to S / 128 key tiles, and K and V fit in L2.
 //
+// K2-ring (vgt_flash_prefill_partial_bf16) is the same kernel in the
+// tile pipeline's partial mode: one hop of the sequence-parallel ring
+// (parallel/ring_attention.py), the rank's query block against the K/V
+// block it holds, the keys laid out from 0 and the queries at q_offsets;
+// each row's unnormalised fp32 (acc, m, l), which the rank folds into its
+// running state.
+//
 // C interface (bound with ctypes): returns cudaGetLastError() after the
 // launch on the caller's stream (cudaErrorInvalidValue when a tensor map
 // cannot be encoded); the kernel allocates nothing.
@@ -75,7 +82,8 @@ struct DenseLoader {
   }
 };
 
-template <int HD>
+// kPartial (K2-ring): `po` takes the rows instead of `out`
+template <int HD, bool kPartial>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_prefill_kernel(const __grid_constant__ CUtensorMap qmap,  // [B,S,H,HD]
                      const __grid_constant__ CUtensorMap kmap,  // [B,Sk,KV,HD]
@@ -84,7 +92,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap qmap,  // [B,S,H,HD]
                      const int* __restrict__ q_offsets,  // [B] or null
                      bf16* __restrict__ out,             // [B, S, H, HD]
                      int S, int Sk, int H, int KV, int window, float scale,
-                     float softcap) {
+                     float softcap, const PartialOut po) {
   extern __shared__ unsigned char smem[];
   using C = Cfg<HD, false>;
   int qt, h, b;
@@ -98,15 +106,20 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap qmap,  // [B,S,H,HD]
   t.window = window;
   key_tiles<C>(t);
   const DenseLoader<HD> ld{&qmap, &kmap, &vmap, h, h / (H / KV), row0, b};
-  attend<C>(ld, t, smem, scale, softcap,
-            out + (((size_t)b * S + row0) * H + h) * HD, (size_t)H * HD);
+  if constexpr (kPartial)
+    attend<C, true>(ld, t, smem, scale, softcap, nullptr, 0,
+                    po.at(b, S, row0, H, h, HD));
+  else
+    attend<C>(ld, t, smem, scale, softcap,
+              out + (((size_t)b * S + row0) * H + h) * HD, (size_t)H * HD);
 }
 
-template <int HD>
+template <int HD, bool kPartial>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* seq_lens, const int* q_offsets, void* out,
                    int B, int S, int Sk, int H, int KV, int window,
-                   float scale, float softcap, cudaStream_t stream) {
+                   float scale, float softcap, cudaStream_t stream,
+                   const PartialOut& po) {
   using C = Cfg<HD, false>;
   static PerDevice configured;  // once per instantiation and device
   CUtensorMap qm, km, vm;
@@ -115,10 +128,34 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       !rows_map<HD>(&vm, v, B, Sk, KV, C::kN))
     return cudaErrorInvalidValue;
   dim3 grid((S + kRows - 1) / kRows, H, B);
-  return launch_sm90<C>(flash_prefill_kernel<HD>, configured, grid, stream,
-                        qm, km, vm, seq_lens, q_offsets,
+  return launch_sm90<C>(flash_prefill_kernel<HD, kPartial>, configured, grid,
+                        stream, qm, km, vm, seq_lens, q_offsets,
                         static_cast<bf16*>(out), S, Sk, H, KV, window, scale,
-                        softcap);
+                        softcap, po);
+}
+
+template <bool kPartial>
+int dispatch(const void* q, const void* k, const void* v,
+             const void* seq_lens, const void* q_offsets, void* out, int B,
+             int S, int Sk, int H, int KV, int hd, int window, float scale,
+             float softcap, void* stream, const PartialOut& po) {
+  const int* sl = static_cast<const int*>(seq_lens);
+  const int* qo = static_cast<const int*>(q_offsets);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 0 || S == 0) return cudaSuccess;
+  switch (hd) {
+    case 64:
+      return launch<64, kPartial>(q, k, v, sl, qo, out, B, S, Sk, H, KV,
+                                  window, scale, softcap, s, po);
+    case 128:
+      return launch<128, kPartial>(q, k, v, sl, qo, out, B, S, Sk, H, KV,
+                                   window, scale, softcap, s, po);
+    case 256:
+      return launch<256, kPartial>(q, k, v, sl, qo, out, B, S, Sk, H, KV,
+                                   window, scale, softcap, s, po);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -129,21 +166,24 @@ extern "C" int vgt_flash_prefill_bf16(const void* q, const void* k,
                                       int B, int S, int Sk, int H, int KV,
                                       int hd, int window, float scale,
                                       float softcap, void* stream) {
-  const int* sl = static_cast<const int*>(seq_lens);
-  const int* qo = static_cast<const int*>(q_offsets);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B == 0 || S == 0) return cudaSuccess;
-  switch (hd) {
-    case 64:
-      return launch<64>(q, k, v, sl, qo, out, B, S, Sk, H, KV, window, scale,
-                        softcap, s);
-    case 128:
-      return launch<128>(q, k, v, sl, qo, out, B, S, Sk, H, KV, window, scale,
-                         softcap, s);
-    case 256:
-      return launch<256>(q, k, v, sl, qo, out, B, S, Sk, H, KV, window, scale,
-                         softcap, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return dispatch<false>(q, k, v, seq_lens, q_offsets, out, B, S, Sk, H, KV,
+                         hd, window, scale, softcap, stream, PartialOut{});
+}
+
+// K2-ring: acc [B, S, H, hd], m and l [B, S, H], fp32; seq_lens are the
+// held block's key lengths (0..Sk) and q_offsets (required) the position
+// of each row's first query from the block's key 0
+extern "C" int vgt_flash_prefill_partial_bf16(
+    const void* q, const void* k, const void* v, const void* seq_lens,
+    const void* q_offsets, void* acc, void* m, void* l, int B, int S, int Sk,
+    int H, int KV, int hd, int window, float scale, float softcap,
+    void* stream) {
+  if (q_offsets == nullptr || acc == nullptr || m == nullptr || l == nullptr)
+    return cudaErrorInvalidValue;
+  PartialOut po{};
+  po.acc = static_cast<float*>(acc);
+  po.m = static_cast<float*>(m);
+  po.l = static_cast<float*>(l);
+  return dispatch<true>(q, k, v, seq_lens, q_offsets, nullptr, B, S, Sk, H,
+                        KV, hd, window, scale, softcap, stream, po);
 }

@@ -56,6 +56,16 @@
 // Masked scores take the reference's -1e30 sentinel and the output divides
 // by max(l, 1e-30), so a fully masked row yields finite garbage, never
 // NaN, as the TPU kernels do.  The softcap uses the precise tanhf.
+//
+// The partial mode (kPartial; K2-ring and K3-sp, the sequence-parallel
+// prompt and suffix passes): the consumers write each row's unnormalised
+// fp32 state instead of the bf16 row, acc [.., HD], m (in natural units,
+// the reference's: the kernel's are base 2) and l, which merge by
+// log-sum-exp over the sp ranks; a row that saw no key has its weights
+// zeroed rather than taking p = 1 at the sentinel, so it comes out acc = 0,
+// m = -1e30, l = 0.  K3-sp also masks the keys of pages another sp rank
+// owns (PartialOut::shard; the loader reads the rank's local page 0, which
+// holds zeros, in their place).
 
 #pragma once
 
@@ -181,6 +191,50 @@ struct Tile {
   int seq_len;
   int window;
   int kt_lo, kt_hi;  // live key tiles (none when kt_hi < kt_lo)
+};
+
+// The partial mode's outputs (see the note at the top): the tensors acc
+// [B, S, H, HD], m and l [B, S, H] in fp32, and for K3-sp the slot's
+// page-table row and this rank's pages [base, base + shard) (shard 0:
+// every key is the rank's).
+struct PartialOut {
+  float* acc;
+  float* m;
+  float* l;
+  size_t acc_stride, ml_stride;  // between a tile's rows (set by at())
+  const int* pt_row;
+  int ps, base, shard;
+
+  // the outputs of query tile row0 of (batch row b, head h)
+  __device__ PartialOut at(int b, int S, int row0, int H, int h,
+                           int HD) const {
+    PartialOut p = *this;
+    const size_t r = ((size_t)b * S + row0) * H + h;
+    p.acc = acc + r * HD;
+    p.m = m + r;
+    p.l = l + r;
+    p.acc_stride = (size_t)H * HD;
+    p.ml_stride = H;
+    return p;
+  }
+  // rows [r0, r1) of the tile saw no key
+  template <int HD>
+  __device__ void empty_rows(int r0, int r1, int tid, int threads) const {
+    for (int i = tid; i < (r1 - r0) * HD; i += threads) {
+      const int r = r0 + i / HD;
+      acc[r * acc_stride + i % HD] = 0.f;
+      if (i % HD == 0) {
+        m[r * ml_stride] = kNeg;
+        l[r * ml_stride] = 0.f;
+      }
+    }
+  }
+  // whether key position k_pos (below seq_len) lies on this rank's pages
+  __device__ bool owns(int k_pos) const {
+    if (shard == 0) return true;
+    const int pg = pt_row[k_pos / ps] - base;
+    return pg >= 0 && pg < shard;
+  }
 };
 
 // live key tiles: causal to the last live row, below seq_len, and not
@@ -790,11 +844,14 @@ __device__ __forceinline__ void issue_pv(float (&o)[C::kHD / 2],
 // softmax runs under the other's products.  With Cfg::kZeroTail the V
 // rows at or past seq_len are zeroed before P V.  With Cfg::kI8 the
 // scores take the stage's K scales and P its V scales (after l).
-template <class C>
+// kPartial: the partial mode's masks and outputs (`po`, at the tile's
+// row 0).
+template <class C, bool kPartial = false>
 __device__ __forceinline__ void consume(const Tile& t, int c, uint32_t base,
                                         unsigned char* gbase, float qk_scale,
                                         float cap_log2, bf16* out,
-                                        size_t out_stride) {
+                                        size_t out_stride,
+                                        const PartialOut& po) {
   constexpr int HD = C::kHD;
   constexpr int kN = C::kN;
   const int tid = threadIdx.x & 127;
@@ -807,6 +864,10 @@ __device__ __forceinline__ void consume(const Tile& t, int c, uint32_t base,
   const uint32_t bar = base + C::bar;
 
   if (64 * c >= t.n_live) {  // no live row: finite zeros, nothing read
+    if constexpr (kPartial) {
+      po.empty_rows<HD>(64 * c, min(64 * c + 64, t.n_rows), tid, 128);
+      return;
+    }
     for (int i = tid; i < 64 * (HD / 8); i += 128) {
       const int r = 64 * c + i / (HD / 8);
       if (r < t.n_rows)
@@ -890,7 +951,8 @@ __device__ __forceinline__ void consume(const Tile& t, int c, uint32_t base,
       // window's edge for some row of this warpgroup
       const bool edge = k_start + kN - 1 > q_lo ||
                         k_start + kN > t.seq_len ||
-                        (t.window > 0 && q_hi - k_start >= t.window);
+                        (t.window > 0 && q_hi - k_start >= t.window) ||
+                        (kPartial && po.shard > 0);
       if (edge) {
 #pragma unroll
         for (int j = 0; j < kN / 2; ++j) {
@@ -898,6 +960,7 @@ __device__ __forceinline__ void consume(const Tile& t, int c, uint32_t base,
           const int k_pos = k_start + 8 * (j >> 2) + quad_col + (j & 1);
           bool ok = k_pos <= q_pos && k_pos < t.seq_len;
           if (t.window > 0) ok = ok && q_pos - k_pos < t.window;
+          if constexpr (kPartial) ok = ok && po.owns(k_pos);
           s[j] = ok ? s[j] : kNeg;
         }
       }
@@ -915,13 +978,17 @@ __device__ __forceinline__ void consume(const Tile& t, int c, uint32_t base,
       const float a1 = ex2(m1 - mx1);
       m0 = mx0;
       m1 = mx1;
+      // the partial mode: a row that has seen no key keeps p = 0, where
+      // its sentinel max would give the masked keys p = 1
+      const float live0 = kPartial && mx0 == kNeg ? 0.f : 1.f;
+      const float live1 = kPartial && mx1 == kNeg ? 0.f : 1.f;
       float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
       for (int j = 0; j < kN / 8; ++j) {
-        s[4 * j] = ex2(s[4 * j] - mx0);
-        s[4 * j + 1] = ex2(s[4 * j + 1] - mx0);
-        s[4 * j + 2] = ex2(s[4 * j + 2] - mx1);
-        s[4 * j + 3] = ex2(s[4 * j + 3] - mx1);
+        s[4 * j] = live0 * ex2(s[4 * j] - mx0);
+        s[4 * j + 1] = live0 * ex2(s[4 * j + 1] - mx0);
+        s[4 * j + 2] = live1 * ex2(s[4 * j + 2] - mx1);
+        s[4 * j + 3] = live1 * ex2(s[4 * j + 3] - mx1);
         sum0 += s[4 * j] + s[4 * j + 1];
         sum1 += s[4 * j + 2] + s[4 * j + 3];
       }
@@ -994,6 +1061,25 @@ __device__ __forceinline__ void consume(const Tile& t, int c, uint32_t base,
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  if constexpr (kPartial) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = row + 8 * half;
+      if (r >= t.n_rows) continue;
+      float* dst = po.acc + (size_t)r * po.acc_stride + quad_col;
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<float2*>(dst + 8 * j) =
+            make_float2(o[4 * j + 2 * half], o[4 * j + 2 * half + 1]);
+      if ((lane & 3) == 0) {
+        const float lr = half ? l1 : l0;
+        const float mr = half ? m1 : m0;
+        po.l[(size_t)r * po.ml_stride] = lr;
+        po.m[(size_t)r * po.ml_stride] = lr > 0.f ? mr / kLog2e : kNeg;
+      }
+    }
+    return;
+  }
   const float inv0 = 1.f / fmaxf(l0, 1e-30f);
   const float inv1 = 1.f / fmaxf(l1, 1e-30f);
   if (row < t.n_rows) {
@@ -1130,12 +1216,14 @@ __device__ __forceinline__ void widen_tiles(const Tile& t, uint32_t base,
 
 // The whole CTA: barriers, then the producer warpgroup and the two
 // consumers on their own paths to the end (setmaxnreg needs paths that
-// never reconverge).  `out` is the tile's row 0, rows out_stride apart.
-template <class C, typename Loader>
+// never reconverge).  `out` is the tile's row 0, rows out_stride apart;
+// kPartial: `po` (at the tile's row 0) instead.
+template <class C, bool kPartial = false, typename Loader>
 __device__ __forceinline__ void attend(const Loader& ld, const Tile& t,
                                        unsigned char* smem, float scale,
                                        float softcap, bf16* out,
-                                       size_t out_stride) {
+                                       size_t out_stride,
+                                       const PartialOut& po = PartialOut{}) {
   const uint32_t raw = smem_u32(smem);
   const uint32_t base = (raw + 1023) & ~1023u;  // the swizzle atom's
   unsigned char* gbase = smem + (base - raw);
@@ -1173,7 +1261,8 @@ __device__ __forceinline__ void attend(const Loader& ld, const Tile& t,
     setmaxnreg_inc<C::kConsumerRegs>();
     const float qk_scale = softcap > 0.f ? scale / softcap : scale * kLog2e;
     const float cap_log2 = softcap > 0.f ? softcap * kLog2e : 0.f;
-    consume<C>(t, wg - 1, base, gbase, qk_scale, cap_log2, out, out_stride);
+    consume<C, kPartial>(t, wg - 1, base, gbase, qk_scale, cap_log2, out,
+                         out_stride, po);
   }
 }
 

@@ -216,11 +216,15 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// What the kernels know of the launch.
+// What the kernels know of the launch.  partial (K1-sp, K1's kernel
+// only): the pools are one sp rank's shard, global pages [base, base + P)
+// at local index page - base; tiles of other pages are neither copied nor
+// read, and every slot's chunks merge into its unnormalised partial.
 struct Geo {
   int B, H, KV, P, ps, pps, G, window;
   float scale, softcap;
   int block_slots, tile_rows, stages, chunk_tiles, max_chunks;
+  int base, partial;
 };
 
 // A slot's live tiles [t0, t0 + n) and its chunk length in tiles (a slot
@@ -720,6 +724,65 @@ tc_merge_kernel(const float* __restrict__ ws_ml,
                   sl.chunks, merge_smem);
 }
 
+// K1-sp's second launch: one CTA a (slot, kv head) merges the slot's
+// chunks, in chunk order, into its unnormalised partial over the owned
+// pages: acc [B, H, HD], l [B, H] and m [B, H] in the reference's natural
+// units (the kernel's are base 2), -1e30 with l = 0 for a head that saw
+// no key.
+__global__ void __launch_bounds__(kMergeThreads)
+tc_partial_merge_kernel(const float* __restrict__ ws_ml,
+                        const float* __restrict__ ws_acc,
+                        const int* __restrict__ seq_lens,
+                        float* __restrict__ acc, float* __restrict__ m_out,
+                        float* __restrict__ l_out, int HD, const Geo geo) {
+  extern __shared__ float merge_smem[];  // merge_smem_floats(G, max_chunks)
+  const int b = blockIdx.x, g = blockIdx.y;
+  const int chunks = slot_of(geo, seq_lens, b).chunks;
+  const int G = geo.G;
+  const int MC = geo.max_chunks;
+  const size_t base = ((size_t)b * geo.KV + g) * MC;
+  float* fac = merge_smem;
+  float* lw = fac + G * MC;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int h = warp; h < G; h += kMergeThreads / 32) {
+    float m_all = kNeg;
+    for (int c = lane; c < chunks; c += 32) {
+      const float2 ml = __ldcg(reinterpret_cast<const float2*>(
+          ws_ml + ((base + c) * G + h) * 2));
+      fac[h * MC + c] = ml.x;
+      lw[h * MC + c] = ml.y;
+      m_all = fmaxf(m_all, ml.x);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m_all = fmaxf(m_all, __shfl_xor_sync(0xffffffffu, m_all, o));
+    for (int c = lane; c < chunks; c += 32) {
+      const float f = ex2(fac[h * MC + c] - m_all);
+      fac[h * MC + c] = f;
+      lw[h * MC + c] *= f;
+    }
+    __syncwarp();
+    if (lane == 0) {  // in chunk order
+      float l_all = 0.f;
+      for (int c = 0; c < chunks; ++c) l_all += lw[h * MC + c];
+      const size_t row = (size_t)b * geo.H + g * G + h;
+      l_out[row] = l_all;
+      m_out[row] = l_all > 0.f ? m_all / kLog2e : kNeg;
+    }
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < G * HD; idx += kMergeThreads) {
+    const int h = idx / HD;
+    const int d = idx % HD;
+    const float* f = fac + h * MC;
+    float a_all = 0.f;
+    for (int c = 0; c < chunks; ++c)
+      a_all += __ldcg(ws_acc + ((base + c) * G + h) * HD + d) * f[c];
+    acc[((size_t)b * geo.H + g * G + h) * HD + d] = a_all;
+  }
+}
+
 // shared memory of a launch: the barriers, the ring, the query buffers,
 // the warps' merge buffer, the groups' prefix sums (ops/kernels/paged_decode.py
 // split_plan computes the same)
@@ -1087,13 +1150,17 @@ paged_decode_tc_kernel(
         const int page = ti < i1 ? pt_row[ti * T / geo.ps] : 0;
         const int n = min(32, i1 - ib);
         for (int k = 0; k < n; ++k) {
-          const int pg = __shfl_sync(0xffffffffu, page, k);
+          const int pg = __shfl_sync(0xffffffffu, page, k) - geo.base;
+          // K1-sp: a page of another shard is not copied; the stage's
+          // full barrier takes a plain arrival, and its warp skips it
+          const bool own = !geo.partial || (pg >= 0 && pg < geo.P);
           const int row = (g * geo.P + pg) * geo.ps + (ib + k) * T % geo.ps;
           const uint32_t kdst = ring_u32 + s * stage_bytes;
           const uint32_t vdst = kdst + C::kBoxes * box_bytes;
           unsigned char* sc = ring + s * stage_bytes + 2 * C::kBoxes * box_bytes;
           mbar_wait(tc_empty(bars, s), ph);
-          if (lane == 0) {
+          if (lane == 0 && !own) mbar_arrive(tc_full(bars, s));
+          if (lane == 0 && own) {
             const uint32_t full = tc_full(bars, s);
             mbar_expect_tx(full, tx);
 #pragma unroll
@@ -1195,10 +1262,16 @@ paged_decode_tc_kernel(
       const int s = t % geo.stages;
       mbar_wait(tc_full(bars, s), (uint32_t)(t / geo.stages) & 1u);
       const int pos0 = (i0 + k) * T;
+      bool own = true;  // K1-sp: a tile of another shard's page is skipped
+      if (geo.partial) {
+        const int pg = page_tables[(size_t)b * geo.pps + pos0 / geo.ps] -
+                       geo.base;
+        own = pg >= 0 && pg < geo.P;
+      }
       // the tile's live rows [ra, re), in whole m16 steps [sa, se)
       const int ra = max(sl.lo - pos0, 0);
       const int re = min(sl.sl - pos0, T);
-      const int sa = ra >> 4, se = (re + 15) >> 4;
+      const int sa = ra >> 4, se = own ? (re + 15) >> 4 : sa;
       const uint32_t kbox = ring_u32 + s * stage_bytes;
       const uint32_t vbox = kbox + C::kBoxes * box_bytes;
       const __nv_bfloat16* sk = reinterpret_cast<const __nv_bfloat16*>(
@@ -1207,7 +1280,7 @@ paged_decode_tc_kernel(
       if constexpr (!C::kI8) {
         // stale bf16 V rows of the steps taken may hold NaN: zero them
         const int z0 = sa * 16, z1 = min(se * 16, T);
-        if (ra > z0 || re < z1) {
+        if (own && (ra > z0 || re < z1)) {
           unsigned char* vrow = ring + s * stage_bytes + C::kBoxes * box_bytes;
           constexpr int kPer = C::kBoxes * C::kChunks;
           for (int x = lane; x < (z1 - z0) * kPer; x += 32) {
@@ -1357,7 +1430,7 @@ paged_decode_tc_kernel(
     // into its factor 2^(m_w - m_all) in place and sums l; then each
     // output sums the warps' acc with those factors.  One chunk: the
     // output, else the chunk's partial.
-    const bool direct = sl.chunks == 1;
+    const bool direct = sl.chunks == 1 && !geo.partial;
     const size_t part = (((size_t)b * geo.KV + g) * geo.max_chunks + c) * G;
     if (ctid < G) {
       const int h = ctid;
@@ -1400,11 +1473,13 @@ paged_decode_tc_kernel(
   }
 }
 
+// acc, m and l: K1-sp's outputs (geo.partial), else null
 template <typename KT, int HD>
 cudaError_t tc_launch(const Geo& geo, const void* q, const void* k,
                       const void* v, const void* ks, const void* vs,
                       const int* pt, const int* sl, void* out, float* ws,
-                      int grid, int scale_bulk, cudaStream_t stream) {
+                      int grid, int scale_bulk, cudaStream_t stream,
+                      float* acc, float* m, float* l) {
   using C = TcCfg<KT, HD>;
   const int Tp = (geo.tile_rows + 15) / 16 * 16;
   const size_t smem = tc_smem_bytes(
@@ -1445,7 +1520,25 @@ cudaError_t tc_launch(const Geo& geo, const void* q, const void* k,
       static_cast<const bf16*>(vs), pt, sl, static_cast<bf16*>(out), ws_ml,
       ws_acc, geo, scale_bulk);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || geo.max_chunks == 1) return err;
+  if (err != cudaSuccess) return err;
+  if (geo.partial) {
+    static vgt_sm90::PerDevice partial_configured;
+    bool& set = partial_configured.flag();
+    if (!set) {
+      cudaError_t e = cudaFuncSetAttribute(
+          tc_partial_merge_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      if (e != cudaSuccess) return e;
+      set = true;
+    }
+    tc_partial_merge_kernel<<<dim3(geo.B, geo.KV), kMergeThreads,
+                              sizeof(float) * merge_smem_floats(
+                                                  geo.G, geo.max_chunks),
+                              stream>>>(ws_ml, ws_acc, sl, acc, m, l, HD,
+                                        geo);
+    return cudaGetLastError();
+  }
+  if (geo.max_chunks == 1) return err;
   static vgt_sm90::PerDevice merge_configured;
   bool& merged = merge_configured.flag();
   if (!merged) {
@@ -1467,17 +1560,19 @@ template <typename KT>
 cudaError_t tc_dispatch(int hd, const Geo& geo, const void* q, const void* k,
                         const void* v, const void* ks, const void* vs,
                         const int* pt, const int* sl, void* out, float* ws,
-                        int grid, int scale_bulk, cudaStream_t stream) {
+                        int grid, int scale_bulk, cudaStream_t stream,
+                        float* acc = nullptr, float* m = nullptr,
+                        float* l = nullptr) {
   switch (hd) {
     case 64:
       return tc_launch<KT, 64>(geo, q, k, v, ks, vs, pt, sl, out, ws, grid,
-                               scale_bulk, stream);
+                               scale_bulk, stream, acc, m, l);
     case 128:
       return tc_launch<KT, 128>(geo, q, k, v, ks, vs, pt, sl, out, ws,
-                                grid, scale_bulk, stream);
+                                grid, scale_bulk, stream, acc, m, l);
     case 256:
       return tc_launch<KT, 256>(geo, q, k, v, ks, vs, pt, sl, out, ws,
-                                grid, scale_bulk, stream);
+                                grid, scale_bulk, stream, acc, m, l);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1503,17 +1598,20 @@ struct DecodeArgs {
 // holds B * KV * max_chunks * G * (hd + 2) floats when max_chunks > 1
 // (else unused); scale_bulk: scale rows by bulk copy where the scale pools
 // lie on 16 bytes (tile_rows and ps multiples of 8).
+static bool bad_plan(const DecodeArgs* a) {
+  return a->KV < 1 || a->H % a->KV || a->H / a->KV > 8 || a->tile_rows < 1 ||
+         a->tile_rows > 256 || a->ps % a->tile_rows || a->stages < 2 ||
+         a->stages > split::kTcStages || a->chunk_tiles < 1 ||
+         a->chunk_tiles > a->stages || a->max_chunks < 1 || a->grid < 1;
+}
+
 extern "C" int vgt_paged_decode(const void* q, const void* k_pages,
                                 const void* v_pages, const void* k_scale,
                                 const void* v_scale, const void* page_tables,
                                 const void* seq_lens, void* out, void* ws,
                                 const DecodeArgs* a, void* stream) {
   if (a->B == 0) return cudaSuccess;
-  if (a->KV < 1 || a->H % a->KV || a->H / a->KV > 8 || a->tile_rows < 1 ||
-      a->tile_rows > 256 || a->ps % a->tile_rows || a->stages < 2 ||
-      a->stages > split::kTcStages || a->chunk_tiles < 1 ||
-      a->chunk_tiles > a->stages || a->max_chunks < 1 || a->grid < 1 ||
-      (a->max_chunks > 1 && ws == nullptr) ||
+  if (bad_plan(a) || (a->max_chunks > 1 && ws == nullptr) ||
       (a->int8 && (k_scale == nullptr || v_scale == nullptr)) ||
       (a->scale_bulk && (a->tile_rows % 8 || a->ps % 8)))
     return cudaErrorInvalidValue;
@@ -1535,6 +1633,35 @@ extern "C" int vgt_paged_decode(const void* q, const void* k_pages,
   return split::tc_dispatch<__nv_bfloat16>(a->hd, geo, q, k_pages, v_pages,
                                            nullptr, nullptr, pt, sl, out, w,
                                            a->grid, 0, s);
+}
+
+// K1-sp: K1 on one sp rank's bf16 pool shard, global pages [base, base +
+// P) (parallel/sp_decode.py): the unnormalised partials over the owned
+// pages, acc [B, H, hd], m and l [B, H] in fp32.  ws holds B * KV *
+// max_chunks * G * (hd + 2) floats whatever max_chunks is (every slot's
+// chunks merge in the second launch).
+extern "C" int vgt_paged_decode_partial(const void* q, const void* k_pages,
+                                        const void* v_pages,
+                                        const void* page_tables,
+                                        const void* seq_lens, void* acc,
+                                        void* m, void* l, void* ws,
+                                        const DecodeArgs* a, int base,
+                                        void* stream) {
+  if (a->B == 0) return cudaSuccess;
+  if (bad_plan(a) || a->int8 || ws == nullptr || base < 0)
+    return cudaErrorInvalidValue;
+  split::Geo geo{a->B, a->H, a->KV, a->P, a->ps, a->pps, a->H / a->KV,
+                 a->window, a->scale, a->softcap, 1, a->tile_rows,
+                 a->stages, a->chunk_tiles, a->max_chunks};
+  geo.base = base;
+  geo.partial = 1;
+  return split::tc_dispatch<__nv_bfloat16>(
+      a->hd, geo, q, k_pages, v_pages, nullptr, nullptr,
+      static_cast<const int*>(page_tables),
+      static_cast<const int*>(seq_lens), nullptr, static_cast<float*>(ws),
+      a->grid, 0, static_cast<cudaStream_t>(stream),
+      static_cast<float*>(acc), static_cast<float*>(m),
+      static_cast<float*>(l));
 }
 
 // K6: the page-split decode (block_slots must divide B; 1 < G <= 8 query

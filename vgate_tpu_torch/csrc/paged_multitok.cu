@@ -70,6 +70,14 @@
 //
 // Rows past input_lens are finite and unspecified, as in the TPU kernel.
 //
+// K3-sp (vgt_paged_multitok_partial_bf16) is the bf16 mode on one sp
+// rank's pool shard (parallel/sp_decode.py): the page table holds global
+// ids, the pool the rank's pages [base, base + shard) at local index
+// page - base.  A box of another rank's page reads the rank's local page
+// 0 (zeros) and its keys are masked; each row's unnormalised fp32 (acc,
+// m, l) over the owned keys is written (the tile pipeline's partial mode)
+// and merges over sp by log-sum-exp.
+//
 // C interface (bound with ctypes): returns cudaGetLastError() after the
 // launch on the caller's stream (cudaErrorInvalidValue for a page size the
 // kernel does not take or a tensor map that cannot be encoded); the
@@ -81,15 +89,17 @@ namespace {
 
 using namespace vgt_sm90;
 
-// The CTA's query tile: false (after writing its finite zeros) when it
-// lies wholly past input_lens; else the Tile and the output rows
-template <class C>
+// The CTA's query tile: false (after writing its finite zeros, or with
+// kPartial its empty partials) when it lies wholly past input_lens; else
+// the Tile and the output rows (kPartial: `po` at the tile's row 0)
+template <class C, bool kPartial = false>
 __device__ __forceinline__ bool suffix_tile(Tile& t, int& h, int& b,
                                             int& row0, bf16*& out_tile,
                                             const int* positions0,
                                             const int* input_lens, bf16* out,
                                             int S, int H, int ps,
-                                            int ctx_pages, int window) {
+                                            int ctx_pages, int window,
+                                            PartialOut* po = nullptr) {
   constexpr int HD = C::kHD;
   int qt;
   tile_coords<C::kLongestFirst>(qt, h, b);
@@ -97,7 +107,12 @@ __device__ __forceinline__ bool suffix_tile(Tile& t, int& h, int& b,
   const int n_rows = min(kRows, S - row0);
   const int input_len = min(input_lens[b], S);
   out_tile = out + (((size_t)b * S + row0) * H + h) * HD;
+  if constexpr (kPartial) *po = po->at(b, S, row0, H, h, HD);
   if (row0 >= input_len) {
+    if constexpr (kPartial) {
+      po->empty_rows<HD>(0, n_rows, threadIdx.x, kThreads);
+      return false;
+    }
     // an idle tile: finite zeros, nothing read
     constexpr int VPR = HD / 8;
     for (int i = threadIdx.x; i < n_rows * VPR; i += kThreads)
@@ -126,15 +141,21 @@ struct PagedRows {
   int h, row0, b;
   int head_page0;     // kvh * P: the kv head's first page in the pools
   int ps, box_rows, seq_len;
+  // K3-sp: the pools hold global pages [base, base + shard) (shard 0:
+  // every page, at its own id)
+  int base, shard;
 
   __device__ void load_q(uint32_t dst, uint32_t bar, int cb) const {
     tma_load_4d(dst, q, bar, cb * 64, h, row0, b);
   }
-  // lane j: the page id of box j of tile kt (0 for boxes at or past
-  // seq_len, whose table entries are never read)
+  // lane j: the pool page of box j of tile kt (0 for boxes at or past
+  // seq_len, whose table entries are never read, and, under sp, for
+  // pages another rank owns)
   __device__ int ids(int kt, int lane) const {
     const int pos = kt * C::kN + lane * box_rows;
-    return lane < C::kN / box_rows && pos < seq_len ? pt_row[pos / ps] : 0;
+    if (lane >= C::kN / box_rows || pos >= seq_len) return 0;
+    const int page = pt_row[pos / ps] - base;
+    return shard == 0 || (page >= 0 && page < shard) ? page : 0;
   }
   // boxes of tile kt that start below seq_len
   __device__ int live_boxes(int k_start) const {
@@ -191,7 +212,9 @@ struct PagedLoader : PagedRows<Cfg<HD, true>> {
   }
 };
 
-template <int HD>
+// kPartial (K3-sp): `po` takes the rows instead of `out`, and its base and
+// shard name the pool's pages
+template <int HD, bool kPartial>
 __global__ void __launch_bounds__(kThreads, 1)
 paged_multitok_kernel(const __grid_constant__ CUtensorMap qmap,  // [B,S,H,HD]
                       const __grid_constant__ CUtensorMap kmap,  // [KV*P*ps,HD]
@@ -201,16 +224,20 @@ paged_multitok_kernel(const __grid_constant__ CUtensorMap qmap,  // [B,S,H,HD]
                       const int* __restrict__ input_lens,   // [B]
                       bf16* __restrict__ out,               // [B, S, H, HD]
                       int S, int H, int KV, int P, int ps, int box_rows,
-                      int ctx_pages, int window, float scale, float softcap) {
+                      int ctx_pages, int window, float scale, float softcap,
+                      PartialOut po) {
   extern __shared__ unsigned char smem[];
   using C = Cfg<HD, true>;
   Tile t;
   int h, b, row0;
   bf16* out_tile;
-  if (!suffix_tile<C>(t, h, b, row0, out_tile, positions0, input_lens, out,
-                      S, H, ps, ctx_pages, window))
+  if (!suffix_tile<C, kPartial>(t, h, b, row0, out_tile, positions0,
+                                input_lens, out, S, H, ps, ctx_pages, window,
+                                &po))
     return;
   PagedLoader<HD> ld;
+  ld.base = kPartial ? po.base : 0;
+  ld.shard = kPartial ? po.shard : 0;
   ld.q = &qmap;
   ld.pt_row = page_tables + (size_t)b * ctx_pages;
   ld.h = h;
@@ -222,7 +249,13 @@ paged_multitok_kernel(const __grid_constant__ CUtensorMap qmap,  // [B,S,H,HD]
   ld.seq_len = t.seq_len;
   ld.k = &kmap;
   ld.v = &vmap;
-  attend<C>(ld, t, smem, scale, softcap, out_tile, (size_t)H * HD);
+  if constexpr (kPartial) {
+    po.pt_row = ld.pt_row;
+    po.ps = ps;
+    attend<C, true>(ld, t, smem, scale, softcap, nullptr, 0, po);
+  } else {
+    attend<C>(ld, t, smem, scale, softcap, out_tile, (size_t)H * HD);
+  }
 }
 
 // ------------------------------------------------------------ int8 pools
@@ -291,6 +324,8 @@ paged_multitok_i8_kernel(const __grid_constant__ CUtensorMap qmap,
                       S, H, ps, ctx_pages, window))
     return;
   PagedLoader8<HD> ld;
+  ld.base = 0;
+  ld.shard = 0;
   ld.q = &qmap;
   ld.pt_row = page_tables + (size_t)b * ctx_pages;
   ld.h = h;
@@ -307,13 +342,16 @@ paged_multitok_i8_kernel(const __grid_constant__ CUtensorMap qmap,
   attend<C>(ld, t, smem, scale, softcap, out_tile, (size_t)H * HD);
 }
 
-// both modes: the page-size rule, Q's map, the grid
-template <int HD, bool kInt8>
+// every mode: the page-size rule, Q's map, the grid (kPartial: K3-sp,
+// bf16 pools, `po` the outputs and the shard)
+template <int HD, bool kInt8, bool kPartial = false>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* ks, const void* vs, const int* pt,
                    const int* pos0, const int* lens, void* out, int B, int S,
                    int H, int KV, int P, int ps, int ctx_pages, int window,
-                   float scale, float softcap, cudaStream_t stream) {
+                   float scale, float softcap, cudaStream_t stream,
+                   const PartialOut& po = PartialOut{}) {
+  static_assert(!(kInt8 && kPartial), "K3-sp takes bf16 pools");
   using C = Cfg<HD, true, kInt8>;
   constexpr int kN = C::kN;
   static PerDevice configured;  // once per instantiation and device
@@ -338,19 +376,20 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (!bf16_map(&km, k, 2, dims, strides, box) ||
         !bf16_map(&vm, v, 2, dims, strides, box))
       return cudaErrorInvalidValue;
-    return launch_sm90<C>(paged_multitok_kernel<HD>, configured, grid, stream,
-                          qm, km, vm, pt, pos0, lens, static_cast<bf16*>(out),
-                          S, H, KV, P, ps, box_rows, ctx_pages, window, scale,
-                          softcap);
+    return launch_sm90<C>(paged_multitok_kernel<HD, kPartial>, configured,
+                          grid, stream, qm, km, vm, pt, pos0, lens,
+                          static_cast<bf16*>(out), S, H, KV, P, ps, box_rows,
+                          ctx_pages, window, scale, softcap, po);
   }
 }
 
-template <bool kInt8>
+template <bool kInt8, bool kPartial = false>
 int dispatch(const void* q, const void* k, const void* v, const void* ks,
              const void* vs, const void* pt, const void* pos0,
              const void* lens, void* out, int B, int S, int H, int KV, int P,
              int ps, int ctx_pages, int hd, int window, float scale,
-             float softcap, void* stream) {
+             float softcap, void* stream,
+             const PartialOut& po = PartialOut{}) {
   const int* t = static_cast<const int*>(pt);
   const int* p0 = static_cast<const int*>(pos0);
   const int* il = static_cast<const int*>(lens);
@@ -358,14 +397,17 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks,
   if (B == 0 || S == 0) return cudaSuccess;
   switch (hd) {
     case 64:
-      return launch<64, kInt8>(q, k, v, ks, vs, t, p0, il, out, B, S, H, KV,
-                               P, ps, ctx_pages, window, scale, softcap, s);
+      return launch<64, kInt8, kPartial>(q, k, v, ks, vs, t, p0, il, out, B,
+                                         S, H, KV, P, ps, ctx_pages, window,
+                                         scale, softcap, s, po);
     case 128:
-      return launch<128, kInt8>(q, k, v, ks, vs, t, p0, il, out, B, S, H, KV,
-                                P, ps, ctx_pages, window, scale, softcap, s);
+      return launch<128, kInt8, kPartial>(q, k, v, ks, vs, t, p0, il, out, B,
+                                          S, H, KV, P, ps, ctx_pages, window,
+                                          scale, softcap, s, po);
     case 256:
-      return launch<256, kInt8>(q, k, v, ks, vs, t, p0, il, out, B, S, H, KV,
-                                P, ps, ctx_pages, window, scale, softcap, s);
+      return launch<256, kInt8, kPartial>(q, k, v, ks, vs, t, p0, il, out, B,
+                                          S, H, KV, P, ps, ctx_pages, window,
+                                          scale, softcap, s, po);
     default:
       return cudaErrorInvalidValue;
   }
@@ -403,4 +445,27 @@ extern "C" int vgt_paged_multitok_int8(const void* q, const void* k_pages,
   return dispatch<true>(q, k_pages, v_pages, k_scale, v_scale, page_tables,
                         positions0, input_lens, out, B, S, H, KV, P, ps,
                         ctx_pages, hd, window, scale, softcap, stream);
+}
+
+// K3-sp: bf16 pools holding the global pages [base, base + P) of one sp
+// rank (P the shard, base >= 0); acc [B, S, H, hd], m and l [B, S, H] in
+// fp32 over the owned keys
+extern "C" int vgt_paged_multitok_partial_bf16(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* page_tables, const void* positions0, const void* input_lens,
+    void* acc, void* m, void* l, int B, int S, int H, int KV, int P, int ps,
+    int ctx_pages, int hd, int window, float scale, float softcap, int base,
+    void* stream) {
+  if (acc == nullptr || m == nullptr || l == nullptr || base < 0 || P < 1)
+    return cudaErrorInvalidValue;
+  PartialOut po{};
+  po.acc = static_cast<float*>(acc);
+  po.m = static_cast<float*>(m);
+  po.l = static_cast<float*>(l);
+  po.base = base;
+  po.shard = P;
+  return dispatch<false, true>(q, k_pages, v_pages, nullptr, nullptr,
+                               page_tables, positions0, input_lens, nullptr,
+                               B, S, H, KV, P, ps, ctx_pages, hd, window,
+                               scale, softcap, stream, po);
 }

@@ -51,6 +51,16 @@ parallel/sharding.py ``local_spec``) holds its own layers, and
 ``prefill_forward`` / ``decode_forward`` route through the relay
 (parallel/pipeline.py), which runs those parts stage by stage, as the
 reference routes a pp mesh.
+
+Under sequence parallelism (``spec.seq_parallel``, parallel/sharding.py
+``local_spec``) every rank holds the whole model and its shard of the
+pool's pages.  The prompt pass (:func:`sp_prefill_forward`) runs the
+rank's ``S/sp`` rows of the prompt through every layer, attention by the
+ring (parallel/ring_attention.py), and brings each row's last hidden to
+sp rank 0.  Decode, suffix and chunk rows are replicated over sp: every
+rank runs each row's projections and MLP, and attention writes the KV on
+the page's owner and merges the ranks' partials (parallel/sp_decode.py).
+Rank 0 alone computes the logits; the other ranks' forwards return None.
 """
 
 from __future__ import annotations
@@ -531,10 +541,69 @@ def prefill_forward(
 
         return pp_prefill_forward(params, spec, tokens, seq_lens, k_pages,
                                   v_pages, page_tables)
+    if spec.seq_parallel is not None:
+        return sp_prefill_forward(params, spec, tokens, seq_lens, k_pages,
+                                  v_pages, page_tables)
     x = _embed(params, spec, tokens)  # [B, S, D]
     x = prefill_layers(params, spec, x, seq_lens, k_pages, v_pages,
                        page_tables)
     return _last_logits(params, spec, x, seq_lens)
+
+
+def _sp_logits(params: Params, spec: ModelSpec,
+               x: torch.Tensor) -> Optional[torch.Tensor]:
+    """The logits on sp rank 0 (it alone samples), None on the others."""
+    if spec.seq_parallel.sp_rank != 0:
+        return None
+    return _logits(params, spec, x)
+
+
+def sp_prefill_forward(
+    params: Params,
+    spec: ModelSpec,
+    tokens: torch.Tensor,  # [B, S] the whole prompt batch, S % sp == 0
+    seq_lens: torch.Tensor,  # [B] int32
+    k_pages: KVPool,  # [L, KV, P/sp, ps, hd] this rank's shard, in place
+    v_pages: KVPool,
+    page_tables: torch.Tensor,  # [B, S // ps] GLOBAL page ids
+) -> Optional[torch.Tensor]:
+    """The prompt pass under sp: the reference's ring route of
+    ``prefill_forward``.  Sp rank r runs rows ``[r*S/sp, (r+1)*S/sp)``
+    through every layer (their positions global), attention by the ring,
+    which also writes the pages of every block this rank owns
+    (parallel/ring_attention.py).  Each row's last real token lives on
+    one rank: its hidden reaches rank 0 by a sum over sp of every rank's
+    (zeros where the rank does not hold it, so the sum is exact), and
+    rank 0 returns the fp32 logits [B, V]; the other ranks None."""
+    from vgate_tpu_torch.parallel.ring_attention import (
+        ring_prefill_attention,
+    )
+
+    mesh = spec.seq_parallel
+    B, S = tokens.shape
+    if S % mesh.sp:
+        raise ValueError(f"sequence {S} not divisible by sp={mesh.sp}")
+    n = S // mesh.sp
+    first = mesh.sp_rank * n
+    dev = tokens.device
+    x = _embed(params, spec, tokens[:, first:first + n])  # [B, n, D]
+    positions = (first + torch.arange(n, device=dev))[None, :].expand(B, n)
+    for l in range(spec.num_layers):
+        lp = layer_params(params, l)
+        q, k, v = qkv(x, lp, spec, positions)
+        attn = ring_prefill_attention(
+            q, k, v, seq_lens, mesh, pools=(k_pages[l], v_pages[l],
+                                            page_tables),
+            **attn_options(spec, l))
+        x = _finish_layer(x, attn, lp, spec)
+    at = torch.clamp(seq_lens.long() - 1, 0, S - 1) - first
+    held = (at >= 0) & (at < n)
+    last = x[torch.arange(B, device=dev), torch.clamp(at, 0, n - 1)]
+    # every rank is the sp group at tp = ep = pp = 1
+    last = mesh.all_reduce(
+        torch.where(held[:, None], last, torch.zeros_like(last)),
+        experts=True)
+    return _sp_logits(params, spec, last)
 
 
 def decode_attn_inputs(positions, page_tables, active, page_size):
@@ -564,8 +633,15 @@ def decode_layers(
     step's activations: writes each layer's new K/V at ``positions`` and
     returns the activations after the last layer.  Attention runs K1, or
     K6 (``block_slots`` slots per CTA) when ``spec.decode_block_slots``
-    > 1."""
+    > 1; under sp the write and K1-sp's partials over the rank's pages,
+    merged over sp (parallel/sp_decode.py; ``decode_block_slots`` is not
+    used there, as in the reference)."""
     seq_lens, page_ids, page_off = attn_inputs
+    sp_mesh = spec.seq_parallel
+    if sp_mesh is not None:
+        from vgate_tpu_torch.parallel.sp_decode import (
+            sp_decode_attention_and_write,
+        )
     if spec.decode_block_slots > 1:
         attention = functools.partial(paged_decode_attention_blocked,
                                       block_slots=spec.decode_block_slots)
@@ -576,6 +652,12 @@ def decode_layers(
         lp = layer_params(params, l)
         q, k, v = qkv(x[:, None], lp, spec, pos)
         q, k, v = q[:, 0], k[:, 0], v[:, 0]
+        if sp_mesh is not None:
+            attn = sp_decode_attention_and_write(
+                q, k, v, k_pages[l], v_pages[l], page_ids, page_off,
+                page_tables, seq_lens, sp_mesh, **attn_options(spec, l))
+            x = _finish_layer(x, attn, lp, spec)
+            continue
         # [B, KV, hd] -> [KV, B, hd] at (page_ids, page_off)
         kv_write(k_pages[l], (slice(None), page_ids, page_off),
                  k.transpose(0, 1))
@@ -611,6 +693,8 @@ def decode_forward(
     x = _embed(params, spec, tokens)  # [B, D]
     x = decode_layers(params, spec, x, positions, k_pages, v_pages,
                       page_tables, attn_inputs)
+    if spec.seq_parallel is not None:
+        return _sp_logits(params, spec, x)
     return _logits(params, spec, x)
 
 
@@ -638,7 +722,13 @@ def prefill_suffix_forward(
     The reference routes only page-aligned suffixes of at most 1024 rows
     through its TPU kernel (VMEM and DMA-alignment limits); the CUDA
     kernel tiles query rows over CTAs and masks by position, so every
-    suffix pass on the card takes it."""
+    suffix pass on the card takes it.
+
+    Under sp each layer writes the suffix pages this rank owns and
+    merges K3-sp's partials over the ranks' context pages (parallel/
+    sp_decode.py ``sp_suffix_attention_and_write``); copy-on-write is off
+    there, so the suffix is page-aligned.  Rank 0 returns the logits, the
+    other ranks None."""
     B, S = tokens.shape
     ps = k_pages.shape[3]
     positions = prefix_lens.long()[:, None] + torch.arange(
@@ -646,6 +736,27 @@ def prefill_suffix_forward(
     )
     offsets = prefix_lens % ps if unaligned else None
     x = _embed(params, spec, tokens)  # [B, S, D]
+    sp_mesh = spec.seq_parallel
+    if sp_mesh is not None:
+        from vgate_tpu_torch.parallel.sp_decode import (
+            sp_suffix_attention_and_write,
+        )
+
+        if unaligned:
+            raise ValueError("copy-on-write is off under sp: the suffix "
+                             "pass is page-aligned")
+        total_lens = prefix_lens + suffix_lens
+        for l in range(spec.num_layers):
+            lp = layer_params(params, l)
+            q, k, v = qkv(x, lp, spec, positions)
+            attn = sp_suffix_attention_and_write(
+                q, k, v, k_pages[l], v_pages[l], suffix_page_tables,
+                ctx_page_tables, prefix_lens, total_lens, sp_mesh,
+                **attn_options(spec, l))
+            x = _finish_layer(x, attn, lp, spec)
+        at = torch.clamp(suffix_lens.long() - 1, 0, S - 1)
+        return _sp_logits(params, spec,
+                          x[torch.arange(B, device=x.device), at])
     for l in range(spec.num_layers):
         lp = layer_params(params, l)
         q, _, _ = _prefill_qkv_write(

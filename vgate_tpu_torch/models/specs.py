@@ -86,6 +86,10 @@ class ModelSpec:
     # pipeline.py) sends the activations over; None = the whole stack
     first_layer: int = 0
     pipeline: Any = field(default=None, compare=False, repr=False)
+    # sequence parallelism (parallel/sharding.py local_spec): the mesh
+    # whose sp ranks split the prompt's rows (parallel/ring_attention.py)
+    # and the pool's pages (parallel/sp_decode.py); None = no sp
+    seq_parallel: Any = field(default=None, compare=False, repr=False)
 
     @property
     def is_moe(self) -> bool:

@@ -202,3 +202,223 @@ def paged_suffix_attention(
         q, k.movedim(0, 2), v.movedim(0, 2), seq_lens, block_k=block_k,
         q_offset=prefix_lens, softcap=softcap, window=window, scale=scale,
     )
+
+
+# ------------------------------------------------- sequence-parallel partials
+#
+# Under sp (parallel/ring_attention.py, parallel/sp_decode.py) each rank
+# attends a part of the keys and emits the unnormalised flash partials
+# ``(acc [.., hd], m, l)`` in fp32, which merge by log-sum-exp into the
+# attention over every key.  A row that sees no key of its part yields
+# ``acc = 0``, ``m = -1e30``, ``l = 0``: it merges as nothing, never NaN.
+
+
+def local_pages(pages: torch.Tensor, base: int, shard: int):
+    """``(local ids, owned)`` of global page ids on the sp rank whose pool
+    shard holds global pages ``[base, base + shard)``: an owned page's
+    index in the shard, 0 (the rank's trash page) for every other."""
+    pages = pages.long()
+    owned = (pages >= base) & (pages < base + shard)
+    return torch.where(owned, pages - base, torch.zeros_like(pages)), owned
+
+
+def block_attention_update(
+    q: torch.Tensor,  # [B, Sq, H, hd] fp32, scaled
+    k: torch.Tensor,  # [B, Sk, H, hd]
+    v: torch.Tensor,
+    mask: torch.Tensor,  # [B, Sq, Sk] bool
+    acc: torch.Tensor,  # [B, Sq, H, hd] fp32
+    m: torch.Tensor,  # [B, Sq, H] running max
+    l: torch.Tensor,  # [B, Sq, H] running denominator
+    softcap: float = 0.0,
+):
+    """One online-softmax step over a key block: the reference's
+    ``_block_attention_update`` (vgate_tpu/parallel/ring_attention.py),
+    its sentinels included (a row masked throughout takes ``p = 1`` while
+    its max is the sentinel, as there).  Returns the new ``(acc, m,
+    l)``."""
+    scores = torch.einsum("bshd,bthd->bsth", q, k.float())
+    scores = _softcap(scores, softcap)
+    scores = torch.where(mask[..., None], scores,
+                         torch.full_like(scores, NEG))
+    m_new = torch.maximum(m, scores.amax(dim=2))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(scores - m_new[:, :, None, :])
+    l_new = alpha * l + p.sum(dim=2)
+    acc_new = acc * alpha[..., None] + torch.einsum(
+        "bsth,bthd->bshd", p, v.float())
+    return acc_new, m_new, l_new
+
+
+def empty_partials(shape, device) -> tuple:
+    """The partials ``(acc [*shape], m, l [*shape[:-1]])`` of rows that
+    saw no key."""
+    return (torch.zeros(shape, dtype=torch.float32, device=device),
+            torch.full(shape[:-1], NEG, dtype=torch.float32, device=device),
+            torch.zeros(shape[:-1], dtype=torch.float32, device=device))
+
+
+def prefill_partial_attention(
+    q: torch.Tensor,  # [B, S, H, hd] this rank's query rows
+    k: torch.Tensor,  # [B, Sk, KV, hd] one block of keys, unexpanded
+    v: torch.Tensor,
+    key_lens: torch.Tensor,  # [B] int32 real keys of the block (0..Sk)
+    q_offsets: torch.Tensor,  # [B] int32 position of q[:, 0] from key 0
+    softcap: float = 0.0,
+    window: int = 0,  # >0 => attend only to the last `window` keys
+    scale: Optional[float] = None,  # query scale; default hd**-0.5
+):
+    """One hop of the ring prompt pass (the plain version of K2-ring,
+    ops/kernels/flash_prefill.py ``flash_prefill_partial``): the query
+    rows against one K/V block, causal from ``q_offsets``, as
+    :func:`block_attention_update` from the empty state, with the rows
+    that see no key of the block emptied.  Returns fp32 ``(acc [B, S, H,
+    hd], m [B, S, H], l [B, S, H])``."""
+    B, S, H, hd = q.shape
+    Sk = k.shape[1]
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    dev = q.device
+    q_pos = q_offsets.long()[:, None] + torch.arange(S, device=dev)
+    k_pos = torch.arange(Sk, device=dev)
+    mask = (k_pos[None, None, :] <= q_pos[:, :, None]) & (
+        k_pos[None, None, :] < key_lens.long()[:, None, None])
+    mask = mask & _window_ok(q_pos[:, :, None] - k_pos[None, None, :],
+                             window if window else None)
+    n_rep = H // k.shape[2]
+    acc, m, l = block_attention_update(
+        q.float() * scale, repeat_kv(k, n_rep), repeat_kv(v, n_rep), mask,
+        *empty_partials((B, S, H, hd), dev), softcap=softcap)
+    seen = mask.any(dim=2)[..., None]  # [B, S, 1]
+    return (torch.where(seen[..., None], acc, torch.zeros_like(acc)),
+            torch.where(seen, m, torch.full_like(m, NEG)),
+            torch.where(seen, l, torch.zeros_like(l)))
+
+
+def partial_paged_attention(
+    q: torch.Tensor,  # [B, H, hd]
+    k_local: torch.Tensor,  # [KV, P/sp, ps, hd] this rank's page block
+    v_local: torch.Tensor,
+    local_pt: torch.Tensor,  # [B, pages_per_seq] local page (0: not mine)
+    owned: torch.Tensor,  # [B, pages_per_seq] bool: the page is mine
+    seq_lens: torch.Tensor,  # [B]
+    window=0,  # >0 => only the last `window` positions
+    softcap: float = 0.0,
+    scale: Optional[float] = None,
+):
+    """Decode partials over the pages this rank owns: the reference's
+    ``_partial_paged_attention`` (vgate_tpu/parallel/sp_decode.py), the
+    plain version of K1-sp (ops/kernels/paged_decode.py
+    ``paged_decode_partial``).  Returns fp32 ``(acc [B, H, hd], m [B, H],
+    l [B, H])``."""
+    B, H, hd = q.shape
+    KV, _, ps, _ = k_local.shape
+    ctx = local_pt.shape[1] * ps
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    pt = local_pt.long()
+    k = repeat_kv(k_local[:, pt].reshape(KV, B, ctx, hd).movedim(0, 2),
+                  H // KV)
+    v = repeat_kv(v_local[:, pt].reshape(KV, B, ctx, hd).movedim(0, 2),
+                  H // KV)
+    scores = torch.einsum("bhd,bthd->bht", q.float() * scale, k.float())
+    scores = _softcap(scores, softcap)
+    t = torch.arange(ctx, device=q.device)[None, :]
+    sl = seq_lens.long()[:, None]
+    valid = (t < sl) & torch.repeat_interleave(owned, ps, dim=1)
+    window = torch.as_tensor(window, device=q.device)
+    valid = valid & ((window <= 0) | (t > sl - 1 - window))
+    scores = torch.where(valid[:, None, :], scores,
+                         torch.full_like(scores, NEG))
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None])
+    p = torch.where(valid[:, None, :], p, torch.zeros_like(p))
+    return (torch.einsum("bht,bthd->bhd", p, v.float()), m, p.sum(dim=-1))
+
+
+def partial_suffix_attention(
+    q: torch.Tensor,  # [B, S, H, hd] roped queries (absolute positions)
+    k_local: torch.Tensor,  # [KV, P/sp, ps, hd] this rank's page block
+    v_local: torch.Tensor,
+    local_ct: torch.Tensor,  # [B, ctx_pages] local page (0: not mine)
+    owned: torch.Tensor,  # [B, ctx_pages] bool: the page is mine
+    prefix_lens: torch.Tensor,  # [B] position of q[:, 0]
+    total_lens: torch.Tensor,  # [B] prefix + real rows
+    window=0,  # >0 => sliding window
+    softcap: float = 0.0,
+    scale: Optional[float] = None,
+    block_pages: int = 16,
+):
+    """Suffix (and verify) partials over the context pages this rank
+    owns, in blocks of ``block_pages`` pages: the reference's
+    ``_partial_suffix_attention`` (vgate_tpu/parallel/sp_decode.py), the
+    plain version of K3-sp (ops/kernels/paged_multitok.py
+    ``paged_multitok_partial``).  Returns fp32 ``(acc [B, S, H, hd], m
+    [B, S, H], l [B, S, H])``."""
+    B, S, H, hd = q.shape
+    KV, _, ps, _ = k_local.shape
+    n_rep = H // KV
+    ctx_pages = local_ct.shape[1]
+    dev = q.device
+    if ctx_pages == 0:
+        return empty_partials((B, S, H, hd), dev)
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    block_pages = min(block_pages, ctx_pages)
+    # padded entries are not owned, so they contribute nothing
+    pad = (-ctx_pages) % block_pages
+    local_ct = torch.nn.functional.pad(local_ct.long(), (0, pad))
+    owned = torch.nn.functional.pad(owned, (0, pad))
+    q32 = q.float() * scale
+    q_pos = prefix_lens.long()[:, None] + torch.arange(S, device=dev)
+    total = total_lens.long()[:, None, None]
+    window = torch.as_tensor(window, device=dev)
+    acc, m, l = empty_partials((B, S, H, hd), dev)
+    bk = block_pages * ps
+    for start in range(0, ctx_pages + pad, block_pages):
+        pt = local_ct[:, start:start + block_pages]
+        k = repeat_kv(k_local[:, pt].reshape(KV, B, bk, hd).movedim(0, 2),
+                      n_rep).float()
+        v = repeat_kv(v_local[:, pt].reshape(KV, B, bk, hd).movedim(0, 2),
+                      n_rep).float()
+        t = (start * ps + torch.arange(bk, device=dev))[None, None, :]
+        valid = ((t <= q_pos[:, :, None]) & (t < total)
+                 & torch.repeat_interleave(
+                     owned[:, start:start + block_pages], ps, dim=1
+                 )[:, None, :])
+        valid = valid & ((window <= 0) | (q_pos[:, :, None] - t < window))
+        scores = _softcap(torch.einsum("bshd,bthd->bsth", q32, k), softcap)
+        scores = torch.where(valid[..., None], scores,
+                             torch.full_like(scores, NEG))
+        m_new = torch.maximum(m, scores.amax(dim=2))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new[:, :, None, :])
+        p = torch.where(valid[..., None], p, torch.zeros_like(p))
+        l = alpha * l + p.sum(dim=2)
+        acc = acc * alpha[..., None] + torch.einsum("bsth,bthd->bshd", p, v)
+        m = m_new
+    return acc, m, l
+
+
+def merge_partials(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor):
+    """The attention over every part from the parts' partials stacked on
+    a leading axis (``acc [n, .., hd]``, ``m``/``l`` ``[n, ..]``): the
+    reference's log-sum-exp merge over sp (``pmax`` of m, ``psum`` of
+    the rescaled acc and l), summed in part order.  Returns fp32 ``[..,
+    hd]``."""
+    m_g = m.amax(dim=0)
+    corr = torch.exp(m - m_g)
+    acc_g = (acc * corr[..., None]).sum(dim=0)
+    l_g = (l * corr).sum(dim=0)
+    return acc_g / torch.clamp(l_g, min=1e-30)[..., None]
+
+
+def fold_partials(state: tuple, part: tuple) -> tuple:
+    """Two sets of partials ``(acc, m, l)`` as one (the running state of
+    the ring and one hop's partials)."""
+    acc, m, l = state
+    acc_b, m_b, l_b = part
+    m_new = torch.maximum(m, m_b)
+    a, b = torch.exp(m - m_new), torch.exp(m_b - m_new)
+    return (acc * a[..., None] + acc_b * b[..., None], m_new,
+            l * a + l_b * b)

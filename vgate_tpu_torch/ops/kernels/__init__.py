@@ -10,16 +10,19 @@ def launch_counts(reset: bool = False) -> Dict[str, int]:
     its own."""
     from vgate_tpu_torch.ops.kernels.flash_prefill import (
         flash_prefill_attention,
+        flash_prefill_partial,
     )
     from vgate_tpu_torch.ops.kernels.leaf_digest import leaf_digest
     from vgate_tpu_torch.ops.kernels.paged_decode import (
         paged_decode_attention,
         paged_decode_attention_blocked,
         paged_decode_attention_int8,
+        paged_decode_partial,
     )
     from vgate_tpu_torch.ops.kernels.paged_multitok import (
         paged_multitok_attention,
         paged_multitok_attention_int8,
+        paged_multitok_partial,
     )
     from vgate_tpu_torch.ops.kernels.quant_matmul import (
         int4_matmul,
@@ -30,7 +33,8 @@ def launch_counts(reset: bool = False) -> Dict[str, int]:
         paged_decode_attention, flash_prefill_attention,
         paged_multitok_attention, paged_decode_attention_int8,
         paged_multitok_attention_int8, int8_matmul, int4_matmul,
-        paged_decode_attention_blocked, leaf_digest,
+        paged_decode_attention_blocked, leaf_digest, paged_decode_partial,
+        flash_prefill_partial, paged_multitok_partial,
     )
     from vgate_tpu_torch.ops.kernels import _build
 

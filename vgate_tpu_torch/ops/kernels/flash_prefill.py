@@ -5,6 +5,12 @@ Replaces vgate_tpu/ops/pallas/flash_prefill.py
 the plain version (ops/attention.py ``flash_prefill_attention``); a CUDA
 tensor launches the kernel or raises — there is no fallback.
 ``flash_prefill_attention.launches`` counts kernel launches.
+
+K2-ring (:func:`flash_prefill_partial`) is the kernel's partial mode: one
+hop of the sequence-parallel ring prompt pass (parallel/
+ring_attention.py), writing each row's unnormalised fp32 ``(acc, m,
+l)``; its plain version is ops/attention.py
+``prefill_partial_attention``.
 """
 
 from __future__ import annotations
@@ -20,14 +26,15 @@ from vgate_tpu_torch.ops.kernels import _build
 HEAD_DIMS = (64, 128, 256)
 
 
-def _lib():
+def _lib(partial: bool = False):
     lib = _build.load("flash_prefill")
-    fn = lib.vgt_flash_prefill_bf16
+    fn = (lib.vgt_flash_prefill_partial_bf16 if partial
+          else lib.vgt_flash_prefill_bf16)
     if fn.argtypes is None:  # declare once: pointers must not be cut to int
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
-            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ]
+        fn.argtypes = [ctypes.c_void_p] * (8 if partial else 6) + [
+            ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_float,
+                                 ctypes.c_void_p]
     return fn
 
 
@@ -103,3 +110,47 @@ def flash_prefill_attention(
 
 
 flash_prefill_attention.launches = 0
+
+
+def flash_prefill_partial(
+    q: torch.Tensor,  # [B, S, H, hd] the rank's query block
+    k: torch.Tensor,  # [B, Sk, KV, hd] the held K/V block
+    v: torch.Tensor,
+    key_lens: torch.Tensor,  # [B] int32 real keys of the block (0..Sk)
+    q_offsets: torch.Tensor,  # [B] int32 position of q[:, 0] from key 0
+    softcap: float = 0.0,
+    window: int = 0,  # >0 => attend only to the last `window` keys
+    scale: Optional[float] = None,  # query scale; default hd**-0.5
+):
+    """K2-ring: one hop of the ring prompt pass, the query rows against
+    one K/V block, causal from ``q_offsets``, as the unnormalised fp32
+    partials ``(acc [B, S, H, hd], m [B, S, H], l [B, S, H])``; a row that
+    sees no key of the block comes out ``acc = 0``, ``m = -1e30``, ``l =
+    0``."""
+    if q.device.type == "cpu":
+        return attention.prefill_partial_attention(
+            q, k, v, key_lens, q_offsets, softcap=softcap, window=window,
+            scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check(q, k, v, key_lens, q_offsets)
+    B, S, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    m = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    rc = _lib(partial=True)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_lens.data_ptr(),
+        q_offsets.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+        B, S, Sk, H, KV, hd, int(window),
+        float(scale if scale is not None else hd ** -0.5), float(softcap),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"flash-prefill partial kernel launch failed: cuda error {rc}")
+    _build.count_launch(flash_prefill_partial)
+    return acc, m, l
+
+
+flash_prefill_partial.launches = 0

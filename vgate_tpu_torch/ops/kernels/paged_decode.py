@@ -7,6 +7,8 @@ int8 mode (:func:`paged_decode_attention_int8`, K1-int8, which
 :func:`paged_decode_attention` hands such pools to).  K6 replaces
 ``paged_decode_attention_pallas_blocked``, the same function with
 ``block_slots`` slots a program (:func:`paged_decode_attention_blocked`).
+K1-sp (:func:`paged_decode_partial`) is K1's partial mode under sequence
+parallelism: the unnormalised partials over one sp rank's pool shard.
 Both are page-split decodes: K1 (bf16 and int8 pools) runs both products
 on the tensor cores with the plan :func:`decode_plan`, K6 (and K1 on f32
 pools, by an explicit dtype dispatch) runs fp32 on the CUDA cores with
@@ -280,6 +282,10 @@ _ARGTYPES = {
     # q, pools, scale pools, tables, lens, out, workspace, DecodeArgs*,
     # the stream
     "vgt_paged_decode": [ctypes.c_void_p] * 11,
+    # q, pools, tables, lens, acc, m, l, workspace, DecodeArgs*, base,
+    # the stream
+    "vgt_paged_decode_partial": [ctypes.c_void_p] * 10 + [
+        ctypes.c_int, ctypes.c_void_p],
     "vgt_paged_decode_blocked": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 7 + [
         ctypes.c_void_p],
@@ -353,10 +359,13 @@ _TC_SHAPES: Dict[tuple, tuple] = {}
 
 
 def _tc_launch(q, k, v, ks, vs, page_tables, seq_lens, softcap, window,
-               scale) -> torch.Tensor:
+               scale, base: Optional[int] = None):
     """K1 on bf16 pools (``ks`` None) or int8 pools with scale pools
     ``ks``/``vs``: one launch of ``paged_decode_tc_kernel`` and, where a
-    slot may span chunks, one of its chunk merge."""
+    slot may span chunks, one of its chunk merge.  With ``base`` (K1-sp,
+    bf16 pools) the pools are the shard of global pages ``[base, base +
+    P)`` and the result the fp32 partials ``(acc, m, l)``: every slot's
+    chunks merge in the second launch."""
     key = (q.shape, q.dtype, q.device, k.shape, k.dtype, k.device, v.shape,
            v.dtype, v.device, page_tables.shape, page_tables.dtype,
            page_tables.device, seq_lens.shape, seq_lens.dtype,
@@ -388,6 +397,23 @@ def _tc_launch(q, k, v, ks, vs, page_tables, seq_lens, softcap, window,
     plan, _, args_ptr, index = entry
     # the current stream's handle without building a Stream object
     stream = torch._C._cuda_getCurrentRawStream(index)
+    if base is not None:
+        B, H, hd = q.shape
+        ws = _build.workspace(
+            q.device, stream, B * k.shape[0] * plan.max_chunks
+            * (H // k.shape[0]) * (hd + 2)).data_ptr()
+        acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+        m = torch.empty((B, H), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+        rc = _lib("vgt_paged_decode_partial")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), page_tables.data_ptr(),
+            seq_lens.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+            ws, args_ptr, int(base), stream,
+        )
+        if rc != 0:
+            raise RuntimeError(
+                f"paged-decode partial kernel launch failed: cuda error {rc}")
+        return acc, m, l
     ws = (_build.workspace(q.device, stream, plan.workspace).data_ptr()
           if plan.max_chunks > 1 else None)
     out = torch.empty_like(q)
@@ -546,3 +572,41 @@ def paged_decode_attention_blocked(
 paged_decode_attention.launches = 0
 paged_decode_attention_int8.launches = 0
 paged_decode_attention_blocked.launches = 0
+
+
+def paged_decode_partial(
+    q: torch.Tensor,  # [B, H, hd] bf16
+    k_pages: torch.Tensor,  # [KV, P/sp, ps, hd] one layer's pool shard
+    v_pages: torch.Tensor,
+    page_tables: torch.Tensor,  # [B, pps] int32 GLOBAL page ids
+    seq_lens: torch.Tensor,  # [B] int32, context incl. the current token
+    base: int,  # the shard's first global page
+    softcap: float = 0.0,
+    window: int = 0,  # >0 => attend only to the last `window` keys
+    scale: Optional[float] = None,  # query scale; default hd**-0.5
+):
+    """K1-sp: decode attention over the pages of one sp rank's shard,
+    global pages ``[base, base + P/sp)``, as the unnormalised fp32
+    partials ``(acc [B, H, hd], m [B, H], l [B, H])`` that merge over sp
+    (parallel/sp_decode.py).  A tile whose page another rank owns is
+    neither copied nor read; a head that sees no owned key comes out
+    ``acc = 0``, ``m = -1e30``, ``l = 0``.  bf16 pools only (int8 KV under
+    sp is the reference's own error).  The plain version is ops/
+    attention.py ``partial_paged_attention``."""
+    if q.device.type == "cpu":
+        local, owned = attention.local_pages(page_tables, base,
+                                             k_pages.shape[1])
+        return attention.partial_paged_attention(
+            q, k_pages, v_pages, local, owned, seq_lens, window=window,
+            softcap=softcap, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if is_quantized(k_pages) or q.dtype != torch.bfloat16:
+        raise ValueError("K1-sp takes bf16 q and bf16 pools")
+    out = _tc_launch(q, k_pages, v_pages, None, None, page_tables, seq_lens,
+                     float(softcap), int(window), scale, base=int(base))
+    _build.count_launch(paged_decode_partial)
+    return out
+
+
+paged_decode_partial.launches = 0

@@ -8,6 +8,11 @@ its int8 mode (:func:`paged_multitok_attention_int8`, K3-int8, which
 takes the plain version (ops/attention.py ``paged_suffix_attention``); a
 CUDA tensor launches the kernel or raises — there is no fallback.  Each
 function's ``launches`` counts the launches of its mode.
+
+K3-sp (:func:`paged_multitok_partial`) is the bf16 mode on one sequence-
+parallel rank's pool shard, writing each row's unnormalised fp32 ``(acc,
+m, l)`` over the keys of the pages it owns; its plain version is ops/
+attention.py ``partial_suffix_attention``.
 """
 
 from __future__ import annotations
@@ -90,8 +95,16 @@ def check_engine_page_size(device: str, page_size: int, head_dim: int,
     )
 
 
-def _lib(int8: bool = False):
+def _lib(int8: bool = False, partial: bool = False):
     lib = _build.load("paged_multitok")
+    if partial:
+        fn = lib.vgt_paged_multitok_partial_bf16
+        if fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
+                ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                ctypes.c_void_p]
+        return fn
     fn = lib.vgt_paged_multitok_int8 if int8 else lib.vgt_paged_multitok_bf16
     if fn.argtypes is None:  # declare once: pointers must not be cut to int
         fn.restype = ctypes.c_int
@@ -264,5 +277,66 @@ def paged_multitok_attention_int8(
     return out
 
 
+def paged_multitok_partial(
+    q: torch.Tensor,  # [B, S, H, hd] bf16 queries
+    k_pages: torch.Tensor,  # [KV, P/sp, ps, hd] one layer's pool shard
+    v_pages: torch.Tensor,
+    page_tables: torch.Tensor,  # [B, ctx_pages] int32 GLOBAL page ids
+    positions0: torch.Tensor,  # [B] int32 global position of q[:, 0]
+    input_lens: torch.Tensor,  # [B] int32 real query rows (<= S)
+    base: int,  # the shard's first global page
+    softcap: float = 0.0,
+    window: int = 0,  # >0 => attend only to the last `window` keys
+    scale: Optional[float] = None,  # query scale; default hd**-0.5
+):
+    """K3-sp: :func:`paged_multitok_attention` over the pages of one sp
+    rank's shard, global pages ``[base, base + P/sp)``, as the
+    unnormalised fp32 partials ``(acc [B, S, H, hd], m [B, S, H], l [B, S,
+    H])``.  A key on another rank's page is masked (its box reads the
+    rank's zeroed local page 0); a row that sees no owned key comes out
+    ``acc = 0``, ``m = -1e30``, ``l = 0``.  The rows' own KV must already
+    be in the pools of their owners."""
+    if q.device.type == "cpu":
+        local, owned = attention.local_pages(page_tables, base,
+                                             k_pages.shape[1])
+        return attention.partial_suffix_attention(
+            q, k_pages, v_pages, local, owned, positions0,
+            positions0 + input_lens, window=window, softcap=softcap,
+            scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if is_quantized(k_pages):
+        raise ValueError("K3-sp takes bf16 pools")
+    _check(q, k_pages, v_pages, page_tables, positions0, input_lens)
+    B, S, H, hd = q.shape
+    KV, P, ps, _ = k_pages.shape
+    if not tma_page_size(ps, hd):
+        raise ValueError(
+            f"page size {ps} at head dim {hd}: the bf16 kernel takes "
+            f"multiples of 8 that divide {key_tile(hd)} or that it divides"
+        )
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on 16 bytes (TMA)")
+    acc = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    m = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    rc = _lib(partial=True)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_tables.data_ptr(), positions0.data_ptr(), input_lens.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), B, S, H, KV, P, ps,
+        page_tables.shape[1], hd, int(window),
+        float(scale if scale is not None else hd ** -0.5), float(softcap),
+        int(base), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"paged multi-token partial kernel launch failed: cuda error {rc}"
+        )
+    _build.count_launch(paged_multitok_partial)
+    return acc, m, l
+
+
 paged_multitok_attention.launches = 0
 paged_multitok_attention_int8.launches = 0
+paged_multitok_partial.launches = 0

@@ -1,7 +1,7 @@
 """A mesh follower rank: ``python -m vgate_tpu_torch.parallel.follower``.
 
 Rank 0 (runtime/engine_core.py) spawns ranks 1..n-1 of its ``pp x ep x
-tp`` mesh (parallel/mesh.py ``build_mesh``), each with the resolved
+sp x tp`` mesh (parallel/mesh.py ``build_mesh``), each with the resolved
 config as JSON, its rank, the port of rank 0's store and every rank's
 device.  A follower:
 
@@ -9,12 +9,14 @@ device.  A follower:
 * loads or initializes the same tree as a one-rank engine (seed 0 or
   the checkpoint) and keeps its own shard (parallel/sharding.py: its
   heads and FFN channels, its experts, or as a pipeline stage its
-  layers and no embedding or head), a leaf (an expert leaf, a layer)
+  layers and no embedding or head; under sp the whole tree), a leaf (an
+  expert leaf, a layer)
   at a time, each quantized leaf quantized whole first, as rank 0 does;
   W8A8 (``device.int8_native``) lays its shard out as rank 0 does;
 * records its shard's checksum baseline (``integrity.enabled``);
 * sizes its pools ``[L, KV/tp, P, ps, hd]`` with rank 0 (the minimum
-  over the ranks);
+  over the ranks; under sp its shard ``[L, KV, P/sp, ps, hd]`` of the
+  pages);
 * then loops on the control group, running the program rank 0 names on
   the host inputs rank 0 sends:
 
@@ -23,7 +25,9 @@ device.  A follower:
     pools; the logits are all-gathered with rank 0's and dropped.  A
     pipeline stage runs the relay's stage body instead (parallel/
     pipeline.py): it receives the activations from the previous stage,
-    runs its layers and sends them on;
+    runs its layers and sends them on; an sp rank runs its rows of a
+    cold prompt through the ring and its part of every suffix pass's
+    attention;
   - ``decode_state`` and ``page_tables``: its copy of the decode
     chunk's feed (a stage keeps its own positions and active mask);
     ``decode``: the chunk's steps (``follower_decode_chunk``), each

@@ -2,11 +2,12 @@
 
 The reference (vgate_tpu/parallel/mesh.py) is single-controller: one
 process owns every device of a ``jax.sharding.Mesh`` and GSPMD inserts
-the collectives.  The port has no GSPMD, so a mesh of ``pp x ep x tp``
-devices is ``pp x ep x tp`` processes, as Megatron runs it, rank
-``(pp_index * ep + ep_index) * tp + tp_index`` (the reference's axis
-order ``(dp, pp, ep, sp, tp)``: tp innermost, pp outermost, so at tp =
-ep = 1 a rank is its pipeline stage):
+the collectives.  The port has no GSPMD, so a mesh of ``pp x ep x sp x
+tp`` devices is as many processes, as Megatron runs it, rank
+``((pp_index * ep + ep_index) * sp + sp_index) * tp + tp_index`` (the
+reference's axis order ``(dp, pp, ep, sp, tp)``: tp innermost, pp
+outermost, so with the other axes at 1 a rank is its pipeline stage, or
+its sp index):
 
 * **rank 0** is the engine (runtime/engine_core.py).  It owns the
   scheduler, the sequences, the sampling, the readbacks and the gateway.
@@ -28,7 +29,11 @@ The process groups that join them:
   issued.  The **expert group** (every rank) carries a MoE layer's one
   all-reduce, which sums both the experts of the other ep ranks and the
   F partials of the other tp ranks, and the broadcast of each decode
-  step's sampled tokens.  At ep 1 the two are one group.  Under pp the
+  step's sampled tokens.  At ep 1 the two are one group.  Under sp (at
+  tp = ep = pp = 1) the device group is the sp group: it carries the
+  ring's point-to-point hops of K/V blocks (parallel/ring_attention.py),
+  the all-gather of the attention partials (parallel/sp_decode.py) and
+  the sum that brings each prompt row's last hidden to rank 0.  Under pp the
   device group (every rank) carries the pipeline relay's point-to-point
   sends of activations (parallel/pipeline.py): each stage to the next,
   and the last stage's hiddens back to rank 0.  They are NCCL
@@ -170,9 +175,9 @@ def mesh_devices(device_config, devices: Optional[List[Any]] = None
                  ) -> List[str]:
     """Each rank's device, rank 0 first: ``devices`` (the engine's
     argument), else ``device.devices``, else derived from ``device.device``
-    and ``pp x ep x tp``: one rank on ``device`` at 1, the CPU once per
-    rank, or the first ``pp x ep x tp`` cards (every card with an axis at
-    0).  A list that names one card more than once is the one-card test
+    and ``pp x ep x sp x tp``: one rank on ``device`` at 1, the CPU once
+    per rank, or the first ``pp x ep x sp x tp`` cards (every card with an
+    axis at 0).  A list that names one card more than once is the one-card test
     layout."""
     if devices is None and getattr(device_config, "devices", None):
         devices = list(device_config.devices)
@@ -180,18 +185,20 @@ def mesh_devices(device_config, devices: Optional[List[Any]] = None
         return [_named(str(d)) for d in devices]
     tp, ep = device_config.tp, device_config.ep
     pp = getattr(device_config, "pp", 1)
-    if tp == 1 and ep == 1 and pp == 1:
+    sp = getattr(device_config, "sp", 1)
+    if tp == 1 and ep == 1 and pp == 1 and sp == 1:
         # resolved by the engine, which refuses a card that is not there
         return [device_config.device]
     visible = visible_devices(device_config.device)
     if visible == ["cpu"]:
-        return ["cpu"] * (max(1, tp) * max(1, ep) * max(1, pp))
-    n = tp * ep * pp or len(visible)
+        return ["cpu"] * (max(1, tp) * max(1, ep) * max(1, pp) * max(1, sp))
+    n = tp * ep * pp * sp or len(visible)
     if n > len(visible):
         raise ValueError(
-            f"device.pp={pp} x device.ep={ep} x device.tp={tp} needs {n} "
-            f"cards but {len(visible)} are visible; name a card once per "
-            "rank in device.devices to run the ranks on fewer cards"
+            f"device.pp={pp} x device.ep={ep} x device.sp={sp} x "
+            f"device.tp={tp} needs {n} cards but {len(visible)} are "
+            "visible; name a card once per rank in device.devices to run "
+            "the ranks on fewer cards"
         )
     return visible[:n]
 
@@ -269,25 +276,41 @@ class Mesh:
         return self.plan.pp
 
     @property
+    def sp(self) -> int:
+        return self.plan.sp
+
+    @property
     def tp_rank(self) -> int:
         """This rank's index on the tp axis (innermost)."""
         return self.rank % self.plan.tp
 
     @property
+    def sp_rank(self) -> int:
+        """This rank's index on the sp axis (inside its ep index)."""
+        return self.rank // self.plan.tp % self.plan.sp
+
+    @property
     def ep_rank(self) -> int:
         """This rank's index on the ep axis (inside its stage)."""
-        return self.rank // self.plan.tp % self.plan.ep
+        return self.rank // (self.plan.tp * self.plan.sp) % self.plan.ep
 
     @property
     def pp_rank(self) -> int:
         """This rank's pipeline stage (outermost)."""
-        return self.rank // (self.plan.tp * self.plan.ep)
+        return self.rank // (self.plan.tp * self.plan.sp * self.plan.ep)
 
     def stage_rank(self, stage: int) -> int:
-        """The rank of ``stage`` (mod pp) at this rank's ep and tp
+        """The rank of ``stage`` (mod pp) at this rank's ep, sp and tp
         index."""
-        inner = self.plan.tp * self.plan.ep
+        inner = self.plan.tp * self.plan.sp * self.plan.ep
         return stage % self.plan.pp * inner + self.rank % inner
+
+    def sp_peer(self, index: int) -> int:
+        """The rank of sp index ``index`` (mod sp) at this rank's other
+        indices."""
+        tp = self.plan.tp
+        here = self.sp_rank * tp + self.tp_rank
+        return self.rank - here + index % self.plan.sp * tp + self.tp_rank
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -404,6 +427,42 @@ class Mesh:
         """Stage 0: the last stage's hiddens into ``t``; returns it."""
         self._p2p(t, self.stage_rank(self.pp - 1), False)
         return t
+
+    def ring_shift(self, t: torch.Tensor) -> torch.Tensor:
+        """One hop of the sp ring: ``t`` to the next sp rank, and the
+        previous sp rank's tensor of the same shape returned.  Posted in
+        the pipeline relay's fixed order: sp rank 0 sends, then
+        receives; every other rank receives, then sends, so no send
+        waits on a peer that is itself waiting on a send (NCCL)."""
+        got = torch.empty_like(t)
+        nxt, prev = self.sp_peer(self.sp_rank + 1), self.sp_peer(
+            self.sp_rank - 1)
+        if self.sp_rank == 0:
+            self._p2p(t, nxt, True)
+            self._p2p(got, prev, False)
+        else:
+            self._p2p(got, prev, False)
+            self._p2p(t, nxt, True)
+        return got
+
+    def sp_all_gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every sp rank's ``t`` stacked on a new leading axis, sp order
+        (``[sp, *t.shape]``).  Over NCCL one gather into a buffer
+        allocated on the calling stream (a graph capture holds it in its
+        pool); over gloo a list of parts."""
+        try:
+            src = t.contiguous().cpu() if self.staged else t.contiguous()
+            if self.backend == "nccl":
+                out = src.new_empty((self.sp, *src.shape))
+                dist.all_gather_into_tensor(out, src, group=self.group)
+                return out
+            parts = [torch.empty_like(src) for _ in range(self.sp)]
+            dist.all_gather(parts, src, group=self.group)
+        except Exception as exc:
+            self._failed(exc)
+            raise
+        out = torch.stack(parts)
+        return out.to(t.device) if self.staged else out
 
     # ------------------------------------------------------ control plane
 
@@ -602,6 +661,8 @@ class Mesh:
                 )
         if self.pp > 1:
             self._warm_ring()
+        if self.sp > 1:
+            self._warm_sp_ring()
 
     def _warm_ring(self) -> None:
         """One value around the pipeline ring, in the relay's order
@@ -624,6 +685,19 @@ class Mesh:
             raise RuntimeError(
                 f"pipeline ring warm-up carried {t.item()} around "
                 f"{self.pp} stages"
+            )
+
+    def _warm_sp_ring(self) -> None:
+        """Each sp rank's index once around the sp ring (``ring_shift``):
+        NCCL builds its point-to-point links at their first use, which
+        must not fall inside a graph capture."""
+        dev = self.device if self.backend == "nccl" else "cpu"
+        got = self.ring_shift(torch.full((1,), float(self.sp_rank),
+                                         device=dev))
+        if int(got.item()) != (self.sp_rank - 1) % self.sp:
+            raise RuntimeError(
+                f"sp ring warm-up carried {got.item()} to sp rank "
+                f"{self.sp_rank} of {self.sp}"
             )
 
     def wait_for_followers(self, store: Any) -> None:

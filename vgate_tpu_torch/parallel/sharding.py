@@ -1,5 +1,5 @@
-"""The sharding rules over the serving mesh's ``tp``, ``ep`` and ``pp``
-axes.
+"""The sharding rules over the serving mesh's ``tp``, ``ep``, ``pp`` and
+``sp`` axes.
 
 The reference (vgate_tpu/parallel/sharding.py ``param_pspecs``) states
 them as PartitionSpecs and lets GSPMD place the tree.  The port's rank
@@ -40,6 +40,11 @@ on its layer alone), and its pool holds those layers
 ``lm_head``: it alone embeds the tokens and computes the logits
 (parallel/pipeline.py), where the reference replicates them and every
 stage computes the logits.
+
+Under sequence parallelism (``sp`` > 1, at tp = ep = pp = 1) every leaf
+is replicated, as ``param_pspecs`` has no sp axis: a rank keeps the
+whole tree, and its pool holds its shard of the pages
+(runtime/engine_core.py ``kv_layout``, parallel/sp_decode.py).
 
 The reference tests divisibility on the flattened ``KV * hd`` (its
 ``_spec``), so at tp 4 a 2-kv-head model splits inside a head and serves
@@ -104,25 +109,32 @@ def check_mesh(spec: ModelSpec, tp: int, ep: int = 1, pp: int = 1) -> None:
 
 def _not_ported(what: str, item: str) -> NotPortedError:
     return NotPortedError(
-        f"{what} under a model-parallel mesh (device.tp, device.ep or "
-        f"device.pp > 1) is not ported yet (ROADMAP queue 1, item {item})"
+        f"{what} under a model-parallel mesh (device.tp, device.ep, "
+        f"device.pp or device.sp > 1) is not ported yet (ROADMAP queue 1, "
+        f"item {item})"
     )
 
 
 def check_mesh_config(config, spec: ModelSpec, tp: int, ep: int = 1,
-                      pp: int = 1) -> None:
-    """What a model-parallel mesh of ``pp x ep x tp`` refuses, at config
-    load and again at the engine: the reference's errors (vgate_tpu/
-    runtime/engine_core.py) for int8 KV pools and the host swap tier on
-    any model-parallel mesh, and under pp for chunked prefill, layers pp
-    does not divide and speculation; then the port's own, each citing its
-    ROADMAP item."""
+                      pp: int = 1, sp: int = 1) -> None:
+    """What a model-parallel mesh of ``pp x ep x sp x tp`` refuses, at
+    config load and again at the engine: the reference's errors
+    (vgate_tpu/runtime/engine_core.py) for int8 KV pools and the host
+    swap tier on any model-parallel mesh, under sp for prefill buckets sp
+    does not divide, and under pp for chunked prefill, layers pp does not
+    divide and speculation; then the port's own, each citing its ROADMAP
+    item."""
     if pp > 1 and (tp > 1 or ep > 1):
         raise _not_ported(
             f"device.pp={pp} with device.tp={tp} and device.ep={ep} "
             "(pp x tp, pp x ep)", "10d (rest)")
+    if sp > 1 and (tp > 1 or ep > 1):
+        raise _not_ported(
+            f"device.sp={sp} with device.tp={tp} and device.ep={ep} "
+            "(sp x tp, sp x ep)", "10d (rest)")
     check_mesh(spec, tp, ep)
-    bad = {k: v for k, v in (("tp", tp), ("pp", pp), ("ep", ep)) if v > 1}
+    bad = {k: v for k, v in (("tp", tp), ("pp", pp), ("sp", sp), ("ep", ep))
+           if v > 1}
     if config.kv_cache.dtype == "int8":
         raise ValueError(
             f"kv_cache.dtype=int8 requires a plain mesh, got "
@@ -154,6 +166,21 @@ def check_mesh_config(config, spec: ModelSpec, tp: int, ep: int = 1,
                 "exclusion (docs/composition.md). Speculation composes "
                 "with sp, its long-context home turf; pp's throughput "
                 "workloads are served by continuous batching."
+            )
+    if sp > 1:
+        # the scheduler's ladder (runtime/scheduler.py), as the reference
+        # checks it
+        d, ps = config.device, config.device.kv_page_size
+        top = -(-config.model.max_model_len // ps) * ps
+        if d.prefill_chunk > 0:
+            top = min(top, -(-d.prefill_chunk // ps) * ps)
+        ladder = sorted({min(-(-b // ps) * ps, top)
+                         for b in d.prefill_buckets if b > 0} | {top})
+        odd = [b for b in ladder if b % sp]
+        if odd:
+            raise ValueError(
+                f"prefill buckets {odd} not divisible by sp={sp}; "
+                "ring-attention prefill shards the sequence axis evenly"
             )
     if config.device.speculative_k > 0:
         raise _not_ported("speculative decoding", "10d (rest)")
@@ -334,12 +361,17 @@ def local_spec(spec: ModelSpec, tp: int, mesh=None) -> ModelSpec:
     needs no other change), the vocab whole (the logits are gathered),
     under ep the rank's experts (``expert_range``; routing still runs
     over all E), and the mesh whose device groups the forwards'
-    collectives use.  Under pp (tp = ep = 1) the stage's ``L/pp``
+    collectives use.  Under sp (tp = ep = 1) the whole model and the
+    mesh as ``seq_parallel``.  Under pp (tp = ep = 1) the stage's ``L/pp``
     layers from global layer ``first_layer`` (whose windows
     ``layer_windows`` gives), no mesh for collectives, and the mesh the
     relay sends over as ``pipeline``."""
     ep = mesh.ep if mesh is not None else 1
     check_mesh(spec, tp, ep)
+    if mesh is not None and mesh.sp > 1:
+        # every weight whole (tp = ep = 1): the rank splits the prompt's
+        # rows and the pool's pages instead
+        return dataclasses.replace(spec, seq_parallel=mesh)
     if mesh is not None and mesh.pp > 1:
         layers = stage_layers(spec, mesh)
         return dataclasses.replace(

@@ -45,6 +45,12 @@ What a graph needs, and where this module provides it:
   teardown, serialize on :func:`device_lock`; and the collector is off
   while any capture of the process runs, on again when the last ends.
 
+* **A mesh's collectives** (parallel/mesh.py).  Over NCCL (one card a
+  rank) a chunk's collectives are captured with it: tp's all-reduces
+  and logits' all-gather, the pipeline relay's sends, sp's all-gather
+  of each layer's attention partials, the tokens' broadcast.  A gloo
+  device group cannot be captured, so its chunks run eagerly.
+
 There is no fallback: a capture or replay that fails raises, and the
 engine dies as on any device error.
 """

@@ -110,6 +110,18 @@ path — batched, bucketed prompt passes and pipelined decode chunks:
   is off, and chunked prefill, int8 KV, the host swap tier, sp and
   speculation refuse (parallel/sharding.py ``check_mesh_config``).
 
+* **Sequence parallelism** (``device.sp`` > 1 at tp = ep = pp = 1,
+  parallel/ring_attention.py and sp_decode.py): this core is sp rank 0
+  of ``sp`` processes, each holding the whole model and its shard of
+  the pool's pages (``kv_layout``; the allocator reserves each shard's
+  page 0).  It names every program to the followers as under tp; a
+  cold prompt pass splits the prompt's rows over the ranks (the ring),
+  while suffix passes and decode steps run every row on every rank and
+  merge the ranks' attention partials.  Rank 0 alone computes the
+  logits and samples, and broadcasts each step's tokens.  Copy-on-write
+  is off, radix sharing and chunked prefill stay on, as in the
+  reference.
+
 * **Several cores in one process** (data parallelism,
   runtime/dp_engine.py): each replica is a one-device core built with
   ``shared_process``.  Its threads run under an explicit device guard
@@ -118,10 +130,9 @@ path — batched, bucketed prompt passes and pipelined decode chunks:
   on a stream of its own, and its teardown leaves cuBLAS's workspaces to
   the siblings whose graphs still use them.
 
-Not ported yet (the config refuses them): sequence parallelism, pp
-together with tp or ep, dp replicas that are meshes, and under a
-model-parallel mesh int8 KV, the host swap tier, speculation and the
-pod.
+Not ported yet (the config refuses them): sp or pp together with tp or
+ep, dp replicas that are meshes, and under a model-parallel mesh int8
+KV, the host swap tier, speculation and the pod.
 """
 
 from __future__ import annotations
@@ -593,10 +604,11 @@ def _decode_chunk(
             state.out_top_lps[i].copy_(top_lps)
         else:
             tokens = sample_tokens(*args, **kw, all_greedy=all_greedy)
-        if spec.mesh is not None:
-            # the next step's embedding needs them on every tp rank (a
-            # pipeline's stage 0 alone embeds: no broadcast)
-            spec.mesh.broadcast(tokens)
+        mesh = spec.mesh or spec.seq_parallel
+        if mesh is not None:
+            # the next step's embedding needs them on every tp or sp rank
+            # (a pipeline's stage 0 alone embeds: no broadcast)
+            mesh.broadcast(tokens)
         state.out_tokens[i].copy_(tokens)
         positions = positions + act
         steps = steps + act
@@ -632,7 +644,8 @@ def follower_decode_chunk(
             state.page_tables, active=state.active,
         )
         if spec.pipeline is None:
-            tokens = spec.mesh.broadcast(torch.empty_like(tokens))
+            tokens = (spec.mesh or spec.seq_parallel).broadcast(
+                torch.empty_like(tokens))
         positions = torch.clamp(positions + act, max=max_position)
     state.tokens.copy_(tokens)
     state.positions.copy_(positions)
@@ -707,7 +720,16 @@ def kv_layout(config: VGTConfig, spec: ModelSpec, device: torch.device,
     own).  Under tp the count is the minimum over the ranks (rank 0's
     scheduler hands out page ids for all of them), and ranks that share
     one card size against ``hbm_utilization`` x total / (ranks on it),
-    as a pod's workers do (``held``: see :func:`pool_budget`)."""
+    as a pod's workers do (``held``: see :func:`pool_budget`).
+
+    Under sp the page axis shards over the sp ranks (parallel/
+    sp_decode.py): each rank sizes its own shard against its card, or
+    its share of one, and the global count is sp x the smallest shard
+    (the reference sizes the whole pool against one device and then
+    shards it), capped at the reference's ``max_useful`` (one reserved
+    trash page a shard) and rounded up to a multiple of sp, as the
+    reference rounds.  ``kv_num_pages`` fixes the global count, so the
+    page ids equal the reference's."""
     dcfg = config.device
     kv_mode = config.kv_cache.dtype
     kv_quant = kv_mode == "int8"
@@ -721,20 +743,22 @@ def kv_layout(config: VGTConfig, spec: ModelSpec, device: torch.device,
     kv_scale_bytes = SCALE_BYTES if kv_quant else 0
     ps = dcfg.kv_page_size
     pages_per_seq = cdiv(config.model.max_model_len, ps)
+    sp = mesh.sp
     # more pages than every slot's full context can never be used
-    max_useful = dcfg.max_batch_slots * pages_per_seq + 1
+    max_useful = dcfg.max_batch_slots * pages_per_seq + sp
     share = dcfg.kv_budget_bytes
     if not share and device.type == "cuda" and mesh.card_share > 1:
         total = torch.cuda.get_device_properties(device).total_memory
         share = int(dcfg.hbm_utilization * total / mesh.card_share)
-    num_pages = mesh.all_min(dcfg.kv_num_pages or min(
+    num_pages = dcfg.kv_num_pages or min(
         max_useful,
-        auto_num_pages(
+        sp * mesh.all_min(auto_num_pages(
             spec, ps, dcfg.hbm_utilization, device,
             dtype_bytes=kv_bytes, scale_bytes=kv_scale_bytes,
             budget_bytes=pool_budget(share, device, held),
-        ),
-    ))
+        )),
+    )
+    num_pages = mesh.all_min(num_pages + (-num_pages) % sp)
     geometry = KVGeometry(
         num_layers=spec.num_layers,
         num_pages=num_pages,
@@ -743,8 +767,10 @@ def kv_layout(config: VGTConfig, spec: ModelSpec, device: torch.device,
         head_dim=spec.head_dim,
         max_model_len=config.model.max_model_len,
         dtype_bytes=kv_bytes,
+        num_reserved=sp,
         scale_bytes=kv_scale_bytes,
         kv_dtype=dtype_short_name(kv_pool_dtype),
+        shards=sp,
     )
     return geometry, kv_pool_dtype
 
@@ -1028,7 +1054,7 @@ class EngineCore:
             if plan.num_devices > 1:
                 # before any follower starts
                 check_mesh_config(self.config, spec, plan.tp, plan.ep,
-                                  plan.pp)
+                                  plan.pp, plan.sp)
             mesh = build_mesh(self.config, devices)
         self.mesh = mesh
         try:
@@ -1175,7 +1201,7 @@ class EngineCore:
         self.k_pages, self.v_pages = make_kv_buffers(
             self.geometry, kv_pool_dtype, self.device
         )
-        self.allocator = PageAllocator(num_pages)
+        self.allocator = PageAllocator(num_pages, num_shards=self.mesh.sp)
         self.allocator.quantized = kv_quant
         for name in ("bf16", "f32", "f16", "int8"):
             metrics.KV_DTYPE.labels(dtype=name).set(
@@ -1228,12 +1254,15 @@ class EngineCore:
         # so cached pages stay allocatable.  radix=False keeps the
         # scheduler's flat whole-page hash chain.
         # (prefix_cache_enabled, the reference's name, is set above; the
-        # dp router's prefix affinity reads it)
+        # dp router's prefix affinity reads it).  COW copies pages by
+        # global id, so it is off under sp, where a page lives on one
+        # rank, and whole-page sharing stays on, as in the reference.
         self.radix_cache: Optional[RadixCache] = None
         if self.prefix_cache_enabled and pc.radix:
             self.radix_cache = RadixCache(
                 self.allocator, ps, min_share_pages=pc.min_share_pages,
-                cow=pc.cow, cow_min_tokens=pc.cow_min_tokens,
+                cow=bool(pc.cow and self.mesh.sp == 1),
+                cow_min_tokens=pc.cow_min_tokens,
             )
             self.allocator.set_reclaimer(self.radix_cache)
         # host-RAM KV swap tier (runtime/kv_swap.py): a budgeted host

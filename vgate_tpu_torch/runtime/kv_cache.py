@@ -60,6 +60,15 @@ class KVGeometry:
     scale_bytes: int = 0
     # reporting name for /stats, drills and bench artifacts
     kv_dtype: str = "bf16"
+    # sequence parallelism: the pool's page axis shards contiguously over
+    # this many ranks, each holding ``local_pages`` of the ``num_pages``
+    # global pages (parallel/sp_decode.py)
+    shards: int = 1
+
+    @property
+    def local_pages(self) -> int:
+        """Pages this rank's pool holds."""
+        return self.num_pages // self.shards
 
     @property
     def pages_per_seq(self) -> int:
@@ -327,7 +336,7 @@ def make_kv_buffers(
     shape = (
         geometry.num_layers,
         geometry.kv_heads,
-        geometry.num_pages,
+        geometry.local_pages,
         geometry.page_size,
         geometry.head_dim,
     )
@@ -351,7 +360,7 @@ def make_kv_buffers(
         "kv cache allocated",
         extra={
             "extra_data": {
-                "pages": geometry.num_pages,
+                "pages": geometry.local_pages,
                 "tokens_capacity": geometry.total_tokens,
                 "kv_dtype": geometry.kv_dtype,
                 "mb": round(nbytes / 1e6),
