@@ -17,7 +17,7 @@ pool over the same weights (swap on, then off), then with the prefix
 cache on (radix tree, copy-on-write, generated-token reuse, chunked
 prefill at 512), then quantized: int8 weights with int8 KV pools (the
 burst and the prefix traffic), and int4 weights with int8 KV pools (the
-burst), then Gemma-2-9B-it at full width, 28 of its 42 layers (sliding
+burst), then Gemma-2-9B-it at full width, 8 of its 42 layers (sliding
 window 4096 on even layers, softcaps, hd 256), twice over the same
 weights: decode through
 K1, then through K6 (``decode_block_slots`` 8), each serving the burst,
@@ -101,10 +101,10 @@ are visible, four replicas, one a card, serve the burst and a drain;
 (14) last, pipeline parallelism: a pp=1 Qwen2.5-7B engine (the prefix
 cache off, no chunked prefill, as pp forces) serves the burst and a
 1,600-token prompt, then a pp=2 group over the same weights (the engine
-here as stage 0 with the embedding, its 14 layers and the head, a
-follower process as stage 1 with the other 14) on the one card over a
+here as stage 0 with the embedding, its L/2 layers and the head, a
+follower process as stage 1 with the others) on the one card over a
 gloo device group with eager chunks: each stage's launches exact (K1
-14 x 2 microbatches a decode step, K2 14 x M(B) a prompt pass of B
+L/2 x 2 microbatches a decode step, K2 L/2 x M(B) a prompt pass of B
 rows), each stage's weights and memory, greedy streams held to pp=1's
 up to the first near-tie, every prompt's logits held to pp=1's and the
 plain forward, trash page 0 still zeros, a stage-1 follower SIGKILLed
@@ -120,14 +120,21 @@ card (gloo, eager): the burst, the system prompt's turns (prefix hits
 through K3-sp), a 16,000-token prompt through the ring with its pages
 across both shards, each rank's launches exact (K1-sp L a step, K2-ring
 L x (r + 1) a ring pass, K3-sp L a suffix pass), every prompt's logits
-held to sp=1's, a follower SIGKILLed mid-burst.
-The recovery, tp, ep (Mixtral (a) and Qwen (a')) and dp phases serve
-their models cut to half their depth at full width (``cut_depth``:
-Qwen2.5-7B at 14 of 28 layers, Mixtral at 16 of 32), as the sp phase
-does, and the
-speculative phase drafts with Qwen2.5-0.5B at 12 of 24, for the smoke's
-time limit; the main path, the speculative phase's target, the pod and
-the pp phase serve Qwen2.5-7B whole.
+held to sp=1's, a follower SIGKILLed mid-burst; (16) last, the mesh
+compositions: K1-sp, K2-ring and K3-sp at a tp rank's heads of
+Qwen2.5-7B (14/2) against their plain versions, then four ranks on the
+one card (gloo, eager): Qwen2.5-7B at pp=2 x tp=2 (each stage a tp
+group: K1 L/pp x 2 a step on every rank) held to the pp phase's pp=1
+engine, a follower SIGKILLed mid-burst; at sp=2 x tp=2 (each sp rank a
+tp group, the ring and the partials on a tp rank's heads: the burst,
+the system prompt's turns, a 16,000-token ring prompt) held to an sp=1
+engine.
+The recovery, dp, pp, sp and compose phases serve Qwen2.5-7B at 8 of
+its 28 layers at full width (``cut_depth``), the tp and ep (a') phases
+at 4, the Mixtral and ep (a) phases Mixtral at 4 of 32, and the
+speculative phase drafts with Qwen2.5-0.5B at 6 of 24, for the smoke's
+time limit; the main path, the speculative phase's target and the pod
+serve Qwen2.5-7B whole.
 ``python3 chip_smoke.py mixtral`` runs the build and (9) alone, ``pod``
 the build and (10), ``tp`` the build and (11), ``ep`` the build, K4/K5
 at Mixtral's shapes and (12), ``ep b`` the build and (12)'s bf16
@@ -135,7 +142,13 @@ group alone, ``dp`` the build and (13), ``dp b`` the build and (13)'s
 four-card part alone, ``pp`` the build and (14), ``pp b`` the build and
 (14)'s two-card part alone, ``sp`` the build and (15) at full depth with
 a chunked leg (prefill_chunk 512), ``sp b`` (15) one rank a card over
-NCCL with decode graphs.  Each phase prints the graphs it captured, their
+NCCL with decode graphs, ``compose`` the build and (16) with (a) at 28
+layers, the partial modes also at 7/1 and (b') the sp=2 x tp=2 group's
+chunked leg,
+``compose ep`` Mixtral int8 at pp=2 x ep=2 and sp=2 x ep=2 on the one
+card, ``compose b`` four cards over NCCL with decode graphs: Qwen2.5-7B
+at sp=2 x tp=2 with a 32,000-token prompt and bf16 Mixtral at pp=2 x
+ep=2.  Each phase prints the graphs it captured, their
 capture time and their memory pool's bytes.  It prints the card's
 name and power limit, one JSON line of per-kernel numbers and, last,
 ``{"ok": true, "device": {...}}``.  Any
@@ -3677,9 +3690,9 @@ def quant_path(quantization: str, model: str = MODEL, device: str = "cuda",
 SPEC_K = 4  # drafts a round: verify widths 1, 2, 4 and 5
 SPEC_TOKENS = 64
 DRAFT_MODEL = "Qwen/Qwen2.5-0.5B-Instruct"
-# the draft model's depth in the whole smoke: 12 of its 24 layers, for
+# the draft model's depth in the whole smoke: 6 of its 24 layers, for
 # the smoke's time limit
-DRAFT_LAYERS = 12
+DRAFT_LAYERS = 6
 
 
 def repetitive_texts(n: int = 8) -> list:
@@ -4105,10 +4118,10 @@ def embed_path(device: str = "cuda", model: str = EMBED_MODEL) -> dict:
 GEMMA = "google/gemma-2-9b-it"
 # the whole smoke must end inside its time limit, so two earlier paths run
 # at a cut depth (widths, heads, experts and kernels' shapes unchanged):
-# Gemma-2-9B's phases at 28 of 42 layers (14 windowed, 14 global) and the
-# one-rank Mixtral phase at 16 of 32 (the ep phase serves all 32)
-GEMMA_LAYERS = 28
-MIXTRAL_PHASE_LAYERS = 16
+# Gemma-2-9B's phases at 8 of 42 layers (4 windowed, 4 global) and the
+# one-rank Mixtral phase and the ep phase (a) at 4 of 32
+GEMMA_LAYERS = 8
+MIXTRAL_PHASE_LAYERS = 4
 
 
 def cut_depth(model: str, layers: int) -> str:
@@ -5203,12 +5216,14 @@ def print_recovery(card: str, recovery: dict) -> None:
 # ------------------------------------------------------------------- tp
 
 TP_TOKENS = 32
-# Qwen2.5-7B's depth in the recovery, tp, ep (a') and dp phases: 14 of
-# its 28 layers at full width, for the smoke's time limit (the pod phase
-# serves all 28: its 1,600-token prompt's KV must pass the staging
-# floor); the Mixtral ep phase (a) serves MIXTRAL_PHASE_LAYERS of its 32
-MESH_LAYERS = 14
+# Qwen2.5-7B's depth in the recovery, dp, pp, sp and compose phases: 8
+# of its 28 layers at full width, for the smoke's time limit (the pod
+# phase serves all 28: its 1,600-token prompt's KV must pass the staging
+# floor); the tp and ep (a') phases serve 4; the Mixtral ep phase (a)
+# serves MIXTRAL_PHASE_LAYERS of its 32
+MESH_LAYERS = 8
 MESH_MODEL = f"{MODEL}@{MESH_LAYERS}"
+TP_MODEL = f"{MODEL}@4"
 # one card, two ranks (phase a); two cards, one rank each (phase b)
 TP_ONE_CARD = ["cuda:0", "cuda:0"]
 TP_TWO_CARDS = ["cuda:0", "cuda:1"]
@@ -5364,7 +5379,7 @@ def tp_config(devices, quantization=None):
     chunked prefill at 512, pages of 32 and 32 slots, ``quantization``
     weights and a bf16 pool; ``devices`` names each rank's card (one
     entry: tp 1)."""
-    return engine_config(MESH_MODEL, "cuda", quantization=quantization,
+    return engine_config(TP_MODEL, "cuda", quantization=quantization,
                          prefill_chunk=512, kv_page_size=32,
                          max_batch_slots=32, tp=len(devices),
                          devices=list(devices) if len(devices) > 1 else [])
@@ -5599,8 +5614,10 @@ def tp_memory(core) -> dict:
     return out
 
 
-def tp_kill_drill(engine, core, batch, what: str = "tp kill drill") -> dict:
-    """The follower SIGKILLed once a stream of the burst has 2 tokens:
+def tp_kill_drill(engine, core, batch, what: str = "tp kill drill",
+                  victim: int = 0) -> dict:
+    """Follower ``victim`` (0: rank 1) SIGKILLed once a stream of the
+    burst has 2 tokens:
     rank 0's collectives raise on the closed peer, the supervisor
     contains the crash, shuts the mesh down, spawns a new follower (its
     shard loaded afresh, rank 0's kept), warms the group up and replays
@@ -5614,7 +5631,7 @@ def tp_kill_drill(engine, core, batch, what: str = "tp kill drill") -> dict:
     sup = core
     live = live_core(core)
     h0 = sup.health()
-    pid = live.mesh.followers[0].pid
+    pid = live.mesh.followers[victim].pid
     kill, fired = {}, threading.Event()
 
     def watch() -> None:
@@ -5644,11 +5661,12 @@ def tp_kill_drill(engine, core, batch, what: str = "tp kill drill") -> dict:
               f"{what}: a request ended at {r.num_tokens} tokens")
     new = live_core(core)
     check(new is not live and new.mesh.healthy()
-          and new.mesh.followers[0].pid != pid,
+          and new.mesh.followers[victim].pid != pid,
           f"{what}: the group was not rebuilt with a new follower")
     return {"kill_to_serving_s": kill["serving"] - kill["t"],
             "resumed": h["resumed"] - h0["resumed"],
-            "follower_pid": [pid, new.mesh.followers[0].pid],
+            "killed_rank": victim + 1,
+            "follower_pid": [pid, new.mesh.followers[victim].pid],
             "streams": [r.token_ids for r in results],
             "wall_s": numbers["wall_s"]}
 
@@ -5818,6 +5836,7 @@ def group_logits(core, text: str) -> dict:
     import numpy as np
 
     from vgate_tpu_torch.models.decoder import decode_forward, prefill_forward
+    from vgate_tpu_torch.runtime.engine_core import token_mesh
 
     live = live_core(core)
     spec, dev = live.spec, live.device
@@ -5863,8 +5882,8 @@ def group_logits(core, text: str) -> dict:
                     live.k_pages, live.v_pages, up(table),
                     active=up(active))
                 # the step's token, which the followers wait for (a
-                # pipeline's stages take activations instead)
-                if live.mesh.pp == 1:
+                # pipeline of one rank a stage takes activations instead)
+                if token_mesh(spec) is not None:
                     live.mesh.broadcast(up(tokens))
             if dev.type == "cuda":
                 torch.cuda.synchronize()
@@ -6609,14 +6628,17 @@ PP_TWO_CARDS = ["cuda:0", "cuda:1"]
 PP_LOGITS_BOUND = 0.0
 
 
-def pp_config(devices, model: str = MODEL):
-    """The pp phase's engines: bf16 weights and pool, the prefix cache off
-    (pp forces it off) and no chunked prefill (pp refuses it), pages of
-    32 and 32 slots; ``devices`` names each stage's card (one entry: the
-    pp = 1 reference)."""
-    return engine_config(model, "cuda", kv_page_size=32, max_batch_slots=32,
+def pp_config(devices, model: str = MODEL, tp: int = 1, ep: int = 1,
+              quantization=None):
+    """The pp phase's engines: ``quantization`` weights (None: bf16) and a
+    bf16 pool, the prefix cache off (pp forces it off) and no chunked
+    prefill (pp refuses it), pages of 32 and 32 slots; ``devices`` names
+    each rank's card (one entry: the pp = 1 reference), a stage being an
+    ``ep x tp`` group (pp = ranks / (ep x tp))."""
+    return engine_config(model, "cuda", quantization=quantization,
+                         kv_page_size=32, max_batch_slots=32,
                          prefix_cache={"enabled": False},
-                         pp=len(devices),
+                         pp=len(devices) // (tp * ep), tp=tp, ep=ep,
                          devices=list(devices) if len(devices) > 1 else [])
 
 
@@ -6649,19 +6671,23 @@ def pp_recorded_passes():
         pipeline.pp_prefill_forward = real
 
 
-def pp_launches(core, s0: dict, f0s: list, passes: list, what: str) -> dict:
-    """Each stage's launches since the counts were set to 0, exactly: K1
+def pp_launches(core, s0: dict, f0s: list, passes: list, what: str,
+                qmm=None) -> dict:
+    """Each rank's launches since the counts were set to 0, exactly: K1
     ``L/pp x M`` a decode step (M = pp microbatches of the 32 slots) and
     K2 ``L/pp x M(B)`` a prompt pass of B rows (``passes``), no K3 (no
-    prefix hit or chunk under pp); every follower ran rank 0's steps and
-    passes.  Returns the launches summed over the stages (K1 ``L x M`` a
-    step and K2 ``L x M(B)`` a pass over the group), and each stage's."""
+    prefix hit or chunk under pp), and with ``qmm`` (a dequant-matmul
+    kernel, its launches a layer a microbatch) that kernel so many times
+    a layer a microbatch, plus the lm_head's once a forward on stage 0's
+    ranks; every follower ran rank 0's steps and passes.  Returns the
+    launches summed over the ranks, and each rank's."""
     from vgate_tpu_torch.parallel.pipeline import microbatches
 
     live = live_core(core)
     s = live.get_stats()
     fs = live.follower_stats()
     pp, Ls = live.mesh.pp, live.spec.num_layers
+    inner = live.mesh.num_devices // pp  # the ranks of a stage
     steps = s["steps"] - s0["steps"]
     n_passes = s["prompt_passes"] - s0["prompt_passes"]
     check(steps > 0 and n_passes == len(passes) > 0,
@@ -6669,6 +6695,9 @@ def pp_launches(core, s0: dict, f0s: list, passes: list, what: str) -> dict:
     k1 = Ls * microbatches(live.max_slots, pp) * steps
     k2 = Ls * sum(microbatches(B, pp) for B in passes)
     ranks = [(0, read_launches())]
+    if qmm is not None:
+        qmm_name, per_layer = qmm
+        runs = k1 // Ls + k2 // Ls  # microbatches through a stage
     for f, f0 in zip(fs, f0s):
         rank = f["rank"]
         check(f["steps"] - f0["steps"] == steps
@@ -6680,9 +6709,16 @@ def pp_launches(core, s0: dict, f0s: list, passes: list, what: str) -> dict:
     total, each = {}, {}
     for rank, n in ranks:
         check(n[K1] == k1 and n[K2] == k2 and n.get(K3, 0) == 0,
-              f"{what}, stage {rank}: K1 {n[K1]} (expected {k1}), K2 "
+              f"{what}, rank {rank}: K1 {n[K1]} (expected {k1}), K2 "
               f"{n[K2]} (expected {k2}), K3 {n.get(K3, 0)}")
         each[str(rank)] = {K1: n[K1], K2: n[K2]}
+        if qmm is not None:
+            want = per_layer * Ls * runs + (
+                steps + n_passes if rank < inner else 0)
+            check(n.get(qmm_name, 0) == want,
+                  f"{what}, rank {rank}: {qmm_name} {n.get(qmm_name, 0)}, "
+                  f"expected {want}")
+            each[str(rank)][qmm_name] = n[qmm_name]
         for name, count in n.items():
             total[name] = total.get(name, 0) + count
     return {"launches": total, "per_stage": each, "decode_steps": steps,
@@ -6690,41 +6726,68 @@ def pp_launches(core, s0: dict, f0s: list, passes: list, what: str) -> dict:
             "layers_a_stage": Ls}
 
 
+def mesh_name(pp: int = 1, ep: int = 1, sp: int = 1, tp: int = 1) -> str:
+    """``pp=2 x tp=2`` and the like: the axes above 1, in rank order."""
+    axes = [f"{k}={v}" for k, v in (("pp", pp), ("ep", ep), ("sp", sp),
+                                    ("tp", tp)) if v > 1]
+    return " x ".join(axes) or "one rank"
+
+
+def qmm_per_layer(spec, ep: int) -> int:
+    """K4/K5 launches a layer a forward on a rank with quantized weights:
+    q/k/v/o, and gate, up and down of each of its E/ep experts (a dense
+    model's gate, up and down once)."""
+    return 4 + 3 * (spec.num_experts // ep if spec.is_moe else 1)
+
+
 def pp_group(devices, ref: dict, traffic, what: str,
-             model: str = MODEL) -> dict:
-    """One pp group of ``model`` on ``devices`` through the backend:
-    boot, warm-up, the traffic with every stage's launches exact, the
-    greedy streams held to the pp = 1 engine's (``ref``; none for a
-    model no card holds), each stage's weights, pool and peak memory,
-    every greedy prompt's prompt-pass logits against pp = 1's and the
-    plain forward, trash page 0 still zeros on stage 0, and over gloo
-    the stage-1 follower kill drill."""
-    pp = len(devices)
-    print(f"memory allocated before the pp={pp} {what} group: "
+             model: str = MODEL, tp: int = 1, ep: int = 1,
+             quantization=None, victim: int = 0) -> dict:
+    """One pp group of ``model`` on ``devices`` through the backend, each
+    stage an ``ep x tp`` group: boot, warm-up, the traffic with every
+    rank's launches exact, the greedy streams held to the pp = 1 engine's
+    (``ref``; none for a model no card holds), each rank's weights, pool
+    and peak memory, every greedy prompt's prompt-pass logits against pp
+    = 1's (equal at tp = 1; within the plain tolerance under tp) and the
+    plain forward, trash page 0 still zeros on rank 0, and over gloo the
+    kill drill of follower ``victim``.  Without ``ref`` a MoE model's
+    layer-0 MoE output as the live group computed it is held to the
+    one-rank layer."""
+    pp = len(devices) // (tp * ep)
+    label = mesh_name(pp=pp, ep=ep, tp=tp)
+    print(f"memory allocated before the {label} {what} group: "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
     t0 = time.perf_counter()
-    engine, core = start_engine(pp_config(devices, model), f"pp={pp} {what}")
-    out = {"boot_s": time.perf_counter() - t0}
+    engine, core = start_engine(
+        pp_config(devices, model, tp, ep, quantization), f"{label} {what}")
+    out = {"boot_s": time.perf_counter() - t0,
+           "weights": quantization or "bf16"}
+    rec = gate0 = None
     try:
         live = live_core(core)
         stats = live.get_stats()
-        check(stats["mesh"]["pp"] == pp and live.spec.pipeline is not None
-              and not live.prefix_cache_enabled,
-              f"{what}: mesh {stats['mesh']}")
-        backend, graphs = stats["mesh"]["backend"], live.decode_graphs
+        mesh = stats["mesh"]
+        check((mesh["pp"], mesh["tp"], mesh["ep"]) == (pp, tp, ep)
+              and live.spec.pipeline is not None
+              and not live.prefix_cache_enabled, f"{what}: mesh {mesh}")
+        backend, graphs = mesh["backend"], live.decode_graphs
         chunks = ("graph replays" if graphs
                   else "eager (gloo cannot be captured)")
-        print(f"pp={pp} {what}: device group {backend}, decode chunks "
+        print(f"{label} {what}: device group {backend}, decode chunks "
               f"{chunks}", flush=True)
         out.update(backend=backend, decode_graphs=graphs,
-                   warmup_s=warm_up(core, f"pp={pp} {what}")["warmup_s"])
+                   warmup_s=warm_up(core, f"{label} {what}")["warmup_s"])
         live.reset_follower_launches()
         torch.cuda.reset_peak_memory_stats()
         s0 = live.get_stats()
         f0s = live.follower_stats()
+        spec = live.model_spec
+        qmm = (("int8_matmul", qmm_per_layer(spec, ep))
+               if quantization == "int8" else None)
         with pp_recorded_passes() as passes:
             served = tp_serve(engine, traffic)
-        out.update(pp_launches(core, s0, f0s, passes, f"pp={pp} {what}"))
+        out.update(pp_launches(core, s0, f0s, passes, f"{label} {what}",
+                               qmm))
         s1 = live.get_stats()
         if graphs:
             g0, g1 = s0["decode_graphs"], s1["decode_graphs"]
@@ -6733,33 +6796,39 @@ def pp_group(devices, ref: dict, traffic, what: str,
                   f"{s1['chunks'] - s0['chunks']} chunks")
             out["replays"] = g1["replays"] - g0["replays"]
             out["chunks"] = s1["chunks"] - s0["chunks"]
-        spec = live.model_spec
         for group in served.values():
             for stream in group["streams"]:
                 check(len(stream) == TP_TOKENS
                       and all(0 <= t < spec.vocab_size for t in stream),
                       f"{what}: a stream of {len(stream)} tokens")
         check(not live.k_pages[:, :, 0].any() and
-              not live.v_pages[:, :, 0].any(),
-              f"{what}: stage 0 wrote trash page 0")
+              not live.v_pages[:, :, 0].any()
+              and all(f["memory"]["trash_page_zero"]
+                      for f in live.follower_stats()),
+              f"{what}: a rank wrote its trash page 0")
         out.update({name: served[name]["numbers"] for name in served})
         out["memory"] = tp_memory(core)
         if ref is not None:
             for name in served:
                 out[f"pp1 {name}"] = ref["served"][name]["numbers"]
-            out["streams"] = tp_streams_agree(ref, served, f"pp={pp} {what}")
+            out["streams"] = tp_streams_agree(
+                {"served": {k: ref["served"][k] for k in served},
+                 "prompts": ref["prompts"]}, served, f"{label} {what}")
             out["sampled_row_agrees"] = (
                 served["burst"]["streams"][8]
                 == ref["served"]["burst"]["streams"][8])
             errs = {}
             for (name, i), p in ref["prompts"].items():
+                if name not in served:
+                    continue
                 got = tp_prompt_logits(core, p["ids"])
                 check(bool(torch.isfinite(got).all()), "pp logits not finite")
+                bound = PP_LOGITS_BOUND if tp == 1 else p["tol"]
                 vs_pp1 = float((got - p["logits"]).abs().max())
                 err_plain = float((got - p["ref"]).abs().max())
-                check(err_plain <= p["tol"] and vs_pp1 <= PP_LOGITS_BOUND,
+                check(err_plain <= p["tol"] and vs_pp1 <= bound,
                       f"{what}, {name} {i}: logits {vs_pp1} off pp=1's "
-                      f"(bound {PP_LOGITS_BOUND}), {err_plain} off the "
+                      f"(bound {bound}), {err_plain} off the "
                       f"plain forward (tolerance {p['tol']})")
                 errs[f"{name} {i}"] = {"vs_pp1": vs_pp1,
                                        "vs_plain": err_plain,
@@ -6774,11 +6843,12 @@ def pp_group(devices, ref: dict, traffic, what: str,
                 torch.isfinite(rec["prefill"]).all()
                 and torch.isfinite(rec["decode"]).all())
             check(out["logits_finite"], f"{what}: logits not finite")
-            gate0 = live.params["layers"]["gate"]["w"][0].cpu()
+            if quantization is None:
+                gate0 = live.params["layers"]["gate"]["w"][0].cpu()
         if backend == "gloo":
             burst = traffic[0]
             drill = tp_kill_drill(engine, core, (burst[1], burst[2]),
-                                  f"pp={pp} kill drill")
+                                  f"{label} kill drill", victim)
             drill.pop("streams")
             out["kill_drill"] = drill
     finally:
@@ -6786,38 +6856,61 @@ def pp_group(devices, ref: dict, traffic, what: str,
         del engine, core
         gc.collect()
         torch.cuda.empty_cache()
-    if ref is None:
+    if rec is not None and spec.is_moe:
         # layer 0 (stage 0's) as the live group computed it, against the
-        # one-rank layer drawn alone: no card holds the whole bf16 tree
-        spec = live.model_spec
-        lp = moe_layer0(spec)
-        check(torch.equal(gate0, lp["gate"]["w"].cpu()),
-              f"{what}: stage 0's layer-0 experts are not the seed's")
-        out["moe_layer_live"] = check_moe_layer_live(
-            rec["moe_layer0"], lp, spec, f"pp={pp} {what}")
-        del lp
-        gc.collect()
-        torch.cuda.empty_cache()
+        # one-rank layer: drawn alone in bf16 (no card holds the whole
+        # bf16 tree), or layer 0 of the whole quantized tree
+        out["moe_layer_live"] = check_layer0_live(
+            spec, rec, gate0, quantization, ep, tp, f"{label} {what}")
     return out
 
 
-def pp_path(card: str) -> list:
-    """Phase (a): Qwen2.5-7B bf16 at pp = 2, both stages on the one card
+def check_layer0_live(spec, rec: dict, gate0, quantization, ep: int,
+                      tp: int, what: str) -> dict:
+    """The live group's layer-0 MoE output (``group_logits``) against the
+    one-rank layer over all E experts, and with bf16 weights rank 0's
+    layer-0 gate shard (its E/ep experts, its F/tp channels) against the
+    seed's draw."""
+    from vgate_tpu_torch.ops.quant import BITS, quantize_leaf
+
+    lp = moe_layer0(spec)
+    if quantization is None:
+        want = lp["gate"]["w"][:spec.num_experts // ep, :,
+                               :spec.intermediate_size // tp]
+        check(torch.equal(gate0, want.cpu()),
+              f"{what}: rank 0's layer-0 experts are not the seed's")
+    else:
+        # a layer quantized alone is that layer of the quantized tree
+        for name in ("gate", "up", "down"):
+            lp[name]["w"] = quantize_leaf(("layers", name, "w"),
+                                          lp[name]["w"], spec,
+                                          BITS[quantization], lead=0)
+    out = check_moe_layer_live(rec["moe_layer0"], lp, spec, what)
+    del lp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_path(card: str, model: str = MODEL) -> tuple:
+    """Phase (a): ``model`` (Qwen2.5-7B) bf16 at pp = 2, both stages on the one card
     (two processes, a gloo device group, eager chunks), beside a pp = 1
     engine's traffic on the same card; phase (b), where two or more cards
     are visible, bf16 Mixtral-8x7B at pp = 2, one stage a card.  Prints
-    each; returns the runs (their summed launches)."""
+    each; returns the runs (their summed launches) and the pp = 1
+    engine's reference (the compose phase's pp x tp leg reuses it)."""
     traffic = pp_traffic()
-    ref = tp_reference(traffic, cfg=pp_config(["cuda:0"]), what="pp=1")
+    ref = tp_reference(traffic, cfg=pp_config(["cuda:0"], model),
+                       what="pp=1")
     gc.collect()
     torch.cuda.empty_cache()
-    a = pp_group(PP_ONE_CARD, ref, traffic, "phase (a), one card")
+    a = pp_group(PP_ONE_CARD, ref, traffic, "phase (a), one card", model)
     drill = a.pop("kill_drill")
-    print(f"pp phase (a), Qwen2.5-7B bf16, 2 stages on {card}: "
+    print(f"pp phase (a), {model} bf16, 2 stages on {card}: "
           + json.dumps(a), flush=True)
     print(f"pp phase (a) follower kill drill on {card}: "
           + json.dumps(drill), flush=True)
-    return [a] + pp_phase_b(card, traffic)
+    return [a] + pp_phase_b(card, traffic), ref
 
 
 def pp_phase_b(card: str, traffic) -> list:
@@ -6920,12 +7013,14 @@ def sp_entry(name, source, replaces, shape, err, ms, plain_ms, bound, by,
             "library_ms": library_ms, "shape": shape}
 
 
-def check_k1_sp(dev) -> dict:
-    """K1-sp against its plain version: hd 64/128/256, GQA groups, window,
-    softcap and scale, a row with no owned page and an empty slot, three
-    runs bit-identical; the two ranks' partials merged against K1 over
-    the whole pool; then timed at the sp phase's decode shape (32 slots
-    at 7B, pages of 32, about half of each row's pages owned)."""
+def check_k1_sp(dev, heads=(28, 4), edge: bool = True) -> dict:
+    """K1-sp against its plain version: with ``edge``, hd 64/128/256, GQA
+    groups, window, softcap and scale, a row with no owned page and an
+    empty slot, three runs bit-identical, and the two ranks' partials
+    merged against K1 over the whole pool; then timed at the sp phase's
+    decode shape (32 slots at 7B, pages of 32, about half of each row's
+    pages owned) with ``heads`` (query, kv) heads: 7B's own, or a tp
+    rank's (14/2 at tp 2, 7/1 at tp 4)."""
     from vgate_tpu_torch.ops import attention as plain
     from vgate_tpu_torch.ops.kernels.paged_decode import (
         paged_decode_attention,
@@ -6943,7 +7038,8 @@ def check_k1_sp(dev) -> dict:
     for hd, H, KV, ps, kw in ((64, 8, 4, 16, {}), (128, 28, 4, 32, {}),
                               (256, 16, 2, 16, {"window": 100}),
                               (128, 14, 2, 32,
-                               {"softcap": 30.0, "scale": 0.1})):
+                               {"softcap": 30.0, "scale": 0.1})) \
+            if edge else ():
         pps = 12
         lens = [1, 31, 33, 150, pps * ps, 0]
         q, k, v, pt, base = sp_shard_inputs(len(lens), H, KV, hd, ps, pps,
@@ -6955,7 +7051,7 @@ def check_k1_sp(dev) -> dict:
         got = sp_thrice(lambda: kernel(q, k, v, pt, sl, base, **kw), what)
         partials_agree(got, expect(q, k, v, pt, sl, base, **kw), what)
     # both ranks' partials, merged, are K1 over the whole pool
-    B, H, KV, hd, ps, pps, shard = 8, 28, 4, 128, 32, 16, 96
+    B, (H, KV), hd, ps, pps, shard = 8, heads, 128, 32, 16, 96
     q, k1, v1, pt, base = sp_shard_inputs(B, H, KV, hd, ps, pps, shard, 42,
                                           dev)
     gen = torch.Generator(device=dev).manual_seed(43)
@@ -6974,7 +7070,7 @@ def check_k1_sp(dev) -> dict:
 
     # the sp phase's decode step: 32 slots at 7B, contexts 1..2048, about
     # half of each slot's pages on this rank
-    B, H, KV, hd, ps, pps, shard = 32, 28, 4, 128, 32, 64, 1100
+    B, (H, KV), hd, ps, pps, shard = 32, heads, 128, 32, 64, 1100
     lens = DECODE_LENS
     q, k, v, pt, base = sp_shard_inputs(B, H, KV, hd, ps, pps, shard, 44,
                                         dev)
@@ -7023,13 +7119,14 @@ def check_k1_sp(dev) -> dict:
                     err, ms, plain_ms, bound, by, library_ms)
 
 
-def check_k2_ring(dev) -> dict:
-    """K2-ring against its plain version: the diagonal hop (causal, ragged
-    key lengths, a padded block of no real key), an earlier rank's block
-    (q_offsets past it), window + softcap + scale, hd 64/128/256, three
-    runs bit-identical; then at the 16,384-token prompt's hop at 7B (8,192
-    query rows against an earlier rank's 8,192 keys) against the plain
-    version and K2 on the same block, timed beside both and SDPA."""
+def check_k2_ring(dev, heads=(28, 4), edge: bool = True) -> dict:
+    """K2-ring against its plain version: with ``edge``, the diagonal hop
+    (causal, ragged key lengths, a padded block of no real key), an
+    earlier rank's block (q_offsets past it), window + softcap + scale, hd
+    64/128/256, three runs bit-identical; then at the 16,384-token
+    prompt's hop at 7B (8,192 query rows against an earlier rank's 8,192
+    keys) with ``heads`` (query, kv) heads, against the plain version and
+    K2 on the same block, timed beside both and SDPA."""
     from vgate_tpu_torch.ops import attention as plain
     from vgate_tpu_torch.ops.kernels.flash_prefill import (
         flash_prefill_attention,
@@ -7046,7 +7143,7 @@ def check_k2_ring(dev) -> dict:
         (256, 16, 2, 128, [128, 60, 128], [128, 0, 4096],
          {"window": 100, "softcap": 30.0, "scale": 0.1}),
         (128, 8, 4, 320, [320, 320], [640, 0], {"window": 129}),
-    ):
+    ) if edge else ():
         B = len(lens)
         q, k, v = prefill_inputs(B, n, H, KV, hd, 51 + n, dev)
         kl = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -7059,7 +7156,7 @@ def check_k2_ring(dev) -> dict:
     # earlier rank's 8,192 keys, against the plain version and against K2
     # on the same block (every key visible: the query block placed after
     # the keys)
-    B, H, KV, hd, n = 1, 28, 4, 128, 8192
+    B, (H, KV), hd, n = 1, heads, 128, 8192
     q, k, v = prefill_inputs(B, n, H, KV, hd, 53, dev)
     kl = torch.full((B,), n, dtype=torch.int32, device=dev)
     off = torch.full((B,), n, dtype=torch.int32, device=dev)
@@ -7097,13 +7194,14 @@ def check_k2_ring(dev) -> dict:
                     ms, plain_ms, bound, by, library_ms)
 
 
-def check_k3_sp(dev) -> dict:
-    """K3-sp against its plain version: suffix rows over contexts whose
-    pages lie on both ranks, a row with no owned page, idle rows past
-    input_lens, hd 64/128/256, window + softcap + scale, pages of 16 and
-    32, three runs bit-identical; both ranks merged against K3 over the
-    whole pool; then timed at a 512-row prefill chunk over a 1,536-token
-    context at 7B."""
+def check_k3_sp(dev, heads=(28, 4), edge: bool = True) -> dict:
+    """K3-sp against its plain version: with ``edge``, suffix rows over
+    contexts whose pages lie on both ranks, a row with no owned page, idle
+    rows past input_lens, hd 64/128/256, window + softcap + scale, pages
+    of 16 and 32, three runs bit-identical; then at a 512-row prefill
+    chunk over a 1,536-token context at 7B with ``heads`` (query, kv)
+    heads, both ranks merged against K3 over the whole pool, and
+    timed."""
     from vgate_tpu_torch.ops import attention as plain
     from vgate_tpu_torch.ops.kernels.paged_multitok import (
         paged_multitok_attention,
@@ -7134,7 +7232,7 @@ def check_k3_sp(dev) -> dict:
          None),
         (256, 16, 2, 16, 64, [16, 48, 64], [60, 64, 7],
          {"softcap": 30.0, "scale": 0.1}, [1.0, 0.5, 0.5]),
-    ):
+    ) if edge else ():
         q, k, v, pt, p0, il, base = inputs(len(pos0), S, H, KV, hd, ps, pos0,
                                            lens, 61 + hd, owned)
         what = f"K3-sp hd={hd} ps={ps} pos0={pos0} lens={lens} {kw}"
@@ -7147,7 +7245,7 @@ def check_k3_sp(dev) -> dict:
     # the timing shape: a 512-row chunk over a 1,536-token context (1,024
     # resident) at 7B, pages of 32 on both ranks; both ranks merged
     # against K3 over the whole pool
-    B, S, H, KV, hd, ps, prefix = 1, 512, 28, 4, 128, 32, 1024
+    B, S, (H, KV), hd, ps, prefix = 1, 512, heads, 128, 32, 1024
     q, k1, v1, pt, p0, il, base = inputs(B, S, H, KV, hd, ps, [prefix], [S],
                                          62)
     gen = torch.Generator(device=dev).manual_seed(63)
@@ -7231,16 +7329,21 @@ SP_CHUNK = 512  # the chunked leg's prefill_chunk
 SP_RING_LOGITS_TOL = 0.6
 
 
-def sp_config(devices, model: str = MESH_MODEL, chunk: int = 0):
-    """The sp phase's engines: ``model`` in bf16 at Qwen2.5's 32,768-token
-    context, the prefix cache on (copy-on-write off under sp, as the
-    reference), ``chunk`` as prefill_chunk (0: every cold prompt one ring
-    pass), pages of 32, 32 slots, buckets sp divides; ``devices`` names
-    each rank's card (one entry: the sp = 1 reference)."""
-    return engine_config(model, "cuda", max_model_len=SP_MAX_LEN,
+def sp_config(devices, model: str = MESH_MODEL, chunk: int = 0, tp: int = 1,
+              ep: int = 1, quantization=None):
+    """The sp phase's engines: ``model`` at Qwen2.5's 32,768-token context,
+    ``quantization`` weights (None: bf16) and a bf16 pool, the prefix
+    cache on (copy-on-write off under sp, as the reference), ``chunk`` as
+    prefill_chunk (0: every cold prompt one ring pass), pages of 32, 32
+    slots, buckets sp divides; ``devices`` names each rank's card (one
+    entry: the sp = 1 reference), an sp rank being an ``ep x tp`` group
+    (sp = ranks / (ep x tp))."""
+    return engine_config(model, "cuda", quantization=quantization,
+                         max_model_len=SP_MAX_LEN,
                          prefill_chunk=chunk, kv_page_size=32,
                          max_batch_slots=32, prefill_buckets=SP_BUCKETS,
-                         prefix_cache={"enabled": True}, sp=len(devices),
+                         prefix_cache={"enabled": True},
+                         sp=len(devices) // (tp * ep), tp=tp, ep=ep,
                          devices=list(devices) if len(devices) > 1 else [])
 
 
@@ -7284,17 +7387,22 @@ def sp_recorded_passes():
         decoder.sp_prefill_forward = real
 
 
-def sp_launches(core, s0: dict, f0s: list, ring: list, what: str) -> dict:
+def sp_launches(core, s0: dict, f0s: list, ring: list, what: str,
+                qmm=None) -> dict:
     """Each rank's launches since the counts were set to 0, exactly, one
     rank at a time: K1-sp L a decode step, K2-ring L x (r + 1) a ring
-    pass on sp rank r (the blocks of later ranks are skipped), K3-sp L a
-    suffix pass (a hit or a chunk), and none of K1, K2 or K3; every
-    follower ran rank 0's steps and passes.  Returns the launches summed
-    over the ranks, and each rank's."""
+    pass on sp index r (the blocks of later ranks are skipped), K3-sp L a
+    suffix pass (a hit or a chunk), none of K1, K2 or K3, and with
+    ``qmm`` (a dequant-matmul kernel, its launches a layer a forward)
+    that kernel so many times a layer a forward, plus the lm_head's once
+    a forward on sp index 0's ranks; every follower ran rank 0's steps
+    and passes.  Returns the launches summed over the ranks, and each
+    rank's."""
     live = live_core(core)
     s = live.get_stats()
     fs = live.follower_stats()
     L = live.spec.num_layers
+    mesh = live.mesh
     steps = s["steps"] - s0["steps"]
     passes = s["prompt_passes"] - s0["prompt_passes"]
     suffix = passes - len(ring)
@@ -7310,8 +7418,12 @@ def sp_launches(core, s0: dict, f0s: list, ring: list, what: str) -> dict:
         ranks.append((f["rank"], f["kernel_launches"]))
     total, each = {}, {}
     for rank, n in ranks:
-        want = {K1SP: L * steps, K2RING: L * (rank + 1) * len(ring),
+        r = rank // mesh.tp % mesh.sp  # the rank's sp index
+        want = {K1SP: L * steps, K2RING: L * (r + 1) * len(ring),
                 K3SP: L * suffix, K1: 0, K2: 0, K3: 0}
+        if qmm is not None:
+            qmm_name, per_layer = qmm
+            want[qmm_name] = (per_layer * L + (r == 0)) * (steps + passes)
         got = {name: n.get(name, 0) for name in want}
         # no kernel launches on the CPU (a rehearsal)
         check(got == want or live.device.type != "cuda",
@@ -7406,42 +7518,54 @@ def sp_reference(traffic, cfg, what: str = "sp=1") -> dict:
 
 
 def sp_group(devices, ref, traffic, what: str, model: str = MESH_MODEL,
-             chunk: int = 0, drill: bool = True) -> dict:
-    """One sp group of ``model`` on ``devices`` through the backend: boot,
-    warm-up, the traffic with every rank's launches exact, the greedy
-    streams held to sp = 1's (``ref``) up to the first near-tie, every
-    greedy prompt's prompt-pass logits against sp = 1's, pages a rank and
-    in use by shard, each rank's weights, pool and peak memory, trash page
-    0 of every rank still zeros, and over gloo (``drill``) the follower
-    kill drill."""
-    sp = len(devices)
-    print(f"memory allocated before the sp={sp} {what} group: "
+             chunk: int = 0, drill: bool = True, tp: int = 1, ep: int = 1,
+             quantization=None) -> dict:
+    """One sp group of ``model`` on ``devices`` through the backend, each
+    sp rank an ``ep x tp`` group: boot, warm-up, the traffic with every
+    rank's launches exact, the greedy streams held to sp = 1's (``ref``)
+    up to the first near-tie, every greedy prompt's prompt-pass logits
+    against sp = 1's, pages a rank and in use by shard, each rank's
+    weights, pool and peak memory, trash page 0 of every rank still
+    zeros, and over gloo (``drill``) the follower kill drill.  Without
+    ``ref`` a MoE model's layer-0 MoE output as the live group computed
+    it is held to the one-rank layer."""
+    sp = len(devices) // (tp * ep)
+    label = mesh_name(ep=ep, sp=sp, tp=tp)
+    print(f"memory allocated before the {label} {what} group: "
           f"{torch.cuda.memory_allocated() / 1e9:.2f} GB", flush=True)
     t0 = time.perf_counter()
-    engine, core = start_engine(sp_config(devices, model, chunk),
-                                f"sp={sp} {what}")
-    out = {"boot_s": time.perf_counter() - t0}
+    engine, core = start_engine(
+        sp_config(devices, model, chunk, tp, ep, quantization),
+        f"{label} {what}")
+    out = {"boot_s": time.perf_counter() - t0,
+           "weights": quantization or "bf16"}
+    rec = gate0 = None
     try:
         live = live_core(core)
         stats = live.get_stats()
-        check(stats["mesh"]["sp"] == sp and live.spec.seq_parallel is not None
+        mesh = stats["mesh"]
+        check((mesh["sp"], mesh["tp"], mesh["ep"]) == (sp, tp, ep)
+              and live.spec.seq_parallel is not None
               and live.radix_cache is not None and not live.radix_cache.cow,
-              f"{what}: mesh {stats['mesh']}, copy-on-write on")
+              f"{what}: mesh {mesh}, copy-on-write on")
         shard = live.geometry.local_pages
         check(set(live.allocator.reserved) == {i * shard for i in range(sp)},
               f"{what}: reserved pages {sorted(live.allocator.reserved)}")
-        backend, graphs = stats["mesh"]["backend"], live.decode_graphs
-        print(f"sp={sp} {what}: device group {backend}, decode chunks "
+        backend, graphs = mesh["backend"], live.decode_graphs
+        print(f"{label} {what}: device group {backend}, decode chunks "
               f"{'graph replays' if graphs else 'eager (gloo)'}", flush=True)
         out.update(backend=backend, decode_graphs=graphs,
-                   warmup_s=warm_up(core, f"sp={sp} {what}")["warmup_s"])
+                   warmup_s=warm_up(core, f"{label} {what}")["warmup_s"])
         live.reset_follower_launches()
         torch.cuda.reset_peak_memory_stats()
         s0 = live.get_stats()
         f0s = live.follower_stats()
+        spec = live.model_spec
+        qmm = (("int8_matmul", qmm_per_layer(spec, ep))
+               if quantization == "int8" else None)
         with sp_recorded_passes() as ring:
             served = sp_serve(engine, core, traffic)
-        out.update(sp_launches(core, s0, f0s, ring, f"sp={sp} {what}"))
+        out.update(sp_launches(core, s0, f0s, ring, f"{label} {what}", qmm))
         s1 = live.get_stats()
         if graphs:
             g0, g1 = s0["decode_graphs"], s1["decode_graphs"]
@@ -7452,7 +7576,6 @@ def sp_group(devices, ref, traffic, what: str, model: str = MESH_MODEL,
             out["chunks"] = s1["chunks"] - s0["chunks"]
         out["prefix_cache"] = s1.get("prefix_cache")
         out["pages"] = sp_pages(core)
-        spec = live.model_spec
         for group in served.values():
             for stream in group["streams"]:
                 check(len(stream) == TP_TOKENS
@@ -7468,7 +7591,7 @@ def sp_group(devices, ref, traffic, what: str, model: str = MESH_MODEL,
         if ref is not None:
             for name in served:
                 out[f"sp1 {name}"] = ref["served"][name]["numbers"]
-            out["streams"] = tp_streams_agree(ref, served, f"sp={sp} {what}")
+            out["streams"] = tp_streams_agree(ref, served, f"{label} {what}")
             errs = {}
             for (name, i), p in ref["prompts"].items():
                 got = tp_prompt_logits(core, p["ids"])
@@ -7482,10 +7605,18 @@ def sp_group(devices, ref, traffic, what: str, model: str = MESH_MODEL,
             out["logits_max_abs_vs_sp1"] = max(e["vs_sp1"]
                                                for e in errs.values())
             out["logits"] = errs
+        elif spec.is_moe:
+            rec = group_logits(core, prompts()[2])
+            out["logits_finite"] = bool(
+                torch.isfinite(rec["prefill"]).all()
+                and torch.isfinite(rec["decode"]).all())
+            check(out["logits_finite"], f"{what}: logits not finite")
+            if quantization is None:
+                gate0 = live.params["layers"]["gate"]["w"][0].cpu()
         if drill and backend == "gloo":
             burst = traffic[0]
             kill = tp_kill_drill(engine, core, (burst[1], burst[2]),
-                                 f"sp={sp} kill drill")
+                                 f"{label} kill drill")
             kill.pop("streams")
             out["kill_drill"] = kill
     finally:
@@ -7493,6 +7624,9 @@ def sp_group(devices, ref, traffic, what: str, model: str = MESH_MODEL,
         del engine, core
         gc.collect()
         torch.cuda.empty_cache()
+    if rec is not None:
+        out["moe_layer_live"] = check_layer0_live(
+            spec, rec, gate0, quantization, ep, tp, f"{label} {what}")
     return out
 
 
@@ -7543,6 +7677,133 @@ def sp_phase_b(card: str) -> list:
     print(f"sp phase (b), Qwen2.5-7B bf16, 2 ranks over NCCL on "
           f"2 x {card}: " + json.dumps(b), flush=True)
     return [b]
+
+
+# ------------- mesh compositions (item 10d (rest), part 2): pp x tp, ...
+
+COMPOSE_ONE_CARD = ["cuda:0"] * 4
+# ``compose ep``'s Mixtral depth (run by name only, outside the smoke's
+# time limit)
+COMPOSE_EP_LAYERS = 16
+COMPOSE_FOUR_CARDS = [f"cuda:{i}" for i in range(4)]
+# Qwen2.5-7B's heads on a tp rank: 14/2 at tp 2 (a GQA group of 7), 7/1
+# at tp 4
+TP_RANK_HEADS = ((14, 2), (7, 1))
+
+
+def check_compose_kernels(dev, heads=TP_RANK_HEADS[:1]) -> dict:
+    """K1-sp, K2-ring and K3-sp at a tp rank's heads of Qwen2.5-7B, each
+    held to its plain version with PR 21's tolerances (``partials_agree``)
+    at the shapes of the sp phase, and timed beside its bound and its
+    library call.  Prints a line a kernel and shape; returns their
+    numbers by ``<kernel> <H>/<KV>``."""
+    out = {}
+    for h in heads:
+        for check_fn in (check_k1_sp, check_k2_ring, check_k3_sp):
+            entry = check_fn(dev, heads=h, edge=False)
+            out[f"{entry['name']} {h[0]}/{h[1]}"] = {
+                k: entry[k] for k in ("ms", "bound_ms", "bound_by",
+                                      "plain_ms", "library_ms",
+                                      "max_abs_err")}
+            torch.cuda.empty_cache()
+    return out
+
+
+def compose_path(card: str, pp_ref=None, pp_model: str = MODEL,
+                 chunked: bool = True) -> list:
+    """The compose phase on the one card, four ranks (four processes, a
+    gloo device group, eager chunks), Qwen2.5-7B bf16: (a) pp=2 x tp=2
+    (``pp_model``, the pp phase's engines): the burst and the 1,600-token
+    prompt, held to the pp = 1 engine (``pp_ref``, else one is run), then
+    a SIGKILL of rank 3 (stage 1, tp index 1); (b) sp=2 x tp=2 (the sp
+    phase's engines, ``MESH_MODEL``, the prefix cache on): the burst, the
+    system prompt's turns (the second's hits through K3-sp) and the
+    16,000-token prompt through the ring, held to an sp = 1 engine; with
+    ``chunked``, (b') the same group at prefill_chunk 512 on the
+    1,600-token prompt (four chunks through K3-sp).  Prints each; returns
+    the runs."""
+    traffic = pp_traffic()[:2]
+    if pp_ref is None:
+        pp_ref = tp_reference(traffic, cfg=pp_config(["cuda:0"], pp_model),
+                              what="pp=1")
+        gc.collect()
+        torch.cuda.empty_cache()
+    a = pp_group(COMPOSE_ONE_CARD, pp_ref, traffic, "compose (a), one card",
+                 pp_model, tp=2, victim=2)
+    drill = a.pop("kill_drill")
+    print(f"compose phase (a), {pp_model} bf16, pp=2 x tp=2, 4 ranks on "
+          f"{card}: " + json.dumps(a), flush=True)
+    print(f"compose phase (a) follower kill drill on {card}: "
+          + json.dumps(drill), flush=True)
+    runs = [a]
+    legs = [("(b)", sp_traffic(), 0)]
+    if chunked:
+        legs.append(("(b')", sp_chunk_traffic(), SP_CHUNK))
+    for name, traffic, chunk in legs:
+        ref = sp_reference(traffic, sp_config(["cuda:0"], MESH_MODEL,
+                                              chunk))
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = sp_group(COMPOSE_ONE_CARD, ref, traffic,
+                       f"compose {name}, one card", MESH_MODEL, chunk=chunk,
+                       drill=False, tp=2)
+        print(f"compose phase {name}, {MESH_MODEL} bf16, sp=2 x tp=2 at "
+              f"prefill_chunk {chunk}, 4 ranks on {card}: "
+              + json.dumps(run), flush=True)
+        runs.append(run)
+    return runs
+
+
+def compose_phase_b(card: str) -> list:
+    """``compose b``, where four cards are visible, one rank a card over
+    NCCL with decode graphs, at full depth: Qwen2.5-7B bf16 at sp=2 x
+    tp=2 serving the burst and a 32,000-token prompt through the ring,
+    then bf16 Mixtral-8x7B (93 GB) at pp=2 x ep=2, each card holding a
+    quarter, serving the burst twice; otherwise a line says why it did
+    not run."""
+    count = torch.cuda.device_count()
+    if count < 4:
+        print(f"compose phase (b) did not run: {count} cards visible, and "
+              "it needs 4 (one rank a card, NCCL, decode graphs)",
+              flush=True)
+        return []
+    traffic = sp_traffic(ring_tokens=32000)
+    s = sp_group(COMPOSE_FOUR_CARDS, None, [traffic[0], traffic[-1]],
+                 "compose (b), four cards", MODEL, tp=2)
+    print(f"compose phase (b), Qwen2.5-7B bf16, sp=2 x tp=2 over NCCL on "
+          f"4 x {card}: " + json.dumps(s), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    p = pp_group(COMPOSE_FOUR_CARDS, None, pp_traffic()[::2],
+                 "compose (b), four cards", model=MIXTRAL, ep=2)
+    print(f"compose phase (b), Mixtral-8x7B bf16, pp=2 x ep=2 over NCCL on "
+          f"4 x {card}: " + json.dumps(p), flush=True)
+    return [s, p]
+
+
+def compose_ep(card: str) -> list:
+    """``compose ep`` on the one card, four ranks (gloo, eager):
+    Mixtral-8x7B int8 at ``COMPOSE_EP_LAYERS`` of 32 layers, at pp=2 x
+    ep=2 (the burst; K4 on each rank's 4 experts of its stage's layers)
+    and at sp=2 x ep=2
+    (the burst and the system prompt's turns, the second's hits through
+    K3-sp; K4 on each rank's 4 experts of every layer), each rank's
+    launches exact, the live layer-0 MoE output held to the one-rank
+    layer, and a kill drill on each.  Prints each; returns the runs."""
+    model = cut_depth(MIXTRAL, COMPOSE_EP_LAYERS)
+    burst = pp_traffic()[:1]
+    p = pp_group(COMPOSE_ONE_CARD, None, burst, "compose ep, one card",
+                 model=model, ep=2, quantization="int8", victim=2)
+    print(f"compose ep, Mixtral-8x7B int8 @{COMPOSE_EP_LAYERS}, pp=2 x "
+          f"ep=2, 4 ranks on {card}: " + json.dumps(p), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    traffic = [g for g in sp_traffic() if g[0] != "ring"]
+    s = sp_group(COMPOSE_ONE_CARD, None, traffic, "compose ep, one card",
+                 model, ep=2, quantization="int8")
+    print(f"compose ep, Mixtral-8x7B int8 @{COMPOSE_EP_LAYERS}, sp=2 x "
+          f"ep=2, 4 ranks on {card}: " + json.dumps(s), flush=True)
+    return [p, s]
 
 
 def main() -> None:
@@ -7625,7 +7886,7 @@ def main() -> None:
         # the pp phase alone, after the build (a shorter run while that
         # phase is worked on); ``pp b`` its phase (b) alone (two cards)
         runs = (pp_phase_b(card, pp_traffic()) if sys.argv[2:] == ["b"]
-                else pp_path(card))
+                else pp_path(card)[0])
         for run in runs:
             print(f"pp launches: {json.dumps(run['launches'])}")
         print(card_line())
@@ -7642,6 +7903,24 @@ def main() -> None:
             runs = sp_path(card, MODEL)
         for run in runs:
             print(f"sp launches: {json.dumps(run['launches'])}")
+        print(card_line())
+        return
+    if sys.argv[1:2] == ["compose"]:
+        # the compose phase alone, after the build: ``compose`` the one
+        # card's legs (the partial modes at a tp rank's heads first, and
+        # the chunked leg), ``compose b`` the four cards' (NCCL, graphs),
+        # ``compose ep`` Mixtral int8 at pp x ep and sp x ep on one card
+        if sys.argv[2:] == ["b"]:
+            runs = compose_phase_b(card)
+        elif sys.argv[2:] == ["ep"]:
+            runs = compose_ep(card)
+        else:
+            print(f"K1-sp, K2-ring and K3-sp at a tp rank's heads on {card}: "
+                  + json.dumps(check_compose_kernels(dev, TP_RANK_HEADS)),
+                  flush=True)
+            runs = compose_path(card)
+        for run in runs:
+            print(f"compose launches: {json.dumps(run['launches'])}")
         print(card_line())
         return
     if sys.argv[1:] == ["recovery"]:
@@ -7814,12 +8093,20 @@ def main() -> None:
     memory("the dp phase")
     # the pipeline: every stage's launches (the followers' read over the
     # control group) join the count
-    runs += pp_path(card)
+    pp_runs, pp_ref = pp_path(card, MESH_MODEL)
+    runs += pp_runs
     memory("the pp phase")
     # sequence parallelism: every rank's launches (the follower's read
     # over the control group) join the count
     runs += sp_path(card, MESH_MODEL, chunked=SP_CHUNKED_IN_SMOKE)
     memory("the sp phase")
+    # the mesh compositions: the partial modes at a tp rank's heads, then
+    # pp x tp on the pp phase's reference and sp x tp (its chunked leg by
+    # name only); every rank's launches join the count
+    print(f"K1-sp, K2-ring and K3-sp at a tp rank's heads on {card}: "
+          + json.dumps(check_compose_kernels(dev)), flush=True)
+    runs += compose_path(card, pp_ref, pp_model=MESH_MODEL, chunked=False)
+    memory("the compose phase")
     for k in kernels:
         # launches of every path, each counted from 0 just before it ran
         k["launches"] = sum(run["launches"].get(k["name"], 0)

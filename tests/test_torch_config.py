@@ -34,13 +34,8 @@ def test_defaults_and_sections():
         # mesh, still refuse
         {"device": {"tp": 2}, "pod": {"workers": 2}},
         pytest.param({"device": {"dp": 2, "tp": 2}}, id="{'dp': 2}"),
-        # sp serves since item 10d (rest)'s first part, at tp = ep = 1
-        # only: sp x tp and sp x ep still refuse
-        pytest.param({"device": {"sp": 2, "tp": 2}}, id="{'sp': 2}"),
-        pytest.param({"model": {"model_id": "tiny-moe"},
-                      "device": {"sp": 2, "ep": 2}}, id="{'sp': 2, 'ep': 2}"),
-        # pp serves since item 10d's first part, at tp = ep = 1 only
-        pytest.param({"device": {"pp": 2, "tp": 2}}, id="{'pp': 2}"),
+        # sp and pp serve since item 10d, with tp and ep too since its
+        # rest's second part (test_composed_meshes_load)
         {"device": {"ep": 2}, "pod": {"workers": 2}},
         {"model": {"model_id": "tiny-moe"},
          "device": {"ep": 2, "speculative_k": 2}},
@@ -69,32 +64,66 @@ PP_REFUSALS = [
      ValueError,
      r"kv_cache.host_swap_bytes requires a plain mesh, got \{'pp': 2\}"),
     ({"device": {"pp": 3}}, ValueError, r"^2 layers not divisible by pp=3$"),
-    # the port's own: the rest of item 10d, and dp replicas as meshes
-    ({"device": {"pp": 2, "tp": 2}}, NotPortedError,
-     r"device.pp=2 with device.tp=2 .* item 10d \(rest\)"),
-    ({"model": {"model_id": "tiny-moe"}, "device": {"pp": 2, "ep": 2}},
-     NotPortedError, r"device.pp=2 with .*device.ep=2 .* item 10d \(rest\)"),
+    # the port's own: dp replicas as meshes, the pod
     ({"device": {"pp": 2, "dp": 2}}, NotPortedError,
      r"device.dp>1 with .*device.pp .* item 10b \(rest\)"),
-    ({"device": {"sp": 2, "tp": 2}}, NotPortedError,
-     r"device.sp=2 with device.tp=2 .* item 10d \(rest\)"),
     ({"device": {"pp": 2}, "pod": {"workers": 2}}, NotPortedError,
      r"pod.workers>0 under a model-parallel mesh .*device.pp"),
+    # composed with tp the reference's rules hold all the same
+    ({"device": {"pp": 2, "tp": 2, "sp": 2}}, ValueError,
+     r"sp=2 and pp=2 cannot combine: .* a permanent design exclusion"),
+    ({"device": {"pp": 2, "tp": 2, "speculative_k": 2}}, ValueError,
+     r"speculative decoding cannot combine with pp>1: .* permanent"),
+    ({"device": {"pp": 2, "tp": 2, "prefill_chunk": 8}}, ValueError,
+     r"prefill_chunk \(chunked prefill\) requires pp == 1"),
+    ({"device": {"sp": 2, "tp": 2, "speculative_k": 2}}, NotPortedError,
+     r"speculative decoding under a model-parallel mesh .* 10d \(rest\)"),
+    ({"device": {"pp": 2, "tp": 3}}, NotPortedError,
+     r"num_heads=4 is not divisible by device.tp=3;.* item 10a \(rest\)"),
 ]
 
 
 @pytest.mark.parametrize(
     "sections,error,match", PP_REFUSALS,
     ids=["pp_x_sp", "speculation", "prefill_chunk", "int8_kv", "host_swap",
-         "layers", "pp_x_tp", "pp_x_ep", "dp_x_pp", "sp", "pod"])
+         "layers", "dp_x_pp", "pod", "pp_x_sp_x_tp", "speculation_pp_x_tp",
+         "prefill_chunk_pp_x_tp", "speculation_sp_x_tp", "pp_x_tp3"])
 def test_pipeline_refusals(sections, error, match):
     """Every rule the reference enforces under pp raises its
-    ``ValueError`` with its words; pp with tp or ep, and sp with tp,
-    raise ``NotPortedError`` citing item 10d (rest), dp x pp citing 10b
-    (rest)."""
+    ``ValueError`` with its words, with tp too; dp x pp raises
+    ``NotPortedError`` citing 10b (rest), speculation under sp x tp 10d
+    (rest), a tp that does not divide the heads 10a (rest)."""
     model = {"model_id": "tiny-dense", **sections.pop("model", {})}
     with pytest.raises(error, match=match):
         load_config(model=model, **sections)
+
+
+COMPOSED = [
+    ("tiny-dense", {"pp": 2, "tp": 2}),
+    ("tiny-moe", {"pp": 2, "ep": 2}),
+    ("tiny-dense", {"sp": 2, "tp": 2}),
+    ("tiny-moe", {"sp": 2, "ep": 2}),
+    ("tiny-moe", {"pp": 2, "ep": 2, "tp": 2}),
+    ("tiny-moe", {"ep": 2, "sp": 2, "tp": 2}),
+    ("tiny-gemma2", {"pp": 2, "tp": 2}),
+    ("tiny-dense", {"sp": 2, "tp": 0}),
+]
+
+
+@pytest.mark.parametrize(
+    "model,device", COMPOSED,
+    ids=["pp_x_tp", "pp_x_ep", "sp_x_tp", "sp_x_ep", "pp_x_ep_x_tp",
+         "ep_x_sp_x_tp", "gemma2_pp_x_tp", "sp_x_tp_auto"])
+def test_composed_meshes_load(model, device):
+    """pp and sp compose with tp and ep (item 10d (rest), part 2),
+    three axes too: the config loads as it is given, with the prefix
+    cache and chunking under sp, int8 weights under pp."""
+    extra = ({"prefill_chunk": 512, "prefix_cache": True}
+             if "sp" in device else {"prefix_cache": True})
+    cfg = load_config(model={"model_id": model, "quantization": "int8"},
+                      device={**device, **extra})
+    for axis, n in device.items():
+        assert getattr(cfg.device, axis) == n
 
 
 def test_pipeline_loads_at_tp_ep_one():

@@ -166,10 +166,12 @@ def _core(devices):
     return EngineCore(cfg)
 
 
-def _logits(core, ids):
+def _logits(core, ids, step_token=None):
     """A prompt pass of ``ids`` (one row, its pages on both shards) and
     one decode step, each named to the followers as the engine names its
-    own: rank 0's logits of each, fp32 on the host."""
+    own: rank 0's logits of each, fp32 on the host.  The step's token is
+    ``step_token``, else the prompt pass's argmax (two engines whose
+    prompt logits differ by rounding may part there, at a near-tie)."""
     from vgate_tpu_torch.models.decoder import decode_forward, prefill_forward
 
     dev, ps = core.device, core.geometry.page_size
@@ -191,7 +193,8 @@ def _logits(core, ids):
             prompt = prefill_forward(core.params, core.spec, up(tok), up(sl),
                                      core.k_pages, core.v_pages, up(pt))
         tokens = np.zeros(SLOTS, np.int32)
-        tokens[0] = int(prompt[0].argmax())
+        tokens[0] = (int(prompt[0].argmax()) if step_token is None
+                     else step_token)
         positions = np.zeros(SLOTS, np.int32)
         positions[0] = n
         active = np.arange(SLOTS) == 0

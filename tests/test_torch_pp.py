@@ -200,8 +200,7 @@ def _gone(proc, timeout=30.0):
 def test_rank_order_is_the_reference_device_order(pp, ep, tp):
     """Rank r sits at the reference mesh's position of its r-th device
     (axis order dp, pp, ep, sp, tp): its stage, ep and tp index, also
-    where pp and ep are both above 1 (that mesh is refused, but the
-    indices stay right)."""
+    where pp and ep are both above 1."""
     n = pp * ep * tp
     jcfg = j_load_config(tpu={"dp": 1, "pp": pp, "ep": ep, "sp": 1,
                               "tp": tp, "num_devices": n}).tpu

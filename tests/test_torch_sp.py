@@ -26,7 +26,7 @@ test_ring_attention.py's 2e-5:
 * the rank order and each rank's pool: sized against its own budget, a
   deliberate difference from the reference;
 * the refusals: the reference's words, and ``NotPortedError`` citing
-  item 10d (rest) for sp with tp or ep, speculation and the pod.
+  its item for speculation and the pod; sp with tp or ep loads.
 """
 
 import dataclasses
@@ -56,15 +56,6 @@ from vgate_tpu.parallel.sp_decode import (
     _partial_suffix_attention as j_partial_suffix,
 )
 from vgate_tpu.parallel.sp_decode import reserved_page_ids as j_reserved
-from vgate_tpu.parallel.sp_decode import (
-    sp_decode_attention_and_write as j_sp_decode,
-)
-from vgate_tpu.parallel.sp_decode import (
-    sp_multitok_attention_and_write as j_sp_multitok,
-)
-from vgate_tpu.parallel.sp_decode import (
-    sp_suffix_attention_and_write as j_sp_suffix,
-)
 from vgate_tpu.runtime.engine_core import EngineCore as JEngineCore
 from vgate_tpu_torch.backends.base import SamplingParams
 from vgate_tpu_torch.config import NotPortedError, load_config
@@ -289,11 +280,11 @@ def test_ring_prefill_attention_matches_reference(sp, window, softcap,
 # ------------------------------------------- the write-and-attend bodies
 
 
-def _and_write_cases(rng, P, sp, kw):
+def _and_write_cases(rng, P, sp, kw, mesh=None):
     """(port case, JAX call) for each of the three functions over one
     global pool ``[KV, P, ps, hd]``, page tables spread over every shard
     (a slot whose pages are all on shard 0), inactive and padding writes
-    to page 0."""
+    to page 0; the JAX calls over ``mesh`` (default: the sp mesh)."""
     H, KV, hd, ps = 4, 2, 16, 4
     kp = rng.normal(size=(KV, P, ps, hd)).astype(np.float32)
     vp = rng.normal(size=(KV, P, ps, hd)).astype(np.float32)
@@ -305,7 +296,7 @@ def _and_write_cases(rng, P, sp, kw):
     # slot 1 of the decode case takes pages 1..5 (all on shard 0)
     free = [p for p in range(6, P) if p not in reserved]
     perm = [int(p) for p in rng.permutation(free)]
-    mesh = j_sp_mesh(sp)
+    mesh = mesh or j_sp_mesh(sp)
     out = []
     # decode: 3 slots of 5 pages; slot 1 on shard 0 only; slot 2 inactive
     pt = np.asarray(perm[:15], np.int32).reshape(3, 5)
@@ -340,8 +331,12 @@ def _and_write_cases(rng, P, sp, kw):
             ids.astype(np.int32), (cand % ps).astype(np.int32), ctx, p0,
             p0 + np.array([3, 2], np.int32)]
     out.append(("multitok", args))
-    jfn = {"decode": j_sp_decode, "suffix": j_sp_suffix,
-           "multitok": j_sp_multitok}
+    # read at the call, so a test module's patch of one takes effect
+    from vgate_tpu.parallel import sp_decode as j_sp
+
+    jfn = {"decode": j_sp.sp_decode_attention_and_write,
+           "suffix": j_sp.sp_suffix_attention_and_write,
+           "multitok": j_sp.sp_multitok_attention_and_write}
     cases, wants = [], []
     for name, args in out:
         cases.append({"fn": name, "k_pages": kp, "v_pages": vp,
@@ -388,8 +383,7 @@ def test_and_write_functions_match_reference(sp, kw):
 def test_rank_order_is_the_reference_device_order(pp, ep, sp, tp):
     """Rank r sits at the reference mesh's position of its r-th device
     (axis order dp, pp, ep, sp, tp), its sp index and ring neighbours
-    included (an sp x tp or ep mesh is refused, but the indices stay
-    right)."""
+    included."""
     n = pp * ep * sp * tp
     jcfg = j_load_config(tpu={"dp": 1, "pp": pp, "ep": ep, "sp": sp,
                               "tp": tp, "num_devices": n}).tpu
@@ -583,10 +577,6 @@ def test_bucket_divisibility_is_the_reference_error():
 
 
 SP_REFUSALS = [
-    ({"device": {"sp": 2, "tp": 2}}, NotPortedError,
-     r"device.sp=2 with device.tp=2 .* item 10d \(rest\)"),
-    ({"model": {"model_id": "tiny-moe"}, "device": {"sp": 2, "ep": 2}},
-     NotPortedError, r"device.sp=2 with .*device.ep=2 .* item 10d \(rest\)"),
     ({"device": {"sp": 2, "speculative_k": 2}}, NotPortedError,
      r"speculative decoding under a model-parallel mesh .* 10d \(rest\)"),
     ({"device": {"sp": 2}, "pod": {"workers": 2}}, NotPortedError,
@@ -603,15 +593,27 @@ SP_REFUSALS = [
 
 @pytest.mark.parametrize(
     "sections,error,match", SP_REFUSALS,
-    ids=["sp_x_tp", "sp_x_ep", "speculation", "pod", "dp_x_sp", "int8_kv",
-         "host_swap"])
+    ids=["speculation", "pod", "dp_x_sp", "int8_kv", "host_swap"])
 def test_sp_refusals(sections, error, match):
-    """Under sp the reference's own errors keep its words; sp with tp or
-    ep, speculation and the pod raise ``NotPortedError`` citing their
-    queue-1 items."""
+    """Under sp the reference's own errors keep its words; speculation
+    and the pod raise ``NotPortedError`` citing their queue-1 items."""
     model = {"model_id": "tiny-dense", **sections.pop("model", {})}
     with pytest.raises(error, match=match):
         load_config(model=model, **sections)
+
+
+@pytest.mark.parametrize("model,device", [
+    ("tiny-dense", {"sp": 2, "tp": 2}),
+    ("tiny-moe", {"sp": 2, "ep": 2}),
+], ids=["sp_x_tp", "sp_x_ep"])
+def test_sp_composes_with_tp_and_ep(model, device):
+    """sp with tp or ep loads (item 10d (rest), part 2), with the prefix
+    cache and chunked prefill, whose bucket ladder sp still divides."""
+    cfg = load_config(model={"model_id": model},
+                      device={**device, "prefill_chunk": 512,
+                              "prefix_cache": True})
+    assert (cfg.device.sp, cfg.device.tp, cfg.device.ep) == (
+        2, device.get("tp", 1), device.get("ep", 1))
 
 
 def test_sp_loads_and_serves_its_config():

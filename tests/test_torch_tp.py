@@ -476,8 +476,11 @@ def test_sampled_streams_at_tp2_equal_tp1_with_the_same_seed(models):
           "device": {"tp": 7}}, NotPortedError,
          r"num_kv_heads=4 is not divisible by device.tp=7"),
         ({"device": {"dp": 2}}, NotPortedError, r"device.dp>1 .* item 10b"),
-        ({"device": {"sp": 2}}, NotPortedError,
-         r"device.sp=2 with device.tp=2 .* item 10d"),
+        # sp x tp serves since item 10d (rest)'s second part
+        # (tests/test_torch_config.py test_composed_meshes_load); under it
+        # speculation still refuses
+        ({"device": {"sp": 2, "speculative_k": 2}}, NotPortedError,
+         r"speculative decoding .* item 10d"),
         # speculation under an expert-parallel mesh
         ({"model": {"model_id": "tiny-moe"},
           "device": {"ep": 2, "speculative_k": 2}}, NotPortedError,

@@ -150,10 +150,11 @@ class DeviceConfig:
     # the mesh axes (parallel/mesh.py): tp > 1 shards the model over tp
     # ranks and ep > 1 a MoE model's experts over ep, one process a rank
     # (ep x tp ranks; tp 0 takes every visible device); pp > 1 splits the
-    # layers over pp pipeline stages, one process a stage, at tp = ep = 1
-    # (parallel/pipeline.py); sp > 1 splits each prompt's rows and the
-    # KV pool's pages over sp ranks, one process a rank, at tp = ep = 1
-    # (parallel/ring_attention.py, parallel/sp_decode.py); dp > 1 serves
+    # layers over pp pipeline stages (parallel/pipeline.py); sp > 1 splits
+    # each prompt's rows and the KV pool's pages over sp ranks
+    # (parallel/ring_attention.py, parallel/sp_decode.py); a stage or an
+    # sp rank with tp or ep > 1 is itself an ep x tp group (pp x ep x sp
+    # x tp processes, sp x pp refused); dp > 1 serves
     # dp replicas of a one-device engine in this process behind a router
     # (runtime/dp_engine.py)
     dp: int = 1

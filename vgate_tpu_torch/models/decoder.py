@@ -39,9 +39,11 @@ holds ``spec.expert_range``'s experts of every MoE layer.  The
 collectives are all here: the vocab-parallel lookup's all-reduce
 (``_embed``), an all-reduce right after the o product and after a dense
 down product (``_reduce``, over the tp group), a MoE layer's one
-all-reduce over every rank (``_moe_mlp``), and the fp32 logits'
+all-reduce over the expert group (``_moe_mlp``), and the fp32 logits'
 all-gather before the final softcap (``_logits``).  With no mesh none is
-issued, and at tp 1 no tp collective.
+issued, and at tp 1 no tp collective.  A pipeline stage or an sp rank
+that is itself an ep x tp group issues the same collectives on its own
+groups (parallel/mesh.py), besides the relay's sends or the sp ones.
 
 The prompt pass and the decode step are each three parts: the embedding
 (``_embed``), a run over the spec's layers that writes their pools
@@ -307,10 +309,16 @@ def _moe_mlp(x: torch.Tensor, lp: Params, spec: ModelSpec,
     and the attention are replicated over ep), so each builds the whole
     dispatch and no token all-to-all is needed; the rank runs only its
     experts' rows (``spec.expert_range``) over its F slice, combines only
-    their contributions, and one all-reduce over every rank sums the
+    their contributions, and one all-reduce over the expert group sums the
     other experts and the tp ranks' F partials.  With K = 2 a token's
     output is at most two non-zero partials plus zeros, so at tp 1 the
-    reduce gives the one-rank sum exactly."""
+    reduce gives the one-rank sum exactly.  Under pp and sp the expert
+    group is that of the rank's stage or sp index.
+
+    The capacity counts the call's rows: under sp a ring pass's are the
+    rank's ``S/sp`` rows of the prompt, where the reference's counts the
+    whole prompt's (a deliberate difference, equal wherever no expert
+    overflows, as on ``tiny-moe``)."""
     orig_shape = x.shape
     D = orig_shape[-1]
     xt = x.reshape(-1, D)
@@ -599,10 +607,10 @@ def sp_prefill_forward(
     at = torch.clamp(seq_lens.long() - 1, 0, S - 1) - first
     held = (at >= 0) & (at < n)
     last = x[torch.arange(B, device=dev), torch.clamp(at, 0, n - 1)]
-    # every rank is the sp group at tp = ep = pp = 1
-    last = mesh.all_reduce(
-        torch.where(held[:, None], last, torch.zeros_like(last)),
-        experts=True)
+    # over the sp group: a tp rank holds the whole hidden (its group
+    # reduced it after o and down)
+    last = mesh.sp_all_reduce(
+        torch.where(held[:, None], last, torch.zeros_like(last)))
     return _sp_logits(params, spec, last)
 
 

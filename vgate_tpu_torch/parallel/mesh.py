@@ -22,21 +22,30 @@ The process groups that join them:
   host data: each program's name and host arrays (rank 0 broadcasts,
   the followers receive), replies (gathered to rank 0) and the pool
   size (the minimum over the ranks);
-* the **device groups** carry the model's collectives on tensors.  The
-  **tp group** of each ep index (its tp ranks) carries the all-reduces
-  after the o and down products of dense layers and of the
-  vocab-parallel embedding, and the logits' all-gather; at tp 1 none is
-  issued.  The **expert group** (every rank) carries a MoE layer's one
-  all-reduce, which sums both the experts of the other ep ranks and the
-  F partials of the other tp ranks, and the broadcast of each decode
-  step's sampled tokens.  At ep 1 the two are one group.  Under sp (at
-  tp = ep = pp = 1) the device group is the sp group: it carries the
-  ring's point-to-point hops of K/V blocks (parallel/ring_attention.py),
-  the all-gather of the attention partials (parallel/sp_decode.py) and
-  the sum that brings each prompt row's last hidden to rank 0.  Under pp the
-  device group (every rank) carries the pipeline relay's point-to-point
-  sends of activations (parallel/pipeline.py): each stage to the next,
-  and the last stage's hiddens back to rank 0.  They are NCCL
+* the **device groups** carry the model's collectives on tensors, one
+  group a mesh axis (:func:`axis_groups`), each holding the ranks that
+  differ only in that axis's indices:
+
+  - the **tp group** (tp index only) carries the all-reduces after the o
+    and down products of dense layers and of the vocab-parallel
+    embedding, and the logits' all-gather; at tp 1 none is issued;
+  - the **expert group** (ep and tp indices, at one pp and sp index)
+    carries a MoE layer's one all-reduce, which sums both the experts
+    of the other ep ranks and the F partials of the other tp ranks; at
+    ep 1 it is the tp group;
+  - the **sp group** (sp index only) carries the all-gather of the
+    attention partials (parallel/sp_decode.py) and the sum that brings
+    each prompt row's last hidden to sp index 0;
+  - the **whole group** (every rank) carries the broadcast of each
+    decode step's sampled tokens from rank 0 and every point-to-point
+    send: the sp ring's hops of K/V blocks (parallel/ring_attention.py,
+    between the matching ranks of two sp indices, ``sp_peer``) and the
+    pipeline relay's activations (parallel/pipeline.py: each stage to
+    the next, and the last stage's hiddens back to stage 0, between the
+    matching ranks of two stages, ``stage_rank``).
+
+  A group whose ranks are those of another is that group (at pp = sp =
+  1 the expert group is the whole group).  They are NCCL
   when every rank has a card of its own, and gloo on the CPU or when
   ``devices`` names one card more than once (the one-card test layout:
   NCCL refuses two ranks on one card); gloo's collectives then stage the
@@ -213,6 +222,19 @@ def device_backend(devices: List[str]) -> str:
     return "gloo"
 
 
+def axis_groups(plan: MeshPlan, axes: Tuple[str, ...]) -> List[List[int]]:
+    """Every group of ranks that differ only in ``axes``' indices (one
+    group for each index of the other axes, in rank order), each group's
+    ranks ascending, so a gather over it comes back in its axes' order."""
+    names = (AXIS_PP, AXIS_EP, AXIS_SP, AXIS_TP)
+    sizes = (plan.pp, plan.ep, plan.sp, plan.tp)
+    grid = np.arange(plan.num_devices // plan.dp).reshape(sizes)
+    inner = [names.index(a) for a in axes]
+    outer = [i for i in range(len(names)) if i not in inner]
+    width = int(np.prod([sizes[i] for i in inner]))
+    return np.transpose(grid, outer + inner).reshape(-1, width).tolist()
+
+
 def device_group_timeout(recovery) -> datetime.timedelta:
     """Longer than the supervisor's stall limits, so its watchdog (and
     the follower monitor) act before a collective times out."""
@@ -247,10 +269,13 @@ class Mesh:
         self.device = torch.device(self.devices[rank])
         self.backend = backend
         self.ctrl: Any = None
-        # the expert group (every rank) and this rank's tp group (the
-        # same group at ep 1, none at tp 1)
+        # the whole device group, and this rank's group on each axis (none
+        # where that axis issues no collective: tp at 1, the expert group
+        # at tp = ep = 1, sp at 1)
         self.group: Any = None
         self.tp_group: Any = None
+        self.expert_group: Any = None
+        self.sp_group: Any = None
         self.followers: List[subprocess.Popen] = []
         # why the mesh broke (a follower's exit, a failed collective)
         self.broken: Optional[str] = None
@@ -340,8 +365,14 @@ class Mesh:
     def all_reduce(self, t: torch.Tensor,
                    experts: bool = False) -> torch.Tensor:
         """Sum ``t`` over this rank's tp group (with ``experts``, over
-        every rank), in place; returns it."""
-        group = self.group if experts else self.tp_group
+        its expert group), in place; returns it."""
+        return self._sum(t, self.expert_group if experts else self.tp_group)
+
+    def sp_all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over this rank's sp group, in place; returns it."""
+        return self._sum(t, self.sp_group)
+
+    def _sum(self, t: torch.Tensor, group: Any) -> torch.Tensor:
         try:
             if self.staged:
                 host = t.cpu()
@@ -375,7 +406,7 @@ class Mesh:
         return out.to(t.device) if self.staged else out
 
     def broadcast(self, t: torch.Tensor) -> torch.Tensor:
-        """Rank 0's ``t`` into every rank's ``t`` (the expert group), in
+        """Rank 0's ``t`` into every rank's ``t`` (the whole group), in
         place; returns it."""
         try:
             if self.staged:
@@ -454,10 +485,10 @@ class Mesh:
             src = t.contiguous().cpu() if self.staged else t.contiguous()
             if self.backend == "nccl":
                 out = src.new_empty((self.sp, *src.shape))
-                dist.all_gather_into_tensor(out, src, group=self.group)
+                dist.all_gather_into_tensor(out, src, group=self.sp_group)
                 return out
             parts = [torch.empty_like(src) for _ in range(self.sp)]
-            dist.all_gather(parts, src, group=self.group)
+            dist.all_gather(parts, src, group=self.sp_group)
         except Exception as exc:
             self._failed(exc)
             raise
@@ -545,9 +576,8 @@ class Mesh:
                         abort = getattr(dist.distributed_c10d,
                                         "_abort_process_group", None)
                         if abort is not None:
-                            for group in {self.group, self.tp_group}:
-                                if group is not None:
-                                    abort(group)
+                            for group in self._device_groups():
+                                abort(group)
                     return
             time.sleep(0.1)
 
@@ -556,10 +586,11 @@ class Mesh:
         graceful shutdown waits for every peer's (seen to hang on the
         card when the peers leave at different times), an abort is
         local."""
-        if self.ctrl is None or not dist.is_initialized():
-            self.ctrl = self.group = self.tp_group = None
-            return
+        joined = self.ctrl is not None and dist.is_initialized()
         self.ctrl = self.group = self.tp_group = None
+        self.expert_group = self.sp_group = None
+        if not joined:
+            return
         if self.backend != "nccl":
             dist.destroy_process_group()
             return
@@ -618,11 +649,12 @@ class Mesh:
     # ------------------------------------------------------------ bring-up
 
     def join(self, store: Any, recovery) -> None:
-        """Join the process groups as this rank, then run one warm
-        collective on each device group (an NCCL communicator is built at
-        its first collective, which must not fall inside a graph
-        capture).  Every rank creates every tp group, in ep order, as
-        ``new_group`` requires, and keeps its own."""
+        """Join the process groups as this rank: the control group, the
+        whole device group and this rank's group on each axis that issues
+        a collective (:meth:`_axis_groups`), then one warm collective on
+        each device group and around each point-to-point ring (an NCCL
+        communicator or link is built at its first use, which must not
+        fall inside a graph capture)."""
         if dist.is_initialized():
             raise RuntimeError(
                 "this process already belongs to a process group: one "
@@ -630,39 +662,69 @@ class Mesh:
             )
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
-        n, tp = self.num_devices, self.tp
+        n = self.num_devices
         dist.init_process_group(
             "gloo", store=store, rank=self.rank, world_size=n,
             timeout=CONTROL_TIMEOUT,
         )
         self.ctrl = dist.group.WORLD
         timeout = device_group_timeout(recovery)
-        self.group = dist.new_group(list(range(n)), backend=self.backend,
-                                    timeout=timeout)
-        # at tp 1 no tp collective is issued: no tp group
-        self.tp_group = self.group if self.ep == 1 else None
-        warm_groups = [(self.group, n)]
-        if self.ep > 1 and tp > 1:
-            for e in range(self.ep):
-                group = dist.new_group(list(range(e * tp, (e + 1) * tp)),
-                                       backend=self.backend, timeout=timeout)
-                if e == self.ep_rank:
-                    self.tp_group = group
-            warm_groups.append((self.tp_group, tp))
-        for group, size in warm_groups:
-            warm = torch.ones(
+        made: Dict[Tuple[int, ...], Any] = {}
+        warm: List[Tuple[Any, int]] = []
+
+        def group_of(ranks: List[int]) -> Any:
+            """The group over ``ranks`` (made once: every rank calls
+            ``new_group`` for every group, in one order)."""
+            key = tuple(ranks)
+            if key not in made:
+                made[key] = dist.new_group(ranks, backend=self.backend,
+                                           timeout=timeout)
+                if self.rank in ranks:
+                    warm.append((made[key], len(ranks)))
+            return made[key]
+
+        self.group = group_of(list(range(n)))
+        for attr, axes in self._axis_groups():
+            for ranks in axis_groups(self.plan, axes):
+                group = group_of(ranks)
+                if self.rank in ranks:
+                    setattr(self, attr, group)
+        for group, size in warm:
+            t = torch.ones(
                 1, device=self.device if self.backend == "nccl" else "cpu"
             )
-            dist.all_reduce(warm, group=group)
-            if int(warm.item()) != size:
+            dist.all_reduce(t, group=group)
+            if int(t.item()) != size:
                 raise RuntimeError(
-                    f"device group warm-up summed {warm.item()} over "
+                    f"device group warm-up summed {t.item()} over "
                     f"{size} ranks"
                 )
         if self.pp > 1:
             self._warm_ring()
         if self.sp > 1:
             self._warm_sp_ring()
+
+    def _axis_groups(self) -> List[Tuple[str, Tuple[str, ...]]]:
+        """``(attribute, axes)`` of each axis group a collective of this
+        mesh uses: the tp group at tp > 1, the expert group (ep and tp)
+        at ep or tp > 1, the sp group at sp > 1."""
+        out = []
+        if self.tp > 1:
+            out.append(("tp_group", (AXIS_TP,)))
+        if self.tp > 1 or self.ep > 1:
+            out.append(("expert_group", (AXIS_EP, AXIS_TP)))
+        if self.sp > 1:
+            out.append(("sp_group", (AXIS_SP,)))
+        return out
+
+    def _device_groups(self) -> List[Any]:
+        """This rank's device groups, each once."""
+        out: List[Any] = []
+        for group in (self.group, self.tp_group, self.expert_group,
+                      self.sp_group):
+            if group is not None and all(group is not g for g in out):
+                out.append(group)
+        return out
 
     def _warm_ring(self) -> None:
         """One value around the pipeline ring, in the relay's order

@@ -1,11 +1,15 @@
 """Pipeline parallelism: the layer stack split over ``pp`` stages.
 
 The reference (vgate_tpu/parallel/pipeline.py) runs a GPipe relay inside
-one ``shard_map`` over its pp mesh axis.  The port's stages are
-processes (parallel/mesh.py: at tp = ep = 1 rank s is stage s), each
-holding its ``L/pp`` layers and their pools (parallel/sharding.py
-``local_spec``), and the relay is point-to-point sends over the mesh's
-device group:
+one ``shard_map`` manual over its pp mesh axis, tp and ep automatic
+inside a stage.  The port's stages are processes (parallel/mesh.py: at
+tp = ep = 1 rank s is stage s), each holding its ``L/pp`` layers and
+their pools (parallel/sharding.py ``local_spec``), and the relay is
+point-to-point sends over the mesh's device group.  A stage that is
+itself an ``ep x tp`` group runs its layers' tp and ep collectives on
+its own groups; the hiddens, which its tp group holds replicated, travel
+from each rank to the rank of the next stage at the same ep and tp
+index (``stage_rank``), and stage 0's tp group gathers the logits:
 
 * the batch splits into ``M`` microbatches (the reference's rule: ``M =
   pp`` when it divides ``B``, else 1), so on separate cards stage s works

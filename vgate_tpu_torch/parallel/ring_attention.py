@@ -24,6 +24,11 @@ relay's fixed order, so NCCL cannot deadlock):
   into its pool shard (parallel/sp_decode.py ``write_owned``), so no
   second gather of the prompt's KV is needed.
 
+Under sp x tp the ring runs over the sp group at the rank's tp index, on
+its tp rank's heads: ``[B, S/sp, KV/tp, hd]`` blocks between the
+matching ranks of two sp indices (``sp_peer``), where the reference's
+ring replicates the heads over tp.
+
 Gemma-2's windows and softcap ride the same hops: the window masks
 compose with the block positions (a block wholly outside every row's
 window is computed and contributes nothing, as in the reference).

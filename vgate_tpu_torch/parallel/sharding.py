@@ -31,20 +31,24 @@ and a row-parallel packed int4 leaf is repacked
 is sharded, as the reference places its tree and then quantizes it, so
 every scale comes from the whole input axis.
 
-Under pipeline parallelism (``pp`` > 1, at tp = ep = 1) the stacked
-layer axis L of every ``layers`` leaf shards over pp, as ``param_pspecs``
-puts it: stage s keeps layers ``[s*L/pp, (s+1)*L/pp)``, a quantized
-leaf its layers' values and scales (a per-output-channel scale depends
-on its layer alone), and its pool holds those layers
-(:func:`local_spec`).  Only stage 0 keeps ``embed``, ``final_norm`` and
-``lm_head``: it alone embeds the tokens and computes the logits
-(parallel/pipeline.py), where the reference replicates them and every
-stage computes the logits.
+Under pipeline parallelism (``pp`` > 1) the stacked layer axis L of
+every ``layers`` leaf shards over pp, as ``param_pspecs`` puts it: stage
+s keeps layers ``[s*L/pp, (s+1)*L/pp)``, a quantized leaf its layers'
+values and scales (a per-output-channel scale depends on its layer
+alone), and its pool holds those layers (:func:`local_spec`).  Only
+stage 0 keeps ``embed``, ``final_norm`` and ``lm_head``: it alone embeds
+the tokens and computes the logits (parallel/pipeline.py), where the
+reference replicates them and every stage computes the logits.
 
-Under sequence parallelism (``sp`` > 1, at tp = ep = pp = 1) every leaf
-is replicated, as ``param_pspecs`` has no sp axis: a rank keeps the
-whole tree, and its pool holds its shard of the pages
-(runtime/engine_core.py ``kv_layout``, parallel/sp_decode.py).
+Under sequence parallelism (``sp`` > 1) no leaf shards over sp, as
+``param_pspecs`` has no sp axis: an sp rank keeps what its tp and ep
+indices give it, and its pool holds its shard of the pages (runtime/
+engine_core.py ``kv_layout``, parallel/sp_decode.py).
+
+A stage or an sp rank that is itself an ep x tp group composes the two
+steps (:func:`shard_leaf`): first the stage's layers (and, past stage 0,
+none of ``STAGE0_LEAVES``), then the tp and ep rules above, so stage 0's
+embedding and head are vocab-parallel over stage 0's tp group.
 
 The reference tests divisibility on the flattened ``KV * hd`` (its
 ``_spec``), so at tp 4 a 2-kv-head model splits inside a head and serves
@@ -123,15 +127,8 @@ def check_mesh_config(config, spec: ModelSpec, tp: int, ep: int = 1,
     swap tier on any model-parallel mesh, under sp for prefill buckets sp
     does not divide, and under pp for chunked prefill, layers pp does not
     divide and speculation; then the port's own, each citing its ROADMAP
-    item."""
-    if pp > 1 and (tp > 1 or ep > 1):
-        raise _not_ported(
-            f"device.pp={pp} with device.tp={tp} and device.ep={ep} "
-            "(pp x tp, pp x ep)", "10d (rest)")
-    if sp > 1 and (tp > 1 or ep > 1):
-        raise _not_ported(
-            f"device.sp={sp} with device.tp={tp} and device.ep={ep} "
-            "(sp x tp, sp x ep)", "10d (rest)")
+    item.  pp and sp compose with tp and ep (a stage, or an sp rank, that
+    is itself an ep x tp group); sp x pp is refused at config load."""
     check_mesh(spec, tp, ep)
     bad = {k: v for k, v in (("tp", tp), ("pp", pp), ("sp", sp), ("ep", ep))
            if v > 1}
@@ -283,25 +280,25 @@ def shard_leaf(path: Tuple[str, ...], leaf, spec: ModelSpec, mesh,
     """``mesh``'s rank's slice of one leaf (a contiguous copy, so the
     full leaf can be freed), or the leaf itself where it is replicated.
     ``lead`` 0 takes one layer's slice of a stacked leaf (no ``L``
-    axis).  Under pp a stacked leaf keeps the stage's layers (a single
-    layer is kept or dropped by its caller, ``stack_layers``), and a
-    stage other than 0 drops ``STAGE0_LEAVES`` (None)."""
+    axis).  Under pp a stacked leaf first keeps the stage's layers (a
+    single layer is kept or dropped by its caller, ``stack_layers``),
+    and a stage other than 0 drops ``STAGE0_LEAVES`` (None); then the tp
+    and ep rules cut the rank's part."""
     path = tuple(path)
+    sliced = False
     if mesh.pp > 1:
         if path[0] in STAGE0_LEAVES:
-            return leaf if mesh.pp_rank == 0 else None
-        if lead == 1:
-            return _contiguous(_narrow(leaf, 0, spec.num_layers, mesh.pp,
-                                       mesh.pp_rank))
-        return leaf
-    rules = leaf_rules(spec, mesh.tp, mesh.ep).get(path)
-    if not rules:
-        return leaf
-    for axis, size, name in rules:
+            if mesh.pp_rank != 0:
+                return None
+        elif lead == 1:
+            leaf = _narrow(leaf, 0, spec.num_layers, mesh.pp, mesh.pp_rank)
+            sliced = True
+    for axis, size, name in leaf_rules(spec, mesh.tp, mesh.ep).get(path, ()):
         parts, index = ((mesh.tp, mesh.tp_rank) if name == AXIS_TP
                         else (mesh.ep, mesh.ep_rank))
         leaf = _narrow(leaf, axis - 1 + lead, size, parts, index)
-    return _contiguous(leaf)
+        sliced = True
+    return _contiguous(leaf) if sliced else leaf
 
 
 def shard_params(params: Dict[str, Any], spec: ModelSpec, mesh
@@ -361,25 +358,25 @@ def local_spec(spec: ModelSpec, tp: int, mesh=None) -> ModelSpec:
     needs no other change), the vocab whole (the logits are gathered),
     under ep the rank's experts (``expert_range``; routing still runs
     over all E), and the mesh whose device groups the forwards'
-    collectives use.  Under sp (tp = ep = 1) the whole model and the
-    mesh as ``seq_parallel``.  Under pp (tp = ep = 1) the stage's ``L/pp``
-    layers from global layer ``first_layer`` (whose windows
-    ``layer_windows`` gives), no mesh for collectives, and the mesh the
-    relay sends over as ``pipeline``."""
+    collectives use.  Under sp, besides, the mesh as ``seq_parallel``
+    (every layer, the rank's rows and pages); under pp the stage's
+    ``L/pp`` layers from global layer ``first_layer`` (whose windows
+    ``layer_windows`` gives) and the mesh the relay sends over as
+    ``pipeline``.  ``mesh`` is set only where tp or ep > 1: with both at
+    1 no tp or expert collective is issued."""
     ep = mesh.ep if mesh is not None else 1
     check_mesh(spec, tp, ep)
+    out = spec
     if mesh is not None and mesh.sp > 1:
-        # every weight whole (tp = ep = 1): the rank splits the prompt's
-        # rows and the pool's pages instead
-        return dataclasses.replace(spec, seq_parallel=mesh)
+        out = dataclasses.replace(out, seq_parallel=mesh)
     if mesh is not None and mesh.pp > 1:
         layers = stage_layers(spec, mesh)
-        return dataclasses.replace(
-            spec, num_layers=len(layers), first_layer=layers.start,
+        out = dataclasses.replace(
+            out, num_layers=len(layers), first_layer=layers.start,
             pipeline=mesh)
     if tp <= 1 and ep <= 1:
-        return spec
-    out = dataclasses.replace(spec, mesh=mesh)
+        return out
+    out = dataclasses.replace(out, mesh=mesh)
     if tp > 1:
         out = dataclasses.replace(
             out,

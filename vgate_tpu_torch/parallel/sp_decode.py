@@ -30,6 +30,12 @@ Decode and suffix rows are replicated over sp: every rank runs every
 row's projections and MLP (models/decoder.py), and only attention is
 partial, as in the reference.  Int8 pools are refused under sp (the
 reference's ``ValueError``, parallel/sharding.py ``check_mesh_config``).
+
+An sp rank that is itself a tp group holds its tp rank's heads of every
+row and of its pool shard, ``[L, KV/tp, P/sp, ps, hd]``: the partials
+run on its ``H/tp`` query heads and merge within its sp group (the tp
+ranks at its tp index), as the reference's shard bodies run per (sp,
+tp) shard on local heads (``_tp_axis``) with no tp collective.
 """
 
 from __future__ import annotations

@@ -100,21 +100,24 @@ path — batched, bucketed prompt passes and pipelined decode chunks:
   models/decoder.py.  A follower's death breaks the mesh, and the next
   tick raises into containment.
 
-* **Pipeline parallelism** (``device.pp`` > 1 at tp = ep = 1,
-  parallel/pipeline.py): this core is stage 0 of ``pp`` processes, each
-  holding ``L/pp`` layers and their pools.  It names the prompt passes
-  and decode chunks to the followers as under tp; each forward relays
+* **Pipeline parallelism** (``device.pp`` > 1, parallel/pipeline.py):
+  this core is stage 0 of ``pp`` stages, each holding ``L/pp`` layers and
+  their pools (a stage is itself an ``ep x tp`` group of processes when
+  either is above 1, each rank relaying to its match in the next
+  stage).  It names the prompt passes and decode chunks to the
+  followers as under tp; each forward relays
   the activations stage to stage, and the last stage's hiddens come
   back to this core, which alone holds the embedding and head, computes
   the logits and samples.  The reference's rules hold: the prefix cache
   is off, and chunked prefill, int8 KV, the host swap tier, sp and
   speculation refuse (parallel/sharding.py ``check_mesh_config``).
 
-* **Sequence parallelism** (``device.sp`` > 1 at tp = ep = pp = 1,
-  parallel/ring_attention.py and sp_decode.py): this core is sp rank 0
-  of ``sp`` processes, each holding the whole model and its shard of
-  the pool's pages (``kv_layout``; the allocator reserves each shard's
-  page 0).  It names every program to the followers as under tp; a
+* **Sequence parallelism** (``device.sp`` > 1, parallel/
+  ring_attention.py and sp_decode.py): this core is sp rank 0 of ``sp``
+  ranks, each holding the whole model (or, as an ``ep x tp`` group of
+  its own, its tp and ep shard of it, the ring and the partials on its
+  heads) and its shard of the pool's pages (``kv_layout``; the
+  allocator reserves each shard's page 0).  It names every program to the followers as under tp; a
   cold prompt pass splits the prompt's rows over the ranks (the ring),
   while suffix passes and decode steps run every row on every rank and
   merge the ranks' attention partials.  Rank 0 alone computes the
@@ -130,9 +133,9 @@ path — batched, bucketed prompt passes and pipelined decode chunks:
   on a stream of its own, and its teardown leaves cuBLAS's workspaces to
   the siblings whose graphs still use them.
 
-Not ported yet (the config refuses them): sp or pp together with tp or
-ep, dp replicas that are meshes, and under a model-parallel mesh int8
-KV, the host swap tier, speculation and the pod.
+Not ported yet (the config refuses them): dp replicas that are meshes,
+and under a model-parallel mesh speculation and the pod; int8 KV, the
+host swap tier and sp x pp raise the reference's own errors there.
 """
 
 from __future__ import annotations
@@ -604,10 +607,9 @@ def _decode_chunk(
             state.out_top_lps[i].copy_(top_lps)
         else:
             tokens = sample_tokens(*args, **kw, all_greedy=all_greedy)
-        mesh = spec.mesh or spec.seq_parallel
+        mesh = token_mesh(spec)
         if mesh is not None:
             # the next step's embedding needs them on every tp or sp rank
-            # (a pipeline's stage 0 alone embeds: no broadcast)
             mesh.broadcast(tokens)
         state.out_tokens[i].copy_(tokens)
         positions = positions + act
@@ -625,6 +627,15 @@ def _decode_chunk(
     state.steps.copy_(steps)
 
 
+def token_mesh(spec: ModelSpec):
+    """The mesh rank 0 broadcasts each decode step's sampled tokens over
+    (its whole group), or None: wherever a rank other than 0 embeds them
+    (a tp or ep group, an sp group, a pipeline's stage 0 that is itself
+    an ep x tp group; every rank joins the broadcast).  A pipeline of one
+    rank a stage has no such rank: stage 0 alone embeds."""
+    return spec.mesh or spec.seq_parallel
+
+
 def follower_decode_chunk(
     params, spec: ModelSpec, state: DecodeState, k_pages, v_pages,
     num_steps: int, max_position: int,
@@ -632,20 +643,20 @@ def follower_decode_chunk(
     """A mesh follower's part of :func:`_decode_chunk` (parallel/
     follower.py): the same steps on its own shard and pools, with the
     same collectives in the same order, but no sampling: each step's
-    tokens come from rank 0's broadcast, or on a pipeline stage are not
-    needed (its activations come from the previous stage).  It reads and
-    writes only ``state``'s tokens and positions, so it is captured as
-    rank 0's body is."""
+    tokens come from rank 0's broadcast (:func:`token_mesh`), or in a
+    pipeline of one rank a stage are not needed (a stage's activations
+    come from the previous stage).  It reads and writes only ``state``'s
+    tokens and positions, so it is captured as rank 0's body is."""
     tokens, positions = state.tokens, state.positions
     act = state.active.to(positions.dtype)
+    mesh = token_mesh(spec)
     for _ in range(num_steps):
         decode_forward(
             params, spec, tokens, positions, k_pages, v_pages,
             state.page_tables, active=state.active,
         )
-        if spec.pipeline is None:
-            tokens = (spec.mesh or spec.seq_parallel).broadcast(
-                torch.empty_like(tokens))
+        if mesh is not None:
+            tokens = mesh.broadcast(torch.empty_like(tokens))
         positions = torch.clamp(positions + act, max=max_position)
     state.tokens.copy_(tokens)
     state.positions.copy_(positions)
@@ -1217,14 +1228,14 @@ class EngineCore:
         # from the engine's own geometry; rebuilt fresh with the core
         # the whole group's: every rank streams its own shard (under tp
         # and ep alike); under pp stage 0 streams the head and its
-        # layers, and every other stage as many layers of the same size
+        # layers, and every other stage as many layers of the same size,
+        # each stage's ranks alike
         weight_stream = stream_weight_bytes(self.params,
                                             self.spec.tie_embeddings)
         if self.mesh.pp > 1:
             weight_stream += (self.mesh.pp - 1) * param_bytes(
                 self.params["layers"])
-        else:
-            weight_stream *= self.mesh.num_devices
+        weight_stream *= self.mesh.num_devices // self.mesh.pp
         self.perf = PerfRecorder(
             self.config.observability,
             roofline=EngineRoofline(
